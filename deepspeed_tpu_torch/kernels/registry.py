@@ -1,0 +1,89 @@
+"""Kernel selection: the port's counterpart of
+deepspeed_tpu/kernels/registry.py (`resolve_impl` :473, `dispatch` :508).
+
+Each op pairs a hand-written kernel with its plain PyTorch version:
+
+* `"auto"`  — the kernel for a CUDA tensor, the plain version for a CPU
+  tensor.  The device of the first argument decides; nothing else does.
+* `"cuda"`  — the kernel; on a CPU tensor this raises.
+* `"torch"` — the plain version, also on a CUDA tensor, but only when
+  asked for by name (the comparison in chip_smoke.py does; the serving
+  path never does).
+
+On a CUDA tensor the kernel launches or raises: no path catches a
+kernel error and runs the plain version instead.  Every dispatch bumps
+`kernel.dispatches` (kernel chosen) or `kernel.fallbacks` (plain
+version chosen); the port runs eagerly, so these count calls.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+from ..monitor.counters import COUNTERS
+
+KERNEL_IMPLS = ("auto", "cuda", "torch")
+
+
+class KernelOp:
+    NAME = "base"
+
+    def kernel(self, *args, **kwargs):
+        raise NotImplementedError
+
+    def plain(self, *args, **kwargs):
+        raise NotImplementedError
+
+
+class PagedAttentionOp(KernelOp):
+    """Paged attention over the PagedKVCache (kernels/paged.py)."""
+
+    NAME = "paged_attention"
+
+    def kernel(self, *args, **kwargs):
+        from . import paged
+        return paged.paged_attention_cuda(*args, **kwargs)
+
+    def plain(self, *args, **kwargs):
+        from . import paged
+        return paged.paged_attention_reference(*args, **kwargs)
+
+
+KERNEL_OPS: Dict[str, KernelOp] = {op.NAME: op for op in (PagedAttentionOp(),)}
+
+
+def get_kernel(name: str) -> KernelOp:
+    if name not in KERNEL_OPS:
+        raise ValueError(
+            f"unknown kernel op {name!r}; valid ops: {sorted(KERNEL_OPS)}")
+    return KERNEL_OPS[name]
+
+
+def resolve_impl(name: str, impl: str, tensor) -> str:
+    """-> "cuda" | "torch" for a call whose first tensor is `tensor`."""
+    get_kernel(name)
+    if impl not in KERNEL_IMPLS:
+        raise ValueError(
+            f"kernels.{name}: impl must be one of {KERNEL_IMPLS}, got "
+            f"{impl!r}")
+    if impl == "torch":
+        return "torch"
+    if impl == "cuda":
+        if not tensor.is_cuda:
+            raise RuntimeError(
+                f"kernels.{name}: impl='cuda' forced on a tensor on "
+                f"{tensor.device}; the kernel runs only on a CUDA device "
+                f"(impl='auto' picks the plain version for CPU tensors)")
+        return "cuda"
+    return "cuda" if tensor.is_cuda else "torch"
+
+
+def dispatch(name: str, *args, impl: str = "auto", **kwargs):
+    """Run op `name` on `args` through the selection contract."""
+    op = get_kernel(name)
+    chosen = resolve_impl(name, impl, args[0])
+    COUNTERS.add("kernel.dispatches" if chosen == "cuda"
+                 else "kernel.fallbacks")
+    if chosen == "cuda":
+        return op.kernel(*args, **kwargs)
+    return op.plain(*args, **kwargs)

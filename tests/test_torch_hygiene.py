@@ -1,0 +1,143 @@
+"""Boundaries of the PyTorch port: `deepspeed_tpu_torch`,
+`chip_smoke.py` and `chip_ab.py` load neither JAX nor the JAX package,
+and the entry points run on the card unless the CPU is asked for."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "deepspeed_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "deepspeed_tpu")
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in FORBIDDEN
+
+
+def _python_files():
+    for root, _, files in os.walk(PORT):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "chip_ab.py")
+
+
+def test_port_sources_import_neither_jax_nor_the_jax_package():
+    """Every import statement, at any depth, of the port and of the
+    chip scripts, including the code chip_ab.py runs in its turns
+    (parsed, not run)."""
+    bad = []
+    for path in _python_files():
+        with open(path) as f:
+            trees = [ast.parse(f.read(), filename=path)]
+        if path.endswith("chip_ab.py"):
+            sys.path.insert(0, REPO)
+            try:
+                import chip_ab
+            finally:
+                sys.path.remove(REPO)
+            trees.append(ast.parse(chip_ab.TURN))
+        for node in (n for t in trees for n in ast.walk(t)):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}"
+                    for n in names if _forbidden(n)]
+    assert not bad, bad
+
+
+def test_importing_every_port_module_loads_no_jax():
+    """In a fresh interpreter (this one has JAX loaded by conftest):
+    JAX and the JAX package are made unimportable, then every module of
+    the port is imported."""
+    code = f"""
+import importlib, pkgutil, sys
+for name in list(sys.modules):
+    if name.split(".")[0] in {FORBIDDEN!r}:
+        del sys.modules[name]
+for name in {FORBIDDEN!r}:
+    sys.modules[name] = None     # any import of them now raises
+sys.path.insert(0, {REPO!r})
+import deepspeed_tpu_torch
+mods = [m.name for m in pkgutil.walk_packages(
+    deepspeed_tpu_torch.__path__, prefix="deepspeed_tpu_torch.")]
+for m in mods:
+    importlib.import_module(m)
+import torch
+assert not torch.cuda.is_initialized()
+print(len(mods))
+"""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert int(r.stdout.split()[-1]) >= 15
+
+
+def _no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    from deepspeed_tpu_torch.models import GPT, generate, gpt2_config
+    from deepspeed_tpu_torch.serving import ServeEngine
+
+    cfg = gpt2_config("nano", num_layers=1)
+    model = GPT(cfg, device="cpu")
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        GPT(cfg)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        ServeEngine(model)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        generate(model, [[1, 2]], 2)
+
+
+def test_engine_refuses_a_model_on_another_device(monkeypatch):
+    from deepspeed_tpu_torch.models import GPT, gpt2_config
+    from deepspeed_tpu_torch.serving import ServeEngine
+
+    model = GPT(gpt2_config("nano", num_layers=1), device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(ValueError, match="lives on cpu"):
+        ServeEngine(model, device="cuda")
+
+
+def _run_smoke(cwd, fake_cuda):
+    prelude = ("import torch; torch.cuda.is_available = lambda: True; "
+               if fake_cuda else "")
+    code = (prelude + "import runpy, sys; sys.argv = ['chip_smoke.py']; "
+            "runpy.run_path('chip_smoke.py', run_name='__main__')")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, "-c", code], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_chip_smoke_fails_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU")
+    r = _run_smoke(REPO, fake_cuda=False)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
+
+
+def test_chip_smoke_fails_alone_without_the_repo(tmp_path):
+    """A directory holding chip_smoke.py and nothing else of the repo
+    fails before it prints any result, even where CUDA looks present."""
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    r = _run_smoke(str(tmp_path), fake_cuda=True)
+    assert r.returncode != 0
+    assert "deepspeed_tpu_torch" in r.stderr
+    assert '"ok"' not in r.stdout
