@@ -7,11 +7,13 @@ A, B, B, A, each turn a fresh process run from the root of its checkout:
 Each turn uses that checkout's own `chip_smoke.py` and package: it times
 the paged-attention dispatch at the decode shape (GPT-2 XL heads, B=8,
 bf16 cache, q as the serving block's view of the fused QKV output) — its
-host time per call and its device time with the L2 cache flushed — and
-then runs phase 4 of that checkout's chip_smoke (GPT-2 XL bf16 serving
-8 requests).  One JSON line per turn, then the card's name and power
-limit.  Use it to hold a change against its parent: unpack the parent
-with `git archive` into a git-ignored directory and pass both.
+host time per call and its device time with the L2 cache flushed — then
+runs the serve phase of that checkout's chip_smoke (GPT-2 XL bf16 serving
+8 requests) and, where the checkout has one, its train phase (GPT-2 small
+bf16 training through the flash kernels: tokens/s and step ms).  One JSON
+line per turn, then the card's name and power limit.  Use it to hold a
+change against its parent: unpack the parent with `git archive` into a
+git-ignored directory and pass both.
 """
 
 import json
@@ -54,10 +56,16 @@ device_ms = cs.time_ms(call, 50, flush)
 del flush
 serve = cs.phase_serve()
 serve = serve[0] if isinstance(serve, tuple) else serve  # older checkouts
+serve = {k: serve[k] for k in ("tokens_per_s", "decode_step_mean_ms",
+                               "ttft_p50_ms", "wall_s")}
+torch.cuda.empty_cache()
+train = {}
+if hasattr(cs, "phase_train"):
+    rec = cs.phase_train()[0]
+    train = {"train_tokens_per_s": rec["tokens_per_s"],
+             "train_step_ms_mean": rec["step_ms_mean"]}
 print(json.dumps({"dispatch_host_us": host_us, "dispatch_device_ms": device_ms,
-                  **{k: serve[k] for k in ("tokens_per_s",
-                                           "decode_step_mean_ms",
-                                           "ttft_p50_ms", "wall_s")}}))
+                  **serve, **train}))
 '''
 
 

@@ -5,10 +5,11 @@
 
 Run from the root of a checkout, on a machine with one NVIDIA H100 and
 the CUDA toolkit.  It drives only the port — nothing of JAX or of
-`deepspeed_tpu` is imported — in six phases, each printing one JSON
-line; any failure raises and the script exits nonzero:
+`deepspeed_tpu` is imported — in these phases, each printing JSON lines;
+any failure raises and the script exits nonzero:
 
-1. build: compile the kernel library from the sources in the checkout.
+1. build: compile both kernel libraries from the sources in the
+   checkout, one nvcc each, started together; print ptxas's lines.
 2. kernel: paged attention, the Hopper kernel against its plain PyTorch
    version on the same inputs on the card, at the serving shapes
    (GPT-2 XL heads H=25, Dh=64, block 16, table width 64; decode B=8
@@ -16,16 +17,35 @@ line; any failure raises and the script exits nonzero:
    with device times of the kernel, the plain version, and
    `scaled_dot_product_attention` on pre-gathered K/V as a yardstick,
    and the host time of one call of each.
-3. exact: GPT-2 XL width, 4 layers, fp32 — greedy serving through the
+3. flash: the flash-attention forward, dQ and dK/dV kernels against
+   their plain versions at the training shape (GPT-2 small: B=8,
+   S=1024, H=12, Dh=64, causal) in bf16 and fp32, and on smaller cases:
+   full attention with a key bias, dropout 0.1 with a nonzero bh_offset,
+   Dh=128.  Errors against the per-element bounds of
+   `kernels/flash.py` `kernel_tolerances`; device times beside the
+   bound, the plain version, and SDPA forward and forward+backward as a
+   yardstick the port never calls.
+4. exact: GPT-2 XL width, 4 layers, fp32 — greedy serving through the
    kernel path against the port's `generate()` (plain attention).
-4. serve: GPT-2 XL (48 layers) in bf16 serving 8 requests through
+5. serve: GPT-2 XL (48 layers) in bf16 serving 8 requests through
    `ServeEngine`, half submitted mid-flight; the kernel's launches are
    counted from zero over this run and must equal
    layers x (prefill chunks + decode steps).
-5. profile: the same traffic (same prompt lengths, fresh tokens, so no
+6. profile: the same traffic (same prompt lengths, fresh tokens, so no
    prefix-cache hit) again under `torch.profiler`: device time by
    kernel, and the device's idle share of the unprofiled run.
-6. kernels: one line per kernel with its launches on the main path,
+7. train-exact: GPT-2 small width (d768, 12 heads), 2 layers, seq 256,
+   fp32, TF32 off: 5 engine steps through the flash kernels, then the
+   same steps from the same weights on the dense plain attention path;
+   per-step losses and final weights agree.
+8. train: GPT-2 small (12 layers, seq 1024, micro 8, bf16, Adam,
+   WarmupLR, clipping 1.0) through `deepspeed_tpu_torch.initialize` on a
+   learnable stride stream: warm-up steps, then timed steps with the
+   flash launch counts reset just before (each must be 12 x steps);
+   tokens/s, step ms, peak memory; finite, falling losses.
+9. train profile: 2 more steps under `torch.profiler`: device time by
+   kernel class and the device's idle share of the timed steps.
+10. kernels: one line per kernel with its launches on its main path,
    its error against the plain version, and its times beside its bound.
 
 The last line is `{"ok": true, "device": {...}}`.  Without a CUDA
@@ -37,6 +57,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -100,7 +121,7 @@ def time_ms(fn, iters, flush):
     return total / iters
 
 
-# -- phase 2 -----------------------------------------------------------------
+# -- phase 2: paged attention ---------------------------------------------------
 
 
 def kernel_case(name, B, T, H, Dh, bs, W, dtype, q_start, gen, flush):
@@ -192,7 +213,7 @@ def kernel_case(name, B, T, H, Dh, bs, W, dtype, q_start, gen, flush):
     return rec
 
 
-# -- phase 3 -----------------------------------------------------------------
+# -- phase 4: exact serving ----------------------------------------------------
 
 
 def greedy_with_margins(model, prompt, n):
@@ -260,11 +281,11 @@ def phase_exact():
     torch.cuda.empty_cache()
 
 
-# -- phase 4 -----------------------------------------------------------------
+# -- phases 5-6: serving and its profile ------------------------------------
 
 
 def drive(eng, prompts, n_new, late_at=6):
-    """The phase-4 traffic: the first half of `prompts` submitted before
+    """The phase-5 traffic: the first half of `prompts` submitted before
     the first step, the rest after `late_at` steps; steps until every
     request is done.  Returns the requests and, per step, its host time
     (ms, to the end of its device work) and whether it ran a prefill
@@ -399,7 +420,7 @@ def phase_serve():
 
 
 def profile_replay(eng, serve):
-    """Phase 4's traffic (`serve`, its record) again on `eng` — the
+    """Phase 5's traffic (`serve`, its record) again on `eng` — the
     same prompt lengths, fresh tokens (no prefix-cache hit), the same
     submission order — under torch.profiler.  The replay runs the same
     schedule (asserted), so its device time by kernel is the measured
@@ -453,7 +474,7 @@ def profile_replay(eng, serve):
             f"profiler saw {paged_calls} paged-attention kernels, the "
             f"wrapper launched {paged.LAUNCHES - launches0}")
     return {"phase": "profile",
-            "window": "phase 4's traffic replayed on fresh prompts: "
+            "window": "phase 5's traffic replayed on fresh prompts: "
                       f"lengths {[int(n) for n in lens]}, {n_new} new "
                       "tokens each, gpt2 xl bf16",
             "device_busy_ms": busy_ms,
@@ -472,6 +493,417 @@ def profile_replay(eng, serve):
                             for a in acts[:10]]}
 
 
+# -- phase 3: flash attention kernels -------------------------------------------
+
+FLASH_TOL = ("per element: 2u|plain| + (2u, forward and dQ only, + 1e-5) M "
+             "+ 1e-6, u the dtype's unit roundoff (0 fp32, 2^-8 bf16), M "
+             "the output's absolute-value product (kernels/flash.py "
+             "kernel_tolerances)")
+
+
+def flash_case(name, B, S, H, D, dtype, causal, bias, rate, bh_offset, gen,
+               flush, timed):
+    """The three flash kernels against their plain versions on one set of
+    [B*H, S, D] inputs; device times where `timed`."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.kernels import flash, registry
+
+    dev = "cuda"
+    BH = B * H
+    a = [torch.randn(BH, S, D, device=dev, generator=gen).to(dtype)
+         for _ in range(4)]                      # q, k, v, dO
+    kb = None
+    if bias:
+        keep = torch.rand(B, S, device=dev, generator=gen) > 0.25
+        kb = torch.where(keep, 0.0, -1e30).float()
+        kb[-1, S // 2:] = -1e30                  # a batch half masked
+    opts = dict(causal=causal, scale=D ** -0.5, block_q=128, block_k=128,
+                rate=rate, seed=1234, bh_offset=bh_offset, n_heads=H)
+
+    def fwd(impl):
+        return registry.dispatch("flash_attention_fwd", *a[:3], kb,
+                                 impl=impl, **opts)
+
+    ref = {}
+    out, lse = fwd("torch")
+    ref["out"] = out
+    delta = (a[3].float() * out.float()).sum(-1)
+    bwd_args = (*a, lse, delta, kb)
+
+    def dq(impl):
+        return registry.dispatch("flash_attention_dq", *bwd_args, impl=impl,
+                                 **opts)
+
+    def dkv(impl):
+        return registry.dispatch("flash_attention_dkv", *bwd_args,
+                                 impl=impl, **opts)
+
+    ref["dq"] = dq("torch")
+    ref["dk"], ref["dv"] = dkv("torch")
+    got = {}
+    got["out"], got_lse = fwd("cuda")
+    got["dq"] = dq("cuda")
+    got["dk"], got["dv"] = dkv("cuda")
+    torch.cuda.synchronize()
+    tols = flash.kernel_tolerances(*a, kb, ref, **opts)
+    errs, worst = {}, {}
+    for k, tol in tols.items():
+        diff = (got[k].float() - ref[k].float()).abs()
+        errs[k] = diff.max().item()
+        worst[k] = (diff / tol).max().item()
+        if not worst[k] <= 1.0:
+            raise AssertionError(f"flash {name} {k}: kernel vs plain max abs "
+                                 f"err {errs[k]}, {worst[k]} x the bound")
+    lse_err = (got_lse - lse).abs().max().item()
+    if not lse_err <= 1e-5 * (1 + lse.abs().max().item()):
+        raise AssertionError(f"flash {name}: lse differs by {lse_err}")
+    del tols, got
+
+    dname = str(dtype).replace("torch.", "")
+    isz = a[0].element_size()
+    pairs = (S * (S + 1) // 2) if causal else S * S   # live (q, k) pairs
+    io = BH * S * D * isz                              # one [BH, S, D]
+    rows = BH * S * 4                                  # one fp32 [BH, S]
+    kb_bytes = 0 if kb is None else kb.numel() * 4
+    # bytes: each input read once, each output written once
+    work = {"flash_attention_fwd": (4 * D * BH * pairs,
+                                    4 * io + rows + kb_bytes),
+            "flash_attention_dq": (6 * D * BH * pairs,
+                                   5 * io + 2 * rows + kb_bytes),
+            "flash_attention_dkv": (8 * D * BH * pairs,
+                                    6 * io + 2 * rows + kb_bytes)}
+    rec = {"phase": "flash", "case": name, "B": B, "S": S, "H": H, "Dh": D,
+           "dtype": dname, "causal": causal, "key_bias": bias,
+           "dropout": rate, "bh_offset": bh_offset, "tol": FLASH_TOL,
+           "max_abs_err": errs, "max_err_over_tol": worst,
+           "lse_max_abs_err": lse_err, "kernels": {}}
+    fns = {"flash_attention_fwd": fwd, "flash_attention_dq": dq,
+           "flash_attention_dkv": dkv}
+    for kname, (flops, nbytes) in work.items():
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[dname] * 1e3
+        k = {"flops": flops, "bytes": nbytes,
+             "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        if timed:
+            fn = fns[kname]
+            k["kernel_ms"] = time_ms(lambda: fn("cuda"), 10, flush)
+            k["plain_ms"] = time_ms(lambda: fn("torch"), 3, flush)
+        rec["kernels"][kname] = k
+    if timed and rate == 0.0:
+        # yardstick: SDPA on the same tensors viewed [B, H, S, D]
+        q4, k4, v4, do4 = (t.view(B, H, S, D) for t in a)
+        mask = None if kb is None else kb[:, None, None, :].to(dtype)
+        causal_flag = causal and mask is None
+        if causal and mask is not None:
+            tri = torch.ones(S, S, dtype=torch.bool, device=dev).tril()
+            mask = mask.masked_fill(~tri, float("-inf"))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                                  is_causal=causal_flag)
+
+        qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
+
+        def sdpa_fwd_bwd():
+            o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                               is_causal=causal_flag)
+            o.backward(do4)
+
+        rec["sdpa_fwd_ms"] = time_ms(sdpa, 10, flush)
+        rec["sdpa_fwd_bwd_ms"] = time_ms(sdpa_fwd_bwd, 10, flush)
+        rec["kernels"]["flash_attention_fwd"]["library_ms"] = \
+            rec["sdpa_fwd_ms"]
+    emit(rec)
+    del a, ref, out, lse, delta
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_flash(gen, flush):
+    import torch
+
+    bf16, fp32 = torch.bfloat16, torch.float32
+    cases = [flash_case("train-bfloat16", 8, 1024, 12, 64, bf16, True, False,
+                        0.0, 0, gen, flush, True),
+             flash_case("train-float32", 8, 1024, 12, 64, fp32, True, False,
+                        0.0, 0, gen, flush, True),
+             flash_case("full-keybias-bfloat16", 2, 512, 4, 64, bf16, False,
+                        True, 0.0, 0, gen, flush, False),
+             flash_case("dropout-offset-bfloat16", 2, 512, 4, 64, bf16, True,
+                        False, 0.1, 7, gen, flush, False),
+             flash_case("dh128-bfloat16", 2, 512, 4, 128, bf16, True, False,
+                        0.0, 0, gen, flush, False)]
+    return cases
+
+
+# -- phases 7-9: training ----------------------------------------------------------
+
+
+def stride_batches(steps, micro, seq, vocab, seed):
+    """The learnable stream of tests/convergence_common.py
+    `synthetic_batches` (copied, this script imports no test code): next
+    token = (prev + stride) % vocab, a stride in {1..4} per sequence."""
+    rng = np.random.RandomState(seed)
+    for _ in range(steps):
+        toks = np.zeros((micro, seq + 1), np.int64)
+        toks[:, 0] = rng.randint(0, vocab, micro)
+        stride = rng.randint(1, 5, micro)
+        for t in range(1, seq + 1):
+            toks[:, t] = (toks[:, t - 1] + stride) % vocab
+        yield toks[:, :-1], toks[:, 1:]
+
+
+def train_config(micro, lr, precision):
+    cfg = {"train_batch_size": micro, "train_micro_batch_size_per_gpu": micro,
+           "optimizer": {"type": "Adam", "params": {"lr": lr}},
+           "scheduler": {"type": "WarmupLR",
+                         "params": {"warmup_max_lr": lr,
+                                    "warmup_num_steps": 10}},
+           "gradient_clipping": 1.0, "steps_per_print": 0}
+    if precision == "bf16":
+        cfg["bf16"] = {"enabled": True}
+    return cfg
+
+
+def phase_train_exact():
+    """fp32, TF32 off: the flash-kernel path against the dense plain
+    attention path (attn_impl "xla") from the same weights, 5 steps.
+    Bounds: the two differ in the order of fp32 sums only, so per-step
+    losses within 1e-4; an Adam step moves a weight by at most about lr,
+    so after 5 steps the weights differ by at most 2 * lr * 5."""
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.kernels import flash
+    from deepspeed_tpu_torch.models import GPT, gpt2_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lr, steps, micro, seq = 1e-4, 5, 4, 256
+    runs = {}
+    for impl in ("auto", "xla"):
+        cfg = gpt2_config("small", num_layers=2, max_seq_len=seq,
+                          attn_impl=impl)
+        model = GPT(cfg, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(3))
+        eng, *_ = dt.initialize(model=model,
+                                config_params=train_config(micro, lr, "fp32"))
+        n0 = flash.LAUNCHES["flash_attention_fwd"]
+        losses = []
+        for x, y in stride_batches(steps, micro, seq, 64, 5):
+            losses.append(float(eng.forward((x, y))))
+            eng.backward()
+            eng.step()
+        runs[impl] = (losses, {n: p.detach().clone()
+                               for n, p in eng.params.items()},
+                      flash.LAUNCHES["flash_attention_fwd"] - n0)
+        del eng, model
+    (lk, pk, nk), (lp, pp, npl) = runs["auto"], runs["xla"]
+    if nk != 2 * steps or npl != 0:
+        raise AssertionError(f"train-exact: flash forward launched {nk} "
+                             f"(kernel run) and {npl} (plain run) times")
+    loss_err = max(abs(a - b) for a, b in zip(lk, lp))
+    w_err = max((pk[n] - pp[n]).abs().max().item() for n in pk)
+    if not (loss_err <= 1e-4 and w_err <= 2 * lr * steps):
+        raise AssertionError(f"train-exact: losses differ by {loss_err}, "
+                             f"weights by {w_err}")
+    emit({"phase": "train-exact", "config": "gpt2 small width, 2 layers, "
+          "seq 256, micro 4, fp32, TF32 off", "steps": steps,
+          "losses_kernel": lk, "losses_plain": lp,
+          "max_loss_diff": loss_err, "loss_tol": 1e-4,
+          "max_weight_diff": w_err, "weight_tol": 2 * lr * steps})
+    torch.cuda.empty_cache()
+
+
+def train_kernel_class(name):
+    """Coarse class of a training-step device activity."""
+    n = name.lower()
+    if "flash_" in n:
+        return "flash_attention"
+    if "foreach" in n or "multi_tensor" in n:
+        return "optimizer"
+    if any(k in n for k in ("gemm", "nvjet", "cutlass", "xmma", "sm90_")):
+        return "gemm"
+    if "memcpy" in n or "memset" in n or "copy" in n:
+        return "copy"
+    if "reduce" in n or "softmax" in n or "norm" in n:
+        return "reduction"
+    if "elementwise" in n or "vectorized" in n:
+        return "elementwise"
+    return "other"
+
+
+def phase_train(warmup=3, steps=10):
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.kernels import flash
+    from deepspeed_tpu_torch.models import GPT, gpt2_config
+    from deepspeed_tpu_torch.monitor.counters import COUNTERS
+
+    micro, seq = 8, 1024
+    cfg = gpt2_config("small")
+    model = GPT(cfg, device="cuda",
+                generator=torch.Generator(device="cuda").manual_seed(0))
+    eng, *_ = dt.initialize(model=model,
+                            config_params=train_config(micro, 1e-4, "bf16"))
+    # the convergence recipe's stream: tokens below 64 (CONFIG["vocab"]
+    # of tests/convergence_common.py) in the full 50304-token model, so the
+    # loss has a signal to fall on within a dozen steps at lr 1e-4
+    data = stride_batches(warmup + steps + 2, micro, seq, 64, 0)
+    losses = [float(eng.train_batch(data)) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in flash.LAUNCHES:
+        flash.LAUNCHES[k] = 0
+    snap = COUNTERS.snapshot()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    step_ms = []
+    timed = []
+    ev0.record()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = eng.train_batch(data)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        timed.append(loss)
+    ev1.record()
+    ev1.synchronize()
+    span_ms = ev0.elapsed_time(ev1)
+    launches = dict(flash.LAUNCHES)
+    d = COUNTERS.delta_since(snap)
+    losses += [float(x) for x in timed]
+    if launches != {k: cfg.num_layers * steps for k in launches}:
+        raise AssertionError(f"flash launches {launches}, expected "
+                             f"{cfg.num_layers} x {steps} each")
+    if d.get("kernel.fallbacks") or \
+            d["kernel.dispatches"]["calls"] != 3 * cfg.num_layers * steps:
+        raise AssertionError(f"a plain version ran on the training path: {d}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not finite and falling: {losses}")
+    tokens = micro * seq * steps
+    rec = {"phase": "train", "config": "gpt2 small (12 layers, d768, 12 "
+           "heads, vocab 50304), seq 1024, micro 8, gas 1, bf16, Adam lr "
+           "1e-4, WarmupLR 10 steps, clipping 1.0; stride stream over "
+           "tokens < 64", "warmup_steps": warmup,
+           "timed_steps": steps, "tokens_per_s": tokens / (sum(step_ms) / 1e3),
+           "step_ms_mean": float(np.mean(step_ms)),
+           "step_ms_min": float(np.min(step_ms)),
+           "device_span_ms": span_ms,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "param_count": sum(p.numel() for p in eng.params.values()),
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "losses": losses, "flash_launches": launches}
+    emit(rec)
+    return rec, eng, data
+
+
+def phase_train_profile(eng, data, train, steps=2):
+    """Two more steps under torch.profiler: device time by kernel class;
+    the idle share divides the busy time per step by the timed steps'
+    mean span on CUDA events, which the profiler does not stretch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepspeed_tpu_torch.kernels import flash
+
+    n0 = dict(flash.LAUNCHES)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            eng.train_batch(data)
+        torch.cuda.synchronize()
+    acts = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy_ms = sum(a[1] for a in acts)
+    if busy_ms <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    by_class = {}
+    for name, ms, n in acts:
+        c = by_class.setdefault(train_kernel_class(name), [0.0, 0])
+        c[0] += ms
+        c[1] += n
+    flash_calls = by_class.get("flash_attention", (0.0, 0))[1]
+    want = sum(flash.LAUNCHES[k] - n0[k] for k in n0)
+    if flash_calls != want:
+        raise AssertionError(f"profiler saw {flash_calls} flash kernels, "
+                             f"the wrappers launched {want}")
+    acts.sort(key=lambda a: -a[1])
+    per_step = busy_ms / steps
+    span_per_step = train["device_span_ms"] / train["timed_steps"]
+    return {"phase": "train-profile", "steps": steps,
+            "device_busy_ms_per_step": per_step,
+            "device_idle_share": 1.0 - per_step / span_per_step,
+            "timed_span_ms_per_step": span_per_step,
+            "by_class": {k: {"ms_per_step": v[0] / steps,
+                             "calls_per_step": v[1] / steps,
+                             "share_of_busy": v[0] / busy_ms}
+                         for k, v in sorted(by_class.items(),
+                                            key=lambda kv: -kv[1][0])},
+            "top_kernels": [{"name": a[0][:80], "ms_per_step": a[1] / steps,
+                             "calls_per_step": a[2] / steps}
+                            for a in acts[:12]]}
+
+
+def build_all():
+    """Compile the kernel libraries, one nvcc per source, all started
+    together; returns the build record."""
+    from deepspeed_tpu_torch.kernels import build
+
+    sources = ("paged_attention.cu", "flash_attention.cu")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(build.build, sources))
+    return {"phase": "build", "seconds": time.perf_counter() - t0,
+            "ptxas": {src: [ln.strip() for ln in
+                            build.BUILD_LOGS.get(src, "").splitlines()
+                            if "registers" in ln or "Compiling entry" in ln
+                            or "spill" in ln]
+                      for src in sources}}
+
+
+def flash_entries(flash_cases, train):
+    main = flash_cases[0]            # the training shape, bf16
+    out = []
+    for name in ("flash_attention_fwd", "flash_attention_dq",
+                 "flash_attention_dkv"):
+        k = main["kernels"][name]
+        short = name.split("_")[-1]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "deepspeed_tpu_torch/kernels/csrc/flash_attention.cu",
+            "replaces": {"fwd": "deepspeed_tpu/ops/transformer/"
+                                "flash_attention.py:113",
+                         "dq": "deepspeed_tpu/ops/transformer/"
+                               "flash_attention.py:227",
+                         "dkv": "deepspeed_tpu/ops/transformer/"
+                                "flash_attention.py:280"}[short],
+            "launches": train["flash_launches"][name],
+            "max_abs_err": main["max_abs_err"][
+                {"fwd": "out", "dq": "dq", "dkv": "dk"}[short]],
+            "ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": k.get("library_ms"),
+            "shape": "B=8 S=1024 H=12 Dh=64 bf16 causal",
+            "cases": [{"case": c["case"],
+                       "max_err_over_tol": c["max_err_over_tol"],
+                       **({"kernel_ms": c["kernels"][name]["kernel_ms"],
+                           "plain_ms": c["kernels"][name]["plain_ms"],
+                           "bound_ms": c["kernels"][name]["bound_ms"]}
+                          if "kernel_ms" in c["kernels"][name] else {})}
+                      for c in flash_cases]})
+    if "sdpa_fwd_bwd_ms" in main:
+        out[0]["sdpa_fwd_bwd_ms"] = main["sdpa_fwd_bwd_ms"]
+    return out
+
+
 def main():
     import torch
 
@@ -480,18 +912,11 @@ def main():
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from deepspeed_tpu_torch.kernels import build
+    import deepspeed_tpu_torch  # noqa: F401  (fails in a bare directory)
 
     card = gpu_name_and_limit()
-    t0 = time.perf_counter()
-    build.build("paged_attention.cu")
-    build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for ln in
-             build.BUILD_LOGS.get("paged_attention.cu", "").splitlines()
-             if "registers" in ln or "Compiling entry" in ln]
-    emit({"phase": "build", "seconds": build_s, "card": card,
-          "torch": torch.__version__, "cuda": torch.version.cuda,
-          "ptxas": ptxas})
+    emit({**build_all(), "card": card, "torch": torch.__version__,
+          "cuda": torch.version.cuda})
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
@@ -506,12 +931,19 @@ def main():
     cases.append(kernel_case("decode-bfloat16-dh128", 8, 1, 16, 128, 16, 64,
                              torch.bfloat16, rng.randint(256, 768, size=8),
                              gen, flush))
+    flash_cases = phase_flash(gen, flush)
     del flush
 
     phase_exact()
     serve, eng = phase_serve()
     emit(profile_replay(eng, serve))
     del eng
+    torch.cuda.empty_cache()
+
+    phase_train_exact()
+    train, teng, data = phase_train()
+    emit(phase_train_profile(teng, data, train))
+    del teng
 
     main_case = next(c for c in cases if c["case"] == "decode-bfloat16")
     print(card, flush=True)
@@ -530,7 +962,7 @@ def main():
                                      "max_err_over_tol", "kernel_ms",
                                      "plain_ms", "library_ms", "bound_ms",
                                      "bound_by", "kernel_host_us")}
-                  for c in cases]}]})
+                  for c in cases]}] + flash_entries(flash_cases, train)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -4,13 +4,65 @@ The JAX package (`deepspeed_tpu/`) stays the reference; this package
 keeps its module layout and names so each counterpart sits at the same
 path, and imports neither `jax` nor anything of `deepspeed_tpu`.
 
-What is ported so far is the serving slice: a dense GPT-2 served through
-a paged KV cache (`serving/`), with paged attention as a CUDA C++ kernel
-written for Hopper (`kernels/csrc/paged_attention.cu`).  Entry points
-run on the card unless the caller passes `device="cpu"`.
+Ported so far:
 
-Importing the package builds no kernel and touches no CUDA state: the
-kernel library is compiled at first launch (`kernels/build.py`).
+* serving: a dense GPT-2 served through a paged KV cache (`serving/`),
+  with paged attention as a CUDA C++ kernel written for Hopper
+  (`kernels/csrc/paged_attention.cu`);
+* single-process training: `initialize` -> `DeepSpeedEngine`
+  (`runtime/`) with FusedAdam, the LR schedules and loss scaling, over the
+  GPT forward and loss (`models/gpt.py`), with flash attention forward,
+  dQ and dK/dV as CUDA C++ kernels (`kernels/csrc/flash_attention.cu`).
+
+Entry points run on the card unless the caller passes `device="cpu"`.
+Importing the package builds no kernel and touches no CUDA state: a
+kernel library is compiled at its first launch (`kernels/build.py`).
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"
+
+
+class PipelineModule:
+    """Placeholder for deepspeed_tpu's PipelineModule: pipelines are not
+    ported yet, and building one raises."""
+
+    def __init__(self, *args, **kwargs):
+        raise NotImplementedError(
+            "PipelineModule is not ported to deepspeed_tpu_torch yet "
+            "(ROADMAP queue 1: pipeline)")
+
+
+def initialize(args=None,
+               model=None,
+               optimizer=None,
+               model_parameters=None,
+               training_data=None,
+               lr_scheduler=None,
+               mpu=None,
+               dist_init_required=None,
+               collate_fn=None,
+               config=None,
+               config_params=None,
+               device="cuda"):
+    """Initialize the training engine (deepspeed_tpu/__init__.py:37).
+
+    Returns ``(engine, optimizer, training_dataloader, lr_scheduler)``.
+    `model` is an `nn.Module` whose call returns the training loss (the
+    port's `models.GPT`); `model_parameters`, when given, is a JAX-style
+    params tree loaded into it (`models.load_jax_params`).  The engine
+    runs on `device` — the card unless "cpu" is asked for."""
+    from .runtime.engine import DeepSpeedEngine
+
+    if config is None and config_params is not None:
+        config = config_params
+    if config is None and args is not None:
+        config = getattr(args, "deepspeed_config", None)
+    engine = DeepSpeedEngine(args=args, model=model, optimizer=optimizer,
+                             model_parameters=model_parameters,
+                             training_data=training_data,
+                             lr_scheduler=lr_scheduler, mpu=mpu,
+                             dist_init_required=dist_init_required,
+                             collate_fn=collate_fn, config_params=config,
+                             device=device)
+    return (engine, engine.optimizer, engine.training_dataloader,
+            engine.lr_scheduler)

@@ -7,8 +7,8 @@ Each op pairs a hand-written kernel with its plain PyTorch version:
   tensor.  The device of the first argument decides; nothing else does.
 * `"cuda"`  — the kernel; on a CPU tensor this raises.
 * `"torch"` — the plain version, also on a CUDA tensor, but only when
-  asked for by name (the comparison in chip_smoke.py does; the serving
-  path never does).
+  asked for by name (the comparisons in chip_smoke.py do; the serving
+  and training paths never do).
 
 On a CUDA tensor the kernel launches or raises: no path catches a
 kernel error and runs the plain version instead.  Every dispatch bumps
@@ -49,7 +49,51 @@ class PagedAttentionOp(KernelOp):
         return paged.paged_attention_reference(*args, **kwargs)
 
 
-KERNEL_OPS: Dict[str, KernelOp] = {op.NAME: op for op in (PagedAttentionOp(),)}
+class FlashAttentionFwdOp(KernelOp):
+    """Flash attention forward -> (out, lse) (kernels/flash.py)."""
+
+    NAME = "flash_attention_fwd"
+
+    def kernel(self, *args, **kwargs):
+        from . import flash
+        return flash.flash_fwd_cuda(*args, **kwargs)
+
+    def plain(self, *args, **kwargs):
+        from ..ops.transformer.flash_attention import _fwd_plain
+        return _fwd_plain(*args, **kwargs)
+
+
+class FlashAttentionDqOp(KernelOp):
+    """Flash attention dQ (kernels/flash.py)."""
+
+    NAME = "flash_attention_dq"
+
+    def kernel(self, *args, **kwargs):
+        from . import flash
+        return flash.flash_dq_cuda(*args, **kwargs)
+
+    def plain(self, *args, **kwargs):
+        from ..ops.transformer.flash_attention import _dq_plain
+        return _dq_plain(*args, **kwargs)
+
+
+class FlashAttentionDkvOp(KernelOp):
+    """Flash attention dK, dV (kernels/flash.py)."""
+
+    NAME = "flash_attention_dkv"
+
+    def kernel(self, *args, **kwargs):
+        from . import flash
+        return flash.flash_dkv_cuda(*args, **kwargs)
+
+    def plain(self, *args, **kwargs):
+        from ..ops.transformer.flash_attention import _dkv_plain
+        return _dkv_plain(*args, **kwargs)
+
+
+KERNEL_OPS: Dict[str, KernelOp] = {
+    op.NAME: op for op in (PagedAttentionOp(), FlashAttentionFwdOp(),
+                           FlashAttentionDqOp(), FlashAttentionDkvOp())}
 
 
 def get_kernel(name: str) -> KernelOp:

@@ -1,4 +1,4 @@
-"""GPT model family — what serving needs of deepspeed_tpu/models/gpt.py.
+"""GPT model family — the port of deepspeed_tpu/models/gpt.py, dense path.
 
 * `GPTConfig`, `GPT2_SIZES`, `gpt2_config` (gpt.py:37-113), with
   `param_dtype` a torch dtype;
@@ -13,10 +13,17 @@
 The initialiser draws the same distributions as `GPT.init` (normal with
 std 0.02; 0.02/sqrt(2·L) for proj and fc2; 0.01 for wpe; zero biases,
 unit LayerNorm scales) from an explicit `torch.Generator` — equal in
-distribution, not bit for bit.  The forward pass over a full sequence
-(`GPT.apply`) and the training loss belong to the training slice; the
-serving programs (`serving/programs.py`) and `generation.py` read the
-parameters directly.
+distribution, not bit for bit.
+
+Training (gpt.py:218-619): `gpt_block` (the dense branch: no ulysses,
+ring or MoE), `_trunk`, `GPT.apply` and `GPT.loss`, with the chunked,
+checkpointed cross-entropy `_softmax_xent_from_hidden`.  The functions
+read the module's parameters, so the engine runs them through
+`torch.func.functional_call` on a compute-dtype replica of its fp32
+masters.  Dropout seeds are drawn from an explicit `torch.Generator`
+(`ops/transformer/dropout.py`) before each block, so a block recomputed
+under `remat` draws the same masks.  The serving programs
+(`serving/programs.py`) and `generation.py` read the parameters directly.
 """
 
 from __future__ import annotations
@@ -25,10 +32,16 @@ import dataclasses
 import math
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from ..ops.transformer.attention import multihead_attention
+from ..ops.transformer.dropout import derive_seed, hash_dropout
 from ..utils.device import resolve_device
+from ..utils.logging import logger
 
 
 @dataclasses.dataclass
@@ -39,8 +52,19 @@ class GPTConfig:
     num_heads: int = 12
     d_model: int = 768
     d_ff: Optional[int] = None       # default 4*d_model
+    dropout: float = 0.0
+    embed_dropout: float = 0.0
+    attn_dropout: float = -1.0       # attention-probability dropout;
+                                     # -1 -> follow `dropout`
     layer_norm_eps: float = 1e-5
     tie_embeddings: bool = True
+    loss_chunks: int = 0             # CE chunking: 0 auto, 1 off, n chunks
+    loss_impl: str = "auto"          # auto/xla: chunked CE; pallas: the
+                                     # fused LM-head CE kernels (not ported)
+    remat: bool = False              # per-block rematerialisation
+    attn_impl: str = "auto"          # auto|pallas|xla (ops/transformer)
+    flash_block_q: int = 0           # 0 -> kernel default
+    flash_block_k: int = 0
     param_dtype: Any = torch.float32
     pipeline_stages: int = 1
     sequence_parallel: bool = False
@@ -96,6 +120,110 @@ def linear(a, p, dtype):
     (torch.matmul refuses mixed dtypes, jnp promotes)."""
     ct = torch.promote_types(a.dtype, dtype)
     return a.to(ct) @ p.w.to(dtype).to(ct) + p.b.to(dtype).to(ct)
+
+
+def _attn_rate(cfg: GPTConfig) -> float:
+    return cfg.dropout if cfg.attn_dropout < 0 else cfg.attn_dropout
+
+
+def _dropout(x, rate, seed, train):
+    # counter-hash mask (ops/transformer/dropout.py), gpt.py:218
+    return hash_dropout(x, rate, seed, train)
+
+
+def _block_seeds(cfg: GPTConfig, generator, train):
+    """(attention, attention-residual, MLP-residual) dropout seeds of one
+    block, drawn before the block runs (None where inactive) — the
+    counterpart of the JAX block's `jax.random.split(rng, 3)`."""
+    if not train or generator is None:
+        return (None, None, None)
+    return tuple(derive_seed(r, generator)[0] if r > 0.0 else None
+                 for r in (_attn_rate(cfg), cfg.dropout, cfg.dropout))
+
+
+def gpt_block(x, blk, cfg: GPTConfig, seeds=(None, None, None),
+              train=True):
+    """One pre-LN transformer block over x [B, S, D] (gpt.py:244, the
+    dense branch)."""
+    B, S, D = x.shape
+    H = cfg.num_heads
+    s_attn, s_res1, s_res2 = seeds
+    h = layer_norm(x, blk.ln1, cfg.layer_norm_eps)
+    q, kk, v = linear(h, blk.attn.qkv, h.dtype).split(D, dim=-1)
+    split_heads = lambda t: t.reshape(B, S, H, D // H)
+    attn = multihead_attention(split_heads(q), split_heads(kk),
+                               split_heads(v), causal=True,
+                               impl=cfg.attn_impl,
+                               dropout_rate=_attn_rate(cfg),
+                               dropout_seed=s_attn, train=train,
+                               block_q=cfg.flash_block_q or None,
+                               block_k=cfg.flash_block_k or None)
+    attn = linear(attn.reshape(B, S, D), blk.attn.proj, h.dtype)
+    x = x + _dropout(attn, cfg.dropout, s_res1, train)
+    h = layer_norm(x, blk.ln2, cfg.layer_norm_eps)
+    h = F.gelu(linear(h, blk.mlp.fc1, h.dtype), approximate="tanh")
+    h = linear(h, blk.mlp.fc2, h.dtype)
+    return x + _dropout(h, cfg.dropout, s_res2, train)
+
+
+def _ce_rows(logits32, labels, valid):
+    """Sum of masked next-token NLL over rows, from fp32 logits
+    (gpt.py:330): `logsumexp - label_logit`."""
+    lse = torch.logsumexp(logits32, dim=-1)
+    ll = torch.gather(logits32, -1, labels[:, None])[:, 0]
+    return torch.sum(torch.where(valid, lse - ll, 0.0))
+
+
+def _softmax_xent_from_hidden(x, w, labels, valid, n_chunks=0,
+                              impl="auto", bias=None):
+    """Projection + cross entropy (gpt.py:341): hidden states [N, D] and
+    the [D, V] head weight -> summed NLL.  The projection multiplies the
+    compute-dtype operands exactly in fp32 and accumulates in fp32 (JAX's
+    `preferred_element_type=float32`), so no rounded logits buffer
+    exists.  With n_chunks > 1 the rows go through the CE chunk by chunk,
+    each under `torch.utils.checkpoint` (the JAX `jax.checkpoint` scan),
+    so backward recomputes each chunk's logits.
+
+    n_chunks: 0 = auto (only past 4 GiB of fp32 logits, ~2 GiB a chunk),
+    1 = one projection, n = a count, raised to a divisor of N."""
+    N, D = x.shape
+    V = w.shape[-1]
+    if impl == "pallas" and bias is not None:
+        logger.warning("loss_impl='pallas': fused kernel carries no "
+                       "decoder bias; using the plain path")
+        impl = "xla"
+    if impl == "pallas":
+        raise NotImplementedError(
+            "loss_impl='pallas' runs the fused LM-head cross-entropy "
+            "kernels (#4-#6, deepspeed_tpu/ops/transformer/fused_xent.py), "
+            "which are not ported yet (ROADMAP queue 2); use "
+            "loss_impl='auto'")
+
+    def project(rows):
+        out = rows.float() @ w.float()
+        if bias is not None:
+            out = out + bias.float()
+        return out
+
+    if n_chunks == 0:
+        total = N * V * 4
+        n_chunks = -(-total // (2 << 30)) if total > 4 << 30 else 1
+    # clamp before the fix-up walk (a count above N has no divisor of N
+    # above it); N itself is always reachable
+    n_chunks = min(n_chunks, N)
+    while n_chunks > 1 and N % n_chunks:
+        n_chunks += 1
+    if n_chunks <= 1:
+        return _ce_rows(project(x), labels, valid)
+
+    def body(rows, lc, vc):
+        return _ce_rows(project(rows), lc, vc)
+
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for rows, lc, vc in zip(x.chunk(n_chunks), labels.chunk(n_chunks),
+                            valid.chunk(n_chunks)):
+        total = total + checkpoint(body, rows, lc, vc, use_reentrant=False)
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -191,3 +319,77 @@ class GPT(nn.Module):
     def head_weight(self):
         """The [D, V] LM-head matrix: wte.T when tied, else lm_head."""
         return self.wte.t() if self.config.tie_embeddings else self.lm_head
+
+    # -- training forward (gpt.py:481-619) -----------------------------
+
+    def _tokens(self, t):
+        return torch.as_tensor(np.asarray(t) if not torch.is_tensor(t)
+                               else t, dtype=torch.long, device=self.device)
+
+    def _trunk(self, tokens, generator=None, train=False, pld_mask=None,
+               capture_layers=None):
+        """Everything up to and including the final layer norm: tokens
+        [B, S] -> [B, S, D] hidden states (gpt.py:481)."""
+        if pld_mask is not None:
+            raise NotImplementedError(
+                "progressive layer drop is not ported yet (ROADMAP queue 1, "
+                "the production runtime)")
+        if capture_layers:
+            raise NotImplementedError(
+                "layer-output capture is not ported yet (ROADMAP queue 1, "
+                "the production runtime)")
+        cfg = self.config
+        S = tokens.shape[1]
+        x = self.wte[tokens] + self.wpe[:S][None, :, :]
+        if train and generator is not None and cfg.embed_dropout > 0.0:
+            x = _dropout(x, cfg.embed_dropout,
+                         derive_seed(cfg.embed_dropout, generator)[0], train)
+        for blk in self.blocks:
+            seeds = _block_seeds(cfg, generator, train)
+            if cfg.remat and torch.is_grad_enabled():
+                # recomputed in backward, with the same seeds
+                x = checkpoint(gpt_block, x, blk, cfg, seeds, train,
+                               use_reentrant=False)
+            else:
+                x = gpt_block(x, blk, cfg, seeds, train)
+        return layer_norm(x, self.ln_f, cfg.layer_norm_eps)
+
+    def apply(self, tokens, generator=None, train=False):
+        """tokens [B, S] -> logits [B, S, V] in the compute dtype
+        (gpt.py:566)."""
+        x = self._trunk(self._tokens(tokens), generator, train)
+        return x @ self.head_weight().to(x.dtype)
+
+    def loss(self, batch, generator=None, train=True,
+             progressive_layer_drop=False, pld_theta=None,
+             capture_layers=None):
+        """Next-token cross entropy (gpt.py:577).  batch: (tokens, labels)
+        or a dict with input_ids/labels; labels == -100 positions are
+        masked; without labels the tokens are split into inputs
+        tokens[:, :-1] and targets tokens[:, 1:].  `generator` draws the
+        dropout seeds (no generator: no dropout)."""
+        if isinstance(batch, dict):
+            tokens, labels = batch["input_ids"], batch.get("labels")
+        else:
+            tokens, labels = batch
+        tokens = self._tokens(tokens)
+        if labels is None:
+            tokens, labels = tokens[:, :-1], tokens[:, 1:]
+        else:
+            labels = self._tokens(labels)
+        pld_mask = (True if progressive_layer_drop and pld_theta is not None
+                    and train else None)
+        x = self._trunk(tokens, generator, train, pld_mask=pld_mask,
+                        capture_layers=capture_layers)
+        valid = labels >= 0
+        safe_labels = torch.where(valid, labels, 0)
+        B, S, D = x.shape
+        nll_sum = _softmax_xent_from_hidden(
+            x.reshape(B * S, D), self.head_weight(), safe_labels.reshape(-1),
+            valid.reshape(-1), self.config.loss_chunks,
+            impl=self.config.loss_impl)
+        return nll_sum / torch.clamp_min(valid.sum(), 1)
+
+    # the module's call is the training loss: the engine runs it through
+    # torch.func.functional_call on the compute-dtype replica
+    forward = loss

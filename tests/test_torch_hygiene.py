@@ -91,11 +91,15 @@ def _no_cuda(monkeypatch):
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.kernels import flash, registry
     from deepspeed_tpu_torch.models import GPT, generate, gpt2_config
+    from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
     from deepspeed_tpu_torch.serving import ServeEngine
 
     cfg = gpt2_config("nano", num_layers=1)
     model = GPT(cfg, device="cpu")
+    ds_config = {"train_batch_size": 2}
     _no_cuda(monkeypatch)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         GPT(cfg)
@@ -103,9 +107,32 @@ def test_entry_points_default_to_the_card(monkeypatch):
         ServeEngine(model)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         generate(model, [[1, 2]], 2)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        deepspeed_tpu_torch.initialize(model=model, config_params=ds_config)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        DeepSpeedEngine(model=model, config_params=ds_config)
+    # the flash ops: the kernels take CUDA tensors only; forcing them on
+    # CPU tensors raises, and the CPU path is the plain version
+    q = torch.zeros(2, 128, 64)
+    opts = dict(causal=True, scale=0.125, block_q=128, block_k=128,
+                rate=0.0, seed=0, bh_offset=0, n_heads=1)
+    for name in ("flash_attention_fwd", "flash_attention_dq",
+                 "flash_attention_dkv"):
+        assert registry.resolve_impl(name, "auto", q) == "torch"
+        with pytest.raises(RuntimeError, match="impl='cuda'"):
+            registry.resolve_impl(name, "cuda", q)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        flash.flash_dq_cuda(q, q, q, q, torch.zeros(2, 128),
+                            torch.zeros(2, 128), None, **opts)
+    # a CPU model on a CPU engine trains without asking for the card
+    eng, *_ = deepspeed_tpu_torch.initialize(model=model,
+                                             config_params=ds_config,
+                                             device="cpu")
+    assert eng.device.type == "cpu"
 
 
 def test_engine_refuses_a_model_on_another_device(monkeypatch):
+    import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models import GPT, gpt2_config
     from deepspeed_tpu_torch.serving import ServeEngine
 
@@ -113,6 +140,10 @@ def test_engine_refuses_a_model_on_another_device(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with pytest.raises(ValueError, match="lives on cpu"):
         ServeEngine(model, device="cuda")
+    with pytest.raises(ValueError, match="lives on cpu"):
+        deepspeed_tpu_torch.initialize(model=model,
+                                       config_params={"train_batch_size": 2},
+                                       device="cuda")
 
 
 def _run_smoke(cwd, fake_cuda):
