@@ -12,14 +12,17 @@ Ported so far:
 * single-process training: `initialize` -> `DeepSpeedEngine`
   (`runtime/`) with FusedAdam, the LR schedules and loss scaling, over the
   GPT forward and loss (`models/gpt.py`), with flash attention forward,
-  dQ and dK/dV as CUDA C++ kernels (`kernels/csrc/flash_attention.cu`).
+  dQ and dK/dV as CUDA C++ kernels (`kernels/csrc/flash_attention.cu`);
+* the fused LM-head cross-entropy (`loss_impl="pallas"`: forward, dx and
+  dW kernels, `kernels/csrc/fused_xent.cu`), and serving over an int8/int4
+  KV cache (dequantized in the paged kernel) with speculative decoding.
 
 Entry points run on the card unless the caller passes `device="cpu"`.
 Importing the package builds no kernel and touches no CUDA state: a
 kernel library is compiled at its first launch (`kernels/build.py`).
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"
 
 
 class PipelineModule:

@@ -7,8 +7,10 @@ a plain C interface and loaded with `ctypes`:
          -Xcompiler -fPIC -Xptxas -v -o <lib>.so <source>.cu
 
 The build happens at first use, into `kernels/_build/` (git-ignored),
-under a name that carries a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one is loaded as it is.  Only
+under a name that carries a hash of the source, the shared headers of
+`csrc/` (`*.cuh`, which the sources include from their own directory)
+and the flags, so an edited source or header rebuilds and an unchanged
+one is loaded as it is.  Only
 sources in this repository and the CUDA toolkit's headers are used.  A
 missing `nvcc` or a failed build raises with nvcc's output; nothing
 falls back.
@@ -51,8 +53,12 @@ def find_nvcc() -> str:
 
 def library_path(source: str) -> str:
     """The hash-named library a source builds into."""
-    with open(os.path.join(CSRC, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256()
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for name in [source, *headers]:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            digest.update(f.read())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     stem = os.path.splitext(source)[0]
     return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
 

@@ -55,34 +55,17 @@
 // m at ~NEG_INF, where exp(s - m) would be 1); a fully masked row gives a
 // zero output; keys or rows past the sequence end contribute exactly 0.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
 
 #include <type_traits>
+
+#include "common.cuh"
 
 namespace {
 
 constexpr int THREADS = 128;
 constexpr int RG = 16;  // row groups: thread tid owns rows i*RG + tid/CG
 constexpr int CG = 8;   // column lanes: and columns j*CG + tid%CG
-constexpr float NEG_INF = -1e30f;
-constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float x) {
-  return __float2half(x);
-}
 // x rounded to T and widened back (the casts p.astype(v.dtype) and
 // ds.astype(k.dtype) before a product with fp32 accumulation)
 template <typename T> __device__ __forceinline__ float round_to(float x) {
@@ -576,45 +559,6 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // layouts (PTX ISA, mma.m16n8k16): lane = 4g + t; A regs {row g | g+8} x
 // {cols 2t, 2t+1 | +8}; B regs {k 2t, 2t+1 | +8} x {col g}; C {row g | g+8}
 // x {cols 2t, 2t+1}.
-
-template <typename T> struct Mma;
-template <> struct Mma<__nv_bfloat16> {
-  static __device__ __forceinline__ void run(float* c, const uint32_t* a,
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-template <> struct Mma<__half> {
-  static __device__ __forceinline__ void run(float* c, const uint32_t* a,
-                                             uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-  static __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-  }
-};
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(FULL, v, 1));
-  return fmaxf(v, __shfl_xor_sync(FULL, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(FULL, v, 1);
-  return v + __shfl_xor_sync(FULL, v, 2);
-}
 
 // two consecutive elements (row, col), col even, as one 32-bit word; 0 past
 // the last row

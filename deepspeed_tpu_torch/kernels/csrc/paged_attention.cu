@@ -1,39 +1,55 @@
 // Paged attention over a block-table KV cache, written for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_paged_kernel` (deepspeed_tpu/kernels/paged.py:127,
-// wrapper `paged_attention_pallas` :176), dense branch.  Computes what
-// `paged_attention_reference` computes (deepspeed_tpu_torch/kernels/paged.py):
-// for every slot b, query row t and head h,
+// wrapper `paged_attention_pallas` :176), dense and int8/int4 branches.
+// Computes what `paged_attention_reference` computes
+// (deepspeed_tpu_torch/kernels/paged.py): for every slot b, query row t and
+// head h,
 //     out[b,t,h,:] = softmax_k( where(q_pos[b,t] >= k, q.K_k * Dh^-0.5, NEG_INF) ) . V
 // over the slot's L cache rows: key k lives at cache row rows[b, k] (the
 // rows are the walk of the slot's block table, serving/kv_cache.py
-// `rows_for_tables`).  The cache is [num_rows, H, Dh] in fp32, bf16 or fp16;
-// q is read where it lies (a strided view of the fused QKV output), in fp32
-// or in the cache dtype, and widened to fp32 as the reference does; rows and
-// q_pos are the int64 tensors the serving programs build once per step, so
-// a call launches this kernel and nothing else.  The output is written in
-// the cache dtype.
+// `rows_for_tables`).  q is read where it lies (a strided view of the fused
+// QKV output) and widened to fp32 as the reference does; rows and q_pos are
+// the int64 tensors the serving programs build once per step, so a call
+// launches this kernel and nothing else.  The cache is one of:
+//   * dense [num_rows, H, Dh] in fp32, bf16 or fp16 (q in fp32 or the cache
+//     dtype); the output is written in the cache dtype;
+//   * int8: codes [num_rows, H, Dh] plus one fp16 scale per (row, head)
+//     [num_rows, H] for K and for V; int4: the codes packed two a byte, low
+//     nibble first, [num_rows, H, Dh / 2] (runtime/comm/quant.py
+//     `quantize_rows`).  The dequant is fused into the gather: the staged
+//     codes are decoded in registers (the int4 nibbles sign-extended), times
+//     the row's fp16 scale in fp32 — exact, as the reference's
+//     `codes * scales` is — and the marker code -qmax-1 becomes NaN
+//     (paged.py:103-124).  q is fp32, bf16 or fp16; the output is fp32
+//     (paged.py:211).
 //
 // What bounds it on this card: bytes.  Each live K/V row is read once per
-// query tile and does 4*Dh FLOPs per query row, so at decode (T = 1) the
-// arithmetic intensity is about 1 FLOP/byte against the H100's ~295 — far
-// below the ridge.  The design therefore only tries to move the bytes it
-// must, and to keep loads in flight:
+// query tile and does 4*Dh FLOPs per query row, so at decode (T = 1) and at
+// verify (T = draft_len + 1) the arithmetic intensity is a few FLOPs per
+// byte against the H100's ~295 — far below the ridge.  A quantized cache
+// moves fewer bytes for the same keys: per live key and head, K and V take
+// 2 (Dh + 2) bytes at int8 and 2 (Dh / 2 + 2) at int4 (codes plus the fp16
+// scale), against 4 Dh at bf16 — 0.52x and 0.27x at Dh = 64.  The HBM read
+// is the compressed cache, which is the point of the branch.  The design
+// therefore only tries to move the bytes it must, and to keep loads in
+// flight:
 //   * one thread block per (slot*head, tile of up to TQ = 8 query rows); the
 //     block walks the slot's rows in a loop, KC = 128 keys per step;
 //   * chunks past the causal horizon of the tile (first key > largest q_pos)
 //     are never loaded — the loop ends there, so the cost follows the live
 //     length, not the table width;
 //   * each chunk's KC row indices are read once (one thread per key),
-//     clamped, turned into element offsets and kept in shared memory, so the
-//     Dh*sizeof(T)/16 threads that copy a key's row do not each load its
-//     index again (repeated per-thread index loads in front of the copies
-//     made the staging loop the slowest part at decode);
+//     clamped, turned into byte offsets and kept in shared memory, with the
+//     key's K and V scales when the cache is quantized, so the threads that
+//     copy a key's row do not each load its index again (repeated
+//     per-thread index loads in front of the copies made the staging loop
+//     the slowest part at decode);
 //   * each KC-row K and V chunk of the block's head is staged into shared
-//     memory with 16-byte cp.async copies (double-buffered where two blocks
-//     still fit on an SM, so the next chunk's loads overlap this chunk's
-//     math); rows are padded by 16 bytes so the per-lane 16-byte reads of
-//     the score loop are bank-conflict free;
+//     memory with 16-byte cp.async copies, compressed (double-buffered where
+//     two blocks still fit on an SM, so the next chunk's loads overlap this
+//     chunk's math); rows are padded by 16 bytes so the per-lane 16-byte
+//     reads of the score loop are bank-conflict free;
 //   * each of the 4 warps takes 32 keys of every chunk for every row of the
 //     tile (at decode, T = 1, all four warps work, not one), keeping its own
 //     fp32 running max, denominator and accumulator in registers (online
@@ -55,13 +71,10 @@
 //   * row indices are clamped into [0, num_rows), as the TPU kernel's index
 //     map clamps its table entries, so a bad entry cannot read out of bounds.
 //   * probabilities stay fp32 into the P.V product (the reference rounds them
-//     to the cache dtype first), so at bf16 the two differ by about one bf16
-//     rounding of the output.
+//     to a dense cache's dtype first), so at bf16 the two differ by about one
+//     bf16 rounding of the output; over a quantized cache both stay fp32.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
@@ -70,45 +83,68 @@ constexpr int THREADS = WARPS * 32;
 constexpr int TQ = 8;                   // query rows per thread block
 constexpr int KW = 32;                  // keys per warp per chunk: one per lane
 constexpr int KC = WARPS * KW;          // keys per staged chunk
-constexpr float NEG_INF = -1e30f;
-constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <> __device__ __forceinline__ __half from_f<__half>(float x) {
-  return __float2half(x);
-}
-
-// 16 bytes of cache elements -> floats
-template <typename T> struct Vec16 {
+// How the cache stores a row of Dh values for one head.  N: values per
+// 16-byte vector; unpack: one vector -> N floats; get: value `col` of a
+// staged row.  `scale` is the row's dequant scale (ignored when dense).
+template <typename T> struct Dense {
+  static constexpr bool QUANT = false;
   static constexpr int N = 16 / sizeof(T);
-  __device__ __forceinline__ static void unpack(const uint4& r, float* f) {
+  using Out = T;
+  static constexpr int row_bytes(int dh) { return dh * int(sizeof(T)); }
+  __device__ __forceinline__ static void unpack(const uint4& r, float* f, float) {
     const T* e = reinterpret_cast<const T*>(&r);
 #pragma unroll
     for (int i = 0; i < N; ++i) f[i] = to_f(e[i]);
   }
+  __device__ __forceinline__ static float get(const unsigned char* row, int col, float) {
+    return to_f(reinterpret_cast<const T*>(row)[col]);
+  }
 };
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           int src_bytes) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  // src_bytes = 0 zero-fills the 16 destination bytes
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+// int8 codes; the marker -128 (-qmax-1) dequantizes to NaN
+struct Int8 {
+  static constexpr bool QUANT = true;
+  static constexpr int N = 16;
+  using Out = float;
+  static constexpr int row_bytes(int dh) { return dh; }
+  __device__ __forceinline__ static float dq(int c, float scale) {
+    return c == -128 ? __int_as_float(0x7fc00000) : float(c) * scale;
+  }
+  __device__ __forceinline__ static void unpack(const uint4& r, float* f, float scale) {
+    const int8_t* e = reinterpret_cast<const int8_t*>(&r);
+#pragma unroll
+    for (int i = 0; i < N; ++i) f[i] = dq(e[i], scale);
+  }
+  __device__ __forceinline__ static float get(const unsigned char* row, int col, float scale) {
+    return dq(reinterpret_cast<const int8_t*>(row)[col], scale);
+  }
+};
+
+// int4 codes, two a byte, low nibble first, two's complement; the marker
+// -8 dequantizes to NaN
+struct Int4 {
+  static constexpr bool QUANT = true;
+  static constexpr int N = 32;
+  using Out = float;
+  static constexpr int row_bytes(int dh) { return dh / 2; }
+  __device__ __forceinline__ static float dq(int nib, float scale) {
+    const int c = nib > 7 ? nib - 16 : nib;
+    return c == -8 ? __int_as_float(0x7fc00000) : float(c) * scale;
+  }
+  __device__ __forceinline__ static void unpack(const uint4& r, float* f, float scale) {
+    const uint8_t* e = reinterpret_cast<const uint8_t*>(&r);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      f[2 * i] = dq(e[i] & 0x0F, scale);
+      f[2 * i + 1] = dq(e[i] >> 4, scale);
+    }
+  }
+  __device__ __forceinline__ static float get(const unsigned char* row, int col, float scale) {
+    const uint8_t b = row[col >> 1];
+    return dq((col & 1) ? (b >> 4) : (b & 0x0F), scale);
+  }
+};
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -121,39 +157,49 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename T, int DH>
+template <typename S, int DH>
 struct Layout {
-  static constexpr int ROW_ELEMS = DH + 16 / sizeof(T);  // +16 B padding
-  static constexpr int VECS = DH * sizeof(T) / 16;       // 16-B vectors per row
+  static constexpr int ROW_BYTES = S::row_bytes(DH);
+  static constexpr int ROW_STRIDE = ROW_BYTES + 16;            // +16 B padding
+  static constexpr int VECS = ROW_BYTES / 16;                  // 16-B vectors per row
   static constexpr size_t Q_BYTES = size_t(TQ) * DH * sizeof(float);
   // one K (or V) chunk of KC rows for one pipeline stage
-  static constexpr size_t CHUNK_BYTES = size_t(KC) * ROW_ELEMS * sizeof(T);
+  static constexpr size_t CHUNK_BYTES = size_t(KC) * ROW_STRIDE;
   // double-buffer where that leaves room for two blocks on an SM
   static constexpr int STAGES = Q_BYTES + 4 * CHUNK_BYTES <= 100 * 1024 ? 2 : 1;
-  static constexpr size_t SMEM = Q_BYTES + 2 * STAGES * CHUNK_BYTES;
+  static constexpr size_t STAGE_BYTES = 2 * STAGES * CHUNK_BYTES;
   // the end-of-kernel merge of the warps' partial results reuses the
   // staging buffers: per warp and row, DH accumulators plus (m, l)
   static constexpr size_t MERGE_BYTES = size_t(WARPS) * TQ * (DH + 2) * sizeof(float);
-  static_assert(MERGE_BYTES <= 2 * STAGES * CHUNK_BYTES, "merge space");
+  static constexpr size_t SMEM = Q_BYTES + (STAGE_BYTES > MERGE_BYTES ? STAGE_BYTES : MERGE_BYTES);
 };
 
 struct QStrides {
   long long b, t, h;  // element strides of q's first three dims (Dh is 1)
 };
 
-template <typename T, typename QT, int DH>
+template <typename S, typename QT, int DH>
 __global__ void __launch_bounds__(THREADS)
 paged_attention_kernel(const QT* __restrict__ q, QStrides qs,
-                       const T* __restrict__ ck, const T* __restrict__ cv,
+                       const unsigned char* __restrict__ ck,
+                       const unsigned char* __restrict__ cv,
+                       const __half* __restrict__ ks,
+                       const __half* __restrict__ vs,
                        const int64_t* __restrict__ rows,
-                       const int64_t* __restrict__ q_pos, T* __restrict__ out,
-                       int T_len, int H, int L, int num_rows, float scale) {
-  using LY = Layout<T, DH>;
+                       const int64_t* __restrict__ q_pos,
+                       typename S::Out* __restrict__ out, int T_len, int H,
+                       int L, int num_rows, float scale) {
+  using LY = Layout<S, DH>;
+  using OT = typename S::Out;
   constexpr int EPL = DH / 32;  // output columns per lane
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_qpos[TQ];
+  // per stage: byte offset of each key's row (-1 past live) and, for a
+  // quantized cache, its K and V scales
+  __shared__ long long s_off[2][KC];
+  __shared__ float s_scale[2][2][S::QUANT ? KC : 1];
   float* sQ = reinterpret_cast<float*>(smem);
-  T* sKV = reinterpret_cast<T*>(smem + LY::Q_BYTES);  // [stage][K|V][KC][ROW]
+  unsigned char* sKV = smem + LY::Q_BYTES;  // [stage][K|V][KC][ROW_STRIDE]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
@@ -178,17 +224,23 @@ paged_attention_kernel(const QT* __restrict__ q, QStrides qs,
   const int live = min(L, max_qp + 1);            // keys any row of the tile sees
   const int n_chunks = live > 0 ? (live + KC - 1) / KC : 0;
 
-  __shared__ long long s_off[2][KC];  // per stage: element offset of each key's row, -1 past live
   auto stage = [&](int c, int s) {
-    T* dk = sKV + size_t(2 * s) * KC * LY::ROW_ELEMS;
-    T* dv = dk + size_t(KC) * LY::ROW_ELEMS;
+    unsigned char* dk = sKV + size_t(2 * s) * LY::CHUNK_BYTES;
+    unsigned char* dv = dk + LY::CHUNK_BYTES;
     for (int i = tid; i < KC; i += THREADS) {
       const int key = c * KC + i;
       long long off = -1;
       if (key < live) {
         int64_t cache_row = slot_rows[key];
         cache_row = cache_row < 0 ? 0 : (cache_row >= num_rows ? num_rows - 1 : cache_row);
-        off = (cache_row * H + h) * DH;
+        const long long rh = cache_row * H + h;
+        off = rh * LY::ROW_BYTES;
+        if constexpr (S::QUANT) {
+          s_scale[s][0][i] = __half2float(ks[rh]);
+          s_scale[s][1][i] = __half2float(vs[rh]);
+        }
+      } else if constexpr (S::QUANT) {
+        s_scale[s][0][i] = s_scale[s][1][i] = 0.f;
       }
       s_off[s][i] = off;
     }
@@ -196,17 +248,17 @@ paged_attention_kernel(const QT* __restrict__ q, QStrides qs,
     for (int i = tid; i < KC * LY::VECS; i += THREADS) {
       const int row = i / LY::VECS, vec = i % LY::VECS;
       const long long base = s_off[s][row];
-      const T* srck = ck;
-      const T* srcv = cv;
+      const unsigned char* srck = ck;
+      const unsigned char* srcv = cv;
       int bytes = 0;
       if (base >= 0) {
-        const size_t off = size_t(base) + size_t(vec) * Vec16<T>::N;
+        const size_t off = size_t(base) + size_t(vec) * 16;
         srck = ck + off;
         srcv = cv + off;
         bytes = 16;
       }
-      cp_async16(dk + row * LY::ROW_ELEMS + vec * Vec16<T>::N, srck, bytes);
-      cp_async16(dv + row * LY::ROW_ELEMS + vec * Vec16<T>::N, srcv, bytes);
+      cp_async16(dk + row * LY::ROW_STRIDE + vec * 16, srck, bytes);
+      cp_async16(dv + row * LY::ROW_STRIDE + vec * 16, srcv, bytes);
     }
   };
 
@@ -240,10 +292,12 @@ paged_attention_kernel(const QT* __restrict__ q, QStrides qs,
     }
     __syncthreads();
     const int first = c * KC + warp * KW;          // this warp's first key
-    const T* K = sKV + size_t(2 * s) * KC * LY::ROW_ELEMS + warp * KW * LY::ROW_ELEMS;
-    const T* V = K + size_t(KC) * LY::ROW_ELEMS;
+    const unsigned char* K = sKV + size_t(2 * s) * LY::CHUNK_BYTES +
+                             size_t(warp) * KW * LY::ROW_STRIDE;
+    const unsigned char* V = K + LY::CHUNK_BYTES;
     const int kidx = first + lane;
-    const uint4* krow = reinterpret_cast<const uint4*>(K + lane * LY::ROW_ELEMS);
+    const uint4* krow = reinterpret_cast<const uint4*>(K + lane * LY::ROW_STRIDE);
+    const float kscale = S::QUANT ? s_scale[s][0][warp * KW + lane] : 1.f;
 #pragma unroll
     for (int i = 0; i < TQ; ++i) {
       // warp-uniform: a row whose position is before this warp's keys
@@ -254,11 +308,10 @@ paged_attention_kernel(const QT* __restrict__ q, QStrides qs,
         float dot = 0.f;
 #pragma unroll
         for (int v = 0; v < LY::VECS; ++v) {
-          float kf[Vec16<T>::N];
-          Vec16<T>::unpack(krow[v], kf);
+          float kf[S::N];
+          S::unpack(krow[v], kf, kscale);
 #pragma unroll
-          for (int e = 0; e < Vec16<T>::N; ++e)
-            dot = fmaf(qr[v * Vec16<T>::N + e], kf[e], dot);
+          for (int e = 0; e < S::N; ++e) dot = fmaf(qr[v * S::N + e], kf[e], dot);
         }
         const float sc = (kidx < L && s_qpos[i] >= kidx) ? dot * scale : NEG_INF;
         const float m_new = fmaxf(m[i], warp_max(sc));
@@ -271,9 +324,11 @@ paged_attention_kernel(const QT* __restrict__ q, QStrides qs,
 #pragma unroll 8
         for (int j = 0; j < KW; ++j) {
           const float pj = __shfl_sync(FULL, p, j);
-          const T* vr = V + j * LY::ROW_ELEMS + lane * EPL;
+          const unsigned char* vr = V + j * LY::ROW_STRIDE;
+          const float vscale = S::QUANT ? s_scale[s][1][warp * KW + j] : 1.f;
 #pragma unroll
-          for (int e = 0; e < EPL; ++e) acc[i][e] = fmaf(pj, to_f(vr[e]), acc[i][e]);
+          for (int e = 0; e < EPL; ++e)
+            acc[i][e] = fmaf(pj, S::get(vr, lane * EPL + e, vscale), acc[i][e]);
         }
         m[i] = m_new;
       }
@@ -316,14 +371,14 @@ paged_attention_kernel(const QT* __restrict__ q, QStrides qs,
       for (int e = 0; e < EPL; ++e) o[e] = fmaf(d[lane * EPL + e], f, o[e]);
     }
     const float denom = l_all > 0.f ? l_all : 1.f;
-    T* dst = out + ((size_t(b) * T_len + t0 + i) * H + h) * DH + lane * EPL;
+    OT* dst = out + ((size_t(b) * T_len + t0 + i) * H + h) * DH + lane * EPL;
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) dst[e] = from_f<T>(o[e] / denom);
+    for (int e = 0; e < EPL; ++e) dst[e] = from_f<OT>(o[e] / denom);
   }
 }
 
 struct Args {
-  const void *q, *ck, *cv, *rows, *q_pos;
+  const void *q, *ck, *cv, *ks, *vs, *rows, *q_pos;
   void* out;
   QStrides qs;
   int B, T_len, H, L, num_rows;
@@ -331,61 +386,81 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, typename QT, int DH>
+template <typename S, typename QT, int DH>
 cudaError_t launch(const Args& a) {
-  using LY = Layout<T, DH>;
-  auto kern = paged_attention_kernel<T, QT, DH>;
+  using LY = Layout<S, DH>;
+  auto kern = paged_attention_kernel<S, QT, DH>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(LY::SMEM));
   if (e != cudaSuccess) return e;
   dim3 grid(a.B * a.H, (a.T_len + TQ - 1) / TQ);
   kern<<<grid, THREADS, LY::SMEM, a.stream>>>(
-      static_cast<const QT*>(a.q), a.qs, static_cast<const T*>(a.ck),
-      static_cast<const T*>(a.cv), static_cast<const int64_t*>(a.rows),
-      static_cast<const int64_t*>(a.q_pos), static_cast<T*>(a.out), a.T_len,
-      a.H, a.L, a.num_rows, a.scale);
+      static_cast<const QT*>(a.q), a.qs, static_cast<const unsigned char*>(a.ck),
+      static_cast<const unsigned char*>(a.cv), static_cast<const __half*>(a.ks),
+      static_cast<const __half*>(a.vs), static_cast<const int64_t*>(a.rows),
+      static_cast<const int64_t*>(a.q_pos),
+      static_cast<typename S::Out*>(a.out), a.T_len, a.H, a.L, a.num_rows,
+      a.scale);
   return cudaGetLastError();
 }
 
-template <typename T, typename QT>
+template <typename S, typename QT>
 cudaError_t launch_dh(int Dh, const Args& a) {
-  if (Dh == 64) return launch<T, QT, 64>(a);
-  if (Dh == 128) return launch<T, QT, 128>(a);
+  if (Dh == 64) return launch<S, QT, 64>(a);
+  if (Dh == 128) return launch<S, QT, 128>(a);
   return cudaErrorInvalidValue;
 }
 
-// q in fp32 or in the cache dtype T
+// a dense cache takes q in fp32 or in the cache dtype T
 template <typename T>
-cudaError_t launch_q(int q_f32, int Dh, const Args& a) {
-  return q_f32 ? launch_dh<T, float>(Dh, a) : launch_dh<T, T>(Dh, a);
+cudaError_t launch_dense(int q_dtype, int Dh, const Args& a) {
+  if (q_dtype == 0) return launch_dh<Dense<T>, float>(Dh, a);
+  return launch_dh<Dense<T>, T>(Dh, a);
+}
+
+// a quantized cache takes q in fp32, bf16 or fp16
+template <typename S>
+cudaError_t launch_quant(int q_dtype, int Dh, const Args& a) {
+  switch (q_dtype) {
+    case 0: return launch_dh<S, float>(Dh, a);
+    case 1: return launch_dh<S, __nv_bfloat16>(Dh, a);
+    case 2: return launch_dh<S, __half>(Dh, a);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (the cache and output dtype).
-// q [B, T, H, Dh] with element strides (q_sb, q_st, q_sh) and unit stride
-// over Dh, in fp32 (q_f32 = 1) or in the cache dtype (q_f32 = 0);
-// ck/cv [num_rows, H, Dh] contiguous; rows int64 [B, L] and q_pos int64
-// [B, T] contiguous; out [B, T, H, Dh] contiguous; scale = Dh**-0.5 as the
-// caller rounds it to fp32.  Returns the cudaError_t of the launch (0 on
-// success); the caller raises on anything else.
+// cache: 0 = float32, 1 = bfloat16, 2 = float16 dense caches (ck/cv
+// [num_rows, H, Dh], the output dtype too); 3 = int8 (ck/cv int8
+// [num_rows, H, Dh]), 4 = int4 (ck/cv uint8 [num_rows, H, Dh / 2]), each
+// with ks/vs fp16 [num_rows, H] scales and an fp32 output.  q [B, T, H, Dh]
+// with element strides (q_sb, q_st, q_sh) and unit stride over Dh, in
+// q_dtype (0 = fp32, 1 = bf16, 2 = fp16; a dense cache takes fp32 or its
+// own dtype).  Caches contiguous and 16-byte aligned; rows int64 [B, L] and
+// q_pos int64 [B, T] contiguous; out [B, T, H, Dh] contiguous; scale =
+// Dh**-0.5 as the caller rounds it to fp32.  Returns the cudaError_t of the
+// launch (0 on success); the caller raises on anything else.
 int paged_attention_fwd(const void* q, long long q_sb, long long q_st,
-                        long long q_sh, int q_f32, const void* ck,
-                        const void* cv, const void* rows, const void* q_pos,
-                        void* out, int B, int T_len, int H, int Dh, int L,
-                        int num_rows, float scale, int dtype, void* stream) {
+                        long long q_sh, int q_dtype, const void* ck,
+                        const void* cv, const void* ks, const void* vs,
+                        const void* rows, const void* q_pos, void* out, int B,
+                        int T_len, int H, int Dh, int L, int num_rows,
+                        float scale, int cache, void* stream) {
   (void)cudaGetLastError();  // report this launch's error, not an older one
   if (B <= 0 || T_len <= 0 || H <= 0 || L <= 0 || num_rows <= 0)
     return cudaErrorInvalidValue;
   if ((T_len + TQ - 1) / TQ > 65535) return cudaErrorInvalidValue;
-  const Args a{q, ck, cv, rows, q_pos, out, {q_sb, q_st, q_sh}, B, T_len, H,
-               L, num_rows, scale, static_cast<cudaStream_t>(stream)};
-  switch (dtype) {
-    case 0: return launch_q<float>(q_f32, Dh, a);
-    case 1: return launch_q<__nv_bfloat16>(q_f32, Dh, a);
-    case 2: return launch_q<__half>(q_f32, Dh, a);
+  const Args a{q, ck, cv, ks, vs, rows, q_pos, out, {q_sb, q_st, q_sh}, B,
+               T_len, H, L, num_rows, scale, static_cast<cudaStream_t>(stream)};
+  switch (cache) {
+    case 0: return launch_dense<float>(q_dtype, Dh, a);
+    case 1: return launch_dense<__nv_bfloat16>(q_dtype, Dh, a);
+    case 2: return launch_dense<__half>(q_dtype, Dh, a);
+    case 3: return launch_quant<Int8>(q_dtype, Dh, a);
+    case 4: return launch_quant<Int4>(q_dtype, Dh, a);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -4,24 +4,24 @@ replaces the TPU kernel `_paged_kernel` (deepspeed_tpu/kernels/paged.py:127).
 
 `paged_attention_reference` is op for op the JAX
 `paged_attention_reference` (paged.py:78), the expression the serving
-block always ran: gather the slot's cache rows, fp32 scores scaled by
-Dh**-0.5, a `where(q_pos >= k_idx, s, NEG_INF)` select, softmax, probs
-cast to the cache dtype, then the PV product; the output is in the
-cache dtype.
+block always ran: gather the slot's cache rows (dequantized to fp32 when
+the cache is int8/int4), fp32 scores scaled by Dh**-0.5, a
+`where(q_pos >= k_idx, s, NEG_INF)` select, softmax, probs cast to the
+value dtype, then the PV product; the output is in the cache dtype (fp32
+for a quantized cache).
 
 `paged_attention_cuda` launches the kernel.  It takes the same
-arguments and serves decode (T = 1) and prefill (T = prefill_chunk)
-alike, at head_dim 64 and 128, with the cache in fp32, bf16 or fp16.
-The kernel reads q where it lies (the strided view of the fused QKV
-output, in fp32 or the cache dtype) and the int64 rows and positions the
-serving programs build once per step, so on the serving path a call
-launches the kernel and no other device work.  Its probabilities stay
-fp32 into the PV product, so against the reference it agrees to fp32
-rounding on an fp32 cache, and on a bf16 cache to within the bound of
+arguments and serves decode (T = 1), verify (T = draft_len + 1) and
+prefill (T = prefill_chunk) alike, at head_dim 64 and 128, with the cache
+in fp32, bf16 or fp16, or as (payload, fp16 scales) pairs of int8 or
+int4 codes (`runtime/comm/quant.py` `quantize_rows`), dequantized in the
+kernel's gather.  The kernel reads q where it lies (the strided view of
+the fused QKV output) and the int64 rows and positions the serving
+programs build once per step, so on the serving path a call launches the
+kernel and no other device work.  Its probabilities stay fp32 into the PV
+product, so against the reference it agrees to fp32 rounding on an fp32
+or quantized cache, and on a bf16 cache to within the bound of
 `bf16_tolerance`.
-
-Only the dense cache is ported; the int8/int4 branches of the TPU kernel
-come with the quantized-KV slice.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ import ctypes
 import torch
 
 from ..models.generation import NEG_INF
+from ..runtime.comm.quant import dequantize_rows, qmax
 
 # kernel launches since the last reset (the main path's proof of use)
 LAUNCHES = 0
@@ -39,24 +40,29 @@ HEAD_DIMS = (64, 128)
 # the kernel tiles query rows 8 to a thread block on grid.y (<= 65535)
 MAX_Q_LEN = 65535 * 8
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the kernel's cache codes past the dense dtypes, and the payload dtypes
+_QUANT_CODES = {"int8": 3, "int4": 4}
+_PAYLOAD_DTYPES = {"int8": torch.int8, "int4": torch.uint8}
 # unit roundoff (half an ulp, relative) of the narrow cache dtypes
 _UNIT_ROUNDOFF = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
 
 
 def kv_read(c, rows, kv_mode: str = "dense"):
-    """Gather cache rows `rows` [B, L] -> [B, L, H, Dh] at the cache
-    dtype.  Dense only in this slice."""
-    if kv_mode != "dense":
-        raise NotImplementedError(
-            f"kv_mode {kv_mode!r}: quantized KV is not ported yet (ROADMAP: "
-            f"the quantized-KV and speculative slice)")
-    return c[rows]
+    """Gather cache rows `rows` [B, L] -> [B, L, H, Dh].  Dense reads come
+    back at the cache dtype; a quantized cache ((payload, scales) pairs)
+    dequantizes the gathered rows to fp32."""
+    if kv_mode == "dense":
+        return c[rows]
+    qmax(kv_mode)  # raises on an unknown mode
+    payload, scales = c
+    return dequantize_rows(payload[rows], scales[rows], kv_mode)
 
 
 def paged_attention_reference(q, ck, cv, rows, q_pos, *,
                               kv_mode: str = "dense", block_size: int = 0):
     """q [B, T, H, Dh], caches addressed by flat rows [B, L], q_pos
-    [B, T] absolute positions -> attn [B, T, H, Dh] at the cache dtype."""
+    [B, T] absolute positions -> attn [B, T, H, Dh] at the cache dtype
+    (fp32 for a quantized cache)."""
     del block_size  # kernel tiling knob; the gather needs only rows
     Dh = q.shape[-1]
     keys = kv_read(ck, rows, kv_mode)      # [B, L, H, Dh]
@@ -95,7 +101,7 @@ def _lib():
         # without argtypes ctypes passes every int as a 32-bit C int and
         # cuts the pointers
         fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3 +
-                       [ctypes.c_int] + [ctypes.c_void_p] * 5 +
+                       [ctypes.c_int] + [ctypes.c_void_p] * 7 +
                        [ctypes.c_int] * 6 +
                        [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -112,6 +118,37 @@ def _check(cond, msg):
         raise ValueError(f"paged attention kernel: {msg()}")
 
 
+def _cache_parts(ck, cv, kv_mode, H, Dh):
+    """-> (K payload, V payload, K scales, V scales, cache code, out
+    dtype), checked against what the kernel takes."""
+    if kv_mode == "dense":
+        _check(ck.dtype in _DTYPE_CODES and cv.dtype == ck.dtype,
+               lambda: f"cache dtypes {ck.dtype}/{cv.dtype}; want one of "
+               f"{sorted(map(str, _DTYPE_CODES))}, equal for K and V")
+        _check(ck.dim() == 3 and ck.shape == cv.shape and
+               ck.shape[1:] == (H, Dh),
+               lambda: f"caches {tuple(ck.shape)}/{tuple(cv.shape)}, want "
+               f"[rows, {H}, {Dh}]")
+        return ck, cv, None, None, _DTYPE_CODES[ck.dtype], ck.dtype
+    _check(kv_mode in _QUANT_CODES,
+           lambda: f"kv_mode {kv_mode!r}; want 'dense' or one of "
+           f"{sorted(_QUANT_CODES)}")
+    (pk, sk), (pv, sv) = ck, cv
+    width = Dh if kv_mode == "int8" else Dh // 2
+    pdt = _PAYLOAD_DTYPES[kv_mode]
+    _check(pk.dtype == pdt and pv.dtype == pdt and
+           pk.shape == pv.shape == (pk.shape[0], H, width),
+           lambda: f"{kv_mode} payloads {pk.dtype} {tuple(pk.shape)} / "
+           f"{pv.dtype} {tuple(pv.shape)}, want {pdt} [rows, {H}, {width}]")
+    _check(sk.dtype == torch.float16 and sv.dtype == torch.float16 and
+           sk.shape == sv.shape == (pk.shape[0], H),
+           lambda: f"scales {sk.dtype} {tuple(sk.shape)} / {sv.dtype} "
+           f"{tuple(sv.shape)}, want fp16 [{pk.shape[0]}, {H}]")
+    _check(sk.is_contiguous() and sv.is_contiguous(),
+           lambda: "scales must be contiguous")
+    return pk, pv, sk, sv, _QUANT_CODES[kv_mode], torch.float32
+
+
 def paged_attention_cuda(q, ck, cv, rows, q_pos, *, kv_mode: str = "dense",
                          block_size: int):
     """Launch the Hopper kernel; same contract as the reference.  Raises
@@ -124,50 +161,49 @@ def paged_attention_cuda(q, ck, cv, rows, q_pos, *, kv_mode: str = "dense",
         raise ValueError(
             f"paged attention kernel needs rows ([{B}, {L}]) to cover "
             f"whole cache blocks of {bs}")
-    if kv_mode != "dense":
-        raise NotImplementedError(
-            f"kv_mode {kv_mode!r}: the kernel's quantized branches are not "
-            f"ported yet (ROADMAP: the quantized-KV and speculative slice)")
-    for name, t in (("q", q), ("ck", ck), ("cv", cv), ("rows", rows),
-                    ("q_pos", q_pos)):
+    _check(Dh in HEAD_DIMS, lambda: f"head_dim {Dh} not in {HEAD_DIMS}")
+    pk, pv, sk, sv, code, out_dtype = _cache_parts(ck, cv, kv_mode, H, Dh)
+    tensors = [("q", q), ("ck", pk), ("cv", pv), ("rows", rows),
+               ("q_pos", q_pos)]
+    if sk is not None:
+        tensors += [("k scales", sk), ("v scales", sv)]
+    for name, t in tensors:
         _check(t.is_cuda,
                lambda: f"{name} is on {t.device}, not a CUDA device")
         _check(t.device == q.device,
                lambda: f"{name} is on {t.device}, q on {q.device}")
-    _check(ck.dtype in _DTYPE_CODES and cv.dtype == ck.dtype,
-           lambda: f"cache dtypes {ck.dtype}/{cv.dtype}; want one of "
-           f"{sorted(map(str, _DTYPE_CODES))}, equal for K and V")
-    _check(Dh in HEAD_DIMS, lambda: f"head_dim {Dh} not in {HEAD_DIMS}")
     _check(1 <= T <= MAX_Q_LEN,
            lambda: f"q_len {T} outside [1, {MAX_Q_LEN}]")
-    _check(ck.dim() == 3 and ck.shape == cv.shape and
-           ck.shape[1] == H and ck.shape[2] == Dh,
-           lambda: f"caches {tuple(ck.shape)}/{tuple(cv.shape)}, want "
-           f"[rows, {H}, {Dh}]")
-    _check(ck.shape[0] % bs == 0 and ck.shape[0] >= bs,
-           lambda: f"cache rows {ck.shape[0]} not whole blocks of {bs}")
+    _check(pk.shape[0] % bs == 0 and pk.shape[0] >= bs,
+           lambda: f"cache rows {pk.shape[0]} not whole blocks of {bs}")
     _check(q_pos.shape == (B, T) and rows.shape[0] == B,
            lambda: f"q_pos {tuple(q_pos.shape)} / rows {tuple(rows.shape)} "
            f"do not match q [{B}, {T}, ...]")
-    _check(ck.is_contiguous() and cv.is_contiguous(),
+    _check(pk.is_contiguous() and pv.is_contiguous(),
            lambda: "caches must be contiguous")
-    _check(ck.data_ptr() % 16 == 0 and cv.data_ptr() % 16 == 0,
+    _check(pk.data_ptr() % 16 == 0 and pv.data_ptr() % 16 == 0,
            lambda: "cache storage must be 16-byte aligned (cp.async)")
-    # the serving programs pass q as a view of the QKV output in the cache
-    # dtype, int64 rows and positions: none of these copies runs there
-    if q.dtype not in (torch.float32, ck.dtype):
+    # the serving programs pass q as a view of the QKV output in the model
+    # dtype (a dense cache's own), int64 rows and positions: none of these
+    # copies runs there
+    if kv_mode == "dense":
+        if q.dtype not in (torch.float32, pk.dtype):
+            q = q.float()
+    elif q.dtype not in _DTYPE_CODES:
         q = q.float()
     if q.stride(-1) != 1:
         q = q.contiguous()
     rows = rows.to(torch.int64).contiguous()
     q_pos = q_pos.to(torch.int64).contiguous()
-    out = torch.empty((B, T, H, Dh), dtype=ck.dtype, device=q.device)
+    out = torch.empty((B, T, H, Dh), dtype=out_dtype, device=q.device)
     lib = _lib()
     err = lib.paged_attention_fwd(
         q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
-        int(q.dtype == torch.float32), ck.data_ptr(), cv.data_ptr(),
-        rows.data_ptr(), q_pos.data_ptr(), out.data_ptr(), B, T, H, Dh, L,
-        ck.shape[0], ctypes.c_float(Dh ** -0.5), _DTYPE_CODES[ck.dtype],
+        _DTYPE_CODES[q.dtype], pk.data_ptr(), pv.data_ptr(),
+        None if sk is None else sk.data_ptr(),
+        None if sv is None else sv.data_ptr(), rows.data_ptr(),
+        q_pos.data_ptr(), out.data_ptr(), B, T, H, Dh, L, pk.shape[0],
+        ctypes.c_float(Dh ** -0.5), code,
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(

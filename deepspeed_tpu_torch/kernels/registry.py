@@ -91,9 +91,53 @@ class FlashAttentionDkvOp(KernelOp):
         return _dkv_plain(*args, **kwargs)
 
 
+class FusedXentFwdOp(KernelOp):
+    """Fused LM-head CE forward -> (lse, label logit) (kernels/fused_xent.py)."""
+
+    NAME = "fused_xent_fwd"
+
+    def kernel(self, *args, **kwargs):
+        from . import fused_xent
+        return fused_xent.fused_xent_fwd_cuda(*args, **kwargs)
+
+    def plain(self, *args, **kwargs):
+        from ..ops.transformer.fused_xent import _fwd_plain
+        return _fwd_plain(*args, **kwargs)
+
+
+class FusedXentDxOp(KernelOp):
+    """Fused LM-head CE dx (kernels/fused_xent.py)."""
+
+    NAME = "fused_xent_dx"
+
+    def kernel(self, *args, **kwargs):
+        from . import fused_xent
+        return fused_xent.fused_xent_dx_cuda(*args, **kwargs)
+
+    def plain(self, *args, **kwargs):
+        from ..ops.transformer.fused_xent import _dx_plain
+        return _dx_plain(*args, **kwargs)
+
+
+class FusedXentDwOp(KernelOp):
+    """Fused LM-head CE dW (kernels/fused_xent.py)."""
+
+    NAME = "fused_xent_dw"
+
+    def kernel(self, *args, **kwargs):
+        from . import fused_xent
+        return fused_xent.fused_xent_dw_cuda(*args, **kwargs)
+
+    def plain(self, *args, **kwargs):
+        from ..ops.transformer.fused_xent import _dw_plain
+        return _dw_plain(*args, **kwargs)
+
+
 KERNEL_OPS: Dict[str, KernelOp] = {
     op.NAME: op for op in (PagedAttentionOp(), FlashAttentionFwdOp(),
-                           FlashAttentionDqOp(), FlashAttentionDkvOp())}
+                           FlashAttentionDqOp(), FlashAttentionDkvOp(),
+                           FusedXentFwdOp(), FusedXentDxOp(),
+                           FusedXentDwOp())}
 
 
 def get_kernel(name: str) -> KernelOp:

@@ -17,7 +17,9 @@ distribution, not bit for bit.
 
 Training (gpt.py:218-619): `gpt_block` (the dense branch: no ulysses,
 ring or MoE), `_trunk`, `GPT.apply` and `GPT.loss`, with the chunked,
-checkpointed cross-entropy `_softmax_xent_from_hidden`.  The functions
+checkpointed cross-entropy `_softmax_xent_from_hidden` (with
+`loss_impl="pallas"`, the fused CE of `ops/transformer/fused_xent.py`,
+kernels #4-#6 on the card).  The functions
 read the module's parameters, so the engine runs them through
 `torch.func.functional_call` on a compute-dtype replica of its fp32
 masters.  Dropout seeds are drawn from an explicit `torch.Generator`
@@ -60,7 +62,7 @@ class GPTConfig:
     tie_embeddings: bool = True
     loss_chunks: int = 0             # CE chunking: 0 auto, 1 off, n chunks
     loss_impl: str = "auto"          # auto/xla: chunked CE; pallas: the
-                                     # fused LM-head CE kernels (not ported)
+                                     # fused LM-head CE kernels (#4-#6)
     remat: bool = False              # per-block rematerialisation
     attn_impl: str = "auto"          # auto|pallas|xla (ops/transformer)
     flash_block_q: int = 0           # 0 -> kernel default
@@ -185,7 +187,11 @@ def _softmax_xent_from_hidden(x, w, labels, valid, n_chunks=0,
     so backward recomputes each chunk's logits.
 
     n_chunks: 0 = auto (only past 4 GiB of fp32 logits, ~2 GiB a chunk),
-    1 = one projection, n = a count, raised to a divisor of N."""
+    1 = one projection, n = a count, raised to a divisor of N.
+
+    impl="pallas" (and no bias) takes the fused CE of
+    `ops/transformer/fused_xent.py` (kernels #4-#6 on the card), which
+    never writes the logits, where block divisors of N and V exist."""
     N, D = x.shape
     V = w.shape[-1]
     if impl == "pallas" and bias is not None:
@@ -193,11 +199,20 @@ def _softmax_xent_from_hidden(x, w, labels, valid, n_chunks=0,
                        "decoder bias; using the plain path")
         impl = "xla"
     if impl == "pallas":
-        raise NotImplementedError(
-            "loss_impl='pallas' runs the fused LM-head cross-entropy "
-            "kernels (#4-#6, deepspeed_tpu/ops/transformer/fused_xent.py), "
-            "which are not ported yet (ROADMAP queue 2); use "
-            "loss_impl='auto'")
+        # the JAX package refuses a vocab-parallel mesh here (gpt.py:371);
+        # the port runs on one device (a mesh > 1 raises in the config),
+        # so there is no sharded head to refuse
+        from ..ops.transformer.fused_xent import fused_softmax_xent_sum
+
+        # block sizes must divide the shapes; vocab 50304 = 393*128 takes
+        # 384, the padded-to-128 GPT-2 family always has a divisor
+        br = next((b for b in (256, 128) if N % b == 0), None)
+        bv = next((b for b in (512, 448, 384, 256, 128) if V % b == 0),
+                  None)
+        if br and bv:
+            return fused_softmax_xent_sum(x, w, labels, valid, br, bv)
+        logger.warning(f"loss_impl='pallas': shapes N={N}, V={V} have no "
+                       f"lane-aligned block divisor; using the plain path")
 
     def project(rows):
         out = rows.float() @ w.float()

@@ -4,8 +4,17 @@ deepspeed_tpu/serving/engine.py.
 One `ServeEngine` owns a `PagedKVCache` (block pool + free list), a
 `Scheduler` (admission + slots) and the prefill/decode programs of
 `programs.py`.  `step()` is the whole serving loop body — admit, prefill
-one chunk round, decode one token for every running slot — and `run()`
-/ `generate()` drive it.
+one chunk round, decode one token for every running slot (or, with
+`draft_len > 0`, verify a drafted run of them) — and `run()` /
+`generate()` drive it.
+
+Quantized KV (`kv_dtype="int8" | "int4"`) stores the cache's rows as
+codes plus one fp16 scale per row and head; the paged-attention kernel
+dequantizes them in its gather.  Speculative decoding (`draft_len > 0`)
+drafts up to `draft_len` tokens per running request from its own context
+(the n-gram self-drafter `_propose_draft`) and scores them in one verify
+pass; the emitted stream is token for token the non-speculative one at
+the same kv_dtype.
 
 Prefix caching and pinned sessions: admission aliases the request's
 already-cached full prompt blocks so prefill starts at the first
@@ -19,11 +28,14 @@ in-flight batch in state "error" with its blocks reclaimed
 
 Counters: `serve.requests`, `serve.tokens`, `serve.decode_steps`,
 `serve.prefill_chunks`, `serve.ttft_ms` (µs in the bytes slot),
-`serve.shed`, and the cache's `kv.*` family.
+`serve.shed`, `serve.draft_tokens` and `serve.accepted_tokens` (calls),
+`kv.dequant_ms` (µs in the bytes slot: the host time of each decode or
+verify dispatch against a quantized cache), and the cache's `kv.*`
+family.
 
-Not ported in this slice: speculative decoding (`draft_len > 0`),
-quantized weights and quantized KV (NotImplementedError), fault points,
-tracing, the watchdog, `ServeWorker` and the fleet router.
+Not ported yet: quantized weights (NotImplementedError), fault points,
+tracing and SLO telemetry, the watchdog, `ServeWorker` and the fleet
+router.
 """
 
 from __future__ import annotations
@@ -56,9 +68,11 @@ class ServeConfig:
     max_seq_len: Optional[int] = None  # per-request cap; default model's
     admission: str = "continuous"     # "continuous" | "static"
     max_prefill_chunks_per_step: int = 1
-    quantized_weights: Any = False    # False only in this slice
-    kv_dtype: Any = None              # None (param dtype) | "bf16" | ...
-    draft_len: int = 0                # 0 only in this slice
+    quantized_weights: Any = False    # False only (qwZ is not ported)
+    kv_dtype: Any = None              # None (param dtype) | "bf16" |
+    #                                   "int8" | "int4" | a torch dtype
+    draft_len: int = 0                # speculative candidates per step
+    spec_ngram: int = 3               # suffix n-gram the drafter matches
     prefix_cache: bool = True         # block-level prefix sharing
     prefix_min_match_blocks: int = 1  # shortest chain worth aliasing
     session_ttl_s: float = 120.0      # pinned-session residency window
@@ -94,11 +108,9 @@ class ServeConfig:
         if int(self.draft_len) < 0:
             raise ValueError(
                 f"serving draft_len must be >= 0, got {self.draft_len}")
-        if int(self.draft_len) > 0:
-            raise NotImplementedError(
-                f"serving draft_len={self.draft_len}: speculative decoding "
-                f"is not ported yet (ROADMAP: the quantized-KV and "
-                f"speculative slice)")
+        if int(self.spec_ngram) < 1:
+            raise ValueError(
+                f"serving spec_ngram must be >= 1, got {self.spec_ngram}")
         if int(self.prefix_min_match_blocks) < 1:
             raise ValueError(
                 f"serving prefix_min_match_blocks must be >= 1, got "
@@ -162,7 +174,8 @@ class ServeEngine:
             min_match_blocks=c.prefix_min_match_blocks,
             prefix_salt=prefix_salt)
         self.scheduler = Scheduler(self.kv, c.max_batch,
-                                   admission=c.admission, clock=clock)
+                                   admission=c.admission, clock=clock,
+                                   draft_len=int(c.draft_len))
         # resident sessions (sid -> SessionPin), insertion-ordered so
         # pressure release walks oldest-pinned first
         self._sessions: "dict[Any, SessionPin]" = {}
@@ -172,7 +185,9 @@ class ServeEngine:
         self.schedule = ServeSchedule(
             max_batch=c.max_batch, prefill_chunk=c.prefill_chunk,
             block_size=c.block_size, num_blocks=c.num_blocks,
-            table_width=table_width)
+            table_width=table_width,
+            kv_dtype=(self.kv.quant_wire or "dense"),
+            draft_len=int(c.draft_len))
         logger.info(f"serving engine up: {self.schedule.describe()}; "
                     f"{self.kv.describe()}")
         # packed decode-batch state (one row per slot), host-side
@@ -411,10 +426,15 @@ class ServeEngine:
         self._seeds[slot] = req.seed
 
     def _decode_step(self, running: List[Request]) -> None:
+        if int(self.config.draft_len) > 0:
+            self._verify_step(running)
+            return
+        t0 = time.perf_counter()
         toks = programs.decode(
             self.model, self.kv.caches, self.schedule, self._tokens,
             self._positions, self._active, self._tables, self._temps,
             self._topks, self._seeds)
+        self._record_dequant(t0)
         now = self.clock()
         COUNTERS.add("serve.decode_steps", nbytes=len(running))
         for req in running:
@@ -431,6 +451,118 @@ class ServeEngine:
             else:
                 self._tokens[slot] = tok
                 self._positions[slot] += 1
+
+    def _record_dequant(self, t0: float) -> None:
+        """`kv.dequant_ms` (µs in the bytes slot): the host time of a
+        decode or verify dispatch against a quantized cache, to the
+        sampled tokens on the host — the dequant is fused into the
+        attention kernel, so the honest measurement is the whole
+        dispatch; a dense-KV run of the same traffic isolates it."""
+        if self.kv.quant_wire:
+            COUNTERS.add("kv.dequant_ms",
+                         nbytes=int((time.perf_counter() - t0) * 1e6))
+
+    # -- speculative decoding -----------------------------------------
+
+    def _propose_draft(self, req: Request) -> List[int]:
+        """Self-speculative n-gram draft, on the host, no extra model:
+        find the latest EARLIER occurrence of the request's last
+        `spec_ngram` tokens in its own prompt + output and propose the
+        continuation that followed it (else repeat the last token).
+        Clamped so drafts never run past max_new_tokens or the request's
+        allocated cache rows — verify writes candidate K/V at positions
+        P+1..P+k, and each of those rows must be a real block."""
+        c = self.config
+        P = int(self._positions[req.slot])
+        alloc_rows = len(self.kv.blocks_of(req.rid)) * self.kv.block_size
+        k = min(int(c.draft_len),
+                req.max_new_tokens - len(req.out) - 1,
+                alloc_rows - 1 - P)
+        if k <= 0:
+            return []
+        ctx = req.prompt + req.out
+        n = min(int(c.spec_ngram), len(ctx))
+        suffix = ctx[-n:]
+        # prefer the latest earlier match whose continuation is a full k
+        # tokens: once greedy output settles into a short cycle, the
+        # nearest match sits one cycle before the tail and its
+        # continuation is cut by the end of the context; an earlier match
+        # carries the same cycle with k tokens of runway.  If every match
+        # is cut, keep the longest continuation seen.
+        best: List[int] = []
+        for j in range(len(ctx) - n - 1, -1, -1):
+            if ctx[j:j + n] == suffix:
+                d = ctx[j + n:j + n + k]
+                if len(d) >= k:
+                    return [int(t) for t in d]
+                if len(d) > len(best):
+                    best = [int(t) for t in d]
+        if best:
+            return best
+        return [int(ctx[-1])] * k
+
+    def _verify_step(self, running: List[Request]) -> None:
+        """One speculative step for every running slot: propose up to
+        draft_len candidates, score all draft_len + 1 positions in one
+        verify pass, accept the longest prefix on which the drafts match
+        the target's own samples, and emit the target's sample after it
+        as the bonus (all matched) or correction token.  Verify samples
+        every position with the position-keyed rule of sequential decode,
+        so the emitted stream is the non-speculative engine's token for
+        token.  Rollback is a host-side rewind: rejected rows stay stale
+        in the cache at positions at or past the rewound front, and are
+        written again before any later query's mask reaches them."""
+        R = self.config.max_batch
+        k = int(self.config.draft_len)
+        drafts = np.zeros((R, k), np.int64)
+        n_draft = np.zeros((R,), np.int64)
+        for req in running:
+            d = self._propose_draft(req)
+            n_draft[req.slot] = len(d)
+            if d:
+                drafts[req.slot, :len(d)] = d
+                COUNTERS.add("serve.draft_tokens", calls=len(d))
+        tokens = np.concatenate([self._tokens[:, None], drafts], axis=1)
+        t0 = time.perf_counter()
+        toks = programs.verify(
+            self.model, self.kv.caches, self.schedule, tokens,
+            self._positions, n_draft, self._active, self._tables,
+            self._temps, self._topks, self._seeds)      # [R, draft_len + 1]
+        self._record_dequant(t0)
+        now = self.clock()
+        COUNTERS.add("serve.decode_steps", nbytes=len(running))
+        for req in running:
+            slot = req.slot
+            nd = int(n_draft[slot])
+            # accept while draft i matches the target's sample for the
+            # same position; the first sample past the matching prefix is
+            # the bonus (m == nd) or the correction
+            m = 0
+            while m < nd and int(drafts[slot, m]) == int(toks[slot, m]):
+                m += 1
+            emitted = 0
+            finished = False
+            for i in range(m + 1):
+                tok = int(toks[slot, i])
+                req.out.append(tok)
+                req.token_times.append(now)
+                req.cached_len += 1
+                emitted += 1
+                COUNTERS.add("serve.tokens")
+                if self._is_finished(req, tok):
+                    finished = True
+                    break
+            if emitted > 1:
+                # emitted - 1 draft tokens were accepted and used (the last
+                # emitted token is always the target's own)
+                COUNTERS.add("serve.accepted_tokens", calls=emitted - 1)
+            if finished:
+                self._finish(req)
+                self._active[slot] = False
+                self._tables[slot] = TRASH_BLOCK
+            else:
+                self._tokens[slot] = int(toks[slot, emitted - 1])
+                self._positions[slot] += emitted
 
     def _is_finished(self, req: Request, last_tok: int) -> bool:
         if req.eos_token is not None and last_tok == req.eos_token:

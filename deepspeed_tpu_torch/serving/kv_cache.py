@@ -1,6 +1,6 @@
 """Paged KV cache: fixed-size blocks, a refcounted free-list allocator,
 per-request block tables, and a block-level prefix cache — the port of
-deepspeed_tpu/serving/kv_cache.py (dense storage).
+deepspeed_tpu/serving/kv_cache.py (dense and int8/int4 storage).
 
 A request holds exactly the blocks its length needs and returns them the
 step it finishes; the programs address K/V through a per-request block
@@ -28,9 +28,15 @@ Block 0 is the reserved TRASH block: never handed out, pads every table,
 and takes the writes of inactive decode slots — its contents are never
 attended unmasked.
 
-Storage modes: fp32, bf16 and fp16.  The int8/int4 row codecs are not
-ported yet and raise NotImplementedError (ROADMAP: the quantized-KV and
-speculative slice).
+Storage modes: fp32, bf16 and fp16 dense, or int8/int4 quantized: each
+K/V entry becomes a (payload, scales) pair — int8 codes `[rows, H, Dh]`
+(int4: uint8 `[rows, H, Dh / 2]`, two codes a byte) plus one fp16 scale
+per (row, head) `[rows, H]`, written through `runtime/comm/quant.py`
+`quantize_rows` — zero-initialised, which dequantizes to exact zero like
+the dense cache.  The prefix-hash salt names the storage mode, so a
+dense block is never served to a quantized engine.
+
+The cache lives on `device`, the card unless "cpu" is asked for.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ import numpy as np
 import torch
 
 from ..monitor.counters import COUNTERS
+from ..utils.device import resolve_device
 
 TRASH_BLOCK = 0
 
@@ -59,20 +66,18 @@ _DTYPE_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
 
 
 def resolve_kv_dtype(dtype):
-    """Normalize a kv_dtype spec -> ("dense", torch dtype).  Accepts the
-    dense dtype names ("bf16", "float32", ...) or a torch dtype; the
-    quantized wires raise NotImplementedError."""
+    """Normalize a kv_dtype spec -> ("dense", torch dtype) or
+    ("int8" | "int4", None).  Accepts the quantized wire names, the dense
+    dtype names ("bf16", "float32", ...) or a torch dtype."""
     if isinstance(dtype, str):
         name = dtype.lower()
         if name in KV_QUANT_WIRES:
-            raise NotImplementedError(
-                f"kv_dtype {dtype!r}: quantized KV is not ported yet "
-                f"(ROADMAP: the quantized-KV and speculative slice)")
+            return name, None
         if name in _KV_DTYPE_ALIASES:
             return "dense", _KV_DTYPE_ALIASES[name]
         raise ValueError(
             f"kv_dtype {dtype!r} not understood; use one of "
-            f"{sorted(_KV_DTYPE_ALIASES)}")
+            f"{sorted(_KV_DTYPE_ALIASES)} or {KV_QUANT_WIRES}")
     if dtype not in _DTYPE_NAMES:
         raise ValueError(
             f"kv_dtype {dtype!r} not supported; use one of "
@@ -96,12 +101,12 @@ def kv_block_bytes(num_layers: int, num_heads: int, head_dim: int,
     """Device bytes ONE block costs across all layers (K and V).  The
     quantized sizes are the JAX package's (int8: head_dim payload bytes
     + a 2-byte scale per row-head; int4 halves the payload)."""
-    if isinstance(kv_dtype, str) and kv_dtype.lower() in KV_QUANT_WIRES:
-        payload = head_dim if kv_dtype.lower() == "int8" else head_dim // 2
-        per_row = num_heads * (payload + 2)
-    else:
-        _, dense = resolve_kv_dtype(kv_dtype)
+    mode, dense = resolve_kv_dtype(kv_dtype)
+    if mode == "dense":
         per_row = num_heads * head_dim * dense.itemsize
+    else:
+        payload = head_dim if mode == "int8" else head_dim // 2
+        per_row = num_heads * (payload + 2)
     return 2 * num_layers * block_size * per_row
 
 
@@ -109,13 +114,14 @@ class PagedKVCache:
     """Device block pool + host allocator for one serving engine.
 
     `caches` is a list of (k, v) per layer, each
-    `[num_blocks * block_size, H, Dh]` on `device`; the programs write
-    into them in place.  Owners are opaque hashable keys: request rids,
-    or `("session", sid, rid)` tuples for pins."""
+    `[num_blocks * block_size, H, Dh]` on `device` (a (payload, scales)
+    pair when quantized); the programs write into them in place.  Owners
+    are opaque hashable keys: request rids, or `("session", sid, rid)`
+    tuples for pins."""
 
     def __init__(self, num_layers: int, num_heads: int, head_dim: int,
                  num_blocks: int, block_size: int, table_width: int,
-                 dtype=torch.float32, device="cpu",
+                 dtype=torch.float32, device="cuda",
                  prefix_cache: bool = True, min_match_blocks: int = 1,
                  prefix_salt: str = ""):
         if num_blocks < 2:
@@ -136,8 +142,14 @@ class PagedKVCache:
         self.block_size = int(block_size)
         self.table_width = int(table_width)
         self.dtype = dtype
-        _, self.dense_dtype = resolve_kv_dtype(dtype)
-        self.device = torch.device(device)
+        mode, self.dense_dtype = resolve_kv_dtype(dtype)
+        # "int8"/"int4" when blocks are stored quantized, else None
+        self.quant_wire = mode if mode in KV_QUANT_WIRES else None
+        if self.quant_wire == "int4" and self.head_dim % 2:
+            raise ValueError(
+                f"int4 KV packs two codes per byte and needs an even "
+                f"head_dim, got {self.head_dim}")
+        self.device = resolve_device(device)
         self.caches = self._init_caches()
         # block 0 reserved as trash; LIFO free list so just-freed blocks
         # are reused at once
@@ -149,7 +161,7 @@ class PagedKVCache:
         # -- prefix cache state ---------------------------------------
         self.prefix_enabled = bool(prefix_cache)
         self.min_match_blocks = int(min_match_blocks)
-        mode_name = _DTYPE_NAMES[self.dense_dtype]
+        mode_name = self._mode_name()
         self._salt = hashlib.blake2b(
             f"{prefix_salt}|{mode_name}|{self.block_size}".encode(),
             digest_size=16).digest()
@@ -162,19 +174,40 @@ class PagedKVCache:
 
     # -- device state -------------------------------------------------
 
-    def _init_caches(self):
-        shape = (self.num_blocks * self.block_size, self.num_heads,
-                 self.head_dim)
+    def _mode_name(self) -> str:
+        """The storage mode as the JAX package names it (the salt and
+        `describe()`)."""
+        return self.quant_wire or _DTYPE_NAMES[self.dense_dtype]
 
-        def mk():
-            return torch.zeros(shape, dtype=self.dense_dtype,
-                               device=self.device)
+    def _init_caches(self):
+        rows = self.num_blocks * self.block_size
+        if self.quant_wire is None:
+            shape = (rows, self.num_heads, self.head_dim)
+
+            def mk():
+                return torch.zeros(shape, dtype=self.dense_dtype,
+                                   device=self.device)
+        else:
+            width = (self.head_dim if self.quant_wire == "int8"
+                     else self.head_dim // 2)
+            pdt = torch.int8 if self.quant_wire == "int8" else torch.uint8
+
+            def mk():
+                return (torch.zeros((rows, self.num_heads, width), dtype=pdt,
+                                    device=self.device),
+                        torch.zeros((rows, self.num_heads),
+                                    dtype=torch.float16, device=self.device))
 
         return [(mk(), mk()) for _ in range(self.num_layers)]
 
+    def tensors(self):
+        """Every device tensor of the pool (payloads and scales alike)."""
+        for kv in self.caches:
+            for c in kv:
+                yield from (c if isinstance(c, tuple) else (c,))
+
     def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size()
-                   for kv in self.caches for t in kv)
+        return sum(t.numel() * t.element_size() for t in self.tensors())
 
     def bytes_per_block(self) -> int:
         """Device bytes one block costs across all layers (K and V)."""
@@ -369,15 +402,14 @@ class PagedKVCache:
         return n
 
     def _cow_copy(self, src: int, dst: int) -> None:
-        """Device row copy of one block (every layer, K and V), in place
-        on the cache tensors — the copy-on-write of a write into a
-        live-shared block."""
+        """Device row copy of one block (every layer, K and V, payload
+        and scales), in place on the cache tensors — the copy-on-write of
+        a write into a live-shared block."""
         bs = self.block_size
         rows = torch.arange(bs, device=self.device)
         src_rows, dst_rows = rows + src * bs, rows + dst * bs
-        for kv in self.caches:
-            for t in kv:
-                t.index_copy_(0, dst_rows, t[src_rows])
+        for t in self.tensors():
+            t.index_copy_(0, dst_rows, t[src_rows])
         self.cow_copies += 1
         COUNTERS.add("kv.cow_copies", nbytes=self.bytes_per_block())
 
@@ -436,7 +468,7 @@ class PagedKVCache:
                 f"blocks={self.num_blocks} x {self.block_size} tok, "
                 f"table_width={self.table_width}, heads={self.num_heads}, "
                 f"head_dim={self.head_dim}, "
-                f"kv={_DTYPE_NAMES[self.dense_dtype]}, "
+                f"kv={self._mode_name()}, "
                 f"prefix_cache={'on' if self.prefix_enabled else 'off'}, "
                 f"device={self.device}, "
                 f"{self.nbytes() / (1 << 20):.2f} MiB)")

@@ -20,6 +20,7 @@ machine without JAX the `cuda` tests run alone:
 `python -m pytest --noconftest -m cuda tests/test_torch_paged.py`."""
 
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -153,10 +154,22 @@ def test_auto_on_cpu_runs_plain_version_and_counts_fallback():
 
 
 def test_quantized_kv_not_ported_yet():
+    """The quantized branches are ported: kv_read gathers (payload,
+    scales) rows and dequantizes them exactly as the row codec does, and
+    an unknown mode is refused."""
+    from deepspeed_tpu_torch.runtime.comm.quant import (dequantize_rows,
+                                                        quantize_rows)
+
     q, ck, cv, tables, q_pos, bs = _inputs(1, 64)
-    with pytest.raises(NotImplementedError, match="quantized"):
-        paged.kv_read(torch.from_numpy(ck), torch.zeros(1, 4).long(),
-                      "int8")
+    rows = rows_for_tables(torch.from_numpy(tables).long(), bs)
+    for wire in ("int8", "int4"):
+        pair = quantize_rows(torch.from_numpy(ck), wire)
+        got = paged.kv_read(pair, rows, wire)
+        want = dequantize_rows(pair[0], pair[1], wire)[rows]
+        assert got.dtype == torch.float32 and got.shape == rows.shape + (2, 64)
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="int2"):
+        paged.kv_read(torch.from_numpy(ck), rows, "int2")
 
 
 @pytest.fixture
@@ -290,3 +303,17 @@ def test_build_is_keyed_by_the_source_hash(monkeypatch, tmp_path):
     assert len(calls) == 1
     assert "arch=compute_90a,code=sm_90a" in calls[0]
     assert path == build.library_path("paged_attention.cu")
+
+
+def test_build_key_covers_the_shared_headers(monkeypatch, tmp_path):
+    """An edit to a header in csrc/ (which every source includes)
+    renames the library, so the next use rebuilds it."""
+    from deepspeed_tpu_torch.kernels import build
+
+    for name in ("paged_attention.cu", "common.cuh"):
+        shutil.copy(os.path.join(build.CSRC, name), tmp_path / name)
+    monkeypatch.setattr(build, "CSRC", str(tmp_path))
+    before = build.library_path("paged_attention.cu")
+    with open(tmp_path / "common.cuh", "a") as f:
+        f.write("// edited\n")
+    assert build.library_path("paged_attention.cu") != before

@@ -375,11 +375,16 @@ def test_config_validation_and_unported_options():
         ServeConfig(quantized_weights="fp8")
     with pytest.raises(NotImplementedError, match="qwZ"):
         ServeConfig(quantized_weights="int8")
-    with pytest.raises(NotImplementedError, match="speculative"):
-        ServeConfig(draft_len=2)
+    # speculative decoding and quantized KV are ported: they build
+    assert ServeConfig(draft_len=2).draft_len == 2
     for wire in ("int8", "int4"):
-        with pytest.raises(NotImplementedError, match="quantized KV"):
-            ServeConfig(kv_dtype=wire)
+        assert _engine(kv_dtype=wire).kv.quant_wire == wire
+    with pytest.raises(ValueError, match="draft_len"):
+        ServeConfig(draft_len=-1)
+    with pytest.raises(ValueError, match="spec_ngram"):
+        ServeConfig(spec_ngram=0)
+    with pytest.raises(ValueError, match="kv_dtype"):
+        ServeConfig(kv_dtype="fp8")
     with pytest.raises(ValueError, match="max_seq_len"):
         _engine(max_seq_len=128)
     eng = _engine()

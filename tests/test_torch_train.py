@@ -161,10 +161,27 @@ def test_remat_and_dropout_seeds_recompute_the_same_masks():
 
 
 def test_loss_impl_pallas_raises_not_quietly_plain():
-    model = GPT(gpt2_config("nano", loss_impl="pallas"), device="cpu")
-    x, y = _batch("nano", False)
-    with pytest.raises(NotImplementedError, match="#4-#6"):
-        model.loss((x, y))
+    """loss_impl="pallas" runs the fused CE (kernels #4-#6; their plain
+    versions on CPU tensors), not quietly the chunked plain CE: the three
+    fused ops are dispatched, once each, and the loss matches the auto
+    path's within fp32 order (atol 1e-5)."""
+    from deepspeed_tpu_torch.monitor.counters import COUNTERS
+
+    # N = 8 x 32 rows: a multiple of the 128/256 row blocks
+    toks = np.random.RandomState(4).randint(0, 256, (8, 33))
+    x, y = toks[:, :-1], toks[:, 1:]
+    losses = {}
+    for impl in ("pallas", "auto"):
+        model = GPT(gpt2_config("nano", loss_impl=impl), device="cpu",
+                    generator=torch.Generator().manual_seed(0))
+        snap = COUNTERS.snapshot()
+        loss = model.loss((x, y))
+        loss.backward()
+        d = COUNTERS.delta_since(snap)
+        losses[impl] = float(loss)
+        assert d.get("kernel.fallbacks", {"calls": 0})["calls"] == \
+            (3 if impl == "pallas" else 0), d
+    assert abs(losses["pallas"] - losses["auto"]) < 1e-5
 
 
 # -- the engine ---------------------------------------------------------------
