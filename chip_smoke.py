@@ -8,7 +8,7 @@ the CUDA toolkit.  It drives only the port — nothing of JAX or of
 `deepspeed_tpu` is imported — in these phases, each printing JSON lines;
 any failure raises and the script exits nonzero:
 
-1. build: compile the three kernel libraries from the sources in the
+1. build: compile the five kernel libraries from the sources in the
    checkout, one nvcc each, started together; print ptxas's lines.
 2. kernel: paged attention, the Hopper kernel against its plain PyTorch
    version on the same inputs on the card, at the serving shapes
@@ -26,20 +26,41 @@ any failure raises and the script exits nonzero:
    Dh=128.  Errors against the per-element bounds of
    `kernels/flash.py` `kernel_tolerances`; device times beside the
    bound, the plain version, and SDPA forward and forward+backward as a
-   yardstick the port never calls.
+   yardstick the port never calls.  Then the training shape on three
+   more draws and fp16 cases (Dh 128 with a key bias and dropout, from
+   fresh draws and from tests/test_torch_flash.py's inputs; the training
+   shape), each with its worst dQ element: both sides' values, the plain
+   version's fp32 value before rounding, the ulp, the bound with and
+   without dp's error term.
 4. xent: the fused LM-head cross-entropy kernels (forward, dx, dW)
    against their plain versions at the training shape (N=8192 rows,
    D=768, V=50304, bf16, a fifth of the rows invalid, the tied head's
    transposed view), in fp32 at N=1024 (the train-exact shape), fp16 at
-   N=2048 and at GPT-2 XL width D=1600 in bf16 and fp32; errors against
-   the per-element bounds of `kernels/fused_xent.py` `kernel_tolerances`;
-   device times beside the bound, the plain version and the forward's bf16 product
-   alone (`torch.matmul`, a yardstick the port never calls).
+   N=2048, at GPT-2 XL width D=1600 in bf16 and fp32, and at widths off
+   the 64-column tile and past 1600 (nano's D=48, 2048, 2560); errors
+   against the per-element bounds of `kernels/fused_xent.py`
+   `kernel_tolerances`; device times beside the bound, the plain version
+   and the forward's bf16 product alone (`torch.matmul`, a yardstick the
+   port never calls).
+4b. codec: the blockwise quantize and dequantize kernels (#11, #12)
+   bitwise against their plain versions on the codec's edge cases (fp32
+   subnormals, +-inf, NaN, an all-zero block, fp16 scale overflow and
+   underflow, ties, a ragged tail), int8 and int4, fp32 and bf16 input,
+   blocks 256 and 2.
+4c. moe-kernels: the MoE dispatch and combine kernels (#13, #14) against
+   their plain versions (dispatch bitwise, combine within
+   `moe/dispatch.py` `combine_tolerance`) at the training shape (B 4,
+   S 2048, E 64, C 32, D 768, bf16) at top-1 and top-2 and two small
+   cases; device times beside the bound, the plain version and, for the
+   dispatch, one `torch.index_select` (a yardstick the port never
+   calls).
 5. exact: GPT-2 XL width, 4 layers, fp32 — greedy serving through the
    kernel path against the port's `generate()` (plain attention).
 6. spec-exact: the same model, greedy speculative serving (draft_len 4)
    against non-speculative serving over int8 and int4 caches: identical
-   streams.
+   streams.  serve-qw-exact: the same width, serving from int8 and int4
+   blockwise weights against the port's `generate()` on
+   dequantize(quantize(w)).
 7. serve: GPT-2 XL (48 layers) in bf16 serving 8 requests through
    `ServeEngine`, half submitted mid-flight; the kernel's launches are
    counted from zero over this run and must equal
@@ -54,12 +75,23 @@ any failure raises and the script exits nonzero:
    replayed under `torch.profiler` (device time by kernel, idle share);
    the same traffic at draft_len 0; the host time of one layer's
    quantize-on-write against a dense scatter.
+8b. serve-qw: the same model from int8 blockwise weights
+   (`quantized_weights="int8"`): #11 and #12 bitwise against their plain
+   versions on every matrix leaf (int8 and int4) and timed per leaf
+   shape; phase 7's schedule and prompt lengths (fresh tokens); the
+   build's quantize launches (one a leaf) and the run's dequantize
+   launches (leaves x forwards) counted from zero; tokens/s, TTFT, decode
+   step, resident weight bytes; the traffic replayed under
+   `torch.profiler` (idle share, #12's device time a forward).
 9. train-exact: GPT-2 small width (d768, 12 heads), 2 layers, seq 256,
    fp32, TF32 off: 5 engine steps through the flash kernels, then the
    same steps from the same weights on the dense plain attention path;
    per-step losses and final weights agree.  train-exact-pallas: the
    same with the fused CE kernels (`loss_impl="pallas"`) against the
-   chunked plain CE.
+   chunked plain CE.  moe-exact: the same width with 64 experts on
+   layer 1 of 2, `comm.moe.dispatch="sorted"`: the MoE kernels against
+   their plain versions (loss within 1e-4 a step, weights within
+   2 lr steps) and against the dense one-hot engine (loss within 1e-5).
 10. train: GPT-2 small (12 layers, seq 1024, micro 8, bf16, Adam,
    WarmupLR, clipping 1.0) through `deepspeed_tpu_torch.initialize` on a
    learnable stride stream: warm-up steps, then timed steps with the
@@ -67,7 +99,12 @@ any failure raises and the script exits nonzero:
    tokens/s, step ms, peak memory; finite, falling losses; then 2 more
    steps under `torch.profiler`: device time by kernel class and the
    device's idle share of the timed steps.  train-pallas: the same with
-   `loss_impl="pallas"` (each fused CE kernel once a step).
+   `loss_impl="pallas"` (each fused CE kernel once a step).  train-moe:
+   DeepSpeed-MoE's 125M+MoE-64 recipe (12 layers, d768, 64 experts on
+   every other layer, top-1, capacity factor 1.0), seq 2048, micro 4,
+   bf16, the fused CE, sorted dispatch: #13 and #14 launched twice a step
+   per MoE layer (forward, and each other's gradient in the backward),
+   tokens/s, step, peak memory, dropped share, then its profile.
 11. kernels: one line per kernel with its launches on its main path,
    its error against the plain version, and its times beside its bound.
 
@@ -366,6 +403,8 @@ def kernel_class(name):
     n = name.lower()
     if "paged_attention" in n:
         return "paged_attention"
+    if "quantize_kernel" in n:       # kernels #11 and #12
+        return "quant_codec"
     if any(k in n for k in ("gemm", "nvjet", "cutlass", "xmma")):
         return "gemm"
     if "memcpy" in n or "memset" in n:
@@ -728,15 +767,72 @@ def phase_serve_spec(model):
 # -- phase 3: flash attention kernels -------------------------------------------
 
 FLASH_TOL = ("per element: 2u|plain| + (2u, forward and dQ only, + 1e-5) M "
-             "+ 1e-6, u the dtype's unit roundoff (0 fp32, 2^-8 bf16), M "
-             "the output's absolute-value product (kernels/flash.py "
-             "kernel_tolerances)")
+             "+ (dQ, dK) 1e-5 scale (P_d E)|K| or |Q| + 1e-6, u the dtype's "
+             "unit roundoff (0 fp32, 2^-8 bf16, 2^-11 fp16), M the output's "
+             "absolute-value product, E = |dO|.|V|^T the absolute-value sum "
+             "of dp (kernels/flash.py kernel_tolerances)")
+
+
+def dq_worst(a, kb, delta, ref, got, tol, opts):
+    """The dQ element furthest into its bound, and what makes it: its
+    index, both sides' outputs, the plain version's fp32 value before its
+    final rounding (the plain arithmetic for that one row, dense over the
+    keys), the dtype's ulp at that magnitude, the bound without and with
+    dp's error term, and the row's heaviest keys (p, dp·mask, delta, ds)."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.transformer.dropout import _keep_mask
+    from deepspeed_tpu_torch.ops.transformer.flash_attention import NEG_INF
+
+    ratio = (got.float() - ref.float()).abs() / tol
+    bh, row, col = (int(i) for i in np.unravel_index(
+        int(ratio.argmax()), ratio.shape))
+    q, k, v, do = (t[bh].float() for t in a)
+    scale, Sk = opts["scale"], k.shape[0]
+    s = (q[row] * scale) @ k.t()
+    if opts["causal"]:
+        s = torch.where(torch.arange(Sk, device=s.device) <= row, s, NEG_INF)
+    if kb is not None:
+        s = s + kb[bh // opts["n_heads"]]
+    lse = torch.logsumexp(s, 0)
+    p = torch.exp(s - lse)
+    if kb is not None:
+        p = torch.where(s <= NEG_INF * 0.5, 0.0, p)
+    mask = torch.ones_like(p)
+    if opts["rate"] > 0.0:
+        bhs = torch.tensor([bh + opts["bh_offset"]], device=s.device)
+        mask = _keep_mask(opts["seed"], bhs, row, 0, 1, Sk, opts["rate"],
+                          s.device)[0, 0]
+    dp = (do[row] @ v.t()) * mask
+    ds = p * (dp - delta[bh, row])
+    pre = float(scale * (ds.to(a[1].dtype).float() @ k[:, col]))
+    e = do[row].abs() @ v.abs().t()
+    u = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -8,
+         torch.float16: 2.0 ** -11}[a[0].dtype]
+    term = float((1 + 2 * u) * scale * 1e-5 * ((p * mask * e) @
+                                               k[:, col].abs()))
+    r = float(ref[bh, row, col].float())
+    ulp = float(torch.finfo(a[0].dtype).eps) * 2.0 ** np.floor(
+        np.log2(max(abs(r), float(torch.finfo(a[0].dtype).tiny))))
+    t = float(tol[bh, row, col])
+    err = abs(float(got[bh, row, col].float()) - r)
+    top = torch.argsort(p, descending=True)[:4].tolist()
+    return {"index": [bh, row, col], "plain": r,
+            "kernel": float(got[bh, row, col].float()),
+            "plain_fp32_before_rounding": pre, "ulp_at_plain": ulp,
+            "abs_err": err, "tol": t, "err_over_tol": err / t,
+            "err_over_tol_without_dp_term": err / max(t - term, 1e-30),
+            "dp_term": term, "live_keys": int((p > 0).sum()),
+            "delta": float(delta[bh, row]),
+            "heaviest_keys": [{"k": j, "p": float(p[j]), "dp": float(dp[j]),
+                               "ds": float(ds[j])} for j in top]}
 
 
 def flash_case(name, B, S, H, D, dtype, causal, bias, rate, bh_offset, gen,
-               flush, timed):
+               flush, timed, inputs=None):
     """The three flash kernels against their plain versions on one set of
-    [B*H, S, D] inputs; device times where `timed`."""
+    [B*H, S, D] inputs (drawn from `gen`, or `inputs` = (q, k, v, dO, key
+    bias)); device times where `timed`."""
     import torch
     import torch.nn.functional as F
 
@@ -744,13 +840,16 @@ def flash_case(name, B, S, H, D, dtype, causal, bias, rate, bh_offset, gen,
 
     dev = "cuda"
     BH = B * H
-    a = [torch.randn(BH, S, D, device=dev, generator=gen).to(dtype)
-         for _ in range(4)]                      # q, k, v, dO
-    kb = None
-    if bias:
-        keep = torch.rand(B, S, device=dev, generator=gen) > 0.25
-        kb = torch.where(keep, 0.0, -1e30).float()
-        kb[-1, S // 2:] = -1e30                  # a batch half masked
+    if inputs is not None:
+        a, kb = [t.to(dev, dtype) for t in inputs[:4]], inputs[4]
+    else:
+        a = [torch.randn(BH, S, D, device=dev, generator=gen).to(dtype)
+             for _ in range(4)]                  # q, k, v, dO
+        kb = None
+        if bias:
+            keep = torch.rand(B, S, device=dev, generator=gen) > 0.25
+            kb = torch.where(keep, 0.0, -1e30).float()
+            kb[-1, S // 2:] = -1e30              # a batch half masked
     opts = dict(causal=causal, scale=D ** -0.5, block_q=128, block_k=128,
                 rate=rate, seed=1234, bh_offset=bh_offset, n_heads=H)
 
@@ -785,9 +884,14 @@ def flash_case(name, B, S, H, D, dtype, causal, bias, rate, bh_offset, gen,
         diff = (got[k].float() - ref[k].float()).abs()
         errs[k] = diff.max().item()
         worst[k] = (diff / tol).max().item()
-        if not worst[k] <= 1.0:
-            raise AssertionError(f"flash {name} {k}: kernel vs plain max abs "
-                                 f"err {errs[k]}, {worst[k]} x the bound")
+    dq_report = dq_worst(a, kb, delta, ref["dq"], got["dq"], tols["dq"],
+                         opts)
+    bad = {k: r for k, r in worst.items() if not r <= 1.0}
+    if bad:
+        emit({"phase": "flash-failure", "case": name, "over_tol": bad,
+              "dq_worst": dq_report})
+        raise AssertionError(f"flash {name}: kernel vs plain beyond the "
+                             f"bound {bad}, max abs err {errs}")
     lse_err = (got_lse - lse).abs().max().item()
     if not lse_err <= 1e-5 * (1 + lse.abs().max().item()):
         raise AssertionError(f"flash {name}: lse differs by {lse_err}")
@@ -810,7 +914,7 @@ def flash_case(name, B, S, H, D, dtype, causal, bias, rate, bh_offset, gen,
            "dtype": dname, "causal": causal, "key_bias": bias,
            "dropout": rate, "bh_offset": bh_offset, "tol": FLASH_TOL,
            "max_abs_err": errs, "max_err_over_tol": worst,
-           "lse_max_abs_err": lse_err, "kernels": {}}
+           "dq_worst": dq_report, "lse_max_abs_err": lse_err, "kernels": {}}
     fns = {"flash_attention_fwd": fwd, "flash_attention_dq": dq,
            "flash_attention_dkv": dkv}
     for kname, (flops, nbytes) in work.items():
@@ -869,6 +973,113 @@ def phase_flash(gen, flush):
              flash_case("dh128-bfloat16", 2, 512, 4, 128, bf16, True, False,
                         0.0, 0, gen, flush, False)]
     return cases
+
+
+def phase_flash_draws(seeds=(1, 2, 3)):
+    """The flash kernels on other draws of their inputs: the training
+    shape in bf16 from fresh generators, and the fp16 cases of dQ's
+    cancelling rows (Dh 128 with a key bias and dropout, and the training
+    shape), each with its worst dQ element; the bound must hold whatever
+    the draw."""
+    import torch
+
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    out = []
+    for seed in seeds:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        out.append(flash_case(f"train-bfloat16-draw{seed}", 8, 1024, 12, 64,
+                              torch.bfloat16, True, False, 0.0, 0, gen,
+                              flush, False))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    fp16 = torch.float16
+    out.append(flash_case("dh128-bias-dropout-float16", 2, 256, 2, 128, fp16,
+                          True, True, 0.2, 0, gen, flush, False))
+    out.append(flash_case("test-dh128-bias-dropout-float16", *TEST_DH128,
+                          fp16, True, True, 0.2, 0, None, flush, False,
+                          inputs=dh128_test_inputs()))
+    out.append(flash_case("train-float16", 8, 1024, 12, 64, fp16, True,
+                          False, 0.0, 0, gen, flush, False))
+    return out
+
+
+TEST_DH128 = (2, 256, 2, 128)     # B, S, H, Dh
+
+
+def dh128_test_inputs():
+    """The inputs of tests/test_torch_flash.py's dh128-bias-dropout case
+    (numpy seeds 0 and 100): q, k, v, dO [B*H, S, D] fp32 on the host and
+    the key bias on the card."""
+    import torch
+
+    B, S, H, D = TEST_DH128
+    rs = np.random.RandomState(0)
+    qkvg = [torch.from_numpy(rs.randn(B, S, H, D).astype(np.float32))
+            .permute(0, 2, 1, 3).reshape(B * H, S, D) for _ in range(4)]
+    rs = np.random.RandomState(100)
+    neg = np.finfo(np.float32).min
+    kb = np.where(rs.rand(B, S) < 0.25, neg, 0.0).astype(np.float32)
+    kb[-1, :] = neg
+    return (*qkvg, torch.from_numpy(kb).cuda())
+
+
+def phase_flash_repeat(n=50):
+    """Is dQ a function of its inputs alone?  On the fp16 cases of the
+    queue-3 fault — the Dh 128 key-bias + dropout test's inputs, and the
+    training shape — the kernel's dQ is computed n times, each call after
+    a different kernel left its own data in shared memory (the forward,
+    dK/dV, or another dQ), and every result must equal the first bit for
+    bit; the plain version's dQ three times, likewise.  A race or a read
+    of uninitialised shared memory would show here as run-to-run
+    differences."""
+    import torch
+
+    from deepspeed_tpu_torch.kernels import registry
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    fp16 = torch.float16
+    draws = {"test-dh128-bias-dropout-float16":
+             (TEST_DH128, 0.2, True, dh128_test_inputs()),
+             "train-float16": ((8, 1024, 12, 64), 0.0, False, None)}
+    rec = {"phase": "flash-repeat", "runs": n, "cases": {}}
+    for name, ((B, S, H, D), rate, bias, inputs) in draws.items():
+        if inputs is None:
+            a = [torch.randn(B * H, S, D, device="cuda", generator=gen)
+                 .to(fp16) for _ in range(4)]
+            kb = None
+        else:
+            a, kb = [t.to("cuda", fp16) for t in inputs[:4]], inputs[4]
+        opts = dict(causal=True, scale=D ** -0.5, block_q=128, block_k=128,
+                    rate=rate, seed=1234, bh_offset=0, n_heads=H)
+        out, lse = registry.dispatch("flash_attention_fwd", *a[:3], kb,
+                                     impl="torch", **opts)
+        delta = (a[3].float() * out.float()).sum(-1)
+        args = (*a, lse, delta, kb)
+        others = [lambda: registry.dispatch("flash_attention_fwd", *a[:3],
+                                            kb, impl="cuda", **opts),
+                  lambda: registry.dispatch("flash_attention_dkv", *args,
+                                            impl="cuda", **opts),
+                  lambda: None]
+        first = registry.dispatch("flash_attention_dq", *args, impl="cuda",
+                                  **opts)
+        differ = 0
+        for i in range(n):
+            others[i % 3]()
+            got = registry.dispatch("flash_attention_dq", *args,
+                                    impl="cuda", **opts)
+            differ += mismatches(got, first) != 0
+        plain = [registry.dispatch("flash_attention_dq", *args,
+                                   impl="torch", **opts) for _ in range(3)]
+        plain_differ = sum(mismatches(p, plain[0]) != 0 for p in plain[1:])
+        torch.cuda.synchronize()
+        rec["cases"][name] = {"kernel_runs_differing": differ,
+                              "plain_runs_differing": plain_differ}
+        del a, args, first, plain, out, lse, delta
+    emit(rec)
+    bad = {k: c for k, c in rec["cases"].items()
+           if c["kernel_runs_differing"] or c["plain_runs_differing"]}
+    if bad:
+        raise AssertionError(f"flash dQ differs from run to run: {bad}")
+    return rec
 
 
 # -- fused LM-head cross-entropy kernels ----------------------------------------
@@ -975,6 +1186,15 @@ def phase_xent(gen, flush):
             xent_case("xl-width-bfloat16", 1024, 1600, 50304,
                       torch.bfloat16, gen, flush, True),
             xent_case("xl-width-float32", 1024, 1600, 50304, torch.float32,
+                      gen, flush, True),
+            # widths off the 64-column tile (nano's 48) and past 1600
+            xent_case("nano-width-d48-bfloat16", 1024, 48, 50304,
+                      torch.bfloat16, gen, flush, True),
+            xent_case("d2048-bfloat16", 1024, 2048, 50304, torch.bfloat16,
+                      gen, flush, True),
+            xent_case("d2560-bfloat16", 1024, 2560, 50304, torch.bfloat16,
+                      gen, flush, True),
+            xent_case("d2560-float32", 1024, 2560, 50304, torch.float32,
                       gen, flush, True)]
 
 
@@ -992,6 +1212,21 @@ def stride_batches(steps, micro, seq, vocab, seed):
         stride = rng.randint(1, 5, micro)
         for t in range(1, seq + 1):
             toks[:, t] = (toks[:, t - 1] + stride) % vocab
+        yield toks[:, :-1], toks[:, 1:]
+
+
+def vocab_batches(steps, micro, seq, vocab, seed, law="zipf"):
+    """i.i.d. tokens over the whole vocabulary: "uniform", or "zipf" —
+    rank r drawn with probability proportional to 1/r, the rank-frequency
+    law of natural text, ranks given to ids by a seeded permutation.  The
+    MoE router sees as many distinct tokens as real text gives it, and
+    the unigram law is learnable (the loss falls)."""
+    rng = np.random.RandomState(seed)
+    ids = rng.permutation(vocab)
+    p = 1.0 / np.arange(1, vocab + 1)
+    p = None if law == "uniform" else p / p.sum()
+    for _ in range(steps):
+        toks = ids[rng.choice(vocab, size=(micro, seq + 1), p=p)]
         yield toks[:, :-1], toks[:, 1:]
 
 
@@ -1085,6 +1320,10 @@ def train_kernel_class(name):
     n = name.lower()
     if "flash_" in n:
         return "flash_attention"
+    if "dispatch_kernel" in n or "combine_kernel" in n:
+        return "moe"
+    if "slot_sources_kernel" in n:
+        return "moe_index"
     if "fx_fwd_kernel" in n or "fx_bwd_kernel" in n:
         return "fused_xent"
     if "foreach" in n or "multi_tensor" in n:
@@ -1184,10 +1423,11 @@ def phase_train_profile(eng, data, train, steps=2):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from deepspeed_tpu_torch.kernels import flash, fused_xent
+    from deepspeed_tpu_torch.kernels import flash, fused_xent, moe_kernels
 
     n0 = dict(flash.LAUNCHES)
     x0 = dict(fused_xent.LAUNCHES)
+    m0 = dict(moe_kernels.LAUNCHES)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1216,6 +1456,11 @@ def phase_train_profile(eng, data, train, steps=2):
     if xent_calls != want:
         raise AssertionError(f"profiler saw {xent_calls} fused CE kernels, "
                              f"the wrappers launched {want}")
+    moe_calls = by_class.get("moe", (0.0, 0))[1]
+    want = sum(moe_kernels.LAUNCHES[k] - m0[k] for k in m0)
+    if moe_calls != want:
+        raise AssertionError(f"profiler saw {moe_calls} MoE kernels, the "
+                             f"wrappers launched {want}")
     acts.sort(key=lambda a: -a[1])
     per_step = busy_ms / steps
     span_per_step = train["device_span_ms"] / train["timed_steps"]
@@ -1233,12 +1478,808 @@ def phase_train_profile(eng, data, train, steps=2):
                             for a in acts[:12]]}
 
 
+# -- blockwise codec kernels (#11, #12) and serving from quantized weights ---
+
+CODEC_TOL = ("bitwise: payload bytes, fp16 scale bits and dequantized "
+             "values equal, NaN compared by position")
+
+
+def codec_edge_cases(n=4096, seed=3):
+    """fp32 [n]: scaled normals with the codec's edge cases — fp32
+    subnormals, +-inf, NaN, an all-zero block, a block whose amax is above
+    qmax * 65504 and one below qmax * 2^-24, .5 ties; n is no multiple of
+    256, so the last block is ragged."""
+    rs = np.random.RandomState(seed)
+    x = (rs.randn(n) * 10.0).astype(np.float32)
+    x[0] = 127.0                       # block 0: scale 1, .5 codes are ties
+    x[20:40] = np.arange(-10, 10) + 0.5
+    x[5], x[77], x[400] = np.inf, -np.inf, np.nan
+    x[6], x[7] = 1e-40, -3e-39         # fp32 subnormals
+    x[512:768] = 0.0                   # an all-zero block
+    x[768] = 127 * 65504 * 2.0         # the block's fp16 scale overflows
+    x[256:512] *= 1e-9                 # the block's fp16 scale underflows
+    return x[:n - 37]
+
+
+def mismatches(a, b):
+    """Elements whose bits differ (NaN compared by position)."""
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return a.numel() or 1
+    if a.is_floating_point():
+        na, nb = torch.isnan(a), torch.isnan(b)
+        view = {2: torch.int16, 4: torch.int32}[a.element_size()]
+        same = (na & nb) | (~na & ~nb & (a.view(view) == b.view(view)))
+        return int((~same).sum())
+    return int((a != b).sum())
+
+
+def max_abs_diff(a, b):
+    """max |a - b| over the finite positions; inf where one side is NaN
+    and the other is not (NaN compared by position)."""
+    import torch
+
+    a, b = a.float(), b.float()
+    na, nb = torch.isnan(a), torch.isnan(b)
+    if bool((na != nb).any()):
+        return float("inf")
+    d = (a - b).abs()[~na]
+    return float(d.max()) if d.numel() else 0.0
+
+
+def codec_check(x, wire, block=256, out_dtype=None):
+    """Kernels #11 and #12 against their plain versions on x: the count
+    of payload, scale and dequantized elements whose bits differ, and the
+    largest differences — for #11 between the values its codes and the
+    plain codes stand for (both decoded by the plain version, fp32), for
+    #12 between the two dequantized outputs."""
+    import torch
+
+    from deepspeed_tpu_torch.kernels import registry
+
+    out_dtype = out_dtype or x.dtype
+    pk, sk = registry.dispatch("quant_codec_quantize", x, block, wire,
+                               impl="cuda")
+    pp, sp = registry.dispatch("quant_codec_quantize", x, block, wire,
+                               impl="torch")
+    n = x.numel()
+
+    def deq(p, s, impl, dt):
+        return registry.dispatch("quant_codec_dequantize", p, s, wire, n,
+                                 out_dtype=dt, impl=impl)
+
+    yk, yp = deq(pp, sp, "cuda", out_dtype), deq(pp, sp, "torch", out_dtype)
+    q_err = max_abs_diff(deq(pk, sk, "torch", torch.float32),
+                         deq(pp, sp, "torch", torch.float32))
+    return {"mismatches": mismatches(pk, pp) + mismatches(sk, sp) +
+            mismatches(yk, yp),
+            "quantize_max_abs_err": q_err,
+            "dequantize_max_abs_err": max_abs_diff(yk, yp)}
+
+
+def phase_codec():
+    """#11 and #12 on the edge cases, int8 and int4, fp32 and bf16 input,
+    block 256 (and 2); every mismatch count must be 0."""
+    import torch
+
+    cases = []
+    x32 = torch.from_numpy(codec_edge_cases()).cuda()
+    for dtype in (torch.float32, torch.bfloat16):
+        for wire in ("int8", "int4"):
+            for block in (256, 2):
+                for out_dtype in dict.fromkeys((torch.float32, dtype)):
+                    m = codec_check(x32.to(dtype), wire, block, out_dtype)
+                    cases.append({"case": f"edge-{wire}-block{block}-"
+                                  f"{str(dtype)[6:]}-to-{str(out_dtype)[6:]}",
+                                  **m})
+    torch.cuda.synchronize()
+    bad = [c for c in cases if c["mismatches"]]
+    if bad:
+        raise AssertionError(f"codec kernels differ from the plain versions "
+                             f"on the edge cases: {bad}")
+    rec = {"phase": "codec", "tol": CODEC_TOL, "cases": cases}
+    emit(rec)
+    return rec
+
+
+# XL's matrix leaves by shape: (name, shape, leaves a model holds)
+def xl_leaf_shapes(cfg):
+    D, F, L = cfg.d_model, cfg.d_ff, cfg.num_layers
+    return [("wte", (cfg.vocab_size, D), 1), ("wpe", (cfg.max_seq_len, D), 1),
+            ("attn.qkv.w", (D, 3 * D), L), ("attn.proj.w", (D, D), L),
+            ("mlp.fc1.w", (D, F), L), ("mlp.fc2.w", (F, D), L)]
+
+
+def codec_per_shape(model, flush):
+    """Device times of #11 (int8) and #12 (int8 and int4, to bf16) on one
+    leaf of each of XL's matrix shapes, L2 flushed before each call,
+    beside their plain versions' and their bounds (bytes: each input read
+    once, each output written once); `count` says how many leaves of the
+    shape a forward reads.  The whole tree's times are measured as spans
+    in phase_serve_qw, not summed from these."""
+    import torch
+
+    from deepspeed_tpu_torch.kernels import registry
+
+    params = dict(model.named_parameters())
+    shapes = []
+    for name, shape, count in xl_leaf_shapes(model.config):
+        w = next(p for n, p in params.items() if n.endswith(name)).detach()
+        n = w.numel()
+        nb = -(-n // 256)
+        rec = {"leaf": name, "shape": list(shape), "count": count}
+        for key, wire in (("quantize-int8", "int8"),
+                          ("dequantize-int8", "int8"),
+                          ("dequantize-int4", "int4")):
+            p, s = registry.dispatch("quant_codec_quantize", w, 256, wire,
+                                     impl="cuda")
+            if key.startswith("quantize"):
+                fn = lambda impl: registry.dispatch(  # noqa: E731
+                    "quant_codec_quantize", w, 256, wire, impl=impl)
+                nbytes = n * 2 + p.numel() + nb * 2
+            else:
+                fn = lambda impl: registry.dispatch(  # noqa: E731
+                    "quant_codec_dequantize", p, s, wire, n,
+                    out_dtype=torch.bfloat16, impl=impl)
+                nbytes = p.numel() + nb * 2 + n * 2
+            rec[key] = {"kernel_ms": time_ms(lambda: fn("cuda"), 10, flush),
+                        "plain_ms": time_ms(lambda: fn("torch"), 3, flush),
+                        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        shapes.append(rec)
+    return shapes
+
+
+def events_span_ms(fn):
+    """CUDA events around one call of fn: the device span it enqueues,
+    idle gaps between its launches included."""
+    import torch
+
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1)
+
+
+def profiled_device_ms(fn):
+    """fn under torch.profiler: one warm-up call, then the call that is
+    read (a schedule's warm-up step, so the tracer is running before the
+    first kernel of the read call launches).  Returns (device ms of every
+    kernel that call ran, device ms and count of the codec kernels #11/#12
+    among them)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    acts = []
+
+    def ready(p):
+        # "ProfilerStep#" is the step's annotation on the device, a span
+        # over the step's kernels and the gaps between them: not a kernel
+        acts.extend((e.key, e.self_device_time_total / 1e3, e.count)
+                    for e in p.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not e.key.startswith("ProfilerStep"))
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=ready) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    if not acts:
+        raise AssertionError("the profiler recorded no device activity")
+    codec = [(ms, n) for name, ms, n in acts
+             if kernel_class(name) == "quant_codec"]
+    return (sum(ms for _, ms, _ in acts), sum(ms for ms, _ in codec),
+            sum(n for _, n in codec))
+
+
+def codec_tree_times(leaves, store):
+    """The whole tree's codec work, kernel against plain: the one-time
+    quantize of every matrix leaf (int8) and one forward's dequantize of
+    every leaf to its dtype (int8: the engine's `store`; int4), each as
+    the device time torch.profiler reads (for the kernel, its own
+    launches; for the plain version, every kernel it runs) and as the
+    span of the calls back to back on CUDA events (host gaps included);
+    bounds from the tree's bytes."""
+    import torch
+
+    from deepspeed_tpu_torch.kernels import registry
+    from deepspeed_tpu_torch.serving import programs
+
+    def quantize_all(impl):
+        for w in leaves:
+            registry.dispatch("quant_codec_quantize", w, programs.QUANT_BLOCK,
+                              "int8", impl=impl)
+
+    def dequantize_all(nodes, wire, impl):
+        for q in nodes:
+            registry.dispatch("quant_codec_dequantize", q.payload, q.scales,
+                              wire, int(np.prod(q.shape)),
+                              out_dtype=q.dtype, impl=impl)
+
+    def timed(fn, nbytes):
+        k_total, k_ms, k_calls = profiled_device_ms(lambda: fn("cuda"))
+        if k_calls != len(leaves):
+            raise AssertionError(f"profiler saw {k_calls} codec kernels "
+                                 f"over {len(leaves)} leaves")
+        return {"kernel_ms": k_ms, "kernel_calls": k_calls,
+                "plain_ms": profiled_device_ms(lambda: fn("torch"))[0],
+                "kernel_span_ms": events_span_ms(lambda: fn("cuda")),
+                "plain_span_ms": events_span_ms(lambda: fn("torch")),
+                "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+
+    n = sum(w.numel() for w in leaves)
+    nb = sum(-(-w.numel() // programs.QUANT_BLOCK) for w in leaves)
+    int8 = [q for q in store.leaves.values()
+            if isinstance(q, programs.QuantLeaf)]
+    int4 = list(programs.quantize_params(
+        {str(i): w for i, w in enumerate(leaves)}, "int4").values())
+    out = {"elements": n, "leaves": len(leaves),
+           "quantize-int8": timed(lambda impl="cuda": quantize_all(impl),
+                                  n * 2 + n + nb * 2)}
+    for wire, nodes, payload in (("int8", int8, n), ("int4", int4, n // 2)):
+        out[f"dequantize-{wire}"] = timed(
+            lambda impl="cuda", nodes=nodes, wire=wire: dequantize_all(
+                nodes, wire, impl), payload + nb * 2 + n * 2)
+    del int4
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_qw_exact():
+    """GPT-2 XL width, 4 layers, fp32: serving with quantized_weights int8
+    and int4 gives, greedy, the tokens of the port's generate() run on
+    dequantize(quantize(w)) — the dense model of the same values."""
+    import torch
+
+    from deepspeed_tpu_torch.models import GPT, generate, gpt2_config
+    from deepspeed_tpu_torch.serving import ServeConfig, ServeEngine, programs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = gpt2_config("xl", num_layers=4, param_dtype=torch.float32)
+    model = GPT(cfg, device="cuda",
+                generator=torch.Generator(device="cuda").manual_seed(1))
+    rs = np.random.RandomState(3)
+    prompts = [rs.randint(0, 50257, (n,)).tolist() for n in (37, 150, 7, 64)]
+    n_new = 16
+    report = {}
+    for wire in ("int8", "int4"):
+        eng = ServeEngine(model, ServeConfig(
+            block_size=16, num_blocks=65, max_batch=4, prefill_chunk=128,
+            quantized_weights=wire), device="cuda")
+        served = eng.generate(prompts, n_new)
+        dense = programs.dequantize_params(eng.model.leaves, wire)
+        ref = GPT(cfg, device="cuda")
+        with torch.no_grad():
+            for name, p in ref.named_parameters():
+                p.copy_(dense[name])
+        del dense, eng
+        rows = []
+        with torch.no_grad():
+            for p, got in zip(prompts, served):
+                want = generate(ref, [p], n_new, cache_len=cfg.max_seq_len,
+                                device="cuda")[0].tolist()
+                _, margins = greedy_with_margins(ref, p, n_new)
+                div = next((i for i in range(n_new) if got[i] != want[i]),
+                           None)
+                if div is not None and not margins[div] < 1e-4:
+                    raise AssertionError(
+                        f"serve-qw-exact {wire}: served stream diverges from "
+                        f"generate() on dequantize(quantize(w)) at step {div}"
+                        f" where the oracle's top-2 margin is {margins[div]}")
+                rows.append({"prompt_len": len(p), "identical": div is None,
+                             "first_divergence": div,
+                             "min_margin": min(margins)})
+        report[wire] = rows
+        del ref
+    emit({"phase": "serve-qw-exact", "config": "gpt2 xl width, 4 layers, "
+          "fp32, TF32 off, quantized_weights int8 / int4 (block 256)",
+          "tokens_per_prompt": n_new, **report})
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_serve_qw(model, serve, flush):
+    """GPT-2 XL (the phase-5 model, bf16) served from int8 blockwise
+    weights on phase 5's schedule and traffic (its prompt lengths, fresh
+    tokens, half mid-flight, 64 new each).  Before it, #11 and #12 against
+    their plain versions on every matrix leaf (int8 and int4, bitwise) and
+    their device times per leaf shape; the engine's build quantizes each
+    leaf once (194 launches, timed as one span), and every forward
+    dequantizes each (launches counted from zero over the run: leaves x
+    forwards).  Then the traffic again under torch.profiler (the idle
+    share and #12's device time a forward), and last the tree's codec
+    spans, kernel against plain."""
+    import torch
+
+    from deepspeed_tpu_torch.kernels import paged, quant_codec
+    from deepspeed_tpu_torch.monitor.counters import COUNTERS
+    from deepspeed_tpu_torch.serving import (FINISHED, ServeConfig,
+                                             ServeEngine, programs)
+
+    cfg = model.config
+    leaves = [p.detach() for p in model.parameters() if p.dim() >= 2]
+    leaf_checks = {w: [codec_check(p, w, out_dtype=p.dtype) for p in leaves]
+                   for w in ("int8", "int4")}
+    torch.cuda.synchronize()
+    leaf_mismatch = {w: sum(c["mismatches"] for c in cs)
+                     for w, cs in leaf_checks.items()}
+    leaf_err = {key: max(c[key] for cs in leaf_checks.values() for c in cs)
+                for key in ("quantize_max_abs_err", "dequantize_max_abs_err")}
+    if any(leaf_mismatch.values()):
+        raise AssertionError(f"codec kernels differ from the plain versions "
+                             f"on the XL leaves: {leaf_mismatch}")
+    per_shape = codec_per_shape(model, flush)
+    for k in quant_codec.LAUNCHES:
+        quant_codec.LAUNCHES[k] = 0
+    scfg = ServeConfig(block_size=16, num_blocks=513, max_batch=8,
+                       prefill_chunk=128, quantized_weights="int8")
+    # #11 as the build runs it: events around the engine's quantize loop
+    # (its kernels' device time is read in codec_tree_times)
+    real_quantize_params, build_ms = programs.quantize_params, []
+
+    def timed_quantize_params(*a, **kw):
+        out = []
+        build_ms.append(events_span_ms(
+            lambda: out.append(real_quantize_params(*a, **kw))))
+        return out[0]
+
+    programs.quantize_params = timed_quantize_params
+    try:
+        eng = ServeEngine(model, scfg, device="cuda")
+    finally:
+        programs.quantize_params = real_quantize_params
+    build_launches = dict(quant_codec.LAUNCHES)
+    if build_launches["quant_codec_quantize"] != len(leaves):
+        raise AssertionError(f"the engine's build quantized "
+                             f"{build_launches} leaves, expected "
+                             f"{len(leaves)}")
+    eng.generate([list(range(50000, 50016))], 2)           # warm-up
+    rs = np.random.RandomState(2)
+    lens = serve["prompt_lens"]
+    prompts = [rs.randint(0, 50257, (n,)).tolist() for n in lens]
+    n_new = serve["max_new_tokens"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    paged.LAUNCHES = 0
+    for k in quant_codec.LAUNCHES:
+        quant_codec.LAUNCHES[k] = 0
+    snap = COUNTERS.snapshot()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    ev0.record()
+    reqs, steps = drive(eng, prompts, n_new)
+    ev1.record()
+    ev1.synchronize()
+    wall = time.perf_counter() - t0
+    span_ms = ev0.elapsed_time(ev1)
+    d = COUNTERS.delta_since(snap)
+    launches = dict(quant_codec.LAUNCHES)
+    if not all(r.state == FINISHED and len(r.out) == n_new for r in reqs):
+        raise AssertionError("serve-qw: not every request finished")
+    if not all(0 <= t < cfg.vocab_size for r in reqs for t in r.out):
+        raise AssertionError("serve-qw: a served token is outside the "
+                             "vocabulary")
+    chunks = d["serve.prefill_chunks"]["calls"]
+    n_decode = d["serve.decode_steps"]["calls"]
+    fwd = chunks + n_decode
+    if launches != {"quant_codec_quantize": 0,
+                    "quant_codec_dequantize": len(leaves) * fwd} or \
+            paged.LAUNCHES != cfg.num_layers * fwd:
+        raise AssertionError(f"serve-qw: codec launches {launches}, paged "
+                             f"{paged.LAUNCHES} over {fwd} forwards")
+    if d.get("kernel.fallbacks"):
+        raise AssertionError(f"serve-qw: a plain version ran: {d}")
+    decode_only = [ms for ms, pre in steps if not pre]
+    ttft = sorted(r.ttft_s for r in reqs)
+    n_tok = sum(len(r.out) for r in reqs)
+    dense_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+    rec = {"phase": "serve-qw", "config": "gpt2 xl, 48 layers, bf16, "
+           "quantized_weights int8 (block 256), bf16 KV",
+           "serve_config": {"block_size": 16, "num_blocks": 513,
+                            "max_batch": 8, "prefill_chunk": 128},
+           "prompt_lens": lens, "max_new_tokens": n_new,
+           "requests": len(reqs), "tokens": n_tok, "wall_s": wall,
+           "device_span_ms": span_ms, "tokens_per_s": n_tok / wall,
+           "ttft_p50_ms": float(np.median(ttft)) * 1e3,
+           "decode_step_mean_ms": float(np.mean(decode_only)),
+           "decode_only_steps": len(decode_only), "prefill_chunks": chunks,
+           "decode_steps": n_decode, "forwards": fwd,
+           "quantize_launches_at_build": build_launches[
+               "quant_codec_quantize"],
+           "dequantize_launches": launches["quant_codec_dequantize"],
+           "dequantize_launches_per_forward":
+               launches["quant_codec_dequantize"] / fwd,
+           "paged_launches": paged.LAUNCHES,
+           "resident_weight_bytes": eng.model.nbytes(),
+           "dense_weight_bytes_bf16": dense_bytes,
+           "leaf_mismatches": leaf_mismatch, "leaf_max_abs_err": leaf_err,
+           "quantize_build_ms": build_ms[0],
+           "codec_per_shape_l2_flushed": per_shape,
+           "peak_mem_bytes_incl_dense_model_held_by_the_script":
+               torch.cuda.max_memory_allocated()}
+    emit(rec)
+    rs = np.random.RandomState(4)   # fresh tokens: no prefix-cache hit
+    n0 = quant_codec.LAUNCHES["quant_codec_dequantize"]
+    prof = profile_replay(
+        eng, [rs.randint(0, 50257, (n,)).tolist() for n in lens], n_new,
+        chunks, n_decode, span_ms, "serve-qw's traffic replayed on fresh "
+        f"prompts: lengths {lens}, {n_new} new tokens each, gpt2 xl bf16, "
+        "int8 weights")
+    replayed = quant_codec.LAUNCHES["quant_codec_dequantize"] - n0
+    if replayed != len(leaves) * fwd:
+        raise AssertionError(f"the replay dequantized {replayed} leaves, "
+                             f"expected {len(leaves) * fwd}")
+    # the profiler may drop a few of a long window's activity records: the
+    # device time a forward is scaled by the records it kept
+    qc = prof["by_class"].get("quant_codec", {"ms": 0.0, "calls": 0})
+    if not 0.99 * replayed <= qc["calls"] <= replayed:
+        raise AssertionError(f"profiler saw {qc['calls']} codec kernels, "
+                             f"the wrapper launched {replayed}")
+    prof["dequantize_launches"] = replayed
+    prof["dequantize_records_seen"] = qc["calls"]
+    prof["dequantize_ms_per_forward"] = qc["ms"] / qc["calls"] * len(leaves)
+    prof["phase"] = "serve-qw-profile"
+    emit(prof)
+    rec["profile"] = prof
+    # after the counted runs: the tree's spans, kernel against plain
+    rec["codec_tree"] = codec_tree_times(leaves, eng.model)
+    emit({"phase": "serve-qw-codec-tree", **rec["codec_tree"]})
+    del eng
+    torch.cuda.empty_cache()
+    return rec
+
+
+# -- MoE dispatch and combine kernels (#13, #14) --------------------------------
+
+MOE_TOL = ("dispatch: bitwise (a row copy); combine: per element "
+           "(3u + 2^-22) sum_r |w_r e_r|, one ulp of the output per term "
+           "(moe/dispatch.py combine_tolerance)")
+
+
+def moe_case(name, B, S, E, k, factor, D, dtype, gen, flush, timed):
+    """Kernels #13 and #14 against their plain versions on routing drawn
+    from random gate logits; device times where `timed`, beside the bound
+    (this draw's bytes: kept rows read, every slot or token row written)
+    and, for the dispatch, one torch.index_select over x with a zero row
+    appended (a yardstick the port never calls)."""
+    import torch
+
+    from deepspeed_tpu_torch.kernels import registry
+    from deepspeed_tpu_torch.moe import dispatch as dsp
+
+    dev = "cuda"
+    C = max(int(np.ceil(factor * S * k / E - 1e-9)), 4)
+    logits = torch.randn(B, S, E, device=dev, generator=gen)
+    eidx, gate, pos, keep, _ = dsp.topk_routing(torch.softmax(logits, -1),
+                                                k, C)
+    x = torch.randn(B, S, D, device=dev, generator=gen).to(dtype)
+    out = torch.randn(B, E, C, D, device=dev, generator=gen).to(dtype)
+
+    def disp(impl):
+        return registry.dispatch("moe_dispatch", x, eidx, pos, keep, E, C,
+                                 impl=impl)
+
+    def comb(impl):
+        return registry.dispatch("moe_combine", out, eidx, gate, pos, keep,
+                                 impl=impl)
+
+    dk, dp = disp("cuda"), disp("torch")
+    ck, cp = comb("cuda"), comb("torch")
+    torch.cuda.synchronize()
+    d_mis = mismatches(dk, dp)
+    tol = dsp.combine_tolerance(out, eidx, gate, pos, keep)
+    c_err = (ck.float() - cp.float()).abs()
+    # a token whose every assignment dropped has bound 0 and must be 0
+    c_ratio = float(torch.where(tol > 0, c_err / tol.clamp_min(1e-30),
+                                torch.where(c_err > 0, np.inf, 0.0)).max())
+    if d_mis or not c_ratio <= 1.0:
+        raise AssertionError(f"moe {name}: dispatch mismatches {d_mis}, "
+                             f"combine {c_ratio} x its bound")
+    isz = x.element_size()
+    kept = int(keep.sum())
+    route = B * k * S * (4 + 4 + 1)
+    work = {"moe_dispatch": kept * D * isz + route + B * E * C * D * isz,
+            "moe_combine": kept * D * isz + route + B * k * S * 4 +
+            B * S * D * isz}
+    rec = {"phase": "moe-kernels", "case": name, "B": B, "S": S, "E": E,
+           "k": k, "capacity": C, "D": D, "dtype": str(dtype)[6:],
+           "kept_assignments": kept, "assignments": B * k * S,
+           "tol": MOE_TOL, "dispatch_mismatches": d_mis,
+           "max_abs_err": {"moe_dispatch": float((dk.float() - dp.float())
+                                                 .abs().max()),
+                           "moe_combine": float(c_err.max())},
+           "combine_max_err_over_tol": c_ratio, "kernels": {}}
+    for kname, nbytes in work.items():
+        r = {"bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+             "bound_by": "bytes", "library_ms": None}
+        if timed:
+            fn = disp if kname == "moe_dispatch" else comb
+            r["kernel_ms"] = time_ms(lambda: fn("cuda"), 20, flush)
+            r["plain_ms"] = time_ms(lambda: fn("torch"), 5, flush)
+        rec["kernels"][kname] = r
+    if timed:
+        # the yardstick: the same gather as one index_select
+        dest = torch.where(keep, eidx.long() * C + pos.long(), E * C)
+        tok = torch.arange(S, device=dev).repeat(k)[None].expand(B, -1)
+        src = tok + torch.arange(B, device=dev)[:, None] * S
+        flat = torch.full((B, E * C + 1), B * S, dtype=torch.long, device=dev)
+        flat.scatter_(1, dest.reshape(B, -1), src)
+        slot_tok = flat[:, :E * C].reshape(-1)
+        xz = torch.cat([x.reshape(B * S, D), x.new_zeros(1, D)])
+        lib = torch.index_select(xz, 0, slot_tok).reshape(B, E, C, D)
+        if not torch.equal(lib, dk):
+            raise AssertionError(f"moe {name}: the index_select yardstick "
+                                 f"computes another gather")
+        rec["kernels"]["moe_dispatch"]["library_ms"] = time_ms(
+            lambda: torch.index_select(xz, 0, slot_tok), 20, flush)
+    emit(rec)
+    return rec
+
+
+def phase_moe_kernels(gen, flush):
+    import torch
+
+    bf16 = torch.bfloat16
+    return [moe_case("train-k1-bfloat16", 4, 2048, 64, 1, 1.0, 768, bf16,
+                     gen, flush, True),
+            moe_case("train-k2-bfloat16", 4, 2048, 64, 2, 1.0, 768, bf16,
+                     gen, flush, True),
+            moe_case("exact-float32", 4, 256, 64, 1, 1.0, 768,
+                     torch.float32, gen, flush, False),
+            moe_case("tight-k2-float16-d100", 2, 256, 8, 2, 0.5, 100,
+                     torch.float16, gen, flush, False)]
+
+
+MOE_MODEL = dict(num_experts=64, moe_top_k=1, moe_layer_freq=2,
+                 moe_capacity_factor=1.0, moe_aux_loss_weight=0.01)
+
+
+def moe_train_config(micro, lr, precision, dispatch):
+    cfg = train_config(micro, lr, precision)
+    cfg["comm"] = {"moe": {"dispatch": dispatch}}
+    return cfg
+
+
+def phase_moe_exact():
+    """fp32, TF32 off, GPT-2 small width with 64 experts on layer 1 of 2
+    (top-1, capacity factor 1.0), seq 256, micro 4, 5 engine steps from the
+    same weights and gate noise: the sorted engine through kernels #13/#14
+    against the same engine with their plain versions forced (per-step
+    loss within 1e-4, weights within 2 lr steps), and against the dense
+    one-hot engine (per-step loss within 1e-5, the JAX package's own
+    contract, tests/test_moe_dispatch.py:468)."""
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.kernels import moe_kernels, registry
+    from deepspeed_tpu_torch.models import GPT, gpt2_config
+    from deepspeed_tpu_torch.moe import dispatch as dsp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lr, steps, micro, seq = 1e-4, 5, 4, 256
+    real_dispatch = registry.dispatch
+
+    def plain_moe(name, *a, impl="auto", **kw):
+        if name in ("moe_dispatch", "moe_combine"):
+            impl = "torch"
+        return real_dispatch(name, *a, impl=impl, **kw)
+
+    runs = {}
+    for run, dispatch, plain in (("kernel", "sorted", False),
+                                 ("plain", "sorted", True),
+                                 ("dense", "dense", False)):
+        cfg = gpt2_config("small", num_layers=2, max_seq_len=seq, **MOE_MODEL)
+        model = GPT(cfg, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(3))
+        eng, *_ = dt.initialize(model=model, config_params=moe_train_config(
+            micro, lr, "fp32", dispatch))
+        n0 = dict(moe_kernels.LAUNCHES)
+        registry.dispatch = plain_moe if plain else real_dispatch
+        try:
+            losses = []
+            for x, y in stride_batches(steps, micro, seq, 64, 5):
+                losses.append(float(eng.forward((x, y))))
+                eng.backward()
+                eng.step()
+        finally:
+            registry.dispatch = real_dispatch
+        runs[run] = (losses, {n: p.detach().clone()
+                              for n, p in eng.params.items()},
+                     {k: moe_kernels.LAUNCHES[k] - n0[k] for k in n0})
+        del eng, model
+        dsp.set_wire_config(dsp.MoEWireConfig())
+        gc.collect()
+        torch.cuda.empty_cache()
+    (lk, pk, nk), (lp, pp, npl), (ld, _, nd) = (runs[r] for r in
+                                               ("kernel", "plain", "dense"))
+    # one MoE layer: a dispatch and a combine forward, one of each backward
+    if nk != {"moe_dispatch": 2 * steps, "moe_combine": 2 * steps} or \
+            any(npl.values()) or any(nd.values()):
+        raise AssertionError(f"moe-exact: kernels launched {nk} (kernel "
+                             f"run), {npl} (plain), {nd} (dense)")
+    loss_err = max(abs(a - b) for a, b in zip(lk, lp))
+    w_err = max((pk[n] - pp[n]).abs().max().item() for n in pk)
+    dense_err = max(abs(a - b) for a, b in zip(lk, ld))
+    if not (loss_err <= 1e-4 and w_err <= 2 * lr * steps and
+            dense_err <= 1e-5):
+        raise AssertionError(f"moe-exact: kernel vs plain losses differ by "
+                             f"{loss_err}, weights by {w_err}; sorted vs "
+                             f"dense losses by {dense_err}")
+    emit({"phase": "moe-exact", "config": "gpt2 small width, 2 layers "
+          "(layer 1: 64 experts, top-1, capacity factor 1.0), seq 256, "
+          "micro 4, fp32, TF32 off", "steps": steps,
+          "launches_kernel_run": nk, "losses_kernel": lk,
+          "losses_plain": lp, "losses_dense": ld,
+          "max_loss_diff_kernel_vs_plain": loss_err, "loss_tol": 1e-4,
+          "max_weight_diff": w_err, "weight_tol": 2 * lr * steps,
+          "max_loss_diff_sorted_vs_dense": dense_err, "dense_tol": 1e-5})
+
+
+def phase_train_moe(warmup=3, steps=10):
+    """DeepSpeed-MoE's 125M+MoE-64 GPT recipe
+    (Megatron-DeepSpeed examples_deepspeed/MoE/ds_pretrain_gpt_125M_MoE64.sh):
+    12 layers, d768, 12 heads, d_ff 3072, vocab 50304, 64 experts on every
+    other layer (six MoE layers), top-1, capacity factor 1.0, min capacity
+    4, aux weight 0.01; seq 2048, micro 4, bf16 with fp32 masters, Adam,
+    the fused CE, comm.moe dispatch "sorted", on a Zipf token stream over
+    the whole vocabulary (`vocab_batches`).  The gate noise is the JAX
+    package's default (noisy_gate_std 1e-2), which the recipe does not
+    use."""
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.kernels import flash, fused_xent, moe_kernels
+    from deepspeed_tpu_torch.models import GPT, gpt2_config
+    from deepspeed_tpu_torch.moe import dispatch as dsp
+    from deepspeed_tpu_torch.moe.layer import MoE
+    from deepspeed_tpu_torch.monitor.counters import COUNTERS
+
+    micro, seq = 4, 2048
+    cfg = gpt2_config("small", max_seq_len=seq, loss_impl="pallas",
+                      **MOE_MODEL)
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+    model = GPT(cfg, device="cuda",
+                generator=torch.Generator(device="cuda").manual_seed(0))
+    eng, *_ = dt.initialize(model=model, config_params=moe_train_config(
+        micro, 1e-4, "bf16", "sorted"))
+    data = vocab_batches(warmup + steps + 2, micro, seq, cfg.vocab_size, 0)
+    losses = [float(eng.train_batch(data)) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    dsp.flush_dispatch_stats(wait=True)
+    torch.cuda.reset_peak_memory_stats()
+    for counts in (flash.LAUNCHES, fused_xent.LAUNCHES, moe_kernels.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    snap = COUNTERS.snapshot()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    step_ms, timed = [], []
+    ev0.record()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = eng.train_batch(data)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        timed.append(loss)
+    ev1.record()
+    ev1.synchronize()
+    span_ms = ev0.elapsed_time(ev1)
+    dsp.flush_dispatch_stats(wait=True)
+    d = COUNTERS.delta_since(snap)
+    losses += [float(x) for x in timed]
+    launches = {"flash": dict(flash.LAUNCHES),
+                "fused_xent": dict(fused_xent.LAUNCHES),
+                "moe": dict(moe_kernels.LAUNCHES)}
+    # forward: one dispatch and one combine per MoE layer; backward: the
+    # combine's gradient is a dispatch, the dispatch's a combine
+    want_moe = {k: 2 * n_moe * steps for k in moe_kernels.LAUNCHES}
+    if launches["moe"] != want_moe or \
+            launches["flash"] != {k: cfg.num_layers * steps
+                                  for k in flash.LAUNCHES} or \
+            launches["fused_xent"] != {k: steps for k in fused_xent.LAUNCHES}:
+        raise AssertionError(f"train-moe launches {launches}, expected moe "
+                             f"{want_moe}")
+    if d.get("kernel.fallbacks"):
+        raise AssertionError(f"train-moe: a plain version ran: {d}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train-moe losses not finite and falling: "
+                             f"{losses}")
+    assignments = micro * seq * cfg.moe_top_k * n_moe * steps
+    dropped = d["moe.dropped_tokens"]["bytes"]
+    tokens = micro * seq * steps
+    # does the data set the routing?  Two more steps on each stream —
+    # this run's, uniform over the vocabulary, and the dense phases'
+    # stride stream over 64 ids — with the dropped share, and at every
+    # MoE layer the router input's shared part (|mean_t x_t|^2 over
+    # mean_t |x_t|^2 within a group: 0 for independent tokens, 1 when all
+    # are one vector) and the experts the noiseless top-1 picks a group
+    real_call, seen = MoE.__call__, []
+
+    def spy(self, params, x, *a, **kw):
+        with torch.no_grad():
+            xf = x.float()
+            shared = (xf.mean(1).square().sum(-1) /
+                      xf.square().sum(-1).mean(1))
+            top = (xf @ params.gate.w.float()).argmax(-1)
+            seen.append((float(shared.mean()),
+                         float(np.mean([len(torch.unique(t)) for t in top]))))
+        return real_call(self, params, x, *a, **kw)
+
+    by_stream = {}
+    MoE.__call__ = spy
+    try:
+        for name, stream in (
+                ("zipf", vocab_batches(2, micro, seq, cfg.vocab_size, 7)),
+                ("uniform", vocab_batches(2, micro, seq, cfg.vocab_size, 7,
+                                          "uniform")),
+                ("stride64", stride_batches(2, micro, seq, 64, 7))):
+            snap2 = COUNTERS.snapshot()
+            seen.clear()
+            for _ in range(2):
+                eng.train_batch(stream)
+            dsp.flush_dispatch_stats(wait=True)
+            d2 = COUNTERS.delta_since(snap2)
+            by_stream[name] = {
+                "dropped_share": d2["moe.dropped_tokens"]["bytes"] /
+                (assignments / steps * 2),
+                "capacity_frac_mean": d2["moe.capacity_frac"]["bytes"] /
+                d2["moe.capacity_frac"]["calls"] / 1e6,
+                "router_input_shared_part": float(np.mean(
+                    [a for a, _ in seen])),
+                "experts_picked_per_group": float(np.mean(
+                    [b for _, b in seen])),
+                "moe_layer_calls": len(seen)}
+    finally:
+        MoE.__call__ = real_call
+    rec = {"phase": "train-moe", "config": "gpt2 125M+MoE-64: 12 layers, "
+           "d768, 12 heads, d_ff 3072, vocab 50304, 64 experts on layers "
+           "1,3,..,11, top-1, capacity factor 1.0, min capacity 4, aux 0.01, "
+           "gate noise 1e-2; seq 2048, micro 4, bf16, Adam lr 1e-4, WarmupLR "
+           "10, clipping 1.0, fused CE, comm.moe sorted; Zipf(1) token "
+           "stream over the whole vocabulary", "warmup_steps": warmup,
+           "timed_steps": steps,
+           "tokens_per_s": tokens / (sum(step_ms) / 1e3),
+           "step_ms_mean": float(np.mean(step_ms)),
+           "step_ms_min": float(np.min(step_ms)),
+           "device_span_ms": span_ms,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "param_count": sum(p.numel() for p in eng.params.values()),
+           "moe_layers": n_moe,
+           "capacity": MoE(cfg.moe_config()).capacity(seq, True),
+           "dropped_assignments": dropped,
+           "dropped_share": dropped / assignments,
+           "dropped_share_by_stream_2_steps_after": by_stream,
+           "capacity_frac_mean": d["moe.capacity_frac"]["bytes"] /
+           d["moe.capacity_frac"]["calls"] / 1e6,
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "losses": losses, "flash_launches": launches["flash"],
+           "fused_xent_launches": launches["fused_xent"],
+           "moe_launches": launches["moe"],
+           "moe_launches_per_step": {k: v / steps for k, v in
+                                     launches["moe"].items()}}
+    emit(rec)
+    return rec, eng, data
+
+
 def build_all():
     """Compile the kernel libraries, one nvcc per source, all started
     together; returns the build record."""
     from deepspeed_tpu_torch.kernels import build
 
-    sources = ("paged_attention.cu", "flash_attention.cu", "fused_xent.cu")
+    sources = ("paged_attention.cu", "flash_attention.cu", "fused_xent.cu",
+               "quant_codec.cu", "moe_dispatch.cu")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(build.build, sources))
@@ -1313,6 +2354,78 @@ def xent_entries(xent_cases, train_pallas):
     return out
 
 
+def codec_entries(codec, serve_qw):
+    tree = serve_qw["codec_tree"]
+    leaves = serve_qw["quantize_launches_at_build"]
+    q, dq = tree["quantize-int8"], tree["dequantize-int8"]
+    common = {"route": "cuda", "bound_by": "bytes", "library_ms": None,
+              "source": "deepspeed_tpu_torch/kernels/csrc/quant_codec.cu",
+              "mismatches": serve_qw["leaf_mismatches"],
+              "per_leaf_shape_l2_flushed":
+                  serve_qw["codec_per_shape_l2_flushed"]}
+    return [
+        {"name": "quant_codec_quantize",
+         "replaces": "deepspeed_tpu/kernels/quant_codec.py:64",
+         "launches": leaves,
+         "max_abs_err": serve_qw["leaf_max_abs_err"]["quantize_max_abs_err"],
+         # device times (torch.profiler) over the tree's quantize loop,
+         # the build's loop run again; the build itself as an events span
+         "ms": q["kernel_ms"], "plain_ms": q["plain_ms"],
+         "bound_ms": q["bound_ms"],
+         "build_span_ms": serve_qw["quantize_build_ms"],
+         "span_ms": q["kernel_span_ms"], "plain_span_ms": q["plain_span_ms"],
+         "shape": f"every matrix leaf of gpt2 xl bf16 ({leaves} leaves, "
+                  f"{tree['elements']} elements), int8, block 256: the "
+                  "engine's one-time build", **common,
+         "cases": [{k: c[k] for k in ("case", "mismatches",
+                                      "quantize_max_abs_err")}
+                   for c in codec["cases"]]},
+        {"name": "quant_codec_dequantize",
+         "replaces": "deepspeed_tpu/kernels/quant_codec.py:128",
+         "launches": serve_qw["dequantize_launches"],
+         "max_abs_err":
+             serve_qw["leaf_max_abs_err"]["dequantize_max_abs_err"],
+         # the profiler's device time of a served forward's dequantizes;
+         # the same over one loop of the tree's leaves, beside the plain
+         # version's, and both loops' spans
+         "ms": serve_qw["profile"]["dequantize_ms_per_forward"],
+         "tree_loop_ms": dq["kernel_ms"], "plain_ms": dq["plain_ms"],
+         "bound_ms": dq["bound_ms"],
+         "span_ms": dq["kernel_span_ms"], "plain_span_ms": dq["plain_span_ms"],
+         "shape": f"one forward: every matrix leaf of gpt2 xl ({leaves}) "
+                  "int8 -> bf16, block 256", **common,
+         "int4": tree["dequantize-int4"],
+         "cases": [{k: c[k] for k in ("case", "mismatches",
+                                      "dequantize_max_abs_err")}
+                   for c in codec["cases"]]}]
+
+
+def moe_entries(moe_cases, train_moe):
+    main = moe_cases[0]              # the training shape, top-1, bf16
+    out = []
+    for name, line in (("moe_dispatch", 52), ("moe_combine", 100)):
+        k = main["kernels"][name]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "deepspeed_tpu_torch/kernels/csrc/moe_dispatch.cu",
+            "replaces": f"deepspeed_tpu/kernels/moe_kernels.py:{line}",
+            "launches": train_moe["moe_launches"][name],
+            "max_abs_err": main["max_abs_err"][name],
+            "ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": k["library_ms"],
+            "shape": "B=4 S=2048 E=64 C=32 D=768 bf16 top-1",
+            "cases": [{"case": c["case"],
+                       "dispatch_mismatches": c["dispatch_mismatches"],
+                       "combine_max_err_over_tol":
+                           c["combine_max_err_over_tol"],
+                       **{f: c["kernels"][name].get(f) for f in
+                          ("kernel_ms", "plain_ms", "bound_ms",
+                           "library_ms")}}
+                      for c in moe_cases]})
+    return out
+
+
 def main():
     import torch
 
@@ -1349,6 +2462,8 @@ def main():
                              gen, flush))
     mark("paged")
     flash_cases = phase_flash(gen, flush)
+    flash_cases += phase_flash_draws()
+    phase_flash_repeat()
     mark("flash")
     # the quantized branches at the speculative serving shapes: decode
     # (T = 1), verify (T = draft_len + 1 = 5) and a prefill chunk (T = 128)
@@ -1376,12 +2491,16 @@ def main():
     mark("paged-quantized")
     xent_cases = phase_xent(gen, flush)
     mark("xent")
-    del flush
+    codec = phase_codec()
+    moe_cases = phase_moe_kernels(gen, flush)
+    mark("codec-moe-kernels")
 
     phase_exact()
     mark("exact")
     phase_spec_exact()
     mark("spec-exact")
+    phase_serve_qw_exact()
+    mark("serve-qw-exact")
     serve, eng = phase_serve()
     rs = np.random.RandomState(1)   # fresh tokens: no prefix-cache hit
     emit(profile_replay(
@@ -1394,12 +2513,15 @@ def main():
     mark("serve")
     serve_spec = phase_serve_spec(eng.model)
     mark("serve-spec")
-    del eng
+    serve_qw = phase_serve_qw(eng.model, serve, flush)
+    mark("serve-qw")
+    del eng, flush
     gc.collect()
     torch.cuda.empty_cache()
 
     phase_train_exact()
     phase_train_exact_pallas()
+    phase_moe_exact()
     mark("train-exact")
     train, teng, data = phase_train()
     emit(phase_train_profile(teng, data, train))
@@ -1412,7 +2534,13 @@ def main():
     train_pallas, teng, data = phase_train(loss_impl="pallas")
     emit(phase_train_profile(teng, data, train_pallas))
     del teng, data
+    gc.collect()
+    torch.cuda.empty_cache()
     mark("train-pallas")
+    train_moe, teng, data = phase_train_moe()
+    emit(phase_train_profile(teng, data, train_moe))
+    del teng, data
+    mark("train-moe")
     emit({"phase": "seconds", **seconds})
 
     main_case = next(c for c in cases if c["case"] == "decode-bfloat16")
@@ -1422,10 +2550,12 @@ def main():
         "source": "deepspeed_tpu_torch/kernels/csrc/paged_attention.cu",
         "replaces": "deepspeed_tpu/kernels/paged.py:127",
         "launches": serve["paged_launches"] +
-        serve_spec["spec"]["paged_launches"],
+        serve_spec["spec"]["paged_launches"] + serve_qw["paged_launches"],
         "launches_by_path": {"serve (dense bf16 KV)": serve["paged_launches"],
                              "serve-spec (int8 KV, draft 4)":
-                             serve_spec["spec"]["paged_launches"]},
+                             serve_spec["spec"]["paged_launches"],
+                             "serve-qw (int8 weights)":
+                             serve_qw["paged_launches"]},
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["kernel_ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
@@ -1437,7 +2567,8 @@ def main():
                                      "plain_ms", "library_ms", "bound_ms",
                                      "bound_by", "kernel_host_us")}
                   for c in cases]}] + flash_entries(flash_cases, train) +
-        xent_entries(xent_cases, train_pallas)})
+        xent_entries(xent_cases, train_pallas) +
+        codec_entries(codec, serve_qw) + moe_entries(moe_cases, train_moe)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -15,7 +15,11 @@ Ported so far:
   dQ and dK/dV as CUDA C++ kernels (`kernels/csrc/flash_attention.cu`);
 * the fused LM-head cross-entropy (`loss_impl="pallas"`: forward, dx and
   dW kernels, `kernels/csrc/fused_xent.cu`), and serving over an int8/int4
-  KV cache (dequantized in the paged kernel) with speculative decoding.
+  KV cache (dequantized in the paged kernel) with speculative decoding;
+* serving from int8/int4 blockwise-quantized weights (the codec kernels,
+  `kernels/csrc/quant_codec.cu`) and Mixture-of-Experts training through
+  the sorted dispatch (`moe/`, the dispatch and combine kernels,
+  `kernels/csrc/moe_dispatch.cu`).
 
 Entry points run on the card unless the caller passes `device="cpu"`.
 Importing the package builds no kernel and touches no CUDA state: a

@@ -37,7 +37,7 @@
 //   * fwd: a block of 4 warps owns 64 rows, each warp 16, and sweeps a
 //     share of the vocab in tiles of 64 (the loop takes the place of the
 //     TPU's sequential grid axis); x and W are staged in 64-wide chunks of
-//     D, so any D works at the same shared-memory size.  Per row it keeps
+//     D, zero past D, so any D works at the same shared-memory size.  Per row it keeps
 //     (max, sum, label logit) in registers.  The vocab is split over VS
 //     blocks per row block (grid.y), so that enough blocks are resident to
 //     hide the staging loads: each writes its partial (max, sum, label
@@ -59,9 +59,19 @@
 //     tile's columns as the mma's B operand).  The accumulator lives in
 //     registers for the whole sweep: no atomics, a fixed summation order,
 //     deterministic results.  R = 32 for D <= 768 (12 slices a warp), 16 up
-//     to D = 1600 (25).  Where two streamed tiles fit shared memory and
-//     their rows are contiguous (bf16/fp16, the tied head's W rows or x),
-//     tile i + 1 is copied in with cp.async while tile i is computed on.
+//     to D = 1600 (25).  The tiles hold D rounded up to 64 columns, zero
+//     past D, so any D up to 1600 takes them.  Where two streamed tiles fit
+//     shared memory and their rows are contiguous (bf16/fp16, the tied
+//     head's W rows or x, D a multiple of 64), tile i + 1 is copied in with
+//     cp.async while tile i is computed on.
+//   * dx and dW for D above 1600 (fx_bwd_stream_kernel), where a block's
+//     tiles of all D columns no longer fit shared memory: the output
+//     columns are split between blocks (grid.y, at most 1600 a block, kept
+//     in registers as above), and every tile's logits are formed over D in
+//     64-column chunks, so shared memory does not grow with D; each block
+//     of a row forms the logits again, the price of the split.  The JAX
+//     kernel takes any D by putting the whole row in one block; this is
+//     the same domain on a card whose blocks hold 227 KB.
 //   * dl' is fp32 in the reference (:121-124).  Here it is rounded once to
 //     the input dtype before the second product (relative error at most u,
 //     the unit roundoff; for fp16 also an absolute 2^-25 below fp16's
@@ -93,6 +103,27 @@ __device__ __forceinline__ void ldsm_x2_trans(uint32_t& b0, uint32_t& b1,
                : "r"(s));
 }
 
+// D rounded up to the 64-column tile (the tiles' width; zero past D)
+__host__ __device__ inline int round64(int d) { return (d + 63) / 64 * 64; }
+
+// out[row, col], out[row, col + 1] of a [rows, D] output, where inside D:
+// one 32-bit store of the pair for an even D, element by element otherwise
+template <typename T>
+__device__ __forceinline__ void store_pair(T* out, int row, int col, int D,
+                                           float v0, float v1) {
+  if (col >= D) return;
+  T* dst = out + size_t(row) * D + col;
+  if constexpr (std::is_same<T, float>::value) {
+    dst[0] = v0;
+    if (col + 1 < D) dst[1] = v1;
+  } else if (D % 2 == 0) {
+    *reinterpret_cast<uint32_t*>(dst) = Mma<T>::pack(v0, v1);
+  } else {
+    dst[0] = from_f<T>(v0);
+    if (col + 1 < D) dst[1] = from_f<T>(v1);
+  }
+}
+
 // element (row, d) of an operand at src[row * s_row + d * s_col]
 struct View {
   const void* p;
@@ -100,15 +131,19 @@ struct View {
 };
 
 // rows [row0, row0 + count) x columns [d0, d0 + dk) of `src` -> dst (row
-// stride ld elements); zero past nrows.  Contiguous rows move as 16-byte
-// vectors; a transposed view (s_col != 1) element by element, neighbouring
-// threads on neighbouring rows (its unit-stride axis).
+// stride ld elements); zero past nrows and past column dlim (the tail of a
+// D that is not a multiple of the tile).  Contiguous rows whose chunk lies
+// inside D and whose starts are 16-byte aligned move as 16-byte vectors;
+// other contiguous rows element by element along the row; a transposed
+// view (s_col != 1) element by element, neighbouring threads on
+// neighbouring rows (its unit-stride axis).
 template <typename T>
 __device__ __forceinline__ void stage(T* dst, int ld, View v, int row0,
-                                      int nrows, int count, int d0, int dk) {
+                                      int nrows, int count, int d0, int dk,
+                                      int dlim) {
   const T* src = static_cast<const T*>(v.p);
-  if (v.s_col == 1) {
-    constexpr int VEC = 16 / sizeof(T);
+  constexpr int VEC = 16 / sizeof(T);
+  if (v.s_col == 1 && d0 + dk <= dlim && v.s_row % VEC == 0 && dk % VEC == 0) {
     const int vpr = dk / VEC;
     for (int i = threadIdx.x; i < count * vpr; i += blockDim.x) {
       const int rr = i / vpr, cc = (i % vpr) * VEC;
@@ -125,12 +160,20 @@ __device__ __forceinline__ void stage(T* dst, int ld, View v, int row0,
         *reinterpret_cast<uint4*>(d) = raw;
       }
     }
+  } else if (v.s_col == 1) {
+    for (int i = threadIdx.x; i < count * dk; i += blockDim.x) {
+      const int rr = i / dk, cc = i % dk;
+      dst[size_t(rr) * ld + cc] =
+          row0 + rr < nrows && d0 + cc < dlim ? src[(row0 + rr) * v.s_row + d0 + cc]
+                                              : from_f<T>(0.f);
+    }
   } else {
     for (int i = threadIdx.x; i < count * dk; i += blockDim.x) {
       const int rr = i % count, cc = i / count;
       dst[size_t(rr) * ld + cc] =
-          row0 + rr < nrows ? src[(row0 + rr) * v.s_row + (d0 + cc) * v.s_col]
-                            : from_f<T>(0.f);
+          row0 + rr < nrows && d0 + cc < dlim
+              ? src[(row0 + rr) * v.s_row + (d0 + cc) * v.s_col]
+              : from_f<T>(0.f);
     }
   }
 }
@@ -253,8 +296,8 @@ fx_fwd_kernel(View x, View w, const int64_t* __restrict__ labels,
     for (int nt = 0; nt < 8; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
     for (int d0 = 0; d0 < D; d0 += DK) {
       __syncthreads();
-      stage<T>(sX, LD, x, r0, N, BR, d0, DK);
-      stage<T>(sW, LD, w, v0, V, BV, d0, DK);
+      stage<T>(sX, LD, x, r0, N, BR, d0, DK, D);
+      stage<T>(sW, LD, w, v0, V, BV, d0, DK, D);
       __syncthreads();
       tile_scores<T, 8>(s, sX + warp * 16 * LD, LD, sW, LD, 0, DK, g, t);
     }
@@ -349,7 +392,7 @@ struct BwdLayout {
   static constexpr int SR = DW ? BS : R;     // rows whose (lse, valid, label) are staged
   static constexpr int QBUF = DB ? 2 : 1;    // streamed-tile buffers
   static size_t bytes(int D) {
-    const int ld = D + Pad<T>::P;
+    const int ld = round64(D) + Pad<T>::P;
     return (size_t(R + QBUF * BS) * ld + size_t(R) * LDL) * sizeof(T) +
            (size_t(KS - 1) * UNITS * 32 * 4 + 2 * SR) * sizeof(float) +
            SR * sizeof(int);
@@ -366,7 +409,9 @@ fx_bwd_kernel(View x, View w, const int64_t* __restrict__ labels,
   constexpr bool F32 = std::is_same<T, float>::value;
   constexpr int BS = LY::BS, R = LY::R, UNITS = LY::UNITS, KS = LY::KS;
   constexpr int NTW = LY::NTW, LDL = LY::LDL, SR = LY::SR;
-  const int ld = D + Pad<T>::P;
+  // the tiles hold Dp = D rounded up to 64 columns, zero past D
+  const int Dp = round64(D);
+  const int ld = Dp + Pad<T>::P;
   extern __shared__ __align__(16) unsigned char smraw[];
   T* sP = reinterpret_cast<T*>(smraw);   // resident rows [R][ld]
   T* sQ0 = sP + size_t(R) * ld;          // streamed tile(s) [QBUF][BS][ld]
@@ -381,7 +426,7 @@ fx_bwd_kernel(View x, View w, const int64_t* __restrict__ labels,
   const int p0 = blockIdx.x * R;
   const View P = DW ? w : x, Q = DW ? x : w;
   const int np = DW ? V : N, nq = DW ? N : V;
-  const int ntw = D / 64;  // this warp's 8-column slices: warp + 8 i
+  const int ntw = Dp / 64;  // this warp's 8-column slices: warp + 8 i
 
   auto stage_stats = [&](int row0, int count) {
     for (int i = threadIdx.x; i < count; i += BWD_THREADS) {
@@ -393,7 +438,7 @@ fx_bwd_kernel(View x, View w, const int64_t* __restrict__ labels,
     }
   };
 
-  stage<T>(sP, ld, P, p0, np, R, 0, D);
+  stage<T>(sP, ld, P, p0, np, R, 0, Dp, D);
   if (!DW) stage_stats(p0, R);
 
   float acc[RT][NTW][4];
@@ -404,7 +449,7 @@ fx_bwd_kernel(View x, View w, const int64_t* __restrict__ labels,
 
   const int u = warp % UNITS, ks = warp / UNITS;
   const int rt1 = u / (BS / 8), nt1 = u % (BS / 8);
-  const int kbeg = ks * (D / KS), kend = kbeg + D / KS;
+  const int kbeg = ks * (Dp / KS), kend = kbeg + Dp / KS;
 
   // DB: tile i + 1 is copied in (cp.async) while tile i is computed on
   if constexpr (DB) {
@@ -425,7 +470,7 @@ fx_bwd_kernel(View x, View w, const int64_t* __restrict__ labels,
         cp_async_wait<0>();
       }
     } else {
-      stage<T>(sQ, ld, Q, q0, nq, BS, 0, D);
+      stage<T>(sQ, ld, Q, q0, nq, BS, 0, Dp, D);
     }
     if (DW) stage_stats(q0, BS);
     __syncthreads();
@@ -531,19 +576,186 @@ fx_bwd_kernel(View x, View w, const int64_t* __restrict__ labels,
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int row = p0 + rt * 16 + g + 8 * h;
-          if (row < np) {
-            T* dst = out + size_t(row) * D + col;
-            if constexpr (F32) {
-              dst[0] = gs * acc[rt][i][2 * h];
-              dst[1] = gs * acc[rt][i][2 * h + 1];
-            } else {
-              *reinterpret_cast<uint32_t*>(dst) =
-                  Mma<T>::pack(gs * acc[rt][i][2 * h], gs * acc[rt][i][2 * h + 1]);
+          if (row < np)
+            store_pair(out, row, col, D, gs * acc[rt][i][2 * h],
+                       gs * acc[rt][i][2 * h + 1]);
+        }
+      }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// dx / dW^T for D above what a block's shared memory holds whole (> 1600):
+// one block of 8 warps per R = 16 resident rows and a range of Dc output
+// columns (grid.y splits D), the logits streamed over D in 64-column chunks
+// ---------------------------------------------------------------------------
+
+// A block owns the output rows [p0, p0 + 16) and the columns [c0, c0 + Dc)
+// (Dc a multiple of 64, at most 64 STW).  Per streamed tile of BS rows it
+// forms the 16 x BS logits over all of D, staging both operands 64 columns
+// at a time (each warp a 16 x 8 unit over its part of every chunk, the
+// parts summed in a fixed order), turns them into dl' as the kernel above
+// does, then stages the tile's columns of its own range 64 at a time and
+// accumulates dl'.tile into its [16, Dc] fp32 accumulator, warp w owning
+// the 8 columns 64 i + 8 w of chunk i.  Every block of a row re-forms the
+// logits (the work of the first product times the split), in exchange for
+// shared memory that does not grow with D.
+template <typename T, bool DW>
+struct StreamLayout {
+  static constexpr int BS = std::is_same<T, float>::value ? 16 : 32;
+  static constexpr int R = 16;
+  static constexpr int UNITS = BS / 8;       // 16 x 8 logits units a tile
+  static constexpr int KS = 8 / UNITS;       // warps per unit (split of a chunk)
+  static constexpr int STW = 25;             // max 64-column chunks of a range
+  static constexpr int LDC = 64 + Pad<T>::P;
+  static constexpr int LDL = BS + Pad<T>::P;
+  static constexpr int SR = DW ? BS : R;
+};
+
+template <typename T, bool DW>
+__global__ void __launch_bounds__(BWD_THREADS)
+fx_bwd_stream_kernel(View x, View w, const int64_t* __restrict__ labels,
+                     const float* __restrict__ lse,
+                     const uint8_t* __restrict__ valid,
+                     const float* __restrict__ gp, T* __restrict__ out, int N,
+                     int D, int V, int Dc) {
+  using LY = StreamLayout<T, DW>;
+  constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int BS = LY::BS, R = LY::R, UNITS = LY::UNITS, KS = LY::KS;
+  constexpr int STW = LY::STW, LDC = LY::LDC, LDL = LY::LDL, SR = LY::SR;
+  __shared__ __align__(16) T sP[R * LDC];
+  __shared__ __align__(16) T sQ[BS * LDC];
+  __shared__ __align__(16) T sDL[R * LDL];
+  __shared__ float sRed[(KS > 1 ? KS - 1 : 1) * UNITS * 32 * 4];
+  __shared__ float sLse[SR], sVal[SR];
+  __shared__ int sLab[SR];
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int p0 = blockIdx.x * R;
+  const int c0 = blockIdx.y * Dc;
+  const int Dp = round64(D);
+  const int nch = min(Dc, Dp - c0) / 64;     // this block's column chunks
+  const View P = DW ? w : x, Q = DW ? x : w;
+  const int np = DW ? V : N, nq = DW ? N : V;
+
+  auto stage_stats = [&](int row0, int count) {
+    for (int i = threadIdx.x; i < count; i += BWD_THREADS) {
+      const int r = row0 + i;
+      const bool in = r < N;
+      sLse[i] = in ? lse[r] : 0.f;
+      sVal[i] = in && valid[r] ? 1.f : 0.f;
+      sLab[i] = in ? int(labels[r]) : -1;
+    }
+  };
+  if (!DW) stage_stats(p0, R);
+
+  float acc[STW][4];
+#pragma unroll
+  for (int i = 0; i < STW; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  const int u = warp % UNITS, ks = warp / UNITS;
+  const int kbeg = ks * (64 / KS), kend = kbeg + 64 / KS;
+
+  for (int q0 = 0; q0 < nq; q0 += BS) {
+    // the logits of this warp's 16 x 8 unit, over its part of each chunk
+    float c[1][4] = {{0.f, 0.f, 0.f, 0.f}};
+    for (int d0 = 0; d0 < Dp; d0 += 64) {
+      __syncthreads();
+      stage<T>(sP, LDC, P, p0, np, R, d0, 64, D);
+      stage<T>(sQ, LDC, Q, q0, nq, BS, d0, 64, D);
+      if (DW && d0 == 0) stage_stats(q0, BS);
+      __syncthreads();
+      if constexpr (F32)
+        tile_scores<T, 1>(c, sP, LDC, sQ + u * 8 * LDC, LDC, kbeg, kend, g, t);
+      else
+        unit_scores<T>(c[0], sP, LDC, sQ + u * 8 * LDC, LDC, kbeg, kend, g, t);
+    }
+    if constexpr (KS > 1) {
+      if (ks > 0) {
+        float* red = sRed + (((ks - 1) * UNITS + u) * 32 + lane) * 4;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) red[i] = c[0][i];
+      }
+      __syncthreads();
+      if (ks == 0) {
+#pragma unroll
+        for (int k = 1; k < KS; ++k) {
+          const float* red = sRed + (((k - 1) * UNITS + u) * 32 + lane) * 4;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) c[0][i] += red[i];
+        }
+      }
+    }
+    if (ks == 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int pr = g + (i >= 2 ? 8 : 0);     // resident row
+        const int qc = u * 8 + 2 * t + (i & 1);  // streamed row
+        const int si = DW ? qc : pr;
+        const int vocab = DW ? p0 + pr : q0 + qc;
+        const bool live = DW ? q0 + qc < N : vocab < V;
+        float d = 0.f;
+        if (live && sVal[si] != 0.f)
+          d = expf(c[0][i] - sLse[si]) - (sLab[si] == vocab ? 1.f : 0.f);
+        sDL[pr * LDL + qc] = from_f<T>(d);
+      }
+    }
+
+    // acc[16, Dc] += dl' [16, BS] . tile [BS, own columns], chunk by chunk
+    uint32_t a[BS / 16][4];
+#pragma unroll
+    for (int i = 0; i < STW; ++i) {
+      if (i < nch) {
+        __syncthreads();  // sDL written; the previous chunk's reads done
+        stage<T>(sQ, LDC, Q, q0, nq, BS, c0 + 64 * i, 64, D);
+        __syncthreads();
+        if constexpr (F32) {
+          const int col = 8 * warp + 2 * t;
+#pragma unroll 4
+          for (int k = 0; k < BS; ++k) {
+            const float y0 = sQ[k * LDC + col], y1 = sQ[k * LDC + col + 1];
+            const float x0 = sDL[g * LDL + k], x1 = sDL[(g + 8) * LDL + k];
+            acc[i][0] = fmaf(x0, y0, acc[i][0]);
+            acc[i][1] = fmaf(x0, y1, acc[i][1]);
+            acc[i][2] = fmaf(x1, y0, acc[i][2]);
+            acc[i][3] = fmaf(x1, y1, acc[i][3]);
+          }
+        } else {
+          if (i == 0) {
+#pragma unroll
+            for (int kk = 0; kk < BS / 16; ++kk) {
+              const T* ar = sDL + g * LDL + kk * 16 + 2 * t;
+              a[kk][0] = ld32(ar);
+              a[kk][1] = ld32(ar + 8 * LDL);
+              a[kk][2] = ld32(ar + 8);
+              a[kk][3] = ld32(ar + 8 * LDL + 8);
             }
+          }
+#pragma unroll
+          for (int kk = 0; kk < BS / 16; ++kk) {
+            uint32_t b0, b1;
+            ldsm_x2_trans(b0, b1, sQ + (kk * 16 + (lane & 15)) * LDC + 8 * warp);
+            Mma<T>::run(acc[i], a[kk], b0, b1);
           }
         }
       }
     }
+  }
+
+  const float gs = *gp;
+#pragma unroll
+  for (int i = 0; i < STW; ++i) {
+    if (i < nch) {
+      const int col = c0 + 64 * i + 8 * warp + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = p0 + g + 8 * h;
+        if (row < np)
+          store_pair(out, row, col, D, gs * acc[i][2 * h], gs * acc[i][2 * h + 1]);
+      }
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -589,24 +801,42 @@ cudaError_t launch_bwd(const Args& a) {
   return cudaGetLastError();
 }
 
-// D up to 1600 for every dtype: fp32 tiles (16 resident and 16 streamed
-// rows) fit shared memory to 1600; 16-bit R = 32 keeps 12 slices a warp in
-// registers to 768, R = 16 keeps 25 to 1600
+template <typename T, bool DW>
+cudaError_t launch_bwd_stream(const Args& a) {
+  using LY = StreamLayout<T, DW>;
+  const int Dp = round64(a.D);
+  const int splits = (Dp + 64 * LY::STW - 1) / (64 * LY::STW);
+  const int Dc = round64((Dp + splits - 1) / splits);
+  const int np = DW ? a.V : a.N;
+  dim3 grid((np + LY::R - 1) / LY::R, (Dp + Dc - 1) / Dc);
+  fx_bwd_stream_kernel<T, DW><<<grid, BWD_THREADS, 0, a.stream>>>(
+      a.x, a.w, a.labels, a.lse, a.valid, a.g, static_cast<T*>(a.out0), a.N,
+      a.D, a.V, Dc);
+  return cudaGetLastError();
+}
+
+// D (rounded up to 64) up to 1600 for every dtype: fp32 tiles (16 resident
+// and 16 streamed rows) fit shared memory to 1600; 16-bit R = 32 keeps 12
+// slices a warp in registers to 768, R = 16 keeps 25 to 1600.  Wider D
+// streams its columns (fx_bwd_stream_kernel).
 template <typename T, bool DW>
 cudaError_t launch_bwd_rt(const Args& a) {
-  if (a.D > 1600) return cudaErrorInvalidValue;
+  if (round64(a.D) > 1600) return launch_bwd_stream<T, DW>(a);
   if constexpr (std::is_same<T, float>::value) {
     return launch_bwd<T, 1, DW, false>(a);
   } else {
     // the streamed tile double-buffers where its rows are contiguous (cp.async
     // copies whole 16-byte vectors) and two tiles fit shared memory
+    // (a D that is a multiple of 64 keeps every row's 16-byte vectors
+    // aligned)
     const View& q = DW ? a.x : a.w;
     constexpr size_t SMEM_MAX = 232448;
-    if (a.D <= 768)
-      return q.s_col == 1 && BwdLayout<T, 2, DW, true>::bytes(a.D) <= SMEM_MAX
+    const bool db = q.s_col == 1 && a.D % 64 == 0;
+    if (round64(a.D) <= 768)
+      return db && BwdLayout<T, 2, DW, true>::bytes(a.D) <= SMEM_MAX
                  ? launch_bwd<T, 2, DW, true>(a)
                  : launch_bwd<T, 2, DW, false>(a);
-    return q.s_col == 1 && BwdLayout<T, 1, DW, true>::bytes(a.D) <= SMEM_MAX
+    return db && BwdLayout<T, 1, DW, true>::bytes(a.D) <= SMEM_MAX
                ? launch_bwd<T, 1, DW, true>(a)
                : launch_bwd<T, 1, DW, false>(a);
   }
@@ -625,7 +855,7 @@ int run(int which, const void* x, const void* w, long long w_sv,
         void* part, void* tickets, int N, int D, int V, int VS, int dtype,
         void* stream) {
   (void)cudaGetLastError();  // report this launch's error, not an older one
-  if (N <= 0 || V <= 0 || D <= 0 || D % 64) return cudaErrorInvalidValue;
+  if (N <= 0 || V <= 0 || D <= 0) return cudaErrorInvalidValue;
   const Args a{{x, D, 1}, {w, w_sv, w_sd},
                static_cast<const int64_t*>(labels),
                static_cast<const float*>(lse),
@@ -648,8 +878,8 @@ extern "C" {
 // x [N, D] contiguous; the head weight W [D, V] with element (v, d) at
 // w[v * w_sv + d * w_sd] (w_sv = D, w_sd = 1 for the transposed view of a
 // [V, D] embedding; w_sv = 1, w_sd = V for a contiguous [D, V]); x and W of
-// one dtype (0 = float32, 1 = bfloat16, 2 = float16), 16-byte aligned;
-// D % 64 == 0.  labels int64 [N]; lse fp32 [N]; valid bool (one byte) [N];
+// one dtype (0 = float32, 1 = bfloat16, 2 = float16), 16-byte aligned; any
+// D >= 1.  labels int64 [N]; lse fp32 [N]; valid bool (one byte) [N];
 // g one fp32 (the upstream gradient).  Each returns the cudaError_t of the
 // launch (0 on success); the caller raises on anything else.
 

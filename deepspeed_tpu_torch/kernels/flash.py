@@ -191,7 +191,19 @@ def kernel_tolerances(q, k, v, dout, kb, ref, *, causal, scale, rate, seed,
     the fp32 inputs straddle a rounding boundary, one ulp (2u) of that
     term at most, hence 2u·M for those two.  M, from a dense fp32
     recomputation on the card: out P_d|V|, dq scale·|dS||K|, dk
-    scale·|dS|ᵀ|Q|, dv P_dᵀ|dO| (P_d the dropped probabilities)."""
+    scale·|dS|ᵀ|Q|, dv P_dᵀ|dO| (P_d the dropped probabilities).
+
+    dq and dk also carry the error of dp = dO·Vᵀ, which M does not see:
+    ds = p (dp·mask - delta), and the two sides' dp differ by the order of
+    their fp32 sums, 1e-5 of dp's own absolute-value sum E = |dO|·|V|ᵀ —
+    not of |dp - delta|, which cancels to nothing where delta equals dp
+    (a causal row's first key, whose p is 1 and whose dp is delta, up to
+    the rounding of the output delta is formed from).  There ds is little
+    more than that rounding and the sums' noise, and M is small beside the
+    noise (fp16 inputs most: products of 11-bit mantissas, so sums of Dh
+    of them round; bf16 products have 8, and their sums rarely do).  Hence
+    (1 + 2u)·1e-5·scale·(P_d∘E)|K| for dq (the factor covers dQ's
+    rounding of the perturbed ds) and 1e-5·scale·(P_d∘E)ᵀ|Q| for dk."""
     from ..ops.transformer.dropout import _keep_mask
     from ..ops.transformer.flash_attention import NEG_INF
 
@@ -220,14 +232,18 @@ def kernel_tolerances(q, k, v, dout, kb, ref, *, causal, scale, rate, seed,
     dp = (do32 @ v32.transpose(-1, -2)) * mask
     delta = (do32 * ref["out"].float()).sum(dim=-1, keepdim=True)
     ds_abs = (p * (dp - delta)).abs()
+    # the error of dp: 1e-5 of its absolute-value sum, where p weighs it
+    dp_err = 1e-5 * pd * (do32.abs() @ v32.abs().transpose(-1, -2))
     del dp
     mags = {"out": pd @ v32.abs(),
             "dv": pd.transpose(-1, -2) @ do32.abs(),
             "dq": scale * (ds_abs @ k32.abs()),
             "dk": scale * (ds_abs.transpose(-1, -2) @ q32.abs())}
+    extra = {"dq": (1 + 2 * u) * scale * (dp_err @ k32.abs()),
+             "dk": scale * (dp_err.transpose(-1, -2) @ q32.abs())}
     tols = {}
     for name, m in mags.items():
         inner = 2 * u if name in ("out", "dq") else 0.0
         tols[name] = (2 * u * ref[name].float().abs() + (inner + 1e-5) * m
-                      + 1e-6)
+                      + extra.get(name, 0.0) + 1e-6)
     return tols

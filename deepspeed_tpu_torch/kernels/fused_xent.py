@@ -10,7 +10,10 @@ themselves, so `block_rows` / `block_v` only pass the divisibility check
 of the entry point and do not reach the card.  The head weight is read
 where it lies: the tied head `wte.t()` (strides (1, D)) or a contiguous
 [D, V] matrix; dW comes back as the transposed view of a [V, D] tensor,
-the layout of the tied embedding.  A wrapper checks device, dtype, shape,
+the layout of the tied embedding.  Any D is taken, as the JAX kernel takes
+it: the tiles zero the columns past D, and above D = 1600 the backward
+kernels split the output columns between blocks and stream the logits'
+columns (`csrc/fused_xent.cu`).  A wrapper checks device, dtype, shape,
 strides and alignment, launches its kernel on PyTorch's current stream,
 raises on a launch error and counts the launch in `LAUNCHES`; it never
 falls back to the plain version.
@@ -29,9 +32,6 @@ LAUNCHES: Dict[str, int] = {"fused_xent_fwd": 0, "fused_xent_dx": 0,
                             "fused_xent_dw": 0}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-# the largest D the kernels' tiles take, in every dtype (GPT-2 XL's width;
-# csrc/fused_xent.cu launch_bwd_rt)
-MAX_D = 1600
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # x, w, w_sv, w_sd, then per kernel its pointers, N, D, V, dtype, stream
 _ARGTYPES = {"fused_xent_fwd": [_P, _P, _L, _L] + [_P] * 5 + [_I] * 5 + [_P],
@@ -87,8 +87,6 @@ def _common(x, w, labels, extra=()):
     _check(x.is_contiguous(), lambda: "x must be contiguous")
     _check(w.shape[0] == D, lambda: f"w {tuple(w.shape)} does not match x "
            f"{tuple(x.shape)}")
-    _check(D % 64 == 0 and D <= MAX_D,
-           lambda: f"D = {D}: the kernels take multiples of 64 up to {MAX_D}")
     _check(x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0,
            lambda: "x and w storage must be 16-byte aligned")
     _check(labels.dtype == torch.int64 and labels.shape == (N,) and

@@ -133,11 +133,69 @@ class FusedXentDwOp(KernelOp):
         return _dw_plain(*args, **kwargs)
 
 
+class QuantCodecQuantizeOp(KernelOp):
+    """Blockwise int8/int4 quantize (kernels/quant_codec.py)."""
+
+    NAME = "quant_codec_quantize"
+
+    def kernel(self, *args, **kwargs):
+        from . import quant_codec
+        return quant_codec.quantize_blockwise_cuda(*args, **kwargs)
+
+    def plain(self, *args, **kwargs):
+        from ..runtime.comm.quant import quantize_blockwise_ref
+        return quantize_blockwise_ref(*args, **kwargs)
+
+
+class QuantCodecDequantizeOp(KernelOp):
+    """Blockwise int8/int4 dequantize (kernels/quant_codec.py)."""
+
+    NAME = "quant_codec_dequantize"
+
+    def kernel(self, *args, **kwargs):
+        from . import quant_codec
+        return quant_codec.dequantize_blockwise_cuda(*args, **kwargs)
+
+    def plain(self, *args, **kwargs):
+        from ..runtime.comm.quant import dequantize_blockwise_ref
+        return dequantize_blockwise_ref(*args, **kwargs)
+
+
+class MoEDispatchOp(KernelOp):
+    """Sorted MoE dispatch, tokens -> expert buckets (kernels/moe_kernels.py)."""
+
+    NAME = "moe_dispatch"
+
+    def kernel(self, *args, **kwargs):
+        from . import moe_kernels
+        return moe_kernels.sorted_dispatch_cuda(*args, **kwargs)
+
+    def plain(self, *args, **kwargs):
+        from ..moe.dispatch import sorted_dispatch_ref
+        return sorted_dispatch_ref(*args, **kwargs)
+
+
+class MoECombineOp(KernelOp):
+    """Sorted MoE gated combine (kernels/moe_kernels.py)."""
+
+    NAME = "moe_combine"
+
+    def kernel(self, *args, **kwargs):
+        from . import moe_kernels
+        return moe_kernels.sorted_combine_cuda(*args, **kwargs)
+
+    def plain(self, *args, **kwargs):
+        from ..moe.dispatch import sorted_combine_ref
+        return sorted_combine_ref(*args, **kwargs)
+
+
 KERNEL_OPS: Dict[str, KernelOp] = {
     op.NAME: op for op in (PagedAttentionOp(), FlashAttentionFwdOp(),
                            FlashAttentionDqOp(), FlashAttentionDkvOp(),
                            FusedXentFwdOp(), FusedXentDxOp(),
-                           FusedXentDwOp())}
+                           FusedXentDwOp(), QuantCodecQuantizeOp(),
+                           QuantCodecDequantizeOp(), MoEDispatchOp(),
+                           MoECombineOp())}
 
 
 def get_kernel(name: str) -> KernelOp:

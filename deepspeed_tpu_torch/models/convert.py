@@ -5,7 +5,9 @@ dicts and lists of numpy arrays (on the JAX side:
 `jax.tree_util.tree_map(np.asarray, params)`) and copies every leaf into
 the module parameter of the same dotted path.  The weight layout is the
 same on both sides (`[in, out]`), so each copy is a plain one; dtypes
-convert to the module's.  A missing key, an extra key or a shape
+convert to the module's.  An MoE block's leaves (`blocks.i.moe.gate.w`,
+`blocks.i.moe.experts.{w1,b1,w2,b2}`, stacked over the experts) come
+across the same way.  A missing key, an extra key or a shape
 mismatch raises before anything is written.
 """
 

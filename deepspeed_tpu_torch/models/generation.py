@@ -124,6 +124,9 @@ def generate(model: GPT, prompt, max_new_tokens: int,
     dev = resolve_device(device)
     check_same_device("model", model.device, dev)
     cfg = model.config
+    if cfg.num_experts > 1:
+        raise NotImplementedError(
+            "generate() supports plain dense GPT configs (no MoE layers)")
     prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.long,
                              device=dev)
     B, T = prompt.shape

@@ -1,4 +1,4 @@
-"""GPT model family — the port of deepspeed_tpu/models/gpt.py, dense path.
+"""GPT model family — the port of deepspeed_tpu/models/gpt.py.
 
 * `GPTConfig`, `GPT2_SIZES`, `gpt2_config` (gpt.py:37-113), with
   `param_dtype` a torch dtype;
@@ -15,8 +15,8 @@ std 0.02; 0.02/sqrt(2·L) for proj and fc2; 0.01 for wpe; zero biases,
 unit LayerNorm scales) from an explicit `torch.Generator` — equal in
 distribution, not bit for bit.
 
-Training (gpt.py:218-619): `gpt_block` (the dense branch: no ulysses,
-ring or MoE), `_trunk`, `GPT.apply` and `GPT.loss`, with the chunked,
+Training (gpt.py:218-619): `gpt_block` (the dense and MoE branches; no
+ulysses or ring), `_trunk`, `GPT.apply` and `GPT.loss`, with the chunked,
 checkpointed cross-entropy `_softmax_xent_from_hidden` (with
 `loss_impl="pallas"`, the fused CE of `ops/transformer/fused_xent.py`,
 kernels #4-#6 on the card).  The functions
@@ -24,7 +24,15 @@ read the module's parameters, so the engine runs them through
 `torch.func.functional_call` on a compute-dtype replica of its fp32
 masters.  Dropout seeds are drawn from an explicit `torch.Generator`
 (`ops/transformer/dropout.py`) before each block, so a block recomputed
-under `remat` draws the same masks.  The serving programs
+under `remat` draws the same masks; an MoE block's gate-noise seed is
+drawn there too.
+
+Mixture of Experts (gpt.py:67-92, :159, :314-318, :614-616): with
+`num_experts > 1`, layers `idx % moe_layer_freq == moe_layer_freq - 1`
+hold a `moe` module (`moe/layer.py`: `gate.w`, `experts.{w1,b1,w2,b2}`)
+in place of `mlp`; its load-balancing loss, summed over the layers and
+weighted by `moe_aux_loss_weight`, is added to the training loss only.
+The serving programs
 (`serving/programs.py`) and `generation.py` read the parameters directly.
 """
 
@@ -40,6 +48,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..moe.layer import MoE, MoEConfig
 from ..ops.transformer.attention import multihead_attention
 from ..ops.transformer.dropout import derive_seed, hash_dropout
 from ..utils.device import resolve_device
@@ -70,7 +79,12 @@ class GPTConfig:
     param_dtype: Any = torch.float32
     pipeline_stages: int = 1
     sequence_parallel: bool = False
-    num_experts: int = 1
+    # Mixture-of-Experts: an MoE FFN every moe_layer_freq layers
+    num_experts: int = 1             # >1: MoE on idx % freq == freq - 1
+    moe_top_k: int = 1
+    moe_layer_freq: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_loss_weight: float = 1e-2
 
     def __post_init__(self):
         if self.d_ff is None:
@@ -83,6 +97,19 @@ class GPTConfig:
             raise TypeError(
                 f"param_dtype must be a torch dtype, got "
                 f"{self.param_dtype!r}")
+        if self.num_experts > 1 and self.pipeline_stages > 1:
+            raise ValueError("MoE and pipeline mode are mutually exclusive "
+                             "for now (stacked stage params must be uniform)")
+
+    def is_moe_layer(self, idx: int) -> bool:
+        # freq f -> layers f-1, 2f-1, ... (f=1: every layer; f=2: odd layers)
+        return (self.num_experts > 1 and
+                idx % self.moe_layer_freq == self.moe_layer_freq - 1)
+
+    def moe_config(self):
+        return MoEConfig(d_model=self.d_model, d_ff=self.d_ff,
+                         num_experts=self.num_experts, top_k=self.moe_top_k,
+                         capacity_factor=self.moe_capacity_factor)
 
     @property
     def head_dim(self):
@@ -133,23 +160,25 @@ def _dropout(x, rate, seed, train):
     return hash_dropout(x, rate, seed, train)
 
 
-def _block_seeds(cfg: GPTConfig, generator, train):
-    """(attention, attention-residual, MLP-residual) dropout seeds of one
-    block, drawn before the block runs (None where inactive) — the
-    counterpart of the JAX block's `jax.random.split(rng, 3)`."""
+def _block_seeds(cfg: GPTConfig, generator, train, moe=False):
+    """(attention, attention-residual, MLP-residual dropout seeds, MoE
+    gate-noise seed) of one block, drawn before the block runs (None where
+    inactive) — the counterpart of the JAX block's
+    `jax.random.split(rng, 3)` and, in an MoE block, its split of r3."""
     if not train or generator is None:
-        return (None, None, None)
+        return (None, None, None, None)
+    noise = cfg.moe_config().noisy_gate_std if moe else 0.0
     return tuple(derive_seed(r, generator)[0] if r > 0.0 else None
-                 for r in (_attn_rate(cfg), cfg.dropout, cfg.dropout))
+                 for r in (_attn_rate(cfg), cfg.dropout, cfg.dropout, noise))
 
 
-def gpt_block(x, blk, cfg: GPTConfig, seeds=(None, None, None),
+def gpt_block(x, blk, cfg: GPTConfig, seeds=(None, None, None, None),
               train=True):
-    """One pre-LN transformer block over x [B, S, D] (gpt.py:244, the
-    dense branch)."""
+    """One pre-LN transformer block over x [B, S, D] (gpt.py:244) ->
+    (x, MoE aux loss: 0 for a dense block)."""
     B, S, D = x.shape
     H = cfg.num_heads
-    s_attn, s_res1, s_res2 = seeds
+    s_attn, s_res1, s_res2, s_moe = seeds
     h = layer_norm(x, blk.ln1, cfg.layer_norm_eps)
     q, kk, v = linear(h, blk.attn.qkv, h.dtype).split(D, dim=-1)
     split_heads = lambda t: t.reshape(B, S, H, D // H)
@@ -163,9 +192,16 @@ def gpt_block(x, blk, cfg: GPTConfig, seeds=(None, None, None),
     attn = linear(attn.reshape(B, S, D), blk.attn.proj, h.dtype)
     x = x + _dropout(attn, cfg.dropout, s_res1, train)
     h = layer_norm(x, blk.ln2, cfg.layer_norm_eps)
-    h = F.gelu(linear(h, blk.mlp.fc1, h.dtype), approximate="tanh")
-    h = linear(h, blk.mlp.fc2, h.dtype)
-    return x + _dropout(h, cfg.dropout, s_res2, train)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if hasattr(blk, "moe"):
+        gen = (None if s_moe is None else
+               torch.Generator(device=x.device).manual_seed(s_moe))
+        h, aux = MoE(cfg.moe_config())(blk.moe, h, generator=gen,
+                                       train=train)
+    else:
+        h = F.gelu(linear(h, blk.mlp.fc1, h.dtype), approximate="tanh")
+        h = linear(h, blk.mlp.fc2, h.dtype)
+    return x + _dropout(h, cfg.dropout, s_res2, train), aux
 
 
 def _ce_rows(logits32, labels, valid):
@@ -286,16 +322,21 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    """One pre-LN decoder block's parameters (gpt.py:143-166)."""
+    """One pre-LN decoder block's parameters (gpt.py:143-166): `mlp`, or
+    `moe` on an MoE layer."""
 
-    def __init__(self, cfg: GPTConfig, device, generator):
+    def __init__(self, cfg: GPTConfig, device, generator, layer_idx=0):
         super().__init__()
         std = 0.02
         proj_std = std / math.sqrt(2 * cfg.num_layers)  # GPT-2 residual scaling
         self.ln1 = Norm(cfg.d_model, cfg.param_dtype, device)
         self.attn = Attention(cfg, std, proj_std, device, generator)
         self.ln2 = Norm(cfg.d_model, cfg.param_dtype, device)
-        self.mlp = MLP(cfg, std, proj_std, device, generator)
+        if cfg.is_moe_layer(layer_idx):
+            self.moe = MoE(cfg.moe_config()).init(generator, cfg.param_dtype,
+                                                  device)
+        else:
+            self.mlp = MLP(cfg, std, proj_std, device, generator)
 
 
 class GPT(nn.Module):
@@ -305,12 +346,11 @@ class GPT(nn.Module):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         cfg = config
-        if cfg.num_experts > 1 or cfg.pipeline_stages > 1 or \
-                cfg.sequence_parallel:
+        if cfg.pipeline_stages > 1 or cfg.sequence_parallel:
             raise NotImplementedError(
-                "the port supports plain dense GPT configs (no MoE layers, "
-                "no pipeline-stacked blocks, no sequence parallelism) — the "
-                "serving contract")
+                "pipeline-stacked blocks and sequence parallelism are not "
+                "ported yet (ROADMAP queue 1: pipeline; tensor and sequence "
+                "parallelism)")
         dev = resolve_device(device)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
@@ -321,7 +361,7 @@ class GPT(nn.Module):
         self.wpe = nn.Parameter(_normal((cfg.max_seq_len, cfg.d_model), 0.01,
                                         dt, dev, generator))
         self.blocks = nn.ModuleList(
-            Block(cfg, dev, generator) for _ in range(cfg.num_layers))
+            Block(cfg, dev, generator, i) for i in range(cfg.num_layers))
         self.ln_f = Norm(cfg.d_model, dt, dev)
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(_normal((cfg.d_model, cfg.vocab_size),
@@ -344,7 +384,8 @@ class GPT(nn.Module):
     def _trunk(self, tokens, generator=None, train=False, pld_mask=None,
                capture_layers=None):
         """Everything up to and including the final layer norm: tokens
-        [B, S] -> [B, S, D] hidden states (gpt.py:481)."""
+        [B, S] -> ([B, S, D] hidden states, summed MoE aux loss)
+        (gpt.py:481)."""
         if pld_mask is not None:
             raise NotImplementedError(
                 "progressive layer drop is not ported yet (ROADMAP queue 1, "
@@ -359,20 +400,22 @@ class GPT(nn.Module):
         if train and generator is not None and cfg.embed_dropout > 0.0:
             x = _dropout(x, cfg.embed_dropout,
                          derive_seed(cfg.embed_dropout, generator)[0], train)
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk in self.blocks:
-            seeds = _block_seeds(cfg, generator, train)
+            seeds = _block_seeds(cfg, generator, train, hasattr(blk, "moe"))
             if cfg.remat and torch.is_grad_enabled():
                 # recomputed in backward, with the same seeds
-                x = checkpoint(gpt_block, x, blk, cfg, seeds, train,
-                               use_reentrant=False)
+                x, aux = checkpoint(gpt_block, x, blk, cfg, seeds, train,
+                                    use_reentrant=False)
             else:
-                x = gpt_block(x, blk, cfg, seeds, train)
-        return layer_norm(x, self.ln_f, cfg.layer_norm_eps)
+                x, aux = gpt_block(x, blk, cfg, seeds, train)
+            aux_total = aux_total + aux
+        return layer_norm(x, self.ln_f, cfg.layer_norm_eps), aux_total
 
     def apply(self, tokens, generator=None, train=False):
         """tokens [B, S] -> logits [B, S, V] in the compute dtype
         (gpt.py:566)."""
-        x = self._trunk(self._tokens(tokens), generator, train)
+        x, _ = self._trunk(self._tokens(tokens), generator, train)
         return x @ self.head_weight().to(x.dtype)
 
     def loss(self, batch, generator=None, train=True,
@@ -394,8 +437,8 @@ class GPT(nn.Module):
             labels = self._tokens(labels)
         pld_mask = (True if progressive_layer_drop and pld_theta is not None
                     and train else None)
-        x = self._trunk(tokens, generator, train, pld_mask=pld_mask,
-                        capture_layers=capture_layers)
+        x, moe_aux = self._trunk(tokens, generator, train, pld_mask=pld_mask,
+                                 capture_layers=capture_layers)
         valid = labels >= 0
         safe_labels = torch.where(valid, labels, 0)
         B, S, D = x.shape
@@ -403,7 +446,12 @@ class GPT(nn.Module):
             x.reshape(B * S, D), self.head_weight(), safe_labels.reshape(-1),
             valid.reshape(-1), self.config.loss_chunks,
             impl=self.config.loss_impl)
-        return nll_sum / torch.clamp_min(valid.sum(), 1)
+        ce = nll_sum / torch.clamp_min(valid.sum(), 1)
+        if self.config.num_experts > 1 and train:
+            # aux applies to the training objective only: the eval loss
+            # stays pure CE
+            ce = ce + self.config.moe_aux_loss_weight * moe_aux
+        return ce
 
     # the module's call is the training loss: the engine runs it through
     # torch.func.functional_call on the compute-dtype replica

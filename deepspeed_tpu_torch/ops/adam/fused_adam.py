@@ -73,17 +73,25 @@ class FusedAdam:
         p32 = [p.float() for p in params]
         if not self.adam_w_mode and wd:
             grads = torch._foreach_add(grads, torch._foreach_mul(p32, wd))
-        m = torch._foreach_add(torch._foreach_mul(state["exp_avg"], beta1),
-                               torch._foreach_mul(grads, 1.0 - beta1))
-        v = torch._foreach_add(
-            torch._foreach_mul(state["exp_avg_sq"], beta2),
-            torch._foreach_mul(torch._foreach_mul(grads, 1.0 - beta2), grads))
+        # the JAX update's arithmetic, op for op; the in-place forms keep at
+        # most two parameter-sized temporaries alive at a time
+        m = torch._foreach_mul(state["exp_avg"], beta1)
+        tmp = torch._foreach_mul(grads, 1.0 - beta1)
+        torch._foreach_add_(m, tmp)
+        tmp = torch._foreach_mul(grads, 1.0 - beta2)
+        torch._foreach_mul_(tmp, grads)
+        v = torch._foreach_mul(state["exp_avg_sq"], beta2)
+        torch._foreach_add_(v, tmp)
+        del tmp
         denom = torch._foreach_div(v, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, eps)
-        upd = torch._foreach_mul(torch._foreach_div(m, bc1), lr)
+        upd = torch._foreach_div(m, bc1)
+        torch._foreach_mul_(upd, lr)
         torch._foreach_div_(upd, denom)
+        del denom
         new_p = torch._foreach_sub(p32, upd)
+        del upd
         if self.adam_w_mode and wd:
             new_p = torch._foreach_sub(new_p, torch._foreach_mul(p32, lr * wd))
         new_p = [n.to(p.dtype) for n, p in zip(new_p, params)]

@@ -7,7 +7,11 @@ solver of config.py:1088-1134), `fp16` (loss_scale, initial_scale_power,
 loss_scale_window, hysteresis, min_loss_scale, and the fork's
 "type": "bfloat16" spelling) and `bf16`, `optimizer`, `scheduler`,
 `gradient_clipping`, `prescale_gradients`, `gradient_predivide_factor`,
-`steps_per_print`, `wall_clock_breakdown`, `sparse_gradients`.
+`steps_per_print`, `wall_clock_breakdown`, `sparse_gradients`, and
+`comm.moe` (the MoE token movement, `moe/dispatch.py` `parse_moe_config`,
+with `comm.quant_block_size` as its default block; config.py:247-259):
+an unknown key or a bad value raises ValueError here, at config time, as
+in the JAX package.
 
 A section the port cannot honour yet raises `DeepSpeedConfigError` naming
 its ROADMAP item, rather than training without it: ZeRO stage >= 1 and
@@ -112,6 +116,24 @@ def _refuse_unported(pd, zero_stage):
             refuse(what, item)
 
 
+def _parse_comm_moe(comm):
+    """The validated `comm.moe` selection (config.py:247-259); the other
+    `comm` keys belong to multi-device wires and are not read here."""
+    from ..moe.dispatch import parse_moe_config
+    from .comm.quant import validate_block_size
+
+    if not isinstance(comm, dict):
+        raise ValueError(f"comm must be an object, got {type(comm).__name__}")
+    try:
+        block = validate_block_size(get_scalar_param(
+            comm, c.COMM_QUANT_BLOCK_SIZE, c.COMM_QUANT_BLOCK_SIZE_DEFAULT))
+    except ValueError as e:
+        raise ValueError(f"comm.{c.COMM_QUANT_BLOCK_SIZE}: {e}")
+    # ValueError on an unknown key or a bad value, as the JAX package
+    # raises; NotImplementedError for a valid selection not ported yet
+    return parse_moe_config(comm.get(c.COMM_MOE), default_block=block)
+
+
 class DeepSpeedConfig(DeepSpeedConfigObject):
     def __init__(self, json_file_or_dict, world_size: int = 1):
         super().__init__()
@@ -188,6 +210,8 @@ class DeepSpeedConfig(DeepSpeedConfigObject):
         self.scheduler_name = sched.get(c.TYPE) if sched else None
         self.scheduler_params = (sched.get(c.SCHEDULER_PARAMS, {})
                                  if sched else None)
+
+        self.moe = _parse_comm_moe(pd.get(c.COMM) or {})
 
         self._set_batch_related_parameters()
         self._batch_assertion()

@@ -78,3 +78,10 @@ ZERO_OPTIMIZATION_OFFLOAD_OPTIMIZER = "offload_optimizer"
 
 PIPELINE = "pipeline"
 MESH = "mesh"  # {"data": -1, "model": 1, "pipe": 1, "seq": 1}
+
+# the `comm` section: the port reads its MoE block (moe/dispatch.py) and
+# the quantization block size it defaults to
+COMM = "comm"
+COMM_QUANT_BLOCK_SIZE = "quant_block_size"
+COMM_QUANT_BLOCK_SIZE_DEFAULT = 256
+COMM_MOE = "moe"

@@ -13,6 +13,10 @@ and ARE the master weights (`engine.params`, `engine.module`); the
 optimizer state and the loss-scaler state are device tensors.  The
 compute dtype comes from the config (fp32, bf16 or fp16).
 
+`comm.moe` selects the MoE token movement (`moe/dispatch.py`): the engine
+installs it at construction, and its routing counters are sent to the
+host once a step without a wait (`flush_dispatch_stats`).
+
 What the single-process slice refuses (config.py raises): ZeRO >= 1,
 offload, pipelines, meshes over more than one device, progressive layer
 drop, AMP, TensorBoard; LAMB, 1-bit and optax optimizers raise here, as
@@ -86,6 +90,13 @@ class DeepSpeedEngine:
         self._skipped_steps = 0
 
         self._config = DeepSpeedConfig(config, world_size=1)
+        # MoE token movement: install the validated comm.moe selection
+        # process-globally (engine.py:177-185); the layer reads it
+        from ..moe import dispatch as _moe_dispatch
+
+        _moe_dispatch.set_wire_config(self._config.moe)
+        if self._config.moe != _moe_dispatch.MoEWireConfig():
+            log_dist(self._config.moe.describe(), ranks=[0])
         self.dp_world_size = 1
         self.mp_world_size = 1
         self.compute_dtype = DTYPES[self._config.precision]
@@ -242,6 +253,11 @@ class DeepSpeedEngine:
         self._finish_step(overflow)
 
     def _finish_step(self, overflow):
+        # the step's MoE routing stats go to the host in one asynchronous
+        # copy; the counters are credited once it lands (no wait here)
+        from ..moe.dispatch import flush_dispatch_stats
+
+        flush_dispatch_stats()
         self.global_steps += 1
         self._pending_overflow = overflow
         if self.lr_scheduler is not None:

@@ -28,13 +28,14 @@ from .utils import clip_grad_norm, has_overflow
 
 def _select(overflow, new, old):
     """`where(overflow, old, new)` over a nest of dicts, lists and
-    tensors (the branchless skip of the optimizer state)."""
+    tensors (the branchless skip of the optimizer state), written into
+    `new`'s tensors, which the update has just made."""
     if isinstance(new, dict):
         return {k: _select(overflow, new[k], old[k]) for k in new}
     if isinstance(new, (list, tuple)):
         return type(new)(_select(overflow, n, o) for n, o in zip(new, old))
     if torch.is_tensor(new):
-        return torch.where(overflow, old, new)
+        return torch.where(overflow, old, new, out=new)
     return new
 
 
@@ -88,17 +89,20 @@ class StepBuilder:
             denom = loss_scale * gas_div
             if prescale:
                 denom = denom / predivide
-            grads = torch._foreach_div(grads, denom)
+            # the gradients are this step's own: unscaled and clipped in
+            # place
+            torch._foreach_div_(grads, denom)
             grad_norm = torch.zeros((), dtype=torch.float32,
                                     device=loss_scale.device)
             if clip > 0.0:
                 grads, grad_norm = clip_grad_norm(grads, clip)
             new_params, new_opt = opt.update(grads, opt_state, list(masters),
                                              lr=lr)
+            del grads
             # branchless skip-step on overflow (reference: step skipped,
             # scale halved — fp16/loss_scaler + stage2.py:1385-1404)
             for old, new in zip(masters, new_params):
-                old.copy_(torch.where(overflow, old, new))
+                torch.where(overflow, old, new, out=old)
             new_opt = _select(overflow, new_opt, opt_state)
             new_scaler = scaler.jit_update(scaler_state, overflow)
             return overflow, grad_norm, new_opt, new_scaler

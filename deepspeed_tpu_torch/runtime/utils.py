@@ -23,9 +23,11 @@ def global_grad_norm_sq(grads):
 
 def clip_grad_norm(grads, max_norm: float, norm_sq=None):
     """Global-norm clipping as one scale (reference clip_grad_norm_
-    semantics).  Returns (clipped grads, pre-clip norm)."""
+    semantics), applied to `grads` in place.  Returns (grads, pre-clip
+    norm)."""
     if norm_sq is None:
         norm_sq = global_grad_norm_sq(grads)
     norm = torch.sqrt(norm_sq)
     scale = torch.clamp_max(max_norm / (norm + 1e-6), 1.0)
-    return torch._foreach_mul(grads, scale), norm
+    torch._foreach_mul_(grads, scale)
+    return grads, norm

@@ -33,9 +33,15 @@ Counters: `serve.requests`, `serve.tokens`, `serve.decode_steps`,
 verify dispatch against a quantized cache), and the cache's `kv.*`
 family.
 
-Not ported yet: quantized weights (NotImplementedError), fault points,
-tracing and SLO telemetry, the watchdog, `ServeWorker` and the fleet
-router.
+Quantized weights (`quantized_weights="int8" | "int4"`): the matrices
+are quantized once at build (`programs.prepare_params`, kernel #11 on
+the card) and dequantized as each layer runs (kernel #12); the engine then
+holds no dense copy of them.  They compose with `kv_dtype` and
+`draft_len` as in the JAX package.
+
+Not ported yet: fault points, tracing and SLO telemetry, the watchdog,
+`ServeWorker` and the fleet router.  MoE and pipeline configs are refused,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -68,7 +74,7 @@ class ServeConfig:
     max_seq_len: Optional[int] = None  # per-request cap; default model's
     admission: str = "continuous"     # "continuous" | "static"
     max_prefill_chunks_per_step: int = 1
-    quantized_weights: Any = False    # False only (qwZ is not ported)
+    quantized_weights: Any = False    # False | "int8" | "int4"
     kv_dtype: Any = None              # None (param dtype) | "bf16" |
     #                                   "int8" | "int4" | a torch dtype
     draft_len: int = 0                # speculative candidates per step
@@ -97,10 +103,6 @@ class ServeConfig:
             raise ValueError(
                 f"serving quantized_weights must be False, 'int8' or "
                 f"'int4', got {q!r}")
-        if q:
-            raise NotImplementedError(
-                f"serving quantized_weights={q!r}: qwZ weights are not "
-                f"ported yet (ROADMAP: qwZ, kernels 11-12)")
         if self.kv_dtype is not None:
             from .kv_cache import resolve_kv_dtype
 
@@ -143,17 +145,23 @@ class SessionPin:
 class ServeEngine:
     """Continuous-batching decode engine over a paged KV cache on
     `device` (the card by default; the model must live there).  One
-    thread drives `step()`; `submit()` is safe from any thread."""
+    thread drives `step()`; `submit()` is safe from any thread.
+    `self.model` is what the programs read: the model, or its
+    `QuantizedWeights` under `quantized_weights`."""
 
     def __init__(self, model: GPT, config: Optional[ServeConfig] = None,
                  device="cuda", clock=time.monotonic):
         self.device = resolve_device(device)
         check_same_device("model", model.device, self.device)
-        self.model = model
         self.config = config or ServeConfig()
         self.clock = clock
         cfg = model.config
         c = self.config
+        if cfg.num_experts > 1 or cfg.pipeline_stages > 1:
+            raise NotImplementedError(
+                "the serving engine supports plain dense GPT configs (no "
+                "MoE layers, no pipeline-stacked blocks) — the generate() "
+                "contract")
         self.max_seq_len = int(c.max_seq_len or cfg.max_seq_len)
         if self.max_seq_len > cfg.max_seq_len:
             raise ValueError(
@@ -185,9 +193,12 @@ class ServeEngine:
         self.schedule = ServeSchedule(
             max_batch=c.max_batch, prefill_chunk=c.prefill_chunk,
             block_size=c.block_size, num_blocks=c.num_blocks,
-            table_width=table_width,
+            table_width=table_width, quantized=c.quant_mode,
             kv_dtype=(self.kv.quant_wire or "dense"),
             draft_len=int(c.draft_len))
+        # the one-time weight prep (engine.py:224): under quantized_weights
+        # the programs read the quantized store, never the dense matrices
+        self.model = programs.prepare_params(model, self.schedule)
         logger.info(f"serving engine up: {self.schedule.describe()}; "
                     f"{self.kv.describe()}")
         # packed decode-batch state (one row per slot), host-side

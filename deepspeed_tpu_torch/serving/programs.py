@@ -38,11 +38,21 @@ function of the request, never of the batch composition, so sampled
 output is identical under seed across join/leave (the JAX rule of
 `_row_key`, programs.py:129; the stream itself is not JAX's threefry).
 
-qwZ weights are not ported yet.
+Quantized weights (`ServeSchedule.quantized` "int8" | "int4",
+programs.py:234-347): `prepare_params` quantizes every matrix leaf
+(ndim >= 2, biases and LayerNorm vectors stay exact) once, blockwise at
+`QUANT_BLOCK` 256 (`runtime/comm/quant.py`, kernel #11 on the card), into
+a `QuantizedWeights` store that the programs read in place of the model.
+The JAX program dequantizes the whole tree at entry (`_maybe_dequant`);
+here each layer's matrices are dequantized once, just before the layer
+runs (`QuantizedWeights.layer`, kernel #12), so only one layer's dense matrices (and the
+embedding, which the head reads again) are resident at a time; the
+values are the same.
 """
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import NamedTuple
 
 import numpy as np
@@ -51,8 +61,11 @@ import torch.nn.functional as F
 
 from ..kernels import registry
 from ..models.gpt import GPT, layer_norm, linear
-from ..runtime.comm.quant import quantize_rows
+from ..runtime.comm.quant import (dequantize_blockwise, quantize_blockwise,
+                                  quantize_rows)
 from .kv_cache import rows_for_tables
+
+QUANT_MODES = ("none", "int8", "int4")
 
 # how the cache stores K/V: "dense" = at the cache tensors' own dtype,
 # "int8"/"int4" = (payload, scales) rows quantized on write and dequantized
@@ -68,18 +81,20 @@ class ServeSchedule(NamedTuple):
     block_size: int
     num_blocks: int
     table_width: int
+    quantized: str = "none"        # "none" | "int8" | "int4"
     kv_dtype: str = "dense"        # "dense" | "int8" | "int4"
     draft_len: int = 0             # speculative candidates per verify
 
     def describe(self) -> str:
         cap = self.table_width * self.block_size
+        q = "" if self.quantized == "none" else f", qwZ={self.quantized}"
         kv = "" if self.kv_dtype == "dense" else f", kv={self.kv_dtype}"
         spec = "" if not self.draft_len else \
             f", spec draft {self.draft_len}"
         return (f"serve schedule: decode[{self.max_batch} slots] + "
                 f"prefill[chunk {self.prefill_chunk}], paged KV "
                 f"{self.num_blocks} x {self.block_size} tok "
-                f"(per-request cap {cap}){kv}{spec}")
+                f"(per-request cap {cap}){q}{kv}{spec}")
 
 
 # -- sampling ---------------------------------------------------------------
@@ -174,17 +189,151 @@ def _paged_block(blk, cfg, x, ck, cv, write_idx, rows, q_pos, block_size,
     return x + h
 
 
-def _proj_logits(model: GPT, x_rows):
-    """[B, D] hidden rows -> fp32 logits [B, V] (generation.py's head)."""
-    return (x_rows @ model.head_weight().to(x_rows.dtype)).float()
+def _proj_logits(cfg, x_rows, outer):
+    """[B, D] hidden rows -> fp32 logits [B, V] (generation.py's head);
+    `outer` holds the embedding the forward read (the tied head)."""
+    w = outer.wte.t() if cfg.tie_embeddings else outer.lm_head
+    return (x_rows @ w.to(x_rows.dtype)).float()
 
 
-def _forward_blocks(model, caches, schedule, x, write_idx, rows, q_pos):
+# -- qwZ weight store ---------------------------------------------------------
+
+# elements per fp16 scale of a quantized weight (the JAX schedule's
+# `quant_block`, programs.py:84, which nothing there sets either)
+QUANT_BLOCK = 256
+
+
+class QuantLeaf:
+    """One blockwise-quantized weight: (payload, scales) and the leaf's
+    shape and dtype (programs.py:234)."""
+
+    __slots__ = ("payload", "scales", "shape", "dtype")
+
+    def __init__(self, payload, scales, shape, dtype):
+        self.payload = payload
+        self.scales = scales
+        self.shape = tuple(shape)
+        self.dtype = dtype
+
+    def nbytes(self) -> int:
+        return (self.payload.numel() * self.payload.element_size() +
+                self.scales.numel() * self.scales.element_size())
+
+
+def quantize_params(params, wire: str, block: int = QUANT_BLOCK):
+    """Blockwise-quantize every matmul-sized leaf (ndim >= 2) of a
+    {name: tensor} dict into a `QuantLeaf`; small vectors (biases,
+    LayerNorm scales) stay exact (programs.py:256)."""
+    out = {}
+    for name, leaf in params.items():
+        if leaf.dim() < 2:
+            out[name] = leaf.detach()
+            continue
+        payload, scales = quantize_blockwise(leaf.detach().contiguous(),
+                                             block, wire)
+        out[name] = QuantLeaf(payload, scales, leaf.shape, leaf.dtype)
+    return out
+
+
+def _dequantize_leaf(node, wire: str):
+    """A `QuantLeaf` dequantized to its dtype (kernel #12 on the card); an
+    exact leaf as it is.  The payload's width carries the block size."""
+    if not isinstance(node, QuantLeaf):
+        return node
+    n = 1
+    for s in node.shape:
+        n *= int(s)
+    return dequantize_blockwise(node.payload, node.scales, wire, n,
+                                out_dtype=node.dtype).reshape(node.shape)
+
+
+def dequantize_params(qparams, wire: str):
+    """Inverse of `quantize_params` (programs.py:270): {name: QuantLeaf |
+    tensor} -> {name: tensor} at each leaf's dtype."""
+    return {name: _dequantize_leaf(node, wire)
+            for name, node in qparams.items()}
+
+
+def _nest(flat):
+    """{"attn.qkv.w": t, ...} -> nested namespaces (`.attn.qkv.w`), the
+    attribute shape the programs read a module's weights in."""
+    tree = {}
+    for name, t in flat.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = t
+
+    def build(node):
+        return SimpleNamespace(**{k: build(v) if isinstance(v, dict) else v
+                                  for k, v in node.items()})
+    return build(tree)
+
+
+class QuantizedWeights:
+    """A GPT whose matrices are stored blockwise-quantized.  The programs
+    ask it for one layer's weights at a time (`layer(i)`) and for the
+    embeddings, final LayerNorm and head once a forward (`outer()`); each
+    call dequantizes that part's matrices once (kernel #12 on the card)
+    and keeps no dense copy.  Holds no reference to the model, whose dense
+    weights go once the caller lets them."""
+
+    def __init__(self, model: GPT, wire: str):
+        self.leaves = quantize_params(dict(model.named_parameters()), wire)
+        self.wire = wire
+        self.config = model.config
+        self.device = model.device
+
+    def _dense(self, names):
+        return {n: _dequantize_leaf(self.leaves[n], self.wire) for n in names}
+
+    def layer(self, i: int):
+        """Block i's weights, dense: `.ln1.scale`, `.attn.qkv.w`, ..."""
+        pre = f"blocks.{i}."
+        return _nest({n[len(pre):]: t for n, t in self._dense(
+            [n for n in self.leaves if n.startswith(pre)]).items()})
+
+    def outer(self):
+        """`.wte`, `.wpe`, `.ln_f` and (untied) `.lm_head`, dense."""
+        return _nest(self._dense([n for n in self.leaves
+                                  if not n.startswith("blocks.")]))
+
+    def nbytes(self) -> int:
+        """Resident weight bytes: payloads and scales, exact vectors."""
+        return sum(n.nbytes() if isinstance(n, QuantLeaf)
+                   else n.numel() * n.element_size()
+                   for n in self.leaves.values())
+
+
+def prepare_params(model: GPT, schedule: ServeSchedule):
+    """The engine's one-time weight prep for the schedule's quant mode
+    (`_prepare_params`, programs.py:329): the model itself for "none",
+    else its `QuantizedWeights`."""
+    if schedule.quantized == "none":
+        return model
+    if schedule.quantized not in QUANT_MODES:
+        raise ValueError(
+            f"serving quantized_weights must be one of {QUANT_MODES}, "
+            f"got {schedule.quantized!r}")
+    return QuantizedWeights(model, schedule.quantized)
+
+
+def _outer(model):
+    """The weights outside the blocks as this forward reads them: the
+    model's own, or a quantized store's dequantized once."""
+    return model.outer() if isinstance(model, QuantizedWeights) else model
+
+
+def _forward_blocks(model, ln_f, caches, schedule, x, write_idx, rows,
+                    q_pos):
     cfg = model.config
-    for blk, (ck, cv) in zip(model.blocks, caches):
+    for i, (ck, cv) in enumerate(caches):
+        blk = (model.layer(i) if isinstance(model, QuantizedWeights)
+               else model.blocks[i])
         x = _paged_block(blk, cfg, x, ck, cv, write_idx, rows, q_pos,
                          schedule.block_size, schedule.kv_dtype)
-    return layer_norm(x, model.ln_f, cfg.layer_norm_eps)
+    return layer_norm(x, ln_f, cfg.layer_norm_eps)
 
 
 @torch.no_grad()
@@ -202,17 +351,19 @@ def prefill(model: GPT, caches, schedule: ServeSchedule, tokens, pos: int,
     # per-row gather with a clip, not a slice: when the final chunk's
     # pad rows run past the wpe table, the valid rows keep their exact
     # positional embeddings and only pad rows see the clamped last row
-    wpe_rows = model.wpe[abs_pos.clamp(0, model.wpe.shape[0] - 1)]
-    x = model.wte[tokens] + wpe_rows[None]
+    outer = _outer(model)
+    wte, wpe = outer.wte, outer.wpe
+    wpe_rows = wpe[abs_pos.clamp(0, wpe.shape[0] - 1)]
+    x = wte[tokens] + wpe_rows[None]
     blk_i = abs_pos // bs
     # positions past the table (pad rows of the final chunk) write to
     # the trash block, never a neighbour's memory
     blk = torch.where(blk_i < W, table[blk_i.clamp(0, W - 1)], 0)
     write_idx = blk * bs + abs_pos % bs
     rows = _gather_rows(table, bs)[None, :]
-    x = _forward_blocks(model, caches, schedule, x, write_idx, rows,
-                        abs_pos[None, :])
-    logits = _proj_logits(model, x[:, n_valid - 1, :])[0]      # [V]
+    x = _forward_blocks(model, outer.ln_f, caches, schedule, x, write_idx,
+                        rows, abs_pos[None, :])
+    logits = _proj_logits(model.config, x[:, n_valid - 1, :], outer)[0]
     tok = sample_token(logits, temperature, top_k,
                        row_generator(seed, pos + n_valid, dev))
     return tok, logits
@@ -234,15 +385,17 @@ def decode(model: GPT, caches, schedule: ServeSchedule, tokens, positions,
     tab_d = torch.as_tensor(tables, dtype=torch.long, device=dev)
     # the clip only reaches inactive slots (whose stale position is
     # discarded); an out-of-range index would be a device-side fault
-    wpe_rows = model.wpe[pos_d.clamp(0, model.wpe.shape[0] - 1)]
-    x = (model.wte[tok_d] + wpe_rows)[:, None, :]                # [R, 1, D]
+    outer = _outer(model)
+    wte, wpe = outer.wte, outer.wpe
+    wpe_rows = wpe[pos_d.clamp(0, wpe.shape[0] - 1)]
+    x = (wte[tok_d] + wpe_rows)[:, None, :]                      # [R, 1, D]
     blk = torch.gather(tab_d, 1, (pos_d // bs).clamp(
         0, schedule.table_width - 1)[:, None])[:, 0]
     write_idx = torch.where(act_d, blk * bs + pos_d % bs, 0)
     rows = rows_for_tables(tab_d, bs)
-    x = _forward_blocks(model, caches, schedule, x, write_idx, rows,
-                        pos_d[:, None])
-    logits = _proj_logits(model, x[:, -1, :])                   # [R, V]
+    x = _forward_blocks(model, outer.ln_f, caches, schedule, x, write_idx,
+                        rows, pos_d[:, None])
+    logits = _proj_logits(model.config, x[:, -1, :], outer)     # [R, V]
     toks = torch.argmax(logits, dim=-1).cpu().numpy()
     for r in np.flatnonzero((np.asarray(temperatures) > 0) &
                             np.asarray(active, bool)):
@@ -282,15 +435,19 @@ def verify(model: GPT, caches, schedule: ServeSchedule, tokens, positions,
     abs_pos = pos_d[:, None] + cols[None, :]                      # [R, T]
     # per-row gather with a clip, the prefill rule: pad rows past the wpe
     # table clamp (their writes land in trash, their samples are dropped)
-    wpe_rows = model.wpe[abs_pos.clamp(0, model.wpe.shape[0] - 1)]
-    x = model.wte[tok_d] + wpe_rows                               # [R, T, D]
+    outer = _outer(model)
+    wte, wpe = outer.wte, outer.wpe
+    wpe_rows = wpe[abs_pos.clamp(0, wpe.shape[0] - 1)]
+    x = wte[tok_d] + wpe_rows                                     # [R, T, D]
     blk_i = abs_pos // bs
     valid = act_d[:, None] & (cols[None, :] <= nd_d[:, None]) & (blk_i < W)
     blk = torch.gather(tab_d, 1, blk_i.clamp(0, W - 1))
     write_idx = torch.where(valid, blk * bs + abs_pos % bs, 0).reshape(R * T)
     rows = rows_for_tables(tab_d, bs)
-    x = _forward_blocks(model, caches, schedule, x, write_idx, rows, abs_pos)
-    logits = _proj_logits(model, x.reshape(R * T, -1)).reshape(R, T, -1)
+    x = _forward_blocks(model, outer.ln_f, caches, schedule, x, write_idx,
+                        rows, abs_pos)
+    logits = _proj_logits(model.config, x.reshape(R * T, -1),
+                          outer).reshape(R, T, -1)
     toks = torch.argmax(logits, dim=-1).cpu().numpy()
     for r in np.flatnonzero((np.asarray(temperatures) > 0) &
                             np.asarray(active, bool)):

@@ -257,6 +257,49 @@ def test_kernel_tolerances_hold_the_plain_version_and_catch_a_fault():
         assert not bool(((faulty - ref).abs() <= t).all()), name
 
 
+def test_kernel_tolerances_cover_the_error_of_dp_where_ds_cancels():
+    """dq's bound carries the fp32 error of dp = dO·Vᵀ, which the
+    magnitude M = scale·|dS||K| does not see where ds = p (dp - delta)
+    cancels (a causal row's first key: p = 1, dp = delta).  An emulation
+    of the kernel that forms dp in another order — here the plain dp
+    moved by up to the model's 1e-5 of its absolute-value sum E — and
+    otherwise the plain arithmetic (ds rounded to fp16, fp32 sums)
+    exceeds the bound without the term and stays inside it with it."""
+    from deepspeed_tpu_torch.ops.transformer.dropout import _keep_mask
+    from deepspeed_tpu_torch.ops.transformer.flash_attention import NEG_INF
+
+    B, S, H, D = 1, 128, 2, 128
+    q, k, v, g = _qkv(B=B, S=S, H=H, D=D)
+    a = [torch.from_numpy(x).permute(0, 2, 1, 3).reshape(B * H, S, D)
+         .contiguous().to(torch.float16) for x in (q, k, v, g)]
+    scale = D ** -0.5
+    opts = dict(causal=True, scale=scale, block_q=64, block_k=64, rate=0.2,
+                seed=1234, bh_offset=0, n_heads=H)
+    out, lse = registry.dispatch("flash_attention_fwd", *a[:3], None, **opts)
+    delta = (a[3].float() * out.float()).sum(-1)
+    ref = {"out": out}
+    ref["dq"] = registry.dispatch("flash_attention_dq", *a, lse, delta, None,
+                                  **opts)
+    ref["dk"], ref["dv"] = registry.dispatch("flash_attention_dkv", *a, lse,
+                                             delta, None, **opts)
+    tol = flash.kernel_tolerances(*a, None, ref, **opts)["dq"]
+
+    q32, k32, v32, do32 = (t.float() for t in a)
+    s = (q32 * scale) @ k32.transpose(-1, -2)
+    causal = torch.arange(S)[:, None] >= torch.arange(S)[None, :]
+    p = torch.exp(torch.where(causal, s, NEG_INF) - lse[..., None])
+    mask = _keep_mask(1234, torch.arange(B * H), 0, 0, S, S, 0.2, "cpu")
+    e = do32.abs() @ v32.abs().transpose(-1, -2)
+    move = torch.rand(e.shape, generator=torch.Generator().manual_seed(0))
+    dp = (do32 @ v32.transpose(-1, -2) + 1e-5 * e * (2 * move - 1)) * mask
+    ds = (p * (dp - delta[..., None])).to(torch.float16).float()
+    emulated = (scale * (ds @ k32)).to(torch.float16).float()
+    err = (emulated - ref["dq"].float()).abs()
+    term = (1 + 2 * 2.0 ** -11) * scale * ((1e-5 * p * mask * e) @ k32.abs())
+    assert not bool((err <= tol - term).all())     # the term is needed
+    assert bool((err <= tol).all())                # and enough
+
+
 # -- the dispatch (attention.py) ---------------------------------------------
 
 
@@ -389,6 +432,38 @@ def test_cuda_kernels_match_plain_versions(cuda_device, case, dtype):
     assert bool((lse_diff <= 1e-5 * (1 + lse.abs())).all()), \
         float(lse_diff.max())
 
+
+
+@pytest.mark.cuda
+def test_cuda_dq_is_a_function_of_its_inputs(cuda_device):
+    """The fp16 Dh 128 key-bias + dropout case, dQ 20 times, each after
+    another kernel (the forward, dK/dV) left its own data in shared
+    memory: every result equals the first bit for bit, as it must unless
+    the kernel races or reads shared memory it did not write."""
+    B, S, H, D, causal, bias, rate, off, blk = \
+        KERNEL_CASES["dh128-bias-dropout"]
+    a = [torch.from_numpy(x).permute(0, 2, 1, 3).reshape(B * H, S, D)
+         .contiguous().to(cuda_device, torch.float16)
+         for x in _qkv(B, S, H, D)]
+    kb = torch.from_numpy(_key_bias(B, S)).to(cuda_device)
+    opts = dict(causal=causal, scale=D ** -0.5, block_q=blk, block_k=blk,
+                rate=rate, seed=1234, bh_offset=off, n_heads=H)
+    out, lse = registry.dispatch("flash_attention_fwd", *a[:3], kb,
+                                 impl="torch", **opts)
+    delta = (a[3].float() * out.float()).sum(-1)
+    args = (*a, lse, delta, kb)
+    first = registry.dispatch("flash_attention_dq", *args, impl="cuda",
+                              **opts)
+    for i in range(20):
+        if i % 2:
+            registry.dispatch("flash_attention_fwd", *a[:3], kb,
+                              impl="cuda", **opts)
+        else:
+            registry.dispatch("flash_attention_dkv", *args, impl="cuda",
+                              **opts)
+        got = registry.dispatch("flash_attention_dq", *args, impl="cuda",
+                                **opts)
+        assert torch.equal(got.view(torch.int16), first.view(torch.int16)), i
 
 @pytest.mark.cuda
 def test_cuda_autograd_launches_each_kernel_once(cuda_device):

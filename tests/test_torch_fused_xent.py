@@ -110,7 +110,7 @@ def test_fused_xent_checks_block_divisibility():
         fused_softmax_xent_sum(x, w, labels, valid, 300, BV)
 
 
-def _jax_and_port_models(seed=0):
+def _jax_and_port_models(seed=0, **kw):
     import jax
 
     from deepspeed_tpu.models import GPT as JaxGPT
@@ -119,6 +119,7 @@ def _jax_and_port_models(seed=0):
 
     over = dict(vocab_size=1024, max_seq_len=64, num_layers=2, num_heads=2,
                 d_model=64, loss_impl="pallas")
+    over.update(kw)
     jmodel = JaxGPT(jax_gpt2_config("nano", shard_activations=False, **over))
     tree = jax.tree_util.tree_map(np.asarray,
                                   jmodel.init(jax.random.PRNGKey(seed)))
@@ -127,15 +128,19 @@ def _jax_and_port_models(seed=0):
     return jmodel, tree, model
 
 
-def test_gpt_loss_pallas_matches_jax():
-    """GPT.loss with loss_impl="pallas" on shared weights (nano, vocab
-    1024, N = 4 x 64 rows, masked labels): loss and every gradient."""
+@pytest.mark.parametrize("width", ["d64", "nano-d48"])
+def test_gpt_loss_pallas_matches_jax(width):
+    """GPT.loss with loss_impl="pallas" on shared weights (vocab 1024,
+    N = 4 x 64 rows, masked labels): loss and every gradient, at D = 64 and
+    at gpt2_config("nano")'s D = 48 (3 heads), a width that is no multiple
+    of the kernels' 64-column tile."""
     import jax
     import jax.numpy as jnp
 
     from deepspeed_tpu_torch.models.convert import flatten_tree
 
-    jmodel, tree, model = _jax_and_port_models()
+    kw = {} if width == "d64" else dict(d_model=48, num_heads=3)
+    jmodel, tree, model = _jax_and_port_models(**kw)
     toks = np.random.RandomState(2).randint(0, 1024, (4, 65))
     x, y = toks[:, :-1].astype(np.int32), toks[:, 1:].astype(np.int32)
     y[1, :7] = -100
@@ -277,6 +282,12 @@ CUDA_CASES = {
     "ragged-untied": (200, 768, 1000, False),
     "d64-tied": (256, 64, 512, True),
     "xl-width": (256, 1600, 1024, True),
+    # widths off the 64-column tile and past 1600 (the streamed backward)
+    "nano-d48-tied": (256, 48, 512, True),
+    "odd-d37-untied": (130, 37, 300, False),
+    "d2048-tied": (256, 2048, 1024, True),
+    "d2560-tied": (256, 2560, 1024, True),
+    "d2560-untied": (200, 2560, 1000, False),
 }
 
 
@@ -312,20 +323,6 @@ def test_cuda_kernels_match_plain_versions(cuda_device, case, dtype):
         assert res["cuda"][name].shape == res["torch"][name].shape
         diff = (res["cuda"][name].float() - res["torch"][name].float()).abs()
         assert bool((diff <= tol).all()), (name, float((diff / tol).max()))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_wrappers_name_the_width_limit(cuda_device, dtype):
-    """Past GPT-2 XL's width or off a multiple of 64 the wrappers raise
-    before any launch, naming the limit."""
-    for d in (1664, 96):
-        x = torch.zeros(128, d, dtype=dtype, device=cuda_device)
-        w = torch.zeros(d, 256, dtype=dtype, device=cuda_device)
-        labels = torch.zeros(128, dtype=torch.long, device=cuda_device)
-        with pytest.raises(ValueError, match="multiples of 64 up to 1600"):
-            fused_xent.fused_xent_fwd_cuda(x, w, labels, block_rows=128,
-                                           block_v=256)
 
 
 @pytest.mark.cuda

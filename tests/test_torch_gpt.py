@@ -133,9 +133,12 @@ def test_layer_norm_matches_jax(dtype, atol):
 
 
 def test_unsupported_configs_raise():
-    with pytest.raises(NotImplementedError, match="dense GPT"):
-        GPT(gpt2_config("nano", num_experts=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="dense GPT"):
+    # MoE layers are ported: every other block holds `moe` for `mlp`
+    moe = GPT(gpt2_config("nano", num_experts=4), device="cpu")
+    assert [hasattr(b, "moe") for b in moe.blocks] == [False, True, False]
+    with pytest.raises(NotImplementedError, match="pipeline"):
         GPT(gpt2_config("nano", pipeline_stages=2), device="cpu")
+    with pytest.raises(NotImplementedError, match="sequence parallelism"):
+        GPT(gpt2_config("nano", sequence_parallel=True), device="cpu")
     with pytest.raises(TypeError, match="torch dtype"):
         gpt2_config("nano", param_dtype=jnp.float32)

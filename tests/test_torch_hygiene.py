@@ -77,13 +77,18 @@ for m in mods:
     importlib.import_module(m)
 import torch
 assert not torch.cuda.is_initialized()
-print(len(mods))
+print(" ".join(mods))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
-    assert int(r.stdout.split()[-1]) >= 15
+    mods = set(r.stdout.split())
+    assert len(mods) >= 20
+    # the modules of the quantized-weight serving and MoE slices
+    assert {f"deepspeed_tpu_torch.{m}" for m in (
+        "kernels.quant_codec", "kernels.moe_kernels", "moe.dispatch",
+        "moe.layer", "runtime.comm.quant", "serving.programs")} <= mods
 
 
 def _no_cuda(monkeypatch):
@@ -124,6 +129,12 @@ def test_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(ValueError, match="not a CUDA device"):
         flash.flash_dq_cuda(q, q, q, q, torch.zeros(2, 128),
                             torch.zeros(2, 128), None, **opts)
+    # the codec and MoE ops likewise
+    for name in ("quant_codec_quantize", "quant_codec_dequantize",
+                 "moe_dispatch", "moe_combine"):
+        assert registry.resolve_impl(name, "auto", q) == "torch"
+        with pytest.raises(RuntimeError, match="impl='cuda'"):
+            registry.resolve_impl(name, "cuda", q)
     # a CPU model on a CPU engine trains without asking for the card
     eng, *_ = deepspeed_tpu_torch.initialize(model=model,
                                              config_params=ds_config,

@@ -373,9 +373,9 @@ def test_config_validation_and_unported_options():
         ServeConfig(num_blocks=1)
     with pytest.raises(ValueError, match="quantized_weights"):
         ServeConfig(quantized_weights="fp8")
-    with pytest.raises(NotImplementedError, match="qwZ"):
-        ServeConfig(quantized_weights="int8")
-    # speculative decoding and quantized KV are ported: they build
+    # quantized weights, speculative decoding and quantized KV are
+    # ported: they build
+    assert _engine(quantized_weights="int4").schedule.quantized == "int4"
     assert ServeConfig(draft_len=2).draft_len == 2
     for wire in ("int8", "int4"):
         assert _engine(kv_dtype=wire).kv.quant_wire == wire
