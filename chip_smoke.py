@@ -8,7 +8,7 @@ the CUDA toolkit.  It drives only the port — nothing of JAX or of
 `deepspeed_tpu` is imported — in these phases, each printing JSON lines;
 any failure raises and the script exits nonzero:
 
-1. build: compile the five kernel libraries from the sources in the
+1. build: compile the six kernel libraries from the sources in the
    checkout, one nvcc each, started together; print ptxas's lines.
 2. kernel: paged attention, the Hopper kernel against its plain PyTorch
    version on the same inputs on the card, at the serving shapes
@@ -32,6 +32,20 @@ any failure raises and the script exits nonzero:
    shape), each with its worst dQ element: both sides' values, the plain
    version's fp32 value before rounding, the ulp, the bound with and
    without dp's error term.
+3b. sparse: the block-sparse flash forward, dQ and dK/dV kernels (#7-#9)
+   against their plain versions at the BERT training shape (B=2, S=4096,
+   H=16, Dh=64, the sparse-attention tutorial's fixed layout at block 128:
+   11 active blocks a row) in bf16 (timed), with dropout 0.1, in fp32 and
+   fp16; a BigBird block-64 layout with dropout, a unidirectional fixed
+   layout under the causal mask, block 16 at Dh 128 in fp16 with causal
+   dropout, a layout with an empty row and an empty column (fp32, and bf16
+   causal with dropout); errors against the per-element bounds of
+   `kernels/flash_sparse.py` `kernel_tolerances`, the worst dQ element;
+   device times beside the bound, the plain versions, SDPA with the layout
+   as a boolean mask and the dense flash kernels at the same shape.  The
+   mask probe (one live key per output element) holds the dropout masks
+   element by element in three dtypes; sparse-repeat computes dQ and
+   dK/dV 50 times after other kernels and requires bitwise equal results.
 4. xent: the fused LM-head cross-entropy kernels (forward, dx, dW)
    against their plain versions at the training shape (N=8192 rows,
    D=768, V=50304, bf16, a fifth of the rows invalid, the tied head's
@@ -105,6 +119,17 @@ any failure raises and the script exits nonzero:
    bf16, the fused CE, sorted dispatch: #13 and #14 launched twice a step
    per MoE layer (forward, and each other's gradient in the backward),
    tokens/s, step, peak memory, dropped share, then its profile.
+10b. bert-sparse-exact: BERT-large width (d1024, 16 heads), 2 layers,
+   seq 1024, fixed layout block 128, fp32, TF32 off: 5 engine steps with
+   dropout 0.1 through #7-#9 against the same steps with their plain
+   versions forced, and at dropout 0 the kernel walk against the gather
+   path (`block_sparse_attention`); per-step loss within 1e-4, weights
+   within 2 lr steps.  train-bert-sparse: BERT-large (24 layers) MLM + NSP
+   pretraining at seq 4096, micro 2, bf16, Adam, WarmupLR, clipping 1.0,
+   dropout 0.1, no attention mask, the fixed layout at block 128, the
+   position table extended to 4096 rows; each of #7-#9 launched exactly
+   24 x steps over the timed steps, tokens/s, step, peak memory, finite
+   and falling losses, then its profile.
 11. kernels: one line per kernel with its launches on its main path,
    its error against the plain version, and its times beside its bound.
 
@@ -773,12 +798,14 @@ FLASH_TOL = ("per element: 2u|plain| + (2u, forward and dQ only, + 1e-5) M "
              "of dp (kernels/flash.py kernel_tolerances)")
 
 
-def dq_worst(a, kb, delta, ref, got, tol, opts):
+def dq_worst(a, kb, delta, ref, got, tol, opts, allow=None):
     """The dQ element furthest into its bound, and what makes it: its
     index, both sides' outputs, the plain version's fp32 value before its
     final rounding (the plain arithmetic for that one row, dense over the
     keys), the dtype's ulp at that magnitude, the bound without and with
-    dp's error term, and the row's heaviest keys (p, dp·mask, delta, ds)."""
+    dp's error term, and the row's heaviest keys (p, dp·mask, delta, ds).
+    `allow(bh, row)`: the row's live keys (bool [Sk]) under a sparse
+    layout; the others take no probability."""
     import torch
 
     from deepspeed_tpu_torch.ops.transformer.dropout import _keep_mask
@@ -794,13 +821,17 @@ def dq_worst(a, kb, delta, ref, got, tol, opts):
         s = torch.where(torch.arange(Sk, device=s.device) <= row, s, NEG_INF)
     if kb is not None:
         s = s + kb[bh // opts["n_heads"]]
-    lse = torch.logsumexp(s, 0)
+    live = None if allow is None else allow(bh, row)
+    lse = torch.logsumexp(
+        s if live is None else torch.where(live, s, float("-inf")), 0)
     p = torch.exp(s - lse)
     if kb is not None:
         p = torch.where(s <= NEG_INF * 0.5, 0.0, p)
+    if live is not None:
+        p = torch.where(live, p, 0.0)
     mask = torch.ones_like(p)
     if opts["rate"] > 0.0:
-        bhs = torch.tensor([bh + opts["bh_offset"]], device=s.device)
+        bhs = torch.tensor([bh + opts.get("bh_offset", 0)], device=s.device)
         mask = _keep_mask(opts["seed"], bhs, row, 0, 1, Sk, opts["rate"],
                           s.device)[0, 0]
     dp = (do[row] @ v.t()) * mask
@@ -1082,6 +1113,361 @@ def phase_flash_repeat(n=50):
     return rec
 
 
+# -- block-sparse flash attention kernels (#7-#9) ---------------------------------
+
+SPARSE_TOL = ("per element (kernels/flash_sparse.py kernel_tolerances): the "
+              "dense flash bound over the layout's active tiles, 2u|plain| + "
+              "(2u, forward and dQ only, + 1e-5) M + (dQ, dK) 1e-5 scale "
+              "(P_d E)|K| or |Q| + 1e-6")
+# DeepSpeed's sparse-attention tutorial's "fixed" mode (local 4, global 1,
+# bidirectional), at layout block 128 on the training path
+BERT_SPARSITY = dict(num_local_blocks=4, num_global_blocks=1,
+                     attention="bidirectional")
+
+
+def fixed_layout(H, block, S, attention="bidirectional"):
+    from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig
+
+    return np.asarray(FixedSparsityConfig(
+        num_heads=H, block=block, **dict(BERT_SPARSITY, attention=attention))
+        .make_layout(S))
+
+
+def live_pairs(layout, block, causal):
+    """(q, k) token pairs the layout leaves live in one batch row, summed
+    over the heads: an active block is block^2 pairs, or, under the causal
+    mask, block(block+1)/2 on the diagonal and none above it."""
+    lay = np.asarray(layout) != 0
+    if not causal:
+        return int(lay.sum()) * block * block
+    i, j = np.indices(lay.shape[1:])
+    per = np.where(j < i, block * block,
+                   np.where(j == i, block * (block + 1) // 2, 0))
+    return int((lay * per[None]).sum())
+
+
+def sparse_case(name, B, S, H, D, block, layout, dtype, causal, rate, gen,
+                flush, timed, inputs=None):
+    """The three sparse flash kernels against their plain versions on one
+    set of [B*H, S, D] inputs (drawn from `gen`, or `inputs` = (q, k, v,
+    dO)) under `layout`; device times where `timed`, beside the bound, the
+    plain versions, SDPA with the layout as a boolean mask and the dense
+    flash kernels at the same shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.kernels import flash_sparse as fsk
+    from deepspeed_tpu_torch.kernels import registry
+    from deepspeed_tpu_torch.ops.sparse_attention.flash_sparse import \
+        device_tables
+
+    dev = "cuda"
+    BH = B * H
+    if inputs is None:
+        a = [torch.randn(BH, S, D, device=dev, generator=gen).to(dtype)
+             for _ in range(4)]                  # q, k, v, dO
+    else:
+        a = [t.to(dev, dtype).contiguous() for t in inputs]
+    ft, rt = device_tables(layout, dev)
+    opts = dict(causal=causal, scale=D ** -0.5, block=block, rate=rate,
+                seed=1234, n_heads=H)
+
+    def fwd(impl):
+        return registry.dispatch("flash_sparse_fwd", *a[:3], ft, impl=impl,
+                                 **opts)
+
+    ref = {}
+    out, lse = fwd("torch")
+    ref["out"] = out
+    delta = (a[3].float() * out.float()).sum(-1)
+
+    def dq(impl):
+        return registry.dispatch("flash_sparse_dq", *a, lse, delta, ft,
+                                 impl=impl, **opts)
+
+    def dkv(impl):
+        return registry.dispatch("flash_sparse_dkv", *a, lse, delta, rt,
+                                 impl=impl, **opts)
+
+    ref["dq"] = dq("torch")
+    ref["dk"], ref["dv"] = dkv("torch")
+    got = {}
+    got["out"], got_lse = fwd("cuda")
+    got["dq"] = dq("cuda")
+    got["dk"], got["dv"] = dkv("cuda")
+    torch.cuda.synchronize()
+    tols = fsk.kernel_tolerances(*a, layout, ref, **opts)
+    errs, worst = {}, {}
+    for k, tol in tols.items():
+        diff = (got[k].float() - ref[k].float()).abs()
+        errs[k] = diff.max().item()
+        worst[k] = (diff / tol).max().item()
+    lay_t = torch.as_tensor(np.asarray(layout) != 0, device=dev)
+    keys = torch.arange(S, device=dev)
+
+    def allow(bh, row):
+        live = lay_t[bh % H, row // block].repeat_interleave(block)
+        return live & (keys <= row) if causal else live
+
+    dq_report = dq_worst(a, None, delta, ref["dq"], got["dq"], tols["dq"],
+                         opts, allow=allow)
+    bad = {k: r for k, r in worst.items() if not r <= 1.0}
+    if bad:
+        emit({"phase": "sparse-failure", "case": name, "over_tol": bad,
+              "dq_worst": dq_report})
+        raise AssertionError(f"sparse {name}: kernel vs plain beyond the "
+                             f"bound {bad}, max abs err {errs}")
+    lse_diff = (got_lse - lse).abs()
+    if not bool((lse_diff <= 1e-5 * (1 + lse.abs())).all()):
+        raise AssertionError(f"sparse {name}: lse differs by "
+                             f"{lse_diff.max().item()}")
+    empty_rows = int((lse == -1e30).sum())
+    del tols, got
+
+    dname = str(dtype).replace("torch.", "")
+    isz = a[0].element_size()
+    pairs = B * live_pairs(layout, block, causal)
+    io = BH * S * D * isz                              # one [BH, S, D]
+    rows = BH * S * 4                                  # one fp32 [BH, S]
+    # bytes: each input read once (the tables too), each output written once
+    work = {"flash_sparse_fwd": (4 * D * pairs, 4 * io + rows + ft.numel() * 4),
+            "flash_sparse_dq": (6 * D * pairs,
+                                5 * io + 2 * rows + ft.numel() * 4),
+            "flash_sparse_dkv": (8 * D * pairs,
+                                 6 * io + 2 * rows + rt.numel() * 4)}
+    rec = {"phase": "sparse", "case": name, "B": B, "S": S, "H": H, "Dh": D,
+           "block": block, "dtype": dname, "causal": causal,
+           "dropout": rate, "W": int(ft.shape[-1]), "Wq": int(rt.shape[-1]),
+           "live_pairs": pairs, "density": pairs / (BH * S * S),
+           "empty_rows": empty_rows, "tol": SPARSE_TOL,
+           "max_abs_err": errs, "max_err_over_tol": worst,
+           "dq_worst": dq_report,
+           "lse_max_abs_err_finite_rows":
+               lse_diff[lse > -1e30].max().item() if empty_rows < lse.numel()
+               else 0.0,
+           "kernels": {}}
+    fns = {"flash_sparse_fwd": fwd, "flash_sparse_dq": dq,
+           "flash_sparse_dkv": dkv}
+    for kname, (flops, nbytes) in work.items():
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[dname] * 1e3
+        k = {"flops": flops, "bytes": nbytes,
+             "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        if timed:
+            fn = fns[kname]
+            k["kernel_ms"] = time_ms(lambda: fn("cuda"), 10, flush)
+            k["plain_ms"] = time_ms(lambda: fn("torch"), 3, flush)
+            k["library_ms"] = None
+        rec["kernels"][kname] = k
+    if timed:
+        # yardstick: SDPA forward with the layout as a boolean [H, S, S]
+        # mask (no dropout), on the same tensors viewed [B, H, S, D]
+        q4, k4, v4 = (t.view(B, H, S, D) for t in a[:3])
+        mask = lay_t.repeat_interleave(block, 1).repeat_interleave(block, 2)
+        if causal:
+            mask = mask & torch.ones(S, S, dtype=torch.bool,
+                                     device=dev).tril()
+        mask = mask[None]
+        rec["kernels"]["flash_sparse_fwd"]["library_ms"] = time_ms(
+            lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                   attn_mask=mask),
+            10, flush)
+        del mask
+        # the dense flash kernels at the same shape (all S x S pairs)
+        fo = dict(causal=causal, scale=D ** -0.5, block_q=128, block_k=128,
+                  rate=0.0, seed=0, bh_offset=0, n_heads=H)
+        d_out, d_lse = registry.dispatch("flash_attention_fwd", *a[:3], None,
+                                         impl="cuda", **fo)
+        d_args = (*a, d_lse, (a[3].float() * d_out.float()).sum(-1), None)
+        rec["dense_flash_ms"] = {
+            "flash_attention_fwd": time_ms(lambda: registry.dispatch(
+                "flash_attention_fwd", *a[:3], None, impl="cuda", **fo),
+                10, flush),
+            "flash_attention_dq": time_ms(lambda: registry.dispatch(
+                "flash_attention_dq", *d_args, impl="cuda", **fo), 10, flush),
+            "flash_attention_dkv": time_ms(lambda: registry.dispatch(
+                "flash_attention_dkv", *d_args, impl="cuda", **fo), 10,
+                flush)}
+        del d_out, d_lse, d_args
+    emit(rec)
+    del a, ref, out, lse, delta
+    torch.cuda.empty_cache()
+    return rec
+
+
+def sparse_mask_probe():
+    """The dropout masks of #7 and #9, element by element: with q = 0
+    every score is 0, a permutation layout gives each q-block one k-block
+    (and each k-block one q-block), V and dO are one-hot over the block's
+    16 positions, so out[q, d] and dv[k, d] are each one masked term —
+    zero exactly where the mask drops it.  Kernel and plain version must
+    drop the same elements (and agree within the bound), in each dtype."""
+    import torch
+
+    B, S, H, D, blk = 1, 256, 2, 64, 16
+    nb = S // blk
+    layout = np.zeros((H, nb, nb), np.int64)
+    for h in range(H):
+        for i in range(nb):
+            layout[h, i, (3 * i + 1 + h) % nb] = 1
+    pos = torch.arange(S)
+    onehot = torch.zeros(S, D)
+    onehot[pos, pos % blk] = 1.0
+    k = torch.randn(B * H, S, D, generator=torch.Generator().manual_seed(1))
+    inputs = (torch.zeros(B * H, S, D), k, onehot.expand(B * H, S, D),
+              onehot.expand(B * H, S, D))
+    out = {}
+    for dtype in ("float32", "bfloat16", "float16"):
+        dt_ = getattr(torch, dtype)
+        rec = sparse_case(f"mask-probe-{dtype}", B, S, H, D, blk, layout,
+                          dt_, False, 0.3, None, None, False, inputs=inputs)
+        # the zero patterns of out and dv are the masks
+        from deepspeed_tpu_torch.kernels import registry
+        from deepspeed_tpu_torch.ops.sparse_attention.flash_sparse import \
+            device_tables
+
+        a = [t.to("cuda", dt_).contiguous() for t in inputs]
+        ft, rt = device_tables(layout, "cuda")
+        opts = dict(causal=False, scale=D ** -0.5, block=blk, rate=0.3,
+                    seed=1234, n_heads=H)
+        diff = {}
+        res = {}
+        for impl in ("torch", "cuda"):
+            o, lse = registry.dispatch("flash_sparse_fwd", *a[:3], ft,
+                                       impl=impl, **opts)
+            if impl == "torch":
+                lse0, delta = lse, (a[3].float() * o.float()).sum(-1)
+            _, dv = registry.dispatch("flash_sparse_dkv", *a, lse0, delta,
+                                      rt, impl=impl, **opts)
+            res[impl] = (o, dv)
+        for i, name in enumerate(("out", "dv")):
+            diff[name] = int(((res["cuda"][i] == 0) !=
+                              (res["torch"][i] == 0)).sum())
+        dropped = int((res["torch"][0][..., :blk] == 0).sum())
+        if any(diff.values()) or dropped == 0:
+            raise AssertionError(f"sparse mask probe {dtype}: zero patterns "
+                                 f"differ {diff} (plain dropped {dropped})")
+        out[dtype] = {"mask_mismatches": diff,
+                      "dropped_of": [dropped, B * H * S * blk],
+                      "max_err_over_tol": rec["max_err_over_tol"]}
+    rec = {"phase": "sparse-mask-probe", "layout": "permutation, block 16",
+           "rate": 0.3, "cases": out}
+    emit(rec)
+    return rec
+
+
+def phase_sparse(flush):
+    """#7-#9 against their plain versions: the training shape (BERT-large
+    heads, S 4096, block 128, the tutorial's fixed layout) in bf16 (timed),
+    with dropout, in fp32 and fp16; a BigBird block-64 layout with dropout;
+    a unidirectional fixed layout under the causal mask; block 16 at Dh
+    128 in fp16 with causal dropout; a layout with an empty row and an
+    empty column in fp32 and (causal, dropout) bf16; the mask probe."""
+    import random
+
+    import torch
+
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        BigBirdSparsityConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    bf16, fp32, fp16 = torch.bfloat16, torch.float32, torch.float16
+    train = fixed_layout(16, 128, 4096)
+    cases = [sparse_case("train-bfloat16", 2, 4096, 16, 64, 128, train, bf16,
+                         False, 0.0, gen, flush, True),
+             sparse_case("train-dropout-bfloat16", 2, 4096, 16, 64, 128,
+                         train, bf16, False, 0.1, gen, flush, False),
+             sparse_case("train-float32", 2, 4096, 16, 64, 128, train, fp32,
+                         False, 0.0, gen, flush, False),
+             sparse_case("train-float16", 2, 4096, 16, 64, 128, train, fp16,
+                         False, 0.0, gen, flush, False)]
+    random.seed(0)
+    bigbird = np.asarray(BigBirdSparsityConfig(
+        num_heads=4, block=64, different_layout_per_head=True,
+        num_random_blocks=2, num_sliding_window_blocks=3,
+        num_global_blocks=1).make_layout(1024))
+    cases.append(sparse_case("bigbird64-dropout-bfloat16", 2, 1024, 4, 64,
+                             64, bigbird, bf16, False, 0.1, gen, flush,
+                             False))
+    cases.append(sparse_case(
+        "unidirectional-causal-bfloat16", 2, 2048, 4, 64, 128,
+        fixed_layout(4, 128, 2048, "unidirectional"), bf16, True, 0.1, gen,
+        flush, False))
+    cases.append(sparse_case(
+        "block16-dh128-causal-dropout-float16", 2, 256, 2, 128, 16,
+        fixed_layout(2, 16, 256), fp16, True, 0.2, gen, flush, False))
+    empty = fixed_layout(4, 32, 512).copy()
+    empty[:, 5, :] = 0                   # q-block 5 attends nothing
+    empty[1, :, 3] = 0                   # head 1: no q-block reads k-block 3
+    cases.append(sparse_case("empty-row-block32-float32", 2, 512, 4, 64, 32,
+                             empty, fp32, False, 0.0, gen, flush, False))
+    cases.append(sparse_case("empty-row-block32-causal-dropout-bfloat16", 2,
+                             512, 4, 64, 32, empty, bf16, True, 0.1, gen,
+                             flush, False))
+    return cases, sparse_mask_probe()
+
+
+def phase_sparse_repeat(n=50):
+    """Sparse dQ and dK/dV as functions of their inputs alone, as
+    phase_flash_repeat checks dense dQ: on the fp16 Dh 128 causal dropout
+    case (block 16) each is computed n times, each call after a different
+    kernel left its own data in shared memory (the sparse forward, the
+    dense flash dK/dV, or nothing), and every result must equal the first
+    bit for bit; the plain versions three times, likewise."""
+    import torch
+
+    from deepspeed_tpu_torch.kernels import registry
+    from deepspeed_tpu_torch.ops.sparse_attention.flash_sparse import \
+        device_tables
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    B, S, H, D, blk = 2, 256, 2, 128, 16
+    layout = fixed_layout(H, blk, S)
+    ft, rt = device_tables(layout, "cuda")
+    a = [torch.randn(B * H, S, D, device="cuda", generator=gen).half()
+         for _ in range(4)]
+    opts = dict(causal=True, scale=D ** -0.5, block=blk, rate=0.2,
+                seed=1234, n_heads=H)
+    out, lse = registry.dispatch("flash_sparse_fwd", *a[:3], ft,
+                                 impl="torch", **opts)
+    delta = (a[3].float() * out.float()).sum(-1)
+    args = (*a, lse, delta)
+    fo = dict(causal=True, scale=D ** -0.5, block_q=128, block_k=128,
+              rate=0.2, seed=7, bh_offset=0, n_heads=H)
+
+    def both(impl):
+        return [registry.dispatch("flash_sparse_dq", *args, ft, impl=impl,
+                                  **opts),
+                *registry.dispatch("flash_sparse_dkv", *args, rt, impl=impl,
+                                   **opts)]
+
+    others = [lambda: registry.dispatch("flash_sparse_fwd", *a[:3], ft,
+                                        impl="cuda", **opts),
+              lambda: registry.dispatch("flash_attention_dkv", *args, None,
+                                        impl="cuda", **fo),
+              lambda: None]
+    first = both("cuda")
+    differ = {"dq": 0, "dk": 0, "dv": 0}
+    for i in range(n):
+        others[i % 3]()
+        for name, x, y in zip(differ, both("cuda"), first):
+            differ[name] += mismatches(x, y) != 0
+    plain = [both("torch") for _ in range(3)]
+    plain_differ = sum(mismatches(x, y) != 0 for p in plain[1:]
+                       for x, y in zip(p, plain[0]))
+    torch.cuda.synchronize()
+    rec = {"phase": "sparse-repeat", "runs": n,
+           "case": "B 2, S 256, H 2, Dh 128, block 16, fp16, causal, "
+           "dropout 0.2", "kernel_runs_differing": differ,
+           "plain_runs_differing": plain_differ}
+    emit(rec)
+    if any(differ.values()) or plain_differ:
+        raise AssertionError(f"sparse dQ / dK / dV differ from run to run: "
+                             f"{rec}")
+    return rec
+
+
 # -- fused LM-head cross-entropy kernels ----------------------------------------
 
 XENT_TOL = ("per element (kernels/fused_xent.py kernel_tolerances): lse, ll "
@@ -1318,6 +1704,8 @@ def phase_train_exact_pallas():
 def train_kernel_class(name):
     """Coarse class of a training-step device activity."""
     n = name.lower()
+    if any(k in n for k in ("sparse_fwd", "sparse_dq", "sparse_dkv")):
+        return "flash_sparse"
     if "flash_" in n:
         return "flash_attention"
     if "dispatch_kernel" in n or "combine_kernel" in n:
@@ -1423,9 +1811,11 @@ def phase_train_profile(eng, data, train, steps=2):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from deepspeed_tpu_torch.kernels import flash, fused_xent, moe_kernels
+    from deepspeed_tpu_torch.kernels import (flash, flash_sparse, fused_xent,
+                                             moe_kernels)
 
     n0 = dict(flash.LAUNCHES)
+    s0 = dict(flash_sparse.LAUNCHES)
     x0 = dict(fused_xent.LAUNCHES)
     m0 = dict(moe_kernels.LAUNCHES)
     torch.cuda.synchronize()
@@ -1456,6 +1846,11 @@ def phase_train_profile(eng, data, train, steps=2):
     if xent_calls != want:
         raise AssertionError(f"profiler saw {xent_calls} fused CE kernels, "
                              f"the wrappers launched {want}")
+    sparse_calls = by_class.get("flash_sparse", (0.0, 0))[1]
+    want = sum(flash_sparse.LAUNCHES[k] - s0[k] for k in s0)
+    if sparse_calls != want:
+        raise AssertionError(f"profiler saw {sparse_calls} sparse flash "
+                             f"kernels, the wrappers launched {want}")
     moe_calls = by_class.get("moe", (0.0, 0))[1]
     want = sum(moe_kernels.LAUNCHES[k] - m0[k] for k in m0)
     if moe_calls != want:
@@ -1464,8 +1859,12 @@ def phase_train_profile(eng, data, train, steps=2):
     acts.sort(key=lambda a: -a[1])
     per_step = busy_ms / steps
     span_per_step = train["device_span_ms"] / train["timed_steps"]
+    # int64 elementwise kernels: the dropout hash's uint32 arithmetic,
+    # which the port runs as plain int64 PyTorch ops
+    int64_ms = sum(ms for name, ms, _ in acts if "<long" in name)
     return {"phase": train["phase"] + "-profile", "steps": steps,
             "device_busy_ms_per_step": per_step,
+            "int64_elementwise_ms_per_step": int64_ms / steps,
             "device_idle_share": 1.0 - per_step / span_per_step,
             "timed_span_ms_per_step": span_per_step,
             "by_class": {k: {"ms_per_step": v[0] / steps,
@@ -2273,13 +2672,255 @@ def phase_train_moe(warmup=3, steps=10):
     return rec, eng, data
 
 
+# -- BERT pretraining through the sparse kernels ----------------------------------
+
+
+def bert_batches(steps, micro, seq, vocab, seed, mask_id=103):
+    """MLM + NSP batches over `vocab_batches`' Zipf stream: 15% of the
+    positions labelled, their inputs replaced by [MASK] (id 103 in BERT's
+    vocabulary), segment ids for two halves, random NSP labels, and no
+    attention mask (packed full-length pretraining sequences)."""
+    rng = np.random.RandomState(seed + 1)
+    segments = (np.arange(seq) >= seq // 2).astype(np.int64)
+    for x, _ in vocab_batches(steps, micro, seq, vocab, seed):
+        pick = rng.rand(micro, seq) < 0.15
+        yield {"input_ids": np.where(pick, mask_id, x),
+               "token_type_ids": np.repeat(segments[None], micro, 0),
+               "mlm_labels": np.where(pick, x, -100),
+               "nsp_labels": rng.randint(0, 2, micro)}
+
+
+def bert_large_sparse(seq, **over):
+    """BERT-large at published widths (24 layers, d1024, 16 heads, d_ff
+    4096, vocab 30528, pre-LN, dropout 0.1) with the tutorial's fixed
+    sparsity at block 128."""
+    from deepspeed_tpu_torch.models import bert_config
+    from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig
+
+    return bert_config("bert-large", max_seq_len=seq,
+                       sparsity_config=FixedSparsityConfig(
+                           num_heads=16, block=128, **BERT_SPARSITY), **over)
+
+
+def phase_bert_sparse_exact():
+    """fp32, TF32 off: BERT-large width (d1024, 16 heads), 2 layers, seq
+    1024, block 128, micro 2, attention and hidden dropout 0.1, 5 engine
+    steps through kernels #7-#9, then the same steps from the same weights
+    with their plain versions forced (per-step loss within 1e-4, weights
+    within 2 lr steps: the two differ in the order of fp32 sums only);
+    then at dropout 0 the kernel walk against the gather path
+    (`block_sparse_attention`, the same function), likewise."""
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.kernels import flash_sparse as fsk
+    from deepspeed_tpu_torch.kernels import registry
+    from deepspeed_tpu_torch.models import Bert
+    from deepspeed_tpu_torch.monitor.counters import COUNTERS
+    from deepspeed_tpu_torch.ops.sparse_attention import flash_sparse as ofs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lr, steps, micro, seq = 1e-4, 5, 2, 1024
+    real_dispatch = ofs.dispatch
+
+    def plain_sparse(name, *a, impl="auto", **kw):
+        if name.startswith("flash_sparse_"):
+            impl = "torch"
+        return real_dispatch(name, *a, impl=impl, **kw)
+
+    def run(dropout, path):
+        cfg = bert_large_sparse(seq, num_layers=2, attn_dropout=dropout,
+                                hidden_dropout=dropout,
+                                compute_dtype=torch.float32)
+        model = Bert(cfg, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(3))
+        eng, *_ = dt.initialize(model=model,
+                                config_params=train_config(micro, lr, "fp32"))
+        n0 = dict(fsk.LAUNCHES)
+        snap = COUNTERS.snapshot()
+        ofs.dispatch = plain_sparse if path == "plain" else real_dispatch
+        try:
+            with registry.kernel_config(ops={
+                    "sparse_attention": "xla" if path == "gather"
+                    else "auto"}):
+                losses = []
+                for batch in bert_batches(steps, micro, seq, cfg.vocab_size,
+                                          5):
+                    losses.append(float(eng.forward(batch)))
+                    eng.backward()
+                    eng.step()
+        finally:
+            ofs.dispatch = real_dispatch
+        d = COUNTERS.delta_since(snap)
+        out = (losses, {n: p.detach().clone() for n, p in eng.params.items()},
+               {k: fsk.LAUNCHES[k] - n0[k] for k in n0},
+               d.get("kernel.fallbacks", {"calls": 0})["calls"])
+        del eng, model
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    pairs = {"dropout": (run(0.1, "kernel"), run(0.1, "plain")),
+             "gather": (run(0.0, "kernel"), run(0.0, "gather"))}
+    rec = {"phase": "bert-sparse-exact", "config": "bert-large width (d1024, "
+           "16 heads, d_ff 4096, vocab 30528), 2 layers, seq 1024, micro 2, "
+           "fixed layout block 128 (local 4, global 1), fp32, TF32 off, "
+           "Adam lr 1e-4", "steps": steps, "loss_tol": 1e-4,
+           "weight_tol": 2 * lr * steps}
+    per_run = 2 * steps                  # 2 layers, one launch each a step
+    for key, ((lk, pk, nk, fk), (lp, pp, npl, fp)) in pairs.items():
+        other = "plain" if key == "dropout" else "gather"
+        loss_err = max(abs(a - b) for a, b in zip(lk, lp))
+        w_err = max((pk[n] - pp[n]).abs().max().item() for n in pk)
+        rec[key] = {"runs": f"kernel vs {other}",
+                    "dropout": 0.1 if key == "dropout" else 0.0,
+                    "launches_kernel_run": nk, "launches_other_run": npl,
+                    "fallbacks_kernel_run": fk, "fallbacks_other_run": fp,
+                    "losses_kernel": lk, f"losses_{other}": lp,
+                    "max_loss_diff": loss_err, "max_weight_diff": w_err}
+        if nk != {k: per_run for k in nk} or any(npl.values()) or fk:
+            raise AssertionError(f"bert-sparse-exact ({key}): kernels "
+                                 f"launched {nk} / {npl}, fallbacks {fk}")
+        if not (loss_err <= 1e-4 and w_err <= 2 * lr * steps):
+            raise AssertionError(f"bert-sparse-exact ({key}): losses differ "
+                                 f"by {loss_err}, weights by {w_err}")
+    emit(rec)
+    return rec
+
+
+def phase_train_bert_sparse(warmup=3, steps=10):
+    """BERT-large (24 layers, d1024, 16 heads) MLM + NSP pretraining at seq
+    4096 with the fixed layout at block 128 (local 4, global 1: 11 active
+    blocks a row of 32), micro 2 (8,192 tokens a step), bf16 with fp32
+    masters, Adam 1e-4, WarmupLR, clipping 1.0, dropout 0.1, no attention
+    mask, the position table extended from 512 to 4096 rows by
+    SparseAttentionUtils.extend_position_embedding; Zipf token stream.
+    Warm-up steps, then timed steps with the launch counts reset just
+    before: each of #7-#9 exactly 24 x steps."""
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.kernels import flash, flash_sparse, fused_xent
+    from deepspeed_tpu_torch.models import Bert
+    from deepspeed_tpu_torch.monitor.counters import COUNTERS
+    from deepspeed_tpu_torch.ops.sparse_attention import SparseAttentionUtils
+
+    micro, seq = 2, 4096
+    cfg = bert_large_sparse(seq)
+    model = Bert(cfg, device="cuda",
+                 generator=torch.Generator(device="cuda").manual_seed(0))
+    with torch.no_grad():
+        pe = model.embeddings["position"]
+        pe.copy_(SparseAttentionUtils.extend_position_embedding(
+            pe[:512].clone(), seq))
+    eng, *_ = dt.initialize(model=model,
+                            config_params=train_config(micro, 1e-4, "bf16"))
+    data = bert_batches(warmup + steps + 2, micro, seq, cfg.vocab_size, 0)
+    losses = [float(eng.train_batch(data)) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for counts in (flash_sparse.LAUNCHES, flash.LAUNCHES, fused_xent.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    snap = COUNTERS.snapshot()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    step_ms, timed = [], []
+    ev0.record()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = eng.train_batch(data)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        timed.append(loss)
+    ev1.record()
+    ev1.synchronize()
+    span_ms = ev0.elapsed_time(ev1)
+    launches = dict(flash_sparse.LAUNCHES)
+    d = COUNTERS.delta_since(snap)
+    losses += [float(x) for x in timed]
+    if launches != {k: cfg.num_layers * steps for k in launches} or \
+            any(flash.LAUNCHES.values()) or any(fused_xent.LAUNCHES.values()):
+        raise AssertionError(f"sparse launches {launches} (dense flash "
+                             f"{flash.LAUNCHES}), expected {cfg.num_layers} "
+                             f"x {steps} each")
+    if d.get("kernel.fallbacks") or \
+            d["kernel.dispatches"]["calls"] != 3 * cfg.num_layers * steps:
+        raise AssertionError(f"the gather path or a plain version ran on "
+                             f"the training path: {d}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not finite and falling: {losses}")
+    tokens = micro * seq * steps
+    rec = {"phase": "train-bert-sparse",
+           "config": "bert-large (24 layers, d1024, 16 heads, d_ff 4096, "
+           "vocab 30528, pre-LN, dropout 0.1), seq 4096, micro 2, gas 1, "
+           "bf16, Adam lr 1e-4, WarmupLR 10 steps, clipping 1.0; fixed "
+           "sparsity block 128 (local 4, global 1), no attention mask; "
+           "MLM 15% + NSP over a Zipf stream of the 30528 ids",
+           "warmup_steps": warmup, "timed_steps": steps,
+           "tokens_per_s": tokens / (sum(step_ms) / 1e3),
+           "step_ms_mean": float(np.mean(step_ms)),
+           "step_ms_min": float(np.min(step_ms)),
+           "device_span_ms": span_ms,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "param_count": sum(p.numel() for p in eng.params.values()),
+           "first_loss": losses[0], "last_loss": losses[-1],
+           "losses": losses, "sparse_launches": launches}
+    emit(rec)
+    return rec, eng, data
+
+
+def sparse_entries(sparse_cases, probe, train_bert, exact):
+    main = sparse_cases[0]           # the training shape, bf16
+    out = []
+    for name, line, err in (("flash_sparse_fwd", 73, "out"),
+                            ("flash_sparse_dq", 171, "dq"),
+                            ("flash_sparse_dkv", 208, "dk")):
+        k = main["kernels"][name]
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "deepspeed_tpu_torch/kernels/csrc/flash_sparse.cu",
+            "replaces": "deepspeed_tpu/ops/sparse_attention/flash_sparse.py:"
+                        f"{line}",
+            "launches": train_bert["sparse_launches"][name],
+            "launches_by_path": {
+                "train-bert-sparse (timed steps)":
+                    train_bert["sparse_launches"][name],
+                "bert-sparse-exact (kernel runs)":
+                    exact["dropout"]["launches_kernel_run"][name] +
+                    exact["gather"]["launches_kernel_run"][name]},
+            "max_abs_err": main["max_abs_err"][err],
+            "max_err_over_tol": main["max_err_over_tol"],
+            "ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            # SDPA with the layout as a boolean mask for the forward; no one
+            # PyTorch call computes a sparse backward alone
+            "library_ms": k["library_ms"],
+            "dense_flash_ms": main["dense_flash_ms"][
+                name.replace("sparse", "attention")],
+            "shape": "B=2 S=4096 H=16 Dh=64 bf16, fixed layout block 128 "
+                     f"(W {main['W']}, Wq {main['Wq']}, density "
+                     f"{main['density']:.3f})",
+            "mask_probe": {d: c["mask_mismatches"]
+                           for d, c in probe["cases"].items()},
+            "cases": [{"case": c["case"],
+                       "max_err_over_tol": c["max_err_over_tol"],
+                       **({"kernel_ms": c["kernels"][name]["kernel_ms"],
+                           "plain_ms": c["kernels"][name]["plain_ms"],
+                           "bound_ms": c["kernels"][name]["bound_ms"]}
+                          if "kernel_ms" in c["kernels"][name] else {})}
+                      for c in sparse_cases]})
+    return out
+
+
 def build_all():
     """Compile the kernel libraries, one nvcc per source, all started
     together; returns the build record."""
     from deepspeed_tpu_torch.kernels import build
 
     sources = ("paged_attention.cu", "flash_attention.cu", "fused_xent.cu",
-               "quant_codec.cu", "moe_dispatch.cu")
+               "quant_codec.cu", "moe_dispatch.cu", "flash_sparse.cu")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(build.build, sources))
@@ -2465,6 +3106,9 @@ def main():
     flash_cases += phase_flash_draws()
     phase_flash_repeat()
     mark("flash")
+    sparse_cases, sparse_probe = phase_sparse(flush)
+    phase_sparse_repeat()
+    mark("sparse")
     # the quantized branches at the speculative serving shapes: decode
     # (T = 1), verify (T = draft_len + 1 = 5) and a prefill chunk (T = 128)
     # with q in bf16 (serve-spec's model), verify and prefill with q in
@@ -2540,7 +3184,15 @@ def main():
     train_moe, teng, data = phase_train_moe()
     emit(phase_train_profile(teng, data, train_moe))
     del teng, data
+    gc.collect()
+    torch.cuda.empty_cache()
     mark("train-moe")
+    bert_exact = phase_bert_sparse_exact()
+    mark("bert-sparse-exact")
+    train_bert, teng, data = phase_train_bert_sparse()
+    emit(phase_train_profile(teng, data, train_bert))
+    del teng, data
+    mark("train-bert-sparse")
     emit({"phase": "seconds", **seconds})
 
     main_case = next(c for c in cases if c["case"] == "decode-bfloat16")
@@ -2568,7 +3220,8 @@ def main():
                                      "bound_by", "kernel_host_us")}
                   for c in cases]}] + flash_entries(flash_cases, train) +
         xent_entries(xent_cases, train_pallas) +
-        codec_entries(codec, serve_qw) + moe_entries(moe_cases, train_moe)})
+        codec_entries(codec, serve_qw) + moe_entries(moe_cases, train_moe) +
+        sparse_entries(sparse_cases, sparse_probe, train_bert, bert_exact)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -19,7 +19,12 @@ Ported so far:
 * serving from int8/int4 blockwise-quantized weights (the codec kernels,
   `kernels/csrc/quant_codec.cu`) and Mixture-of-Experts training through
   the sorted dispatch (`moe/`, the dispatch and combine kernels,
-  `kernels/csrc/moe_dispatch.cu`).
+  `kernels/csrc/moe_dispatch.cu`);
+* BERT pretraining (MLM + NSP, `models/bert.py`) through the fused
+  transformer layer (`ops/transformer/transformer.py`) with block-sparse
+  attention (`ops/sparse_attention/`: the SparsityConfig layouts, the
+  gather path, and the sparse flash forward, dQ and dK/dV as CUDA C++
+  kernels, `kernels/csrc/flash_sparse.cu`).
 
 Entry points run on the card unless the caller passes `device="cpu"`.
 Importing the package builds no kernel and touches no CUDA state: a

@@ -1,0 +1,964 @@
+// Block-sparse flash attention forward, dQ and dK/dV, written for Hopper
+// (sm_90a).
+//
+// Replaces the TPU kernels of
+// deepspeed_tpu/ops/sparse_attention/flash_sparse.py:
+//   flash_sparse_fwd  <- `_fwd_kernel` (:73, pallas_call :154)
+//   flash_sparse_dq   <- `_dq_kernel`  (:171, pallas_call :290)
+//   flash_sparse_dkv  <- `_dkv_kernel` (:208, pallas_call :327)
+// and computes what their plain PyTorch versions compute
+// (deepspeed_tpu_torch/ops/sparse_attention/flash_sparse.py `_fwd_plain`,
+// `_dq_plain`, `_dkv_plain`) on [BH, S, D] tensors in fp32, bf16 or fp16,
+// D = 64 or 128, under a block layout of `blk` x `blk` tiles (blk a multiple
+// of 16 up to 128, S a multiple of blk):
+//   fwd:  for each active k-block of the row's forward table, in table
+//         order: s = (q*scale).k, causal select to NEG_INF; online softmax;
+//         the denominator sums the undropped p, the value sum takes
+//         p * keep_mask rounded to V's dtype; out = acc / l (l == 0 -> 1),
+//         lse = m + log(l), or NEG_INF for a row with no active block;
+//   dq:   the same walk; p = exp(s - lse); dp = dO.V^T (* keep_mask);
+//         ds = p (dp - delta); dq = scale * sum(round_K(ds) . K);
+//   dkv:  for each q-block of the k-block's reverse table: the same p,
+//         pd = p * keep_mask, ds as in dq, kept in fp32;
+//         dv = sum(pd^T . dO), dk = scale * sum(ds^T . q).
+// delta = rowsum(dO * O) is a plain op of the caller, as in JAX.
+//
+// Tables: fwd [H, nb, W] holds each q-block's active k-blocks and rev
+// [H, nb, Wq] each k-block's q-blocks, ascending and -1 padded at the end
+// (`layout_tables`).  A block walks its own row up to the first -1, so it
+// runs exactly the row's active tiles: no padded slot is visited, where the
+// Pallas grid steps through all W (Wq) slots and masks the empty ones.
+// dQ walks the forward table and dK/dV the reverse one, as in JAX, so every
+// output element is summed by one block in a fixed order: no atomics, and
+// the results are bitwise repeatable.
+//
+// Dropout: the keep mask of element (bh, q, k) is the counter hash of the
+// dense flash kernels (flash_tiles.cuh `keep_scale`, JAX `_keep_mask`) over
+// the GLOBAL token coordinates q = qi*blk + r, k = kj*blk + c, with
+// bh = b*H + h, so the three kernels regenerate the same mask and it equals
+// JAX's and the plain versions' for a given seed.
+//
+// What bounds it on this card: at the training shape (BERT-large, S = 4096,
+// D = 64, block 128, Fixed layout, 11 active blocks a row) the kernels do
+// ~2 blk D FLOPs per byte of Q/K/V/O they must move, above the H100's ~295
+// FLOP/byte ridge: the bound is operations, the bf16 tensor cores' 989
+// TFLOP/s (the forward about 0.05 ms).  The design is the dense kernels'
+// (flash_attention.cu) with the key loop replaced by the table walk:
+//   * bf16 / fp16: mma.sync m16n8k16 tiles with fp32 accumulators.  A block
+//     of 4 warps owns C rows of one layout row (C = 64 when blk % 64 == 0,
+//     two tiles of a 128 block walking the same table row, else C = 16 with
+//     one warp computing); each active k-block is staged C keys at a time.
+//     dK/dV on the tensor cores is bf16 at D = 64 (pd and ds fed as three
+//     bf16 terms, fp32 exact); fp16 and D = 128 take the CUDA-core dK/dV.
+//   * fp32: fp32 FMAs on the CUDA cores, the dense kernels' thread layout.
+// Staging is plain 16-byte loads; cp.async or TMA pipelining, wgmma, and a
+// schedule that balances the global rows' long walks are later work.
+
+#include <math.h>
+
+#include <type_traits>
+
+#include "common.cuh"
+#include "flash_tiles.cuh"
+
+namespace {
+
+struct SParams {
+  int BH, H, S, nb, blk, W;  // W: the table's width (W or Wq)
+  float scale;
+  int causal;
+  const int* tbl;            // [H, nb, W] forward or reverse table
+  uint32_t seed_h;           // uint32(seed) * 0x9E3779B1
+  uint32_t thr;              // keep iff hash < thr
+  float inv_keep;            // fp32(1 / (1 - rate))
+  int dropout;
+};
+
+__device__ __forceinline__ float causal_score(const SParams& p, float s,
+                                              int qg, int kg) {
+  return (p.causal && qg < kg) ? NEG_INF : s;
+}
+
+// the table row of layout block `i` (a q-block for fwd / dq, a k-block for
+// dkv) of batch-head bh
+__device__ __forceinline__ const int* table_row(const SParams& p, int bh,
+                                                int i) {
+  return p.tbl + (size_t(bh % p.H) * p.nb + i) * p.W;
+}
+
+// ---------------------------------------------------------------------------
+// CUDA-core forward (fp32): one block per (BQ rows of a layout row, bh)
+// ---------------------------------------------------------------------------
+
+template <int D, int BQ, int BK>
+struct FwdLayout {
+  static constexpr int LD = D + 1, LP = BK + 1;
+  static constexpr size_t SMEM =
+      (size_t(BQ) * LD + 2 * size_t(BK) * LD + size_t(BQ) * LP) * sizeof(float);
+};
+
+template <typename T, int D, int BQ, int BK>
+__global__ void __launch_bounds__(THREADS)
+sparse_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, T* __restrict__ o,
+                  float* __restrict__ lse, SParams p) {
+  constexpr int RM = BQ / RG, CN = BK / CG, DN = D / CG;
+  constexpr int LD = D + 1, LP = BK + 1;
+  extern __shared__ __align__(16) float sm[];
+  float* sQ = sm;
+  float* sK = sQ + BQ * LD;
+  float* sV = sK + BK * LD;
+  float* sP = sV + BK * LD;
+
+  const int r = threadIdx.x / CG, c = threadIdx.x % CG;
+  const int q0 = blockIdx.x * BQ;
+  const int bh = blockIdx.y;
+  const int* row = table_row(p, bh, q0 / p.blk);
+  const T* kh = k + size_t(bh) * p.S * D;
+  const T* vh = v + size_t(bh) * p.S * D;
+  const uint32_t bhm = uint32_t(bh) * 0x7FEB352Du;
+
+  load_rows<T, D>(sQ, q + size_t(bh) * p.S * D, q0, p.S, BQ, p.scale);
+
+  float m[RM], l[RM], acc[RM][DN];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.f;
+#pragma unroll
+    for (int e = 0; e < DN; ++e) acc[i][e] = 0.f;
+  }
+
+  for (int a = 0; a < p.W; ++a) {
+    const int kj = row[a];
+    if (kj < 0) break;
+    for (int k0 = kj * p.blk; k0 < (kj + 1) * p.blk; k0 += BK) {
+      __syncthreads();  // the previous tile's reads of sK, sV, sP are done
+      load_rows<T, D>(sK, kh, k0, p.S, BK, 1.f);
+      load_rows<T, D>(sV, vh, k0, p.S, BK, 1.f);
+      __syncthreads();
+
+      float s[RM][CN];
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < CN; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        float x[RM], y[CN];
+#pragma unroll
+        for (int i = 0; i < RM; ++i) x[i] = sQ[(i * RG + r) * LD + d];
+#pragma unroll
+        for (int j = 0; j < CN; ++j) y[j] = sK[(j * CG + c) * LD + d];
+#pragma unroll
+        for (int i = 0; i < RM; ++i)
+#pragma unroll
+          for (int j = 0; j < CN; ++j) s[i][j] = fmaf(x[i], y[j], s[i][j]);
+      }
+
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const int rr = i * RG + r, qg = q0 + rr;
+        float mx = NEG_INF;
+#pragma unroll
+        for (int j = 0; j < CN; ++j) {
+          s[i][j] = causal_score(p, s[i][j], qg, k0 + j * CG + c);
+          mx = fmaxf(mx, s[i][j]);
+        }
+        const float m_new = fmaxf(m[i], row_max(mx));
+        float psum = 0.f;
+#pragma unroll
+        for (int j = 0; j < CN; ++j) {
+          float pv = expf(s[i][j] - m_new);
+          psum += pv;
+          if (p.dropout) pv *= keep_scale(p, bhm, qg, k0 + j * CG + c);
+          sP[rr * LP + j * CG + c] = round_to<T>(pv);
+        }
+        const float alpha = expf(m[i] - m_new);
+        l[i] = alpha * l[i] + row_sum(psum);
+#pragma unroll
+        for (int e = 0; e < DN; ++e) acc[i][e] *= alpha;
+        m[i] = m_new;
+      }
+      __syncthreads();
+
+      for (int kk = 0; kk < BK; ++kk) {
+        float x[RM], y[DN];
+#pragma unroll
+        for (int i = 0; i < RM; ++i) x[i] = sP[(i * RG + r) * LP + kk];
+#pragma unroll
+        for (int e = 0; e < DN; ++e) y[e] = sV[kk * LD + e * CG + c];
+#pragma unroll
+        for (int i = 0; i < RM; ++i)
+#pragma unroll
+          for (int e = 0; e < DN; ++e) acc[i][e] = fmaf(x[i], y[e], acc[i][e]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int qg = q0 + i * RG + r;
+    const float safe = l[i] == 0.f ? 1.f : l[i];
+    T* dst = o + (size_t(bh) * p.S + qg) * D;
+#pragma unroll
+    for (int e = 0; e < DN; ++e) dst[e * CG + c] = from_f<T>(acc[i][e] / safe);
+    if (c == 0)
+      lse[size_t(bh) * p.S + qg] = l[i] == 0.f ? NEG_INF : m[i] + logf(safe);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// CUDA-core dQ (fp32): the forward's walk
+// ---------------------------------------------------------------------------
+
+template <int D, int BQ, int BK>
+struct DqLayout {
+  static constexpr int LD = D + 1, LP = BK + 1;
+  static constexpr size_t SMEM =
+      (2 * size_t(BQ) * LD + 2 * size_t(BK) * LD + size_t(BQ) * LP) * sizeof(float);
+};
+
+template <typename T, int D, int BQ, int BK>
+__global__ void __launch_bounds__(THREADS)
+sparse_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 T* __restrict__ dq, SParams p) {
+  constexpr int RM = BQ / RG, CN = BK / CG, DN = D / CG;
+  constexpr int LD = D + 1, LP = BK + 1;
+  extern __shared__ __align__(16) float sm[];
+  float* sQ = sm;
+  float* sO = sQ + BQ * LD;   // dO
+  float* sK = sO + BQ * LD;
+  float* sV = sK + BK * LD;
+  float* sS = sV + BK * LD;   // ds rounded to K's dtype
+
+  const int r = threadIdx.x / CG, c = threadIdx.x % CG;
+  const int q0 = blockIdx.x * BQ;
+  const int bh = blockIdx.y;
+  const int* row = table_row(p, bh, q0 / p.blk);
+  const T* kh = k + size_t(bh) * p.S * D;
+  const T* vh = v + size_t(bh) * p.S * D;
+  const uint32_t bhm = uint32_t(bh) * 0x7FEB352Du;
+
+  load_rows<T, D>(sQ, q + size_t(bh) * p.S * D, q0, p.S, BQ, p.scale);
+  load_rows<T, D>(sO, dout + size_t(bh) * p.S * D, q0, p.S, BQ, 1.f);
+  float lse_r[RM], delta_r[RM], acc[RM][DN];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int qg = q0 + i * RG + r;
+    lse_r[i] = lse[size_t(bh) * p.S + qg];
+    delta_r[i] = delta[size_t(bh) * p.S + qg];
+#pragma unroll
+    for (int e = 0; e < DN; ++e) acc[i][e] = 0.f;
+  }
+
+  for (int a = 0; a < p.W; ++a) {
+    const int kj = row[a];
+    if (kj < 0) break;
+    for (int k0 = kj * p.blk; k0 < (kj + 1) * p.blk; k0 += BK) {
+      __syncthreads();
+      load_rows<T, D>(sK, kh, k0, p.S, BK, 1.f);
+      load_rows<T, D>(sV, vh, k0, p.S, BK, 1.f);
+      __syncthreads();
+
+      float s[RM][CN], dp[RM][CN];
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < CN; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        float x[RM], xo[RM], y[CN], yv[CN];
+#pragma unroll
+        for (int i = 0; i < RM; ++i) {
+          x[i] = sQ[(i * RG + r) * LD + d];
+          xo[i] = sO[(i * RG + r) * LD + d];
+        }
+#pragma unroll
+        for (int j = 0; j < CN; ++j) {
+          y[j] = sK[(j * CG + c) * LD + d];
+          yv[j] = sV[(j * CG + c) * LD + d];
+        }
+#pragma unroll
+        for (int i = 0; i < RM; ++i)
+#pragma unroll
+          for (int j = 0; j < CN; ++j) {
+            s[i][j] = fmaf(x[i], y[j], s[i][j]);
+            dp[i][j] = fmaf(xo[i], yv[j], dp[i][j]);
+          }
+      }
+
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const int rr = i * RG + r, qg = q0 + rr;
+#pragma unroll
+        for (int j = 0; j < CN; ++j) {
+          const int kg = k0 + j * CG + c;
+          const float pv = expf(causal_score(p, s[i][j], qg, kg) - lse_r[i]);
+          float dpv = dp[i][j];
+          if (p.dropout) dpv *= keep_scale(p, bhm, qg, kg);
+          sS[rr * LP + j * CG + c] = round_to<T>(pv * (dpv - delta_r[i]));
+        }
+      }
+      __syncthreads();
+
+      for (int kk = 0; kk < BK; ++kk) {
+        float x[RM], y[DN];
+#pragma unroll
+        for (int i = 0; i < RM; ++i) x[i] = sS[(i * RG + r) * LP + kk];
+#pragma unroll
+        for (int e = 0; e < DN; ++e) y[e] = sK[kk * LD + e * CG + c];
+#pragma unroll
+        for (int i = 0; i < RM; ++i)
+#pragma unroll
+          for (int e = 0; e < DN; ++e) acc[i][e] = fmaf(x[i], y[e], acc[i][e]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int qg = q0 + i * RG + r;
+    T* dst = dq + (size_t(bh) * p.S + qg) * D;
+#pragma unroll
+    for (int e = 0; e < DN; ++e) dst[e * CG + c] = from_f<T>(p.scale * acc[i][e]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// CUDA-core dK, dV: one block per (BKV keys of a layout column, bh), walking
+// the reverse table's q-blocks BQ rows at a time
+// ---------------------------------------------------------------------------
+
+template <int D, int BKV, int BQ>
+struct DkvLayout {
+  static constexpr int LD = D + 1, LP = BQ + 1;
+  static constexpr size_t SMEM =
+      (2 * size_t(BKV) * LD + 2 * size_t(BQ) * LD + 2 * size_t(BKV) * LP +
+       2 * size_t(BQ)) * sizeof(float);
+};
+
+template <typename T, int D, int BKV, int BQ>
+__global__ void __launch_bounds__(THREADS)
+sparse_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const T* __restrict__ dout,
+                  const float* __restrict__ lse, const float* __restrict__ delta,
+                  T* __restrict__ dk, T* __restrict__ dv, SParams p) {
+  constexpr int RM = BKV / RG, CN = BQ / CG, DN = D / CG;
+  constexpr int LD = D + 1, LP = BQ + 1;
+  extern __shared__ __align__(16) float sm[];
+  float* sK = sm;
+  float* sV = sK + BKV * LD;
+  float* sQ = sV + BKV * LD;   // q, unscaled
+  float* sO = sQ + BQ * LD;    // dO
+  float* sPd = sO + BQ * LD;   // pd^T [key][q], fp32
+  float* sDs = sPd + BKV * LP; // ds^T [key][q], fp32
+  float* sL = sDs + BKV * LP;  // lse of the q rows
+  float* sD = sL + BQ;         // delta of the q rows
+
+  const int r = threadIdx.x / CG, c = threadIdx.x % CG;
+  const int k0 = blockIdx.x * BKV;
+  const int bh = blockIdx.y;
+  const int* col = table_row(p, bh, k0 / p.blk);
+  const T* qh = q + size_t(bh) * p.S * D;
+  const T* oh = dout + size_t(bh) * p.S * D;
+  const float* lh = lse + size_t(bh) * p.S;
+  const float* dh = delta + size_t(bh) * p.S;
+  const uint32_t bhm = uint32_t(bh) * 0x7FEB352Du;
+
+  load_rows<T, D>(sK, k + size_t(bh) * p.S * D, k0, p.S, BKV, 1.f);
+  load_rows<T, D>(sV, v + size_t(bh) * p.S * D, k0, p.S, BKV, 1.f);
+  float dka[RM][DN], dva[RM][DN];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int e = 0; e < DN; ++e) dka[i][e] = dva[i][e] = 0.f;
+
+  for (int a = 0; a < p.W; ++a) {
+    const int qi = col[a];
+    if (qi < 0) break;
+    for (int q0 = qi * p.blk; q0 < (qi + 1) * p.blk; q0 += BQ) {
+      __syncthreads();
+      load_rows<T, D>(sQ, qh, q0, p.S, BQ, 1.f);
+      load_rows<T, D>(sO, oh, q0, p.S, BQ, 1.f);
+      for (int i = threadIdx.x; i < BQ; i += THREADS) {
+        sL[i] = lh[q0 + i];
+        sD[i] = dh[q0 + i];
+      }
+      __syncthreads();
+
+      // transposed tiles: rows are keys, columns are q rows
+      float s[RM][CN], dp[RM][CN];
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < CN; ++j) s[i][j] = dp[i][j] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        float x[RM], xv[RM], y[CN], yo[CN];
+#pragma unroll
+        for (int i = 0; i < RM; ++i) {
+          x[i] = sK[(i * RG + r) * LD + d];
+          xv[i] = sV[(i * RG + r) * LD + d];
+        }
+#pragma unroll
+        for (int j = 0; j < CN; ++j) {
+          y[j] = sQ[(j * CG + c) * LD + d];
+          yo[j] = sO[(j * CG + c) * LD + d];
+        }
+#pragma unroll
+        for (int i = 0; i < RM; ++i)
+#pragma unroll
+          for (int j = 0; j < CN; ++j) {
+            s[i][j] = fmaf(x[i], y[j], s[i][j]);
+            dp[i][j] = fmaf(xv[i], yo[j], dp[i][j]);
+          }
+      }
+
+#pragma unroll
+      for (int i = 0; i < RM; ++i) {
+        const int rr = i * RG + r, kg = k0 + rr;
+#pragma unroll
+        for (int j = 0; j < CN; ++j) {
+          const int cc = j * CG + c, qg = q0 + cc;
+          // s = (q*scale).k: scale * (q.k) is the same number when scale is
+          // a power of two (D = 64) and within one rounding otherwise
+          const float pv =
+              expf(causal_score(p, p.scale * s[i][j], qg, kg) - sL[cc]);
+          float pd = pv, dpv = dp[i][j];
+          if (p.dropout) {
+            const float ks = keep_scale(p, bhm, qg, kg);
+            pd *= ks;
+            dpv *= ks;
+          }
+          sPd[rr * LP + cc] = pd;
+          sDs[rr * LP + cc] = pv * (dpv - sD[cc]);
+        }
+      }
+      __syncthreads();
+
+      for (int qq = 0; qq < BQ; ++qq) {
+        float xpd[RM], xds[RM], yo[DN], yq[DN];
+#pragma unroll
+        for (int i = 0; i < RM; ++i) {
+          xpd[i] = sPd[(i * RG + r) * LP + qq];
+          xds[i] = sDs[(i * RG + r) * LP + qq];
+        }
+#pragma unroll
+        for (int e = 0; e < DN; ++e) {
+          yo[e] = sO[qq * LD + e * CG + c];
+          yq[e] = sQ[qq * LD + e * CG + c];
+        }
+#pragma unroll
+        for (int i = 0; i < RM; ++i)
+#pragma unroll
+          for (int e = 0; e < DN; ++e) {
+            dva[i][e] = fmaf(xpd[i], yo[e], dva[i][e]);
+            dka[i][e] = fmaf(xds[i], yq[e], dka[i][e]);
+          }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int kg = k0 + i * RG + r;
+    T* dstk = dk + (size_t(bh) * p.S + kg) * D;
+    T* dstv = dv + (size_t(bh) * p.S + kg) * D;
+#pragma unroll
+    for (int e = 0; e < DN; ++e) {
+      dstk[e * CG + c] = from_f<T>(p.scale * dka[i][e]);
+      dstv[e * CG + c] = from_f<T>(dva[i][e]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// tensor-core forward and dQ for bf16 / fp16: mma.sync m16n8k16
+// ---------------------------------------------------------------------------
+//
+// One block of 4 warps per (C rows of a layout row, bh); warp w owns rows
+// [16w, 16w + 16) when 16w < C (C = 16: warp 0 computes, the others only
+// stage) and keeps its Q (and dO) fragments in registers for the whole walk.
+// Each active k-block is staged CK keys at a time as in flash_attention.cu:
+// K row-major for S = Q.K^T, V (or K, for dQ) transposed for the second
+// product, whose A operand (p or ds, rounded to T) comes from registers.
+
+template <typename T, int D, int CK>
+struct MmaLayout {
+  static constexpr int LDK = D + 8, LDT = CK + 8;
+  static constexpr size_t FWD_SMEM = (size_t(CK) * LDK + size_t(D) * LDT) * sizeof(T);
+  static constexpr size_t DQ_SMEM = (2 * size_t(CK) * LDK + size_t(D) * LDT) * sizeof(T);
+};
+
+template <typename T, int D, int C>
+__global__ void __launch_bounds__(THREADS)
+sparse_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ o,
+                      float* __restrict__ lse, SParams p) {
+  using LY = MmaLayout<T, D, C>;
+  constexpr int LDK = LY::LDK, LDT = LY::LDT;
+  constexpr int KD = D / 16, NT = C / 8, KK = C / 16, DN = D / 8;
+  extern __shared__ __align__(16) unsigned char smraw[];
+  T* sK = reinterpret_cast<T*>(smraw);   // [C][LDK]
+  T* sVt = sK + C * LDK;                 // [D][LDT]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const bool active = warp * 16 < C;
+  const int q0 = blockIdx.x * C;
+  const int bh = blockIdx.y;
+  const int* row = table_row(p, bh, q0 / p.blk);
+  const T* kh = k + size_t(bh) * p.S * D;
+  const T* vh = v + size_t(bh) * p.S * D;
+  const uint32_t bhm = uint32_t(bh) * 0x7FEB352Du;
+  const int r0 = q0 + warp * 16, ra = r0 + g, rb = ra + 8;
+
+  uint32_t qa[KD][4];
+  if (active) load_a<T, D>(qa, q + size_t(bh) * p.S * D, r0, p.S, g, t);
+  float acc[DN][4];
+#pragma unroll
+  for (int dn = 0; dn < DN; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+  float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;
+
+  for (int a = 0; a < p.W; ++a) {
+    const int kj = row[a];
+    if (kj < 0) break;
+    for (int k0 = kj * p.blk; k0 < (kj + 1) * p.blk; k0 += C) {
+      __syncthreads();
+      stage_rows<T, D, LDK>(sK, kh, k0, p.S, C);
+      stage_cols<T, D, LDT>(sVt, vh, k0, p.S, C);
+      __syncthreads();
+      if (!active) continue;
+
+      float s[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+      mma_tiles<T, KD, NT, LDK>(s, qa, sK, g, t);
+
+      float mx_a = NEG_INF, mx_b = NEG_INF;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int kg = k0 + nt * 8 + 2 * t + i;
+          s[nt][i] = causal_score(p, p.scale * s[nt][i], ra, kg);
+          s[nt][2 + i] = causal_score(p, p.scale * s[nt][2 + i], rb, kg);
+          mx_a = fmaxf(mx_a, s[nt][i]);
+          mx_b = fmaxf(mx_b, s[nt][2 + i]);
+        }
+      const float mn_a = fmaxf(m_a, quad_max(mx_a));
+      const float mn_b = fmaxf(m_b, quad_max(mx_b));
+      float ps_a = 0.f, ps_b = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int kg = k0 + nt * 8 + 2 * t + (i & 1);
+          float pv = expf(s[nt][i] - (i < 2 ? mn_a : mn_b));
+          if (i < 2) ps_a += pv; else ps_b += pv;
+          if (p.dropout) pv *= keep_scale(p, bhm, i < 2 ? ra : rb, kg);
+          s[nt][i] = pv;
+        }
+      const float al_a = expf(m_a - mn_a), al_b = expf(m_b - mn_b);
+      l_a = al_a * l_a + quad_sum(ps_a);
+      l_b = al_b * l_b + quad_sum(ps_b);
+      m_a = mn_a;
+      m_b = mn_b;
+#pragma unroll
+      for (int dn = 0; dn < DN; ++dn) {
+        acc[dn][0] *= al_a;
+        acc[dn][1] *= al_a;
+        acc[dn][2] *= al_b;
+        acc[dn][3] *= al_b;
+      }
+      uint32_t pa[KK][4];
+      c_to_a<T, KK>(pa, s);  // p rounded to V's dtype
+      mma_tiles<T, KK, DN, LDT>(acc, pa, sVt, g, t);
+    }
+  }
+  if (!active) return;
+
+  const float sa = l_a == 0.f ? 1.f : l_a, sb = l_b == 0.f ? 1.f : l_b;
+  T* oh = o + size_t(bh) * p.S * D;
+#pragma unroll
+  for (int dn = 0; dn < DN; ++dn) {
+    const int cc = dn * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(oh + size_t(ra) * D + cc) =
+        Mma<T>::pack(acc[dn][0] / sa, acc[dn][1] / sa);
+    *reinterpret_cast<uint32_t*>(oh + size_t(rb) * D + cc) =
+        Mma<T>::pack(acc[dn][2] / sb, acc[dn][3] / sb);
+  }
+  if (t == 0) {
+    lse[size_t(bh) * p.S + ra] = l_a == 0.f ? NEG_INF : m_a + logf(sa);
+    lse[size_t(bh) * p.S + rb] = l_b == 0.f ? NEG_INF : m_b + logf(sb);
+  }
+}
+
+template <typename T, int D, int C, int CK>
+__global__ void __launch_bounds__(THREADS)
+sparse_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dq,
+                     SParams p) {
+  using LY = MmaLayout<T, D, CK>;
+  constexpr int LDK = LY::LDK, LDT = LY::LDT;
+  constexpr int KD = D / 16, NT = CK / 8, KK = CK / 16, DN = D / 8;
+  extern __shared__ __align__(16) unsigned char smraw[];
+  T* sK = reinterpret_cast<T*>(smraw);   // [CK][LDK]
+  T* sV = sK + CK * LDK;                 // [CK][LDK]
+  T* sKt = sV + CK * LDK;                // [D][LDT]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const bool active = warp * 16 < C;
+  const int q0 = blockIdx.x * C;
+  const int bh = blockIdx.y;
+  const int* row = table_row(p, bh, q0 / p.blk);
+  const T* kh = k + size_t(bh) * p.S * D;
+  const T* vh = v + size_t(bh) * p.S * D;
+  const uint32_t bhm = uint32_t(bh) * 0x7FEB352Du;
+  const int r0 = q0 + warp * 16, ra = r0 + g, rb = ra + 8;
+
+  uint32_t qa[KD][4], da[KD][4];
+  float lse_a = 0.f, lse_b = 0.f, dl_a = 0.f, dl_b = 0.f;
+  if (active) {
+    load_a<T, D>(qa, q + size_t(bh) * p.S * D, r0, p.S, g, t);
+    load_a<T, D>(da, dout + size_t(bh) * p.S * D, r0, p.S, g, t);
+    lse_a = lse[size_t(bh) * p.S + ra];
+    lse_b = lse[size_t(bh) * p.S + rb];
+    dl_a = delta[size_t(bh) * p.S + ra];
+    dl_b = delta[size_t(bh) * p.S + rb];
+  }
+  float acc[DN][4];
+#pragma unroll
+  for (int dn = 0; dn < DN; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+
+  for (int a = 0; a < p.W; ++a) {
+    const int kj = row[a];
+    if (kj < 0) break;
+    for (int k0 = kj * p.blk; k0 < (kj + 1) * p.blk; k0 += CK) {
+      __syncthreads();
+      stage_rows<T, D, LDK>(sK, kh, k0, p.S, CK);
+      stage_rows<T, D, LDK>(sV, vh, k0, p.S, CK);
+      stage_cols<T, D, LDT>(sKt, kh, k0, p.S, CK);
+      __syncthreads();
+      if (!active) continue;
+
+      float s[NT][4], dp[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[nt][i] = dp[nt][i] = 0.f;
+      mma_tiles<T, KD, NT, LDK>(s, qa, sK, g, t);
+      mma_tiles<T, KD, NT, LDK>(dp, da, sV, g, t);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int kg = k0 + nt * 8 + 2 * t + (i & 1);
+          const int rr = i < 2 ? ra : rb;
+          const float x = causal_score(p, p.scale * s[nt][i], rr, kg);
+          const float pv = expf(x - (i < 2 ? lse_a : lse_b));
+          float dpv = dp[nt][i];
+          if (p.dropout) dpv *= keep_scale(p, bhm, rr, kg);
+          s[nt][i] = pv * (dpv - (i < 2 ? dl_a : dl_b));
+        }
+      uint32_t dsa[KK][4];
+      c_to_a<T, KK>(dsa, s);  // ds rounded to K's dtype
+      mma_tiles<T, KK, DN, LDT>(acc, dsa, sKt, g, t);
+    }
+  }
+  if (!active) return;
+
+  T* dqh = dq + size_t(bh) * p.S * D;
+#pragma unroll
+  for (int dn = 0; dn < DN; ++dn) {
+    const int cc = dn * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(dqh + size_t(ra) * D + cc) =
+        Mma<T>::pack(p.scale * acc[dn][0], p.scale * acc[dn][1]);
+    *reinterpret_cast<uint32_t*>(dqh + size_t(rb) * D + cc) =
+        Mma<T>::pack(p.scale * acc[dn][2], p.scale * acc[dn][3]);
+  }
+}
+
+template <int D, int C>
+struct DkvMmaLayout {
+  static constexpr int LDR = D + 8, LDT = C + 8;
+  static constexpr size_t BYTES =
+      (4 * size_t(C) * LDR + 2 * size_t(D) * LDT) * sizeof(__nv_bfloat16) +
+      2 * size_t(C) * sizeof(float);
+};
+
+// dK, dV in bf16 on the tensor cores: one block of 4 warps per (C keys of a
+// layout column, bh), warp w the keys [16w, 16w + 16) when 16w < C, walking
+// the reverse table's q-blocks C rows at a time.  S^T = K.Q^T and
+// dP^T = V.dO^T come out with keys as rows, so pd^T and ds^T feed
+// dV += pd^T.dO and dK += ds^T.Q as A operands from registers, in three bf16
+// terms each (mma_fp32_a).
+template <int D, int C>
+__global__ void __launch_bounds__(THREADS)
+sparse_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      const __nv_bfloat16* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      __nv_bfloat16* __restrict__ dk,
+                      __nv_bfloat16* __restrict__ dv, SParams p) {
+  using T = __nv_bfloat16;
+  using LY = DkvMmaLayout<D, C>;
+  constexpr int LDR = LY::LDR, LDT = LY::LDT;
+  constexpr int KD = D / 16, NT = C / 8, KK = C / 16, DN = D / 8;
+  extern __shared__ __align__(16) unsigned char smraw[];
+  T* sK = reinterpret_cast<T*>(smraw);  // [C][LDR]
+  T* sV = sK + C * LDR;                 // [C][LDR]
+  T* sQ = sV + C * LDR;                 // [C][LDR]
+  T* sO = sQ + C * LDR;                 // dO [C][LDR]
+  T* sQt = sO + C * LDR;                // [D][LDT]
+  T* sOt = sQt + D * LDT;               // [D][LDT]
+  float* sL = reinterpret_cast<float*>(sOt + D * LDT);
+  float* sDl = sL + C;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const bool active = warp * 16 < C;
+  const int k0 = blockIdx.x * C;
+  const int bh = blockIdx.y;
+  const int* col = table_row(p, bh, k0 / p.blk);
+  const T* qh = q + size_t(bh) * p.S * D;
+  const T* oh = dout + size_t(bh) * p.S * D;
+  const float* lh = lse + size_t(bh) * p.S;
+  const float* dh = delta + size_t(bh) * p.S;
+  const uint32_t bhm = uint32_t(bh) * 0x7FEB352Du;
+  const int ka = k0 + warp * 16 + g, kb_ = ka + 8;
+
+  stage_rows<T, D, LDR>(sK, k + size_t(bh) * p.S * D, k0, p.S, C);
+  stage_rows<T, D, LDR>(sV, v + size_t(bh) * p.S * D, k0, p.S, C);
+  float dka[DN][4], dva[DN][4];
+#pragma unroll
+  for (int dn = 0; dn < DN; ++dn)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) dka[dn][i] = dva[dn][i] = 0.f;
+
+  for (int a = 0; a < p.W; ++a) {
+    const int qi = col[a];
+    if (qi < 0) break;
+    for (int q0 = qi * p.blk; q0 < (qi + 1) * p.blk; q0 += C) {
+      __syncthreads();
+      stage_rows<T, D, LDR>(sQ, qh, q0, p.S, C);
+      stage_rows<T, D, LDR>(sO, oh, q0, p.S, C);
+      stage_cols<T, D, LDT>(sQt, qh, q0, p.S, C);
+      stage_cols<T, D, LDT>(sOt, oh, q0, p.S, C);
+      for (int i = threadIdx.x; i < C; i += THREADS) {
+        sL[i] = lh[q0 + i];
+        sDl[i] = dh[q0 + i];
+      }
+      __syncthreads();
+      if (!active) continue;
+
+      float st[NT][4], dpt[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) st[nt][i] = dpt[nt][i] = 0.f;
+      mma_tiles_sa<T, KD, NT, LDR, LDR>(st, sK + warp * 16 * LDR, sQ, g, t);
+      mma_tiles_sa<T, KD, NT, LDR, LDR>(dpt, sV + warp * 16 * LDR, sO, g, t);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int cc = nt * 8 + 2 * t + (i & 1), qg = q0 + cc;
+          const int kg = i < 2 ? ka : kb_;
+          // s = (q*scale).k: scale * (q.k) is the same number when scale is
+          // a power of two (D = 64)
+          const float x = causal_score(p, p.scale * st[nt][i], qg, kg);
+          const float pv = expf(x - sL[cc]);
+          float pd = pv, dpv = dpt[nt][i];
+          if (p.dropout) {
+            const float ks = keep_scale(p, bhm, qg, kg);
+            pd *= ks;
+            dpv *= ks;
+          }
+          st[nt][i] = pd;                          // pd^T, fp32
+          dpt[nt][i] = pv * (dpv - sDl[cc]);       // ds^T, fp32
+        }
+      mma_fp32_a<KK, DN, LDT>(dva, st, sOt, g, t);
+      mma_fp32_a<KK, DN, LDT>(dka, dpt, sQt, g, t);
+    }
+  }
+  if (!active) return;
+
+#pragma unroll
+  for (int dn = 0; dn < DN; ++dn) {
+    const int cc = dn * 8 + 2 * t;
+    size_t off = (size_t(bh) * p.S + ka) * D + cc;
+    *reinterpret_cast<uint32_t*>(dk + off) =
+        Mma<T>::pack(p.scale * dka[dn][0], p.scale * dka[dn][1]);
+    *reinterpret_cast<uint32_t*>(dv + off) = Mma<T>::pack(dva[dn][0], dva[dn][1]);
+    off = (size_t(bh) * p.S + kb_) * D + cc;
+    *reinterpret_cast<uint32_t*>(dk + off) =
+        Mma<T>::pack(p.scale * dka[dn][2], p.scale * dka[dn][3]);
+    *reinterpret_cast<uint32_t*>(dv + off) = Mma<T>::pack(dva[dn][2], dva[dn][3]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launchers
+// ---------------------------------------------------------------------------
+
+struct Ptrs {
+  const void *q, *k, *v, *dout, *lse, *delta;
+  void *o, *lse_out, *dq, *dk, *dv;
+};
+
+// Which kernel runs, chosen at compile time so that each is instantiated
+// only for the dtypes that reach it (as in flash_attention.cu).  C is the
+// row tile (64 for a layout block that is a multiple of 64, else 16); CK
+// the key (or, in dK/dV, the CUDA-core key-row) tile, halved at D = 128
+// where registers or shared memory would not fit.
+template <typename T, int D, int C>
+cudaError_t launch(int which, const Ptrs& a, const SParams& p, cudaStream_t st) {
+  constexpr bool mma = !std::is_same<T, float>::value;
+  constexpr bool mma_dkv = std::is_same<T, __nv_bfloat16>::value && D == 64;
+  constexpr int CK = (D == 128 && C > 32) ? 32 : C;
+  const T* q = static_cast<const T*>(a.q);
+  const T* k = static_cast<const T*>(a.k);
+  const T* v = static_cast<const T*>(a.v);
+  const T* dout = static_cast<const T*>(a.dout);
+  const float* lse = static_cast<const float*>(a.lse);
+  const float* delta = static_cast<const float*>(a.delta);
+  const dim3 rows(p.S / C, p.BH);
+  cudaError_t e;
+  if (which == 0) {
+    if constexpr (mma) {
+      auto kern = sparse_fwd_mma_kernel<T, D, C>;
+      const size_t smem = MmaLayout<T, D, C>::FWD_SMEM;
+      if ((e = set_smem(kern, smem)) != cudaSuccess) return e;
+      kern<<<rows, THREADS, smem, st>>>(q, k, v, static_cast<T*>(a.o),
+                                        static_cast<float*>(a.lse_out), p);
+    } else {
+      auto kern = sparse_fwd_kernel<T, D, C, CK>;
+      const size_t smem = FwdLayout<D, C, CK>::SMEM;
+      if ((e = set_smem(kern, smem)) != cudaSuccess) return e;
+      kern<<<rows, THREADS, smem, st>>>(q, k, v, static_cast<T*>(a.o),
+                                        static_cast<float*>(a.lse_out), p);
+    }
+  } else if (which == 1) {
+    if constexpr (mma) {
+      auto kern = sparse_dq_mma_kernel<T, D, C, CK>;
+      const size_t smem = MmaLayout<T, D, CK>::DQ_SMEM;
+      if ((e = set_smem(kern, smem)) != cudaSuccess) return e;
+      kern<<<rows, THREADS, smem, st>>>(q, k, v, dout, lse, delta,
+                                        static_cast<T*>(a.dq), p);
+    } else {
+      auto kern = sparse_dq_kernel<T, D, C, CK>;
+      const size_t smem = DqLayout<D, C, CK>::SMEM;
+      if ((e = set_smem(kern, smem)) != cudaSuccess) return e;
+      kern<<<rows, THREADS, smem, st>>>(q, k, v, dout, lse, delta,
+                                        static_cast<T*>(a.dq), p);
+    }
+  } else {
+    if constexpr (mma_dkv) {
+      auto kern = sparse_dkv_mma_kernel<D, C>;
+      const size_t smem = DkvMmaLayout<D, C>::BYTES;
+      if ((e = set_smem(kern, smem)) != cudaSuccess) return e;
+      kern<<<rows, THREADS, smem, st>>>(q, k, v, dout, lse, delta,
+                                        static_cast<T*>(a.dk),
+                                        static_cast<T*>(a.dv), p);
+    } else {
+      auto kern = sparse_dkv_kernel<T, D, CK, C>;
+      const size_t smem = DkvLayout<D, CK, C>::SMEM;
+      if ((e = set_smem(kern, smem)) != cudaSuccess) return e;
+      kern<<<dim3(p.S / CK, p.BH), THREADS, smem, st>>>(
+          q, k, v, dout, lse, delta, static_cast<T*>(a.dk),
+          static_cast<T*>(a.dv), p);
+    }
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_t(int which, int D, const Ptrs& a, const SParams& p,
+                     cudaStream_t st) {
+  const bool wide = p.blk % 64 == 0;
+  if (D == 64)
+    return wide ? launch<T, 64, 64>(which, a, p, st)
+                : launch<T, 64, 16>(which, a, p, st);
+  if (D == 128)
+    return wide ? launch<T, 128, 64>(which, a, p, st)
+                : launch<T, 128, 16>(which, a, p, st);
+  return cudaErrorInvalidValue;
+}
+
+int run(int which, const Ptrs& a, const void* tbl, int BH, int H, int S,
+        int D, int blk, int W, float scale, int causal, int seed, unsigned thr,
+        float inv_keep, int dropout, int dtype, void* stream) {
+  (void)cudaGetLastError();  // report this launch's error, not an older one
+  if (BH <= 0 || H <= 0 || BH % H || BH > 65535 || blk <= 0 || blk % 16 ||
+      blk > 128 || S <= 0 || S % blk || W <= 0 || tbl == nullptr)
+    return cudaErrorInvalidValue;
+  const SParams p{BH, H, S, S / blk, blk, W, scale, causal,
+                  static_cast<const int*>(tbl), uint32_t(seed) * 0x9E3779B1u,
+                  thr, inv_keep, dropout};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return launch_t<float>(which, D, a, p, st);
+    case 1: return launch_t<__nv_bfloat16>(which, D, a, p, st);
+    case 2: return launch_t<__half>(which, D, a, p, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// All tensors contiguous, on one device, 16-byte aligned: q, k, v, dout
+// [BH, S, D] in one dtype (0 = float32, 1 = bfloat16, 2 = float16); lse,
+// delta [BH, S] fp32; tbl int32 [H, S / blk, W]: the forward table for fwd
+// and dq, the reverse table for dkv.  seed: the dropout hash's int32 seed;
+// thr and inv_keep: keep_threshold(rate) and fp32(1 / (1 - rate)); dropout = 0
+// turns the mask off.  Each returns the cudaError_t of the launch (0 on
+// success); the caller raises on anything else.
+
+int flash_sparse_fwd(const void* q, const void* k, const void* v,
+                     const void* tbl, void* o, void* lse, int BH, int H, int S,
+                     int D, int blk, int W, float scale, int causal, int seed,
+                     unsigned thr, float inv_keep, int dropout, int dtype,
+                     void* stream) {
+  Ptrs a{q, k, v, nullptr, nullptr, nullptr, o, lse, nullptr, nullptr, nullptr};
+  return run(0, a, tbl, BH, H, S, D, blk, W, scale, causal, seed, thr,
+             inv_keep, dropout, dtype, stream);
+}
+
+int flash_sparse_dq(const void* q, const void* k, const void* v,
+                    const void* dout, const void* lse, const void* delta,
+                    const void* tbl, void* dq, int BH, int H, int S, int D,
+                    int blk, int W, float scale, int causal, int seed,
+                    unsigned thr, float inv_keep, int dropout, int dtype,
+                    void* stream) {
+  Ptrs a{q, k, v, dout, lse, delta, nullptr, nullptr, dq, nullptr, nullptr};
+  return run(1, a, tbl, BH, H, S, D, blk, W, scale, causal, seed, thr,
+             inv_keep, dropout, dtype, stream);
+}
+
+int flash_sparse_dkv(const void* q, const void* k, const void* v,
+                     const void* dout, const void* lse, const void* delta,
+                     const void* tbl, void* dk, void* dv, int BH, int H, int S,
+                     int D, int blk, int W, float scale, int causal, int seed,
+                     unsigned thr, float inv_keep, int dropout, int dtype,
+                     void* stream) {
+  Ptrs a{q, k, v, dout, lse, delta, nullptr, nullptr, nullptr, dk, dv};
+  return run(2, a, tbl, BH, H, S, D, blk, W, scale, causal, seed, thr,
+             inv_keep, dropout, dtype, stream);
+}
+
+const char* flash_sparse_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -228,6 +228,14 @@ def kernel_tolerances(q, k, v, dout, kb, ref, *, causal, scale, rate, seed,
     if rate > 0.0:
         bh = torch.arange(BH, device=q.device) + int(bh_offset)
         mask = _keep_mask(seed, bh, 0, 0, S, Sk, rate, q.device)
+    return bounds_from_probs(p, mask, q32, k32, v32, do32, ref, scale, u)
+
+
+def bounds_from_probs(p, mask, q32, k32, v32, do32, ref, scale, u):
+    """The four bounds of `kernel_tolerances` from the normalised fp32
+    probabilities `p` [BH, S, Sk], the dropout `mask` (or 1.0), the fp32
+    inputs and the plain outputs `ref` (the sparse kernels' bounds use it
+    with p restricted to their layout)."""
     pd = p * mask
     dp = (do32 @ v32.transpose(-1, -2)) * mask
     delta = (do32 * ref["out"].float()).sum(dim=-1, keepdim=True)

@@ -14,11 +14,18 @@ On a CUDA tensor the kernel launches or raises: no path catches a
 kernel error and runs the plain version instead.  Every dispatch bumps
 `kernel.dispatches` (kernel chosen) or `kernel.fallbacks` (plain
 version chosen); the port runs eagerly, so these count calls.
+
+`kernel_config(ops={...})` is the scoped per-op override of the JAX
+package's `kernel_config` (registry.py:411) for the module-level
+selections that read it (`SparseSelfAttention(impl="auto")`): within the
+block, `op_impl(name)` returns the forced "auto" | "pallas" | "xla"
+(alias "jnp") instead of "auto".
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import contextlib
+from typing import Dict, Mapping
 
 from ..monitor.counters import COUNTERS
 
@@ -189,13 +196,104 @@ class MoECombineOp(KernelOp):
         return sorted_combine_ref(*args, **kwargs)
 
 
+class FlashSparseFwdOp(KernelOp):
+    """Block-sparse flash forward -> (out, lse) (kernels/flash_sparse.py)."""
+
+    NAME = "flash_sparse_fwd"
+
+    def kernel(self, *args, **kwargs):
+        from . import flash_sparse
+        return flash_sparse.flash_sparse_fwd_cuda(*args, **kwargs)
+
+    def plain(self, *args, **kwargs):
+        from ..ops.sparse_attention.flash_sparse import _fwd_plain
+        return _fwd_plain(*args, **kwargs)
+
+
+class FlashSparseDqOp(KernelOp):
+    """Block-sparse flash dQ over the forward table (kernels/flash_sparse.py)."""
+
+    NAME = "flash_sparse_dq"
+
+    def kernel(self, *args, **kwargs):
+        from . import flash_sparse
+        return flash_sparse.flash_sparse_dq_cuda(*args, **kwargs)
+
+    def plain(self, *args, **kwargs):
+        from ..ops.sparse_attention.flash_sparse import _dq_plain
+        return _dq_plain(*args, **kwargs)
+
+
+class FlashSparseDkvOp(KernelOp):
+    """Block-sparse flash dK, dV over the reverse table
+    (kernels/flash_sparse.py)."""
+
+    NAME = "flash_sparse_dkv"
+
+    def kernel(self, *args, **kwargs):
+        from . import flash_sparse
+        return flash_sparse.flash_sparse_dkv_cuda(*args, **kwargs)
+
+    def plain(self, *args, **kwargs):
+        from ..ops.sparse_attention.flash_sparse import _dkv_plain
+        return _dkv_plain(*args, **kwargs)
+
+
 KERNEL_OPS: Dict[str, KernelOp] = {
     op.NAME: op for op in (PagedAttentionOp(), FlashAttentionFwdOp(),
                            FlashAttentionDqOp(), FlashAttentionDkvOp(),
                            FusedXentFwdOp(), FusedXentDxOp(),
                            FusedXentDwOp(), QuantCodecQuantizeOp(),
                            QuantCodecDequantizeOp(), MoEDispatchOp(),
-                           MoECombineOp())}
+                           MoECombineOp(), FlashSparseFwdOp(),
+                           FlashSparseDqOp(), FlashSparseDkvOp())}
+
+# module-level selections that honour the scoped override, and the values
+# it takes (the JAX package's op names and impls)
+OVERRIDABLE_OPS = ("sparse_attention",)
+OP_IMPLS = ("auto", "pallas", "xla")
+_IMPL_ALIASES = {"jnp": "xla"}
+_OP_OVERRIDES: Dict[str, str] = {}
+
+
+@contextlib.contextmanager
+def kernel_config(ops: Mapping[str, str]):
+    """Scoped per-op selection: `with kernel_config(ops={"sparse_attention":
+    "pallas"}): ...` makes `SparseSelfAttention(impl="auto")` take the
+    kernel walk for its bias-free calls, as the JAX package's
+    `kernel_config(ops=..., interpret=True)` does (on a CPU tensor the
+    walk runs the kernels' plain versions)."""
+    new = {}
+    for name, impl in dict(ops).items():
+        if name not in OVERRIDABLE_OPS:
+            raise ValueError(f"kernels.{name}: no module-level selection to "
+                             f"override; valid ops: {OVERRIDABLE_OPS}")
+        impl = _IMPL_ALIASES.get(str(impl).lower(), str(impl).lower())
+        if impl not in OP_IMPLS:
+            raise ValueError(f"kernels.{name}: impl must be one of "
+                             f"{OP_IMPLS} (or 'jnp'), got {impl!r}")
+        new[name] = impl
+    prev = dict(_OP_OVERRIDES)
+    _OP_OVERRIDES.update(new)
+    try:
+        yield dict(_OP_OVERRIDES)
+    finally:
+        _OP_OVERRIDES.clear()
+        _OP_OVERRIDES.update(prev)
+
+
+def op_overrides() -> Dict[str, str]:
+    """The overrides in force, to replay with `kernel_config(ops=...)`
+    where a computation runs again later (a recomputation under
+    torch.utils.checkpoint runs in the backward, outside the caller's
+    scope, and must take the path the forward took)."""
+    return dict(_OP_OVERRIDES)
+
+
+def op_impl(name: str) -> str:
+    """The selection in force for module-level op `name`: the innermost
+    `kernel_config` override, else "auto"."""
+    return _OP_OVERRIDES.get(name, "auto")
 
 
 def get_kernel(name: str) -> KernelOp:

@@ -12,7 +12,7 @@ The seed is an explicit input.  JAX draws it with threefry from a PRNG
 key (`derive_seed`), which PyTorch cannot reproduce; the port draws it
 from a `torch.Generator` (`derive_seed` below), and the parity tests hand
 both sides the same int.  The CUDA kernels compute the same hash
-(`kernels/csrc/flash_attention.cu`, `keep_scale`).
+(`kernels/csrc/flash_tiles.cuh`, `keep_scale`).
 """
 
 from __future__ import annotations
@@ -62,11 +62,20 @@ def _keep_mask(seed: int, bh, q0: int, k0: int, bq: int, bk: int,
     k0+ (flash_attention.py:70).  `bh` is an int or an int tensor of any
     shape; the result has bh's shape + (bq, bk)."""
     bh = torch.as_tensor(bh, dtype=torch.int64, device=device)
-    qi = _u32(q0 + torch.arange(bq, device=device))[:, None]
-    ki = _u32(k0 + torch.arange(bk, device=device))[None, :]
-    h = fmix32(_mul32(_u32(seed).to(device), SEED_MUL)
-               ^ _mul32(_u32(bh), BH_MUL)[..., None, None]
-               ^ _mul32(qi, Q_MUL) ^ _mul32(ki, K_MUL))
+    qi = (q0 + torch.arange(bq, device=device))[:, None]
+    ki = (k0 + torch.arange(bk, device=device))[None, :]
+    return keep_mask_at(seed, bh[..., None, None], qi, ki, rate)
+
+
+def keep_mask_at(seed: int, bh: torch.Tensor, q: torch.Tensor,
+                 k: torch.Tensor, rate: float) -> torch.Tensor:
+    """The fp32 {0, 1/keep} mask of `_keep_mask` at arbitrary coordinates:
+    `bh`, `q`, `k` are int tensors of global batch·head, query and key
+    indices that broadcast together (the sparse kernels' tiles sit where
+    the layout table puts them)."""
+    h = fmix32(_mul32(_u32(seed).to(q.device), SEED_MUL)
+               ^ _mul32(_u32(bh), BH_MUL) ^ _mul32(_u32(q), Q_MUL)
+               ^ _mul32(_u32(k), K_MUL))
     return (h < keep_threshold(rate)).to(torch.float32) * \
         (1.0 / (1.0 - rate))
 

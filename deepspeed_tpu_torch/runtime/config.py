@@ -7,7 +7,8 @@ solver of config.py:1088-1134), `fp16` (loss_scale, initial_scale_power,
 loss_scale_window, hysteresis, min_loss_scale, and the fork's
 "type": "bfloat16" spelling) and `bf16`, `optimizer`, `scheduler`,
 `gradient_clipping`, `prescale_gradients`, `gradient_predivide_factor`,
-`steps_per_print`, `wall_clock_breakdown`, `sparse_gradients`, and
+`steps_per_print`, `wall_clock_breakdown`, `sparse_gradients`, the
+`sparse_attention` section (stored as given, config.py:1079), and
 `comm.moe` (the MoE token movement, `moe/dispatch.py` `parse_moe_config`,
 with `comm.quant_block_size` as its default block; config.py:247-259):
 an unknown key or a bad value raises ValueError here, at config time, as
@@ -212,6 +213,7 @@ class DeepSpeedConfig(DeepSpeedConfigObject):
                                  if sched else None)
 
         self.moe = _parse_comm_moe(pd.get(c.COMM) or {})
+        self.sparse_attention = pd.get(c.SPARSE_ATTENTION, None)
 
         self._set_batch_related_parameters()
         self._batch_assertion()

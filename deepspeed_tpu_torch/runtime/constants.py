@@ -85,3 +85,7 @@ COMM = "comm"
 COMM_QUANT_BLOCK_SIZE = "quant_block_size"
 COMM_QUANT_BLOCK_SIZE_DEFAULT = 256
 COMM_MOE = "moe"
+
+# block-sparse attention (config.py:1079): stored as given for the model
+# code (BertConfig.sparsity_config / SparseAttentionUtils) to read
+SPARSE_ATTENTION = "sparse_attention"
