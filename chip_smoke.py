@@ -15,7 +15,9 @@ any failure raises and the script exits nonzero:
    (GPT-2 XL heads H=25, Dh=64, block 16, table width 64; decode B=8
    T=1 and prefill B=1 T=128; fp32 and bf16 caches; one Dh=128 case;
    int8 and int4 caches at decode T=1, verify T=5 and prefill T=128 with
-   bf16 q, verify and prefill with fp32 q, and verify at Dh=128), with
+   bf16 q, verify and prefill with fp32 q, and verify at Dh=128; the
+   head_dim-generic instantiation at Dh 16 (GPT-2 nano, H=3) and Dh 256
+   (H=8), dense, int8 and int4, decode and prefill, q bf16 and fp32), with
    device times of the kernel, the plain version, and
    `scaled_dot_product_attention` on pre-gathered (dequantized) K/V as a
    yardstick, and the host time of one call of each.
@@ -23,7 +25,9 @@ any failure raises and the script exits nonzero:
    their plain versions at the training shape (GPT-2 small: B=8,
    S=1024, H=12, Dh=64, causal) in bf16 and fp32, and on smaller cases:
    full attention with a key bias, dropout 0.1 with a nonzero bh_offset,
-   Dh=128.  Errors against the per-element bounds of
+   Dh=128 (timed), train-moe's S=2048 shape (B=4, H=12, timed), Dh=256
+   (B=2, S=1024, H=4 bf16 timed; fp16 with a key bias, dropout 0.2 and
+   bh_offset 7; fp32).  Errors against the per-element bounds of
    `kernels/flash.py` `kernel_tolerances`; device times beside the
    bound, the plain version, and SDPA forward and forward+backward as a
    yardstick the port never calls.  Then the training shape on three
@@ -39,12 +43,16 @@ any failure raises and the script exits nonzero:
    fp16; a BigBird block-64 layout with dropout, a unidirectional fixed
    layout under the causal mask, block 16 at Dh 128 in fp16 with causal
    dropout, a layout with an empty row and an empty column (fp32, and bf16
-   causal with dropout); errors against the per-element bounds of
+   causal with dropout), the training shape at block 256 with dropout
+   (timed beside block 128 with dropout), block 192 (fp32) and block 160
+   (16-row tiles; bf16, causal, dropout), Dh 256 at block 128 (bf16 with
+   dropout, fp32); errors against the per-element bounds of
    `kernels/flash_sparse.py` `kernel_tolerances`, the worst dQ element;
    device times beside the bound, the plain versions, SDPA with the layout
    as a boolean mask and the dense flash kernels at the same shape.  The
    mask probe (one live key per output element) holds the dropout masks
-   element by element in three dtypes; sparse-repeat computes dQ and
+   element by element in three dtypes, at block 16 and at block 256 (Dh
+   256); sparse-repeat computes dQ and
    dK/dV 50 times after other kernels and requires bitwise equal results.
 4. xent: the fused LM-head cross-entropy kernels (forward, dx, dW)
    against their plain versions at the training shape (N=8192 rows,
@@ -70,6 +78,10 @@ any failure raises and the script exits nonzero:
    calls).
 5. exact: GPT-2 XL width, 4 layers, fp32 — greedy serving through the
    kernel path against the port's `generate()` (plain attention).
+   serve-nano-exact: GPT-2 nano (Dh 16), fp32 weights, 4 requests of 16
+   new tokens through the paged kernel: over a bf16 cache equal to
+   `generate()` with a bf16 cache, over an int8 cache equal to the same
+   engine with the paged attention forced to its plain version.
 6. spec-exact: the same model, greedy speculative serving (draft_len 4)
    against non-speculative serving over int8 and int4 caches: identical
    streams.  serve-qw-exact: the same width, serving from int8 and int4
@@ -131,7 +143,8 @@ any failure raises and the script exits nonzero:
    24 x steps over the timed steps, tokens/s, step, peak memory, finite
    and falling losses, then its profile.
 11. kernels: one line per kernel with its launches on its main path,
-   its error against the plain version, and its times beside its bound.
+   its error against the plain version, its times beside its bound, and
+   per family the head dims (blocks, dtypes) this run launched.
 
 The last line is `{"ok": true, "device": {...}}`.  Without a CUDA
 device the script exits nonzero before printing any result.
@@ -150,6 +163,14 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12,      # fp32 outside the tensor cores
               "bfloat16": 989e12, "float16": 989e12}
+# Once a process has profiled a lot, torch.profiler drops the first kernel
+# records of each new window, more the longer the process has profiled
+# (none at first, tens late in this script's run), so a window's
+# own first launches would go missing from its device time and its launch
+# counts.  Every window therefore starts with this many throwaway launches
+# of one small kernel for it to lose (`prime_profiler`), and grows the
+# number to four times the largest loss it has seen.
+PROFILE_PRIMER = [4096]
 # kernel vs plain version: fp32 differs only in the order of fp32 sums;
 # bf16 by the plain version's rounding of the probabilities before PV
 # and each side's final rounding (kernels/paged.py `bf16_tolerance`)
@@ -326,7 +347,7 @@ def kernel_case(name, B, T, H, Dh, bs, W, dtype, q_start, gen, flush,
 # -- phase 4: exact serving ----------------------------------------------------
 
 
-def greedy_with_margins(model, prompt, n):
+def greedy_with_margins(model, prompt, n, cache_dtype=None):
     """The port's generate() loop, step for step, also returning the
     top-2 logit margin of every step (the oracle's confidence)."""
     import torch
@@ -334,7 +355,7 @@ def greedy_with_margins(model, prompt, n):
     from deepspeed_tpu_torch.models import generation as G
 
     L = model.config.max_seq_len
-    caches = G._init_caches(model, 1, L, model.wte.dtype)
+    caches = G._init_caches(model, 1, L, cache_dtype or model.wte.dtype)
     toks = torch.as_tensor([prompt], device=model.device)
     logits = G._forward_cached(model, toks, caches, 0)
     out, margins = [], []
@@ -375,11 +396,8 @@ def phase_exact():
             replay, margins = greedy_with_margins(model, p, n_new)
             if replay != want:
                 raise AssertionError("generate() is not deterministic")
-            div = next((i for i in range(n_new) if got[i] != want[i]), None)
-            if div is not None and not margins[div] < 1e-4:
-                raise AssertionError(
-                    f"served stream diverges from generate() at step {div} "
-                    f"where the oracle's top-2 margin is {margins[div]}")
+            div = first_divergence(got, want, margins,
+                                   "served stream (against generate())")
             report.append({"prompt_len": len(p), "identical": div is None,
                            "first_divergence": div,
                            "margin_at_divergence": (None if div is None
@@ -389,6 +407,88 @@ def phase_exact():
           "tokens_per_prompt": n_new, "prompts": report})
     del eng, model
     torch.cuda.empty_cache()
+
+
+def first_divergence(got, want, margins, what):
+    """Index of the first step where two greedy streams differ (None if
+    they are equal); raises unless the oracle's top-2 margin there is
+    below 1e-4, a tie that fp32 rounding may break either way."""
+    div = next((i for i in range(len(want)) if got[i] != want[i]), None)
+    if div is not None and not margins[div] < 1e-4:
+        raise AssertionError(f"{what} diverges at step {div} where the "
+                             f"oracle's top-2 margin is {margins[div]}")
+    return div
+
+
+def phase_serve_nano_exact():
+    """GPT-2 nano (3 heads of Dh 16) served on the card through the paged
+    kernel: fp32 weights, 4 requests of 16 new tokens.  Over a bf16 KV
+    cache the greedy streams equal generate() with a bf16 cache; over an
+    int8 KV cache they equal the same engine with the paged attention
+    forced to its plain version (generate() keeps no int8 cache).  The
+    kernel's launches are counted from zero over the kernel runs."""
+    import torch
+
+    from deepspeed_tpu_torch.kernels import paged, registry
+    from deepspeed_tpu_torch.models import GPT, generate, gpt2_config
+    from deepspeed_tpu_torch.serving import ServeConfig, ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = gpt2_config("nano", param_dtype=torch.float32)
+    model = GPT(cfg, device="cuda",
+                generator=torch.Generator(device="cuda").manual_seed(2))
+    rs = np.random.RandomState(6)
+    prompts = [rs.randint(0, cfg.vocab_size, (n,)).tolist()
+               for n in (9, 33, 5, 60)]
+    n_new = 16
+
+    def serve(kv):
+        scfg = ServeConfig(block_size=16, num_blocks=40, max_batch=4,
+                           prefill_chunk=32, kv_dtype=kv)
+        return ServeEngine(model, scfg, device="cuda").generate(prompts,
+                                                                n_new)
+
+    paged.LAUNCHES = 0
+    served = {kv: serve(kv) for kv in ("bf16", "int8")}
+    launches = paged.LAUNCHES
+    if not launches > 0:
+        raise AssertionError("serve-nano-exact: the paged kernel never ran")
+    dispatch = registry.dispatch
+
+    def plain_paged(name, *a, **kw):
+        if name == "paged_attention":
+            kw["impl"] = "torch"
+        return dispatch(name, *a, **kw)
+
+    registry.dispatch = plain_paged
+    try:
+        plain_int8 = serve("int8")
+    finally:
+        registry.dispatch = dispatch
+    report = {"bf16": [], "int8": []}
+    with torch.no_grad():
+        for i, p in enumerate(prompts):
+            want = generate(model, [p], n_new, cache_len=cfg.max_seq_len,
+                            cache_dtype=torch.bfloat16,
+                            device="cuda")[0].tolist()
+            _, margins = greedy_with_margins(model, p, n_new, torch.bfloat16)
+            report["bf16"].append(first_divergence(
+                served["bf16"][i], want, margins,
+                f"serve-nano-exact bf16 stream {i}"))
+            _, margins = greedy_with_margins(model, p, n_new)
+            report["int8"].append(first_divergence(
+                served["int8"][i], plain_int8[i], margins,
+                f"serve-nano-exact int8 stream {i}"))
+    rec = {"phase": "serve-nano-exact", "config": "gpt2 nano (d 48, 3 heads "
+           "of Dh 16, 3 layers), fp32 params, TF32 off",
+           "prompt_lens": [len(p) for p in prompts],
+           "tokens_per_prompt": n_new, "paged_launches": launches,
+           "first_divergence": report}
+    emit(rec)
+    del model
+    torch.cuda.empty_cache()
+    return rec
 
 
 # -- phases 5-6: serving and its profile ------------------------------------
@@ -421,6 +521,35 @@ def drive(eng, prompts, n_new, late_at=6):
         torch.cuda.synchronize()
         steps.append(((time.perf_counter() - s0) * 1e3, chunks() != before))
     return reqs, steps
+
+
+def prime_profiler():
+    """The throwaway launches that open a profiler window (see
+    PROFILE_PRIMER); returns how many were launched."""
+    import torch
+
+    n = PROFILE_PRIMER[0]
+    for _ in range(n):
+        torch.cuda._sleep(0)
+    torch.cuda.synchronize()
+    return n
+
+
+def primer_lost(launched, acts):
+    """How many of a window's primer launches the profiler dropped, from
+    its (name, ms, count) activities; fails if it dropped all of them,
+    when the window's own launches may be missing too."""
+    seen = sum(n for name, _, n in acts if is_primer(name))
+    lost = launched - seen
+    if lost >= launched:
+        raise AssertionError(f"the profiler dropped all {launched} primer "
+                             f"launches of its window")
+    PROFILE_PRIMER[0] = max(PROFILE_PRIMER[0], 4 * lost)
+    return lost
+
+
+def is_primer(name):
+    return "spin_kernel" in name
 
 
 def kernel_class(name):
@@ -551,6 +680,7 @@ def profile_replay(eng, prompts, n_new, chunks, n_decode, span_ms, window):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        primed = prime_profiler()
         t0 = time.perf_counter()
         drive(eng, prompts, n_new)
         torch.cuda.synchronize()
@@ -567,6 +697,8 @@ def profile_replay(eng, prompts, n_new, chunks, n_decode, span_ms, window):
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0]
+    lost = primer_lost(primed, acts)
+    acts = [a for a in acts if not is_primer(a[0])]
     busy_ms = sum(a[1] for a in acts)
     if busy_ms <= 0:
         raise AssertionError("the profiler recorded no device time")
@@ -584,6 +716,7 @@ def profile_replay(eng, prompts, n_new, chunks, n_decode, span_ms, window):
     n_fwd = chunks + n_decode
     n_acts = sum(a[2] for a in acts)
     return {"phase": "profile", "window": window,
+            "profiler_primer_lost": lost,
             "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / span_ms,
             "measured_span_ms": span_ms,
@@ -990,6 +1123,10 @@ def flash_case(name, B, S, H, D, dtype, causal, bias, rate, bh_offset, gen,
 
 
 def phase_flash(gen, flush):
+    """The training shape (timed, with SDPA) in bf16 and fp32, a key bias,
+    dropout with a bh_offset, Dh 128 (timed), train-moe's S 2048 shape
+    (timed), and Dh 256: bf16 (timed), fp16 with a key bias and dropout,
+    fp32."""
     import torch
 
     bf16, fp32 = torch.bfloat16, torch.float32
@@ -1002,6 +1139,14 @@ def phase_flash(gen, flush):
              flash_case("dropout-offset-bfloat16", 2, 512, 4, 64, bf16, True,
                         False, 0.1, 7, gen, flush, False),
              flash_case("dh128-bfloat16", 2, 512, 4, 128, bf16, True, False,
+                        0.0, 0, gen, flush, True),
+             flash_case("train-moe-shape-bfloat16", 4, 2048, 12, 64, bf16,
+                        True, False, 0.0, 0, gen, flush, True),
+             flash_case("dh256-bfloat16", 2, 1024, 4, 256, bf16, True, False,
+                        0.0, 0, gen, flush, True),
+             flash_case("dh256-bias-dropout-float16", 2, 512, 4, 256,
+                        torch.float16, True, True, 0.2, 7, gen, flush, False),
+             flash_case("dh256-float32", 1, 512, 2, 256, fp32, True, False,
                         0.0, 0, gen, flush, False)]
     return cases
 
@@ -1296,17 +1441,18 @@ def sparse_case(name, B, S, H, D, block, layout, dtype, causal, rate, gen,
     return rec
 
 
-def sparse_mask_probe():
+def sparse_mask_probe(blk=16, D=64, nb=16):
     """The dropout masks of #7 and #9, element by element: with q = 0
     every score is 0, a permutation layout gives each q-block one k-block
     (and each k-block one q-block), V and dO are one-hot over the block's
-    16 positions, so out[q, d] and dv[k, d] are each one masked term —
-    zero exactly where the mask drops it.  Kernel and plain version must
-    drop the same elements (and agree within the bound), in each dtype."""
+    `blk` positions (D >= blk columns), so out[q, d] and dv[k, d] are each
+    one masked term — zero exactly where the mask drops it.  Kernel and
+    plain version must drop the same elements (and agree within the
+    bound), in each dtype."""
     import torch
 
-    B, S, H, D, blk = 1, 256, 2, 64, 16
-    nb = S // blk
+    B, H = 1, 2
+    S = nb * blk
     layout = np.zeros((H, nb, nb), np.int64)
     for h in range(H):
         for i in range(nb):
@@ -1320,8 +1466,9 @@ def sparse_mask_probe():
     out = {}
     for dtype in ("float32", "bfloat16", "float16"):
         dt_ = getattr(torch, dtype)
-        rec = sparse_case(f"mask-probe-{dtype}", B, S, H, D, blk, layout,
-                          dt_, False, 0.3, None, None, False, inputs=inputs)
+        rec = sparse_case(f"mask-probe-block{blk}-{dtype}", B, S, H, D,
+                          blk, layout, dt_, False, 0.3, None, None, False,
+                          inputs=inputs)
         # the zero patterns of out and dv are the masks
         from deepspeed_tpu_torch.kernels import registry
         from deepspeed_tpu_torch.ops.sparse_attention.flash_sparse import \
@@ -1351,8 +1498,8 @@ def sparse_mask_probe():
         out[dtype] = {"mask_mismatches": diff,
                       "dropped_of": [dropped, B * H * S * blk],
                       "max_err_over_tol": rec["max_err_over_tol"]}
-    rec = {"phase": "sparse-mask-probe", "layout": "permutation, block 16",
-           "rate": 0.3, "cases": out}
+    rec = {"phase": "sparse-mask-probe", "layout": f"permutation, block "
+           f"{blk}, Dh {D}", "rate": 0.3, "cases": out}
     emit(rec)
     return rec
 
@@ -1363,7 +1510,11 @@ def phase_sparse(flush):
     with dropout, in fp32 and fp16; a BigBird block-64 layout with dropout;
     a unidirectional fixed layout under the causal mask; block 16 at Dh
     128 in fp16 with causal dropout; a layout with an empty row and an
-    empty column in fp32 and (causal, dropout) bf16; the mask probe."""
+    empty column in fp32 and (causal, dropout) bf16; the training shape at
+    block 256 with dropout (timed, beside block 128 with dropout); block
+    192 (64-row tiles) in fp32 and block 160 (16-row tiles) in bf16 with
+    causal dropout; Dh 256 at block 128, bf16 with dropout and fp32; the
+    mask probe at block 16 and at block 256 (Dh 256)."""
     import random
 
     import torch
@@ -1377,7 +1528,7 @@ def phase_sparse(flush):
     cases = [sparse_case("train-bfloat16", 2, 4096, 16, 64, 128, train, bf16,
                          False, 0.0, gen, flush, True),
              sparse_case("train-dropout-bfloat16", 2, 4096, 16, 64, 128,
-                         train, bf16, False, 0.1, gen, flush, False),
+                         train, bf16, False, 0.1, gen, flush, True),
              sparse_case("train-float32", 2, 4096, 16, 64, 128, train, fp32,
                          False, 0.0, gen, flush, False),
              sparse_case("train-float16", 2, 4096, 16, 64, 128, train, fp16,
@@ -1405,7 +1556,23 @@ def phase_sparse(flush):
     cases.append(sparse_case("empty-row-block32-causal-dropout-bfloat16", 2,
                              512, 4, 64, 32, empty, bf16, True, 0.1, gen,
                              flush, False))
-    return cases, sparse_mask_probe()
+    cases.append(sparse_case("train-block256-dropout-bfloat16", 2, 4096, 16,
+                             64, 256, fixed_layout(16, 256, 4096), bf16,
+                             False, 0.1, gen, flush, True))
+    cases.append(sparse_case("block192-float32", 2, 1536, 4, 64, 192,
+                             fixed_layout(4, 192, 1536), fp32, False, 0.0,
+                             gen, flush, False))
+    cases.append(sparse_case("block160-causal-dropout-bfloat16", 2, 1280, 4,
+                             64, 160, fixed_layout(4, 160, 1280), bf16, True,
+                             0.1, gen, flush, False))
+    cases.append(sparse_case("dh256-block128-dropout-bfloat16", 2, 1024, 4,
+                             256, 128, fixed_layout(4, 128, 1024), bf16,
+                             False, 0.1, gen, flush, False))
+    cases.append(sparse_case("dh256-block128-float32", 2, 1024, 4, 256, 128,
+                             fixed_layout(4, 128, 1024), fp32, False, 0.0,
+                             gen, flush, False))
+    probes = [sparse_mask_probe(), sparse_mask_probe(blk=256, D=256, nb=4)]
+    return cases, probes
 
 
 def phase_sparse_repeat(n=50):
@@ -1821,6 +1988,7 @@ def phase_train_profile(eng, data, train, steps=2):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        primed = prime_profiler()
         for _ in range(steps):
             eng.train_batch(data)
         torch.cuda.synchronize()
@@ -1828,6 +1996,8 @@ def phase_train_profile(eng, data, train, steps=2):
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0]
+    lost = primer_lost(primed, acts)
+    acts = [a for a in acts if not is_primer(a[0])]
     busy_ms = sum(a[1] for a in acts)
     if busy_ms <= 0:
         raise AssertionError("the profiler recorded no device time")
@@ -1863,6 +2033,7 @@ def phase_train_profile(eng, data, train, steps=2):
     # which the port runs as plain int64 PyTorch ops
     int64_ms = sum(ms for name, ms, _ in acts if "<long" in name)
     return {"phase": train["phase"] + "-profile", "steps": steps,
+            "profiler_primer_lost": lost,
             "device_busy_ms_per_step": per_step,
             "int64_elementwise_ms_per_step": int64_ms / steps,
             "device_idle_share": 1.0 - per_step / span_per_step,
@@ -2045,38 +2216,36 @@ def events_span_ms(fn):
 
 
 def profiled_device_ms(fn):
-    """fn under torch.profiler: one warm-up call, then the call that is
-    read (a schedule's warm-up step, so the tracer is running before the
-    first kernel of the read call launches).  Returns (device ms of every
-    kernel that call ran, device ms and count of the codec kernels #11/#12
-    among them)."""
+    """fn under torch.profiler: one warm-up call before the window, then
+    the call that is read, after the primer launches (so the tracer is
+    running before the first kernel of the read call launches).  No
+    schedule: late in a run, the turn from a schedule's warm-up step to
+    its active step dropped far more of the active step's first kernel
+    records than a new window does, and more the more kernels the warm-up
+    step ran.  Returns (device
+    ms of every kernel that call ran, device ms and count of the codec
+    kernels #11/#12 among them, primer launches the profiler dropped)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
+    from torch.profiler import ProfilerActivity, profile
 
-    acts = []
-
-    def ready(p):
-        # "ProfilerStep#" is the step's annotation on the device, a span
-        # over the step's kernels and the gaps between them: not a kernel
-        acts.extend((e.key, e.self_device_time_total / 1e3, e.count)
-                    for e in p.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and not e.key.startswith("ProfilerStep"))
-
+    fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
-                 on_trace_ready=ready) as prof:
-        for _ in range(2):
-            fn()
-            torch.cuda.synchronize()
-            prof.step()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        primed = prime_profiler()
+        fn()
+        torch.cuda.synchronize()
+    acts = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    lost = primer_lost(primed, acts)
+    acts = [a for a in acts if not is_primer(a[0])]
     if not acts:
         raise AssertionError("the profiler recorded no device activity")
     codec = [(ms, n) for name, ms, n in acts
              if kernel_class(name) == "quant_codec"]
     return (sum(ms for _, ms, _ in acts), sum(ms for ms, _ in codec),
-            sum(n for _, n in codec))
+            sum(n for _, n in codec), lost)
 
 
 def codec_tree_times(leaves, store):
@@ -2104,11 +2273,12 @@ def codec_tree_times(leaves, store):
                               out_dtype=q.dtype, impl=impl)
 
     def timed(fn, nbytes):
-        k_total, k_ms, k_calls = profiled_device_ms(lambda: fn("cuda"))
+        _, k_ms, k_calls, lost = profiled_device_ms(lambda: fn("cuda"))
         if k_calls != len(leaves):
             raise AssertionError(f"profiler saw {k_calls} codec kernels "
                                  f"over {len(leaves)} leaves")
         return {"kernel_ms": k_ms, "kernel_calls": k_calls,
+                "profiler_primer_lost": lost,
                 "plain_ms": profiled_device_ms(lambda: fn("torch"))[0],
                 "kernel_span_ms": events_span_ms(lambda: fn("cuda")),
                 "plain_span_ms": events_span_ms(lambda: fn("torch")),
@@ -2902,8 +3072,10 @@ def sparse_entries(sparse_cases, probe, train_bert, exact):
             "shape": "B=2 S=4096 H=16 Dh=64 bf16, fixed layout block 128 "
                      f"(W {main['W']}, Wq {main['Wq']}, density "
                      f"{main['density']:.3f})",
-            "mask_probe": {d: c["mask_mismatches"]
-                           for d, c in probe["cases"].items()},
+            "mask_probe": {p["layout"]: {d: c["mask_mismatches"]
+                                         for d, c in p["cases"].items()}
+                           for p in probe},
+            "domain": domain(sparse_cases, ("Dh", "block", "dtype")),
             "cases": [{"case": c["case"],
                        "max_err_over_tol": c["max_err_over_tol"],
                        **({"kernel_ms": c["kernels"][name]["kernel_ms"],
@@ -2964,7 +3136,15 @@ def flash_entries(flash_cases, train):
                       for c in flash_cases]})
     if "sdpa_fwd_bwd_ms" in main:
         out[0]["sdpa_fwd_bwd_ms"] = main["sdpa_fwd_bwd_ms"]
+    dom = domain(flash_cases)
+    for e in out:
+        e["domain"] = dom
     return out
+
+
+def domain(cases, keys=("Dh", "dtype")):
+    """The head dims (and blocks, dtypes) a family's cases launched."""
+    return {k: sorted({c[k] for c in cases}) for k in keys}
 
 
 def xent_entries(xent_cases, train_pallas):
@@ -3133,6 +3313,20 @@ def main():
                                  rng.randint(256, 768, size=8), gen, flush,
                                  kv=kv))
     mark("paged-quantized")
+    # the head_dim-generic instantiation: GPT-2 nano's Dh 16 (3 heads) and
+    # Dh 256, each cache kind, at decode and at a prefill chunk, with q in
+    # bf16 and in fp32 (a dense cache in q's dtype)
+    for Dh, H in ((16, 3), (256, 8)):
+        for kv in ("dense", "int8", "int4"):
+            for dtype in (torch.bfloat16, torch.float32):
+                dn = str(dtype).replace("torch.", "")
+                cases.append(kernel_case(
+                    f"decode-dh{Dh}-{kv}-{dn}", 8, 1, H, Dh, 16, 64, dtype,
+                    rng.randint(256, 768, size=8), gen, flush, kv=kv))
+                cases.append(kernel_case(
+                    f"prefill-dh{Dh}-{kv}-{dn}", 1, 128, H, Dh, 16, 64,
+                    dtype, [448], gen, flush, kv=kv))
+    mark("paged-head-dims")
     xent_cases = phase_xent(gen, flush)
     mark("xent")
     codec = phase_codec()
@@ -3141,6 +3335,8 @@ def main():
 
     phase_exact()
     mark("exact")
+    nano = phase_serve_nano_exact()
+    mark("serve-nano-exact")
     phase_spec_exact()
     mark("spec-exact")
     phase_serve_qw_exact()
@@ -3214,6 +3410,8 @@ def main():
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
         "shape": "decode B=8 T=1 H=25 Dh=64 bf16, table 64 x 16",
+        "domain": domain(cases, ("Dh", "kv", "dtype")),
+        "serve_nano_exact_launches": nano["paged_launches"],
         "cases": [{k: c[k] for k in ("case", "kv", "max_abs_err", "tol",
                                      "max_err_over_tol", "kernel_ms",
                                      "plain_ms", "library_ms", "bound_ms",

@@ -7,7 +7,7 @@
 // and computes what their plain PyTorch versions compute
 // (deepspeed_tpu_torch/ops/transformer/flash_attention.py `_fwd_plain`,
 // `_dq_plain`, `_dkv_plain`), on [BH, S, D] tensors in fp32, bf16 or fp16,
-// D = 64 or 128:
+// D = 64, 128 or 256:
 //   fwd:  s = (q*scale).k, causal select to NEG_INF, + per-key bias; online
 //         softmax; the denominator sums the undropped p, the value sum takes
 //         p * keep_mask rounded to V's dtype; out = acc / l (l == 0 -> 1),
@@ -26,28 +26,38 @@
 // What bounds it on this card: at the training shape (S = 1024, D = 64,
 // causal) attention does ~2·S·D FLOPs per byte it must move, far above the
 // H100's ~295 FLOP/byte ridge: the bound is operations, the bf16 tensor
-// cores' 989 TFLOP/s.  Two paths:
-//   * bf16 / fp16 (the training dtypes): warp-level tensor-core tiles,
-//     mma.sync m16n8k16 with fp32 accumulators (flash_*_mma_kernel below).
-//     A block of 4 warps owns a (bh, 64-row q tile) for the forward and dQ
-//     and a (bh, 64-key tile) for dK/dV, each warp 16 of those rows, and
-//     loops over the other axis, skipping the tiles above the causal
-//     diagonal; causal q tiles are scheduled heaviest first.  The second
-//     product of each kernel takes its A operand (p, ds, pd^T, ds^T) from
-//     the first product's accumulators in registers.  dK/dV keeps pd and ds
-//     in fp32, as the function does, by feeding each to the tensor cores as
-//     three bf16 terms (hi + mid + lo carries fp32's 24 bits); that path is
-//     bf16 at D = 64, the training shape; fp16 and D = 128 take the CUDA-core
-//     dK/dV.
+// cores' 989 TFLOP/s.  At D = 64 the softmax's exponentials are as many
+// MUFU.EX2 cycles as the tile's products take on the tensor cores, so the
+// forward has to overlap the two and keep the loads out of the way.
+//   * bf16 / fp16 forward (the training dtypes): the wgmma kernel below —
+//     TMA loads into a ring of swizzled shared-memory stages by a producer
+//     warpgroup, S = Q.K^T and O += P.V by wgmma.mma_async with P fed from
+//     registers and V read in place (MN-major), the online softmax in
+//     registers with the masks only on the tiles that need them, a
+//     persistent grid of several CTAs an SM (their products and softmaxes
+//     interleave).  What holds it back (PERF.md): a consumer still waits
+//     for each product before the softmax that reads it; the softmax alone
+//     costs about a fifth of the time at D 64.
+//   * bf16 / fp16 dQ, and dK/dV in bf16 at D = 64: warp-level tensor-core
+//     tiles, mma.sync m16n8k16 with fp32 accumulators (flash_*_mma_kernel
+//     below).  A block of 4 warps owns a (bh, 64-row q tile) for dQ and a
+//     (bh, 64-key tile) for dK/dV, each warp 16 of those rows, and loops
+//     over the other axis, skipping the tiles above the causal diagonal;
+//     causal q tiles are scheduled heaviest first.  The second product of
+//     each kernel takes its A operand (ds, pd^T, ds^T) from the first
+//     product's accumulators in registers.  dK/dV keeps pd and ds in fp32,
+//     as the function does, by feeding each to the tensor cores as three
+//     bf16 terms (hi + mid + lo carries fp32's 24 bits); fp16 and D >= 128
+//     take the CUDA-core dK/dV.  dQ at D = 256 reads its Q and dO fragments
+//     from shared memory (in registers they would take 128 of them).
 //   * fp32, and the dK/dV cases above: fp32 FMAs on the CUDA cores (67
 //     TFLOP/s peak).  Tiles are staged in shared memory as fp32 rows padded
 //     by one word; a thread owns RM rows (strided by 16) and every 8th
 //     column, so the 8 lanes that share rows reduce max and sum with three
 //     shuffles and the shared-memory reads are conflict free.
-// Both keep scores, probabilities and accumulators in fp32 and make only
-// the roundings that define the function (p to V's dtype before P.V, ds to
-// K's dtype before dS.K).  Staging is plain 16-byte loads; cp.async or TMA
-// pipelining and wgmma are later work.
+// All keep scores, probabilities and accumulators in fp32 and make only the
+// roundings that define the function (p to V's dtype before P.V, ds to K's
+// dtype before dS.K).  The backward kernels stage with plain 16-byte loads.
 //
 // Exactness notes (the TPU kernels' guards, kept): masks are selects to the
 // finite NEG_INF = -1e30 (the bias is clamped to >= NEG_INF by the caller);
@@ -61,6 +71,7 @@
 
 #include "common.cuh"
 #include "flash_tiles.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -483,131 +494,333 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// tensor-core forward and dQ for bf16 / fp16: mma.sync m16n8k16
+// forward for bf16 / fp16: TMA ring, warp-specialised, wgmma
 // ---------------------------------------------------------------------------
 //
-// One block of 4 warps per (64-row q tile, bh); each warp owns 16 q rows and
-// keeps its Q (and dO) operand fragments in registers for the whole k loop.
-// A k tile of BK keys is staged in shared memory as rows padded by 8
-// elements (conflict-free 32-bit fragment reads), K row-major for S = Q.K^T
-// and V (or K, for dQ) transposed for the second product.  Scores and
-// accumulators are fp32 in the mma accumulators; the probabilities (or ds)
-// are rounded to T once, as the function does, and fed back as the A
-// operand of the second product straight from registers.  Fragment
+// A persistent grid of CTAs (as many as fit: MB an SM) walks the work items
+// (64-row q tile, bh), heaviest causal tiles first, CTA c taking items c,
+// c + gridDim.x, ...  A CTA is two warpgroups.  Warpgroup 1 is the
+// producer: it gives up its registers (setmaxnreg.dec), and one thread
+// loads each item's Q tile into one of two buffers and every K and V tile
+// of its key range by TMA (128-byte swizzled) into a ring of STAGES
+// stages, each arrival reported to a `full` mbarrier, each release awaited
+// on an `empty` one; the ring runs on across items, so the next item's Q
+// and first tiles load while this one finishes.  Warpgroup 0 is the
+// consumer, with the producer's registers (setmaxnreg.inc).  Per key tile
+// of BK keys it computes S = Q.K^T by wgmma with both operands in shared
+// memory (fp32 accumulators in registers), runs the online softmax on them
+// in registers, rounds p * keep to V's dtype into wgmma A fragments and
+// adds P.V by wgmma reading V in place as an MN-major operand (no
+// transposed copy); then it hands the stage back.  An SM's tensor cores are
+// kept busy by its MB CTAs, whose products and softmaxes interleave.  The
+// causal select and the end-of-keys mask run only on tiles that cross the
+// diagonal or Sk; keys past Sk come in as TMA's zero fill and get p = 0
+// exactly.  Rows past S load as zeros and are not stored.  Each of the
+// function's steps is the CUDA-core kernel's (above): s = scale * (q.k)
+// (= (q*scale).k at the power-of-two scales of D 64 and 256, within one
+// rounding at D 128), exp(s - m) as 2^((s - m) log2 e) (without a bias,
+// the scale folded into one FMA: 2^(q.k scale log2 e - m scale log2 e)),
+// the same masks, guards, roundings and hash.
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x with subnormal results flushed to zero (one MUFU.EX2): a p below
+// 2^-126 is below every bound's 1e-6 floor
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <typename T, int D, int BK, int STAGES, int MB>
+struct WgFwd {
+  static constexpr int THREADS = 256;               // consumer + producer
+  static constexpr int BQ = 64, NDC = D / 64;       // 64-column chunks
+  static constexpr int Q_CHUNK = BQ * 128;          // bytes of one chunk
+  static constexpr int KV_CHUNK = BK * 128;
+  static constexpr int Q_BYTES = NDC * Q_CHUNK;
+  static constexpr int KV_BYTES = NDC * KV_CHUNK;   // one K (or V) tile
+  // two Q buffers (the next item's loads while this one runs), the K/V
+  // ring, the barriers
+  static constexpr size_t SMEM =
+      1024 + 2 * Q_BYTES + 2 * size_t(STAGES) * KV_BYTES + 8 * (2 * STAGES + 4);
+  // with MB > 1 CTAs an SM the producer hands its registers to the
+  // consumer (setmaxnreg): 24 left, the consumer twice the launch count
+  // less 24; with one CTA (D = 256, whose m64n256 accumulators need more
+  // registers at launch than two CTAs leave) every thread keeps 255
+  static constexpr bool REBALANCE = MB > 1;
+  static constexpr int LAUNCH_REGS = (65536 / (THREADS * MB)) & ~7;
+  static constexpr int CONSUMER_REGS = 2 * LAUNCH_REGS - 24;
+};
+
+template <typename T, int D, int BK, int STAGES, int MB>
+__global__ void __launch_bounds__(256, MB)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       T* __restrict__ o, float* __restrict__ lse, Params p) {
+  using LY = WgFwd<T, D, BK, STAGES, MB>;
+  constexpr int NT = BK / 8, DN = D / 8;
+  extern __shared__ unsigned char smraw[];
+  // 1024-byte alignment for the swizzle atoms
+  unsigned char* sQ = smraw + ((1024 - (smem_u32(smraw) & 1023)) & 1023);
+  unsigned char* sK = sQ + 2 * LY::Q_BYTES;          // [STAGES][NDC][BK][128 B]
+  unsigned char* sV = sK + STAGES * LY::KV_BYTES;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sV + STAGES * LY::KV_BYTES);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qbar = empty + STAGES;                   // [2]: Q buffer loaded
+  uint64_t* qempty = qbar + 2;                       // [2]: Q buffer free
+
+  // work items (q tile, bh), heaviest causal q tiles first; CTA c takes
+  // items c, c + gridDim.x, ...
+  const int nq = (p.S + LY::BQ - 1) / LY::BQ;
+  const int n_items = nq * p.BH;
+  auto item = [&](int w, int& q0, int& bh) {
+    q0 = (nq - 1 - w / p.BH) * LY::BQ;
+    bh = w % p.BH;
+    const int k_end = p.causal ? min(p.Sk, q0 + LY::BQ) : p.Sk;
+    return (k_end + BK - 1) / BK;                  // its key tiles
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);   // one arrival per consumer warp
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&qbar[b], 1);
+      mbar_init(&qempty[b], 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // producer: the ring's tile count runs on across items, so the next
+    // item's Q and first K/V tiles load while this one finishes
+    if constexpr (LY::REBALANCE) setmaxnreg_dec<24>();
+    if (threadIdx.x == 128) {
+      int it = 0;
+      for (int w = blockIdx.x, n = 0; w < n_items; w += gridDim.x, ++n) {
+        int q0, bh;
+        const int n_tiles = item(w, q0, bh);
+        const int b = n & 1;
+        mbar_wait(&qempty[b], ((n >> 1) & 1) ^ 1);
+        mbar_expect_tx(&qbar[b], LY::Q_BYTES);
+        for (int c = 0; c < LY::NDC; ++c)
+          tma_load_3d(sQ + b * LY::Q_BYTES + c * LY::Q_CHUNK, &tq, &qbar[b],
+                      64 * c, q0, bh);
+        for (int i = 0; i < n_tiles; ++i, ++it) {
+          const int s = it % STAGES;
+          mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          mbar_expect_tx(&full[s], 2 * LY::KV_BYTES);
+          unsigned char* dk = sK + s * LY::KV_BYTES;
+          unsigned char* dv = sV + s * LY::KV_BYTES;
+          for (int c = 0; c < LY::NDC; ++c) {
+            tma_load_3d(dk + c * LY::KV_CHUNK, &tk, &full[s], 64 * c, i * BK, bh);
+            tma_load_3d(dv + c * LY::KV_CHUNK, &tv, &full[s], 64 * c, i * BK, bh);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer
+  if constexpr (LY::REBALANCE) setmaxnreg_inc<LY::CONSUMER_REGS>();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  int q0, bh, ra, rb;
+  const float* kb;
+  uint32_t bhm;
+  float acc[D / 2];
+  float m_a, m_b, l_a, l_b;
+  // without a bias the scores stay unscaled: the max is taken over q.k
+  // (scale > 0, so it commutes with the scaling) and kept unscaled, and
+  // p = 2^(q.k scale log2e - m scale log2e) is one FMA and one EX2
+  const float sl2 = p.kb ? LOG2E : p.scale * LOG2E;
+
+  // the online softmax of one tile, its scores `sc` in place -> p * keep;
+  // EDGE: the tile crosses the causal diagonal or Sk; BIAS: a key bias
+  auto softmax = [&](float* sc, int k0, auto edge_c, auto bias_c) {
+    constexpr bool EDGE = decltype(edge_c)::value;
+    constexpr bool BIAS = decltype(bias_c)::value;
+    float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int kg = k0 + 8 * j + 2 * t + (r & 1);
+        float x = sc[4 * j + r];
+        if constexpr (BIAS) {
+          // s = (q.k) scale, the causal select, + bias: the function's own
+          // order; a key past Sk is -inf (p = 0)
+          x *= p.scale;
+          if (EDGE && kg >= p.Sk) {
+            x = -INFINITY;
+          } else {
+            if (EDGE && p.causal && (r < 2 ? ra : rb) < kg) x = NEG_INF;
+            x += kb[kg];
+          }
+        } else if constexpr (EDGE) {
+          // a masked key has p = 0 exactly; without a bias no row has all
+          // its keys masked (key 0 is in the first tile)
+          if (kg >= p.Sk || (p.causal && (r < 2 ? ra : rb) < kg)) x = -INFINITY;
+        }
+        sc[4 * j + r] = x;
+        if (r < 2) mx_a = fmaxf(mx_a, x); else mx_b = fmaxf(mx_b, x);
+      }
+    const float mn_a = fmaxf(m_a, quad_max(mx_a));
+    const float mn_b = fmaxf(m_b, quad_max(mx_b));
+    const float ma2 = mn_a * sl2, mb2 = mn_b * sl2;
+    float ps_a = 0.f, ps_b = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int kg = k0 + 8 * j + 2 * t + (r & 1);
+        const float x = sc[4 * j + r];
+        float pv;
+        if constexpr (BIAS) {
+          // exp(s - m), with p = 0 where s <= NEG_INF / 2
+          pv = ex2((x - (r < 2 ? mn_a : mn_b)) * LOG2E);
+          if (x <= NEG_INF * 0.5f) pv = 0.f;
+        } else {
+          pv = ex2(fmaf(x, sl2, -(r < 2 ? ma2 : mb2)));
+        }
+        if (r < 2) ps_a += pv; else ps_b += pv;
+        if (p.dropout) pv *= keep_scale(p, bhm, r < 2 ? ra : rb, kg);
+        sc[4 * j + r] = pv;
+      }
+    const float al_a = ex2((m_a - mn_a) * sl2);
+    const float al_b = ex2((m_b - mn_b) * sl2);
+    l_a = al_a * l_a + quad_sum(ps_a);
+    l_b = al_b * l_b + quad_sum(ps_b);
+    m_a = mn_a;
+    m_b = mn_b;
+#pragma unroll
+    for (int j = 0; j < DN; ++j) {
+      acc[4 * j] *= al_a;
+      acc[4 * j + 1] *= al_a;
+      acc[4 * j + 2] *= al_b;
+      acc[4 * j + 3] *= al_b;
+    }
+  };
+
+  int it = 0;
+  for (int w = blockIdx.x, n = 0; w < n_items; w += gridDim.x, ++n) {
+    const int n_tiles = item(w, q0, bh);
+    ra = q0 + warp * 16 + g;
+    rb = ra + 8;
+    kb = p.kb ? p.kb + size_t(bh / p.H) * p.Sk : nullptr;
+    bhm = uint32_t(bh + p.bh_offset) * 0x7FEB352Du;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    m_a = m_b = NEG_INF;
+    l_a = l_b = 0.f;
+
+    const int b = n & 1;
+    const unsigned char* qt = sQ + b * LY::Q_BYTES;
+    mbar_wait(&qbar[b], (n >> 1) & 1);
+    for (int i = 0; i < n_tiles; ++i, ++it) {
+      const int s = it % STAGES, k0 = i * BK;
+      mbar_wait(&full[s], (it / STAGES) & 1);
+      const unsigned char* kt = sK + s * LY::KV_BYTES;
+      const unsigned char* vt = sV + s * LY::KV_BYTES;
+      float sc[BK / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int off = (kk & 3) * 32;
+        Wgmma<T, BK>::ss(
+            sc, sw128_desc(qt + (kk >> 2) * LY::Q_CHUNK + off, 16, 1024),
+            sw128_desc(kt + (kk >> 2) * LY::KV_CHUNK + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<BK / 2>(sc);
+
+      const bool edge = (p.causal && k0 + BK - 1 > q0) || k0 + BK > p.Sk;
+      if (kb) {
+        if (edge) softmax(sc, k0, std::true_type{}, std::true_type{});
+        else softmax(sc, k0, std::false_type{}, std::true_type{});
+      } else {
+        if (edge) softmax(sc, k0, std::true_type{}, std::false_type{});
+        else softmax(sc, k0, std::false_type{}, std::false_type{});
+      }
+      // p * keep rounded to V's dtype, as wgmma A fragments (16 keys each)
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        pa[kk][0] = Mma<T>::pack(sc[8 * kk], sc[8 * kk + 1]);
+        pa[kk][1] = Mma<T>::pack(sc[8 * kk + 2], sc[8 * kk + 3]);
+        pa[kk][2] = Mma<T>::pack(sc[8 * kk + 4], sc[8 * kk + 5]);
+        pa[kk][3] = Mma<T>::pack(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+      fence_regs<D / 2>(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        Wgmma<T, D>::rs(acc, pa[kk],
+                        sw128_desc(vt + kk * 16 * 128, LY::KV_CHUNK, 1024), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<D / 2>(acc);
+      // the stage's K and V have been read: hand it back to the producer
+      __syncwarp();
+      if (lane == 0) {
+        mbar_arrive(&empty[s]);
+        // and its Q buffer after the item's last tile
+        if (i + 1 == n_tiles) mbar_arrive(&qempty[b]);
+      }
+    }
+
+    // the row max in the scores' own units (unscaled without a bias)
+    const float mscale = kb ? 1.f : p.scale;
+    const float sa = l_a == 0.f ? 1.f : l_a, sb = l_b == 0.f ? 1.f : l_b;
+    T* oh = o + size_t(bh) * p.S * D;
+#pragma unroll
+    for (int j = 0; j < DN; ++j) {
+      const int col = 8 * j + 2 * t;
+      if (ra < p.S)
+        *reinterpret_cast<uint32_t*>(oh + size_t(ra) * D + col) =
+            Mma<T>::pack(acc[4 * j] / sa, acc[4 * j + 1] / sa);
+      if (rb < p.S)
+        *reinterpret_cast<uint32_t*>(oh + size_t(rb) * D + col) =
+            Mma<T>::pack(acc[4 * j + 2] / sb, acc[4 * j + 3] / sb);
+    }
+    if (t == 0) {
+      if (ra < p.S) lse[size_t(bh) * p.S + ra] = m_a * mscale + logf(sa);
+      if (rb < p.S) lse[size_t(bh) * p.S + rb] = m_b * mscale + logf(sb);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dQ for bf16 / fp16: mma.sync m16n8k16
+// ---------------------------------------------------------------------------
+//
+// One block of 4 warps per (64-row q tile, bh); each warp owns 16 q rows.
+// Its Q and dO operand fragments stay in registers for the whole k loop at
+// D 64 and 128; at D 256 they would take 128 registers, so the two 64-row
+// tiles are staged in shared memory once and each product reads its A
+// fragments there (QS).  A k tile of BK keys is staged in shared memory as
+// rows padded by 8 elements (conflict-free 32-bit fragment reads), K and V
+// row-major for S = Q.K^T and dP = dO.V^T and K transposed for dQ += dS.K.
+// ds is rounded to K's dtype once, as the function does, and fed back as
+// the A operand of the second product straight from registers.  Fragment
 // layouts (PTX ISA, mma.m16n8k16): lane = 4g + t; A regs {row g | g+8} x
 // {cols 2t, 2t+1 | +8}; B regs {k 2t, 2t+1 | +8} x {col g}; C {row g | g+8}
 // x {cols 2t, 2t+1}.
 
 template <typename T, int D, int BK>
 struct MmaLayout {
+  static constexpr bool QS = D == 256;
   static constexpr int BQ = 64, LDK = D + 8, LDT = BK + 8;
-  static constexpr size_t FWD_SMEM = (size_t(BK) * LDK + size_t(D) * LDT) * sizeof(T);
-  static constexpr size_t DQ_SMEM = (2 * size_t(BK) * LDK + size_t(D) * LDT) * sizeof(T);
+  static constexpr size_t DQ_SMEM =
+      (2 * size_t(BK) * LDK + size_t(D) * LDT + (QS ? 2 * size_t(BQ) * LDK : 0)) *
+      sizeof(T);
 };
-
-template <typename T, int D, int BK>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, Params p) {
-  using LY = MmaLayout<T, D, BK>;
-  constexpr int BQ = LY::BQ, LDK = LY::LDK, LDT = LY::LDT;
-  constexpr int KD = D / 16, NT = BK / 8, KK = BK / 16, DN = D / 8;
-  extern __shared__ __align__(16) unsigned char smraw[];
-  T* sK = reinterpret_cast<T*>(smraw);   // [BK][LDK]
-  T* sVt = sK + BK * LDK;                // [D][LDT]
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int nq = (p.S + BQ - 1) / BQ;
-  const int q0 = (nq - 1 - int(blockIdx.x)) * BQ;
-  const int bh = blockIdx.y;
-  const T* kh = k + size_t(bh) * p.Sk * D;
-  const T* vh = v + size_t(bh) * p.Sk * D;
-  if (p.kb) p.kb += size_t(bh / p.H) * p.Sk;
-  const uint32_t bhm = uint32_t(bh + p.bh_offset) * 0x7FEB352Du;
-  const int r0 = q0 + warp * 16, ra = r0 + g, rb = ra + 8;
-
-  uint32_t qa[KD][4];
-  load_a<T, D>(qa, q + size_t(bh) * p.S * D, r0, p.S, g, t);
-  float acc[DN][4];
-#pragma unroll
-  for (int dn = 0; dn < DN; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
-  float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;
-
-  const int k_end = p.causal ? min(p.Sk, q0 + BQ) : p.Sk;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
-    __syncthreads();
-    stage_rows<T, D, LDK>(sK, kh, k0, p.Sk, BK);
-    stage_cols<T, D, LDT>(sVt, vh, k0, p.Sk, BK);
-    __syncthreads();
-
-    float s[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    mma_tiles<T, KD, NT, LDK>(s, qa, sK, g, t);
-
-    float mx_a = NEG_INF, mx_b = NEG_INF;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int kg = k0 + nt * 8 + 2 * t + i;
-        s[nt][i] = masked_score(p, p.scale * s[nt][i], ra, kg);
-        s[nt][2 + i] = masked_score(p, p.scale * s[nt][2 + i], rb, kg);
-        mx_a = fmaxf(mx_a, s[nt][i]);
-        mx_b = fmaxf(mx_b, s[nt][2 + i]);
-      }
-    const float mn_a = fmaxf(m_a, quad_max(mx_a));
-    const float mn_b = fmaxf(m_b, quad_max(mx_b));
-    float ps_a = 0.f, ps_b = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kg = k0 + nt * 8 + 2 * t + (i & 1);
-        const int row = i < 2 ? ra : rb;
-        const float mn = i < 2 ? mn_a : mn_b;
-        float pv = kg < p.Sk ? expf(s[nt][i] - mn) : 0.f;
-        if (p.kb && s[nt][i] <= NEG_INF * 0.5f) pv = 0.f;
-        if (i < 2) ps_a += pv; else ps_b += pv;
-        if (p.dropout) pv *= keep_scale(p, bhm, row, kg);
-        s[nt][i] = pv;
-      }
-    const float al_a = expf(m_a - mn_a), al_b = expf(m_b - mn_b);
-    l_a = al_a * l_a + quad_sum(ps_a);
-    l_b = al_b * l_b + quad_sum(ps_b);
-    m_a = mn_a;
-    m_b = mn_b;
-#pragma unroll
-    for (int dn = 0; dn < DN; ++dn) {
-      acc[dn][0] *= al_a;
-      acc[dn][1] *= al_a;
-      acc[dn][2] *= al_b;
-      acc[dn][3] *= al_b;
-    }
-    uint32_t pa[KK][4];
-    c_to_a<T, KK>(pa, s);  // p rounded to V's dtype
-    mma_tiles<T, KK, DN, LDT>(acc, pa, sVt, g, t);
-  }
-
-  const float sa = l_a == 0.f ? 1.f : l_a, sb = l_b == 0.f ? 1.f : l_b;
-  T* oh = o + size_t(bh) * p.S * D;
-#pragma unroll
-  for (int dn = 0; dn < DN; ++dn) {
-    const int col = dn * 8 + 2 * t;
-    if (ra < p.S)
-      *reinterpret_cast<uint32_t*>(oh + size_t(ra) * D + col) =
-          Mma<T>::pack(acc[dn][0] / sa, acc[dn][1] / sa);
-    if (rb < p.S)
-      *reinterpret_cast<uint32_t*>(oh + size_t(rb) * D + col) =
-          Mma<T>::pack(acc[dn][2] / sb, acc[dn][3] / sb);
-  }
-  if (t == 0) {
-    if (ra < p.S) lse[size_t(bh) * p.S + ra] = m_a + logf(sa);
-    if (rb < p.S) lse[size_t(bh) * p.S + rb] = m_b + logf(sb);
-  }
-}
 
 template <typename T, int D, int BK>
 __global__ void __launch_bounds__(THREADS)
@@ -617,12 +830,15 @@ flash_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     Params p) {
   using LY = MmaLayout<T, D, BK>;
+  constexpr bool QS = LY::QS;
   constexpr int BQ = LY::BQ, LDK = LY::LDK, LDT = LY::LDT;
   constexpr int KD = D / 16, NT = BK / 8, KK = BK / 16, DN = D / 8;
   extern __shared__ __align__(16) unsigned char smraw[];
   T* sK = reinterpret_cast<T*>(smraw);   // [BK][LDK]
   T* sV = sK + BK * LDK;                 // [BK][LDK]
   T* sKt = sV + BK * LDK;                // [D][LDT]
+  T* sQ = sKt + D * LDT;                 // QS: [BQ][LDK]
+  T* sO = sQ + BQ * LDK;                 // QS: dO [BQ][LDK]
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -635,9 +851,15 @@ flash_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const uint32_t bhm = uint32_t(bh + p.bh_offset) * 0x7FEB352Du;
   const int r0 = q0 + warp * 16, ra = r0 + g, rb = ra + 8;
 
-  uint32_t qa[KD][4], da[KD][4];
-  load_a<T, D>(qa, q + size_t(bh) * p.S * D, r0, p.S, g, t);
-  load_a<T, D>(da, dout + size_t(bh) * p.S * D, r0, p.S, g, t);
+  uint32_t qa[QS ? 1 : KD][4], da[QS ? 1 : KD][4];
+  if constexpr (QS) {
+    // read after the loop's first barrier
+    stage_rows<T, D, LDK>(sQ, q + size_t(bh) * p.S * D, q0, p.S, BQ);
+    stage_rows<T, D, LDK>(sO, dout + size_t(bh) * p.S * D, q0, p.S, BQ);
+  } else {
+    load_a<T, D>(qa, q + size_t(bh) * p.S * D, r0, p.S, g, t);
+    load_a<T, D>(da, dout + size_t(bh) * p.S * D, r0, p.S, g, t);
+  }
   const float lse_a = ra < p.S ? lse[size_t(bh) * p.S + ra] : 0.f;
   const float lse_b = rb < p.S ? lse[size_t(bh) * p.S + rb] : 0.f;
   const float dl_a = ra < p.S ? delta[size_t(bh) * p.S + ra] : 0.f;
@@ -659,8 +881,13 @@ flash_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int i = 0; i < 4; ++i) s[nt][i] = dp[nt][i] = 0.f;
-    mma_tiles<T, KD, NT, LDK>(s, qa, sK, g, t);
-    mma_tiles<T, KD, NT, LDK>(dp, da, sV, g, t);
+    if constexpr (QS) {
+      mma_tiles_sa<T, KD, NT, LDK, LDK>(s, sQ + warp * 16 * LDK, sK, g, t);
+      mma_tiles_sa<T, KD, NT, LDK, LDK>(dp, sO + warp * 16 * LDK, sV, g, t);
+    } else {
+      mma_tiles<T, KD, NT, LDK>(s, qa, sK, g, t);
+      mma_tiles<T, KD, NT, LDK>(dp, da, sV, g, t);
+    }
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -821,20 +1048,108 @@ struct Ptrs {
   void *o, *lse_out, *dq, *dk, *dv;
 };
 
-// tile sizes: (q rows, k rows) for fwd/dq, (k rows, q rows) for dkv; the
-// D = 128 tiles are halved where registers or shared memory would not fit
+// tile sizes of the CUDA-core kernels: (q rows, k rows) for fwd/dq, (k rows,
+// q rows) for dkv; halved at D = 128 and again at 256 where registers or
+// shared memory would not fit
 template <int D> struct Tiles;
 template <> struct Tiles<64> { static constexpr int BQ = 64, BK = 64, BKV = 64, BQ2 = 64; };
 template <> struct Tiles<128> { static constexpr int BQ = 64, BK = 32, BKV = 32, BQ2 = 64; };
+template <> struct Tiles<256> { static constexpr int BQ = 32, BK = 32, BKV = 16, BQ2 = 32; };
 
-// the mma tile depth over keys: D = 128 halves it for dQ's registers
+// the tensor-core tiles: the wgmma forward's key tile, ring depth and CTAs
+// an SM (MB: 4 at D 64, where a consumer needs 104 registers — S takes
+// BK / 2 of them and O D / 2 — and 4 x 49 KB of shared memory fit; 2 at
+// D 128; 1 at D 256, whose 128 O registers need all of a thread's), and
+// the mma.sync dQ's key tile (halved at D >= 128 for its registers)
 template <int D> struct MmaTiles;
-template <> struct MmaTiles<64> { static constexpr int FWD_BK = 64, DQ_BK = 64; };
-template <> struct MmaTiles<128> { static constexpr int FWD_BK = 64, DQ_BK = 32; };
+template <> struct MmaTiles<64> {
+  static constexpr int FWD_BK = 64, STAGES = 2, MB = 4, DQ_BK = 64;
+};
+template <> struct MmaTiles<128> {
+  static constexpr int FWD_BK = 64, STAGES = 2, MB = 2, DQ_BK = 32;
+};
+template <> struct MmaTiles<256> {
+  static constexpr int FWD_BK = 64, STAGES = 2, MB = 1, DQ_BK = 32;
+};
+
+// cuTensorMapEncodeTiled, fetched from the driver once (the library links
+// only the runtime)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// the tensor map of a [BH, rows, D] 16-bit tensor, read in boxes of
+// box_rows x 64 columns of one bh, 128-byte swizzled; rows past the end
+// read as zeros
+template <typename T>
+cudaError_t tensor_map(CUtensorMap* map, const void* base, int BH, int rows,
+                       int D, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {cuuint64_t(D), cuuint64_t(rows), cuuint64_t(BH)};
+  const cuuint64_t strides[2] = {cuuint64_t(D) * sizeof(T),
+                                 cuuint64_t(rows) * D * sizeof(T)};
+  const cuuint32_t box[3] = {64, cuuint32_t(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = fn(
+      map,
+      std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      3, const_cast<void*>(base), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <typename T, int D>
+cudaError_t launch_fwd_wgmma(const Ptrs& a, const Params& p, cudaStream_t st) {
+  using MT = MmaTiles<D>;
+  using LY = WgFwd<T, D, MT::FWD_BK, MT::STAGES, MT::MB>;
+  CUtensorMap tq, tk, tv;
+  cudaError_t e;
+  if ((e = tensor_map<T>(&tq, a.q, p.BH, p.S, D, LY::BQ)) != cudaSuccess ||
+      (e = tensor_map<T>(&tk, a.k, p.BH, p.Sk, D, MT::FWD_BK)) != cudaSuccess ||
+      (e = tensor_map<T>(&tv, a.v, p.BH, p.Sk, D, MT::FWD_BK)) != cudaSuccess)
+    return e;
+  auto kern = flash_fwd_wgmma_kernel<T, D, MT::FWD_BK, MT::STAGES, MT::MB>;
+  if ((e = set_smem(kern, LY::SMEM)) != cudaSuccess) return e;
+  // a persistent grid: as many CTAs as fit on the card at once, each
+  // walking its share of the (q tile, bh) items
+  int dev, sms;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+          cudaSuccess)
+    return e;
+  const int items = (p.S + LY::BQ - 1) / LY::BQ * p.BH;
+  kern<<<min(items, sms * MT::MB), LY::THREADS, LY::SMEM, st>>>(
+      tq, tk, tv, static_cast<T*>(a.o), static_cast<float*>(a.lse_out), p);
+  return cudaGetLastError();
+}
 
 // Which kernel runs, chosen at compile time so that each is instantiated
-// only for the dtypes that reach it: the tensor-core forward and dQ for
-// bf16 / fp16, the tensor-core dK/dV for bf16 at D = 64 (at D = 128 its
+// only for the dtypes that reach it: the wgmma forward and the mma.sync dQ
+// for bf16 / fp16, the tensor-core dK/dV for bf16 at D = 64 (at D >= 128 its
 // accumulators would not fit in registers), the CUDA-core kernels for the
 // rest.
 template <typename T, int D>
@@ -852,12 +1167,7 @@ cudaError_t launch(int which, const Ptrs& a, const Params& p, cudaStream_t st) {
   cudaError_t e;
   if (which == 0) {
     if constexpr (mma) {
-      using LY = MmaLayout<T, D, MT::FWD_BK>;
-      auto kern = flash_fwd_mma_kernel<T, D, MT::FWD_BK>;
-      if ((e = set_smem(kern, LY::FWD_SMEM)) != cudaSuccess) return e;
-      dim3 grid((p.S + LY::BQ - 1) / LY::BQ, p.BH);
-      kern<<<grid, THREADS, LY::FWD_SMEM, st>>>(
-          q, k, v, static_cast<T*>(a.o), static_cast<float*>(a.lse_out), p);
+      return launch_fwd_wgmma<T, D>(a, p, st);
     } else {
       using LY = FwdLayout<T, D, TL::BQ, TL::BK>;
       auto kern = flash_fwd_kernel<T, D, TL::BQ, TL::BK>;
@@ -909,6 +1219,7 @@ cudaError_t launch_d(int which, int D, const Ptrs& a, const Params& p,
                      cudaStream_t st) {
   if (D == 64) return launch<T, 64>(which, a, p, st);
   if (D == 128) return launch<T, 128>(which, a, p, st);
+  if (D == 256) return launch<T, 256>(which, a, p, st);
   return cudaErrorInvalidValue;
 }
 

@@ -9,8 +9,8 @@
 // and computes what their plain PyTorch versions compute
 // (deepspeed_tpu_torch/ops/sparse_attention/flash_sparse.py `_fwd_plain`,
 // `_dq_plain`, `_dkv_plain`) on [BH, S, D] tensors in fp32, bf16 or fp16,
-// D = 64 or 128, under a block layout of `blk` x `blk` tiles (blk a multiple
-// of 16 up to 128, S a multiple of blk):
+// D = 64, 128 or 256, under a block layout of `blk` x `blk` tiles (blk any
+// multiple of 16 that divides S, as JAX's kernel takes any block dividing S):
 //   fwd:  for each active k-block of the row's forward table, in table
 //         order: s = (q*scale).k, causal select to NEG_INF; online softmax;
 //         the denominator sums the undropped p, the value sum takes
@@ -45,11 +45,14 @@
 // TFLOP/s (the forward about 0.05 ms).  The design is the dense kernels'
 // (flash_attention.cu) with the key loop replaced by the table walk:
 //   * bf16 / fp16: mma.sync m16n8k16 tiles with fp32 accumulators.  A block
-//     of 4 warps owns C rows of one layout row (C = 64 when blk % 64 == 0,
-//     two tiles of a 128 block walking the same table row, else C = 16 with
-//     one warp computing); each active k-block is staged C keys at a time.
-//     dK/dV on the tensor cores is bf16 at D = 64 (pd and ds fed as three
-//     bf16 terms, fp32 exact); fp16 and D = 128 take the CUDA-core dK/dV.
+//     of 4 warps owns C rows of one layout row (C = 64 when blk % 64 == 0:
+//     blk / 64 tiles walking the same table row, two at 128, four at 256;
+//     else C = 16 with one warp computing); each active k-block is staged C
+//     keys at a time (32 at D = 256).  At D = 256 the row tile's Q (and dO)
+//     is staged in shared memory, its fragments read there per product:
+//     in registers it would take 64 of them per operand.  dK/dV on the
+//     tensor cores is bf16 at D = 64 (pd and ds fed as three bf16 terms,
+//     fp32 exact); fp16 and D >= 128 take the CUDA-core dK/dV.
 //   * fp32: fp32 FMAs on the CUDA cores, the dense kernels' thread layout.
 // Staging is plain 16-byte loads; cp.async or TMA pipelining, wgmma, and a
 // schedule that balances the global rows' long walks are later work.
@@ -488,22 +491,31 @@ sparse_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int D, int CK>
 struct MmaLayout {
+  // at D = 256 the 16 rows' Q (and dO) fragments would take 64 registers
+  // each: the row tile is staged in shared memory once and each product
+  // reads its A fragments there
+  static constexpr bool QS = D == 256;
   static constexpr int LDK = D + 8, LDT = CK + 8;
-  static constexpr size_t FWD_SMEM = (size_t(CK) * LDK + size_t(D) * LDT) * sizeof(T);
-  static constexpr size_t DQ_SMEM = (2 * size_t(CK) * LDK + size_t(D) * LDT) * sizeof(T);
+  static constexpr size_t Q_SMEM = QS ? 64 * size_t(LDK) * sizeof(T) : 0;
+  static constexpr size_t FWD_SMEM =
+      (size_t(CK) * LDK + size_t(D) * LDT) * sizeof(T) + Q_SMEM;
+  static constexpr size_t DQ_SMEM =
+      (2 * size_t(CK) * LDK + size_t(D) * LDT) * sizeof(T) + 2 * Q_SMEM;
 };
 
-template <typename T, int D, int C>
+template <typename T, int D, int C, int CK>
 __global__ void __launch_bounds__(THREADS)
 sparse_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ o,
                       float* __restrict__ lse, SParams p) {
-  using LY = MmaLayout<T, D, C>;
+  using LY = MmaLayout<T, D, CK>;
+  constexpr bool QS = LY::QS;
   constexpr int LDK = LY::LDK, LDT = LY::LDT;
-  constexpr int KD = D / 16, NT = C / 8, KK = C / 16, DN = D / 8;
+  constexpr int KD = D / 16, NT = CK / 8, KK = CK / 16, DN = D / 8;
   extern __shared__ __align__(16) unsigned char smraw[];
-  T* sK = reinterpret_cast<T*>(smraw);   // [C][LDK]
-  T* sVt = sK + C * LDK;                 // [D][LDT]
+  T* sK = reinterpret_cast<T*>(smraw);   // [CK][LDK]
+  T* sVt = sK + CK * LDK;                // [D][LDT]
+  T* sQ = sVt + D * LDT;                 // QS: [C][LDK]
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -516,8 +528,11 @@ sparse_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const uint32_t bhm = uint32_t(bh) * 0x7FEB352Du;
   const int r0 = q0 + warp * 16, ra = r0 + g, rb = ra + 8;
 
-  uint32_t qa[KD][4];
-  if (active) load_a<T, D>(qa, q + size_t(bh) * p.S * D, r0, p.S, g, t);
+  uint32_t qa[QS ? 1 : KD][4];
+  if constexpr (QS)  // read after the walk's first barrier
+    stage_rows<T, D, LDK>(sQ, q + size_t(bh) * p.S * D, q0, p.S, C);
+  else if (active)
+    load_a<T, D>(qa, q + size_t(bh) * p.S * D, r0, p.S, g, t);
   float acc[DN][4];
 #pragma unroll
   for (int dn = 0; dn < DN; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
@@ -526,17 +541,20 @@ sparse_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int a = 0; a < p.W; ++a) {
     const int kj = row[a];
     if (kj < 0) break;
-    for (int k0 = kj * p.blk; k0 < (kj + 1) * p.blk; k0 += C) {
+    for (int k0 = kj * p.blk; k0 < (kj + 1) * p.blk; k0 += CK) {
       __syncthreads();
-      stage_rows<T, D, LDK>(sK, kh, k0, p.S, C);
-      stage_cols<T, D, LDT>(sVt, vh, k0, p.S, C);
+      stage_rows<T, D, LDK>(sK, kh, k0, p.S, CK);
+      stage_cols<T, D, LDT>(sVt, vh, k0, p.S, CK);
       __syncthreads();
       if (!active) continue;
 
       float s[NT][4];
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      mma_tiles<T, KD, NT, LDK>(s, qa, sK, g, t);
+      if constexpr (QS)
+        mma_tiles_sa<T, KD, NT, LDK, LDK>(s, sQ + warp * 16 * LDK, sK, g, t);
+      else
+        mma_tiles<T, KD, NT, LDK>(s, qa, sK, g, t);
 
       float mx_a = NEG_INF, mx_b = NEG_INF;
 #pragma unroll
@@ -605,12 +623,15 @@ sparse_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ delta, T* __restrict__ dq,
                      SParams p) {
   using LY = MmaLayout<T, D, CK>;
+  constexpr bool QS = LY::QS;
   constexpr int LDK = LY::LDK, LDT = LY::LDT;
   constexpr int KD = D / 16, NT = CK / 8, KK = CK / 16, DN = D / 8;
   extern __shared__ __align__(16) unsigned char smraw[];
   T* sK = reinterpret_cast<T*>(smraw);   // [CK][LDK]
   T* sV = sK + CK * LDK;                 // [CK][LDK]
   T* sKt = sV + CK * LDK;                // [D][LDT]
+  T* sQ = sKt + D * LDT;                 // QS: [C][LDK]
+  T* sO = sQ + 64 * LDK;                 // QS: dO [C][LDK]
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -623,11 +644,17 @@ sparse_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const uint32_t bhm = uint32_t(bh) * 0x7FEB352Du;
   const int r0 = q0 + warp * 16, ra = r0 + g, rb = ra + 8;
 
-  uint32_t qa[KD][4], da[KD][4];
+  uint32_t qa[QS ? 1 : KD][4], da[QS ? 1 : KD][4];
   float lse_a = 0.f, lse_b = 0.f, dl_a = 0.f, dl_b = 0.f;
+  if constexpr (QS) {  // read after the walk's first barrier
+    stage_rows<T, D, LDK>(sQ, q + size_t(bh) * p.S * D, q0, p.S, C);
+    stage_rows<T, D, LDK>(sO, dout + size_t(bh) * p.S * D, q0, p.S, C);
+  }
   if (active) {
-    load_a<T, D>(qa, q + size_t(bh) * p.S * D, r0, p.S, g, t);
-    load_a<T, D>(da, dout + size_t(bh) * p.S * D, r0, p.S, g, t);
+    if constexpr (!QS) {
+      load_a<T, D>(qa, q + size_t(bh) * p.S * D, r0, p.S, g, t);
+      load_a<T, D>(da, dout + size_t(bh) * p.S * D, r0, p.S, g, t);
+    }
     lse_a = lse[size_t(bh) * p.S + ra];
     lse_b = lse[size_t(bh) * p.S + rb];
     dl_a = delta[size_t(bh) * p.S + ra];
@@ -653,8 +680,13 @@ sparse_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
         for (int i = 0; i < 4; ++i) s[nt][i] = dp[nt][i] = 0.f;
-      mma_tiles<T, KD, NT, LDK>(s, qa, sK, g, t);
-      mma_tiles<T, KD, NT, LDK>(dp, da, sV, g, t);
+      if constexpr (QS) {
+        mma_tiles_sa<T, KD, NT, LDK, LDK>(s, sQ + warp * 16 * LDK, sK, g, t);
+        mma_tiles_sa<T, KD, NT, LDK, LDK>(dp, sO + warp * 16 * LDK, sV, g, t);
+      } else {
+        mma_tiles<T, KD, NT, LDK>(s, qa, sK, g, t);
+        mma_tiles<T, KD, NT, LDK>(dp, da, sV, g, t);
+      }
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -817,14 +849,19 @@ struct Ptrs {
 
 // Which kernel runs, chosen at compile time so that each is instantiated
 // only for the dtypes that reach it (as in flash_attention.cu).  C is the
-// row tile (64 for a layout block that is a multiple of 64, else 16); CK
-// the key (or, in dK/dV, the CUDA-core key-row) tile, halved at D = 128
-// where registers or shared memory would not fit.
+// row tile (64 for a layout block that is a multiple of 64, walked as
+// blk / 64 tiles of one table row, else 16); CK the key tile of dQ, of the
+// fp32 forward and (at D = 256) of the tensor-core forward, halved to 32 at
+// D >= 128 where registers or shared memory would not fit (the D 64 / 128
+// tensor-core forward stages C keys); CKV the key rows of the CUDA-core
+// dK/dV, 16 at D = 256 for its shared memory.
 template <typename T, int D, int C>
 cudaError_t launch(int which, const Ptrs& a, const SParams& p, cudaStream_t st) {
   constexpr bool mma = !std::is_same<T, float>::value;
   constexpr bool mma_dkv = std::is_same<T, __nv_bfloat16>::value && D == 64;
-  constexpr int CK = (D == 128 && C > 32) ? 32 : C;
+  constexpr int CK = (D >= 128 && C > 32) ? 32 : C;
+  constexpr int CKF = D == 256 ? CK : C;
+  constexpr int CKV = D == 256 ? 16 : CK;
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
@@ -835,8 +872,8 @@ cudaError_t launch(int which, const Ptrs& a, const SParams& p, cudaStream_t st) 
   cudaError_t e;
   if (which == 0) {
     if constexpr (mma) {
-      auto kern = sparse_fwd_mma_kernel<T, D, C>;
-      const size_t smem = MmaLayout<T, D, C>::FWD_SMEM;
+      auto kern = sparse_fwd_mma_kernel<T, D, C, CKF>;
+      const size_t smem = MmaLayout<T, D, CKF>::FWD_SMEM;
       if ((e = set_smem(kern, smem)) != cudaSuccess) return e;
       kern<<<rows, THREADS, smem, st>>>(q, k, v, static_cast<T*>(a.o),
                                         static_cast<float*>(a.lse_out), p);
@@ -870,10 +907,10 @@ cudaError_t launch(int which, const Ptrs& a, const SParams& p, cudaStream_t st) 
                                         static_cast<T*>(a.dk),
                                         static_cast<T*>(a.dv), p);
     } else {
-      auto kern = sparse_dkv_kernel<T, D, CK, C>;
-      const size_t smem = DkvLayout<D, CK, C>::SMEM;
+      auto kern = sparse_dkv_kernel<T, D, CKV, C>;
+      const size_t smem = DkvLayout<D, CKV, C>::SMEM;
       if ((e = set_smem(kern, smem)) != cudaSuccess) return e;
-      kern<<<dim3(p.S / CK, p.BH), THREADS, smem, st>>>(
+      kern<<<dim3(p.S / CKV, p.BH), THREADS, smem, st>>>(
           q, k, v, dout, lse, delta, static_cast<T*>(a.dk),
           static_cast<T*>(a.dv), p);
     }
@@ -891,6 +928,9 @@ cudaError_t launch_t(int which, int D, const Ptrs& a, const SParams& p,
   if (D == 128)
     return wide ? launch<T, 128, 64>(which, a, p, st)
                 : launch<T, 128, 16>(which, a, p, st);
+  if (D == 256)
+    return wide ? launch<T, 256, 64>(which, a, p, st)
+                : launch<T, 256, 16>(which, a, p, st);
   return cudaErrorInvalidValue;
 }
 
@@ -899,7 +939,7 @@ int run(int which, const Ptrs& a, const void* tbl, int BH, int H, int S,
         float inv_keep, int dropout, int dtype, void* stream) {
   (void)cudaGetLastError();  // report this launch's error, not an older one
   if (BH <= 0 || H <= 0 || BH % H || BH > 65535 || blk <= 0 || blk % 16 ||
-      blk > 128 || S <= 0 || S % blk || W <= 0 || tbl == nullptr)
+      S <= 0 || S % blk || W <= 0 || tbl == nullptr)
     return cudaErrorInvalidValue;
   const SParams p{BH, H, S, S / blk, blk, W, scale, causal,
                   static_cast<const int*>(tbl), uint32_t(seed) * 0x9E3779B1u,

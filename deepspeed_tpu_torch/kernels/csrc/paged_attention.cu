@@ -54,9 +54,16 @@
 //     tile (at decode, T = 1, all four warps work, not one), keeping its own
 //     fp32 running max, denominator and accumulator in registers (online
 //     softmax): lane j scores key j, warp shuffles reduce max and sum, and
-//     for P.V each lane owns Dh/32 output columns.  A row whose position is
-//     before a warp's 32 keys skips them (p would be 0 for all).  The four
-//     partial results of a row are merged through shared memory at the end.
+//     for P.V each lane owns ceil(Dh/32) consecutive output columns (the
+//     last lanes fewer or none when Dh is not a multiple of 32).  A row
+//     whose position is before a warp's keys skips them (p would be 0 for
+//     all).  The four partial results of a row are merged through shared
+//     memory at the end.
+//   * head_dim: 64 and 128 are compiled as such (16-byte staging, the
+//     loops unrolled); every other multiple of 8 up to 256 runs the
+//     head_dim-generic instantiation, which stages rows 4 bytes at a time
+//     (an int4 row of Dh 8 is 4 bytes) and, where 32 keys a warp would not
+//     fit in shared memory (fp32 rows above Dh 192), takes 16.
 // Left to later work: wgmma/TMA tiles for long prefill tiles, and split-K
 // over long caches so that decode at small batch fills all 132 SMs.
 //
@@ -82,20 +89,26 @@ constexpr int WARPS = 4;
 constexpr int THREADS = WARPS * 32;
 constexpr int TQ = 8;                   // query rows per thread block
 constexpr int KW = 32;                  // keys per warp per chunk: one per lane
-constexpr int KC = WARPS * KW;          // keys per staged chunk
+constexpr int KC = WARPS * KW;          // keys per staged chunk (at most)
 
 // How the cache stores a row of Dh values for one head.  N: values per
-// 16-byte vector; unpack: one vector -> N floats; get: value `col` of a
-// staged row.  `scale` is the row's dequant scale (ignored when dense).
+// 16-byte vector and N4 per 4-byte word; unpack / unpack4: one vector or
+// word -> that many floats; get: value `col` of a staged row.  `scale` is
+// the row's dequant scale (ignored when dense).
 template <typename T> struct Dense {
   static constexpr bool QUANT = false;
-  static constexpr int N = 16 / sizeof(T);
+  static constexpr int N = 16 / sizeof(T), N4 = 4 / sizeof(T);
   using Out = T;
-  static constexpr int row_bytes(int dh) { return dh * int(sizeof(T)); }
+  __host__ __device__ static constexpr int row_bytes(int dh) { return dh * int(sizeof(T)); }
   __device__ __forceinline__ static void unpack(const uint4& r, float* f, float) {
     const T* e = reinterpret_cast<const T*>(&r);
 #pragma unroll
     for (int i = 0; i < N; ++i) f[i] = to_f(e[i]);
+  }
+  __device__ __forceinline__ static void unpack4(uint32_t r, float* f, float) {
+    const T* e = reinterpret_cast<const T*>(&r);
+#pragma unroll
+    for (int i = 0; i < N4; ++i) f[i] = to_f(e[i]);
   }
   __device__ __forceinline__ static float get(const unsigned char* row, int col, float) {
     return to_f(reinterpret_cast<const T*>(row)[col]);
@@ -105,9 +118,9 @@ template <typename T> struct Dense {
 // int8 codes; the marker -128 (-qmax-1) dequantizes to NaN
 struct Int8 {
   static constexpr bool QUANT = true;
-  static constexpr int N = 16;
+  static constexpr int N = 16, N4 = 4;
   using Out = float;
-  static constexpr int row_bytes(int dh) { return dh; }
+  __host__ __device__ static constexpr int row_bytes(int dh) { return dh; }
   __device__ __forceinline__ static float dq(int c, float scale) {
     return c == -128 ? __int_as_float(0x7fc00000) : float(c) * scale;
   }
@@ -115,6 +128,11 @@ struct Int8 {
     const int8_t* e = reinterpret_cast<const int8_t*>(&r);
 #pragma unroll
     for (int i = 0; i < N; ++i) f[i] = dq(e[i], scale);
+  }
+  __device__ __forceinline__ static void unpack4(uint32_t r, float* f, float scale) {
+    const int8_t* e = reinterpret_cast<const int8_t*>(&r);
+#pragma unroll
+    for (int i = 0; i < N4; ++i) f[i] = dq(e[i], scale);
   }
   __device__ __forceinline__ static float get(const unsigned char* row, int col, float scale) {
     return dq(reinterpret_cast<const int8_t*>(row)[col], scale);
@@ -125,9 +143,9 @@ struct Int8 {
 // -8 dequantizes to NaN
 struct Int4 {
   static constexpr bool QUANT = true;
-  static constexpr int N = 32;
+  static constexpr int N = 32, N4 = 8;
   using Out = float;
-  static constexpr int row_bytes(int dh) { return dh / 2; }
+  __host__ __device__ static constexpr int row_bytes(int dh) { return dh / 2; }
   __device__ __forceinline__ static float dq(int nib, float scale) {
     const int c = nib > 7 ? nib - 16 : nib;
     return c == -8 ? __int_as_float(0x7fc00000) : float(c) * scale;
@@ -138,6 +156,14 @@ struct Int4 {
     for (int i = 0; i < 16; ++i) {
       f[2 * i] = dq(e[i] & 0x0F, scale);
       f[2 * i + 1] = dq(e[i] >> 4, scale);
+    }
+  }
+  __device__ __forceinline__ static void unpack4(uint32_t r, float* f, float scale) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const uint32_t b = (r >> (8 * i)) & 0xFF;
+      f[2 * i] = dq(b & 0x0F, scale);
+      f[2 * i + 1] = dq(b >> 4, scale);
     }
   }
   __device__ __forceinline__ static float get(const unsigned char* row, int col, float scale) {
@@ -157,27 +183,53 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename S, int DH>
-struct Layout {
-  static constexpr int ROW_BYTES = S::row_bytes(DH);
-  static constexpr int ROW_STRIDE = ROW_BYTES + 16;            // +16 B padding
-  static constexpr int VECS = ROW_BYTES / 16;                  // 16-B vectors per row
-  static constexpr size_t Q_BYTES = size_t(TQ) * DH * sizeof(float);
-  // one K (or V) chunk of KC rows for one pipeline stage
-  static constexpr size_t CHUNK_BYTES = size_t(KC) * ROW_STRIDE;
-  // double-buffer where that leaves room for two blocks on an SM
-  static constexpr int STAGES = Q_BYTES + 4 * CHUNK_BYTES <= 100 * 1024 ? 2 : 1;
-  static constexpr size_t STAGE_BYTES = 2 * STAGES * CHUNK_BYTES;
-  // the end-of-kernel merge of the warps' partial results reuses the
-  // staging buffers: per warp and row, DH accumulators plus (m, l)
-  static constexpr size_t MERGE_BYTES = size_t(WARPS) * TQ * (DH + 2) * sizeof(float);
-  static constexpr size_t SMEM = Q_BYTES + (STAGE_BYTES > MERGE_BYTES ? STAGE_BYTES : MERGE_BYTES);
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem,
+                                          int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(gmem), "r"(src_bytes));
+}
+
+// dynamic shared memory a block may take beside the kernel's static arrays
+constexpr size_t SMEM_LIMIT = 220 * 1024;
+
+// The staging geometry of one head_dim.  A compiled head_dim (64, 128) has
+// it at compile time: rows copied 16 bytes at a time, 32 keys a warp per
+// chunk.  Any other multiple of 8 up to 256 takes the head_dim-generic
+// instantiation, whose geometry the host computes: rows copied 4 bytes at a
+// time (an int4 row of Dh = 8 is 4 bytes), and 16 keys a warp per chunk
+// where 32 would not fit in shared memory (fp32 rows above Dh 192).
+template <typename S>
+struct Geo {
+  int dh, epl, kw;          // head_dim, output columns per lane, keys per warp
+  int row_bytes, row_stride, stages;
+  size_t q_bytes, chunk_bytes, smem;
+  __host__ __device__ static constexpr Geo make(int dh) {
+    Geo g{};
+    g.dh = dh;
+    g.epl = (dh + 31) / 32;
+    g.row_bytes = S::row_bytes(dh);
+    g.row_stride = g.row_bytes + 16;   // +16 B: conflict-free 16-byte reads
+    g.q_bytes = size_t(TQ) * dh * sizeof(float);
+    g.kw = g.q_bytes + 2 * size_t(WARPS) * KW * g.row_stride <= SMEM_LIMIT ? KW
+                                                                          : KW / 2;
+    g.chunk_bytes = size_t(WARPS) * g.kw * g.row_stride;  // one K or V chunk
+    // double-buffer where that leaves room for two blocks on an SM
+    g.stages = g.q_bytes + 4 * g.chunk_bytes <= 100 * 1024 ? 2 : 1;
+    // the end-of-kernel merge of the warps' partial results reuses the
+    // staging buffers: per warp and row, dh accumulators plus (m, l)
+    const size_t stage = 2 * size_t(g.stages) * g.chunk_bytes;
+    const size_t merge = size_t(WARPS) * TQ * (dh + 2) * sizeof(float);
+    g.smem = g.q_bytes + (stage > merge ? stage : merge);
+    return g;
+  }
 };
 
 struct QStrides {
   long long b, t, h;  // element strides of q's first three dims (Dh is 1)
 };
 
+// DH > 0: that head_dim, compiled; DH = 0: the head_dim `dh` of `geo`
 template <typename S, typename QT, int DH>
 __global__ void __launch_bounds__(THREADS)
 paged_attention_kernel(const QT* __restrict__ q, QStrides qs,
@@ -188,10 +240,16 @@ paged_attention_kernel(const QT* __restrict__ q, QStrides qs,
                        const int64_t* __restrict__ rows,
                        const int64_t* __restrict__ q_pos,
                        typename S::Out* __restrict__ out, int T_len, int H,
-                       int L, int num_rows, float scale) {
-  using LY = Layout<S, DH>;
+                       int L, int num_rows, float scale, Geo<S> geo) {
   using OT = typename S::Out;
-  constexpr int EPL = DH / 32;  // output columns per lane
+  constexpr bool FIXED = DH > 0;
+  constexpr Geo<S> FG = Geo<S>::make(FIXED ? DH : 32);
+  const Geo<S> G = FIXED ? FG : geo;
+  constexpr int EPL = FIXED ? DH / 32 : 8;     // output columns per lane (bound)
+  constexpr int VB = FIXED ? 16 : 4;           // bytes per staged copy
+  const int dh = G.dh, epl = FIXED ? EPL : G.epl, kw = FIXED ? KW : G.kw;
+  const int kc = WARPS * kw;                   // keys per staged chunk
+  const int row_stride = G.row_stride, vecs = G.row_bytes / VB;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_qpos[TQ];
   // per stage: byte offset of each key's row (-1 past live) and, for a
@@ -199,7 +257,7 @@ paged_attention_kernel(const QT* __restrict__ q, QStrides qs,
   __shared__ long long s_off[2][KC];
   __shared__ float s_scale[2][2][S::QUANT ? KC : 1];
   float* sQ = reinterpret_cast<float*>(smem);
-  unsigned char* sKV = smem + LY::Q_BYTES;  // [stage][K|V][KC][ROW_STRIDE]
+  unsigned char* sKV = smem + G.q_bytes;  // [stage][K|V][kc][row_stride]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
@@ -207,8 +265,8 @@ paged_attention_kernel(const QT* __restrict__ q, QStrides qs,
   const int nt = min(TQ, T_len - t0);
   const int64_t* slot_rows = rows + size_t(b) * L;
 
-  for (int i = tid; i < TQ * DH; i += THREADS) {
-    const int r = i / DH, d = i % DH;
+  for (int i = tid; i < TQ * dh; i += THREADS) {
+    const int r = i / dh, d = i % dh;
     sQ[i] = r < nt ? to_f(q[b * qs.b + (t0 + r) * qs.t + h * qs.h + d]) : 0.f;
   }
   if (tid < TQ) {
@@ -222,19 +280,19 @@ paged_attention_kernel(const QT* __restrict__ q, QStrides qs,
   int max_qp = -1;
   for (int r = 0; r < nt; ++r) max_qp = max(max_qp, s_qpos[r]);
   const int live = min(L, max_qp + 1);            // keys any row of the tile sees
-  const int n_chunks = live > 0 ? (live + KC - 1) / KC : 0;
+  const int n_chunks = live > 0 ? (live + kc - 1) / kc : 0;
 
   auto stage = [&](int c, int s) {
-    unsigned char* dk = sKV + size_t(2 * s) * LY::CHUNK_BYTES;
-    unsigned char* dv = dk + LY::CHUNK_BYTES;
-    for (int i = tid; i < KC; i += THREADS) {
-      const int key = c * KC + i;
+    unsigned char* dk = sKV + size_t(2 * s) * G.chunk_bytes;
+    unsigned char* dv = dk + G.chunk_bytes;
+    for (int i = tid; i < kc; i += THREADS) {
+      const int key = c * kc + i;
       long long off = -1;
       if (key < live) {
         int64_t cache_row = slot_rows[key];
         cache_row = cache_row < 0 ? 0 : (cache_row >= num_rows ? num_rows - 1 : cache_row);
         const long long rh = cache_row * H + h;
-        off = rh * LY::ROW_BYTES;
+        off = rh * G.row_bytes;
         if constexpr (S::QUANT) {
           s_scale[s][0][i] = __half2float(ks[rh]);
           s_scale[s][1][i] = __half2float(vs[rh]);
@@ -245,24 +303,29 @@ paged_attention_kernel(const QT* __restrict__ q, QStrides qs,
       s_off[s][i] = off;
     }
     __syncthreads();
-    for (int i = tid; i < KC * LY::VECS; i += THREADS) {
-      const int row = i / LY::VECS, vec = i % LY::VECS;
+    for (int i = tid; i < kc * vecs; i += THREADS) {
+      const int row = i / vecs, vec = i % vecs;
       const long long base = s_off[s][row];
       const unsigned char* srck = ck;
       const unsigned char* srcv = cv;
       int bytes = 0;
       if (base >= 0) {
-        const size_t off = size_t(base) + size_t(vec) * 16;
+        const size_t off = size_t(base) + size_t(vec) * VB;
         srck = ck + off;
         srcv = cv + off;
-        bytes = 16;
+        bytes = VB;
       }
-      cp_async16(dk + row * LY::ROW_STRIDE + vec * 16, srck, bytes);
-      cp_async16(dv + row * LY::ROW_STRIDE + vec * 16, srcv, bytes);
+      if constexpr (VB == 16) {
+        cp_async16(dk + row * row_stride + vec * VB, srck, bytes);
+        cp_async16(dv + row * row_stride + vec * VB, srcv, bytes);
+      } else {
+        cp_async4(dk + row * row_stride + vec * VB, srck, bytes);
+        cp_async4(dv + row * row_stride + vec * VB, srcv, bytes);
+      }
     }
   };
 
-  // this warp's partial online softmax over its KW keys of every chunk,
+  // this warp's partial online softmax over its kw keys of every chunk,
   // for every row of the tile
   float m[TQ], l[TQ], acc[TQ][EPL];
 #pragma unroll
@@ -273,13 +336,16 @@ paged_attention_kernel(const QT* __restrict__ q, QStrides qs,
     for (int e = 0; e < EPL; ++e) acc[i][e] = 0.f;
   }
 
-  if (LY::STAGES == 2 && n_chunks > 0) {
+  const bool two = G.stages == 2;
+  if (two && n_chunks > 0) {
     stage(0, 0);
     cp_async_commit();
   }
+  // lanes past kw (keys a warp, when 16) score no key; they read row 0
+  const int klane = lane < kw ? lane : 0;
   for (int c = 0; c < n_chunks; ++c) {
-    const int s = LY::STAGES == 2 ? (c & 1) : 0;
-    if (LY::STAGES == 1) {
+    const int s = two ? (c & 1) : 0;
+    if (!two) {
       stage(c, 0);
       cp_async_commit();
       cp_async_wait<0>();
@@ -291,29 +357,41 @@ paged_attention_kernel(const QT* __restrict__ q, QStrides qs,
       cp_async_wait<0>();
     }
     __syncthreads();
-    const int first = c * KC + warp * KW;          // this warp's first key
-    const unsigned char* K = sKV + size_t(2 * s) * LY::CHUNK_BYTES +
-                             size_t(warp) * KW * LY::ROW_STRIDE;
-    const unsigned char* V = K + LY::CHUNK_BYTES;
+    const int first = c * kc + warp * kw;          // this warp's first key
+    const unsigned char* K = sKV + size_t(2 * s) * G.chunk_bytes +
+                             size_t(warp) * kw * row_stride;
+    const unsigned char* V = K + G.chunk_bytes;
     const int kidx = first + lane;
-    const uint4* krow = reinterpret_cast<const uint4*>(K + lane * LY::ROW_STRIDE);
-    const float kscale = S::QUANT ? s_scale[s][0][warp * KW + lane] : 1.f;
+    const unsigned char* krow = K + klane * row_stride;
+    const float kscale = S::QUANT ? s_scale[s][0][warp * kw + klane] : 1.f;
 #pragma unroll
     for (int i = 0; i < TQ; ++i) {
       // warp-uniform: a row whose position is before this warp's keys
-      // sees none of them (p = 0 for all 32), which leaves m, l and acc
-      // exactly as they are — skip the work
+      // sees none of them (p = 0 for all of them), which leaves m, l and
+      // acc exactly as they are — skip the work
       if (i < nt && s_qpos[i] >= first) {
-        const float* qr = sQ + i * DH;
+        const float* qr = sQ + i * dh;
         float dot = 0.f;
+        if constexpr (FIXED) {
+          const uint4* kv4 = reinterpret_cast<const uint4*>(krow);
 #pragma unroll
-        for (int v = 0; v < LY::VECS; ++v) {
-          float kf[S::N];
-          S::unpack(krow[v], kf, kscale);
+          for (int v = 0; v < G.row_bytes / 16; ++v) {
+            float kf[S::N];
+            S::unpack(kv4[v], kf, kscale);
 #pragma unroll
-          for (int e = 0; e < S::N; ++e) dot = fmaf(qr[v * S::N + e], kf[e], dot);
+            for (int e = 0; e < S::N; ++e) dot = fmaf(qr[v * S::N + e], kf[e], dot);
+          }
+        } else {
+          const uint32_t* kv1 = reinterpret_cast<const uint32_t*>(krow);
+          for (int v = 0; v < vecs; ++v) {
+            float kf[S::N4];
+            S::unpack4(kv1[v], kf, kscale);
+#pragma unroll
+            for (int e = 0; e < S::N4; ++e) dot = fmaf(qr[v * S::N4 + e], kf[e], dot);
+          }
         }
-        const float sc = (kidx < L && s_qpos[i] >= kidx) ? dot * scale : NEG_INF;
+        const bool valid = (FIXED || lane < kw) && kidx < L && s_qpos[i] >= kidx;
+        const float sc = valid ? dot * scale : NEG_INF;
         const float m_new = fmaxf(m[i], warp_max(sc));
         float p = expf(sc - m_new);
         if (sc <= NEG_INF * 0.5f) p = 0.f;
@@ -322,13 +400,16 @@ paged_attention_kernel(const QT* __restrict__ q, QStrides qs,
 #pragma unroll
         for (int e = 0; e < EPL; ++e) acc[i][e] *= alpha;
 #pragma unroll 8
-        for (int j = 0; j < KW; ++j) {
+        for (int j = 0; j < kw; ++j) {
           const float pj = __shfl_sync(FULL, p, j);
-          const unsigned char* vr = V + j * LY::ROW_STRIDE;
-          const float vscale = S::QUANT ? s_scale[s][1][warp * KW + j] : 1.f;
+          const unsigned char* vr = V + j * row_stride;
+          const float vscale = S::QUANT ? s_scale[s][1][warp * kw + j] : 1.f;
 #pragma unroll
-          for (int e = 0; e < EPL; ++e)
-            acc[i][e] = fmaf(pj, S::get(vr, lane * EPL + e, vscale), acc[i][e]);
+          for (int e = 0; e < EPL; ++e) {
+            const int col = lane * epl + e;
+            if (FIXED || (e < epl && col < dh))
+              acc[i][e] = fmaf(pj, S::get(vr, col, vscale), acc[i][e]);
+          }
         }
         m[i] = m_new;
       }
@@ -338,16 +419,19 @@ paged_attention_kernel(const QT* __restrict__ q, QStrides qs,
 
   // merge the warps' partial (m, l, acc) per row; the staging buffers are
   // free after the loop's last barrier (or were never used)
-  float* sM = reinterpret_cast<float*>(smem + LY::Q_BYTES);  // [WARPS][TQ][DH+2]
+  float* sM = reinterpret_cast<float*>(smem + G.q_bytes);  // [WARPS][TQ][dh+2]
 #pragma unroll
   for (int i = 0; i < TQ; ++i) {
     if (i < nt) {
-      float* d = sM + (size_t(warp) * TQ + i) * (DH + 2);
+      float* d = sM + (size_t(warp) * TQ + i) * (dh + 2);
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) d[lane * EPL + e] = acc[i][e];
+      for (int e = 0; e < EPL; ++e) {
+        const int col = lane * epl + e;
+        if (FIXED || (e < epl && col < dh)) d[col] = acc[i][e];
+      }
       if (lane == 0) {
-        d[DH] = m[i];
-        d[DH + 1] = l[i];
+        d[dh] = m[i];
+        d[dh + 1] = l[i];
       }
     }
   }
@@ -356,7 +440,7 @@ paged_attention_kernel(const QT* __restrict__ q, QStrides qs,
     float mw[WARPS], m_all = NEG_INF;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) {
-      mw[w] = sM[(size_t(w) * TQ + i) * (DH + 2) + DH];
+      mw[w] = sM[(size_t(w) * TQ + i) * (dh + 2) + dh];
       m_all = fmaxf(m_all, mw[w]);
     }
     float l_all = 0.f, o[EPL];
@@ -364,16 +448,22 @@ paged_attention_kernel(const QT* __restrict__ q, QStrides qs,
     for (int e = 0; e < EPL; ++e) o[e] = 0.f;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) {
-      const float* d = sM + (size_t(w) * TQ + i) * (DH + 2);
+      const float* d = sM + (size_t(w) * TQ + i) * (dh + 2);
       const float f = expf(mw[w] - m_all);  // 0 for a warp that saw no key
-      l_all = fmaf(d[DH + 1], f, l_all);
+      l_all = fmaf(d[dh + 1], f, l_all);
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) o[e] = fmaf(d[lane * EPL + e], f, o[e]);
+      for (int e = 0; e < EPL; ++e) {
+        const int col = lane * epl + e;
+        if (FIXED || (e < epl && col < dh)) o[e] = fmaf(d[col], f, o[e]);
+      }
     }
     const float denom = l_all > 0.f ? l_all : 1.f;
-    OT* dst = out + ((size_t(b) * T_len + t0 + i) * H + h) * DH + lane * EPL;
+    OT* dst = out + ((size_t(b) * T_len + t0 + i) * H + h) * dh;
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) dst[e] = from_f<OT>(o[e] / denom);
+    for (int e = 0; e < EPL; ++e) {
+      const int col = lane * epl + e;
+      if (FIXED || (e < epl && col < dh)) dst[col] = from_f<OT>(o[e] / denom);
+    }
   }
 }
 
@@ -387,27 +477,28 @@ struct Args {
 };
 
 template <typename S, typename QT, int DH>
-cudaError_t launch(const Args& a) {
-  using LY = Layout<S, DH>;
+cudaError_t launch(const Args& a, int dh) {
+  const Geo<S> geo = Geo<S>::make(DH > 0 ? DH : dh);
   auto kern = paged_attention_kernel<S, QT, DH>;
   cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(LY::SMEM));
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(geo.smem));
   if (e != cudaSuccess) return e;
   dim3 grid(a.B * a.H, (a.T_len + TQ - 1) / TQ);
-  kern<<<grid, THREADS, LY::SMEM, a.stream>>>(
+  kern<<<grid, THREADS, geo.smem, a.stream>>>(
       static_cast<const QT*>(a.q), a.qs, static_cast<const unsigned char*>(a.ck),
       static_cast<const unsigned char*>(a.cv), static_cast<const __half*>(a.ks),
       static_cast<const __half*>(a.vs), static_cast<const int64_t*>(a.rows),
       static_cast<const int64_t*>(a.q_pos),
       static_cast<typename S::Out*>(a.out), a.T_len, a.H, a.L, a.num_rows,
-      a.scale);
+      a.scale, geo);
   return cudaGetLastError();
 }
 
 template <typename S, typename QT>
 cudaError_t launch_dh(int Dh, const Args& a) {
-  if (Dh == 64) return launch<S, QT, 64>(a);
-  if (Dh == 128) return launch<S, QT, 128>(a);
+  if (Dh == 64) return launch<S, QT, 64>(a, Dh);
+  if (Dh == 128) return launch<S, QT, 128>(a, Dh);
+  if (Dh >= 8 && Dh <= 256 && Dh % 8 == 0) return launch<S, QT, 0>(a, Dh);
   return cudaErrorInvalidValue;
 }
 

@@ -5,13 +5,13 @@ deepspeed_tpu/ops/transformer/flash_attention.py (:113, :227, :280).
 
 Each takes the arguments of its plain PyTorch version
 (`ops/transformer/flash_attention.py` `_fwd_plain`, `_dq_plain`,
-`_dkv_plain`) and returns the same tensors.  The kernels tile the
-sequence themselves (64 rows), so `block_q` / `block_k` only pass the
-divisibility checks of the entry point and do not reach the card.  A
-wrapper checks device, dtype, shape, contiguity and alignment, launches
-its kernel on PyTorch's current stream, raises on a launch error and
-counts the launch in `LAUNCHES`; it never falls back to the plain
-version.
+`_dkv_plain`) and returns the same tensors, at head_dim 64, 128 or 256.
+The kernels tile the sequence themselves (64 rows or fewer), so
+`block_q` / `block_k` only pass the divisibility checks of the entry point
+and do not reach the card.  A wrapper checks device, dtype, shape,
+contiguity and alignment, launches its kernel on PyTorch's current
+stream, raises on a launch error and counts the launch in `LAUNCHES`; it
+never falls back to the plain version.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
                             "flash_attention_dq": 0,
                             "flash_attention_dkv": 0}
 
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # BH, H, S, Sk, D, scale, causal, seed, bh_offset, thr, inv_keep, dropout,

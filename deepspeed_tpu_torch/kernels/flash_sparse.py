@@ -14,9 +14,10 @@ and alignment, launches its kernel on PyTorch's current stream, raises on
 a launch error and counts the launch in `LAUNCHES`; it never falls back
 to the plain version.
 
-The kernels take a layout block that is a multiple of 16 up to 128 with S
-a multiple of it, head_dim 64 or 128, fp32, bf16 and fp16, causal or not,
-and dropout; anything else raises.
+The kernels take any layout block that is a multiple of 16 and divides S
+(a multiple of 64 runs as block / 64 tiles of 64 rows on one table row,
+others as 16-row tiles), head_dim 64, 128 or 256, fp32, bf16 and fp16,
+causal or not, and dropout; anything else raises.
 """
 
 from __future__ import annotations
@@ -35,8 +36,7 @@ LAUNCHES: Dict[str, int] = {"flash_sparse_fwd": 0,
                             "flash_sparse_dq": 0,
                             "flash_sparse_dkv": 0}
 
-HEAD_DIMS = (64, 128)
-MAX_BLOCK = 128
+HEAD_DIMS = (64, 128, 256)
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 # BH, H, S, D, blk, W, scale, causal, seed, thr, inv_keep, dropout, dtype,
 # stream
@@ -87,9 +87,8 @@ def _common(q, k, v, tbl, block, n_heads, extra=()):
     _check(k.shape == q.shape and v.shape == q.shape,
            lambda: f"k {tuple(k.shape)} / v {tuple(v.shape)} do not match "
            f"q {tuple(q.shape)}")
-    _check(block % 16 == 0 and 0 < block <= MAX_BLOCK,
-           lambda: f"layout block {block} must be a multiple of 16 up to "
-           f"{MAX_BLOCK}")
+    _check(block % 16 == 0 and block > 0,
+           lambda: f"layout block {block} must be a positive multiple of 16")
     _check(S % block == 0, lambda: f"S {S} not a multiple of the block "
            f"{block}")
     _check(BH % n_heads == 0 and BH <= 65535,

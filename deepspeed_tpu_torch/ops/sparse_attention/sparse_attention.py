@@ -18,8 +18,8 @@ Two functions compute attention under a layout:
 `SparseSelfAttention` (:126) selects between them as JAX's registry does
 (kernels/registry.py:150-193, `SparseAttentionOp`): `impl="auto"` takes
 the kernel walk only for a bias-free call on a CUDA tensor with a layout
-block that is a multiple of 128 and head_dim 64, 128 or 256 (the port's
-kernels raise for 256, ROADMAP queue 3); `impl="pallas"` takes it for
+block that is a multiple of 128 and head_dim 64, 128 or 256 (the kernels
+take every one of those); `impl="pallas"` takes it for
 every bias-free call; biased calls and `impl="xla"` take the gather path.
 `kernels.registry.kernel_config(ops={"sparse_attention": ...})` overrides
 an "auto" module for its scope.  A call on the gather path bumps

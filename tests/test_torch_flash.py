@@ -392,6 +392,8 @@ KERNEL_CASES = {
     "dropout-offset": (2, 256, 2, 64, True, False, 0.1, 7, 128),
     "dh128-bias-dropout": (2, 256, 2, 128, True, True, 0.2, 0, 128),
     "ragged-tiles": (1, 96, 2, 64, True, True, 0.1, 0, 32),
+    "dh256-bias-dropout": (2, 256, 2, 256, True, True, 0.2, 3, 128),
+    "dh256-ragged-tiles": (1, 96, 2, 256, False, True, 0.1, 0, 32),
 }
 
 

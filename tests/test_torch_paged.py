@@ -216,7 +216,8 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("q_layout", ["contiguous", "qkv_view", "fp32_q"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("T,Dh", [(1, 64), (16, 64), (3, 128)])
+@pytest.mark.parametrize("T,Dh", [(1, 64), (16, 64), (3, 128), (1, 16),
+                                  (16, 256)])
 def test_cuda_kernel_matches_plain_version(cuda_device, T, Dh, dtype,
                                            q_layout):
     """Kernel vs plain version on the card, with q contiguous, as the

@@ -603,6 +603,10 @@ KERNEL_CASES = {
     "bigbird64-dropout": (2, 512, 2, 64, 64, "bigbird", False, 0.2),
     "fixed16-causal-d128-dropout": (2, 256, 2, 128, 16, "fixed", True, 0.2),
     "empty-row-32": (1, 256, 2, 64, 32, "empty-row", False, 0.0),
+    "fixed256-dropout": (1, 1024, 2, 64, 256, "fixed", False, 0.1),
+    "fixed192-causal": (1, 768, 2, 64, 192, "fixed", True, 0.0),
+    "fixed160-dropout": (1, 640, 2, 64, 160, "fixed", False, 0.2),
+    "fixed128-d256-causal-dropout": (1, 512, 2, 256, 128, "fixed", True, 0.1),
 }
 
 
