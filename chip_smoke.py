@@ -16,8 +16,10 @@ any failure raises and the script exits nonzero:
    T=1 and prefill B=1 T=128; fp32 and bf16 caches; one Dh=128 case;
    int8 and int4 caches at decode T=1, verify T=5 and prefill T=128 with
    bf16 q, verify and prefill with fp32 q, and verify at Dh=128; the
-   head_dim-generic instantiation at Dh 16 (GPT-2 nano, H=3) and Dh 256
-   (H=8), dense, int8 and int4, decode and prefill, q bf16 and fp32), with
+   head_dim-generic instantiations at Dh 16 (GPT-2 nano, H=3) and Dh 256
+   (H=8), dense, int8 and int4, decode and prefill, q bf16 and fp32, and
+   at Dh 20, 100 (every cache kind) and the odd Dh 33 (dense, int8), q
+   bf16, decode and prefill), with
    device times of the kernel, the plain version, and
    `scaled_dot_product_attention` on pre-gathered (dequantized) K/V as a
    yardstick, and the host time of one call of each.
@@ -52,8 +54,11 @@ any failure raises and the script exits nonzero:
    as a boolean mask and the dense flash kernels at the same shape.  The
    mask probe (one live key per output element) holds the dropout masks
    element by element in three dtypes, at block 16 and at block 256 (Dh
-   256); sparse-repeat computes dQ and
-   dK/dV 50 times after other kernels and requires bitwise equal results.
+   256), and at block 64 (Dh 64, the wgmma dK/dV's transposed hash
+   coordinates); the wgmma dK/dV's empty row and column (block 64, causal,
+   dropout); sparse-repeat computes dQ and dK/dV 50 times after other
+   kernels, on the fp16 16-row-tile case and on the wgmma dK/dV's (bf16,
+   Dh 64, block 128), and requires bitwise equal results.
 4. xent: the fused LM-head cross-entropy kernels (forward, dx, dW)
    against their plain versions at the training shape (N=8192 rows,
    D=768, V=50304, bf16, a fifth of the rows invalid, the tied head's
@@ -73,9 +78,11 @@ any failure raises and the script exits nonzero:
    their plain versions (dispatch bitwise, combine within
    `moe/dispatch.py` `combine_tolerance`) at the training shape (B 4,
    S 2048, E 64, C 32, D 768, bf16) at top-1 and top-2 and two small
-   cases; device times beside the bound, the plain version and, for the
-   dispatch, one `torch.index_select` (a yardstick the port never
-   calls).
+   cases; device times beside the bound, the plain version and one
+   PyTorch call the port never makes as a yardstick: `torch.index_select`
+   for the dispatch, `F.embedding_bag` with per-sample weights for the
+   combine (held to the combine's bound first); the dispatch's device
+   operations a call under torch.profiler (one kernel, no memset).
 5. exact: GPT-2 XL width, 4 layers, fp32 — greedy serving through the
    kernel path against the port's `generate()` (plain attention).
    serve-nano-exact: GPT-2 nano (Dh 16), fp32 weights, 4 requests of 16
@@ -1313,7 +1320,7 @@ def sparse_case(name, B, S, H, D, block, layout, dtype, causal, rate, gen,
              for _ in range(4)]                  # q, k, v, dO
     else:
         a = [t.to(dev, dtype).contiguous() for t in inputs]
-    ft, rt = device_tables(layout, dev)
+    ft, rt, order = device_tables(layout, dev)
     opts = dict(causal=causal, scale=D ** -0.5, block=block, rate=rate,
                 seed=1234, n_heads=H)
 
@@ -1332,7 +1339,7 @@ def sparse_case(name, B, S, H, D, block, layout, dtype, causal, rate, gen,
 
     def dkv(impl):
         return registry.dispatch("flash_sparse_dkv", *a, lse, delta, rt,
-                                 impl=impl, **opts)
+                                 order=order, impl=impl, **opts)
 
     ref["dq"] = dq("torch")
     ref["dk"], ref["dv"] = dkv("torch")
@@ -1383,6 +1390,13 @@ def sparse_case(name, B, S, H, D, block, layout, dtype, causal, rate, gen,
     rec = {"phase": "sparse", "case": name, "B": B, "S": S, "H": H, "Dh": D,
            "block": block, "dtype": dname, "causal": causal,
            "dropout": rate, "W": int(ft.shape[-1]), "Wq": int(rt.shape[-1]),
+           # derived from the dK/dV kernels' design, not measured: every
+           # 64-row tile of every active block, causal or not, 8 products
+           # (S^T, dP^T, three bf16 terms each of dV and dK) where the
+           # bound counts 4
+           "dkv_tensor_flops_by_design":
+               B * int(np.asarray(layout).sum()) * (block // 64) ** 2
+               * 64 * 64 * 2 * D * 8 if block % 64 == 0 else None,
            "live_pairs": pairs, "density": pairs / (BH * S * S),
            "empty_rows": empty_rows, "tol": SPARSE_TOL,
            "max_abs_err": errs, "max_err_over_tol": worst,
@@ -1475,7 +1489,7 @@ def sparse_mask_probe(blk=16, D=64, nb=16):
             device_tables
 
         a = [t.to("cuda", dt_).contiguous() for t in inputs]
-        ft, rt = device_tables(layout, "cuda")
+        ft, rt, order = device_tables(layout, "cuda")
         opts = dict(causal=False, scale=D ** -0.5, block=blk, rate=0.3,
                     seed=1234, n_heads=H)
         diff = {}
@@ -1486,7 +1500,7 @@ def sparse_mask_probe(blk=16, D=64, nb=16):
             if impl == "torch":
                 lse0, delta = lse, (a[3].float() * o.float()).sum(-1)
             _, dv = registry.dispatch("flash_sparse_dkv", *a, lse0, delta,
-                                      rt, impl=impl, **opts)
+                                      rt, order=order, impl=impl, **opts)
             res[impl] = (o, dv)
         for i, name in enumerate(("out", "dv")):
             diff[name] = int(((res["cuda"][i] == 0) !=
@@ -1514,7 +1528,9 @@ def phase_sparse(flush):
     block 256 with dropout (timed, beside block 128 with dropout); block
     192 (64-row tiles) in fp32 and block 160 (16-row tiles) in bf16 with
     causal dropout; Dh 256 at block 128, bf16 with dropout and fp32; the
-    mask probe at block 16 and at block 256 (Dh 256)."""
+    mask probe at block 16, at block 256 (Dh 256) and at block 64 (Dh 64,
+    the wgmma dK/dV's transposed hash coordinates); the wgmma dK/dV's
+    empty row and empty column at block 64 (causal, dropout, bf16)."""
     import random
 
     import torch
@@ -1571,68 +1587,90 @@ def phase_sparse(flush):
     cases.append(sparse_case("dh256-block128-float32", 2, 1024, 4, 256, 128,
                              fixed_layout(4, 128, 1024), fp32, False, 0.0,
                              gen, flush, False))
-    probes = [sparse_mask_probe(), sparse_mask_probe(blk=256, D=256, nb=4)]
+    # the wgmma dK/dV's empty column (its walk is empty: zeros) and empty
+    # row at block 64, causal, with dropout
+    empty64 = fixed_layout(4, 64, 1024).copy()
+    empty64[:, 5, :] = 0
+    empty64[1, :, 3] = 0
+    cases.append(sparse_case("empty-row-block64-causal-dropout-bfloat16", 2,
+                             1024, 4, 64, 64, empty64, bf16, True, 0.1, gen,
+                             flush, False))
+    probes = [sparse_mask_probe(), sparse_mask_probe(blk=256, D=256, nb=4),
+              sparse_mask_probe(blk=64, D=64, nb=8)]
     return cases, probes
+
+
+SPARSE_REPEAT_CASES = (
+    # B, S, H, D, block, dtype, causal, dropout: the fp16 16-row-tile
+    # kernels, then the bf16 wgmma dK/dV (heaviest walk first)
+    (2, 256, 2, 128, 16, "float16", True, 0.2),
+    (2, 1024, 4, 64, 128, "bfloat16", False, 0.1))
 
 
 def phase_sparse_repeat(n=50):
     """Sparse dQ and dK/dV as functions of their inputs alone, as
     phase_flash_repeat checks dense dQ: on the fp16 Dh 128 causal dropout
-    case (block 16) each is computed n times, each call after a different
-    kernel left its own data in shared memory (the sparse forward, the
-    dense flash dK/dV, or nothing), and every result must equal the first
-    bit for bit; the plain versions three times, likewise."""
+    case (block 16) and on a bf16 Dh 64 fixed layout at block 128 with
+    dropout (the wgmma dK/dV, whose persistent grid hands out items in
+    order), each is computed n times, each call after a different kernel
+    left its own data in shared memory (the sparse forward, the dense flash
+    dK/dV, or nothing), and every result must equal the first bit for bit;
+    the plain versions three times, likewise."""
     import torch
 
     from deepspeed_tpu_torch.kernels import registry
     from deepspeed_tpu_torch.ops.sparse_attention.flash_sparse import \
         device_tables
 
-    gen = torch.Generator(device="cuda").manual_seed(13)
-    B, S, H, D, blk = 2, 256, 2, 128, 16
-    layout = fixed_layout(H, blk, S)
-    ft, rt = device_tables(layout, "cuda")
-    a = [torch.randn(B * H, S, D, device="cuda", generator=gen).half()
-         for _ in range(4)]
-    opts = dict(causal=True, scale=D ** -0.5, block=blk, rate=0.2,
-                seed=1234, n_heads=H)
-    out, lse = registry.dispatch("flash_sparse_fwd", *a[:3], ft,
-                                 impl="torch", **opts)
-    delta = (a[3].float() * out.float()).sum(-1)
-    args = (*a, lse, delta)
-    fo = dict(causal=True, scale=D ** -0.5, block_q=128, block_k=128,
-              rate=0.2, seed=7, bh_offset=0, n_heads=H)
+    recs = []
+    for B, S, H, D, blk, dname, causal, rate in SPARSE_REPEAT_CASES:
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        layout = fixed_layout(H, blk, S)
+        ft, rt, order = device_tables(layout, "cuda")
+        a = [torch.randn(B * H, S, D, device="cuda", generator=gen).to(
+            getattr(torch, dname)) for _ in range(4)]
+        opts = dict(causal=causal, scale=D ** -0.5, block=blk, rate=rate,
+                    seed=1234, n_heads=H)
+        out, lse = registry.dispatch("flash_sparse_fwd", *a[:3], ft,
+                                     impl="torch", **opts)
+        delta = (a[3].float() * out.float()).sum(-1)
+        args = (*a, lse, delta)
+        fo = dict(causal=True, scale=D ** -0.5, block_q=128, block_k=128,
+                  rate=0.2, seed=7, bh_offset=0, n_heads=H)
 
-    def both(impl):
-        return [registry.dispatch("flash_sparse_dq", *args, ft, impl=impl,
-                                  **opts),
-                *registry.dispatch("flash_sparse_dkv", *args, rt, impl=impl,
-                                   **opts)]
+        def both(impl):
+            return [registry.dispatch("flash_sparse_dq", *args, ft,
+                                      impl=impl, **opts),
+                    *registry.dispatch("flash_sparse_dkv", *args, rt,
+                                       order=order, impl=impl, **opts)]
 
-    others = [lambda: registry.dispatch("flash_sparse_fwd", *a[:3], ft,
-                                        impl="cuda", **opts),
-              lambda: registry.dispatch("flash_attention_dkv", *args, None,
-                                        impl="cuda", **fo),
-              lambda: None]
-    first = both("cuda")
-    differ = {"dq": 0, "dk": 0, "dv": 0}
-    for i in range(n):
-        others[i % 3]()
-        for name, x, y in zip(differ, both("cuda"), first):
-            differ[name] += mismatches(x, y) != 0
-    plain = [both("torch") for _ in range(3)]
-    plain_differ = sum(mismatches(x, y) != 0 for p in plain[1:]
-                       for x, y in zip(p, plain[0]))
-    torch.cuda.synchronize()
-    rec = {"phase": "sparse-repeat", "runs": n,
-           "case": "B 2, S 256, H 2, Dh 128, block 16, fp16, causal, "
-           "dropout 0.2", "kernel_runs_differing": differ,
-           "plain_runs_differing": plain_differ}
-    emit(rec)
-    if any(differ.values()) or plain_differ:
-        raise AssertionError(f"sparse dQ / dK / dV differ from run to run: "
-                             f"{rec}")
-    return rec
+        others = [lambda: registry.dispatch("flash_sparse_fwd", *a[:3], ft,
+                                            impl="cuda", **opts),
+                  lambda: registry.dispatch("flash_attention_dkv", *args,
+                                            None, impl="cuda", **fo),
+                  lambda: None]
+        first = both("cuda")
+        differ = {"dq": 0, "dk": 0, "dv": 0}
+        for i in range(n):
+            others[i % 3]()
+            for name, x, y in zip(differ, both("cuda"), first):
+                differ[name] += mismatches(x, y) != 0
+        plain = [both("torch") for _ in range(3)]
+        plain_differ = sum(mismatches(x, y) != 0 for p in plain[1:]
+                           for x, y in zip(p, plain[0]))
+        torch.cuda.synchronize()
+        rec = {"phase": "sparse-repeat", "runs": n,
+               "case": f"B {B}, S {S}, H {H}, Dh {D}, block {blk}, {dname}, "
+               f"{'causal, ' if causal else ''}dropout {rate}",
+               "kernel_runs_differing": differ,
+               "plain_runs_differing": plain_differ}
+        emit(rec)
+        if any(differ.values()) or plain_differ:
+            raise AssertionError(f"sparse dQ / dK / dV differ from run to "
+                                 f"run: {rec}")
+        recs.append(rec)
+        del a, args, out, lse, delta, first, plain
+    return recs
 
 
 # -- fused LM-head cross-entropy kernels ----------------------------------------
@@ -1877,8 +1915,6 @@ def train_kernel_class(name):
         return "flash_attention"
     if "dispatch_kernel" in n or "combine_kernel" in n:
         return "moe"
-    if "slot_sources_kernel" in n:
-        return "moe_index"
     if "fx_fwd_kernel" in n or "fx_bwd_kernel" in n:
         return "fused_xent"
     if "foreach" in n or "multi_tensor" in n:
@@ -2592,8 +2628,81 @@ def moe_case(name, B, S, E, k, factor, D, dtype, gen, flush, timed):
                                  f"computes another gather")
         rec["kernels"]["moe_dispatch"]["library_ms"] = time_ms(
             lambda: torch.index_select(xz, 0, slot_tok), 20, flush)
+        # #13's device operations a call: one kernel, no memset
+        split = device_split(lambda: disp("cuda"))
+        rec["kernels"]["moe_dispatch"]["profile"] = split
+        if split["device_ops_per_call"] != 1 or split["memsets_per_call"]:
+            raise AssertionError(f"moe {name}: the dispatch made "
+                                 f"{split['device_ops_per_call']} device "
+                                 f"operations a call: {split['ops']}")
+        # #14's yardstick: one embedding_bag over the buckets with a zero
+        # row appended, the T-rounded gate * keep as per-sample weights,
+        # held to the plain combine's bound before it is timed
+        flat = torch.cat([out.reshape(B * E * C, D), out.new_zeros(1, D)])
+        src = torch.where(keep, eidx.long() * C + pos.long()
+                          + torch.arange(B, device=dev)[:, None, None] * E * C,
+                          B * E * C).permute(0, 2, 1).reshape(-1)
+        w = dsp._weights(gate, keep, dtype).permute(0, 2, 1).reshape(-1)
+        offs = torch.arange(0, B * S * k, k, device=dev)
+
+        def bag():
+            return torch.nn.functional.embedding_bag(
+                src, flat, offs, mode="sum", per_sample_weights=w)
+
+        lb = bag().reshape(B, S, D)
+        lb_err = (lb.float() - cp.float()).abs()
+        lb_ratio = float(torch.where(tol > 0, lb_err / tol.clamp_min(1e-30),
+                                     torch.where(lb_err > 0, np.inf,
+                                                 0.0)).max())
+        rec["kernels"]["moe_combine"]["library_max_err_over_tol"] = lb_ratio
+        if not lb_ratio <= 1.0:
+            raise AssertionError(f"moe {name}: the embedding_bag yardstick "
+                                 f"is {lb_ratio} x the combine's bound")
+        rec["kernels"]["moe_combine"]["library_ms"] = time_ms(bag, 20, flush)
     emit(rec)
     return rec
+
+
+def device_split(fn, calls=20):
+    """fn's device operations under torch.profiler over `calls` calls
+    (after one call outside the window and the window's primer launches):
+    per call, the count and device us of its kernels and of its memsets /
+    copies, by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        primed = prime_profiler()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    acts = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    lost = primer_lost(primed, acts)
+    ops = {}
+    for name, ms, n in acts:
+        if is_primer(name):
+            continue
+        low = name.lower()
+        kind = ("memset" if "memset" in low else
+                "copy" if "memcpy" in low else "kernel")
+        ops[name] = {"kind": kind, "per_call": n / calls,
+                     "us_per_call": ms * 1e3 / calls}
+    if not ops:
+        raise AssertionError("the profiler recorded no device activity")
+    return {"calls": calls, "profiler_primer_lost": lost,
+            "device_ops_per_call": sum(o["per_call"] for o in ops.values()),
+            "kernels_per_call": sum(o["per_call"] for o in ops.values()
+                                    if o["kind"] == "kernel"),
+            "memsets_per_call": sum(o["per_call"] for o in ops.values()
+                                    if o["kind"] == "memset"),
+            "device_us_per_call": sum(o["us_per_call"]
+                                      for o in ops.values()),
+            "ops": ops}
 
 
 def phase_moe_kernels(gen, flush):
@@ -3094,9 +3203,16 @@ def build_all():
     sources = ("paged_attention.cu", "flash_attention.cu", "fused_xent.cu",
                "quant_codec.cu", "moe_dispatch.cu", "flash_sparse.cu")
     t0 = time.perf_counter()
+
+    def timed_build(src):
+        t = time.perf_counter()
+        build.build(src)
+        return src, time.perf_counter() - t
+
     with ThreadPoolExecutor(len(sources)) as pool:
-        list(pool.map(build.build, sources))
+        each = dict(pool.map(timed_build, sources))
     return {"phase": "build", "seconds": time.perf_counter() - t0,
+            "seconds_by_source": each,
             "ptxas": {src: [ln.strip() for ln in
                             build.BUILD_LOGS.get(src, "").splitlines()
                             if "registers" in ln or "Compiling entry" in ln
@@ -3235,6 +3351,10 @@ def moe_entries(moe_cases, train_moe):
             "ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
+            "library_call": ("torch.index_select" if name == "moe_dispatch"
+                             else "F.embedding_bag(per_sample_weights)"),
+            **({"device_ops_per_call": k["profile"]["device_ops_per_call"]}
+               if "profile" in k else {}),
             "shape": "B=4 S=2048 E=64 C=32 D=768 bf16 top-1",
             "cases": [{"case": c["case"],
                        "dispatch_mismatches": c["dispatch_mismatches"],
@@ -3326,6 +3446,22 @@ def main():
                 cases.append(kernel_case(
                     f"prefill-dh{Dh}-{kv}-{dn}", 1, 128, H, Dh, 16, 64,
                     dtype, [448], gen, flush, kv=kv))
+    # head dims off the multiples of 8: Dh 20 and 100 in every cache kind,
+    # an odd Dh (33) dense and int8 (an int4 cache needs an even one), q
+    # bf16, decode and a prefill chunk; drawn from a generator of their own
+    # so that the later phases' draws stay as they were
+    gen_dh = torch.Generator(device="cuda").manual_seed(7)
+    for Dh, H, kinds in ((20, 4, ("dense", "int8", "int4")),
+                         (100, 8, ("dense", "int8", "int4")),
+                         (33, 4, ("dense", "int8"))):
+        for kv in kinds:
+            cases.append(kernel_case(
+                f"decode-dh{Dh}-{kv}-bfloat16", 8, 1, H, Dh, 16, 64,
+                torch.bfloat16, rng.randint(256, 768, size=8), gen_dh, flush,
+                kv=kv))
+            cases.append(kernel_case(
+                f"prefill-dh{Dh}-{kv}-bfloat16", 1, 128, H, Dh, 16, 64,
+                torch.bfloat16, [448], gen_dh, flush, kv=kv))
     mark("paged-head-dims")
     xent_cases = phase_xent(gen, flush)
     mark("xent")

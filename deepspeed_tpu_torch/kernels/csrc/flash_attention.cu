@@ -1072,56 +1072,6 @@ template <> struct MmaTiles<256> {
   static constexpr int FWD_BK = 64, STAGES = 2, MB = 1, DQ_BK = 32;
 };
 
-// cuTensorMapEncodeTiled, fetched from the driver once (the library links
-// only the runtime)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// the tensor map of a [BH, rows, D] 16-bit tensor, read in boxes of
-// box_rows x 64 columns of one bh, 128-byte swizzled; rows past the end
-// read as zeros
-template <typename T>
-cudaError_t tensor_map(CUtensorMap* map, const void* base, int BH, int rows,
-                       int D, int box_rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {cuuint64_t(D), cuuint64_t(rows), cuuint64_t(BH)};
-  const cuuint64_t strides[2] = {cuuint64_t(D) * sizeof(T),
-                                 cuuint64_t(rows) * D * sizeof(T)};
-  const cuuint32_t box[3] = {64, cuuint32_t(box_rows), 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = fn(
-      map,
-      std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-      3, const_cast<void*>(base), dims, strides, box, unit,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 template <typename T, int D>
 cudaError_t launch_fwd_wgmma(const Ptrs& a, const Params& p, cudaStream_t st) {
   using MT = MmaTiles<D>;

@@ -53,9 +53,13 @@
 //     in registers it would take 64 of them per operand.  dK/dV on the
 //     tensor cores is bf16 at D = 64 (pd and ds fed as three bf16 terms,
 //     fp32 exact); fp16 and D >= 128 take the CUDA-core dK/dV.
+//   * bf16 dK/dV at D = 64 with a layout block that is a multiple of 64
+//     (train-bert-sparse's): a wgmma kernel fed by TMA on a persistent grid
+//     whose items run heaviest reverse-table walk first (the global
+//     columns' long walks no longer finish last; below).
 //   * fp32: fp32 FMAs on the CUDA cores, the dense kernels' thread layout.
-// Staging is plain 16-byte loads; cp.async or TMA pipelining, wgmma, and a
-// schedule that balances the global rows' long walks are later work.
+// The other kernels stage with plain 16-byte loads; cp.async or TMA
+// pipelining and wgmma for them are later work.
 
 #include <math.h>
 
@@ -63,6 +67,7 @@
 
 #include "common.cuh"
 #include "flash_tiles.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -839,13 +844,308 @@ sparse_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
+// dK, dV in bf16 at D = 64, layout blocks a multiple of 64: TMA, wgmma
+// ---------------------------------------------------------------------------
+//
+// The work items are (bh, 64-key tile).  The host orders the layout's
+// (head, k-block) pairs by the length of their reverse-table walk, heaviest
+// first (`dkv_work_order`, kept beside the layout's tables); item w is the
+// pair order[w / (B tpb)], batch (w % (B tpb)) / tpb and key tile
+// w % tpb of that k-block (tpb = blk / 64), so every batch row of a heavy
+// column comes before any lighter column.  A persistent grid of CTAs (two
+// an SM) takes items c, c + gridDim.x, ...: the global columns' 8x longer
+// walks start first and the short ones fill in behind them.
+//
+// A CTA is two warpgroups.  Warpgroup 1 is the producer (24 registers
+// after setmaxnreg.dec): one thread TMA-loads each item's K and V tiles
+// (64 x 64, 128-byte swizzled) into one of two buffers, then runs a ring of
+// STAGES stages along the item's reverse-table row, one stage per 64-row q
+// tile: Q and dO by TMA, and that tile's lse and delta rows (256 bytes
+// each) by bulk copy, all reported to the stage's `full` mbarrier.  The ring
+// runs on across items.  Warpgroup 0 is the consumer (setmaxnreg.inc); warp
+// w owns keys [16 w, 16 w + 16) of the item.  Per q tile it computes
+// S^T = K.Q^T and dP^T = V.dO^T by wgmma with both operands in shared
+// memory (keys as rows, so p's and ds's transposes come out as accumulators
+// with no shuffle), then in fp32 registers the function's
+//   p = exp(scale s - lse), pd = p keep, ds = p (dp keep - delta)
+// (the causal select and the hash at the global (q, k) coordinates, read
+// transposed: rows are keys, columns queries), and then dV += pd^T.dO and
+// dK += ds^T.Q by wgmma with A from registers and B the SAME swizzled Q and
+// dO tiles read as MN-major operands, as the flash forward reads V: no
+// transposed copy is staged.  pd and ds stay fp32, as the function keeps
+// them: each goes to the tensor cores as three bf16 terms (hi + mid + lo,
+// each the bf16 rounding of what the terms before it left; x - bf16(x) is
+// exact in fp32, so the three carry fp32's 24 bits), so a step issues
+// 4 + 4 products for S^T and dP^T and 3 x (4 + 4) for dV and dK: twice the
+// two products a plain bf16 backward would make there.  Terms are issued
+// as each is packed (two A buffers, the third term reusing the first's once
+// its products retire).  Every output element is summed by one warp in the
+// reverse table's order: no atomics, bitwise repeatable.  A column whose
+// reverse row is empty (-1 first) writes zeros.
+
+struct WgDkv {
+  static constexpr int THREADS = 256, STAGES = 3, MB = 2;
+  static constexpr int TILE = 64 * 128;          // 64 rows of 64 bf16
+  // Q, dO, then lse[64] and delta[64] (padded so stages stay 1024-aligned)
+  static constexpr int STAGE = 2 * TILE + 1024;
+  static constexpr size_t SMEM =
+      1024 + 4 * size_t(TILE) + STAGES * size_t(STAGE) + 8 * (2 * STAGES + 4);
+  static constexpr int LAUNCH_REGS = (65536 / (THREADS * MB)) & ~7;
+  static constexpr int CONSUMER_REGS = 2 * LAUNCH_REGS - 24;
+};
+
+// one bf16 term of an fp32 64 x 64 accumulator tile (wgmma layout, 32
+// registers a thread) as four wgmma A fragments of 16 columns; the tile is
+// left holding the residual c - bf16(c), exact in fp32
+__device__ __forceinline__ void bf16_term(uint32_t (*a)[4], float* c) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(c[8 * kk + 2 * i],
+                                                     c[8 * kk + 2 * i + 1]);
+      a[kk][i] = *reinterpret_cast<const uint32_t*>(&h);
+      c[8 * kk + 2 * i] -= __low2float(h);
+      c[8 * kk + 2 * i + 1] -= __high2float(h);
+    }
+}
+
+__global__ void __launch_bounds__(256, WgDkv::MB)
+sparse_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        const int* __restrict__ order, int n_batch,
+                        __nv_bfloat16* __restrict__ dk,
+                        __nv_bfloat16* __restrict__ dv, SParams p) {
+  using LY = WgDkv;
+  using T = __nv_bfloat16;
+  constexpr int TILE = LY::TILE, STAGES = LY::STAGES, STAGE = LY::STAGE;
+  extern __shared__ unsigned char smraw[];
+  // 1024-byte alignment for the swizzle atoms
+  unsigned char* sK = smraw + ((1024 - (smem_u32(smraw) & 1023)) & 1023);
+  unsigned char* sV = sK + 2 * TILE;               // [2][TILE] each
+  unsigned char* sR = sV + 2 * TILE;               // [STAGES][STAGE]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sR + STAGES * STAGE);
+  uint64_t* empty = full + STAGES;
+  uint64_t* kvfull = empty + STAGES;               // [2]: K, V loaded
+  uint64_t* kvempty = kvfull + 2;                  // [2]: K, V free
+
+  const int tpb = p.blk / 64;
+  const int per = n_batch * tpb;                   // items a (head, k-block)
+  const int n_items = p.BH * p.nb * tpb;
+  // item w -> (bh, first key); returns the k-block's reverse-table row
+  auto item = [&](int w, int& bh, int& k0) {
+    const int hk = order[w / per], r = w % per;
+    const int h = hk / p.nb, kj = hk % p.nb;
+    bh = (r / tpb) * p.H + h;
+    k0 = kj * p.blk + (r % tpb) * 64;
+    return p.tbl + size_t(hk) * p.W;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);   // one arrival per consumer warp
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&kvfull[b], 1);
+      mbar_init(&kvempty[b], 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 128) {
+      int it = 0;
+      for (int w = blockIdx.x, n = 0; w < n_items; w += gridDim.x, ++n) {
+        int bh, k0;
+        const int* col = item(w, bh, k0);
+        const int b = n & 1;
+        mbar_wait(&kvempty[b], ((n >> 1) & 1) ^ 1);
+        mbar_expect_tx(&kvfull[b], 2 * TILE);
+        tma_load_3d(sK + b * TILE, &tk, &kvfull[b], 0, k0, bh);
+        tma_load_3d(sV + b * TILE, &tv, &kvfull[b], 0, k0, bh);
+        for (int a = 0; a < p.W; ++a) {
+          const int qi = col[a];
+          if (qi < 0) break;
+          for (int q0 = qi * p.blk; q0 < (qi + 1) * p.blk; q0 += 64, ++it) {
+            const int s = it % STAGES;
+            mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+            mbar_expect_tx(&full[s], 2 * TILE + 512);
+            unsigned char* st = sR + s * STAGE;
+            tma_load_3d(st, &tq, &full[s], 0, q0, bh);
+            tma_load_3d(st + TILE, &tdo, &full[s], 0, q0, bh);
+            const size_t row = size_t(bh) * p.S + q0;
+            bulk_load(st + 2 * TILE, lse + row, 256, &full[s]);
+            bulk_load(st + 2 * TILE + 256, delta + row, 256, &full[s]);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer
+  setmaxnreg_inc<LY::CONSUMER_REGS>();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  float dka[32], dva[32];
+  int it = 0;
+  for (int w = blockIdx.x, n = 0; w < n_items; w += gridDim.x, ++n) {
+    int bh, k0;
+    const int* col = item(w, bh, k0);
+    const int b = n & 1;
+    const int ka = k0 + warp * 16 + g, kb_ = ka + 8;
+    const uint32_t bhm = uint32_t(bh) * 0x7FEB352Du;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dka[i] = dva[i] = 0.f;
+    const unsigned char* kt = sK + b * TILE;
+    const unsigned char* vt = sV + b * TILE;
+    mbar_wait(&kvfull[b], (n >> 1) & 1);
+
+    for (int a = 0; a < p.W; ++a) {
+      const int qi = col[a];
+      if (qi < 0) break;
+      for (int q0 = qi * p.blk; q0 < (qi + 1) * p.blk; q0 += 64, ++it) {
+        const int s = it % STAGES;
+        mbar_wait(&full[s], (it / STAGES) & 1);
+        const unsigned char* qt = sR + s * STAGE;
+        const unsigned char* ot = qt + TILE;
+        const float* sL = reinterpret_cast<const float*>(qt + 2 * TILE);
+        const float* sDl = sL + 64;
+
+        float sc[32], dp[32];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          Wgmma<T, 64>::ss(sc, sw128_desc(kt + 32 * kk, 16, 1024),
+                           sw128_desc(qt + 32 * kk, 16, 1024), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          Wgmma<T, 64>::ss(dp, sw128_desc(vt + 32 * kk, 16, 1024),
+                           sw128_desc(ot + 32 * kk, 16, 1024), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<32>(sc);
+        fence_regs<32>(dp);
+
+        // register 4j + r: key row (r < 2 ? ka : kb_), query column
+        // q0 + 8j + 2t + (r & 1)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int i = 4 * j + r, cc = 8 * j + 2 * t + (r & 1);
+            const int qg = q0 + cc, kg = r < 2 ? ka : kb_;
+            // s = (q*scale).k: scale * (q.k) is the same number at D = 64,
+            // whose scale is a power of two
+            const float x = causal_score(p, p.scale * sc[i], qg, kg);
+            const float pv = expf(x - sL[cc]);
+            float pd = pv, dpv = dp[i];
+            if (p.dropout) {
+              const float ks = keep_scale(p, bhm, qg, kg);
+              pd *= ks;
+              dpv *= ks;
+            }
+            sc[i] = pd;                       // pd^T, fp32
+            dp[i] = pv * (dpv - sDl[cc]);     // ds^T, fp32
+          }
+
+        // dV += pd^T.dO and dK += ds^T.Q, three bf16 terms each; B is the
+        // stage's dO / Q tile read MN-major (16 q rows a slice)
+        uint32_t pa0[4][4], da0[4][4], pa1[4][4], da1[4][4];
+        auto issue = [&](uint32_t (&pa)[4][4], uint32_t (&da)[4][4]) {
+          fence_regs<32>(dva);
+          fence_regs<32>(dka);
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            Wgmma<T, 64>::rs(dva, pa[kk],
+                             sw128_desc(ot + kk * 16 * 128, TILE, 1024), 1);
+            Wgmma<T, 64>::rs(dka, da[kk],
+                             sw128_desc(qt + kk * 16 * 128, TILE, 1024), 1);
+          }
+          wgmma_commit();
+        };
+        bf16_term(pa0, sc);
+        bf16_term(da0, dp);
+        issue(pa0, da0);
+        bf16_term(pa1, sc);
+        bf16_term(da1, dp);
+        issue(pa1, da1);
+        wgmma_wait<1>();        // the first term's products have read pa0
+        bf16_term(pa0, sc);
+        bf16_term(da0, dp);
+        issue(pa0, da0);
+        wgmma_wait<0>();
+        fence_regs<32>(dva);
+        fence_regs<32>(dka);
+        // the stage's Q, dO, lse and delta have been read: hand it back
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);
+      }
+    }
+    // the item's K and V have been read
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&kvempty[b]);
+
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int cc = 8 * j + 2 * t;
+      size_t off = (size_t(bh) * p.S + ka) * 64 + cc;
+      *reinterpret_cast<uint32_t*>(dk + off) =
+          Mma<T>::pack(p.scale * dka[4 * j], p.scale * dka[4 * j + 1]);
+      *reinterpret_cast<uint32_t*>(dv + off) = Mma<T>::pack(dva[4 * j], dva[4 * j + 1]);
+      off = (size_t(bh) * p.S + kb_) * 64 + cc;
+      *reinterpret_cast<uint32_t*>(dk + off) =
+          Mma<T>::pack(p.scale * dka[4 * j + 2], p.scale * dka[4 * j + 3]);
+      *reinterpret_cast<uint32_t*>(dv + off) = Mma<T>::pack(dva[4 * j + 2], dva[4 * j + 3]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
 struct Ptrs {
   const void *q, *k, *v, *dout, *lse, *delta;
   void *o, *lse_out, *dq, *dk, *dv;
+  const void* order;  // dK/dV's work order (null for the forward and dQ)
 };
+
+// the wgmma dK/dV (bf16, D 64, blk % 64 == 0) on a persistent grid of two
+// CTAs an SM
+cudaError_t launch_dkv_wgmma(const Ptrs& a, const SParams& p, cudaStream_t st) {
+  using LY = WgDkv;
+  using T = __nv_bfloat16;
+  if (a.order == nullptr) return cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t e;
+  if ((e = tensor_map<T>(&tq, a.q, p.BH, p.S, 64, 64)) != cudaSuccess ||
+      (e = tensor_map<T>(&tk, a.k, p.BH, p.S, 64, 64)) != cudaSuccess ||
+      (e = tensor_map<T>(&tv, a.v, p.BH, p.S, 64, 64)) != cudaSuccess ||
+      (e = tensor_map<T>(&tdo, a.dout, p.BH, p.S, 64, 64)) != cudaSuccess)
+    return e;
+  auto kern = sparse_dkv_wgmma_kernel;
+  if ((e = set_smem(kern, LY::SMEM)) != cudaSuccess) return e;
+  int dev, sms;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+          cudaSuccess)
+    return e;
+  const int items = p.BH * p.nb * (p.blk / 64);
+  kern<<<min(items, sms * LY::MB), LY::THREADS, LY::SMEM, st>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<const int*>(a.order),
+      p.BH / p.H, static_cast<T*>(a.dk), static_cast<T*>(a.dv), p);
+  return cudaGetLastError();
+}
 
 // Which kernel runs, chosen at compile time so that each is instantiated
 // only for the dtypes that reach it (as in flash_attention.cu).  C is the
@@ -899,7 +1199,9 @@ cudaError_t launch(int which, const Ptrs& a, const SParams& p, cudaStream_t st) 
                                         static_cast<T*>(a.dq), p);
     }
   } else {
-    if constexpr (mma_dkv) {
+    if constexpr (mma_dkv && C == 64) {
+      return launch_dkv_wgmma(a, p, st);
+    } else if constexpr (mma_dkv) {
       auto kern = sparse_dkv_mma_kernel<D, C>;
       const size_t smem = DkvMmaLayout<D, C>::BYTES;
       if ((e = set_smem(kern, smem)) != cudaSuccess) return e;
@@ -970,7 +1272,8 @@ int flash_sparse_fwd(const void* q, const void* k, const void* v,
                      int D, int blk, int W, float scale, int causal, int seed,
                      unsigned thr, float inv_keep, int dropout, int dtype,
                      void* stream) {
-  Ptrs a{q, k, v, nullptr, nullptr, nullptr, o, lse, nullptr, nullptr, nullptr};
+  Ptrs a{q, k, v, nullptr, nullptr, nullptr, o, lse, nullptr, nullptr, nullptr,
+         nullptr};
   return run(0, a, tbl, BH, H, S, D, blk, W, scale, causal, seed, thr,
              inv_keep, dropout, dtype, stream);
 }
@@ -981,18 +1284,22 @@ int flash_sparse_dq(const void* q, const void* k, const void* v,
                     int blk, int W, float scale, int causal, int seed,
                     unsigned thr, float inv_keep, int dropout, int dtype,
                     void* stream) {
-  Ptrs a{q, k, v, dout, lse, delta, nullptr, nullptr, dq, nullptr, nullptr};
+  Ptrs a{q, k, v, dout, lse, delta, nullptr, nullptr, dq, nullptr, nullptr,
+         nullptr};
   return run(1, a, tbl, BH, H, S, D, blk, W, scale, causal, seed, thr,
              inv_keep, dropout, dtype, stream);
 }
 
+// order: int32 [H * S / blk], the (head, k-block) pairs heaviest walk
+// first (`dkv_work_order`); every caller passes it, the bf16 D-64 kernel
+// for blocks a multiple of 64 reads it and the others ignore it
 int flash_sparse_dkv(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
-                     const void* tbl, void* dk, void* dv, int BH, int H, int S,
-                     int D, int blk, int W, float scale, int causal, int seed,
-                     unsigned thr, float inv_keep, int dropout, int dtype,
-                     void* stream) {
-  Ptrs a{q, k, v, dout, lse, delta, nullptr, nullptr, nullptr, dk, dv};
+                     const void* tbl, const void* order, void* dk, void* dv,
+                     int BH, int H, int S, int D, int blk, int W, float scale,
+                     int causal, int seed, unsigned thr, float inv_keep,
+                     int dropout, int dtype, void* stream) {
+  Ptrs a{q, k, v, dout, lse, delta, nullptr, nullptr, nullptr, dk, dv, order};
   return run(2, a, tbl, BH, H, S, D, blk, W, scale, causal, seed, thr,
              inv_keep, dropout, dtype, stream);
 }

@@ -1,8 +1,10 @@
-// Hopper (sm_90a) building blocks of the wgmma flash forward
-// (flash_attention.cu): mbarriers, TMA tile loads, warpgroup register
-// hand-over (setmaxnreg), shared-memory matrix descriptors for the 128-byte
-// swizzle that TMA writes, and the wgmma.mma_async products.  Include after
-// common.cuh.
+// Hopper (sm_90a) building blocks of the wgmma kernels (the flash forward
+// of flash_attention.cu, the block-sparse dK/dV of flash_sparse.cu):
+// mbarriers, TMA tile and bulk loads, warpgroup register hand-over
+// (setmaxnreg), shared-memory matrix descriptors for the 128-byte swizzle
+// that TMA writes, the wgmma.mma_async products, and on the host the
+// tensor maps (cuTensorMapEncodeTiled, fetched from the driver at run
+// time).  Include after common.cuh.
 //
 // Shared-memory operands (PTX ISA, "Matrix Descriptor Format"): a tile is
 // stored as 64-element (128-byte) wide column chunks, each TMA-loaded with
@@ -23,6 +25,8 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (types only: the encoder is fetched at run time)
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -81,6 +85,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
       "r"(c2)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) of contiguous
+// global memory into shared memory, completion reported to `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
 
@@ -318,5 +333,57 @@ template <> struct Wgmma<__half, 256> {
           "r"(scale_d));
   }
 };
+
+// -- host: tensor maps ----------------------------------------------------------
+
+// cuTensorMapEncodeTiled, fetched from the driver once (the library links
+// only the runtime)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// the tensor map of a [BH, rows, D] 16-bit tensor, read in boxes of
+// box_rows x 64 columns of one bh, 128-byte swizzled; rows past the end
+// read as zeros
+template <typename T>
+cudaError_t tensor_map(CUtensorMap* map, const void* base, int BH, int rows,
+                       int D, int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {cuuint64_t(D), cuuint64_t(rows), cuuint64_t(BH)};
+  const cuuint64_t strides[2] = {cuuint64_t(D) * sizeof(T),
+                                 cuuint64_t(rows) * D * sizeof(T)};
+  const cuuint32_t box[3] = {64, cuuint32_t(box_rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = fn(
+      map,
+      std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      3, const_cast<void*>(base), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
 
 }  // namespace

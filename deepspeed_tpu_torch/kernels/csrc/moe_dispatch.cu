@@ -10,15 +10,16 @@
 //   routing, per group b: eidx, pos [k, N] int32 and keep [k, N] bool,
 //     round-major (assignment a = r * N + n carries token n); a kept
 //     assignment owns slot e * C + pos of the [E * C] slots, uniquely.
-//   moe_slot_sources (the prologue): slot_a[b, s] = the assignment that
-//     fills slot s, or -1 (the inverse permutation of moe_kernels.py:67-74).
-//   moe_dispatch: out[b, s] = x[b, slot_a[b, s] % N], or zeros where
-//     slot_a is -1: a verbatim row copy, so bit-exact against the plain
-//     version's add into zeros (equal values; a -0.0 input row comes back
-//     -0.0 here and +0.0 from the add).  With `gate` (the combine's
-//     gradient) each copied row is scaled by its assignment's weight
-//     w = T(gate * keep), computed in fp32 and rounded once to T, as the
-//     plain version's T multiply rounds.
+//     Nothing else is assumed of the kept slots: they need not fill a
+//     prefix of an expert's C (a dropless overflow bucket's routing need
+//     not either).
+//   moe_dispatch: out[b, s] = x[b, n] where the kept assignment r * N + n
+//     owns slot s, or zeros where no assignment does: a verbatim row copy,
+//     so bit-exact against the plain version's add into zeros (equal
+//     values; a -0.0 input row comes back -0.0 here and +0.0 from the
+//     add).  With `gate` (the combine's gradient) each copied row is
+//     scaled by its assignment's weight w = T(gate * keep), computed in
+//     fp32 and rounded once to T, as the plain version's T multiply rounds.
 //   moe_combine: y[b, n] = sum over rounds r = 0..k-1, in that order, of
 //     w[r, n] * out[b, eidx[r, n] * C + pos[r, n]], with w = fp32(T(gate *
 //     keep)) (the weight cast through the output dtype, moe_kernels.py
@@ -32,13 +33,46 @@
 // What bounds them on this card: bytes.  At the training shape (B 4,
 // S 2048, E 64, C 32, D 768, bf16, top-1) each moves 8192 rows of 1.5 KB
 // in and out, 12.6 MB each way, 7.5 us at 3.35 TB/s; the index work is
-// 8192 assignments.  The design: one thread moves 16 bytes (8 bf16 or 4
-// fp32 values) of one row, neighbouring threads on neighbouring bytes of
-// the row, so every load and store is a coalesced 16-byte vector (where
-// the row length allows; narrower vectors otherwise); the row's source
-// index is read once per thread from L1.  The TPU kernel's scalar-prefetch
-// grid over slots becomes a flat grid over (slot, vector); the combine's
-// sequential k axis is a loop inside the thread.
+// 8192 assignments.
+//
+// The dispatch is one launch and nothing else: no memset, no index
+// kernel.  (Its first design, which replaced the TPU kernel's scalar-
+// prefetch grid over slots, was three device operations: a memset of a
+// slot -> assignment table, a kernel that scattered each kept assignment
+// into it, then one thread per 16 bytes of an output row, each with a
+// dependent load chain table -> x and 64-bit divisions.)  Now one CTA of
+// 256 threads owns R = 64 consecutive slots of one group:
+//   * it builds the inverse of its slots in shared memory: every thread
+//     scans its share of the group's k * N routing entries (9 bytes each,
+//     L2-resident after the first CTA of the group reads them; four
+//     entries a load) and writes the token (and, gated, the row's weight)
+//     of each kept assignment whose slot falls in the CTA's range; a slot
+//     nobody writes stays -1.  Nothing assumes that the kept positions
+//     fill a prefix of an expert's slots.  Every CTA reads the group's
+//     whole routing, so the scan's reads grow as k * N * E * C / R, about
+//     (k * N)^2 at a fixed capacity factor, where the rows grow as k * N:
+//     at k * N = 2048 they are a tenth of the row bytes (from L2), at
+//     8192 over a third.  Against index_select the kernel is 1.03x at
+//     k * N = 2048, 1.05-1.07x at 4096 and 1.27x at 8192, where it is
+//     also 7% slower than the three-operation design (PERF.md);
+//   * then each warp moves RU = 8 of the CTA's rows at once, each lane
+//     VU = 3 16-byte vectors of each: 24 independent loads a thread issued
+//     before the first store; an empty slot's row is written as zeros
+//     without a load;
+//   * index arithmetic in 32 bits (the host checks N * row vectors fits);
+//     only the group's base pointers are 64-bit.
+// Measured against the alternatives (PERF.md): 16-32 slots a CTA
+// with 12 loads a thread, a scatter of the token rows with zero-filling
+// CTAs, and a scatter whose CTAs also zero their share of the slots were
+// all slower at the training shape; a scan that reads only the expert
+// index (keep and pos only for the CTA's experts), 128 or 256 slots a
+// CTA, and clusters of 2-8 CTAs that share the scan through distributed
+// shared memory were slower at top-1 and top-2, S 2048 and 4096.  The
+// out-of-range check's printf sits in a function of its own, so that it
+// does not take registers from the copy.
+// The combine keeps its first design: one thread per vector of an output
+// row, neighbouring threads on neighbouring bytes of the row, the k
+// rounds a loop inside the thread.
 
 #include <cstdio>
 
@@ -52,57 +86,116 @@ constexpr int THREADS = 256;
 // another capacity or expert count): the plain version's scatter raises
 // there, so the kernel stops with a launch failure rather than write or
 // read another row.
+__device__ __noinline__ void slot_fault(const char* kernel, long long i,
+                                        int e, int ps, int E, int C) {
+  printf("%s: kept assignment %lld routes to expert %d slot %d, outside "
+         "[0, %d) x [0, %d)\n", kernel, i, e, ps, E, C);
+  __trap();
+}
 __device__ __forceinline__ void check_slot(const char* kernel, long long i,
                                            int e, int ps, int E, int C) {
-  if (e < 0 || e >= E || ps < 0 || ps >= C) {
-    printf("%s: kept assignment %lld routes to expert %d slot %d, outside "
-           "[0, %d) x [0, %d)\n", kernel, i, e, ps, E, C);
-    __trap();
-  }
+  if (e < 0 || e >= E || ps < 0 || ps >= C) slot_fault(kernel, i, e, ps, E, C);
 }
 
-// one thread per assignment: slot_a[b][e * C + pos] = a for kept ones
-// (slot_a was set to -1 by the caller's memset)
-__global__ void __launch_bounds__(THREADS)
-slot_sources_kernel(const int* __restrict__ eidx, const int* __restrict__ pos,
-                    const uint8_t* __restrict__ keep, int B, int kN, int EC,
-                    int C, int* __restrict__ slot_a) {
-  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= (long long)B * kN) return;
-  if (!keep[i]) return;
-  const long long b = i / kN;
-  const int a = int(i - b * kN);
-  check_slot("moe_slot_sources", i, eidx[i], pos[i], EC / C, C);
-  slot_a[b * EC + eidx[i] * C + pos[i]] = a;
-}
+constexpr int DWARPS = THREADS / 32;
+constexpr int R = 64;    // slots a CTA owns
+constexpr int RU = 8;    // rows a warp moves at once (R / DWARPS: all of them)
+constexpr int VU = 3;    // 16-byte vectors a lane moves of each
 
-// V: the vector type one thread moves; T: the element type (for weights)
-template <typename T, typename V>
+// V: the vector type one lane moves; T: the element type (for weights);
+// GATED: rows scaled by T(gate) (the combine's gradient; the forward's
+// instantiation carries no weight code); VEC4: the routing read four
+// entries a load.  One CTA: slots [R c, R c + R) of group blockIdx.y.
+template <typename T, typename V, bool GATED, bool VEC4>
 __global__ void __launch_bounds__(THREADS)
-dispatch_kernel(const V* __restrict__ x, const int* __restrict__ slot_a,
-                const float* __restrict__ gate, const uint8_t* __restrict__ keep,
-                int B, int N, int kN, int EC, int vpr, V* __restrict__ out) {
-  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= (long long)B * EC * vpr) return;
-  const long long row = i / vpr;          // b * EC + s
-  const int v = int(i - row * vpr);
-  const long long b = row / EC;
-  const int a = slot_a[row];
-  V val;
-  if (a < 0) {
-    val = V{};  // all-zero bits: +0.0
-  } else {
-    val = x[(b * N + a % N) * vpr + v];
-    if (gate != nullptr) {
-      const long long ga = b * kN + a;
-      const float w = to_f(from_f<T>(keep[ga] ? gate[ga] : 0.f));
-      T* e = reinterpret_cast<T*>(&val);
-#pragma unroll
-      for (int j = 0; j < int(sizeof(V) / sizeof(T)); ++j)
-        e[j] = from_f<T>(to_f(e[j]) * w);
+dispatch_kernel(const V* __restrict__ x, const int* __restrict__ eidx,
+                const int* __restrict__ pos, const uint8_t* __restrict__ keep,
+                const float* __restrict__ gate, int N, int k, int E, int C,
+                int vpr, V* __restrict__ out) {
+  __shared__ int s_tok[R];      // the token whose row fills the slot, or -1
+  __shared__ float s_w[R];      // its weight T(gate), gated calls only
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.y, EC = E * C, s0 = blockIdx.x * R;
+  const int nrows = min(R, EC - s0);
+  for (int i = tid; i < R; i += THREADS) s_tok[i] = -1;
+  __syncthreads();
+
+  // the inverse of this CTA's slots, from the group's routing
+  const size_t g0 = size_t(b) * k * N;
+  auto take = [&](int r, int n, bool kept, int e, int ps) {
+    if (!kept) return;
+    check_slot("moe_dispatch", (long long)g0 + (long long)r * N + n, e, ps, E, C);
+    const int rel = e * C + ps - s0;
+    if (rel >= 0 && rel < nrows) {
+      s_tok[rel] = n;
+      if constexpr (GATED)
+        s_w[rel] = to_f(from_f<T>(gate[g0 + size_t(r) * N + n]));
+    }
+  };
+  for (int r = 0; r < k; ++r) {
+    const int* er = eidx + g0 + size_t(r) * N;
+    const int* pr = pos + g0 + size_t(r) * N;
+    const uint8_t* kr = keep + g0 + size_t(r) * N;
+    if constexpr (VEC4) {
+      // four entries a load of each (two quads a thread at the training
+      // shape)
+#pragma unroll 4
+      for (int qd = tid; qd < N / 4; qd += THREADS) {
+        const uint32_t kq = reinterpret_cast<const uint32_t*>(kr)[qd];
+        const int4 eq = reinterpret_cast<const int4*>(er)[qd];
+        const int4 pq = reinterpret_cast<const int4*>(pr)[qd];
+        take(r, 4 * qd, kq & 0xFF, eq.x, pq.x);
+        take(r, 4 * qd + 1, (kq >> 8) & 0xFF, eq.y, pq.y);
+        take(r, 4 * qd + 2, (kq >> 16) & 0xFF, eq.z, pq.z);
+        take(r, 4 * qd + 3, kq >> 24, eq.w, pq.w);
+      }
+    } else {
+#pragma unroll 4
+      for (int n = tid; n < N; n += THREADS) take(r, n, kr[n] != 0, er[n], pr[n]);
     }
   }
-  out[i] = val;
+  __syncthreads();
+
+  const V* xb = x + size_t(b) * N * vpr;
+  V* ob = out + (size_t(b) * EC + s0) * vpr;
+  for (int r0 = warp; r0 < nrows; r0 += DWARPS * RU) {
+    int tok[RU];
+    float w[RU];
+#pragma unroll
+    for (int u = 0; u < RU; ++u) {
+      const int row = r0 + u * DWARPS;
+      tok[u] = row < nrows ? s_tok[row] : -1;
+      w[u] = GATED && tok[u] >= 0 ? s_w[row] : 1.f;
+    }
+    for (int v0 = lane; v0 < vpr; v0 += 32 * VU) {
+      // RU x VU loads a lane, all issued before the first store; an empty
+      // slot's row is zeros, without a load
+      V val[RU][VU];
+#pragma unroll
+      for (int u = 0; u < RU; ++u)
+#pragma unroll
+        for (int j = 0; j < VU; ++j) {
+          const int v = v0 + 32 * j;
+          val[u][j] = tok[u] >= 0 && v < vpr ? xb[tok[u] * vpr + v] : V{};
+        }
+#pragma unroll
+      for (int u = 0; u < RU; ++u) {
+        const int row = r0 + u * DWARPS;
+#pragma unroll
+        for (int j = 0; j < VU; ++j) {
+          const int v = v0 + 32 * j;
+          if (row >= nrows || v >= vpr) continue;
+          if (GATED && tok[u] >= 0) {
+            T* el = reinterpret_cast<T*>(&val[u][j]);
+#pragma unroll
+            for (int q = 0; q < int(sizeof(V) / sizeof(T)); ++q)
+              el[q] = from_f<T>(to_f(el[q]) * w[u]);
+          }
+          ob[row * vpr + v] = val[u][j];
+        }
+      }
+    }
+  }
 }
 
 template <typename T, typename V>
@@ -139,36 +232,39 @@ combine_kernel(const V* __restrict__ eo, const int* __restrict__ eidx,
 }
 
 template <typename T>
-cudaError_t run_dispatch(const void* x, const int* slot_a, const float* gate,
-                         const uint8_t* keep, int B, int N, int kN, int EC,
-                         int D, int vec_bytes, void* out, cudaStream_t st) {
-  const int esz = sizeof(T);
-  const int vpr = D * esz / vec_bytes;
-  const long long total = (long long)B * EC * vpr;
-  const long long grid = (total + THREADS - 1) / THREADS;
-  if (grid > 2147483647LL) return cudaErrorInvalidValue;
-  switch (vec_bytes) {
-    case 16:
-      dispatch_kernel<T, uint4><<<unsigned(grid), THREADS, 0, st>>>(
-          static_cast<const uint4*>(x), slot_a, gate, keep, B, N, kN, EC, vpr,
-          static_cast<uint4*>(out));
-      break;
-    case 8:
-      dispatch_kernel<T, uint2><<<unsigned(grid), THREADS, 0, st>>>(
-          static_cast<const uint2*>(x), slot_a, gate, keep, B, N, kN, EC, vpr,
-          static_cast<uint2*>(out));
-      break;
-    case 4:
-      dispatch_kernel<T, uint32_t><<<unsigned(grid), THREADS, 0, st>>>(
-          static_cast<const uint32_t*>(x), slot_a, gate, keep, B, N, kN, EC,
-          vpr, static_cast<uint32_t*>(out));
-      break;
-    default:
-      if (esz != 2) return cudaErrorInvalidValue;
-      dispatch_kernel<T, T><<<unsigned(grid), THREADS, 0, st>>>(
-          static_cast<const T*>(x), slot_a, gate, keep, B, N, kN, EC, vpr,
-          static_cast<T*>(out));
+cudaError_t run_dispatch(const void* x, const int* eidx, const int* pos,
+                         const uint8_t* keep, const float* gate, int B, int N,
+                         int k, int E, int C, int D, int vec_bytes, void* out,
+                         cudaStream_t st) {
+  const int vpr = D * int(sizeof(T)) / vec_bytes;
+  // 32-bit offsets inside a group's token rows and a CTA's slot rows;
+  // grid.y holds the groups
+  if ((long long)N * vpr > 2147483647LL || B > 65535) return cudaErrorInvalidValue;
+  const dim3 grid((E * C + R - 1) / R, B);
+  // the routing read four entries a load where its rows allow
+  const bool vec4 = N % 4 == 0 && reinterpret_cast<uintptr_t>(eidx) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(pos) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(keep) % 4 == 0;
+#define LAUNCH(V, G, Q)                                                      \
+  dispatch_kernel<T, V, G, Q><<<grid, THREADS, 0, st>>>(                     \
+      static_cast<const V*>(x), eidx, pos, keep, gate, N, k, E, C, vpr,      \
+      static_cast<V*>(out))
+#define DISPATCH(V)                                                          \
+  if (gate != nullptr) {                                                     \
+    if (vec4) LAUNCH(V, true, true); else LAUNCH(V, true, false);            \
+  } else {                                                                   \
+    if (vec4) LAUNCH(V, false, true); else LAUNCH(V, false, false);          \
   }
+  switch (vec_bytes) {
+    case 16: DISPATCH(uint4); break;
+    case 8: DISPATCH(uint2); break;
+    case 4: DISPATCH(uint32_t); break;
+    default:
+      if (sizeof(T) != 2) return cudaErrorInvalidValue;
+      DISPATCH(T);
+  }
+#undef DISPATCH
+#undef LAUNCH
   return cudaGetLastError();
 }
 
@@ -207,39 +303,24 @@ extern "C" {
 // row's D * itemsize bytes and the alignment of the row pointers.  Each
 // returns the launch's cudaError_t (0 on success).
 
-// slot_a int32 [B, E * C]: set to -1, then each kept assignment's index
-int moe_slot_sources(const void* eidx, const void* pos, const void* keep,
-                     int B, int k, int N, int E, int C, void* slot_a,
-                     void* stream) {
+// x [B, N, D] -> out [B, E * C, D]; gate (optional) scales each row.
+// One kernel launch, and no other device operation.
+int moe_dispatch(const void* x, const void* eidx, const void* pos,
+                 const void* keep, const void* gate, int B, int N, int k,
+                 int E, int C, int D, int vec_bytes, void* out, int dtype,
+                 void* stream) {
   (void)cudaGetLastError();  // report this launch's error, not an older one
-  if (B <= 0 || k <= 0 || N <= 0 || E <= 0 || C <= 0)
-    return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t e = cudaMemsetAsync(slot_a, 0xFF, size_t(B) * E * C * sizeof(int), st);
-  if (e != cudaSuccess) return e;
-  const long long total = (long long)B * k * N;
-  slot_sources_kernel<<<unsigned((total + THREADS - 1) / THREADS), THREADS, 0, st>>>(
-      static_cast<const int*>(eidx), static_cast<const int*>(pos),
-      static_cast<const uint8_t*>(keep), B, k * N, E * C, C,
-      static_cast<int*>(slot_a));
-  return cudaGetLastError();
-}
-
-// x [B, N, D] -> out [B, E * C, D]; gate (optional) scales each row
-int moe_dispatch(const void* x, const void* slot_a, const void* gate,
-                 const void* keep, int B, int N, int k, int E, int C, int D,
-                 int vec_bytes, void* out, int dtype, void* stream) {
-  (void)cudaGetLastError();
   if (B <= 0 || N <= 0 || k <= 0 || E <= 0 || C <= 0 || D <= 0)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int* sa = static_cast<const int*>(slot_a);
+  const int* ei = static_cast<const int*>(eidx);
+  const int* ps = static_cast<const int*>(pos);
   const float* g = static_cast<const float*>(gate);
   const uint8_t* kp = static_cast<const uint8_t*>(keep);
   switch (dtype) {
-    case 0: return run_dispatch<float>(x, sa, g, kp, B, N, k * N, E * C, D, vec_bytes, out, st);
-    case 1: return run_dispatch<__nv_bfloat16>(x, sa, g, kp, B, N, k * N, E * C, D, vec_bytes, out, st);
-    case 2: return run_dispatch<__half>(x, sa, g, kp, B, N, k * N, E * C, D, vec_bytes, out, st);
+    case 0: return run_dispatch<float>(x, ei, ps, kp, g, B, N, k, E, C, D, vec_bytes, out, st);
+    case 1: return run_dispatch<__nv_bfloat16>(x, ei, ps, kp, g, B, N, k, E, C, D, vec_bytes, out, st);
+    case 2: return run_dispatch<__half>(x, ei, ps, kp, g, B, N, k, E, C, D, vec_bytes, out, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -60,10 +60,19 @@
 //     all).  The four partial results of a row are merged through shared
 //     memory at the end.
 //   * head_dim: 64 and 128 are compiled as such (16-byte staging, the
-//     loops unrolled); every other multiple of 8 up to 256 runs the
-//     head_dim-generic instantiation, which stages rows 4 bytes at a time
-//     (an int4 row of Dh 8 is 4 bytes) and, where 32 keys a warp would not
-//     fit in shared memory (fp32 rows above Dh 192), takes 16.
+//     loops unrolled); every other head_dim from 1 to 1024 runs the
+//     head_dim-generic instantiation.  It stages a row 4 bytes at a time
+//     with cp.async where its byte length is a multiple of 4, and otherwise
+//     in 2- or 1-byte pieces by plain loads (an odd Dh at bf16 or int8),
+//     into a shared-memory row padded with zeros to a whole 4-byte word:
+//     q's staged row is padded the same way, so the padding adds exactly 0
+//     to every score and the cache itself is never padded.  Where 32 keys a
+//     warp would not fit in shared memory, a warp takes 16, 8, ... (fp32
+//     rows above Dh 192 take 16).  A block accumulates at most COLS = 256
+//     output columns (8 a lane); a larger head_dim splits its columns over
+//     blocks on grid.z, each scoring the whole row.  Above Dh 1024 the
+//     launch is refused: shared memory (q rows and the merge buffer in
+//     fp32) sets that limit.
 // Left to later work: wgmma/TMA tiles for long prefill tiles, and split-K
 // over long caches so that decode at small batch fills all 132 SMs.
 //
@@ -90,6 +99,13 @@ constexpr int THREADS = WARPS * 32;
 constexpr int TQ = 8;                   // query rows per thread block
 constexpr int KW = 32;                  // keys per warp per chunk: one per lane
 constexpr int KC = WARPS * KW;          // keys per staged chunk (at most)
+// output columns a thread block accumulates (8 a lane): a larger head_dim
+// splits its columns over blocks on grid.z
+constexpr int COLS = 256;
+// the largest head_dim: above it an fp32 tile's staged q rows and the warps'
+// end-of-kernel merge buffer leave no room in the SM's shared memory (they
+// would fill it at Dh 1406)
+constexpr int MAX_HEAD_DIM = 1024;
 
 // How the cache stores a row of Dh values for one head.  N: values per
 // 16-byte vector and N4 per 4-byte word; unpack / unpack4: one vector or
@@ -195,24 +211,31 @@ constexpr size_t SMEM_LIMIT = 220 * 1024;
 
 // The staging geometry of one head_dim.  A compiled head_dim (64, 128) has
 // it at compile time: rows copied 16 bytes at a time, 32 keys a warp per
-// chunk.  Any other multiple of 8 up to 256 takes the head_dim-generic
-// instantiation, whose geometry the host computes: rows copied 4 bytes at a
-// time (an int4 row of Dh = 8 is 4 bytes), and 16 keys a warp per chunk
-// where 32 would not fit in shared memory (fp32 rows above Dh 192).
+// chunk.  Any other head_dim takes a head_dim-generic instantiation, whose
+// geometry the host computes: a row is staged as `row_bytes(dh_pad)` bytes
+// (dh rounded up to a whole 4-byte word of the cache's storage, the pad
+// zero-filled), copied `vb` = 4 bytes at a time with cp.async where the
+// cache row's own length is a multiple of 4 and in 2- or 1-byte pieces by
+// plain loads otherwise; a warp takes the most keys of 32, 16, 8, ... whose
+// chunk fits in shared memory (fp32 rows above Dh 192 take 16).
 template <typename S>
 struct Geo {
-  int dh, epl, kw;          // head_dim, output columns per lane, keys per warp
-  int row_bytes, row_stride, stages;
+  int dh, dh_pad, kw;       // head_dim, staged columns, keys a warp
+  int row_bytes, vb, row_stride, stages;
   size_t q_bytes, chunk_bytes, smem;
   __host__ __device__ static constexpr Geo make(int dh) {
     Geo g{};
     g.dh = dh;
-    g.epl = (dh + 31) / 32;
+    g.dh_pad = (dh + S::N4 - 1) / S::N4 * S::N4;
     g.row_bytes = S::row_bytes(dh);
-    g.row_stride = g.row_bytes + 16;   // +16 B: conflict-free 16-byte reads
-    g.q_bytes = size_t(TQ) * dh * sizeof(float);
-    g.kw = g.q_bytes + 2 * size_t(WARPS) * KW * g.row_stride <= SMEM_LIMIT ? KW
-                                                                          : KW / 2;
+    g.vb = g.row_bytes % 4 == 0 ? 4 : (g.row_bytes % 2 == 0 ? 2 : 1);
+    // +16 B: conflict-free 16-byte reads of a compiled head_dim's rows
+    g.row_stride = S::row_bytes(g.dh_pad) + 16;
+    g.q_bytes = size_t(TQ) * g.dh_pad * sizeof(float);
+    g.kw = KW;
+    while (g.kw > 1 &&
+           g.q_bytes + 2 * size_t(WARPS) * g.kw * g.row_stride > SMEM_LIMIT)
+      g.kw /= 2;
     g.chunk_bytes = size_t(WARPS) * g.kw * g.row_stride;  // one K or V chunk
     // double-buffer where that leaves room for two blocks on an SM
     g.stages = g.q_bytes + 4 * g.chunk_bytes <= 100 * 1024 ? 2 : 1;
@@ -229,7 +252,8 @@ struct QStrides {
   long long b, t, h;  // element strides of q's first three dims (Dh is 1)
 };
 
-// DH > 0: that head_dim, compiled; DH = 0: the head_dim `dh` of `geo`
+// DH > 0: that head_dim, compiled; DH = 0: the head_dim `dh` of `geo`, this
+// block taking output columns [COLS z, COLS z + COLS) of it (z = blockIdx.z)
 template <typename S, typename QT, int DH>
 __global__ void __launch_bounds__(THREADS)
 paged_attention_kernel(const QT* __restrict__ q, QStrides qs,
@@ -245,11 +269,19 @@ paged_attention_kernel(const QT* __restrict__ q, QStrides qs,
   constexpr bool FIXED = DH > 0;
   constexpr Geo<S> FG = Geo<S>::make(FIXED ? DH : 32);
   const Geo<S> G = FIXED ? FG : geo;
-  constexpr int EPL = FIXED ? DH / 32 : 8;     // output columns per lane (bound)
+  constexpr int EPL = FIXED ? DH / 32 : COLS / 32;  // output columns per lane (bound)
   constexpr int VB = FIXED ? 16 : 4;           // bytes per staged copy
-  const int dh = G.dh, epl = FIXED ? EPL : G.epl, kw = FIXED ? KW : G.kw;
+  const int dh = G.dh, kw = FIXED ? KW : G.kw;
+  // this block's output columns [c0, c0 + ncols), epl of them a lane
+  const int c0 = FIXED ? 0 : blockIdx.z * COLS;
+  const int ncols = FIXED ? DH : min(COLS, dh - c0);
+  const int epl = FIXED ? EPL : (ncols + 31) / 32;
+  const int dh_pad = FIXED ? DH : G.dh_pad;    // staged columns (zero pad)
   const int kc = WARPS * kw;                   // keys per staged chunk
-  const int row_stride = G.row_stride, vecs = G.row_bytes / VB;
+  // staged words a row (VB-byte vectors; 4-byte words when generic)
+  const int row_stride = G.row_stride, vecs = S::row_bytes(dh_pad) / VB;
+  // copies a row: VB-byte vectors, or the generic tail's vb-byte pieces
+  const int vb = FIXED ? VB : G.vb, pieces = S::row_bytes(dh_pad) / vb;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int s_qpos[TQ];
   // per stage: byte offset of each key's row (-1 past live) and, for a
@@ -265,9 +297,10 @@ paged_attention_kernel(const QT* __restrict__ q, QStrides qs,
   const int nt = min(TQ, T_len - t0);
   const int64_t* slot_rows = rows + size_t(b) * L;
 
-  for (int i = tid; i < TQ * dh; i += THREADS) {
-    const int r = i / dh, d = i % dh;
-    sQ[i] = r < nt ? to_f(q[b * qs.b + (t0 + r) * qs.t + h * qs.h + d]) : 0.f;
+  for (int i = tid; i < TQ * dh_pad; i += THREADS) {
+    const int r = i / dh_pad, d = i % dh_pad;
+    sQ[i] = r < nt && d < dh
+                ? to_f(q[b * qs.b + (t0 + r) * qs.t + h * qs.h + d]) : 0.f;
   }
   if (tid < TQ) {
     // a position past the last key sees every key, one below 0 sees none:
@@ -303,6 +336,28 @@ paged_attention_kernel(const QT* __restrict__ q, QStrides qs,
       s_off[s][i] = off;
     }
     __syncthreads();
+    if (!FIXED && vb < 4) {
+      // a row whose byte length is not a multiple of 4 (an odd Dh at bf16
+      // or int8): plain 2- or 1-byte loads, the padding to a whole word
+      // and the rows past live written as zeros
+      for (int i = tid; i < kc * pieces; i += THREADS) {
+        const int row = i / pieces, at = (i % pieces) * vb;
+        const long long base = s_off[s][row];
+        const bool in = base >= 0 && at < G.row_bytes;
+        unsigned char* pk = dk + row * row_stride + at;
+        unsigned char* pv = dv + row * row_stride + at;
+        if (vb == 2) {
+          const uint16_t* gk = reinterpret_cast<const uint16_t*>(ck + (in ? base + at : 0));
+          const uint16_t* gv = reinterpret_cast<const uint16_t*>(cv + (in ? base + at : 0));
+          *reinterpret_cast<uint16_t*>(pk) = in ? *gk : uint16_t(0);
+          *reinterpret_cast<uint16_t*>(pv) = in ? *gv : uint16_t(0);
+        } else {
+          *pk = in ? ck[base + at] : (unsigned char)0;
+          *pv = in ? cv[base + at] : (unsigned char)0;
+        }
+      }
+      return;
+    }
     for (int i = tid; i < kc * vecs; i += THREADS) {
       const int row = i / vecs, vec = i % vecs;
       const long long base = s_off[s][row];
@@ -370,7 +425,7 @@ paged_attention_kernel(const QT* __restrict__ q, QStrides qs,
       // sees none of them (p = 0 for all of them), which leaves m, l and
       // acc exactly as they are — skip the work
       if (i < nt && s_qpos[i] >= first) {
-        const float* qr = sQ + i * dh;
+        const float* qr = sQ + i * dh_pad;
         float dot = 0.f;
         if constexpr (FIXED) {
           const uint4* kv4 = reinterpret_cast<const uint4*>(krow);
@@ -407,8 +462,8 @@ paged_attention_kernel(const QT* __restrict__ q, QStrides qs,
 #pragma unroll
           for (int e = 0; e < EPL; ++e) {
             const int col = lane * epl + e;
-            if (FIXED || (e < epl && col < dh))
-              acc[i][e] = fmaf(pj, S::get(vr, col, vscale), acc[i][e]);
+            if (FIXED || (e < epl && col < ncols))
+              acc[i][e] = fmaf(pj, S::get(vr, c0 + col, vscale), acc[i][e]);
           }
         }
         m[i] = m_new;
@@ -427,7 +482,7 @@ paged_attention_kernel(const QT* __restrict__ q, QStrides qs,
 #pragma unroll
       for (int e = 0; e < EPL; ++e) {
         const int col = lane * epl + e;
-        if (FIXED || (e < epl && col < dh)) d[col] = acc[i][e];
+        if (FIXED || (e < epl && col < ncols)) d[c0 + col] = acc[i][e];
       }
       if (lane == 0) {
         d[dh] = m[i];
@@ -454,7 +509,7 @@ paged_attention_kernel(const QT* __restrict__ q, QStrides qs,
 #pragma unroll
       for (int e = 0; e < EPL; ++e) {
         const int col = lane * epl + e;
-        if (FIXED || (e < epl && col < dh)) o[e] = fmaf(d[col], f, o[e]);
+        if (FIXED || (e < epl && col < ncols)) o[e] = fmaf(d[c0 + col], f, o[e]);
       }
     }
     const float denom = l_all > 0.f ? l_all : 1.f;
@@ -462,7 +517,7 @@ paged_attention_kernel(const QT* __restrict__ q, QStrides qs,
 #pragma unroll
     for (int e = 0; e < EPL; ++e) {
       const int col = lane * epl + e;
-      if (FIXED || (e < epl && col < dh)) dst[col] = from_f<OT>(o[e] / denom);
+      if (FIXED || (e < epl && col < ncols)) dst[c0 + col] = from_f<OT>(o[e] / denom);
     }
   }
 }
@@ -479,11 +534,12 @@ struct Args {
 template <typename S, typename QT, int DH>
 cudaError_t launch(const Args& a, int dh) {
   const Geo<S> geo = Geo<S>::make(DH > 0 ? DH : dh);
+  if (geo.smem > SMEM_LIMIT) return cudaErrorInvalidValue;
   auto kern = paged_attention_kernel<S, QT, DH>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, int(geo.smem));
   if (e != cudaSuccess) return e;
-  dim3 grid(a.B * a.H, (a.T_len + TQ - 1) / TQ);
+  dim3 grid(a.B * a.H, (a.T_len + TQ - 1) / TQ, DH > 0 ? 1 : (dh + COLS - 1) / COLS);
   kern<<<grid, THREADS, geo.smem, a.stream>>>(
       static_cast<const QT*>(a.q), a.qs, static_cast<const unsigned char*>(a.ck),
       static_cast<const unsigned char*>(a.cv), static_cast<const __half*>(a.ks),
@@ -498,8 +554,9 @@ template <typename S, typename QT>
 cudaError_t launch_dh(int Dh, const Args& a) {
   if (Dh == 64) return launch<S, QT, 64>(a, Dh);
   if (Dh == 128) return launch<S, QT, 128>(a, Dh);
-  if (Dh >= 8 && Dh <= 256 && Dh % 8 == 0) return launch<S, QT, 0>(a, Dh);
-  return cudaErrorInvalidValue;
+  // int4 packs two codes a byte: its rows need an even head_dim
+  if (Dh < 1 || Dh > MAX_HEAD_DIM || (S::N4 == 8 && Dh % 2)) return cudaErrorInvalidValue;
+  return launch<S, QT, 0>(a, Dh);
 }
 
 // a dense cache takes q in fp32 or in the cache dtype T

@@ -9,10 +9,14 @@ Each takes the arguments of its plain PyTorch version
 as int32 tables on q's device (`layout_tables`): the forward table
 `[H, nb, W]` for the forward and dQ, the reverse table `[H, nb, Wq]` for
 dK/dV, ascending and -1 padded at the end; a kernel block walks its row
-up to the first -1.  A wrapper checks device, dtype, shape, contiguity
-and alignment, launches its kernel on PyTorch's current stream, raises on
-a launch error and counts the launch in `LAUNCHES`; it never falls back
-to the plain version.
+up to the first -1.  The bf16 head_dim-64 dK/dV for blocks a multiple of
+64 is a persistent wgmma kernel that takes its (bh, key tile) items
+heaviest reverse walk first, in the order `dkv_work_order` computes once
+per layout (`ops/sparse_attention/flash_sparse.py` `device_tables`).  A
+wrapper checks device, dtype, shape, contiguity and alignment, launches
+its kernel on PyTorch's current stream, raises on a launch error and
+counts the launch in `LAUNCHES`; it never falls back to the plain
+version.
 
 The kernels take any layout block that is a multiple of 16 and divides S
 (a multiple of 64 runs as block / 64 tiles of 64 rows on one table row,
@@ -43,7 +47,7 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _TAIL = [_I] * 6 + [_F, _I, _I, _U, _F, _I, _I, _P]
 _ARGTYPES = {"flash_sparse_fwd": [_P] * 6 + _TAIL,
              "flash_sparse_dq": [_P] * 8 + _TAIL,
-             "flash_sparse_dkv": [_P] * 9 + _TAIL}
+             "flash_sparse_dkv": [_P] * 10 + _TAIL}
 
 
 def _lib():
@@ -148,16 +152,25 @@ def flash_sparse_dq_cuda(q, k, v, dout, lse, delta, fwd_tbl, *, causal,
     return dq
 
 
-def flash_sparse_dkv_cuda(q, k, v, dout, lse, delta, rev_tbl, *, causal,
-                          scale, block, rate, seed, n_heads):
-    """-> (dk, dv) [BH, S, D] in k's and v's dtype."""
+def flash_sparse_dkv_cuda(q, k, v, dout, lse, delta, rev_tbl, *, order,
+                          causal, scale, block, rate, seed, n_heads):
+    """-> (dk, dv) [BH, S, D] in k's and v's dtype.  `order`: the reverse
+    table's `dkv_work_order` on q's device (`device_tables` keeps it
+    beside the tables); the launcher picks the kernel, and only the wgmma
+    one reads it."""
     shape = _common(q, k, v, rev_tbl, block, n_heads,
                     _bwd_checks(q, dout, lse, delta))
+    n = rev_tbl.shape[0] * rev_tbl.shape[1]
+    _check(order.is_cuda and order.device == q.device and
+           order.dtype == torch.int32 and tuple(order.shape) == (n,) and
+           order.is_contiguous(),
+           lambda: f"work order {order.dtype} {tuple(order.shape)} on "
+           f"{order.device}, want contiguous int32 [{n}] on {q.device}")
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     _launch("flash_sparse_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            rev_tbl.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            rev_tbl.data_ptr(), order.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             *_tail(shape, q, causal, scale, rate, seed))
     return dk, dv
 

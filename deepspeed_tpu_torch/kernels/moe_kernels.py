@@ -8,10 +8,10 @@ Each takes the arguments of its plain PyTorch version
 token groups at once — routing tensors [B, k, N], tokens [B, N, D],
 expert buckets [B, E, C, D] — and returns the same tensor: the dispatch
 bit for bit, the combine within `moe/dispatch.py` `combine_tolerance`.
-The dispatch's prologue, the inverse permutation slot -> assignment of
-moe_kernels.py:67-74, is a small index kernel of the same library
-(`moe_slot_sources`), run by the dispatch wrapper; the launch counters
-count the gather and the combine.  A wrapper checks device, dtype, shape
+Each call is one kernel launch and no other device operation: the
+dispatch builds the inverse permutation slot -> assignment of
+moe_kernels.py:67-74 inside the kernel, in shared memory.  A wrapper
+checks device, dtype, shape
 and contiguity, launches on PyTorch's current stream, raises on a launch
 error and counts the launch in `LAUNCHES`; it never falls back to the
 plain version.  A kept assignment whose expert or position lies outside
@@ -34,10 +34,9 @@ LAUNCHES: Dict[str, int] = {"moe_dispatch": 0, "moe_combine": 0}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    # eidx, pos, keep, B, k, N, E, C, slot_a, stream
-    "moe_slot_sources": [_P, _P, _P] + [_I] * 5 + [_P, _P],
-    # x, slot_a, gate, keep, B, N, k, E, C, D, vec_bytes, out, dtype, stream
-    "moe_dispatch": [_P, _P, _P, _P] + [_I] * 7 + [_P, _I, _P],
+    # x, eidx, pos, keep, gate, B, N, k, E, C, D, vec_bytes, out, dtype,
+    # stream
+    "moe_dispatch": [_P] * 5 + [_I] * 7 + [_P, _I, _P],
     # eo, eidx, gate, pos, keep, B, N, k, E, C, D, vec_bytes, y, dtype, stream
     "moe_combine": [_P] * 5 + [_I] * 7 + [_P, _I, _P]}
 
@@ -129,14 +128,11 @@ def sorted_dispatch_cuda(x, eidx, pos, keep, num_experts: int,
     _check(x.shape[1] == N, lambda: f"x has {x.shape[1]} tokens, routing {N}")
     D = x.shape[2]
     E, C = int(num_experts), int(capacity)
-    slot_a = torch.empty((B, E * C), dtype=torch.int32, device=x.device)
     out = torch.empty((B, E, C, D), dtype=x.dtype, device=x.device)
-    st = _stream(x)
-    _call("moe_slot_sources", eidx.data_ptr(), pos.data_ptr(),
-          keep.data_ptr(), B, k, N, E, C, slot_a.data_ptr(), st)
-    _call("moe_dispatch", x.data_ptr(), slot_a.data_ptr(), _ptr(gate),
-          keep.data_ptr(), B, N, k, E, C, D, _vec_bytes(D, x, out), out.data_ptr(),
-          _DTYPE_CODES[x.dtype], st)
+    _call("moe_dispatch", x.data_ptr(), eidx.data_ptr(), pos.data_ptr(),
+          keep.data_ptr(), _ptr(gate), B, N, k, E, C, D,
+          _vec_bytes(D, x, out), out.data_ptr(), _DTYPE_CODES[x.dtype],
+          _stream(x))
     LAUNCHES["moe_dispatch"] += 1
     return out
 

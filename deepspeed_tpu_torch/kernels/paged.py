@@ -12,9 +12,10 @@ for a quantized cache).
 
 `paged_attention_cuda` launches the kernel.  It takes the same
 arguments and serves decode (T = 1), verify (T = draft_len + 1) and
-prefill (T = prefill_chunk) alike, at every head_dim that is a multiple of
-8 up to 256 (64 and 128 compiled as such, the others through the
-kernel's head_dim-generic instantiation), with the cache
+prefill (T = prefill_chunk) alike, at every head_dim from 1 to 1024 (64
+and 128 compiled as such, the others through the kernel's head_dim-generic
+instantiation; an int4 cache needs an even head_dim, as its row codec
+does), with the cache
 in fp32, bf16 or fp16, or as (payload, fp16 scales) pairs of int8 or
 int4 codes (`runtime/comm/quant.py` `quantize_rows`), dequantized in the
 kernel's gather.  The kernel reads q where it lies (the strided view of
@@ -38,9 +39,10 @@ from ..runtime.comm.quant import dequantize_rows, qmax
 # kernel launches since the last reset (the main path's proof of use)
 LAUNCHES = 0
 
-# head dims the kernel takes: every multiple of 8 up to 256 (a head_dim
-# off that grid is ROADMAP queue 3's one open gap of the paged kernel)
-MAX_HEAD_DIM = 256
+# head dims the kernel takes: every one from 1 up to 1024, where shared
+# memory (a tile's q rows and the warps' merge buffer, in fp32) sets the
+# limit
+MAX_HEAD_DIM = 1024
 # the kernel tiles query rows 8 to a thread block on grid.y (<= 65535)
 MAX_Q_LEN = 65535 * 8
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -165,9 +167,14 @@ def paged_attention_cuda(q, ck, cv, rows, q_pos, *, kv_mode: str = "dense",
         raise ValueError(
             f"paged attention kernel needs rows ([{B}, {L}]) to cover "
             f"whole cache blocks of {bs}")
-    _check(Dh % 8 == 0 and 0 < Dh <= MAX_HEAD_DIM,
-           lambda: f"head_dim {Dh} is not a multiple of 8 up to "
-           f"{MAX_HEAD_DIM} (ROADMAP queue 3: the kernel's one open gap)")
+    _check(0 < Dh <= MAX_HEAD_DIM,
+           lambda: f"head_dim {Dh} is above {MAX_HEAD_DIM}, the largest the "
+           f"kernel takes: its fp32 q rows and merge buffer must fit in the "
+           f"SM's shared memory (ROADMAP queue 3)")
+    _check(kv_mode != "int4" or Dh % 2 == 0,
+           lambda: f"head_dim {Dh}: an int4 cache packs two codes a byte "
+           f"and needs an even head_dim (runtime/comm/quant.py "
+           f"quantize_rows refuses it too)")
     pk, pv, sk, sv, code, out_dtype = _cache_parts(ck, cv, kv_mode, H, Dh)
     tensors = [("q", q), ("ck", pk), ("cv", pv), ("rows", rows),
                ("q_pos", q_pos)]

@@ -12,7 +12,8 @@ plain version below.
 
 The layout reaches the kernels as `layout_tables` (:45): the forward table
 `[H, nq, W]` (each q-block's active k-blocks) and the reverse table
-`[H, nk, Wq]` (each k-block's q-blocks), ascending, -1 padded.  The plain
+`[H, nk, Wq]` (each k-block's q-blocks), ascending, -1 padded; beside
+them `dkv_work_order`, the dK/dV kernel's heaviest-walk-first schedule.  The plain
 versions follow the Pallas bodies op for op (`_fwd_kernel` :73,
 `_dq_kernel` :171, `_dkv_kernel` :208), vectorised over batch·head and
 layout row: one step per table slot gathers every row's block at that
@@ -56,11 +57,25 @@ def layout_tables(layout: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return fwd, rev
 
 
+def dkv_work_order(rev: np.ndarray) -> np.ndarray:
+    """The dK/dV kernel's schedule: the (head, k-block) pairs of the
+    reverse table `rev` [H, nk, Wq], encoded h * nk + kj, ordered by the
+    length of their walk (active q-blocks), heaviest first, ties in (h, kj)
+    order -> int32 [H * nk].  The kernel takes every batch row and key
+    tile of a pair before the next pair, so the global columns' long walks
+    start first."""
+    walk = (np.asarray(rev) >= 0).sum(-1).reshape(-1)
+    return np.argsort(-walk, kind="stable").astype(np.int32)
+
+
 def device_tables(layout: np.ndarray, device) -> Tuple[torch.Tensor,
+                                                       torch.Tensor,
                                                        torch.Tensor]:
-    """`layout_tables` as int32 tensors on `device` (one upload each)."""
+    """`layout_tables` and the reverse table's `dkv_work_order` as int32
+    tensors on `device` (one upload each)."""
     fwd, rev = layout_tables(layout)
-    return (torch.from_numpy(fwd).to(device), torch.from_numpy(rev).to(device))
+    return (torch.from_numpy(fwd).to(device), torch.from_numpy(rev).to(device),
+            torch.from_numpy(dkv_work_order(rev)).to(device))
 
 
 def _rows(tbl, BH, n_heads):
@@ -151,9 +166,11 @@ def _dq_plain(q, k, v, dout, lse, delta, fwd_tbl, *, causal, scale, block,
     return acc.to(q.dtype).view(BH, S, D)
 
 
-def _dkv_plain(q, k, v, dout, lse, delta, rev_tbl, *, causal, scale, block,
-               rate, seed, n_heads):
-    """-> (dk, dv) [BH, S, D] in k's and v's dtype."""
+def _dkv_plain(q, k, v, dout, lse, delta, rev_tbl, *, order, causal, scale,
+               block, rate, seed, n_heads):
+    """-> (dk, dv) [BH, S, D] in k's and v's dtype.  `order` (the kernel's
+    schedule, `dkv_work_order`) does not change the function."""
+    del order
     BH, S, D = q.shape
     blk, nb = block, S // block
     dev = q.device
@@ -202,22 +219,22 @@ class _FlashSparseBHSD(torch.autograd.Function):
     """The custom VJP of `_flash_sparse_bhsd` over [BH, S, D] tensors."""
 
     @staticmethod
-    def forward(ctx, q, k, v, fwd_tbl, rev_tbl, opts):
+    def forward(ctx, q, k, v, fwd_tbl, rev_tbl, order, opts):
         out, lse = dispatch("flash_sparse_fwd", q, k, v, fwd_tbl, **opts)
-        ctx.save_for_backward(q, k, v, out, lse, fwd_tbl, rev_tbl)
+        ctx.save_for_backward(q, k, v, out, lse, fwd_tbl, rev_tbl, order)
         ctx.opts = opts
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse, fwd_tbl, rev_tbl = ctx.saved_tensors
+        q, k, v, out, lse, fwd_tbl, rev_tbl, order = ctx.saved_tensors
         dout = dout.contiguous()
         delta = (dout.float() * out.float()).sum(dim=-1)
         dq = dispatch("flash_sparse_dq", q, k, v, dout, lse, delta, fwd_tbl,
                       **ctx.opts)
         dk, dv = dispatch("flash_sparse_dkv", q, k, v, dout, lse, delta,
-                          rev_tbl, **ctx.opts)
-        return dq, dk, dv, None, None, None
+                          rev_tbl, order=order, **ctx.opts)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_sparse_attention(q, k, v, layout: np.ndarray, block: int,
@@ -226,6 +243,7 @@ def flash_sparse_attention(q, k, v, layout: np.ndarray, block: int,
                            dropout_rate: float = 0.0,
                            dropout_seed: Optional[int] = None,
                            tables: Optional[Tuple[torch.Tensor,
+                                                  torch.Tensor,
                                                   torch.Tensor]] = None):
     """Block-sparse flash attention over [B, S, H, D] (BSHD), :368.
 
@@ -259,5 +277,5 @@ def flash_sparse_attention(q, k, v, layout: np.ndarray, block: int,
     opts = dict(causal=bool(causal), scale=float(scale), block=int(block),
                 rate=rate, seed=seed, n_heads=Hh)
     out = _FlashSparseBHSD.apply(to_bhsd(q), to_bhsd(k), to_bhsd(v),
-                                 tables[0], tables[1], opts)
+                                 *tables, opts)
     return out.reshape(B, Hh, S, D).permute(0, 2, 1, 3)

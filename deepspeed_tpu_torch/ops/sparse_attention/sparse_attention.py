@@ -169,17 +169,16 @@ class SparseSelfAttention:
                              f"'jnp'), got {impl!r}")
         self.impl = impl  # auto|pallas|xla
         self._layouts: Dict[int, np.ndarray] = {}
-        self._tables: Dict[Tuple[int, str], Tuple[torch.Tensor,
-                                                  torch.Tensor]] = {}
+        self._tables: Dict[Tuple[int, str], Tuple[torch.Tensor, ...]] = {}
 
     def get_layout(self, seq_len: int) -> np.ndarray:
         if seq_len not in self._layouts:
             self._layouts[seq_len] = self.sparsity_config.make_layout(seq_len)
         return self._layouts[seq_len]
 
-    def get_tables(self, seq_len: int, device) -> Tuple[torch.Tensor,
-                                                        torch.Tensor]:
-        """The layout's forward and reverse kernel tables on `device`."""
+    def get_tables(self, seq_len: int, device) -> Tuple[torch.Tensor, ...]:
+        """The layout's forward and reverse kernel tables and the dK/dV
+        kernel's work order on `device`."""
         key = (seq_len, str(torch.device(device)))
         if key not in self._tables:
             self._tables[key] = device_tables(self.get_layout(seq_len),

@@ -1,6 +1,7 @@
 """Port parity over the kernels' whole domain: head_dim 256 for the dense
 and block-sparse flash kernels, sparse layout blocks above 128, paged
-attention at head dims other than 64 and 128 (GPT-2 nano's 16 and 256),
+attention at head dims other than 64 and 128 (GPT-2 nano's 16, 256, and
+every head_dim from 1 to 1024, odd ones included),
 GPT-2 nano serving, and the `auto` selections at those shapes — the
 port's plain versions against the JAX package on the same numpy inputs
 (JAX's Pallas kernels in interpret mode on the CPU, as its own tests run
@@ -271,8 +272,15 @@ def _paged_inputs(T, Dh, R=3, H=2, bs=4, W=4, seed=0):
     return q, ck, cv, tables, q_pos, bs
 
 
-@pytest.mark.parametrize("kv", ["dense", "int8", "int4"])
-@pytest.mark.parametrize("Dh", [8, 16, 24, 256])
+# (Dh, kv mode): the head dims a multiple of 8 in every cache mode, then
+# head dims off that grid (an int4 cache needs an even one)
+PAGED_DOMAIN = ([(Dh, kv) for Dh in (8, 16, 24, 256)
+                 for kv in ("dense", "int8", "int4")] +
+                [(Dh, kv) for Dh in (12, 20, 33) for kv in ("dense", "int8")] +
+                [(100, "dense"), (100, "int8"), (100, "int4")])
+
+
+@pytest.mark.parametrize("Dh,kv", PAGED_DOMAIN)
 def test_paged_reference_matches_jax_at_other_head_dims(jx, Dh, kv):
     from deepspeed_tpu_torch.runtime.comm.quant import quantize_rows
 
@@ -295,8 +303,9 @@ def test_paged_reference_matches_jax_at_other_head_dims(jx, Dh, kv):
         jnp.asarray(q), jk, jv, jrows, jnp.asarray(q_pos), kv_mode=kv,
         block_size=bs)
     np.testing.assert_allclose(got, np.asarray(want), atol=1e-5, rtol=0)
-    if kv == "dense" and Dh == 16:
-        # the TPU kernel itself (Pallas interpreter) at nano's head_dim
+    if (kv == "dense" and Dh == 16) or Dh % 8:
+        # the TPU kernel itself (Pallas interpreter) at nano's head_dim and
+        # at every head_dim off the multiples of 8
         want = jx.paged.paged_attention_pallas(
             jnp.asarray(q), jk, jv, jrows, jnp.asarray(q_pos), kv_mode=kv,
             block_size=bs)
@@ -304,15 +313,29 @@ def test_paged_reference_matches_jax_at_other_head_dims(jx, Dh, kv):
                                    rtol=0)
 
 
+def test_paged_int4_refuses_an_odd_head_dim_in_both_codecs(jx):
+    """An int4 cache packs two codes a byte: both packages' row codecs
+    refuse an odd trailing axis, so no int4 cache of an odd head_dim
+    reaches either kernel."""
+    from deepspeed_tpu_torch.runtime.comm.quant import quantize_rows
+
+    x = np.random.RandomState(0).randn(4, 2, 33).astype(np.float32)
+    with pytest.raises(ValueError, match="even trailing axis"):
+        quantize_rows(torch.from_numpy(x), "int4")
+    with pytest.raises(ValueError):
+        jx.quant.quantize_rows(jx.jnp.asarray(x), "int4")
+
+
 @pytest.mark.parametrize("Dh,ok", [(16, True), (200, True), (256, True),
-                                   (20, False), (264, False)])
+                                   (20, True), (264, True), (1, True),
+                                   (33, True), (1024, True), (1032, False)])
 def test_paged_kernel_wrapper_head_dim_domain(Dh, ok):
-    """Every multiple of 8 up to 256 passes the wrapper's head_dim check
-    (a CPU tensor is then refused, as any is); anything else raises,
-    naming ROADMAP queue 3 where the gap is listed."""
+    """Every head_dim from 1 to 1024 passes the wrapper's head_dim check (a
+    CPU tensor is then refused, as any is); above 1024 it raises, naming
+    the limit and ROADMAP queue 3, where it is recorded."""
     q, ck, cv, tables, q_pos, bs = _paged_inputs(1, Dh)
     rows = rows_for_tables(torch.from_numpy(tables).long(), bs)
-    match = "not a CUDA device" if ok else "queue 3"
+    match = "not a CUDA device" if ok else "above 1024.*queue 3"
     with pytest.raises(ValueError, match=match):
         paged.paged_attention_cuda(
             torch.from_numpy(q), torch.from_numpy(ck), torch.from_numpy(cv),
@@ -366,11 +389,23 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# (T, Dh, kv mode) on the card: decode, verify and prefill tiles at the
+# head dims a multiple of 8, then off that grid and up to the cap (int4
+# only at an even head_dim)
+PAGED_CARD = ([(T, Dh, kv) for T, Dh in ((1, 16), (16, 16), (5, 24),
+                                         (1, 256), (16, 256))
+               for kv in ("dense", "int8", "int4")] +
+              [(T, Dh, kv) for T, Dh in ((1, 20), (16, 20), (1, 100),
+                                         (5, 100), (1, 12), (5, 512),
+                                         (1, 1024))
+               for kv in ("dense", "int8", "int4")] +
+              [(T, Dh, kv) for T, Dh in ((1, 33), (16, 33), (5, 1), (1, 7))
+               for kv in ("dense", "int8")])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kv", ["dense", "int8", "int4"])
-@pytest.mark.parametrize("T,Dh", [(1, 16), (16, 16), (5, 24), (1, 256),
-                                  (16, 256)])
+@pytest.mark.parametrize("T,Dh,kv", PAGED_CARD)
 def test_cuda_paged_kernel_at_other_head_dims(cuda_device, T, Dh, kv,
                                               q_dtype):
     """The kernel launches at these head dims and agrees with its plain

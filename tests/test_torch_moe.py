@@ -114,6 +114,78 @@ def test_sorted_dispatch_is_bitwise_with_jax(side):
     assert np.array_equal(got.detach().numpy(), want)
 
 
+def _spread_slots(eidx, pos, keep, C, C2, seed):
+    """Move each expert's kept positions [0, C) to C of its C2 slots, an
+    injective map drawn per (group, expert): kept destinations stay
+    unique but no longer fill a prefix of the expert's slots (as a
+    dropless overflow bucket's may not).  Dropped assignments keep their
+    positions."""
+    B, _, _ = eidx.shape
+    E = int(eidx.max()) + 1
+    rs = np.random.RandomState(seed)
+    perm = np.stack([[rs.permutation(C2)[:C] for _ in range(E)]
+                     for _ in range(B)]).astype(np.int32)     # [B, E, C]
+    perm = torch.from_numpy(perm).to(pos.device)
+    b = torch.arange(B, device=pos.device)[:, None, None].expand_as(pos)
+    new = perm[b, eidx.long(), pos.long().clamp(0, C - 1)]
+    return torch.where(keep, new, pos)
+
+
+@pytest.mark.parametrize("variant", ["ref", "pallas", "gated"])
+def test_dispatch_on_non_prefix_slots_is_bitwise_with_jax(variant):
+    """Kept positions that are a non-prefix subset of each expert's
+    slots (C 5 spread over 12): the port's dispatch against JAX's
+    dispatch (its plain version and its Pallas kernel) and, gated,
+    against the transpose of JAX's combine (the combine's gradient),
+    bitwise."""
+    import jax
+    import jax.numpy as jnp
+
+    from deepspeed_tpu.kernels import kernel_config
+    from deepspeed_tpu.kernels import registry as jregistry
+    from deepspeed_tpu.moe.dispatch import (sorted_combine_ref,
+                                            sorted_dispatch_ref)
+
+    E, C, C2 = 4, 5, 12
+    eidx, gate, pos, keep, _ = _routing(E=E, C=C)
+    pos = _spread_slots(eidx, pos, keep, C, C2, seed=3)
+    kept = pos[keep]
+    assert int(kept.max()) >= C and not bool(keep.all())
+    x = np.random.RandomState(1).randn(2, 16, 128).astype(np.float32)
+    args = (jnp.asarray(x), jnp.asarray(eidx.numpy()),
+            jnp.asarray(pos.numpy()), jnp.asarray(keep.numpy()))
+    if variant == "gated":
+        got = registry.dispatch("moe_dispatch", torch.from_numpy(x), eidx,
+                                pos, keep, E, C2, gate=gate)
+
+        def grad_eo(g, e, gt, p, kp):
+            eo = jnp.zeros((E, C2, g.shape[-1]), g.dtype)
+            _, vjp = jax.vjp(lambda o: sorted_combine_ref(o, e, gt, p, kp),
+                             eo)
+            return vjp(g)[0]
+
+        want = _jax_rows(grad_eo, args[0], args[1],
+                         jnp.asarray(gate.numpy()), args[2], args[3])
+    else:
+        got = tdsp.sorted_dispatch(torch.from_numpy(x), eidx, pos, keep, E,
+                                   C2)
+        if variant == "ref":
+            want = _jax_rows(lambda *a: sorted_dispatch_ref(*a, E, C2), *args)
+        else:
+            with kernel_config(interpret=True):
+                want = _jax_rows(lambda *a: jregistry.dispatch(
+                    "moe_dispatch", *a, E, C2, variant="dispatch",
+                    impl="pallas"), *args)
+    assert got.shape == (2, E, C2, 128)
+    assert np.array_equal(got.detach().numpy(), want)
+    # every empty slot, between and after the kept ones, is zero
+    dest = torch.where(keep, eidx.long() * C2 + pos.long(), E * C2)
+    filled = torch.zeros(2, E * C2 + 1, dtype=torch.bool).scatter_(
+        1, dest.reshape(2, -1), True)[:, :E * C2]
+    rows = got.reshape(2, E * C2, 128)
+    assert not bool(rows[~filled].any()) and bool(filled.any())
+
+
 @pytest.mark.parametrize("side", ["ref", "pallas"])
 def test_sorted_combine_matches_jax_within_one_ulp(side):
     import jax.numpy as jnp
@@ -539,6 +611,33 @@ def test_cuda_kernels_match_plain_versions(cuda_device, case, dtype):
     torch.cuda.synchronize()
     assert moe_kernels.LAUNCHES == {"moe_dispatch": n0["moe_dispatch"] + 2,
                                     "moe_combine": n0["moe_combine"] + 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gated", [False, True])
+def test_cuda_dispatch_on_non_prefix_slots_is_bitwise(cuda_device, gated,
+                                                      dtype):
+    """#13 on routing whose kept positions are a non-prefix subset of each
+    expert's slots (train-k1's C 32 spread over 48): bitwise against its
+    plain version, with and without `gate`, one launch a call."""
+    B, S, E, C, C2, D = 4, 2048, 64, 32, 48, 768
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    logits = torch.randn(B, S, E, generator=gen, device=cuda_device)
+    eidx, gate, pos, keep, _ = tdsp.topk_routing(torch.softmax(logits, -1),
+                                                 1, C)
+    pos = _spread_slots(eidx, pos, keep, C, C2, seed=4)
+    assert int(pos[keep].max()) >= C
+    x = torch.randn(B, S, D, generator=gen, device=cuda_device).to(dtype)
+    g = gate if gated else None
+    n0 = moe_kernels.LAUNCHES["moe_dispatch"]
+    got = registry.dispatch("moe_dispatch", x, eidx, pos, keep, E, C2,
+                            gate=g, impl="cuda")
+    want = registry.dispatch("moe_dispatch", x, eidx, pos, keep, E, C2,
+                             gate=g, impl="torch")
+    torch.cuda.synchronize()
+    assert moe_kernels.LAUNCHES["moe_dispatch"] == n0 + 1
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda

@@ -254,9 +254,58 @@ def test_plain_versions_match_jax_flash_sparse(jx, name):
         assert (to[:, rows] == 0).all() and (grads[0][1][:, rows] == 0).all()
 
 
+def _dkv_items(order, n_batch, n_heads, nk, block):
+    """The work items (bh, 64-key tile) in the order the wgmma dK/dV's
+    persistent grid hands them out (csrc/flash_sparse.cu
+    `sparse_dkv_wgmma_kernel`): item w is the (head, k-block) pair
+    order[w // (n_batch tpb)], batch (w % (n_batch tpb)) // tpb and the
+    pair's key tile w % tpb (tpb = block // 64)."""
+    tpb = block // 64
+    w = np.arange(n_batch * n_heads * nk * tpb)
+    per = n_batch * tpb
+    hk = np.asarray(order, np.int64)[w // per]
+    r = w % per
+    return np.stack([(r // tpb) * n_heads + hk // nk,
+                     (hk % nk) * tpb + r % tpb], axis=1)
+
+
+@pytest.mark.parametrize("kind,blk", [("fixed", 128), ("bigbird", 64),
+                                       ("empty-column", 128)])
+def test_dkv_work_order_is_every_item_heaviest_walk_first(kind, blk):
+    """The wgmma dK/dV's schedule: the items (bh, 64-key tile) its
+    persistent grid takes, in order, are every item once, by the length
+    of their reverse-table walk (active q-blocks), heaviest first; the
+    order is what `device_tables` keeps beside the tables."""
+    seq, heads, n_batch = 8 * blk, 4, 3
+    layout = _fixed("empty-row" if kind == "empty-column" else kind,
+                    blk=blk, seq=seq, heads=heads)
+    nk = seq // blk
+    if kind == "empty-column":
+        assert not layout[:, :, 3].any()      # k-block 3: nobody reads it
+    _, rev = tfs.layout_tables(layout)
+    order = tfs.dkv_work_order(rev)
+    ft, rt, dev_order = tfs.device_tables(layout, "cpu")
+    assert dev_order.dtype == torch.int32
+    assert np.array_equal(dev_order.numpy(), order)
+    items = _dkv_items(order, n_batch, heads, nk, blk)
+    tpb = blk // 64
+    want = {(bh, t) for bh in range(n_batch * heads) for t in range(nk * tpb)}
+    got = [tuple(map(int, it)) for it in items]
+    assert len(got) == len(want) and set(got) == want
+    walk = (rev >= 0).sum(-1)                         # [H, nk]
+    lengths = [int(walk[bh % heads, t // tpb]) for bh, t in got]
+    assert lengths == sorted(lengths, reverse=True)
+    assert lengths[0] == int(walk.max()) and lengths[-1] == int(walk.min())
+    if kind == "empty-column":
+        assert lengths[-1] == 0
+    if kind == "fixed":
+        # the global column walks every q-block, the others their window
+        assert lengths[0] == nk and lengths[-1] < nk
+
+
 def test_plain_lse_of_an_empty_row_is_neg_inf():
     layout = _fixed("empty-row")
-    ft, _ = tfs.device_tables(layout, "cpu")
+    ft, _, _ = tfs.device_tables(layout, "cpu")
     q = torch.randn(B * H, S, 64)
     out, lse = tfs._fwd_plain(q, q, q, ft, causal=False, scale=0.125,
                               block=BLK, rate=0.0, seed=0, n_heads=H)
@@ -295,7 +344,7 @@ def test_kernel_tolerances_hold_the_plain_version_and_catch_a_fault():
     another order (fp32 scores from bf16 inputs) and is not so loose
     that a one-ulp-per-element fault in bf16 passes everywhere."""
     layout = _fixed("bigbird", blk=16, seq=128, heads=2)
-    ft, rt = tfs.device_tables(layout, "cpu")
+    ft, rt, order = tfs.device_tables(layout, "cpu")
     g = torch.Generator().manual_seed(0)
     a = [torch.randn(4, 128, 64, generator=g).to(torch.bfloat16)
          for _ in range(4)]
@@ -304,7 +353,7 @@ def test_kernel_tolerances_hold_the_plain_version_and_catch_a_fault():
     out, lse = tfs._fwd_plain(*a[:3], ft, **opts)
     delta = (a[3].float() * out.float()).sum(-1)
     dq = tfs._dq_plain(*a, lse, delta, ft, **opts)
-    dk, dv = tfs._dkv_plain(*a, lse, delta, rt, **opts)
+    dk, dv = tfs._dkv_plain(*a, lse, delta, rt, order=order, **opts)
     ref = dict(out=out, dq=dq, dk=dk, dv=dv)
     tols = fsk.kernel_tolerances(*a, layout, ref, **opts)
     for name, t in tols.items():
@@ -629,7 +678,7 @@ def _kernel_layout(kind, blk, seq, heads):
 def test_cuda_kernels_match_plain_versions(cuda_device, case, dtype):
     Bc, Sc, Hc, Dc, blk, kind, causal, rate = KERNEL_CASES[case]
     layout = _kernel_layout(kind, blk, Sc, Hc)
-    ft, rt = tfs.device_tables(layout, cuda_device)
+    ft, rt, order = tfs.device_tables(layout, cuda_device)
     g = torch.Generator(device=cuda_device).manual_seed(0)
     a = [torch.randn(Bc * Hc, Sc, Dc, device=cuda_device, generator=g)
          .to(dtype) for _ in range(4)]
@@ -645,7 +694,7 @@ def test_cuda_kernels_match_plain_versions(cuda_device, case, dtype):
         dq = registry.dispatch("flash_sparse_dq", *a, ref_lse, delta, ft,
                                impl=impl, **opts)
         dk, dv = registry.dispatch("flash_sparse_dkv", *a, ref_lse, delta,
-                                   rt, impl=impl, **opts)
+                                   rt, order=order, impl=impl, **opts)
         res[impl] = dict(out=out, dq=dq, dk=dk, dv=dv, lse=lse)
     torch.cuda.synchronize()
     tols = fsk.kernel_tolerances(*a, layout, res["torch"], **opts)
@@ -659,7 +708,7 @@ def test_cuda_kernels_match_plain_versions(cuda_device, case, dtype):
 @pytest.mark.cuda
 def test_cuda_sparse_dq_and_dkv_are_bitwise_repeatable(cuda_device):
     layout = _kernel_layout("fixed", 16, 256, 2)
-    ft, rt = tfs.device_tables(layout, cuda_device)
+    ft, rt, order = tfs.device_tables(layout, cuda_device)
     g = torch.Generator(device=cuda_device).manual_seed(3)
     a = [torch.randn(4, 256, 128, device=cuda_device, generator=g)
          .half() for _ in range(4)]
@@ -671,14 +720,79 @@ def test_cuda_sparse_dq_and_dkv_are_bitwise_repeatable(cuda_device):
     first = [registry.dispatch("flash_sparse_dq", *a, lse, delta, ft,
                                impl="cuda", **opts),
              *registry.dispatch("flash_sparse_dkv", *a, lse, delta, rt,
-                                impl="cuda", **opts)]
+                                order=order, impl="cuda", **opts)]
     for _ in range(5):
         registry.dispatch("flash_sparse_fwd", *a[:3], ft, impl="cuda", **opts)
         again = [registry.dispatch("flash_sparse_dq", *a, lse, delta, ft,
                                    impl="cuda", **opts),
                  *registry.dispatch("flash_sparse_dkv", *a, lse, delta, rt,
-                                    impl="cuda", **opts)]
+                                    order=order, impl="cuda", **opts)]
         for x, y in zip(first, again):
+            assert torch.equal(x, y)
+
+
+def _wgmma_dkv_inputs(device, blk, S=2048, Hc=4, Bc=2, rate=0.1,
+                      seed=0):
+    """bf16 Dh 64 inputs under the fixed layout (a global column) at
+    block `blk`: the wgmma dK/dV's case."""
+    layout = _kernel_layout("fixed", blk, S, Hc)
+    tables = tfs.device_tables(layout, device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    a = [torch.randn(Bc * Hc, S, 64, device=device, generator=g)
+         .to(torch.bfloat16) for _ in range(4)]
+    opts = dict(causal=False, scale=0.125, block=blk, rate=rate, seed=77,
+                n_heads=Hc)
+    out, lse = registry.dispatch("flash_sparse_fwd", *a[:3], tables[0],
+                                 impl="torch", **opts)
+    delta = (a[3].float() * out.float()).sum(-1)
+    return layout, tables, a, out, lse, delta, opts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blk", [128, 256])
+def test_cuda_wgmma_dkv_with_dropout_within_its_bound(cuda_device, blk):
+    """#9's wgmma kernel (bf16, Dh 64, dropout 0.1) at block 128 and 256
+    against its plain version within `kernel_tolerances`, one launch a
+    call; with a work order of the wrong length the wrapper refuses."""
+    layout, (ft, rt, order), a, out, lse, delta, opts = _wgmma_dkv_inputs(
+        cuda_device, blk)
+    dq = registry.dispatch("flash_sparse_dq", *a, lse, delta, ft,
+                           impl="torch", **opts)
+    ref = registry.dispatch("flash_sparse_dkv", *a, lse, delta, rt,
+                            order=order, impl="torch", **opts)
+    n0 = fsk.LAUNCHES["flash_sparse_dkv"]
+    got = registry.dispatch("flash_sparse_dkv", *a, lse, delta, rt,
+                            order=order, impl="cuda", **opts)
+    torch.cuda.synchronize()
+    assert fsk.LAUNCHES["flash_sparse_dkv"] == n0 + 1
+    with pytest.raises(ValueError, match="work order"):
+        registry.dispatch("flash_sparse_dkv", *a, lse, delta, rt,
+                          order=order[1:], impl="cuda", **opts)
+    refs = dict(out=out, dq=dq, dk=ref[0], dv=ref[1])
+    tols = fsk.kernel_tolerances(*a, layout, refs, **opts)
+    for name, x, r in (("dk", got[0], ref[0]), ("dv", got[1], ref[1])):
+        diff = (x.float() - r.float()).abs()
+        assert (diff <= tols[name]).all(), (name,
+                                            (diff / tols[name]).max().item())
+
+
+@pytest.mark.cuda
+def test_cuda_wgmma_dkv_is_bitwise_repeatable(cuda_device):
+    """The persistent grid hands items out in a fixed order and every
+    output element is summed by one warp: dK/dV equal bit for bit over
+    repeats, with other kernels run in between."""
+    _, (ft, rt, order), a, _, lse, delta, opts = _wgmma_dkv_inputs(
+        cuda_device, 128, seed=3)
+
+    def dkv():
+        return registry.dispatch("flash_sparse_dkv", *a, lse, delta, rt,
+                                 order=order, impl="cuda", **opts)
+
+    first = dkv()
+    for _ in range(5):
+        registry.dispatch("flash_sparse_fwd", *a[:3], ft, impl="cuda",
+                          **opts)
+        for x, y in zip(first, dkv()):
             assert torch.equal(x, y)
 
 
