@@ -2,18 +2,20 @@
 """Compare two checkouts of the PyTorch/CUDA port on one GPU, in turns
 A, B, B, A, each turn a fresh process run from the root of its checkout:
 
-    python3 chip_ab.py OLD_DIR NEW_DIR [serve] [kernels] [moe]
+    python3 chip_ab.py OLD_DIR NEW_DIR [paged] [serve] [kernels] [moe] [xent]
 
 Each turn uses that checkout's own `chip_smoke.py` and package, and runs
-the turn scripts named (all when none is):
+the turn scripts named (all but `paged`, which `serve` holds, when none
+is):
 
-* serve: times the paged-attention dispatch at the decode shape (GPT-2
+* paged: times the paged-attention dispatch at the decode shape (GPT-2
   XL heads, B=8, bf16 cache, q as the serving block's view of the fused
-  QKV output) — its host time per call and its device time with the L2
-  cache flushed — then runs the serve phase of that checkout's chip_smoke
-  (GPT-2 XL bf16 serving 8 requests) and, where the checkout has one, its
-  train phase (GPT-2 small bf16 training through the flash kernels:
-  tokens/s and step ms);
+  QKV output) — its host time per call (the median and the least of 25
+  runs of 200 calls) and its device time with the L2 cache flushed — and
+  the device time of decode at Dh 128 (16 heads) and of chip_smoke's
+  prefill-bfloat16 shape (B 1, T 128 from position 448, GPT-2 XL heads);
+* serve: the paged turn, then the serve phase of that checkout's
+  chip_smoke (GPT-2 XL bf16 serving 8 requests);
 * kernels: the MoE dispatch and combine (#13, #14) at train-moe's shape
   (chip_smoke `moe_case` train-k1-bfloat16) with the dispatch's device
   operations a call under torch.profiler, the block-sparse kernels
@@ -24,7 +26,12 @@ the turn scripts named (all when none is):
 * moe: the MoE dispatch (#13) against its plain version and one
   index_select (device times, L2 flushed) at train-moe's shape (B 4,
   E 64, D 768, bf16, capacity factor 1) at top-1 and top-2, with groups
-  of S 2048 and 4096.
+  of S 2048 and 4096;
+* xent: the fused cross-entropy kernels (#4-#6) at train-pallas's shape
+  (chip_smoke `xent_case` train-bfloat16: N 8192, D 768, V 50304, bf16,
+  the tied head; device times, L2 flushed), then the train-pallas phase
+  (GPT-2 small bf16 through the fused CE: step ms, tokens/s, peak
+  memory).
 
 One JSON line per turn, then the card's name and power limit.  Use it to
 hold a change against its parent: unpack the parent with `git archive`
@@ -35,7 +42,7 @@ import json
 import subprocess
 import sys
 
-TURN = r'''
+PAGED = r'''
 import json, os, sys, time
 sys.path.insert(0, os.getcwd())
 import torch
@@ -61,26 +68,46 @@ def call():
 
 call()
 torch.cuda.synchronize()
-t0 = time.perf_counter()
-for _ in range(200):
-    call()
-host_us = (time.perf_counter() - t0) / 200 * 1e6
-torch.cuda.synchronize()
+runs = []
+for _ in range(25):
+    t0 = time.perf_counter()
+    for _ in range(200):
+        call()
+    runs.append((time.perf_counter() - t0) / 200 * 1e6)
+    torch.cuda.synchronize()
+runs.sort()
 flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
 device_ms = cs.time_ms(call, 50, flush)
+# decode at Dh 128 and the prefill chunk of chip_smoke's prefill-bfloat16
+more = {}
+for name, Bq, T, Hq, D, start in (("decode_dh128", 8, 1, 16, 128, None),
+                                  ("prefill_bfloat16", 1, 128, 25, 64, 448)):
+    ck2 = torch.randn(513 * bs, Hq, D, device="cuda", generator=g).bfloat16()
+    cv2 = torch.randn(513 * bs, Hq, D, device="cuda", generator=g).bfloat16()
+    rows2 = rows_for_tables(torch.randperm(512, device="cuda", generator=g)
+                            [:Bq * W].view(Bq, W) + 1, bs)
+    qkv2 = torch.randn(Bq, T, 3 * Hq * D, device="cuda",
+                       generator=g).bfloat16()
+    q2 = qkv2[..., :Hq * D].view(Bq, T, Hq, D)
+    qp2 = (torch.randint(256, 768, (Bq, 1), device="cuda", generator=g)
+           if start is None else
+           start + torch.arange(T, device="cuda")[None, :])
+    more[name + "_device_ms"] = cs.time_ms(
+        lambda: registry.dispatch("paged_attention", q2, ck2, cv2, rows2,
+                                  qp2, block_size=bs), 50, flush)
+    del ck2, cv2
 del flush
+rec = {"dispatch_host_us": runs[len(runs) // 2],
+       "dispatch_host_us_least": runs[0], "dispatch_device_ms": device_ms,
+       **more}
+'''
+
+SERVE = r'''
 serve = cs.phase_serve()
 serve = serve[0] if isinstance(serve, tuple) else serve  # older checkouts
-serve = {k: serve[k] for k in ("tokens_per_s", "decode_step_mean_ms",
-                               "ttft_p50_ms", "wall_s")}
-torch.cuda.empty_cache()
-train = {}
-if hasattr(cs, "phase_train"):
-    rec = cs.phase_train()[0]
-    train = {"train_tokens_per_s": rec["tokens_per_s"],
-             "train_step_ms_mean": rec["step_ms_mean"]}
-print(json.dumps({"dispatch_host_us": host_us, "dispatch_device_ms": device_ms,
-                  **serve, **train}))
+rec.update({k: serve[k] for k in ("tokens_per_s", "decode_step_mean_ms",
+                                  "ttft_p50_ms", "wall_s")})
+print(json.dumps(rec))
 '''
 
 KERNELS = r'''
@@ -177,11 +204,36 @@ for name, S, k in (("k1-s2048", 2048, 1), ("k2-s2048", 2048, 2),
 print(json.dumps(rec))
 '''
 
-TURNS = {"serve": TURN, "kernels": KERNELS, "moe": MOE}
+XENT = r'''
+import gc, json, os, sys
+sys.path.insert(0, os.getcwd())
+import torch
+import chip_smoke as cs
+
+gen = torch.Generator(device="cuda").manual_seed(0)
+flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+c = cs.xent_case("train-bfloat16", 8192, 768, 50304, torch.bfloat16, gen,
+                 flush, True)
+rec = {n: {f: c["kernels"][n].get(f) for f in ("kernel_ms", "plain_ms",
+                                               "bound_ms")}
+       for n in c["kernels"]}
+rec["dw_route"] = c.get("dw_route")
+rec["max_err_over_tol"] = c["max_err_over_tol"]
+del flush, c
+gc.collect()
+torch.cuda.empty_cache()
+r, eng, data = cs.phase_train(loss_impl="pallas")
+rec["train_pallas"] = {k: r.get(k) for k in ("step_ms_mean", "tokens_per_s",
+                                             "peak_mem_bytes")}
+print(json.dumps(rec))
+'''
+
+TURNS = {"paged": PAGED + "print(json.dumps(rec))\n", "serve": PAGED + SERVE,
+         "kernels": KERNELS, "moe": MOE, "xent": XENT}
 
 
 def main(argv):
-    turns = argv[3:] or list(TURNS)
+    turns = argv[3:] or [t for t in TURNS if t != "paged"]
     if len(argv) < 3 or any(t not in TURNS for t in turns):
         print(__doc__, file=sys.stderr)
         return 2

@@ -8,8 +8,9 @@ the CUDA toolkit.  It drives only the port — nothing of JAX or of
 `deepspeed_tpu` is imported — in these phases, each printing JSON lines;
 any failure raises and the script exits nonzero:
 
-1. build: compile the six kernel libraries from the sources in the
-   checkout, one nvcc each, started together; print ptxas's lines.
+1. build: compile the nine kernel libraries from the sources in the
+   checkout (paged attention as one library per cache kind), one nvcc
+   each, started together; print ptxas's lines.
 2. kernel: paged attention, the Hopper kernel against its plain PyTorch
    version on the same inputs on the card, at the serving shapes
    (GPT-2 XL heads H=25, Dh=64, block 16, table width 64; decode B=8
@@ -19,7 +20,12 @@ any failure raises and the script exits nonzero:
    head_dim-generic instantiations at Dh 16 (GPT-2 nano, H=3) and Dh 256
    (H=8), dense, int8 and int4, decode and prefill, q bf16 and fp32, and
    at Dh 20, 100 (every cache kind) and the odd Dh 33 (dense, int8), q
-   bf16, decode and prefill), with
+   bf16, decode and prefill; above 1024 columns at Dh 1032 (bf16 decode)
+   and 2048 (fp32 verify), one slot over a 4096-key table, and the
+   tensor-core prefill in fp16 at Dh 128 from a position mid-block), each
+   with its route (split keys, or tensor cores for a dense bf16/fp16
+   prefill chunk at Dh 64/128) and key splits, the decode main case's
+   device operations a call under torch.profiler (the kernel alone), with
    device times of the kernel, the plain version, and
    `scaled_dot_product_attention` on pre-gathered (dequantized) K/V as a
    yardstick, and the host time of one call of each.
@@ -37,7 +43,8 @@ any failure raises and the script exits nonzero:
    fresh draws and from tests/test_torch_flash.py's inputs; the training
    shape), each with its worst dQ element: both sides' values, the plain
    version's fp32 value before rounding, the ulp, the bound with and
-   without dp's error term.
+   without dp's error term; on the fp16 repeat cases both sides against
+   dQ's plain version in float64, over the bound.
 3b. sparse: the block-sparse flash forward, dQ and dK/dV kernels (#7-#9)
    against their plain versions at the BERT training shape (B=2, S=4096,
    H=16, Dh=64, the sparse-attention tutorial's fixed layout at block 128:
@@ -63,8 +70,10 @@ any failure raises and the script exits nonzero:
    against their plain versions at the training shape (N=8192 rows,
    D=768, V=50304, bf16, a fifth of the rows invalid, the tied head's
    transposed view), in fp32 at N=1024 (the train-exact shape), fp16 at
-   N=2048, at GPT-2 XL width D=1600 in bf16 and fp32, and at widths off
-   the 64-column tile and past 1600 (nano's D=48, 2048, 2560); errors
+   N=2048, at GPT-2 XL width D=1600 in bf16 and fp32, at widths off
+   the 64-column tile and past 1600 (nano's D=48, 2048, 2560), and at a
+   ragged N=1000 with GPT-2's real vocab V=50257 in fp16 (dW's wgmma
+   route, named in each record with its issued FLOPs by design); errors
    against the per-element bounds of `kernels/fused_xent.py`
    `kernel_tolerances`; device times beside the bound, the plain version
    and the forward's bf16 product alone (`torch.matmul`, a yardstick the
@@ -97,7 +106,8 @@ any failure raises and the script exits nonzero:
 7. serve: GPT-2 XL (48 layers) in bf16 serving 8 requests through
    `ServeEngine`, half submitted mid-flight; the kernel's launches are
    counted from zero over this run and must equal
-   layers x (prefill chunks + decode steps).  Then its profile: the same
+   layers x (prefill chunks + decode steps), and are recorded by step
+   kind and by route.  Then its profile: the same
    traffic (same prompt lengths, fresh tokens, so no prefix-cache hit)
    again under `torch.profiler`: device time by kernel, and the device's
    idle share of the unprofiled run.
@@ -185,6 +195,7 @@ PROFILE_PRIMER = [4096]
 # scale is exact in fp32) and stay fp32 throughout: fp32's bound
 TOL = {"float32": "atol 1e-5",
        "bfloat16": "2^-6 |plain| + 1.01 * 2^-8 * (P |V|) + 1e-6",
+       "float16": "2^-9 |plain| + 1.01 * 2^-11 * (P |V|) + 1e-6",
        "int8": "atol 1e-5", "int4": "atol 1e-5"}
 
 
@@ -242,10 +253,13 @@ def time_ms(fn, iters, flush):
 
 
 def kernel_case(name, B, T, H, Dh, bs, W, dtype, q_start, gen, flush,
-                kv="dense"):
+                kv="dense", ops=False):
     """The paged kernel against its plain version at one shape.  `dtype`
     is the dense cache's dtype, or q's (the model's) over an int8/int4
-    cache (`kv`), whose rows are randn quantized by the row codec."""
+    cache (`kv`), whose rows are randn quantized by the row codec.  The
+    record names the kernel's route and key splits; with `ops`, the call's
+    device operations under torch.profiler too, which must be the kernel
+    alone."""
     import torch
 
     from deepspeed_tpu_torch.kernels import paged, registry
@@ -286,8 +300,17 @@ def kernel_case(name, B, T, H, Dh, bs, W, dtype, q_start, gen, flush,
         return registry.dispatch("paged_attention", q, ck, cv, rows, q_pos,
                                  impl="torch", kv_mode=kv, block_size=bs)
 
+    way = paged.route(q, ck if kv == "dense" else ck[0], kv)
+    tile = paged.tile_rows(T, way)
+    n_splits, split_keys = paged.split_plan(
+        B, H, T, W * bs, bs, rows=tile,
+        col_blocks=1 if way == "tensor-cores" else -(-Dh // paged.COLS))
+    n_route = paged.LAUNCHES_BY_ROUTE[way]
     out, ref = kernel(), plain()
     torch.cuda.synchronize()
+    if paged.LAUNCHES_BY_ROUTE[way] != n_route + 1:
+        raise AssertionError(f"{name}: the kernel did not take the {way} "
+                             f"route")
     diff = (out.float() - ref.float()).abs()
     dname = str(dtype).replace("torch.", "")
     tname = dname if kv == "dense" else kv
@@ -346,7 +369,15 @@ def kernel_case(name, B, T, H, Dh, bs, W, dtype, q_start, gen, flush,
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "live_kv_bytes": 2 * n_live * H * row_bytes,
-           "bytes": nbytes, "flops": flops}
+           "bytes": nbytes, "flops": flops, "route": way,
+           "tile_rows": tile, "n_splits": n_splits,
+           "split_keys": split_keys}
+    if ops:
+        # one device operation a call: the kernel, no memset, no second pass
+        rec["device_split"] = device_split(kernel)
+        if rec["device_split"]["device_ops_per_call"] != 1:
+            raise AssertionError(f"{name}: {rec['device_split']} device "
+                                 f"operations a call, want the kernel alone")
     emit(rec)
     return rec
 
@@ -456,7 +487,7 @@ def phase_serve_nano_exact():
         return ServeEngine(model, scfg, device="cuda").generate(prompts,
                                                                 n_new)
 
-    paged.LAUNCHES = 0
+    paged.reset_launches()
     served = {kv: serve(kv) for kv in ("bf16", "int8")}
     launches = paged.LAUNCHES
     if not launches > 0:
@@ -562,7 +593,7 @@ def is_primer(name):
 def kernel_class(name):
     """Coarse class of a device activity, for the breakdown."""
     n = name.lower()
-    if "paged_attention" in n:
+    if "paged_attention" in n or "paged_prefill" in n:   # both routes of #10
         return "paged_attention"
     if "quantize_kernel" in n:       # kernels #11 and #12
         return "quant_codec"
@@ -603,7 +634,7 @@ def phase_serve():
     eng.generate([list(range(50000, 50016))], 2)
 
     torch.cuda.reset_peak_memory_stats()
-    paged.LAUNCHES = 0
+    paged.reset_launches()
     snap = COUNTERS.snapshot()
     ev0 = torch.cuda.Event(enable_timing=True)
     ev1 = torch.cuda.Event(enable_timing=True)
@@ -615,6 +646,8 @@ def phase_serve():
     wall = time.perf_counter() - t_start
     span_ms = ev0.elapsed_time(ev1)       # the run on the device's clock
     launches = paged.LAUNCHES
+    by_route = dict(paged.LAUNCHES_BY_ROUTE)
+    by_kind = dict(paged.LAUNCHES_BY_KIND)
     d = COUNTERS.delta_since(snap)
 
     if not all(r.state == FINISHED and len(r.out) == n_new for r in reqs):
@@ -625,9 +658,11 @@ def phase_serve():
         raise AssertionError("a served token is outside the vocabulary")
     chunks = d["serve.prefill_chunks"]["calls"]
     n_decode = d["serve.decode_steps"]["calls"]
-    if launches != cfg.num_layers * (chunks + n_decode):
+    if launches != cfg.num_layers * (chunks + n_decode) or by_kind != {
+            "decode": cfg.num_layers * n_decode, "verify": 0,
+            "prefill": cfg.num_layers * chunks}:
         raise AssertionError(
-            f"paged kernel launched {launches} times, expected "
+            f"paged kernel launched {launches} times ({by_kind}), expected "
             f"{cfg.num_layers} x ({chunks} prefill chunks + {n_decode} "
             f"decode steps)")
     if d.get("kernel.fallbacks") or \
@@ -658,6 +693,10 @@ def phase_serve():
            "prefill_steps": len(with_prefill),
            "prefill_chunks": chunks, "decode_steps": n_decode,
            "paged_launches": launches,
+           # the wrapper's launches by kind of call (checked above against
+           # layers x the engine's step counts) and by route
+           "paged_launches_by_kind": by_kind,
+           "paged_launches_by_route": by_route,
            "kv_pool_bytes": eng.kv.nbytes(),
            "param_bytes": sum(p.numel() * p.element_size()
                               for p in model.parameters()),
@@ -845,7 +884,7 @@ def phase_serve_spec(model):
 
     for draft in (4, 0):
         eng = engine(draft)
-        paged.LAUNCHES = 0
+        paged.reset_launches()
         snap = COUNTERS.snapshot()
         ev0 = torch.cuda.Event(enable_timing=True)
         ev1 = torch.cuda.Event(enable_timing=True)
@@ -856,6 +895,8 @@ def phase_serve_spec(model):
         ev1.synchronize()
         wall = time.perf_counter() - t0
         launches = paged.LAUNCHES
+        by_route = dict(paged.LAUNCHES_BY_ROUTE)
+        by_kind = dict(paged.LAUNCHES_BY_KIND)
         d = COUNTERS.delta_since(snap)
         if not all(r.state == FINISHED and len(r.out) == n_new
                    for r in reqs):
@@ -864,11 +905,15 @@ def phase_serve_spec(model):
                 f"{[(r.state, len(r.out)) for r in reqs]}")
         chunks = d["serve.prefill_chunks"]["calls"]
         n_steps = d["serve.decode_steps"]["calls"]
-        if launches != cfg.num_layers * (chunks + n_steps):
+        want_kind = {"decode": 0, "verify": 0,
+                     "prefill": cfg.num_layers * chunks}
+        want_kind["verify" if draft else "decode"] = cfg.num_layers * n_steps
+        if launches != cfg.num_layers * (chunks + n_steps) or \
+                by_kind != want_kind:
             raise AssertionError(
-                f"serve-spec: paged kernel launched {launches} times, "
-                f"expected {cfg.num_layers} x ({chunks} prefill chunks + "
-                f"{n_steps} verify/decode steps)")
+                f"serve-spec: paged kernel launched {launches} times "
+                f"({by_kind}), expected {cfg.num_layers} x ({chunks} "
+                f"prefill chunks + {n_steps} verify/decode steps)")
         if d.get("kernel.fallbacks") or \
                 d["kernel.dispatches"]["calls"] != launches:
             raise AssertionError(f"serve-spec: registry counts disagree "
@@ -890,7 +935,10 @@ def phase_serve_spec(model):
             "acceptance_rate": accepted / drafted if drafted else None,
             "dequant_dispatch_ms_mean": (deq["bytes"] / deq["calls"] / 1e3
                                          if deq["calls"] else None),
-            "paged_launches": launches, "kv_pool_bytes": eng.kv.nbytes()}
+            "paged_launches": launches,
+            "paged_launches_by_kind": by_kind,
+            "paged_launches_by_route": by_route,
+            "kv_pool_bytes": eng.kv.nbytes()}
         del eng
         torch.cuda.empty_cache()
         if draft == 4:
@@ -1205,6 +1253,46 @@ def dh128_test_inputs():
     return (*qkvg, torch.from_numpy(kb).cuda())
 
 
+def dq_fp64(a, lse, delta, kb, opts):
+    """dQ's plain version in float64: `_dq_plain`'s steps on the same
+    inputs, lse and delta — q * scale, the causal select to NEG_INF, the
+    key bias and its guard, p = exp(s - lse), dp * mask, ds = p (dp -
+    delta) rounded to K's dtype, scale * ds.K — with every product, sum
+    and exp in float64, dense over the keys, 128 query rows at a time."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.transformer.dropout import _keep_mask
+    from deepspeed_tpu_torch.ops.transformer.flash_attention import (
+        NEG_INF, _bh, _bias_rows)
+
+    q, k, v, do = (t.double() for t in a)
+    BH, S, _ = q.shape
+    Sk = k.shape[1]
+    scale = opts["scale"]
+    kbr = _bias_rows(kb, BH, opts["n_heads"])
+    bh = _bh(BH, opts["bh_offset"], q.device)
+    kidx = torch.arange(Sk, device=q.device)[None, :]
+    dq = torch.empty_like(q)
+    for r0 in range(0, S, 128):
+        rows = slice(r0, r0 + 128)
+        s = (q[:, rows] * scale) @ k.transpose(-1, -2)
+        if opts["causal"]:
+            qidx = r0 + torch.arange(128, device=q.device)[:, None]
+            s = torch.where(qidx >= kidx, s, NEG_INF)
+        if kbr is not None:
+            s = s + kbr[:, None, :].double()
+        p = torch.exp(s - lse[:, rows, None].double())
+        if kbr is not None:
+            p = torch.where(s <= NEG_INF * 0.5, 0.0, p)
+        dp = do[:, rows] @ v.transpose(-1, -2)
+        if opts["rate"] > 0.0:
+            dp = dp * _keep_mask(opts["seed"], bh, r0, 0, 128, Sk,
+                                 opts["rate"], q.device).double()
+        ds = p * (dp - delta[:, rows, None].double())
+        dq[:, rows] = scale * (ds.to(a[1].dtype).double() @ k)
+    return dq
+
+
 def phase_flash_repeat(n=50):
     """Is dQ a function of its inputs alone?  On the fp16 cases of the
     queue-3 fault — the Dh 128 key-bias + dropout test's inputs, and the
@@ -1213,10 +1301,13 @@ def phase_flash_repeat(n=50):
     dK/dV, or another dQ), and every result must equal the first bit for
     bit; the plain version's dQ three times, likewise.  A race or a read
     of uninitialised shared memory would show here as run-to-run
-    differences."""
+    differences.  Then which side carries the error: dQ's plain version
+    in float64 (`dq_fp64`) beside both, |kernel - fp64| and |plain -
+    fp64| over the kernel-vs-plain bound, at their worst elements and at
+    the worst kernel-vs-plain element."""
     import torch
 
-    from deepspeed_tpu_torch.kernels import registry
+    from deepspeed_tpu_torch.kernels import flash, registry
 
     gen = torch.Generator(device="cuda").manual_seed(11)
     fp16 = torch.float16
@@ -1253,10 +1344,33 @@ def phase_flash_repeat(n=50):
         plain = [registry.dispatch("flash_attention_dq", *args,
                                    impl="torch", **opts) for _ in range(3)]
         plain_differ = sum(mismatches(p, plain[0]) != 0 for p in plain[1:])
+        # which side carries the error: both against the float64 plain
+        dk, dv = registry.dispatch("flash_attention_dkv", *args,
+                                   impl="torch", **opts)
+        tol = flash.kernel_tolerances(*a, kb, {"out": out, "dq": plain[0],
+                                               "dk": dk, "dv": dv},
+                                      **opts)["dq"]
+        ref64 = dq_fp64(a, lse, delta, kb, opts)
         torch.cuda.synchronize()
+        e_kern = (first.double() - ref64).abs() / tol.double()
+        e_plain = (plain[0].double() - ref64).abs() / tol.double()
+        kp = (first.float() - plain[0].float()).abs() / tol
+        at = int(kp.argmax())
+        fp64 = {"kernel_vs_fp64_over_tol_max": float(e_kern.max()),
+                "plain_vs_fp64_over_tol_max": float(e_plain.max()),
+                "kernel_vs_plain_over_tol_max": float(kp.max()),
+                "at_worst_kernel_vs_plain": {
+                    "index": [int(i) for i in np.unravel_index(at, kp.shape)],
+                    "kernel_vs_fp64_over_tol": float(e_kern.flatten()[at]),
+                    "plain_vs_fp64_over_tol": float(e_plain.flatten()[at]),
+                    "fp64": float(ref64.flatten()[at]),
+                    "kernel": float(first.flatten()[at]),
+                    "plain": float(plain[0].flatten()[at])}}
         rec["cases"][name] = {"kernel_runs_differing": differ,
-                              "plain_runs_differing": plain_differ}
-        del a, args, first, plain, out, lse, delta
+                              "plain_runs_differing": plain_differ,
+                              "dq_against_fp64": fp64}
+        del a, args, first, plain, out, lse, delta, dk, dv, tol, ref64
+        del e_kern, e_plain, kp
     emit(rec)
     bad = {k: c for k, c in rec["cases"].items()
            if c["kernel_runs_differing"] or c["plain_runs_differing"]}
@@ -1697,9 +1811,10 @@ def xent_case(name, N, D, V, dtype, gen, flush, timed):
     labels = torch.randint(0, V, (N,), device=dev, generator=gen)
     valid = torch.rand(N, device=dev, generator=gen) >= 0.2
     g = torch.tensor(1.0 / float(valid.sum()), device=dev)
-    opts = dict(block_rows=256 if N % 256 == 0 else 128,
-                block_v=next(b for b in (512, 448, 384, 256, 128)
-                             if V % b == 0))
+    # the entry point's block divisors; a ragged N or V takes one block
+    opts = dict(block_rows=next((b for b in (256, 128) if N % b == 0), N),
+                block_v=next((b for b in (512, 448, 384, 256, 128)
+                              if V % b == 0), V))
 
     def fwd(impl):
         return registry.dispatch("fused_xent_fwd", x, w, labels, impl=impl,
@@ -1717,6 +1832,7 @@ def xent_case(name, N, D, V, dtype, gen, flush, timed):
                                  g, impl=impl, **opts)
 
     ref["dx"], ref["dw"] = dx("torch"), dw("torch")
+    dw_route = fused_xent.dw_route(x, w, labels, lse, valid)
     got = dict(zip(("lse", "ll"), fwd("cuda")))
     got["dx"], got["dw"] = dx("cuda"), dw("cuda")
     torch.cuda.synchronize()
@@ -1743,7 +1859,14 @@ def xent_case(name, N, D, V, dtype, gen, flush, timed):
     rec = {"phase": "xent", "case": name, "N": N, "D": D, "V": V,
            "dtype": dname, "head": "tied (wte.t() view)",
            "invalid_rows": int((~valid).sum()), "tol": XENT_TOL,
-           "max_abs_err": errs, "max_err_over_tol": worst, "kernels": {}}
+           "max_abs_err": errs, "max_err_over_tol": worst, "kernels": {},
+           "dw_route": dw_route}
+    if dw_route == "wgmma":
+        # derived from the wgmma kernel's tiling (16-token x tiles, 64-row
+        # vocab tiles, the logits' D-sum split between the warpgroups),
+        # not measured: both products once over the padded N and V
+        rec["dw_tensor_flops_by_design"] = (2 * 2 * -(-N // 16) * 16 * D *
+                                            -(-V // 64) * 64)
     fns = {"fused_xent_fwd": fwd, "fused_xent_dx": dx, "fused_xent_dw": dw}
     for kname, (flops, nbytes) in work.items():
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1786,7 +1909,10 @@ def phase_xent(gen, flush):
             xent_case("d2560-bfloat16", 1024, 2560, 50304, torch.bfloat16,
                       gen, flush, True),
             xent_case("d2560-float32", 1024, 2560, 50304, torch.float32,
-                      gen, flush, True)]
+                      gen, flush, True),
+            # dW's wgmma route at a ragged N and GPT-2's real vocab, fp16
+            xent_case("ragged-n1000-v50257-float16", 1000, 768, 50257,
+                      torch.float16, gen, flush, False)]
 
 
 # -- phases 7-9: training ----------------------------------------------------------
@@ -1915,7 +2041,8 @@ def train_kernel_class(name):
         return "flash_attention"
     if "dispatch_kernel" in n or "combine_kernel" in n:
         return "moe"
-    if "fx_fwd_kernel" in n or "fx_bwd_kernel" in n:
+    if any(k in n for k in ("fx_fwd_kernel", "fx_bwd_kernel",
+                            "fx_bwd_stream_kernel", "fx_dw_wgmma_kernel")):
         return "fused_xent"
     if "foreach" in n or "multi_tensor" in n:
         return "optimizer"
@@ -2454,7 +2581,7 @@ def phase_serve_qw(model, serve, flush):
     n_new = serve["max_new_tokens"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    paged.LAUNCHES = 0
+    paged.reset_launches()
     for k in quant_codec.LAUNCHES:
         quant_codec.LAUNCHES[k] = 0
     snap = COUNTERS.snapshot()
@@ -2479,9 +2606,13 @@ def phase_serve_qw(model, serve, flush):
     fwd = chunks + n_decode
     if launches != {"quant_codec_quantize": 0,
                     "quant_codec_dequantize": len(leaves) * fwd} or \
-            paged.LAUNCHES != cfg.num_layers * fwd:
+            paged.LAUNCHES != cfg.num_layers * fwd or \
+            paged.LAUNCHES_BY_KIND != {"decode": cfg.num_layers * n_decode,
+                                       "verify": 0,
+                                       "prefill": cfg.num_layers * chunks}:
         raise AssertionError(f"serve-qw: codec launches {launches}, paged "
-                             f"{paged.LAUNCHES} over {fwd} forwards")
+                             f"{paged.LAUNCHES} ({paged.LAUNCHES_BY_KIND}) "
+                             f"over {fwd} forwards")
     if d.get("kernel.fallbacks"):
         raise AssertionError(f"serve-qw: a plain version ran: {d}")
     decode_only = [ms for ms, pre in steps if not pre]
@@ -2506,6 +2637,8 @@ def phase_serve_qw(model, serve, flush):
            "dequantize_launches_per_forward":
                launches["quant_codec_dequantize"] / fwd,
            "paged_launches": paged.LAUNCHES,
+           "paged_launches_by_kind": dict(paged.LAUNCHES_BY_KIND),
+           "paged_launches_by_route": dict(paged.LAUNCHES_BY_ROUTE),
            "resident_weight_bytes": eng.model.nbytes(),
            "dense_weight_bytes_bf16": dense_bytes,
            "leaf_mismatches": leaf_mismatch, "leaf_max_abs_err": leaf_err,
@@ -3200,7 +3333,9 @@ def build_all():
     together; returns the build record."""
     from deepspeed_tpu_torch.kernels import build
 
-    sources = ("paged_attention.cu", "flash_attention.cu", "fused_xent.cu",
+    sources = ("paged_attention.cu", "paged_attention_f16.cu",
+               "paged_attention_int8.cu", "paged_attention_int4.cu",
+               "flash_attention.cu", "fused_xent.cu",
                "quant_codec.cu", "moe_dispatch.cu", "flash_sparse.cu")
     t0 = time.perf_counter()
 
@@ -3282,11 +3417,20 @@ def xent_entries(xent_cases, train_pallas):
             # product alone is the yardstick beside it
             "library_ms": None, "matmul_ms": main["matmul_ms"],
             "shape": "N=8192 D=768 V=50304 bf16, tied head",
+            **({"kernel_route": main["dw_route"],
+                "design": "the wgmma kernel issues the bound's two "
+                          "products once (over N and V rounded up to its "
+                          "16- and 64-row tiles); the count, derived from "
+                          "the design, is the xent record's "
+                          "dw_tensor_flops_by_design"}
+               if name == "fused_xent_dw" else {}),
             "cases": [{"case": c["case"],
                        "max_err_over_tol": c["max_err_over_tol"],
-                       "kernel_ms": c["kernels"][name]["kernel_ms"],
-                       "plain_ms": c["kernels"][name]["plain_ms"],
-                       "bound_ms": c["kernels"][name]["bound_ms"]}
+                       "kernel_ms": c["kernels"][name].get("kernel_ms"),
+                       "plain_ms": c["kernels"][name].get("plain_ms"),
+                       "bound_ms": c["kernels"][name]["bound_ms"],
+                       **({"kernel_route": c["dw_route"]}
+                          if name == "fused_xent_dw" else {})}
                       for c in xent_cases]})
     return out
 
@@ -3395,7 +3539,8 @@ def main():
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).replace("torch.", "")
         cases.append(kernel_case(f"decode-{dn}", 8, 1, 25, 64, 16, 64, dtype,
-                                 rng.randint(256, 768, size=8), gen, flush))
+                                 rng.randint(256, 768, size=8), gen, flush,
+                                 ops=dtype == torch.bfloat16))
         cases.append(kernel_case(f"prefill-{dn}", 1, 128, 25, 64, 16, 64,
                                  dtype, [448], gen, flush))
     cases.append(kernel_case("decode-bfloat16-dh128", 8, 1, 16, 128, 16, 64,
@@ -3462,6 +3607,19 @@ def main():
             cases.append(kernel_case(
                 f"prefill-dh{Dh}-{kv}-bfloat16", 1, 128, H, Dh, 16, 64,
                 torch.bfloat16, [448], gen_dh, flush, kv=kv))
+    # above 1024 columns (q.k streamed over pieces), one slot over a
+    # 4096-key table (32 key splits), and the tensor-core prefill in fp16
+    # at Dh 128 from a position mid-block
+    cases.append(kernel_case("decode-dh1032-bfloat16", 8, 1, 2, 1032, 16, 16,
+                             torch.bfloat16, rng.randint(64, 256, size=8),
+                             gen_dh, flush))
+    cases.append(kernel_case("verify-dh2048-float32", 4, 5, 2, 2048, 16, 16,
+                             torch.float32, rng.randint(64, 250, size=4),
+                             gen_dh, flush))
+    cases.append(kernel_case("decode-long-b1-bfloat16", 1, 1, 25, 64, 16, 256,
+                             torch.bfloat16, [4000], gen_dh, flush))
+    cases.append(kernel_case("prefill-float16-dh128", 1, 128, 16, 128, 16, 64,
+                             torch.float16, [453], gen_dh, flush))
     mark("paged-head-dims")
     xent_cases = phase_xent(gen, flush)
     mark("xent")
@@ -3528,10 +3686,12 @@ def main():
     emit({"phase": "seconds", **seconds})
 
     main_case = next(c for c in cases if c["case"] == "decode-bfloat16")
+    prefill_case = next(c for c in cases if c["case"] == "prefill-bfloat16")
+    spec4 = serve_spec["spec"]
     print(card, flush=True)
     emit({"kernels": [{
         "name": "paged_attention", "route": "cuda",
-        "source": "deepspeed_tpu_torch/kernels/csrc/paged_attention.cu",
+        "source": "deepspeed_tpu_torch/kernels/csrc/paged_attention.cuh",
         "replaces": "deepspeed_tpu/kernels/paged.py:127",
         "launches": serve["paged_launches"] +
         serve_spec["spec"]["paged_launches"] + serve_qw["paged_launches"],
@@ -3540,15 +3700,38 @@ def main():
                              serve_spec["spec"]["paged_launches"],
                              "serve-qw (int8 weights)":
                              serve_qw["paged_launches"]},
+        # the serving runs' launches by kind of call and by route, as the
+        # wrapper counts them where it launches
+        "launches_by_kind": {
+            k: serve["paged_launches_by_kind"][k] +
+            spec4["paged_launches_by_kind"][k] +
+            serve_qw["paged_launches_by_kind"][k]
+            for k in serve["paged_launches_by_kind"]},
+        "launches_by_kernel_route": {
+            k: serve["paged_launches_by_route"][k] +
+            spec4["paged_launches_by_route"][k] +
+            serve_qw["paged_launches_by_route"][k]
+            for k in serve["paged_launches_by_route"]},
+        "kernel_route": main_case["route"],
+        "kernel_routes": "split-keys: decode, verify, every cache kind and "
+                         "head_dim; tensor-cores: prefill chunks (T >= 16) "
+                         "over a dense bf16/fp16 cache, q in its dtype, Dh "
+                         "64/128",
+        "device_ops_per_call":
+            main_case["device_split"]["device_ops_per_call"],
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["kernel_ms"], "plain_ms": main_case["plain_ms"],
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
         "library_ms": main_case["library_ms"],
         "shape": "decode B=8 T=1 H=25 Dh=64 bf16, table 64 x 16",
+        "prefill": {k: prefill_case[k] for k in (
+            "route", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "max_abs_err", "max_err_over_tol")},
         "domain": domain(cases, ("Dh", "kv", "dtype")),
         "serve_nano_exact_launches": nano["paged_launches"],
-        "cases": [{k: c[k] for k in ("case", "kv", "max_abs_err", "tol",
+        "cases": [{k: c[k] for k in ("case", "kv", "route", "n_splits",
+                                     "max_abs_err", "tol",
                                      "max_err_over_tol", "kernel_ms",
                                      "plain_ms", "library_ms", "bound_ms",
                                      "bound_by", "kernel_host_us")}

@@ -1,7 +1,8 @@
 // Device helpers shared by the port's Hopper kernels (paged_attention.cu,
 // flash_attention.cu, fused_xent.cu): dtype conversions, the mma.sync
 // m16n8k16 tensor-core product with fp32 accumulators, quad reductions
-// over the lanes that share a fragment row, and 16-byte cp.async copies.
+// over the lanes that share a fragment row, transposed ldmatrix loads of
+// B fragments, and 16-byte cp.async copies.
 // Each source includes this header from its own directory; build.py keys
 // every library on this file as well as its source.
 
@@ -77,6 +78,18 @@ __device__ __forceinline__ float quad_max(float v) {
 __device__ __forceinline__ float quad_sum(float v) {
   v += __shfl_xor_sync(FULL, v, 1);
   return v + __shfl_xor_sync(FULL, v, 2);
+}
+
+// B fragments of a 16 x 8 tile whose rows (the k index) are 16 consecutive
+// shared-memory rows and whose columns are 8 consecutive elements of each:
+// two 8 x 8 matrices loaded transposed (lanes 0-7 address the first 8 rows,
+// lanes 8-15 the next 8)
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t& b0, uint32_t& b1,
+                                              const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(b0), "=r"(b1)
+               : "r"(s));
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,

@@ -79,29 +79,24 @@
 //     hi/mid/lo split of flash dK/dV, which would triple the second
 //     product's cost.  kernels/fused_xent.py `kernel_tolerances` states the
 //     resulting per-element bound.  fp32 inputs keep dl' in fp32.
+//   * dW for bf16 / fp16 with the tied head at D = 256, 512 or 768
+//     (GPT-2 small's width, train-pallas's shape) takes a wgmma kernel fed
+//     by TMA on a persistent grid instead (fx_dw_wgmma_kernel, below: its
+//     note states how it meets the register, FLOP, shared-memory and L2
+//     budgets); the launcher picks it (`dw_route_of`).
 // Left to later work: pipelining the forward's chunks and the fp32 path,
-// wgmma, and larger resident tiles (the W and x tiles are re-read from L2
-// by every block: 19.8 GB of L2 traffic per backward kernel at the GPT-2
-// shape); dx at small N (1024 rows at D = 1600 make 64 blocks) leaves SMs
-// idle, and a split of its vocab sweep would fill them.
+// wgmma for the forward and dx (the dW kernel with its roles swapped), and
+// larger resident tiles (the W and x tiles of the mma.sync kernels are
+// re-read from L2 by every block: 19.8 GB of L2 traffic per backward kernel
+// at the GPT-2 shape); dx at small N (1024 rows at D = 1600 make 64 blocks)
+// leaves SMs idle, and a split of its vocab sweep would fill them.
 
 #include <type_traits>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
-
-// B fragments of a 16 x 8 tile whose rows (the k index) are 16 consecutive
-// shared-memory rows and whose columns are 8 consecutive elements of each:
-// two 8 x 8 matrices loaded transposed (lanes 0-7 address the first 8 rows,
-// lanes 8-15 the next 8)
-__device__ __forceinline__ void ldsm_x2_trans(uint32_t& b0, uint32_t& b1,
-                                              const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(b0), "=r"(b1)
-               : "r"(s));
-}
 
 // D rounded up to the 64-column tile (the tiles' width; zero past D)
 __host__ __device__ inline int round64(int d) { return (d + 63) / 64 * 64; }
@@ -759,6 +754,245 @@ fx_bwd_stream_kernel(View x, View w, const int64_t* __restrict__ labels,
 }
 
 // ---------------------------------------------------------------------------
+// dW^T for bf16 / fp16, the tied head, D = 256, 512 or 768: TMA and wgmma
+// ---------------------------------------------------------------------------
+//
+// dW^T[v, :] = g sum_n dl'[n, v] x[n, :] is flash dK's structure: the
+// head's vocab rows take the place of keys, x the place of both Q and dO,
+// the logits^T the place of S^T.  A persistent grid of one CTA an SM takes
+// vocab tiles of 64 rows c, c + gridDim.x, ...: the tile's W operand (64
+// rows of the tied embedding, K-major, all D columns) is TMA-loaded once,
+// and x streams through a ring of STAGES = 4 stages in tiles of BN = 16
+// token rows (all D columns, 128-byte swizzled, with the tile's lse,
+// labels and valid flags by 1-d TMA; rows past N read as zeros, their
+// valid flag 0).  One thread issues the loads; a stage is refilled, with
+// the tile STAGES ahead, as soon as every warp's product on it has retired
+// (an mbarrier counts the warps), so the loads run three tiles ahead.
+// The CTA is D / 256 warpgroups; warpgroup c owns output columns
+// [256c, 256c + 256) and, per x tile:
+//   * forms its part of the logits^T tile (64 vocab x 16 tokens) over its
+//     own 256 columns of D by wgmma m64n16k16, W and x K-major in shared
+//     memory; the partials are added through shared memory in warpgroup
+//     order (the same bits in every warpgroup), so each product is issued
+//     once by the CTA;
+//   * turns them in registers into dl'^T = valid (exp(s - lse) -
+//     [v == label]) — 0 for a vocab row past V; the exp is __expf, whose
+//     relative error (~1e-6) sits far inside the bf16 rounding that follows
+//     — rounded once to the input dtype, which is already wgmma's A
+//     fragment (a logits^T accumulator row is an A row);
+//   * accumulates dW^T[:, 256c : 256c + 256] += dl'^T . x_tile[:, 256c :
+//     ...] by wgmma m64n256k16, A from registers and B the SAME swizzled x
+//     tile read MN-major (the transpose bit set, as the flash forward reads
+//     V): no transposed copy is staged.
+// The accumulator stays in registers for the whole sweep, so every output
+// element is summed by one thread in token order: no atomics, bitwise
+// repeatable.  g multiplies once, in fp32, in the epilogue, which stores
+// rows < V.
+// What holds it (chip_ablate.py on an NVIDIA H100 80GB HBM3 at N 8192,
+// D 768, V 50304: 6.2 ms in all): the steps run in series — with no
+// products at all the kernel still takes 3.0 ms (the elementwise pass 1.6
+// of it), the dW product adds 2.1 and the logits 1.1.  Issuing tile i + 1's logits before tile i's
+// elementwise pass (software pipelining) needs 12 more registers, and at
+// 168 ptxas then spills and serializes the products: left to later work,
+// with a cluster that would free registers by splitting D.
+// The budgets (D = 768):
+//   * registers: the [64, D] fp32 accumulator is 196,608 bytes, 75% of an
+//     SM's register file: one CTA an SM, the accumulator split by columns
+//     over three warpgroups, 128 registers a thread.  ptxas holds every
+//     thread of a CTA to its launch bound even after setmaxnreg (a
+//     512-thread CTA — a producer warpgroup beside three consumers — fails
+//     at 128 registers: the m64n256k16 product needs 158), so there is no
+//     producer warpgroup: 384 threads at up to 168 registers, which leaves
+//     8 for the logits partial and 4 for the A fragment — hence BN = 16.
+//     128 vocab rows a CTA cannot fit.
+//   * issued FLOPs: the logits' D-sum is split between the warpgroups, not
+//     recomputed per warpgroup, so the CTA issues 2 x 2 N' D V' FLOPs (N'
+//     and V' rounded up to 16 and 64): the bound's two products.
+//   * shared memory: W 96 KB, four x stages of 24 KB (+ 512 bytes of
+//     stats each), the partials 12 KB: 207 KB of the 227 KB a block may
+//     take.
+//   * L2 traffic: every CTA reads all of x once per vocab tile, 786 times
+//     at V = 50304 (9.9 GB from L2 at N = 8192, D = 768).  A cluster of two
+//     CTAs sharing each x tile by TMA multicast would halve that; this
+//     kernel does not (each CTA's shared memory is nearly full).
+// dx (#5) keeps fx_bwd_kernel: this kernel with x in W's place and W in
+// x's (resident token rows, streamed vocab tiles) is its dx role.
+
+template <int NWG>
+struct WgDw {
+  static constexpr int THREADS = 128 * NWG;
+  static constexpr int VT = 64, BN = 16, STAGES = 4;  // vocab rows, token rows
+  static constexpr int CH = 4 * NWG;                 // 64-column chunks of D
+  static constexpr int W_CHUNK = VT * 128, X_CHUNK = BN * 128;
+  static constexpr int W_BYTES = CH * W_CHUNK, X_BYTES = CH * X_CHUNK;
+  // a stage's stats: lse fp32 at 0, labels int64 at 128, valid bytes at 256
+  static constexpr int STAT = 512, STAT_BYTES = BN * 4 + BN * 8 + BN;
+  static constexpr int PART = NWG > 1 ? NWG * 8 * 128 * 4 : 0;  // fp32 partials
+  static constexpr size_t SMEM =
+      1024 + W_BYTES + STAGES * size_t(X_BYTES + STAT) + PART + 128;
+};
+
+template <typename T, int NWG>
+__global__ void __launch_bounds__(128 * NWG, 1)
+fx_dw_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                   const __grid_constant__ CUtensorMap tw,
+                   const __grid_constant__ CUtensorMap tlse,
+                   const __grid_constant__ CUtensorMap tlab,
+                   const __grid_constant__ CUtensorMap tval,
+                   const float* __restrict__ gp, T* __restrict__ out, int N,
+                   int V) {
+  using LY = WgDw<NWG>;
+  constexpr int D = 256 * NWG, STAGES = LY::STAGES;
+  extern __shared__ unsigned char smraw[];
+  // 1024-byte alignment for the swizzle atoms
+  unsigned char* sW = smraw + ((1024 - (smem_u32(smraw) & 1023)) & 1023);
+  unsigned char* sX = sW + LY::W_BYTES;                 // [STAGES][X_BYTES]
+  unsigned char* sS = sX + STAGES * LY::X_BYTES;        // [STAGES][STAT]
+  float* sPart = reinterpret_cast<float*>(sS + STAGES * LY::STAT);  // [NWG][8][128]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sS + STAGES * LY::STAT + LY::PART);
+  uint64_t* empty = full + STAGES;
+  uint64_t* wfull = empty + STAGES;
+
+  const int n_vt = (V + LY::VT - 1) / LY::VT, n_xt = (N + LY::BN - 1) / LY::BN;
+  const int n_my = (n_vt - int(blockIdx.x) + int(gridDim.x) - 1) / int(gridDim.x);
+  const int total = n_my * n_xt;                    // x tiles this CTA streams
+  const int wg = threadIdx.x >> 7, tw_ = threadIdx.x & 127;
+  const int warp = tw_ >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 4 * NWG);   // one arrival per warp
+    }
+    mbar_init(wfull, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // x tile it of this CTA's stream (x tile it % n_xt) into stage it % STAGES
+  auto load_x = [&](int it) {
+    const int s = it % STAGES, r0 = (it % n_xt) * LY::BN;
+    mbar_expect_tx(&full[s], LY::X_BYTES + LY::STAT_BYTES);
+    unsigned char* dst = sX + s * LY::X_BYTES;
+    for (int ch = 0; ch < LY::CH; ++ch)
+      tma_load_3d(dst + ch * LY::X_CHUNK, &tx, &full[s], ch * 64, r0, 0);
+    unsigned char* st = sS + s * LY::STAT;
+    tma_load_1d(st, &tlse, &full[s], r0);
+    tma_load_1d(st + 128, &tlab, &full[s], r0);
+    tma_load_1d(st + 256, &tval, &full[s], r0);
+  };
+  auto load_w = [&](int vt) {
+    mbar_expect_tx(wfull, LY::W_BYTES);
+    for (int ch = 0; ch < LY::CH; ++ch)
+      tma_load_3d(sW + ch * LY::W_CHUNK, &tw, wfull, ch * 64, vt * LY::VT, 0);
+  };
+  if (threadIdx.x == 0 && n_my > 0) {
+    load_w(blockIdx.x);
+    for (int i = 0; i < STAGES && i < total; ++i) load_x(i);
+  }
+
+  const uint64_t dw0 = sw128_desc(sW + 4 * wg * LY::W_CHUNK, 16, 1024);
+  float acc[128];
+  int it = 0;
+  for (int n = 0; n < n_my; ++n) {
+    const int vt = blockIdx.x + n * gridDim.x;
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    mbar_wait(wfull, n & 1);
+    for (int xt = 0; xt < n_xt; ++xt, ++it) {
+      const int s = it % STAGES;
+      mbar_wait(&full[s], (it / STAGES) & 1);
+      const unsigned char* xs = sX + s * LY::X_BYTES + 4 * wg * LY::X_CHUNK;
+      const uint64_t dx0 = sw128_desc(xs, 16, 1024);
+      // this warpgroup's part of the logits^T tile (64 vocab x 16 tokens)
+      float sc[8];
+      wgmma_fence();
+#pragma unroll
+      for (int ch = 0; ch < 4; ++ch)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          Wgmma<T, 16>::ss(sc, dw0 + ((ch * LY::W_CHUNK + 32 * kk) >> 4),
+                           dx0 + ((ch * LY::X_CHUNK + 32 * kk) >> 4), ch | kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<8>(sc);
+      if constexpr (NWG > 1) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) sPart[(wg * 8 + i) * 128 + tw_] = sc[i];
+      }
+      // every warpgroup has its logits: the partials are written, and after
+      // the vocab tile's last x tile W is free for the next vocab tile
+      __syncthreads();
+      if (threadIdx.x == 0 && xt == n_xt - 1 && n + 1 < n_my)
+        load_w(vt + gridDim.x);
+      if constexpr (NWG > 1) {
+        // the partials in warpgroup order: the same sum in every warpgroup
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          float v = wg == 0 ? sc[i] : sPart[i * 128 + tw_];
+#pragma unroll
+          for (int w = 1; w < NWG; ++w) v += w == wg ? sc[i] : sPart[(w * 8 + i) * 128 + tw_];
+          sc[i] = v;
+        }
+        __syncthreads();  // the partials are read: the next tile rewrites them
+      }
+      // dl'^T: register 4j + r is vocab row 16 warp + g + 8 (r >> 1) of the
+      // tile, token column 8j + 2t + (r & 1); the thread's four columns'
+      // stats are read once
+      const unsigned char* st = sS + s * LY::STAT;
+      const float* sl = reinterpret_cast<const float*>(st);
+      const long long* slab = reinterpret_cast<const long long*>(st + 128);
+      const uint8_t* sval = st + 256;
+      const int va = vt * LY::VT + warp * 16 + g, vb = va + 8;
+      uint32_t a[4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float d[4];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * j + 2 * t + e;
+          const float lse = sl[col];
+          const long long lab = slab[col];
+          const bool ok = sval[col] != 0;
+          d[e] = ok && va < V ? __expf(sc[4 * j + e] - lse) - (lab == va ? 1.f : 0.f) : 0.f;
+          d[2 + e] = ok && vb < V ? __expf(sc[4 * j + 2 + e] - lse) - (lab == vb ? 1.f : 0.f) : 0.f;
+        }
+        a[2 * j] = Mma<T>::pack(d[0], d[1]);
+        a[2 * j + 1] = Mma<T>::pack(d[2], d[3]);
+      }
+      // dW^T tile += dl'^T . x tile, this warpgroup's 256 columns
+      fence_regs<128>(acc);
+      wgmma_fence();
+      Wgmma<T, 256>::rs(acc, a, sw128_desc(xs, LY::X_CHUNK, 1024), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<128>(acc);
+      // this warp is done with the stage; refill it with the tile STAGES on
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+      if (threadIdx.x == 0 && it + STAGES < total) {
+        mbar_wait(&empty[s], (it / STAGES) & 1);
+        load_x(it + STAGES);
+      }
+      __syncwarp();
+    }
+    const float gs = *gp;
+    const int ra = vt * LY::VT + warp * 16 + g, rb = ra + 8;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int col = 256 * wg + 8 * j + 2 * t;
+      if (ra < V)
+        *reinterpret_cast<uint32_t*>(out + size_t(ra) * D + col) =
+            Mma<T>::pack(gs * acc[4 * j], gs * acc[4 * j + 1]);
+      if (rb < V)
+        *reinterpret_cast<uint32_t*>(out + size_t(rb) * D + col) =
+            Mma<T>::pack(gs * acc[4 * j + 2], gs * acc[4 * j + 3]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -842,10 +1076,64 @@ cudaError_t launch_bwd_rt(const Args& a) {
   }
 }
 
+// 1: the wgmma dW kernel takes these operands (bf16/fp16, the tied head,
+// D = 256, 512 or 768, every pointer 16-byte aligned for TMA); 0: dW by
+// fx_bwd_kernel, 2: by fx_bwd_stream_kernel (D above 1600)
+int dw_route_of(int dtype, int D, long long w_sv, long long w_sd,
+                const void* x, const void* w, const void* labels,
+                const void* lse, const void* valid) {
+  auto al = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  if ((dtype == 1 || dtype == 2) && w_sv == D && w_sd == 1 && D % 256 == 0 &&
+      D <= 768 && al(x) && al(w) && al(labels) && al(lse) && al(valid))
+    return 1;
+  return round64(D) > 1600 ? 2 : 0;
+}
+
+template <typename T, int NWG>
+cudaError_t launch_dw_wgmma_n(const Args& a) {
+  using LY = WgDw<NWG>;
+  CUtensorMap tx, tw, tlse, tlab, tval;
+  cudaError_t e;
+  if ((e = tensor_map<T>(&tx, a.x.p, 1, a.N, a.D, LY::BN)) != cudaSuccess ||
+      (e = tensor_map<T>(&tw, a.w.p, 1, a.V, a.D, LY::VT)) != cudaSuccess ||
+      (e = tensor_map_1d(&tlse, a.lse, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, a.N,
+                         LY::BN)) != cudaSuccess ||
+      (e = tensor_map_1d(&tlab, a.labels, CU_TENSOR_MAP_DATA_TYPE_INT64, a.N,
+                         LY::BN)) != cudaSuccess ||
+      (e = tensor_map_1d(&tval, a.valid, CU_TENSOR_MAP_DATA_TYPE_UINT8, a.N,
+                         LY::BN)) != cudaSuccess)
+    return e;
+  auto kern = fx_dw_wgmma_kernel<T, NWG>;
+  if ((e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                int(LY::SMEM))) != cudaSuccess)
+    return e;
+  int dev, sms;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+          cudaSuccess)
+    return e;
+  const int n_vt = (a.V + LY::VT - 1) / LY::VT;
+  kern<<<min(n_vt, sms), LY::THREADS, LY::SMEM, a.stream>>>(
+      tx, tw, tlse, tlab, tval, a.g, static_cast<T*>(a.out0), a.N, a.V);
+  return cudaGetLastError();
+}
+
 template <typename T>
-cudaError_t launch_t(int which, const Args& a) {
+cudaError_t launch_dw_wgmma(const Args& a) {
+  if (a.D == 256) return launch_dw_wgmma_n<T, 1>(a);
+  if (a.D == 512) return launch_dw_wgmma_n<T, 2>(a);
+  return launch_dw_wgmma_n<T, 3>(a);
+}
+
+template <typename T>
+cudaError_t launch_t(int which, const Args& a, int dtype) {
   if (which == 0) return launch_fwd<T>(a);
   if (which == 1) return launch_bwd_rt<T, false>(a);
+  if constexpr (!std::is_same<T, float>::value) {
+    if (dw_route_of(dtype, a.D, a.w.s_row, a.w.s_col, a.x.p, a.w.p, a.labels,
+                    a.lse, a.valid) == 1)
+      return launch_dw_wgmma<T>(a);
+  }
   return launch_bwd_rt<T, true>(a);
 }
 
@@ -864,9 +1152,9 @@ int run(int which, const void* x, const void* w, long long w_sv,
                static_cast<float*>(part), static_cast<int*>(tickets), N, D,
                V, VS, static_cast<cudaStream_t>(stream)};
   switch (dtype) {
-    case 0: return launch_t<float>(which, a);
-    case 1: return launch_t<__nv_bfloat16>(which, a);
-    case 2: return launch_t<__half>(which, a);
+    case 0: return launch_t<float>(which, a, dtype);
+    case 1: return launch_t<__nv_bfloat16>(which, a, dtype);
+    case 2: return launch_t<__half>(which, a, dtype);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -901,6 +1189,14 @@ int fused_xent_dx(const void* x, const void* w, long long w_sv, long long w_sd,
                   void* stream) {
   return run(1, x, w, w_sv, w_sd, labels, lse, valid, g, dx, nullptr, nullptr,
              nullptr, N, D, V, 1, dtype, stream);
+}
+
+// the kernel fused_xent_dw launches for these operands: 1 = the wgmma
+// kernel, 0 = fx_bwd_kernel, 2 = fx_bwd_stream_kernel
+int fused_xent_dw_route(int dtype, int D, long long w_sv, long long w_sd,
+                        const void* x, const void* w, const void* labels,
+                        const void* lse, const void* valid) {
+  return dw_route_of(dtype, D, w_sv, w_sd, x, w, labels, lse, valid);
 }
 
 // dW^T [V, D] row-major in the input dtype

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the wgmma kernels (the flash forward
-// of flash_attention.cu, the block-sparse dK/dV of flash_sparse.cu):
+// of flash_attention.cu, the block-sparse dK/dV of flash_sparse.cu, the
+// fused cross-entropy dW of fused_xent.cu):
 // mbarriers, TMA tile and bulk loads, warpgroup register hand-over
 // (setmaxnreg), shared-memory matrix descriptors for the 128-byte swizzle
 // that TMA writes, the wgmma.mma_async products, and on the host the
@@ -88,6 +89,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// the box at coordinate c0 of a 1-d tensor map into shared memory,
+// completion reported to `bar`
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
+      : "memory");
+}
+
 // `bytes` (a multiple of 16, both addresses 16-byte aligned) of contiguous
 // global memory into shared memory, completion reported to `bar`
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
@@ -135,12 +147,41 @@ template <int N> __device__ __forceinline__ void fence_regs(float* r) {
 }
 
 // D (64 x N, fp32, N / 2 registers a thread) = or += A . B.
-//   ss (N 64): A (64 x 16) and B (64 x 16) K-major in shared memory;
-//   rs: A (64 x 16) from registers (mma.sync's A fragment of each warp's 16
-//       rows), B (16 x N) MN-major in shared memory (transpose bit set).
+//   ss (N 16, 64): A (64 x 16) and B (N x 16) K-major in shared memory;
+//   rs (N 64, 128, 256): A (64 x 16) from registers (mma.sync's A
+//       fragment of each warp's 16 rows), B (16 x N) MN-major in shared
+//       memory (transpose bit set).
 // scale_d = 0 overwrites D, 1 accumulates.  Each register is named in the
 // PTX, so each width is spelled out.
 template <typename T, int N> struct Wgmma;
+
+template <> struct Wgmma<__nv_bfloat16, 16> {
+  static __device__ __forceinline__ void ss(float* d, uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7 "
+        "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
+
+template <> struct Wgmma<__half, 16> {
+  static __device__ __forceinline__ void ss(float* d, uint64_t da,
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.f16.f16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7 "
+        "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(scale_d));
+  }
+};
 
 template <> struct Wgmma<__nv_bfloat16, 64> {
   static __device__ __forceinline__ void ss(float* d, uint64_t da,
@@ -383,6 +424,25 @@ cudaError_t tensor_map(CUtensorMap* map, const void* base, int BH, int rows,
       3, const_cast<void*>(base), dims, strides, box, unit,
       CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// the tensor map of a 1-d tensor of n elements of type dt, read in boxes of
+// `box` elements (box times the element size a multiple of 16 bytes);
+// elements past the end read as zeros
+inline cudaError_t tensor_map_1d(CUtensorMap* map, const void* base,
+                                 CUtensorMapDataType dt, long long n, int box) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[1] = {cuuint64_t(n)};
+  const cuuint64_t strides[1] = {0};  // a rank-1 map has no stride entries
+  const cuuint32_t boxd[1] = {cuuint32_t(box)};
+  const cuuint32_t unit[1] = {1};
+  const CUresult r = fn(map, dt, 1, const_cast<void*>(base), dims, strides, boxd,
+                        unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 

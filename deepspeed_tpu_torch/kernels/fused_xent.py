@@ -13,7 +13,10 @@ where it lies: the tied head `wte.t()` (strides (1, D)) or a contiguous
 the layout of the tied embedding.  Any D is taken, as the JAX kernel takes
 it: the tiles zero the columns past D, and above D = 1600 the backward
 kernels split the output columns between blocks and stream the logits'
-columns (`csrc/fused_xent.cu`).  A wrapper checks device, dtype, shape,
+columns (`csrc/fused_xent.cu`).  dW has a route of its own for the tied
+head in bf16/fp16 at D = 256, 512 and 768 (GPT-2 small's width): a wgmma
+kernel fed by TMA on a persistent grid; the launcher picks it, and
+`dw_route` says which kernel a call takes.  A wrapper checks device, dtype, shape,
 strides and alignment, launches its kernel on PyTorch's current stream,
 raises on a launch error and counts the launch in `LAUNCHES`; it never
 falls back to the plain version.
@@ -36,7 +39,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # x, w, w_sv, w_sd, then per kernel its pointers, N, D, V, dtype, stream
 _ARGTYPES = {"fused_xent_fwd": [_P, _P, _L, _L] + [_P] * 5 + [_I] * 5 + [_P],
              "fused_xent_dx": [_P, _P, _L, _L] + [_P] * 5 + [_I] * 4 + [_P],
-             "fused_xent_dw": [_P, _P, _L, _L] + [_P] * 5 + [_I] * 4 + [_P]}
+             "fused_xent_dw": [_P, _P, _L, _L] + [_P] * 5 + [_I] * 4 + [_P],
+             "fused_xent_dw_route": [_I, _I, _L, _L] + [_P] * 5}
 
 
 def _lib():
@@ -165,6 +169,21 @@ def fused_xent_dx_cuda(x, w, labels, lse, valid, g, *, block_rows, block_v):
     """-> dx [N, D] in x's dtype."""
     del block_rows, block_v
     return _bwd("fused_xent_dx", x, w, labels, lse, valid, g)
+
+
+def dw_route(x, w, labels, lse, valid) -> str:
+    """The kernel `fused_xent_dw_cuda` launches for these operands, as the
+    launcher picks it: "wgmma", "mma.sync", "cuda-cores" or "streamed"."""
+    N, D = x.shape
+    sv, sd = _w_strides(w, D, w.shape[1])
+    code = _lib().fused_xent_dw_route(
+        _DTYPE_CODES[x.dtype], D, sv, sd, x.data_ptr(), w.data_ptr(),
+        labels.data_ptr(), lse.data_ptr(), valid.data_ptr())
+    if code == 1:
+        return "wgmma"
+    if code == 2:
+        return "streamed"
+    return "cuda-cores" if x.dtype == torch.float32 else "mma.sync"
 
 
 def fused_xent_dw_cuda(x, w, labels, lse, valid, g, *, block_rows, block_v):

@@ -288,6 +288,13 @@ CUDA_CASES = {
     "d2048-tied": (256, 2048, 1024, True),
     "d2560-tied": (256, 2560, 1024, True),
     "d2560-untied": (200, 2560, 1000, False),
+    # dW's wgmma route (bf16/fp16, tied, D 768): train-pallas's N and V,
+    # then a ragged N and GPT-2's real vocab; the untied head of the same
+    # width keeps fx_bwd_kernel ("ragged-untied" above, and this one)
+    "wgmma-n8192-v50304": (8192, 768, 50304, True),
+    "wgmma-n1000-v50257": (1000, 768, 50257, True),
+    "d512-tied": (300, 512, 1000, True),
+    "n1000-v50257-untied": (1000, 768, 50257, False),
 }
 
 
@@ -318,6 +325,8 @@ def test_cuda_kernels_match_plain_versions(cuda_device, case, dtype):
                 f"fused_xent_{name}", x, w, labels, lse, valid, g,
                 impl=impl, **opts)
     torch.cuda.synchronize()
+    wgmma = tied and dtype != torch.float32 and d in (256, 512, 768)
+    assert (fused_xent.dw_route(x, w, labels, lse, valid) == "wgmma") == wgmma
     tols = fused_xent.kernel_tolerances(x, w, labels, valid, g, res["torch"])
     for name, tol in tols.items():
         assert res["cuda"][name].shape == res["torch"][name].shape
@@ -341,3 +350,26 @@ def test_cuda_autograd_launches_each_kernel_once(cuda_device):
     assert {k: fused_xent.LAUNCHES[k] - before[k] for k in before} == \
         {k: 1 for k in before}
     assert emb.grad.shape == emb.shape and tx.grad.shape == tx.shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_cuda_wgmma_dw_is_bitwise_repeatable(cuda_device, dtype):
+    """The wgmma dW (tied head, D 768, a ragged N and vocab) 50 times after
+    other kernels: bitwise equal — a fixed summation order, no atomics."""
+    x, w, labels, valid = _inputs(7, n=1000, d=768, v=3001)
+    x = torch.from_numpy(x).to(cuda_device, dtype)
+    w = torch.from_numpy(w).to(cuda_device, dtype).t().contiguous().t()
+    labels = torch.from_numpy(labels).to(cuda_device)
+    valid = torch.from_numpy(valid).to(cuda_device)
+    g = torch.tensor(1.0 / 37.0, device=cuda_device)
+    opts = dict(block_rows=1000, block_v=3001)
+    lse, _ = registry.dispatch("fused_xent_fwd", x, w, labels, impl="torch",
+                               **opts)
+    assert fused_xent.dw_route(x, w, labels, lse, valid) == "wgmma"
+    call = lambda: registry.dispatch("fused_xent_dw", x, w, labels, lse,
+                                     valid, g, impl="cuda", **opts)
+    first = call()
+    for _ in range(50):
+        torch.randn(1 << 20, device=cuda_device).sum()   # other kernels
+        assert torch.equal(call(), first)

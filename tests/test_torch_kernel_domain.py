@@ -1,7 +1,7 @@
 """Port parity over the kernels' whole domain: head_dim 256 for the dense
 and block-sparse flash kernels, sparse layout blocks above 128, paged
 attention at head dims other than 64 and 128 (GPT-2 nano's 16, 256, and
-every head_dim from 1 to 1024, odd ones included),
+every head_dim, odd ones and those above 1024 included),
 GPT-2 nano serving, and the `auto` selections at those shapes — the
 port's plain versions against the JAX package on the same numpy inputs
 (JAX's Pallas kernels in interpret mode on the CPU, as its own tests run
@@ -277,7 +277,9 @@ def _paged_inputs(T, Dh, R=3, H=2, bs=4, W=4, seed=0):
 PAGED_DOMAIN = ([(Dh, kv) for Dh in (8, 16, 24, 256)
                  for kv in ("dense", "int8", "int4")] +
                 [(Dh, kv) for Dh in (12, 20, 33) for kv in ("dense", "int8")] +
-                [(100, "dense"), (100, "int8"), (100, "int4")])
+                [(100, "dense"), (100, "int8"), (100, "int4")] +
+                # above 1024 columns the kernel streams q.k over pieces
+                [(Dh, kv) for Dh in (1032, 2048) for kv in ("dense", "int8")])
 
 
 @pytest.mark.parametrize("Dh,kv", PAGED_DOMAIN)
@@ -303,9 +305,9 @@ def test_paged_reference_matches_jax_at_other_head_dims(jx, Dh, kv):
         jnp.asarray(q), jk, jv, jrows, jnp.asarray(q_pos), kv_mode=kv,
         block_size=bs)
     np.testing.assert_allclose(got, np.asarray(want), atol=1e-5, rtol=0)
-    if (kv == "dense" and Dh == 16) or Dh % 8:
-        # the TPU kernel itself (Pallas interpreter) at nano's head_dim and
-        # at every head_dim off the multiples of 8
+    if (kv == "dense" and Dh in (16, 1032)) or Dh % 8:
+        # the TPU kernel itself (Pallas interpreter) at nano's head_dim, at
+        # every head_dim off the multiples of 8 and past 1024
         want = jx.paged.paged_attention_pallas(
             jnp.asarray(q), jk, jv, jrows, jnp.asarray(q_pos), kv_mode=kv,
             block_size=bs)
@@ -328,18 +330,31 @@ def test_paged_int4_refuses_an_odd_head_dim_in_both_codecs(jx):
 
 @pytest.mark.parametrize("Dh,ok", [(16, True), (200, True), (256, True),
                                    (20, True), (264, True), (1, True),
-                                   (33, True), (1024, True), (1032, False)])
+                                   (33, True), (1024, True), (1032, True)])
 def test_paged_kernel_wrapper_head_dim_domain(Dh, ok):
-    """Every head_dim from 1 to 1024 passes the wrapper's head_dim check (a
-    CPU tensor is then refused, as any is); above 1024 it raises, naming
-    the limit and ROADMAP queue 3, where it is recorded."""
+    """Every head_dim, 1032 (past the old 1024 cap) included, passes the
+    wrapper's head_dim check; a CPU tensor is then refused, as any is."""
+    assert ok
     q, ck, cv, tables, q_pos, bs = _paged_inputs(1, Dh)
     rows = rows_for_tables(torch.from_numpy(tables).long(), bs)
-    match = "not a CUDA device" if ok else "above 1024.*queue 3"
-    with pytest.raises(ValueError, match=match):
+    with pytest.raises(ValueError, match="not a CUDA device"):
         paged.paged_attention_cuda(
             torch.from_numpy(q), torch.from_numpy(ck), torch.from_numpy(cv),
             rows, torch.from_numpy(q_pos), block_size=bs)
+
+
+def test_paged_kernel_wrapper_states_its_head_dim_limit():
+    """Only the grid bounds the head_dim: 65535 blocks of 256 output
+    columns.  One past that raises, naming the limit (q is a broadcast
+    view, so nothing of that width is allocated)."""
+    Dh = paged.MAX_HEAD_DIM + 1
+    q = torch.zeros(1, 1, 1, 1).expand(1, 1, 1, Dh)
+    ck = torch.zeros(4, 1, 1)
+    rows = torch.zeros(1, 4, dtype=torch.long)
+    with pytest.raises(ValueError, match=f"above {paged.MAX_HEAD_DIM}.*65535"):
+        paged.paged_attention_cuda(q, ck, ck, rows, torch.zeros(1, 1),
+                                   block_size=4)
+    assert paged.MAX_HEAD_DIM == 65535 * 256
 
 
 # -- GPT-2 nano serving (head_dim 16) ------------------------------------------
@@ -397,7 +412,7 @@ PAGED_CARD = ([(T, Dh, kv) for T, Dh in ((1, 16), (16, 16), (5, 24),
                for kv in ("dense", "int8", "int4")] +
               [(T, Dh, kv) for T, Dh in ((1, 20), (16, 20), (1, 100),
                                          (5, 100), (1, 12), (5, 512),
-                                         (1, 1024))
+                                         (1, 1024), (1, 1032), (5, 2048))
                for kv in ("dense", "int8", "int4")] +
               [(T, Dh, kv) for T, Dh in ((1, 33), (16, 33), (5, 1), (1, 7))
                for kv in ("dense", "int8")])

@@ -11,7 +11,8 @@ The same numpy inputs go to both packages.  Tolerances:
   outputs of size up to ~2.
 * the CUDA kernel against the plain version, bf16: the per-element
   bound of `paged.bf16_tolerance` (the kernel keeps its probabilities in
-  fp32), itself checked on the CPU against an emulation.
+  fp32, or as two bf16 terms on the tensor cores), itself checked on the
+  CPU against emulations of both routes.
 
 The CUDA kernel itself runs only on a card; its comparison against the
 plain version is the `cuda`-marked test at the end (skipped here).  JAX
@@ -172,6 +173,90 @@ def test_quantized_kv_not_ported_yet():
         paged.kv_read(torch.from_numpy(ck), rows, "int2")
 
 
+# (B, H, T, L, bs, route): GPT-2 XL decode, verify and prefill at the
+# serving table width, one slot over a long cache, batches that fill the
+# card without splits, one just short of that, GPT-2 nano's table, a block
+# that does not divide 128
+SPLIT_SHAPES = [(8, 25, 1, 1024, 16, "split-keys"),
+                (5, 25, 1, 1024, 16, "split-keys"),
+                (1, 2, 128, 65536, 16, "tensor-cores"),
+                (8, 25, 5, 1024, 16, "split-keys"),
+                (1, 25, 128, 1024, 16, "split-keys"),
+                (1, 25, 128, 1024, 16, "tensor-cores"),
+                (1, 25, 1, 4096, 16, "split-keys"),
+                (256, 25, 1, 1024, 16, "split-keys"),
+                (32, 25, 1, 1024, 16, "split-keys"),
+                (4, 3, 1, 64, 8, "split-keys"),
+                (2, 4, 1, 1000, 40, "split-keys")]
+
+
+@pytest.mark.parametrize("B,H,T,L,bs,way", SPLIT_SHAPES)
+def test_split_plan_covers_the_table_once_and_fills_the_card(B, H, T, L, bs,
+                                                             way):
+    """The key splits, a pure function of the shapes: ranges of whole
+    multiples of 128 keys and of the block that cover [0, L) exactly once,
+    in order, and a grid that reaches CTAS_PER_SM blocks on each of the
+    132 SMs unless every range is already one unit of keys, or the
+    merge's shared memory (MERGE_FACTORS per tile row) caps the count;
+    one range at decode where the groups alone cover the SMs."""
+    rows = paged.tile_rows(T, way)
+    n, keys = paged.split_plan(B, H, T, L, bs, rows=rows)
+    assert keys % paged.SPLIT_UNIT == 0 and keys % bs == 0
+    ranges = [(s * keys, min(L, (s + 1) * keys)) for s in range(n)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == L
+    assert all(a < b for a, b in ranges)
+    assert all(ranges[i][1] == ranges[i + 1][0] for i in range(n - 1))
+    groups = B * H * -(-T // rows)
+    unit = paged.SPLIT_UNIT * bs // int(np.gcd(paged.SPLIT_UNIT, bs))
+    cap = paged.MERGE_FACTORS // rows
+    assert n <= cap
+    if T == 1 and groups >= paged.SMS:
+        assert n == 1
+    elif cap < min(-(-L // unit), -(-paged.SMS * paged.CTAS_PER_SM // groups)):
+        assert 2 * n > cap                  # capped by the merge's memory
+    else:
+        assert groups * n >= paged.SMS * paged.CTAS_PER_SM or \
+            n == -(-L // unit)
+    assert paged.split_plan(B, H, T, L, bs, rows=rows) == (n, keys)
+
+
+def test_split_plan_at_the_serving_shapes():
+    """GPT-2 XL decode (B 8, H 25, table 64 x 16): one range, its 200
+    (slot, head) blocks already cover the SMs; 16 heads (Dh 128, 128
+    blocks): eight ranges of 128 keys; the tensor-core prefill chunk
+    (T 128, 64-row tiles): eight as well; one slot over 4096 keys: 32."""
+    assert paged.split_plan(8, 25, 1, 1024, 16) == (1, 1024)
+    assert paged.split_plan(8, 16, 1, 1024, 16) == (8, 128)
+    assert paged.split_plan(1, 25, 128, 1024, 16,
+                            rows=paged.TC_ROWS) == (8, 128)
+    assert paged.split_plan(1, 25, 1, 4096, 16) == (32, 128)
+
+
+def test_call_kind_names_decode_verify_and_prefill():
+    """The launches are counted by kind from T alone: decode at T = 1,
+    verify below the tensor cores' shortest chunk, prefill from it on."""
+    assert [paged.call_kind(T) for T in (1, 2, 5, 15, 16, 128)] == [
+        "decode", "verify", "verify", "verify", "prefill", "prefill"]
+
+
+def test_route_takes_the_tensor_cores_only_where_they_apply():
+    """Tensor cores for a dense bf16/fp16 cache, q in its dtype, T >= 16,
+    Dh 64 or 128; the split-keys route for everything else."""
+    def way(T, Dh, qdt, cdt, kv="dense"):
+        q = torch.zeros(2, T, 3, Dh, dtype=qdt)
+        return paged.route(q, torch.zeros(8, 3, Dh, dtype=cdt), kv)
+
+    bf, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    assert way(16, 64, bf, bf) == "tensor-cores"
+    assert way(128, 128, f16, f16) == "tensor-cores"
+    assert way(15, 64, bf, bf) == "split-keys"
+    assert way(128, 64, f32, bf) == "split-keys"
+    assert way(128, 64, f32, f32) == "split-keys"
+    assert way(128, 256, bf, bf) == "split-keys"
+    assert way(128, 64, bf, bf, kv="int8") == "split-keys"
+    assert way(1, 64, bf, bf) == "split-keys"
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -179,6 +264,57 @@ def cuda_device():
                     "(on the card: python -m pytest --noconftest -m cuda "
                     "tests/test_torch_paged.py)")
     return torch.device("cuda")
+
+
+def _adversarial_prefill(dev, dtype=torch.bfloat16):
+    """A prefill chunk (B 1, T 16, H 1, Dh 64, 128 keys, every row seeing
+    all of them) whose bf16 roundings of the probabilities are set against
+    each other: key 0 holds the max (v 0); 30 keys of score S_A (v +1) whose
+    p rounds down against the running max and up once normalised; 33 of
+    S_B (v -1) the other way; 64 fillers (v 0) set the sum.  The output is
+    near 0 and P |V| near 1, so a kernel that rounds p once lands about
+    1.7 u away from the reference, outside `bf16_tolerance`."""
+    S_A, S_B, S_F = -1.8916016, -1.9790039, -2.1939251
+    scores = torch.tensor([0.0] + [S_A] * 30 + [S_B] * 33 + [S_F] * 64)
+    # a score as (a + b) / 8 with a, b bf16: exact in the q.k product
+    a = (8 * scores).to(torch.bfloat16).float()
+    b = (8 * scores - a).to(torch.bfloat16).float()
+    ck = torch.zeros(9 * 16, 1, 64)
+    cv = torch.zeros(9 * 16, 1, 64)
+    ck[16:, 0, 0], ck[16:, 0, 1] = a, b
+    cv[17:47, 0] = 1.0
+    cv[47:80, 0] = -1.0
+    q = torch.zeros(1, 16, 1, 64)
+    q[..., :2] = 1.0
+    rows = rows_for_tables(torch.arange(1, 9)[None], 16)
+    q_pos = torch.full((1, 16), 127, dtype=torch.long)
+    t = lambda x: x.to(dev, dtype)
+    return t(q), t(ck), t(cv), rows.to(dev), q_pos.to(dev), 16
+
+
+def test_bf16_tolerance_holds_split_probabilities_on_adversarial_values():
+    """The tensor-core route's arithmetic emulated on the CPU over the
+    adversarial chunk: p against the max, carried into P.V as hi + lo bf16
+    terms of p * 2^15, fp32 sums, one rounding of the output — inside
+    `bf16_tolerance`; p rounded once to bf16 instead is outside it."""
+    q, ck, cv, rows, q_pos, bs = _adversarial_prefill("cpu")
+    ref = paged.paged_attention_reference(q, ck, cv, rows, q_pos)
+    tol = paged.bf16_tolerance(q, ck, cv, rows, q_pos, ref)
+    keys, vals = ck[rows].float(), cv[rows].float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), keys) * 64 ** -0.5
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    l = e.sum(-1, keepdim=True)
+
+    def out(p):
+        return (torch.einsum("bhqk,bkhd->bqhd", p, vals) /
+                l.permute(0, 2, 1, 3)).to(torch.bfloat16).float()
+
+    hi = (e * 2 ** 15).to(torch.bfloat16).float()
+    lo = (e * 2 ** 15 - hi).to(torch.bfloat16).float()
+    split = out((hi + lo) * 2 ** -15)
+    once = out(e.to(torch.bfloat16).float())
+    assert float(((split - ref.float()).abs() / tol).max()) <= 1.0
+    assert float(((once - ref.float()).abs() / tol).max()) > 1.0
 
 
 def test_bf16_tolerance_holds_fp32_probabilities_and_catches_a_fault():
@@ -251,6 +387,114 @@ def test_cuda_kernel_matches_plain_version(cuda_device, T, Dh, dtype,
     tol = (torch.full_like(diff, 1e-5) if dtype == torch.float32 else
            paged.bf16_tolerance(*args, ref))
     assert bool((diff <= tol).all()), float((diff / tol).max())
+
+
+# route cases on the card: (B, T, H, Dh, W, dtype, q positions of each slot's
+# first row, the route); bs 16
+ROUTE_CASES = {
+    # several splits of a 1024-key table; slot 1 sees 4 keys (its later
+    # splits are empty), slot 2 none (q_pos -1: the kernel leaves it 0)
+    "split-decode-empty": (4, 1, 4, 64, 64, torch.bfloat16,
+                           [700, 3, -1, 130], "split-keys"),
+    "split-decode-fp32": (4, 1, 4, 128, 64, torch.float32,
+                          [1023, 0, 511, 512], "split-keys"),
+    "long-cache-b1": (1, 1, 4, 64, 256, torch.bfloat16, [4000],
+                      "split-keys"),
+    "verify-t5": (3, 5, 4, 128, 64, torch.bfloat16, [300, 17, 900],
+                  "split-keys"),
+    "dh1032-decode": (2, 1, 2, 1032, 16, torch.bfloat16, [100, 250],
+                      "split-keys"),
+    "dh2048-verify": (2, 5, 2, 2048, 16, torch.float32, [100, 250],
+                      "split-keys"),
+    **{f"tc-prefill-t{T}-{str(dt)[6:]}-dh{Dh}": (
+        2, T, 4, Dh, 64, dt, [37, 533], "tensor-cores")
+       for T in (16, 128) for dt in (torch.bfloat16, torch.float16)
+       for Dh in (64, 128)},
+}
+
+
+def _route_inputs(B, T, H, Dh, W, dtype, starts, dev, seed=0):
+    """Cache in `dtype`, scattered distinct tables, q as a QKV view, rows
+    starting at `starts` (mid-block) and running on one a row (-1 stays
+    -1: a slot with no live key)."""
+    gen = torch.Generator().manual_seed(seed)
+    bs, nb = 16, B * W + 1
+    ck = torch.randn(nb * bs, H, Dh, generator=gen).to(dev, dtype)
+    cv = torch.randn(nb * bs, H, Dh, generator=gen).to(dev, dtype)
+    tables = (torch.randperm(nb - 1, generator=gen)[:B * W] + 1).view(B, W)
+    rows = rows_for_tables(tables.to(dev), bs)
+    st = torch.tensor(starts)[:, None]
+    q_pos = torch.where(st < 0, st, (st + torch.arange(T)[None, :]).clamp(
+        max=W * bs - 1)).to(dev)
+    qkv = torch.randn(B, T, 3 * H * Dh, generator=gen).to(dev, dtype)
+    q = qkv[..., :H * Dh].view(B, T, H, Dh)
+    return q, ck, cv, rows, q_pos, bs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(ROUTE_CASES))
+def test_cuda_kernel_routes_match_plain_version(cuda_device, case):
+    """Each route against the plain version: fp32 atol 1e-5, bf16/fp16
+    `bf16_tolerance`; a slot with no live key is 0, as JAX's kernel leaves
+    it (the plain version, JAX's reference, averages V there)."""
+    B, T, H, Dh, W, dtype, starts, way = ROUTE_CASES[case]
+    q, ck, cv, rows, q_pos, bs = _route_inputs(B, T, H, Dh, W, dtype, starts,
+                                               cuda_device)
+    assert paged.route(q, ck) == way
+    n = dict(paged.LAUNCHES_BY_ROUTE)
+    out = registry.dispatch("paged_attention", q, ck, cv, rows, q_pos,
+                            block_size=bs)
+    ref = registry.dispatch("paged_attention", q, ck, cv, rows, q_pos,
+                            impl="torch", block_size=bs)
+    torch.cuda.synchronize()
+    assert paged.LAUNCHES_BY_ROUTE[way] == n[way] + 1
+    empty = (q_pos < 0)[:, :, None, None].expand_as(out)
+    assert bool((out[empty] == 0).all())
+    diff = (out.float() - ref.float()).abs()
+    tol = (torch.full_like(diff, 1e-5) if dtype == torch.float32 else
+           paged.bf16_tolerance(q, ck, cv, rows, q_pos, ref))
+    ok = (diff <= tol) | empty
+    assert bool(ok.all()), float((diff / tol)[~empty].max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_cuda_tensor_core_prefill_holds_its_bound_on_adversarial_values(
+        cuda_device, dtype):
+    """The tensor-core route on the adversarial chunk, whose probabilities'
+    roundings a kernel that rounds p once would set against the
+    reference's: inside `bf16_tolerance` (the worst ratio is printed)."""
+    q, ck, cv, rows, q_pos, bs = _adversarial_prefill(cuda_device, dtype)
+    assert paged.route(q, ck) == "tensor-cores"
+    out = registry.dispatch("paged_attention", q, ck, cv, rows, q_pos,
+                            block_size=bs)
+    ref = registry.dispatch("paged_attention", q, ck, cv, rows, q_pos,
+                            impl="torch", block_size=bs)
+    tol = paged.bf16_tolerance(q, ck, cv, rows, q_pos, ref)
+    worst = float(((out.float() - ref.float()).abs() / tol).max())
+    print(f"adversarial tensor-core prefill {dtype}: worst "
+          f"|kernel - plain| / bound = {worst}")
+    assert worst <= 1.0, worst
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 128])
+def test_cuda_split_kernel_is_bitwise_repeatable(cuda_device, T):
+    """Split decode (B 4, GPT-2 XL heads: 100 (slot, head) blocks, so 8
+    splits) and the tensor-core prefill chunk, 50 calls after other
+    kernels: bitwise equal, as the split merge's fixed order makes them."""
+    B = 4 if T == 1 else 1
+    starts = [256 + 61 * b for b in range(B)]
+    q, ck, cv, rows, q_pos, bs = _route_inputs(B, T, 25, 64, 64,
+                                               torch.bfloat16, starts,
+                                               cuda_device)
+    first = registry.dispatch("paged_attention", q, ck, cv, rows, q_pos,
+                              block_size=bs)
+    for _ in range(50):
+        torch.randn(1 << 20, device=cuda_device).sum()   # other kernels
+        again = registry.dispatch("paged_attention", q, ck, cv, rows, q_pos,
+                                  block_size=bs)
+        assert torch.equal(again, first)
 
 
 # -- the build (kernels/build.py), exercised with stand-in compilers ---------
