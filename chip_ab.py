@@ -20,7 +20,8 @@ is):
   (chip_smoke `moe_case` train-k1-bfloat16) with the dispatch's device
   operations a call under torch.profiler, the block-sparse kernels
   (#7-#9) at train-bert-sparse's shape without and with dropout 0.1
-  (`sparse_case` train-bfloat16, train-dropout-bfloat16), paged decode at
+  (`sparse_case` train-bfloat16, train-dropout-bfloat16; with dQ's route
+  where the checkout records it), paged decode at
   Dh 64 and 128 (device time, L2 flushed), then the train-moe and
   train-bert-sparse phases for their step ms and tokens/s;
 * moe: the MoE dispatch (#13) against its plain version and one
@@ -29,7 +30,8 @@ is):
   of S 2048 and 4096;
 * xent: the fused cross-entropy kernels (#4-#6) at train-pallas's shape
   (chip_smoke `xent_case` train-bfloat16: N 8192, D 768, V 50304, bf16,
-  the tied head; device times, L2 flushed), then the train-pallas phase
+  the tied head; device times, L2 flushed; dx's and dW's routes where the
+  checkout records them), then the train-pallas phase
   (GPT-2 small bf16 through the fused CE: step ms, tokens/s, peak
   memory).
 
@@ -157,6 +159,9 @@ for rate in (0.0, 0.1):
         n: c["kernels"][n]["kernel_ms"] for n in c["kernels"]}
     rec[f"sparse_dropout_{rate}"]["dkv_bound_ms"] = \
         c["kernels"]["flash_sparse_dkv"]["bound_ms"]
+    rec[f"sparse_dropout_{rate}"]["dq_bound_ms"] = \
+        c["kernels"]["flash_sparse_dq"]["bound_ms"]
+    rec[f"sparse_dropout_{rate}"]["dq_route"] = c.get("dq_route")
 
 for Dh, H in ((64, 25), (128, 16)):
     bs, W, Bq = 16, 64, 8
@@ -217,6 +222,7 @@ c = cs.xent_case("train-bfloat16", 8192, 768, 50304, torch.bfloat16, gen,
 rec = {n: {f: c["kernels"][n].get(f) for f in ("kernel_ms", "plain_ms",
                                                "bound_ms")}
        for n in c["kernels"]}
+rec["dx_route"] = c.get("dx_route")
 rec["dw_route"] = c.get("dw_route")
 rec["max_err_over_tol"] = c["max_err_over_tol"]
 del flush, c

@@ -54,8 +54,10 @@ any failure raises and the script exits nonzero:
    dropout, a layout with an empty row and an empty column (fp32, and bf16
    causal with dropout), the training shape at block 256 with dropout
    (timed beside block 128 with dropout), block 192 (fp32) and block 160
-   (16-row tiles; bf16, causal, dropout), Dh 256 at block 128 (bf16 with
-   dropout, fp32); errors against the per-element bounds of
+   (16-row tiles; bf16, causal, dropout), Dh 128 at block 128 (fp16,
+   causal, dropout: the wgmma dQ at Dh 128), Dh 256 at block 128 (bf16
+   with dropout, fp32), each record naming dQ's route; errors against
+   the per-element bounds of
    `kernels/flash_sparse.py` `kernel_tolerances`, the worst dQ element;
    device times beside the bound, the plain versions, SDPA with the layout
    as a boolean mask and the dense flash kernels at the same shape.  The
@@ -64,20 +66,23 @@ any failure raises and the script exits nonzero:
    256), and at block 64 (Dh 64, the wgmma dK/dV's transposed hash
    coordinates); the wgmma dK/dV's empty row and column (block 64, causal,
    dropout); sparse-repeat computes dQ and dK/dV 50 times after other
-   kernels, on the fp16 16-row-tile case and on the wgmma dK/dV's (bf16,
-   Dh 64, block 128), and requires bitwise equal results.
+   kernels, on the fp16 16-row-tile case, on the wgmma dQ's and dK/dV's
+   (bf16, Dh 64, block 128) and on the wgmma dQ at Dh 128 (fp16, causal),
+   and requires bitwise equal results.
 4. xent: the fused LM-head cross-entropy kernels (forward, dx, dW)
    against their plain versions at the training shape (N=8192 rows,
    D=768, V=50304, bf16, a fifth of the rows invalid, the tied head's
    transposed view), in fp32 at N=1024 (the train-exact shape), fp16 at
    N=2048, at GPT-2 XL width D=1600 in bf16 and fp32, at widths off
    the 64-column tile and past 1600 (nano's D=48, 2048, 2560), and at a
-   ragged N=1000 with GPT-2's real vocab V=50257 in fp16 (dW's wgmma
-   route, named in each record with its issued FLOPs by design); errors
-   against the per-element bounds of `kernels/fused_xent.py`
+   ragged N=1000 with GPT-2's real vocab V=50257 in fp16 (dx's and dW's
+   wgmma routes, named in each record with their issued FLOPs by design);
+   errors against the per-element bounds of `kernels/fused_xent.py`
    `kernel_tolerances`; device times beside the bound, the plain version
    and the forward's bf16 product alone (`torch.matmul`, a yardstick the
-   port never calls).
+   port never calls).  xent-repeat computes dx and dW on their wgmma
+   routes 50 times after other kernels, at the training shape and the
+   ragged fp16 one, and requires bitwise equal results.
 4b. codec: the blockwise quantize and dequantize kernels (#11, #12)
    bitwise against their plain versions on the codec's edge cases (fp32
    subnormals, +-inf, NaN, an all-zero block, fp16 scale overflow and
@@ -1513,6 +1518,7 @@ def sparse_case(name, B, S, H, D, block, layout, dtype, causal, rate, gen,
                * 64 * 64 * 2 * D * 8 if block % 64 == 0 else None,
            "live_pairs": pairs, "density": pairs / (BH * S * S),
            "empty_rows": empty_rows, "tol": SPARSE_TOL,
+           "dq_route": fsk.dq_route(a[0], block),
            "max_abs_err": errs, "max_err_over_tol": worst,
            "dq_worst": dq_report,
            "lse_max_abs_err_finite_rows":
@@ -1695,6 +1701,10 @@ def phase_sparse(flush):
     cases.append(sparse_case("block160-causal-dropout-bfloat16", 2, 1280, 4,
                              64, 160, fixed_layout(4, 160, 1280), bf16, True,
                              0.1, gen, flush, False))
+    # the wgmma dQ at Dh 128 (fp16, causal, dropout)
+    cases.append(sparse_case("dh128-block128-causal-dropout-float16", 2, 2048,
+                             4, 128, 128, fixed_layout(4, 128, 2048), fp16,
+                             True, 0.1, gen, flush, False))
     cases.append(sparse_case("dh256-block128-dropout-bfloat16", 2, 1024, 4,
                              256, 128, fixed_layout(4, 128, 1024), bf16,
                              False, 0.1, gen, flush, False))
@@ -1716,22 +1726,26 @@ def phase_sparse(flush):
 
 SPARSE_REPEAT_CASES = (
     # B, S, H, D, block, dtype, causal, dropout: the fp16 16-row-tile
-    # kernels, then the bf16 wgmma dK/dV (heaviest walk first)
+    # kernels, then the bf16 wgmma dQ and dK/dV (heaviest walk first), then
+    # the wgmma dQ at Dh 128 in fp16 under the causal mask
     (2, 256, 2, 128, 16, "float16", True, 0.2),
-    (2, 1024, 4, 64, 128, "bfloat16", False, 0.1))
+    (2, 1024, 4, 64, 128, "bfloat16", False, 0.1),
+    (2, 1024, 4, 128, 128, "float16", True, 0.1))
 
 
 def phase_sparse_repeat(n=50):
     """Sparse dQ and dK/dV as functions of their inputs alone, as
     phase_flash_repeat checks dense dQ: on the fp16 Dh 128 causal dropout
-    case (block 16) and on a bf16 Dh 64 fixed layout at block 128 with
-    dropout (the wgmma dK/dV, whose persistent grid hands out items in
-    order), each is computed n times, each call after a different kernel
+    case (block 16), on a bf16 Dh 64 fixed layout at block 128 with
+    dropout (the wgmma dQ and dK/dV, whose persistent grids hand out items
+    in order) and on an fp16 Dh 128 causal one (the wgmma dQ), each is
+    computed n times, each call after a different kernel
     left its own data in shared memory (the sparse forward, the dense flash
     dK/dV, or nothing), and every result must equal the first bit for bit;
     the plain versions three times, likewise."""
     import torch
 
+    from deepspeed_tpu_torch.kernels import flash_sparse as fsk
     from deepspeed_tpu_torch.kernels import registry
     from deepspeed_tpu_torch.ops.sparse_attention.flash_sparse import \
         device_tables
@@ -1776,6 +1790,7 @@ def phase_sparse_repeat(n=50):
         rec = {"phase": "sparse-repeat", "runs": n,
                "case": f"B {B}, S {S}, H {H}, Dh {D}, block {blk}, {dname}, "
                f"{'causal, ' if causal else ''}dropout {rate}",
+               "dq_route": fsk.dq_route(a[0], blk),
                "kernel_runs_differing": differ,
                "plain_runs_differing": plain_differ}
         emit(rec)
@@ -1832,6 +1847,7 @@ def xent_case(name, N, D, V, dtype, gen, flush, timed):
                                  g, impl=impl, **opts)
 
     ref["dx"], ref["dw"] = dx("torch"), dw("torch")
+    dx_route = fused_xent.dx_route(x, w, labels, lse, valid)
     dw_route = fused_xent.dw_route(x, w, labels, lse, valid)
     got = dict(zip(("lse", "ll"), fwd("cuda")))
     got["dx"], got["dw"] = dx("cuda"), dw("cuda")
@@ -1860,7 +1876,14 @@ def xent_case(name, N, D, V, dtype, gen, flush, timed):
            "dtype": dname, "head": "tied (wte.t() view)",
            "invalid_rows": int((~valid).sum()), "tol": XENT_TOL,
            "max_abs_err": errs, "max_err_over_tol": worst, "kernels": {},
-           "dw_route": dw_route}
+           "dx_route": dx_route, "dw_route": dw_route}
+    if dx_route == "wgmma":
+        # derived from the wgmma kernel's tiling in its dx role (64-token
+        # resident tiles, 16-row vocab tiles, the logits' D-sum split
+        # between the warpgroups), not measured: both products once over
+        # the padded N and V
+        rec["dx_tensor_flops_by_design"] = (2 * 2 * -(-N // 64) * 64 * D *
+                                            -(-V // 16) * 16)
     if dw_route == "wgmma":
         # derived from the wgmma kernel's tiling (16-token x tiles, 64-row
         # vocab tiles, the logits' D-sum split between the warpgroups),
@@ -1913,6 +1936,69 @@ def phase_xent(gen, flush):
             # dW's wgmma route at a ragged N and GPT-2's real vocab, fp16
             xent_case("ragged-n1000-v50257-float16", 1000, 768, 50257,
                       torch.float16, gen, flush, False)]
+
+
+XENT_REPEAT_CASES = (
+    # N, D, V, dtype: train-pallas's shape, then a ragged N and GPT-2's
+    # real vocab in fp16 (the wgmma dx and dW both)
+    (8192, 768, 50304, "bfloat16"),
+    (1000, 768, 50257, "float16"))
+
+
+def phase_xent_repeat(n=50):
+    """The fused-CE dx and dW as functions of their inputs alone, on their
+    wgmma routes (the tied head): each is computed n times, each call
+    after a different kernel left its data in shared memory (the fused-CE
+    forward, a reduction, or nothing), and every result must equal the
+    first bit for bit."""
+    import torch
+
+    from deepspeed_tpu_torch.kernels import fused_xent, registry
+
+    recs = []
+    for N, D, V, dname in XENT_REPEAT_CASES:
+        dtype = getattr(torch, dname)
+        gen = torch.Generator(device="cuda").manual_seed(17)
+        x = torch.randn(N, D, device="cuda", generator=gen).to(dtype)
+        w = (0.02 * torch.randn(V, D, device="cuda", generator=gen)).to(
+            dtype).t()
+        labels = torch.randint(0, V, (N,), device="cuda", generator=gen)
+        valid = torch.rand(N, device="cuda", generator=gen) >= 0.2
+        g = torch.tensor(1.0 / float(valid.sum()), device="cuda")
+        opts = dict(block_rows=N, block_v=V)
+        lse, _ = registry.dispatch("fused_xent_fwd", x, w, labels,
+                                   impl="torch", **opts)
+        routes = {"dx": fused_xent.dx_route(x, w, labels, lse, valid),
+                  "dw": fused_xent.dw_route(x, w, labels, lse, valid)}
+        if set(routes.values()) != {"wgmma"}:
+            raise AssertionError(f"xent repeat: routes {routes}, want wgmma")
+
+        def both():
+            return [registry.dispatch(f"fused_xent_{k}", x, w, labels, lse,
+                                      valid, g, impl="cuda", **opts)
+                    for k in ("dx", "dw")]
+
+        others = [lambda: registry.dispatch("fused_xent_fwd", x, w, labels,
+                                            impl="cuda", **opts),
+                  lambda: torch.randn(1 << 20, device="cuda").sum(),
+                  lambda: None]
+        first = both()
+        differ = {"dx": 0, "dw": 0}
+        for i in range(n):
+            others[i % 3]()
+            for name, a, b in zip(differ, both(), first):
+                differ[name] += mismatches(a, b) != 0
+        torch.cuda.synchronize()
+        rec = {"phase": "xent-repeat", "runs": n,
+               "case": f"N {N}, D {D}, V {V}, {dname}, tied head",
+               "routes": routes, "kernel_runs_differing": differ}
+        emit(rec)
+        if any(differ.values()):
+            raise AssertionError(f"fused-CE dx / dW differ from run to run: "
+                                 f"{rec}")
+        recs.append(rec)
+        del x, w, first
+    return recs
 
 
 # -- phases 7-9: training ----------------------------------------------------------
@@ -2042,7 +2128,7 @@ def train_kernel_class(name):
     if "dispatch_kernel" in n or "combine_kernel" in n:
         return "moe"
     if any(k in n for k in ("fx_fwd_kernel", "fx_bwd_kernel",
-                            "fx_bwd_stream_kernel", "fx_dw_wgmma_kernel")):
+                            "fx_bwd_stream_kernel", "fx_wgmma_kernel")):
         return "fused_xent"
     if "foreach" in n or "multi_tensor" in n:
         return "optimizer"
@@ -3311,6 +3397,10 @@ def sparse_entries(sparse_cases, probe, train_bert, exact):
             "library_ms": k["library_ms"],
             "dense_flash_ms": main["dense_flash_ms"][
                 name.replace("sparse", "attention")],
+            **({"kernel_route": main["dq_route"],
+                "routes_by_case": {c["case"]: c["dq_route"]
+                                   for c in sparse_cases}}
+               if name == "flash_sparse_dq" else {}),
             "shape": "B=2 S=4096 H=16 Dh=64 bf16, fixed layout block 128 "
                      f"(W {main['W']}, Wq {main['Wq']}, density "
                      f"{main['density']:.3f})",
@@ -3424,13 +3514,22 @@ def xent_entries(xent_cases, train_pallas):
                           "the design, is the xent record's "
                           "dw_tensor_flops_by_design"}
                if name == "fused_xent_dw" else {}),
+            **({"kernel_route": main["dx_route"],
+                "design": "the wgmma kernel in its dx role issues the "
+                          "bound's two products once (over N and V rounded "
+                          "up to its 64- and 16-row tiles); the count, "
+                          "derived from the design, is the xent record's "
+                          "dx_tensor_flops_by_design"}
+               if name == "fused_xent_dx" else {}),
             "cases": [{"case": c["case"],
                        "max_err_over_tol": c["max_err_over_tol"],
                        "kernel_ms": c["kernels"][name].get("kernel_ms"),
                        "plain_ms": c["kernels"][name].get("plain_ms"),
                        "bound_ms": c["kernels"][name]["bound_ms"],
                        **({"kernel_route": c["dw_route"]}
-                          if name == "fused_xent_dw" else {})}
+                          if name == "fused_xent_dw" else {}),
+                       **({"kernel_route": c["dx_route"]}
+                          if name == "fused_xent_dx" else {})}
                       for c in xent_cases]})
     return out
 
@@ -3622,6 +3721,7 @@ def main():
                              torch.float16, [453], gen_dh, flush))
     mark("paged-head-dims")
     xent_cases = phase_xent(gen, flush)
+    phase_xent_repeat()
     mark("xent")
     codec = phase_codec()
     moe_cases = phase_moe_kernels(gen, flush)

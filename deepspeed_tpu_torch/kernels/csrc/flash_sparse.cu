@@ -57,6 +57,10 @@
 //     (train-bert-sparse's): a wgmma kernel fed by TMA on a persistent grid
 //     whose items run heaviest reverse-table walk first (the global
 //     columns' long walks no longer finish last; below).
+//   * bf16 / fp16 dQ at D = 64 or 128 with a layout block that is a
+//     multiple of 64: a warp-specialised wgmma kernel fed by TMA on a
+//     persistent grid, the flash forward's shape with the table walk
+//     (below).
 //   * fp32: fp32 FMAs on the CUDA cores, the dense kernels' thread layout.
 // The other kernels stage with plain 16-byte loads; cp.async or TMA
 // pipelining and wgmma for them are later work.
@@ -1110,6 +1114,254 @@ sparse_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
+// dQ for bf16 / fp16 at D = 64 or 128, layout blocks a multiple of 64: TMA,
+// wgmma, warp-specialised
+// ---------------------------------------------------------------------------
+//
+// The flash forward's wgmma shape (flash_attention.cu
+// `flash_fwd_wgmma_kernel`) with the table walk of the dK/dV kernel above.
+// The work items are (bh, 64-row q tile), taken by a persistent grid of
+// CTAs (MB an SM) as c, c + gridDim.x, ...  (every row of the training
+// layout has the same walk length, so no order is needed).  A CTA is two
+// warpgroups.  Warpgroup 1 is the producer (24 registers after
+// setmaxnreg.dec): one thread TMA-loads each item's Q and dO tiles (64 x D,
+// 128-byte swizzled, in 64-column chunks) and its rows' lse and delta
+// (256 bytes each, by bulk copy) into one of QB buffers, then runs a ring of
+// STAGES (K, V) stages along the item's forward-table row, one stage per
+// 64-key tile, up to the first -1; the ring runs on across items.
+// Warpgroup 0 is the consumer (setmaxnreg.inc); warp w owns q rows
+// [16 w, 16 w + 16) of the item.  Per key tile it computes S = Q.K^T and
+// dP = dO.V^T by wgmma m64n64k16 with both operands in shared memory, then
+// in fp32 registers the function's
+//   p = exp(scale s - lse) (the causal select first; the exp as one EX2),
+//   ds = p (dp keep - delta)
+// (the hash at the global (q, k) coordinates, `keep_scale`), rounds ds once
+// to the input dtype straight into wgmma A fragments (the function's
+// ds.astype(k.dtype), so the last product needs no split of ds), and adds
+// dQ += ds.K by wgmma m64nDk16 with B the SAME swizzled K tile read MN-major
+// (the transpose bit set): no transposed copy is staged.  The dQ
+// accumulator is 64 x D fp32 in registers (D / 2 a thread); every element
+// is summed by one warp in table order, 64 keys at a time: no atomics,
+// bitwise repeatable.  A q tile whose table row is empty writes zeros.
+// Shared memory: D 64 two Q buffers (the next item's Q and dO load while
+// this one finishes) and three stages, 85 KB; D 128 one Q buffer and two
+// stages, 100 KB; two CTAs an SM either way, so one CTA's tensor-core work
+// overlaps the other's elementwise pass.
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x with subnormal results flushed to zero (one MUFU.EX2): exp(x - lse)
+// as 2^((x - lse) log2 e), the difference taken first as the function
+// takes it (a row whose live keys are all causally masked keeps p = 1); a
+// p below 2^-126 is below every bound's 1e-6 floor
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int D>
+struct WgDq {
+  static constexpr int THREADS = 256, MB = 2;
+  static constexpr int NDC = D / 64;                // 64-column chunks
+  static constexpr int CHUNK = 64 * 128;            // 64 rows of one chunk
+  static constexpr int TILE = NDC * CHUNK;          // 64 rows of all D
+  static constexpr int QB = D == 64 ? 2 : 1;        // Q / dO buffers
+  static constexpr int STAGES = D == 64 ? 3 : 2;    // (K, V) stages
+  // a Q buffer: Q, dO, then lse[64] and delta[64] (padded so that buffers
+  // stay 1024-aligned)
+  static constexpr int QBUF = 2 * TILE + 1024;
+  static constexpr int STAGE = 2 * TILE;
+  static constexpr size_t SMEM = 1024 + QB * size_t(QBUF) +
+                                 STAGES * size_t(STAGE) +
+                                 8 * (2 * STAGES + 2 * QB);
+  static constexpr int LAUNCH_REGS = (65536 / (THREADS * MB)) & ~7;
+  static constexpr int CONSUMER_REGS = 2 * LAUNCH_REGS - 24;
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(256, WgDq<D>::MB)
+sparse_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, T* __restrict__ dq,
+                       SParams p) {
+  using LY = WgDq<D>;
+  constexpr int TILE = LY::TILE, CHUNK = LY::CHUNK, NDC = LY::NDC;
+  constexpr int QB = LY::QB, STAGES = LY::STAGES;
+  extern __shared__ unsigned char smraw[];
+  // 1024-byte alignment for the swizzle atoms
+  unsigned char* sQ = smraw + ((1024 - (smem_u32(smraw) & 1023)) & 1023);
+  unsigned char* sKV = sQ + QB * LY::QBUF;          // [STAGES][STAGE]: K, V
+  uint64_t* full = reinterpret_cast<uint64_t*>(sKV + STAGES * LY::STAGE);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qfull = empty + STAGES;                 // [QB]: Q buffer loaded
+  uint64_t* qempty = qfull + QB;                    // [QB]: Q buffer free
+
+  const int nq = p.S / 64;
+  const int n_items = p.BH * nq;
+  // item w -> (bh, first q row); returns the q-block's forward-table row
+  auto item = [&](int w, int& bh, int& q0) {
+    bh = w / nq;
+    q0 = (w % nq) * 64;
+    return table_row(p, bh, q0 / p.blk);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);   // one arrival per consumer warp
+    }
+    for (int b = 0; b < QB; ++b) {
+      mbar_init(&qfull[b], 1);
+      mbar_init(&qempty[b], 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 128) {
+      int it = 0;
+      for (int w = blockIdx.x, n = 0; w < n_items; w += gridDim.x, ++n) {
+        int bh, q0;
+        const int* row = item(w, bh, q0);
+        const int b = n % QB;
+        mbar_wait(&qempty[b], ((n / QB) & 1) ^ 1);
+        mbar_expect_tx(&qfull[b], 2 * TILE + 512);
+        unsigned char* qb = sQ + b * LY::QBUF;
+        for (int c = 0; c < NDC; ++c) {
+          tma_load_3d(qb + c * CHUNK, &tq, &qfull[b], 64 * c, q0, bh);
+          tma_load_3d(qb + TILE + c * CHUNK, &tdo, &qfull[b], 64 * c, q0, bh);
+        }
+        const size_t r = size_t(bh) * p.S + q0;
+        bulk_load(qb + 2 * TILE, lse + r, 256, &qfull[b]);
+        bulk_load(qb + 2 * TILE + 256, delta + r, 256, &qfull[b]);
+        for (int a = 0; a < p.W; ++a) {
+          const int kj = row[a];
+          if (kj < 0) break;
+          for (int k0 = kj * p.blk; k0 < (kj + 1) * p.blk; k0 += 64, ++it) {
+            const int s = it % STAGES;
+            mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+            mbar_expect_tx(&full[s], 2 * TILE);
+            unsigned char* st = sKV + s * LY::STAGE;
+            for (int c = 0; c < NDC; ++c) {
+              tma_load_3d(st + c * CHUNK, &tk, &full[s], 64 * c, k0, bh);
+              tma_load_3d(st + TILE + c * CHUNK, &tv, &full[s], 64 * c, k0, bh);
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer
+  setmaxnreg_inc<LY::CONSUMER_REGS>();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  float acc[D / 2];
+  int it = 0;
+  for (int w = blockIdx.x, n = 0; w < n_items; w += gridDim.x, ++n) {
+    int bh, q0;
+    const int* row = item(w, bh, q0);
+    const int b = n % QB;
+    const int ra = q0 + warp * 16 + g, rb = ra + 8;
+    const uint32_t bhm = uint32_t(bh) * 0x7FEB352Du;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    const unsigned char* qt = sQ + b * LY::QBUF;
+    const unsigned char* ot = qt + TILE;
+    mbar_wait(&qfull[b], (n / QB) & 1);
+    const float* sL = reinterpret_cast<const float*>(qt + 2 * TILE);
+    const float lse_a = sL[warp * 16 + g], lse_b = sL[warp * 16 + g + 8];
+    const float dl_a = sL[64 + warp * 16 + g], dl_b = sL[64 + warp * 16 + g + 8];
+
+    for (int a = 0; a < p.W; ++a) {
+      const int kj = row[a];
+      if (kj < 0) break;
+      for (int k0 = kj * p.blk; k0 < (kj + 1) * p.blk; k0 += 64, ++it) {
+        const int s = it % STAGES;
+        mbar_wait(&full[s], (it / STAGES) & 1);
+        const unsigned char* kt = sKV + s * LY::STAGE;
+        const unsigned char* vt = kt + TILE;
+
+        float sc[32], dp[32];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int off = (kk >> 2) * CHUNK + (kk & 3) * 32;
+          Wgmma<T, 64>::ss(sc, sw128_desc(qt + off, 16, 1024),
+                           sw128_desc(kt + off, 16, 1024), kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const int off = (kk >> 2) * CHUNK + (kk & 3) * 32;
+          Wgmma<T, 64>::ss(dp, sw128_desc(ot + off, 16, 1024),
+                           sw128_desc(vt + off, 16, 1024), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<32>(sc);
+        fence_regs<32>(dp);
+
+        // register 4j + r: q row (r < 2 ? ra : rb), key k0 + 8j + 2t + (r & 1)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const int i = 4 * j + r, kg = k0 + 8 * j + 2 * t + (r & 1);
+            const int rr = r < 2 ? ra : rb;
+            const float x = causal_score(p, p.scale * sc[i], rr, kg);
+            const float pv = ex2((x - (r < 2 ? lse_a : lse_b)) * LOG2E);
+            float dpv = dp[i];
+            if (p.dropout) dpv *= keep_scale(p, bhm, rr, kg);
+            sc[i] = pv * (dpv - (r < 2 ? dl_a : dl_b));
+          }
+        // ds rounded to K's dtype, as wgmma A fragments (16 keys each)
+        uint32_t da[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          da[kk][0] = Mma<T>::pack(sc[8 * kk], sc[8 * kk + 1]);
+          da[kk][1] = Mma<T>::pack(sc[8 * kk + 2], sc[8 * kk + 3]);
+          da[kk][2] = Mma<T>::pack(sc[8 * kk + 4], sc[8 * kk + 5]);
+          da[kk][3] = Mma<T>::pack(sc[8 * kk + 6], sc[8 * kk + 7]);
+        }
+        // dQ += ds.K, B the stage's K tile read MN-major (16 keys a slice)
+        fence_regs<D / 2>(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          Wgmma<T, D>::rs(acc, da[kk], sw128_desc(kt + kk * 16 * 128, CHUNK, 1024),
+                          1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<D / 2>(acc);
+        // the stage's K and V have been read: hand it back
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);
+      }
+    }
+    // the item's Q, dO, lse and delta have been read
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&qempty[b]);
+
+    T* dqh = dq + size_t(bh) * p.S * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int cc = 8 * j + 2 * t;
+      *reinterpret_cast<uint32_t*>(dqh + size_t(ra) * D + cc) =
+          Mma<T>::pack(p.scale * acc[4 * j], p.scale * acc[4 * j + 1]);
+      *reinterpret_cast<uint32_t*>(dqh + size_t(rb) * D + cc) =
+          Mma<T>::pack(p.scale * acc[4 * j + 2], p.scale * acc[4 * j + 3]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -1147,6 +1399,43 @@ cudaError_t launch_dkv_wgmma(const Ptrs& a, const SParams& p, cudaStream_t st) {
   return cudaGetLastError();
 }
 
+// the wgmma dQ (bf16 / fp16, D 64 / 128, blk % 64 == 0) on a persistent
+// grid of MB CTAs an SM
+template <typename T, int D>
+cudaError_t launch_dq_wgmma(const Ptrs& a, const SParams& p, cudaStream_t st) {
+  using LY = WgDq<D>;
+  CUtensorMap tq, tk, tv, tdo;
+  cudaError_t e;
+  if ((e = tensor_map<T>(&tq, a.q, p.BH, p.S, D, 64)) != cudaSuccess ||
+      (e = tensor_map<T>(&tk, a.k, p.BH, p.S, D, 64)) != cudaSuccess ||
+      (e = tensor_map<T>(&tv, a.v, p.BH, p.S, D, 64)) != cudaSuccess ||
+      (e = tensor_map<T>(&tdo, a.dout, p.BH, p.S, D, 64)) != cudaSuccess)
+    return e;
+  auto kern = sparse_dq_wgmma_kernel<T, D>;
+  if ((e = set_smem(kern, LY::SMEM)) != cudaSuccess) return e;
+  int dev, sms;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+          cudaSuccess)
+    return e;
+  const int items = p.BH * (p.S / 64);
+  kern<<<min(items, sms * LY::MB), LY::THREADS, LY::SMEM, st>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<T*>(a.dq), p);
+  return cudaGetLastError();
+}
+
+// 1: the wgmma dQ takes these operands (bf16 / fp16, D 64 or 128, a layout
+// block that is a multiple of 64); 0: the mma.sync dQ (other bf16 / fp16),
+// 2: the CUDA-core dQ (fp32)
+int dq_route_of(int dtype, int D, int blk) {
+  if (dtype == 0) return 2;
+  return (dtype == 1 || dtype == 2) && (D == 64 || D == 128) && blk > 0 &&
+                 blk % 64 == 0
+             ? 1
+             : 0;
+}
+
 // Which kernel runs, chosen at compile time so that each is instantiated
 // only for the dtypes that reach it (as in flash_attention.cu).  C is the
 // row tile (64 for a layout block that is a multiple of 64, walked as
@@ -1154,7 +1443,9 @@ cudaError_t launch_dkv_wgmma(const Ptrs& a, const SParams& p, cudaStream_t st) {
 // fp32 forward and (at D = 256) of the tensor-core forward, halved to 32 at
 // D >= 128 where registers or shared memory would not fit (the D 64 / 128
 // tensor-core forward stages C keys); CKV the key rows of the CUDA-core
-// dK/dV, 16 at D = 256 for its shared memory.
+// dK/dV, 16 at D = 256 for its shared memory.  The wgmma dQ takes bf16 /
+// fp16 at C = 64 and D 64 / 128 (`dq_route_of`), the wgmma dK/dV bf16 at
+// C = 64 and D 64.
 template <typename T, int D, int C>
 cudaError_t launch(int which, const Ptrs& a, const SParams& p, cudaStream_t st) {
   constexpr bool mma = !std::is_same<T, float>::value;
@@ -1185,7 +1476,9 @@ cudaError_t launch(int which, const Ptrs& a, const SParams& p, cudaStream_t st) 
                                         static_cast<float*>(a.lse_out), p);
     }
   } else if (which == 1) {
-    if constexpr (mma) {
+    if constexpr (mma && C == 64 && D <= 128) {
+      return launch_dq_wgmma<T, D>(a, p, st);
+    } else if constexpr (mma) {
       auto kern = sparse_dq_mma_kernel<T, D, C, CK>;
       const size_t smem = MmaLayout<T, D, CK>::DQ_SMEM;
       if ((e = set_smem(kern, smem)) != cudaSuccess) return e;
@@ -1288,6 +1581,12 @@ int flash_sparse_dq(const void* q, const void* k, const void* v,
          nullptr};
   return run(1, a, tbl, BH, H, S, D, blk, W, scale, causal, seed, thr,
              inv_keep, dropout, dtype, stream);
+}
+
+// the kernel flash_sparse_dq launches for these operands: 1 = the wgmma
+// kernel, 0 = sparse_dq_mma_kernel, 2 = sparse_dq_kernel
+int flash_sparse_dq_route(int dtype, int D, int blk) {
+  return dq_route_of(dtype, D, blk);
 }
 
 // order: int32 [H * S / blk], the (head, k-block) pairs heaviest walk

@@ -79,17 +79,18 @@
 //     hi/mid/lo split of flash dK/dV, which would triple the second
 //     product's cost.  kernels/fused_xent.py `kernel_tolerances` states the
 //     resulting per-element bound.  fp32 inputs keep dl' in fp32.
-//   * dW for bf16 / fp16 with the tied head at D = 256, 512 or 768
-//     (GPT-2 small's width, train-pallas's shape) takes a wgmma kernel fed
-//     by TMA on a persistent grid instead (fx_dw_wgmma_kernel, below: its
-//     note states how it meets the register, FLOP, shared-memory and L2
-//     budgets); the launcher picks it (`dw_route_of`).
+//   * dx and dW for bf16 / fp16 with the tied head at D = 256, 512 or 768
+//     (GPT-2 small's width, train-pallas's shape) take a wgmma kernel fed
+//     by TMA on a persistent grid instead, one kernel over the two roles
+//     (fx_wgmma_kernel, below: its note states how it meets the register,
+//     FLOP, shared-memory and L2 budgets); the launcher picks it
+//     (`route_of`).
 // Left to later work: pipelining the forward's chunks and the fp32 path,
-// wgmma for the forward and dx (the dW kernel with its roles swapped), and
-// larger resident tiles (the W and x tiles of the mma.sync kernels are
-// re-read from L2 by every block: 19.8 GB of L2 traffic per backward kernel
-// at the GPT-2 shape); dx at small N (1024 rows at D = 1600 make 64 blocks)
-// leaves SMs idle, and a split of its vocab sweep would fill them.
+// wgmma for the forward, and larger resident tiles for the mma.sync
+// kernels (their W and x tiles are re-read from L2 by every block: 19.8 GB
+// of L2 traffic per backward kernel at the GPT-2 shape); dx at small N
+// (1024 rows at D = 1600 make 64 blocks) leaves SMs idle, and a split of
+// its vocab sweep would fill them.
 
 #include <type_traits>
 
@@ -754,108 +755,129 @@ fx_bwd_stream_kernel(View x, View w, const int64_t* __restrict__ labels,
 }
 
 // ---------------------------------------------------------------------------
-// dW^T for bf16 / fp16, the tied head, D = 256, 512 or 768: TMA and wgmma
+// dW^T and dx for bf16 / fp16, the tied head, D = 256, 512 or 768: TMA and
+// wgmma, one kernel over two roles
 // ---------------------------------------------------------------------------
 //
 // dW^T[v, :] = g sum_n dl'[n, v] x[n, :] is flash dK's structure: the
 // head's vocab rows take the place of keys, x the place of both Q and dO,
-// the logits^T the place of S^T.  A persistent grid of one CTA an SM takes
-// vocab tiles of 64 rows c, c + gridDim.x, ...: the tile's W operand (64
-// rows of the tied embedding, K-major, all D columns) is TMA-loaded once,
-// and x streams through a ring of STAGES = 4 stages in tiles of BN = 16
-// token rows (all D columns, 128-byte swizzled, with the tile's lse,
-// labels and valid flags by 1-d TMA; rows past N read as zeros, their
-// valid flag 0).  One thread issues the loads; a stage is refilled, with
-// the tile STAGES ahead, as soon as every warp's product on it has retired
-// (an mbarrier counts the warps), so the loads run three tiles ahead.
+// the logits^T the place of S^T.  dx[n, :] = g sum_v dl'[n, v] W[:, v] is
+// the same with the roles swapped: x's token rows resident, the tied
+// embedding's vocab rows streamed.  So one kernel takes both: a resident
+// tile of RT = 64 rows (vocab rows of W for dW, token rows of x for dx)
+// and a stream of tiles of BN = 16 rows of the other operand.  A
+// persistent grid of one CTA an SM takes resident tiles c, c + gridDim.x,
+// ...: the tile's operand (64 rows, K-major, all D columns) is TMA-loaded
+// once, and the other operand streams through a ring of STAGES = 4 stages
+// (all D columns, 128-byte swizzled; rows past the end read as zeros).
+// The per-token statistics (lse, label, valid) belong to the streamed rows
+// for dW, and come with each x tile by 1-d TMA (a row past N reads valid
+// 0); for dx they belong to the resident rows, and each thread reads its
+// two rows' once a resident tile into registers (a row past N is invalid).
+// One thread issues the loads; a stage is refilled, with the tile STAGES
+// ahead, as soon as every warp's product on it has retired (an mbarrier
+// counts the warps), so the loads run three tiles ahead.
 // The CTA is D / 256 warpgroups; warpgroup c owns output columns
-// [256c, 256c + 256) and, per x tile:
-//   * forms its part of the logits^T tile (64 vocab x 16 tokens) over its
-//     own 256 columns of D by wgmma m64n16k16, W and x K-major in shared
-//     memory; the partials are added through shared memory in warpgroup
-//     order (the same bits in every warpgroup), so each product is issued
-//     once by the CTA;
-//   * turns them in registers into dl'^T = valid (exp(s - lse) -
-//     [v == label]) — 0 for a vocab row past V; the exp is __expf, whose
+// [256c, 256c + 256) and, per streamed tile:
+//   * forms its part of the logits tile (64 resident x 16 streamed rows)
+//     over its own 256 columns of D by wgmma m64n16k16, both operands
+//     K-major in shared memory; the partials are added through shared
+//     memory in warpgroup order (the same bits in every warpgroup), so each
+//     product is issued once by the CTA;
+//   * turns them in registers into dl' = valid (exp(s - lse) -
+//     [v == label]) — 0 for a vocab row past V (TMA's zero rows give
+//     exp(0 - lse), not 0) and for a token past N; the exp is __expf, whose
 //     relative error (~1e-6) sits far inside the bf16 rounding that follows
 //     — rounded once to the input dtype, which is already wgmma's A
-//     fragment (a logits^T accumulator row is an A row);
-//   * accumulates dW^T[:, 256c : 256c + 256] += dl'^T . x_tile[:, 256c :
-//     ...] by wgmma m64n256k16, A from registers and B the SAME swizzled x
-//     tile read MN-major (the transpose bit set, as the flash forward reads
-//     V): no transposed copy is staged.
+//     fragment (a logits accumulator row is an A row);
+//   * accumulates out[:, 256c : 256c + 256] += dl' . tile[:, 256c : ...]
+//     by wgmma m64n256k16, A from registers and B the SAME swizzled
+//     streamed tile read MN-major (the transpose bit set, as the flash
+//     forward reads V): no transposed copy is staged.
 // The accumulator stays in registers for the whole sweep, so every output
-// element is summed by one thread in token order: no atomics, bitwise
-// repeatable.  g multiplies once, in fp32, in the epilogue, which stores
-// rows < V.
-// What holds it (chip_ablate.py on an NVIDIA H100 80GB HBM3 at N 8192,
+// element is summed by one thread in streamed-row order: no atomics,
+// bitwise repeatable.  g multiplies once, in fp32, in the epilogue, which
+// stores resident rows < V (dW) or < N (dx).
+// What holds it (dW; chip_ablate.py on an NVIDIA H100 80GB HBM3 at N 8192,
 // D 768, V 50304: 6.2 ms in all): the steps run in series — with no
 // products at all the kernel still takes 3.0 ms (the elementwise pass 1.6
 // of it), the dW product adds 2.1 and the logits 1.1.  Issuing tile i + 1's logits before tile i's
 // elementwise pass (software pipelining) needs 12 more registers, and at
-// 168 ptxas then spills and serializes the products: left to later work,
-// with a cluster that would free registers by splitting D.
+// 168 ptxas then spills and serializes the products.
 // The budgets (D = 768):
 //   * registers: the [64, D] fp32 accumulator is 196,608 bytes, 75% of an
 //     SM's register file: one CTA an SM, the accumulator split by columns
-//     over three warpgroups, 128 registers a thread.  ptxas holds every
-//     thread of a CTA to its launch bound even after setmaxnreg (a
-//     512-thread CTA — a producer warpgroup beside three consumers — fails
-//     at 128 registers: the m64n256k16 product needs 158), so there is no
-//     producer warpgroup: 384 threads at up to 168 registers, which leaves
-//     8 for the logits partial and 4 for the A fragment — hence BN = 16.
-//     128 vocab rows a CTA cannot fit.
+//     over three warpgroups, 128 registers a thread.  No producer
+//     warpgroup: beside one (at 40 registers after setmaxnreg) the three
+//     consumers could take at most 152 each, (65,536 - 128 x 40) / 384
+//     rounded down to 8, and the m64n256k16 product needs 158; so 384
+//     threads at up to 168 registers, which leaves 8 for the logits
+//     partial and 4 for the A fragment — hence BN = 16.
 //   * issued FLOPs: the logits' D-sum is split between the warpgroups, not
-//     recomputed per warpgroup, so the CTA issues 2 x 2 N' D V' FLOPs (N'
-//     and V' rounded up to 16 and 64): the bound's two products.
-//   * shared memory: W 96 KB, four x stages of 24 KB (+ 512 bytes of
-//     stats each), the partials 12 KB: 207 KB of the 227 KB a block may
-//     take.
-//   * L2 traffic: every CTA reads all of x once per vocab tile, 786 times
-//     at V = 50304 (9.9 GB from L2 at N = 8192, D = 768).  A cluster of two
-//     CTAs sharing each x tile by TMA multicast would halve that; this
-//     kernel does not (each CTA's shared memory is nearly full).
-// dx (#5) keeps fx_bwd_kernel: this kernel with x in W's place and W in
-// x's (resident token rows, streamed vocab tiles) is its dx role.
+//     recomputed per warpgroup, so the CTA issues 2 x 2 N' D V' FLOPs (the
+//     streamed rows rounded up to 16, the resident to 64): the bound's two
+//     products.
+//   * shared memory: the resident tile 96 KB, four streamed stages of 24 KB
+//     (+ 512 bytes of stats each for dW), the partials 12 KB: 207 KB of
+//     the 227 KB a block may take.
+//   * L2 traffic: every CTA reads all of the streamed operand once per
+//     resident tile (dW: x 786 times at V = 50304, 9.9 GB at N = 8192,
+//     D = 768; dx: W 128 times, the same 9.9 GB).
+// In its dx role at that shape it takes 6.1 ms where fx_bwd_kernel took
+// 13.5 (chip_ab.py on an NVIDIA H100 80GB HBM3 at 700 W).  A dx that split
+// D over a two-CTA cluster (two consumer warpgroups of m64n192 at 232
+// registers after setmaxnreg, BN 32, the next tile's logits issued before
+// this tile's elementwise pass, the logits partials exchanged by st.async)
+// measured slower and was not kept: PERF.md (PR 9) has its times and why.
 
-template <int NWG>
-struct WgDw {
+template <int NWG, bool DW>
+struct WgBwd {
   static constexpr int THREADS = 128 * NWG;
-  static constexpr int VT = 64, BN = 16, STAGES = 4;  // vocab rows, token rows
+  static constexpr int RT = 64, BN = 16, STAGES = 4;  // resident, streamed rows
   static constexpr int CH = 4 * NWG;                 // 64-column chunks of D
-  static constexpr int W_CHUNK = VT * 128, X_CHUNK = BN * 128;
-  static constexpr int W_BYTES = CH * W_CHUNK, X_BYTES = CH * X_CHUNK;
-  // a stage's stats: lse fp32 at 0, labels int64 at 128, valid bytes at 256
-  static constexpr int STAT = 512, STAT_BYTES = BN * 4 + BN * 8 + BN;
+  static constexpr int R_CHUNK = RT * 128, S_CHUNK = BN * 128;
+  static constexpr int R_BYTES = CH * R_CHUNK, S_BYTES = CH * S_CHUNK;
+  // dW's stage stats: lse fp32 at 0, labels int64 at 128, valid bytes at 256
+  static constexpr int STAT = DW ? 512 : 0;
+  static constexpr int STAT_BYTES = DW ? BN * 4 + BN * 8 + BN : 0;
   static constexpr int PART = NWG > 1 ? NWG * 8 * 128 * 4 : 0;  // fp32 partials
   static constexpr size_t SMEM =
-      1024 + W_BYTES + STAGES * size_t(X_BYTES + STAT) + PART + 128;
+      1024 + R_BYTES + STAGES * size_t(S_BYTES + STAT) + PART + 128;
 };
 
-template <typename T, int NWG>
+// tres: the resident operand's tensor map (W for dW, x for dx), boxes of
+// 64 rows; tstr: the streamed one's, boxes of 16 rows; tlse, tlab, tval:
+// dW's 1-d maps of the stats (unused for dx, which reads lse, labels and
+// valid directly)
+template <typename T, int NWG, bool DW>
 __global__ void __launch_bounds__(128 * NWG, 1)
-fx_dw_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
-                   const __grid_constant__ CUtensorMap tw,
-                   const __grid_constant__ CUtensorMap tlse,
-                   const __grid_constant__ CUtensorMap tlab,
-                   const __grid_constant__ CUtensorMap tval,
-                   const float* __restrict__ gp, T* __restrict__ out, int N,
-                   int V) {
-  using LY = WgDw<NWG>;
+fx_wgmma_kernel(const __grid_constant__ CUtensorMap tres,
+                const __grid_constant__ CUtensorMap tstr,
+                const __grid_constant__ CUtensorMap tlse,
+                const __grid_constant__ CUtensorMap tlab,
+                const __grid_constant__ CUtensorMap tval,
+                const float* __restrict__ lse,
+                const int64_t* __restrict__ labels,
+                const uint8_t* __restrict__ valid,
+                const float* __restrict__ gp, T* __restrict__ out, int N,
+                int V) {
+  using LY = WgBwd<NWG, DW>;
   constexpr int D = 256 * NWG, STAGES = LY::STAGES;
   extern __shared__ unsigned char smraw[];
   // 1024-byte alignment for the swizzle atoms
-  unsigned char* sW = smraw + ((1024 - (smem_u32(smraw) & 1023)) & 1023);
-  unsigned char* sX = sW + LY::W_BYTES;                 // [STAGES][X_BYTES]
-  unsigned char* sS = sX + STAGES * LY::X_BYTES;        // [STAGES][STAT]
-  float* sPart = reinterpret_cast<float*>(sS + STAGES * LY::STAT);  // [NWG][8][128]
-  uint64_t* full = reinterpret_cast<uint64_t*>(sS + STAGES * LY::STAT + LY::PART);
+  unsigned char* sR = smraw + ((1024 - (smem_u32(smraw) & 1023)) & 1023);
+  unsigned char* sS = sR + LY::R_BYTES;                 // [STAGES][S_BYTES]
+  unsigned char* sSt = sS + STAGES * LY::S_BYTES;       // [STAGES][STAT]
+  float* sPart = reinterpret_cast<float*>(sSt + STAGES * LY::STAT);  // [NWG][8][128]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sSt + STAGES * LY::STAT + LY::PART);
   uint64_t* empty = full + STAGES;
-  uint64_t* wfull = empty + STAGES;
+  uint64_t* rfull = empty + STAGES;
 
-  const int n_vt = (V + LY::VT - 1) / LY::VT, n_xt = (N + LY::BN - 1) / LY::BN;
-  const int n_my = (n_vt - int(blockIdx.x) + int(gridDim.x) - 1) / int(gridDim.x);
-  const int total = n_my * n_xt;                    // x tiles this CTA streams
+  const int n_res_rows = DW ? V : N, n_str_rows = DW ? N : V;
+  const int n_rt = (n_res_rows + LY::RT - 1) / LY::RT;
+  const int n_st = (n_str_rows + LY::BN - 1) / LY::BN;
+  const int n_my = (n_rt - int(blockIdx.x) + int(gridDim.x) - 1) / int(gridDim.x);
+  const int total = n_my * n_st;                    // tiles this CTA streams
   const int wg = threadIdx.x >> 7, tw_ = threadIdx.x & 127;
   const int warp = tw_ >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -865,55 +887,72 @@ fx_dw_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
       mbar_init(&full[i], 1);
       mbar_init(&empty[i], 4 * NWG);   // one arrival per warp
     }
-    mbar_init(wfull, 1);
+    mbar_init(rfull, 1);
     mbar_fence_init();
   }
   __syncthreads();
 
-  // x tile it of this CTA's stream (x tile it % n_xt) into stage it % STAGES
-  auto load_x = [&](int it) {
-    const int s = it % STAGES, r0 = (it % n_xt) * LY::BN;
-    mbar_expect_tx(&full[s], LY::X_BYTES + LY::STAT_BYTES);
-    unsigned char* dst = sX + s * LY::X_BYTES;
+  // streamed tile it of this CTA's stream (tile it % n_st) into stage
+  // it % STAGES
+  auto load_str = [&](int it) {
+    const int s = it % STAGES, r0 = (it % n_st) * LY::BN;
+    mbar_expect_tx(&full[s], LY::S_BYTES + LY::STAT_BYTES);
+    unsigned char* dst = sS + s * LY::S_BYTES;
     for (int ch = 0; ch < LY::CH; ++ch)
-      tma_load_3d(dst + ch * LY::X_CHUNK, &tx, &full[s], ch * 64, r0, 0);
-    unsigned char* st = sS + s * LY::STAT;
-    tma_load_1d(st, &tlse, &full[s], r0);
-    tma_load_1d(st + 128, &tlab, &full[s], r0);
-    tma_load_1d(st + 256, &tval, &full[s], r0);
+      tma_load_3d(dst + ch * LY::S_CHUNK, &tstr, &full[s], ch * 64, r0, 0);
+    if constexpr (DW) {
+      unsigned char* st = sSt + s * LY::STAT;
+      tma_load_1d(st, &tlse, &full[s], r0);
+      tma_load_1d(st + 128, &tlab, &full[s], r0);
+      tma_load_1d(st + 256, &tval, &full[s], r0);
+    }
   };
-  auto load_w = [&](int vt) {
-    mbar_expect_tx(wfull, LY::W_BYTES);
+  auto load_res = [&](int rt) {
+    mbar_expect_tx(rfull, LY::R_BYTES);
     for (int ch = 0; ch < LY::CH; ++ch)
-      tma_load_3d(sW + ch * LY::W_CHUNK, &tw, wfull, ch * 64, vt * LY::VT, 0);
+      tma_load_3d(sR + ch * LY::R_CHUNK, &tres, rfull, ch * 64, rt * LY::RT, 0);
   };
   if (threadIdx.x == 0 && n_my > 0) {
-    load_w(blockIdx.x);
-    for (int i = 0; i < STAGES && i < total; ++i) load_x(i);
+    load_res(blockIdx.x);
+    for (int i = 0; i < STAGES && i < total; ++i) load_str(i);
   }
 
-  const uint64_t dw0 = sw128_desc(sW + 4 * wg * LY::W_CHUNK, 16, 1024);
+  const uint64_t dr0 = sw128_desc(sR + 4 * wg * LY::R_CHUNK, 16, 1024);
   float acc[128];
   int it = 0;
   for (int n = 0; n < n_my; ++n) {
-    const int vt = blockIdx.x + n * gridDim.x;
+    const int rt = blockIdx.x + n * gridDim.x;
+    // this thread's two resident rows (register 4j + r holds row
+    // 16 warp + g + 8 (r >> 1) of the tile)
+    const int ra = rt * LY::RT + warp * 16 + g, rb = ra + 8;
+    // dx: the two token rows' stats, once a resident tile
+    bool ok_a = false, ok_b = false;
+    float lse_a = 0.f, lse_b = 0.f;
+    long long lab_a = -1, lab_b = -1;
+    if constexpr (!DW) {
+      ok_a = ra < N && valid[ra] != 0;
+      ok_b = rb < N && valid[rb] != 0;
+      if (ok_a) { lse_a = lse[ra]; lab_a = labels[ra]; }
+      if (ok_b) { lse_b = lse[rb]; lab_b = labels[rb]; }
+    }
 #pragma unroll
     for (int i = 0; i < 128; ++i) acc[i] = 0.f;
-    mbar_wait(wfull, n & 1);
-    for (int xt = 0; xt < n_xt; ++xt, ++it) {
+    mbar_wait(rfull, n & 1);
+    for (int st = 0; st < n_st; ++st, ++it) {
       const int s = it % STAGES;
       mbar_wait(&full[s], (it / STAGES) & 1);
-      const unsigned char* xs = sX + s * LY::X_BYTES + 4 * wg * LY::X_CHUNK;
-      const uint64_t dx0 = sw128_desc(xs, 16, 1024);
-      // this warpgroup's part of the logits^T tile (64 vocab x 16 tokens)
+      const unsigned char* ss = sS + s * LY::S_BYTES + 4 * wg * LY::S_CHUNK;
+      const uint64_t ds0 = sw128_desc(ss, 16, 1024);
+      // this warpgroup's part of the logits tile (64 resident x 16
+      // streamed rows)
       float sc[8];
       wgmma_fence();
 #pragma unroll
       for (int ch = 0; ch < 4; ++ch)
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          Wgmma<T, 16>::ss(sc, dw0 + ((ch * LY::W_CHUNK + 32 * kk) >> 4),
-                           dx0 + ((ch * LY::X_CHUNK + 32 * kk) >> 4), ch | kk);
+          Wgmma<T, 16>::ss(sc, dr0 + ((ch * LY::R_CHUNK + 32 * kk) >> 4),
+                           ds0 + ((ch * LY::S_CHUNK + 32 * kk) >> 4), ch | kk);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs<8>(sc);
@@ -922,10 +961,11 @@ fx_dw_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
         for (int i = 0; i < 8; ++i) sPart[(wg * 8 + i) * 128 + tw_] = sc[i];
       }
       // every warpgroup has its logits: the partials are written, and after
-      // the vocab tile's last x tile W is free for the next vocab tile
+      // the resident tile's last streamed tile its buffer is free for the
+      // next resident tile
       __syncthreads();
-      if (threadIdx.x == 0 && xt == n_xt - 1 && n + 1 < n_my)
-        load_w(vt + gridDim.x);
+      if (threadIdx.x == 0 && st == n_st - 1 && n + 1 < n_my)
+        load_res(rt + gridDim.x);
       if constexpr (NWG > 1) {
         // the partials in warpgroup order: the same sum in every warpgroup
 #pragma unroll
@@ -937,34 +977,52 @@ fx_dw_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
         }
         __syncthreads();  // the partials are read: the next tile rewrites them
       }
-      // dl'^T: register 4j + r is vocab row 16 warp + g + 8 (r >> 1) of the
-      // tile, token column 8j + 2t + (r & 1); the thread's four columns'
-      // stats are read once
-      const unsigned char* st = sS + s * LY::STAT;
-      const float* sl = reinterpret_cast<const float*>(st);
-      const long long* slab = reinterpret_cast<const long long*>(st + 128);
-      const uint8_t* sval = st + 256;
-      const int va = vt * LY::VT + warp * 16 + g, vb = va + 8;
+      // dl': register 4j + r is resident row (r < 2 ? ra : rb), streamed
+      // row 16 st + 8j + 2t + (r & 1)
       uint32_t a[4];
+      if constexpr (DW) {
+        // resident rows are vocab entries, streamed rows tokens: the
+        // thread's four token columns' stats are read once
+        const unsigned char* sts = sSt + s * LY::STAT;
+        const float* sl = reinterpret_cast<const float*>(sts);
+        const long long* slab = reinterpret_cast<const long long*>(sts + 128);
+        const uint8_t* sval = sts + 256;
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        float d[4];
+        for (int j = 0; j < 2; ++j) {
+          float d[4];
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = 8 * j + 2 * t + e;
-          const float lse = sl[col];
-          const long long lab = slab[col];
-          const bool ok = sval[col] != 0;
-          d[e] = ok && va < V ? __expf(sc[4 * j + e] - lse) - (lab == va ? 1.f : 0.f) : 0.f;
-          d[2 + e] = ok && vb < V ? __expf(sc[4 * j + 2 + e] - lse) - (lab == vb ? 1.f : 0.f) : 0.f;
+          for (int e = 0; e < 2; ++e) {
+            const int col = 8 * j + 2 * t + e;
+            const float l = sl[col];
+            const long long lab = slab[col];
+            const bool ok = sval[col] != 0;
+            d[e] = ok && ra < V ? __expf(sc[4 * j + e] - l) - (lab == ra ? 1.f : 0.f) : 0.f;
+            d[2 + e] = ok && rb < V ? __expf(sc[4 * j + 2 + e] - l) - (lab == rb ? 1.f : 0.f) : 0.f;
+          }
+          a[2 * j] = Mma<T>::pack(d[0], d[1]);
+          a[2 * j + 1] = Mma<T>::pack(d[2], d[3]);
         }
-        a[2 * j] = Mma<T>::pack(d[0], d[1]);
-        a[2 * j + 1] = Mma<T>::pack(d[2], d[3]);
+      } else {
+        // resident rows are tokens (stats in registers), streamed rows
+        // vocab entries
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float d[4];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int v = st * LY::BN + 8 * j + 2 * t + e;
+            const bool in = v < V;
+            d[e] = ok_a && in ? __expf(sc[4 * j + e] - lse_a) - (lab_a == v ? 1.f : 0.f) : 0.f;
+            d[2 + e] = ok_b && in ? __expf(sc[4 * j + 2 + e] - lse_b) - (lab_b == v ? 1.f : 0.f) : 0.f;
+          }
+          a[2 * j] = Mma<T>::pack(d[0], d[1]);
+          a[2 * j + 1] = Mma<T>::pack(d[2], d[3]);
+        }
       }
-      // dW^T tile += dl'^T . x tile, this warpgroup's 256 columns
+      // out tile += dl' . streamed tile, this warpgroup's 256 columns
       fence_regs<128>(acc);
       wgmma_fence();
-      Wgmma<T, 256>::rs(acc, a, sw128_desc(xs, LY::X_CHUNK, 1024), 1);
+      Wgmma<T, 256>::rs(acc, a, sw128_desc(ss, LY::S_CHUNK, 1024), 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs<128>(acc);
@@ -973,19 +1031,18 @@ fx_dw_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
       if (lane == 0) mbar_arrive(&empty[s]);
       if (threadIdx.x == 0 && it + STAGES < total) {
         mbar_wait(&empty[s], (it / STAGES) & 1);
-        load_x(it + STAGES);
+        load_str(it + STAGES);
       }
       __syncwarp();
     }
     const float gs = *gp;
-    const int ra = vt * LY::VT + warp * 16 + g, rb = ra + 8;
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
       const int col = 256 * wg + 8 * j + 2 * t;
-      if (ra < V)
+      if (ra < n_res_rows)
         *reinterpret_cast<uint32_t*>(out + size_t(ra) * D + col) =
             Mma<T>::pack(gs * acc[4 * j], gs * acc[4 * j + 1]);
-      if (rb < V)
+      if (rb < n_res_rows)
         *reinterpret_cast<uint32_t*>(out + size_t(rb) * D + col) =
             Mma<T>::pack(gs * acc[4 * j + 2], gs * acc[4 * j + 3]);
     }
@@ -1076,34 +1133,39 @@ cudaError_t launch_bwd_rt(const Args& a) {
   }
 }
 
-// 1: the wgmma dW kernel takes these operands (bf16/fp16, the tied head,
-// D = 256, 512 or 768, every pointer 16-byte aligned for TMA); 0: dW by
-// fx_bwd_kernel, 2: by fx_bwd_stream_kernel (D above 1600)
-int dw_route_of(int dtype, int D, long long w_sv, long long w_sd,
-                const void* x, const void* w, const void* labels,
-                const void* lse, const void* valid) {
+// 1: the wgmma kernel takes these operands in either role (bf16/fp16, the
+// tied head, D = 256, 512 or 768, every pointer it reads by TMA 16-byte
+// aligned: x and W, and for dW lse, labels and valid); 0: fx_bwd_kernel,
+// 2: fx_bwd_stream_kernel (D above 1600)
+int route_of(bool dw, int dtype, int D, long long w_sv, long long w_sd,
+             const void* x, const void* w, const void* labels,
+             const void* lse, const void* valid) {
   auto al = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   if ((dtype == 1 || dtype == 2) && w_sv == D && w_sd == 1 && D % 256 == 0 &&
-      D <= 768 && al(x) && al(w) && al(labels) && al(lse) && al(valid))
+      D <= 768 && al(x) && al(w) &&
+      (!dw || (al(labels) && al(lse) && al(valid))))
     return 1;
   return round64(D) > 1600 ? 2 : 0;
 }
 
-template <typename T, int NWG>
-cudaError_t launch_dw_wgmma_n(const Args& a) {
-  using LY = WgDw<NWG>;
-  CUtensorMap tx, tw, tlse, tlab, tval;
+template <typename T, int NWG, bool DW>
+cudaError_t launch_wgmma_n(const Args& a) {
+  using LY = WgBwd<NWG, DW>;
+  CUtensorMap tx, tw, tlse{}, tlab{}, tval{};
   cudaError_t e;
-  if ((e = tensor_map<T>(&tx, a.x.p, 1, a.N, a.D, LY::BN)) != cudaSuccess ||
-      (e = tensor_map<T>(&tw, a.w.p, 1, a.V, a.D, LY::VT)) != cudaSuccess ||
-      (e = tensor_map_1d(&tlse, a.lse, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, a.N,
-                         LY::BN)) != cudaSuccess ||
-      (e = tensor_map_1d(&tlab, a.labels, CU_TENSOR_MAP_DATA_TYPE_INT64, a.N,
-                         LY::BN)) != cudaSuccess ||
-      (e = tensor_map_1d(&tval, a.valid, CU_TENSOR_MAP_DATA_TYPE_UINT8, a.N,
-                         LY::BN)) != cudaSuccess)
+  if ((e = tensor_map<T>(&tx, a.x.p, 1, a.N, a.D, DW ? LY::BN : LY::RT)) !=
+          cudaSuccess ||
+      (e = tensor_map<T>(&tw, a.w.p, 1, a.V, a.D, DW ? LY::RT : LY::BN)) !=
+          cudaSuccess)
     return e;
-  auto kern = fx_dw_wgmma_kernel<T, NWG>;
+  if (DW && ((e = tensor_map_1d(&tlse, a.lse, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                                a.N, LY::BN)) != cudaSuccess ||
+             (e = tensor_map_1d(&tlab, a.labels, CU_TENSOR_MAP_DATA_TYPE_INT64,
+                                a.N, LY::BN)) != cudaSuccess ||
+             (e = tensor_map_1d(&tval, a.valid, CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                                a.N, LY::BN)) != cudaSuccess))
+    return e;
+  auto kern = fx_wgmma_kernel<T, NWG, DW>;
   if ((e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 int(LY::SMEM))) != cudaSuccess)
     return e;
@@ -1112,29 +1174,30 @@ cudaError_t launch_dw_wgmma_n(const Args& a) {
       (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
           cudaSuccess)
     return e;
-  const int n_vt = (a.V + LY::VT - 1) / LY::VT;
-  kern<<<min(n_vt, sms), LY::THREADS, LY::SMEM, a.stream>>>(
-      tx, tw, tlse, tlab, tval, a.g, static_cast<T*>(a.out0), a.N, a.V);
+  const int n_rt = ((DW ? a.V : a.N) + LY::RT - 1) / LY::RT;
+  kern<<<min(n_rt, sms), LY::THREADS, LY::SMEM, a.stream>>>(
+      DW ? tw : tx, DW ? tx : tw, tlse, tlab, tval, a.lse, a.labels, a.valid,
+      a.g, static_cast<T*>(a.out0), a.N, a.V);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dw_wgmma(const Args& a) {
-  if (a.D == 256) return launch_dw_wgmma_n<T, 1>(a);
-  if (a.D == 512) return launch_dw_wgmma_n<T, 2>(a);
-  return launch_dw_wgmma_n<T, 3>(a);
+template <typename T, bool DW>
+cudaError_t launch_wgmma(const Args& a) {
+  if (a.D == 256) return launch_wgmma_n<T, 1, DW>(a);
+  if (a.D == 512) return launch_wgmma_n<T, 2, DW>(a);
+  return launch_wgmma_n<T, 3, DW>(a);
 }
 
 template <typename T>
 cudaError_t launch_t(int which, const Args& a, int dtype) {
   if (which == 0) return launch_fwd<T>(a);
-  if (which == 1) return launch_bwd_rt<T, false>(a);
+  const bool dw = which == 2;
   if constexpr (!std::is_same<T, float>::value) {
-    if (dw_route_of(dtype, a.D, a.w.s_row, a.w.s_col, a.x.p, a.w.p, a.labels,
-                    a.lse, a.valid) == 1)
-      return launch_dw_wgmma<T>(a);
+    if (route_of(dw, dtype, a.D, a.w.s_row, a.w.s_col, a.x.p, a.w.p, a.labels,
+                 a.lse, a.valid) == 1)
+      return dw ? launch_wgmma<T, true>(a) : launch_wgmma<T, false>(a);
   }
-  return launch_bwd_rt<T, true>(a);
+  return dw ? launch_bwd_rt<T, true>(a) : launch_bwd_rt<T, false>(a);
 }
 
 int run(int which, const void* x, const void* w, long long w_sv,
@@ -1191,12 +1254,18 @@ int fused_xent_dx(const void* x, const void* w, long long w_sv, long long w_sd,
              nullptr, N, D, V, 1, dtype, stream);
 }
 
-// the kernel fused_xent_dw launches for these operands: 1 = the wgmma
-// kernel, 0 = fx_bwd_kernel, 2 = fx_bwd_stream_kernel
+// the kernel fused_xent_dx / fused_xent_dw launches for these operands:
+// 1 = the wgmma kernel, 0 = fx_bwd_kernel, 2 = fx_bwd_stream_kernel
+int fused_xent_dx_route(int dtype, int D, long long w_sv, long long w_sd,
+                        const void* x, const void* w, const void* labels,
+                        const void* lse, const void* valid) {
+  return route_of(false, dtype, D, w_sv, w_sd, x, w, labels, lse, valid);
+}
+
 int fused_xent_dw_route(int dtype, int D, long long w_sv, long long w_sd,
                         const void* x, const void* w, const void* labels,
                         const void* lse, const void* valid) {
-  return dw_route_of(dtype, D, w_sv, w_sd, x, w, labels, lse, valid);
+  return route_of(true, dtype, D, w_sv, w_sd, x, w, labels, lse, valid);
 }
 
 // dW^T [V, D] row-major in the input dtype

@@ -1,11 +1,11 @@
 // Hopper (sm_90a) building blocks of the wgmma kernels (the flash forward
-// of flash_attention.cu, the block-sparse dK/dV of flash_sparse.cu, the
-// fused cross-entropy dW of fused_xent.cu):
+// of flash_attention.cu, the block-sparse dQ and dK/dV of flash_sparse.cu,
+// the fused cross-entropy dx and dW of fused_xent.cu):
 // mbarriers, TMA tile and bulk loads, warpgroup register hand-over
 // (setmaxnreg), shared-memory matrix descriptors for the 128-byte swizzle
 // that TMA writes, the wgmma.mma_async products, and on the host the
 // tensor maps (cuTensorMapEncodeTiled, fetched from the driver at run
-// time).  Include after common.cuh.
+// time, on a thread with a current context).  Include after common.cuh.
 //
 // Shared-memory operands (PTX ISA, "Matrix Descriptor Format"): a tile is
 // stored as 64-element (128-byte) wide column chunks, each TMA-loaded with
@@ -404,6 +404,37 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
+// cuTensorMapEncodeTiled refuses to encode (CUDA_ERROR_INVALID_VALUE) on a
+// thread with no current context: a thread that has made no CUDA call yet,
+// such as the autograd worker on which a backward kernel is often the first
+// launch.  Before encoding, bind the primary context of the device that
+// holds `p` where no context is current (one driver query otherwise).
+using CtxGetCurrent = CUresult (*)(CUcontext*);
+
+inline cudaError_t bind_context(const void* p) {
+  static CtxGetCurrent fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuCtxGetCurrent", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuCtxGetCurrent", &ptr, cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return cudaErrorNotSupported;
+    fn = reinterpret_cast<CtxGetCurrent>(ptr);
+  }
+  CUcontext ctx = nullptr;
+  if (fn(&ctx) == CUDA_SUCCESS && ctx != nullptr) return cudaSuccess;
+  cudaPointerAttributes at;
+  const cudaError_t e = cudaPointerGetAttributes(&at, p);
+  if (e != cudaSuccess) return e;
+  return cudaSetDevice(at.device);
+}
+
 // the tensor map of a [BH, rows, D] 16-bit tensor, read in boxes of
 // box_rows x 64 columns of one bh, 128-byte swizzled; rows past the end
 // read as zeros
@@ -412,6 +443,8 @@ cudaError_t tensor_map(CUtensorMap* map, const void* base, int BH, int rows,
                        int D, int box_rows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
+  const cudaError_t bound = bind_context(base);
+  if (bound != cudaSuccess) return bound;
   const cuuint64_t dims[3] = {cuuint64_t(D), cuuint64_t(rows), cuuint64_t(BH)};
   const cuuint64_t strides[2] = {cuuint64_t(D) * sizeof(T),
                                  cuuint64_t(rows) * D * sizeof(T)};
@@ -434,6 +467,8 @@ inline cudaError_t tensor_map_1d(CUtensorMap* map, const void* base,
                                  CUtensorMapDataType dt, long long n, int box) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
+  const cudaError_t bound = bind_context(base);
+  if (bound != cudaSuccess) return bound;
   const cuuint64_t dims[1] = {cuuint64_t(n)};
   const cuuint64_t strides[1] = {0};  // a rank-1 map has no stride entries
   const cuuint32_t boxd[1] = {cuuint32_t(box)};

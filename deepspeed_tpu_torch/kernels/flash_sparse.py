@@ -12,7 +12,10 @@ dK/dV, ascending and -1 padded at the end; a kernel block walks its row
 up to the first -1.  The bf16 head_dim-64 dK/dV for blocks a multiple of
 64 is a persistent wgmma kernel that takes its (bh, key tile) items
 heaviest reverse walk first, in the order `dkv_work_order` computes once
-per layout (`ops/sparse_attention/flash_sparse.py` `device_tables`).  A
+per layout (`ops/sparse_attention/flash_sparse.py` `device_tables`).  The
+bf16 / fp16 dQ at head_dim 64 or 128 for blocks a multiple of 64 is a
+persistent, warp-specialised wgmma kernel fed by TMA; `dq_route` says
+which kernel a dQ call takes.  A
 wrapper checks device, dtype, shape, contiguity and alignment, launches
 its kernel on PyTorch's current stream, raises on a launch error and
 counts the launch in `LAUNCHES`; it never falls back to the plain
@@ -47,7 +50,8 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _TAIL = [_I] * 6 + [_F, _I, _I, _U, _F, _I, _I, _P]
 _ARGTYPES = {"flash_sparse_fwd": [_P] * 6 + _TAIL,
              "flash_sparse_dq": [_P] * 8 + _TAIL,
-             "flash_sparse_dkv": [_P] * 10 + _TAIL}
+             "flash_sparse_dkv": [_P] * 10 + _TAIL,
+             "flash_sparse_dq_route": [_I] * 3}
 
 
 def _lib():
@@ -150,6 +154,15 @@ def flash_sparse_dq_cuda(q, k, v, dout, lse, delta, fwd_tbl, *, causal,
             fwd_tbl.data_ptr(), dq.data_ptr(),
             *_tail(shape, q, causal, scale, rate, seed))
     return dq
+
+
+def dq_route(q, block) -> str:
+    """The kernel `flash_sparse_dq_cuda` launches for q's dtype and
+    head_dim under layout block `block`, as the launcher picks it:
+    "wgmma", "mma.sync" or "cuda-cores"."""
+    code = _lib().flash_sparse_dq_route(_DTYPE_CODES[q.dtype], q.shape[-1],
+                                        block)
+    return {1: "wgmma", 2: "cuda-cores"}.get(code, "mma.sync")
 
 
 def flash_sparse_dkv_cuda(q, k, v, dout, lse, delta, rev_tbl, *, order,

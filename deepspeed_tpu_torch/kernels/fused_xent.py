@@ -13,10 +13,11 @@ where it lies: the tied head `wte.t()` (strides (1, D)) or a contiguous
 the layout of the tied embedding.  Any D is taken, as the JAX kernel takes
 it: the tiles zero the columns past D, and above D = 1600 the backward
 kernels split the output columns between blocks and stream the logits'
-columns (`csrc/fused_xent.cu`).  dW has a route of its own for the tied
-head in bf16/fp16 at D = 256, 512 and 768 (GPT-2 small's width): a wgmma
-kernel fed by TMA on a persistent grid; the launcher picks it, and
-`dw_route` says which kernel a call takes.  A wrapper checks device, dtype, shape,
+columns (`csrc/fused_xent.cu`).  dx and dW have a route of their own for
+the tied head in bf16/fp16 at D = 256, 512 and 768 (GPT-2 small's
+width): one wgmma kernel fed by TMA on a persistent grid, in its dx or its
+dW role; the launcher picks it, and `dx_route` / `dw_route` say which
+kernel a call takes.  A wrapper checks device, dtype, shape,
 strides and alignment, launches its kernel on PyTorch's current stream,
 raises on a launch error and counts the launch in `LAUNCHES`; it never
 falls back to the plain version.
@@ -40,6 +41,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {"fused_xent_fwd": [_P, _P, _L, _L] + [_P] * 5 + [_I] * 5 + [_P],
              "fused_xent_dx": [_P, _P, _L, _L] + [_P] * 5 + [_I] * 4 + [_P],
              "fused_xent_dw": [_P, _P, _L, _L] + [_P] * 5 + [_I] * 4 + [_P],
+             "fused_xent_dx_route": [_I, _I, _L, _L] + [_P] * 5,
              "fused_xent_dw_route": [_I, _I, _L, _L] + [_P] * 5}
 
 
@@ -171,12 +173,10 @@ def fused_xent_dx_cuda(x, w, labels, lse, valid, g, *, block_rows, block_v):
     return _bwd("fused_xent_dx", x, w, labels, lse, valid, g)
 
 
-def dw_route(x, w, labels, lse, valid) -> str:
-    """The kernel `fused_xent_dw_cuda` launches for these operands, as the
-    launcher picks it: "wgmma", "mma.sync", "cuda-cores" or "streamed"."""
+def _route(name, x, w, labels, lse, valid) -> str:
     N, D = x.shape
     sv, sd = _w_strides(w, D, w.shape[1])
-    code = _lib().fused_xent_dw_route(
+    code = getattr(_lib(), name)(
         _DTYPE_CODES[x.dtype], D, sv, sd, x.data_ptr(), w.data_ptr(),
         labels.data_ptr(), lse.data_ptr(), valid.data_ptr())
     if code == 1:
@@ -184,6 +184,18 @@ def dw_route(x, w, labels, lse, valid) -> str:
     if code == 2:
         return "streamed"
     return "cuda-cores" if x.dtype == torch.float32 else "mma.sync"
+
+
+def dx_route(x, w, labels, lse, valid) -> str:
+    """The kernel `fused_xent_dx_cuda` launches for these operands, as the
+    launcher picks it: "wgmma", "mma.sync", "cuda-cores" or "streamed"."""
+    return _route("fused_xent_dx_route", x, w, labels, lse, valid)
+
+
+def dw_route(x, w, labels, lse, valid) -> str:
+    """The kernel `fused_xent_dw_cuda` launches for these operands, as the
+    launcher picks it: "wgmma", "mma.sync", "cuda-cores" or "streamed"."""
+    return _route("fused_xent_dw_route", x, w, labels, lse, valid)
 
 
 def fused_xent_dw_cuda(x, w, labels, lse, valid, g, *, block_rows, block_v):

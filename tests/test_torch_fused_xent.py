@@ -223,22 +223,46 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_odd_strides():
         fused_xent._w_strides(torch.zeros(D, 2 * V)[:, ::2], D, V)
 
 
-def _emulated_kernel(x, w, labels, valid, g, lse):
+def _emulated_kernel(x, w, labels, valid, g, lse, order="plain"):
     """The kernels' arithmetic on the CPU: exact products summed in fp32,
     dl' = valid (p - onehot) rounded once to the input dtype, the scalar
-    g applied at the end, outputs rounded to the input dtype."""
+    g applied at the end, outputs rounded to the input dtype.  `order`
+    "plain" sums as the plain version does; "wgmma" as the wgmma kernel
+    does in its dx and dW roles: the logits summed over D as partials of
+    D / 4 columns each (a warpgroup's share), added in part order, and each
+    output accumulated streamed tile by streamed tile of 16 rows (vocab
+    rows for dx, token rows for dW)."""
     x32, w32 = x.float(), w.float()
-    p = torch.exp(x32 @ w32 - lse[:, None])
     onehot = torch.nn.functional.one_hot(labels, w.shape[1]).float()
+    if order == "plain":
+        s = x32 @ w32
+    else:
+        parts = torch.tensor_split(torch.arange(x.shape[1]), 4)
+        s = x32[:, parts[0]] @ w32[parts[0]]
+        for cols in parts[1:]:
+            s = s + x32[:, cols] @ w32[cols]
+    p = torch.exp(s - lse[:, None])
     dl = ((p - onehot) * valid.float()[:, None]).to(x.dtype).float()
-    return ((g * (dl @ w32.t())).to(x.dtype),
-            (g * (x32.t() @ dl)).to(x.dtype))
+    if order == "plain":
+        return ((g * (dl @ w32.t())).to(x.dtype),
+                (g * (x32.t() @ dl)).to(x.dtype))
+    bn = 16
+    dx = torch.zeros_like(x32)
+    for v0 in range(0, w.shape[1], bn):
+        dx = dx + dl[:, v0:v0 + bn] @ w32[:, v0:v0 + bn].t()
+    dwt = torch.zeros_like(w32.t())
+    for n0 in range(0, x.shape[0], bn):
+        dwt = dwt + dl[n0:n0 + bn].t() @ x32[n0:n0 + bn]
+    return (g * dx).to(x.dtype), (g * dwt.t()).to(x.dtype)
 
 
+@pytest.mark.parametrize("order", ["plain", "wgmma"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-def test_kernel_tolerances_hold_the_emulation_and_catch_a_fault(dtype):
+def test_kernel_tolerances_hold_the_emulation_and_catch_a_fault(dtype,
+                                                                 order):
     """The per-element bound of kernel vs plain version, checked on the
-    CPU with the kernels' arithmetic emulated: the emulation stays inside
+    CPU with the kernels' arithmetic emulated (in the plain version's
+    order of sums and in the wgmma kernel's): the emulation stays inside
     it, and a result scaled by 1 + 2^-5 (a fault of a few ulps) does not."""
     x, w, labels, valid = _inputs(4, n=256, d=64, v=512)
     x = torch.from_numpy(x).to(dtype)
@@ -254,7 +278,7 @@ def test_kernel_tolerances_hold_the_emulation_and_catch_a_fault(dtype):
                                    g, **opts)}
     tols = fused_xent.kernel_tolerances(x, w, labels, valid, g, ref)
     emu = dict(zip(("dx", "dw"), _emulated_kernel(x, w, labels, valid, g,
-                                                  lse)))
+                                                  lse, order)))
     for name in ("dx", "dw"):
         diff = (emu[name].float() - ref[name].float()).abs()
         assert bool((diff <= tols[name]).all()), name
@@ -326,6 +350,7 @@ def test_cuda_kernels_match_plain_versions(cuda_device, case, dtype):
                 impl=impl, **opts)
     torch.cuda.synchronize()
     wgmma = tied and dtype != torch.float32 and d in (256, 512, 768)
+    assert (fused_xent.dx_route(x, w, labels, lse, valid) == "wgmma") == wgmma
     assert (fused_xent.dw_route(x, w, labels, lse, valid) == "wgmma") == wgmma
     tols = fused_xent.kernel_tolerances(x, w, labels, valid, g, res["torch"])
     for name, tol in tols.items():
@@ -354,9 +379,11 @@ def test_cuda_autograd_launches_each_kernel_once(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
-def test_cuda_wgmma_dw_is_bitwise_repeatable(cuda_device, dtype):
-    """The wgmma dW (tied head, D 768, a ragged N and vocab) 50 times after
-    other kernels: bitwise equal — a fixed summation order, no atomics."""
+@pytest.mark.parametrize("kernel", ["dx", "dw"])
+def test_cuda_wgmma_dw_is_bitwise_repeatable(cuda_device, kernel, dtype):
+    """The wgmma dx and dW (tied head, D 768, a ragged N and vocab) 50
+    times after other kernels: bitwise equal — a fixed summation order, no
+    atomics."""
     x, w, labels, valid = _inputs(7, n=1000, d=768, v=3001)
     x = torch.from_numpy(x).to(cuda_device, dtype)
     w = torch.from_numpy(w).to(cuda_device, dtype).t().contiguous().t()
@@ -366,10 +393,48 @@ def test_cuda_wgmma_dw_is_bitwise_repeatable(cuda_device, dtype):
     opts = dict(block_rows=1000, block_v=3001)
     lse, _ = registry.dispatch("fused_xent_fwd", x, w, labels, impl="torch",
                                **opts)
-    assert fused_xent.dw_route(x, w, labels, lse, valid) == "wgmma"
-    call = lambda: registry.dispatch("fused_xent_dw", x, w, labels, lse,
-                                     valid, g, impl="cuda", **opts)
+    route = {"dx": fused_xent.dx_route, "dw": fused_xent.dw_route}[kernel]
+    assert route(x, w, labels, lse, valid) == "wgmma"
+    call = lambda: registry.dispatch(f"fused_xent_{kernel}", x, w, labels,
+                                     lse, valid, g, impl="cuda", **opts)
     first = call()
     for _ in range(50):
         torch.randn(1 << 20, device=cuda_device).sum()   # other kernels
         assert torch.equal(call(), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["dx", "dw"])
+def test_cuda_wgmma_launches_from_a_fresh_thread(cuda_device, kernel):
+    """The tensor maps are encoded on a thread that has made no CUDA call
+    yet (the autograd worker, on which a backward kernel is often the
+    first launch): the launch binds a context first, and the result equals
+    the main thread's."""
+    import threading
+
+    x, w, labels, valid = _inputs(8, n=256, d=768, v=1024)
+    x = torch.from_numpy(x).to(cuda_device, torch.bfloat16)
+    w = torch.from_numpy(w).to(cuda_device, torch.bfloat16).t().contiguous().t()
+    labels = torch.from_numpy(labels).to(cuda_device)
+    valid = torch.from_numpy(valid).to(cuda_device)
+    g = torch.tensor(1.0 / 37.0, device=cuda_device)
+    opts = dict(block_rows=256, block_v=1024)
+    lse, _ = registry.dispatch("fused_xent_fwd", x, w, labels, impl="cuda",
+                               **opts)
+    call = lambda: registry.dispatch(f"fused_xent_{kernel}", x, w, labels,
+                                     lse, valid, g, impl="cuda", **opts)
+    got = {}
+
+    def run():
+        try:
+            got["out"] = call()
+        except Exception as e:   # re-raised on the test's thread
+            got["error"] = e
+
+    th = threading.Thread(target=run)
+    th.start()
+    th.join()
+    if "error" in got:
+        raise got["error"]
+    torch.cuda.synchronize()
+    assert torch.equal(got["out"], call())

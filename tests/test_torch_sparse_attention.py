@@ -339,16 +339,58 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_forced_cuda_raises():
                           **opts)
 
 
-def test_kernel_tolerances_hold_the_plain_version_and_catch_a_fault():
+def _emulated_wgmma_dq(q, k, v, dout, lse, delta, fwd_tbl, *, causal, scale,
+                       block, rate, seed, n_heads):
+    """The wgmma dQ's arithmetic on the CPU: per 64-row q tile the
+    forward-table row in table order, 64 keys at a time; s = scale (q.k)
+    and dp = dO.V^T in fp32, the causal select, p = exp(s - lse), dp times
+    the keep mask, ds = p (dp - delta) rounded once to K's dtype, dQ +=
+    ds.K in fp32, the scale once at the end, rounded to q's dtype."""
+    from deepspeed_tpu_torch.ops.transformer.flash_attention import NEG_INF
+
+    BH, S, D = q.shape
+    q32, k32, v32, do32 = (t.float() for t in (q, k, v, dout))
+    dq = torch.zeros(BH, S, D)
+    for bh in range(BH):
+        for q0 in range(0, S, 64):
+            rows = torch.arange(q0, q0 + 64)
+            acc = torch.zeros(64, D)
+            for kj in fwd_tbl[bh % n_heads, q0 // block].tolist():
+                if kj < 0:
+                    break
+                for k0 in range(kj * block, (kj + 1) * block, 64):
+                    keys = torch.arange(k0, k0 + 64)
+                    s = scale * (q32[bh, rows] @ k32[bh, keys].t())
+                    if causal:
+                        s = torch.where(rows[:, None] >= keys[None, :], s,
+                                        NEG_INF)
+                    p = torch.exp(s - lse[bh, rows, None])
+                    dp = do32[bh, rows] @ v32[bh, keys].t()
+                    if rate > 0.0:
+                        dp = dp * tdrop.keep_mask_at(
+                            seed, torch.tensor(bh), rows[:, None],
+                            keys[None, :], rate)
+                    ds = (p * (dp - delta[bh, rows, None])).to(k.dtype)
+                    acc = acc + ds.float() @ k32[bh, keys]
+            dq[bh, rows] = scale * acc
+    return dq.to(q.dtype)
+
+
+@pytest.mark.parametrize("case", ["plain", "wgmma-dq"])
+def test_kernel_tolerances_hold_the_plain_version_and_catch_a_fault(case):
     """The bound holds the plain version against itself recomputed in
     another order (fp32 scores from bf16 inputs) and is not so loose
-    that a one-ulp-per-element fault in bf16 passes everywhere."""
-    layout = _fixed("bigbird", blk=16, seq=128, heads=2)
+    that a one-ulp-per-element fault in bf16 passes everywhere.  Case
+    "wgmma-dq" (block 128): the wgmma dQ's order emulated — ds rounded to
+    bf16, dQ summed 64 keys at a time in table order — stays inside the
+    dq bound, and the same fault on it is caught."""
+    blk, seq = (16, 128) if case == "plain" else (128, 1024)
+    layout = _fixed("bigbird", blk=blk, seq=seq, heads=2)
     ft, rt, order = tfs.device_tables(layout, "cpu")
     g = torch.Generator().manual_seed(0)
-    a = [torch.randn(4, 128, 64, generator=g).to(torch.bfloat16)
+    a = [torch.randn(4, seq, 64, generator=g).to(torch.bfloat16)
          for _ in range(4)]
-    opts = dict(causal=True, scale=0.125, block=16, rate=0.2, seed=9,
+    opts = dict(causal=True, scale=0.125, block=blk, rate=0.2, seed=9,
                 n_heads=2)
     out, lse = tfs._fwd_plain(*a[:3], ft, **opts)
     delta = (a[3].float() * out.float()).sum(-1)
@@ -358,10 +400,15 @@ def test_kernel_tolerances_hold_the_plain_version_and_catch_a_fault():
     tols = fsk.kernel_tolerances(*a, layout, ref, **opts)
     for name, t in tols.items():
         assert t.shape == ref[name].shape and (t > 0).all()
+    got = dict(ref)
+    if case == "wgmma-dq":
+        got = {"dq": _emulated_wgmma_dq(*a, lse, delta, ft, **opts)}
+        diff = (got["dq"].float() - dq.float()).abs()
+        assert (diff > 0).any() and (diff <= tols["dq"]).all()
     # a fault of four ulps on every element is caught in each output
-    for name, r in ref.items():
+    for name, r in got.items():
         bad = r.float() * (1 + 4 * 2.0 ** -7) + 1e-3
-        assert ((bad - r.float()).abs() > tols[name]).any(), name
+        assert ((bad - ref[name].float()).abs() > tols[name]).any(), name
 
 
 # -- the gather path: block_sparse_attention ---------------------------------
@@ -697,6 +744,10 @@ def test_cuda_kernels_match_plain_versions(cuda_device, case, dtype):
                                    rt, order=order, impl=impl, **opts)
         res[impl] = dict(out=out, dq=dq, dk=dk, dv=dv, lse=lse)
     torch.cuda.synchronize()
+    wgmma = dtype != torch.float32 and Dc in (64, 128) and blk % 64 == 0
+    assert fsk.dq_route(a[0], blk) == (
+        "wgmma" if wgmma else
+        "cuda-cores" if dtype == torch.float32 else "mma.sync")
     tols = fsk.kernel_tolerances(*a, layout, res["torch"], **opts)
     for name, tol in tols.items():
         diff = (res["cuda"][name].float() - res["torch"][name].float()).abs()
@@ -731,68 +782,91 @@ def test_cuda_sparse_dq_and_dkv_are_bitwise_repeatable(cuda_device):
             assert torch.equal(x, y)
 
 
-def _wgmma_dkv_inputs(device, blk, S=2048, Hc=4, Bc=2, rate=0.1,
-                      seed=0):
-    """bf16 Dh 64 inputs under the fixed layout (a global column) at
-    block `blk`: the wgmma dK/dV's case."""
+def _wgmma_inputs(device, blk, D=64, dtype=torch.bfloat16, causal=False,
+                  S=2048, Hc=4, Bc=2, rate=0.1, seed=0):
+    """Inputs under the fixed layout (a global column) at block `blk`: the
+    wgmma dQ's and dK/dV's case (dK/dV: bf16, Dh 64)."""
     layout = _kernel_layout("fixed", blk, S, Hc)
     tables = tfs.device_tables(layout, device)
     g = torch.Generator(device=device).manual_seed(seed)
-    a = [torch.randn(Bc * Hc, S, 64, device=device, generator=g)
-         .to(torch.bfloat16) for _ in range(4)]
-    opts = dict(causal=False, scale=0.125, block=blk, rate=rate, seed=77,
-                n_heads=Hc)
+    a = [torch.randn(Bc * Hc, S, D, device=device, generator=g).to(dtype)
+         for _ in range(4)]
+    opts = dict(causal=causal, scale=D ** -0.5, block=blk, rate=rate,
+                seed=77, n_heads=Hc)
     out, lse = registry.dispatch("flash_sparse_fwd", *a[:3], tables[0],
                                  impl="torch", **opts)
     delta = (a[3].float() * out.float()).sum(-1)
     return layout, tables, a, out, lse, delta, opts
 
 
+# name: (kernel, block, head_dim, dtype, causal), all with dropout 0.1
+WGMMA_CASES = {
+    "dkv-block128": ("dkv", 128, 64, torch.bfloat16, False),
+    "dkv-block256": ("dkv", 256, 64, torch.bfloat16, False),
+    "dq-block128": ("dq", 128, 64, torch.bfloat16, False),
+    "dq-block256-causal": ("dq", 256, 64, torch.bfloat16, True),
+    "dq-block128-float16": ("dq", 128, 64, torch.float16, False),
+    "dq-block128-dh128-float16-causal": ("dq", 128, 128, torch.float16,
+                                         True),
+    "dq-block256-dh128": ("dq", 256, 128, torch.bfloat16, False),
+}
+
+
+def _wgmma_call(kernel, a, lse, delta, tables, opts, impl):
+    ft, rt, order = tables
+    if kernel == "dq":
+        return [registry.dispatch("flash_sparse_dq", *a, lse, delta, ft,
+                                  impl=impl, **opts)]
+    return list(registry.dispatch("flash_sparse_dkv", *a, lse, delta, rt,
+                                  order=order, impl=impl, **opts))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("blk", [128, 256])
-def test_cuda_wgmma_dkv_with_dropout_within_its_bound(cuda_device, blk):
-    """#9's wgmma kernel (bf16, Dh 64, dropout 0.1) at block 128 and 256
-    against its plain version within `kernel_tolerances`, one launch a
-    call; with a work order of the wrong length the wrapper refuses."""
-    layout, (ft, rt, order), a, out, lse, delta, opts = _wgmma_dkv_inputs(
-        cuda_device, blk)
-    dq = registry.dispatch("flash_sparse_dq", *a, lse, delta, ft,
-                           impl="torch", **opts)
-    ref = registry.dispatch("flash_sparse_dkv", *a, lse, delta, rt,
-                            order=order, impl="torch", **opts)
-    n0 = fsk.LAUNCHES["flash_sparse_dkv"]
-    got = registry.dispatch("flash_sparse_dkv", *a, lse, delta, rt,
-                            order=order, impl="cuda", **opts)
+@pytest.mark.parametrize("case", sorted(WGMMA_CASES))
+def test_cuda_wgmma_dkv_with_dropout_within_its_bound(cuda_device, case):
+    """#8's and #9's wgmma kernels (dropout 0.1; dQ in bf16 and fp16, Dh 64
+    and 128, causal or not; dK/dV bf16 Dh 64) at block 128 and 256 against
+    their plain versions within `kernel_tolerances`, one launch a call;
+    with a work order of the wrong length the dK/dV wrapper refuses."""
+    kernel, blk, D, dtype, causal = WGMMA_CASES[case]
+    layout, tables, a, out, lse, delta, opts = _wgmma_inputs(
+        cuda_device, blk, D, dtype, causal)
+    if kernel == "dq":
+        assert fsk.dq_route(a[0], blk) == "wgmma"
+    ref = _wgmma_call(kernel, a, lse, delta, tables, opts, "torch")
+    name = f"flash_sparse_{kernel}"
+    n0 = fsk.LAUNCHES[name]
+    got = _wgmma_call(kernel, a, lse, delta, tables, opts, "cuda")
     torch.cuda.synchronize()
-    assert fsk.LAUNCHES["flash_sparse_dkv"] == n0 + 1
-    with pytest.raises(ValueError, match="work order"):
-        registry.dispatch("flash_sparse_dkv", *a, lse, delta, rt,
-                          order=order[1:], impl="cuda", **opts)
-    refs = dict(out=out, dq=dq, dk=ref[0], dv=ref[1])
+    assert fsk.LAUNCHES[name] == n0 + 1
+    if kernel == "dkv":
+        ft, rt, order = tables
+        with pytest.raises(ValueError, match="work order"):
+            registry.dispatch("flash_sparse_dkv", *a, lse, delta, rt,
+                              order=order[1:], impl="cuda", **opts)
+    outs = ("dq",) if kernel == "dq" else ("dk", "dv")
+    refs = dict(out=out, dq=ref[0], dk=ref[0], dv=ref[-1])
     tols = fsk.kernel_tolerances(*a, layout, refs, **opts)
-    for name, x, r in (("dk", got[0], ref[0]), ("dv", got[1], ref[1])):
+    for name, x, r in zip(outs, got, ref):
         diff = (x.float() - r.float()).abs()
         assert (diff <= tols[name]).all(), (name,
                                             (diff / tols[name]).max().item())
 
 
 @pytest.mark.cuda
-def test_cuda_wgmma_dkv_is_bitwise_repeatable(cuda_device):
-    """The persistent grid hands items out in a fixed order and every
-    output element is summed by one warp: dK/dV equal bit for bit over
-    repeats, with other kernels run in between."""
-    _, (ft, rt, order), a, _, lse, delta, opts = _wgmma_dkv_inputs(
-        cuda_device, 128, seed=3)
-
-    def dkv():
-        return registry.dispatch("flash_sparse_dkv", *a, lse, delta, rt,
-                                 order=order, impl="cuda", **opts)
-
-    first = dkv()
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+def test_cuda_wgmma_dkv_is_bitwise_repeatable(cuda_device, kernel):
+    """The persistent grids hand items out in a fixed order and every
+    output element is summed by one warp: dQ and dK/dV equal bit for bit
+    over repeats, with other kernels run in between."""
+    _, tables, a, _, lse, delta, opts = _wgmma_inputs(
+        cuda_device, 128, causal=kernel == "dq", seed=3)
+    first = _wgmma_call(kernel, a, lse, delta, tables, opts, "cuda")
     for _ in range(5):
-        registry.dispatch("flash_sparse_fwd", *a[:3], ft, impl="cuda",
+        registry.dispatch("flash_sparse_fwd", *a[:3], tables[0], impl="cuda",
                           **opts)
-        for x, y in zip(first, dkv()):
+        for x, y in zip(first, _wgmma_call(kernel, a, lse, delta, tables,
+                                           opts, "cuda")):
             assert torch.equal(x, y)
 
 
