@@ -2,11 +2,12 @@
 """Compare two checkouts of the PyTorch/CUDA port on one GPU, in turns
 A, B, B, A, each turn a fresh process run from the root of its checkout:
 
-    python3 chip_ab.py OLD_DIR NEW_DIR [paged] [serve] [kernels] [moe] [xent]
+    python3 chip_ab.py OLD_DIR NEW_DIR [paged] [serve] [kernels] [moe] [sparse]
+                       [xent]
 
 Each turn uses that checkout's own `chip_smoke.py` and package, and runs
-the turn scripts named (all but `paged`, which `serve` holds, when none
-is):
+the turn scripts named (when none is, all but `paged`, which `serve`
+holds, and `sparse`, which `kernels` holds):
 
 * paged: times the paged-attention dispatch at the decode shape (GPT-2
   XL heads, B=8, bf16 cache, q as the serving block's view of the fused
@@ -20,18 +21,24 @@ is):
   (chip_smoke `moe_case` train-k1-bfloat16) with the dispatch's device
   operations a call under torch.profiler, the block-sparse kernels
   (#7-#9) at train-bert-sparse's shape without and with dropout 0.1
-  (`sparse_case` train-bfloat16, train-dropout-bfloat16; with dQ's route
-  where the checkout records it), paged decode at
+  (`sparse_case` train-bfloat16, train-dropout-bfloat16; with the
+  forward's and dQ's routes where the checkout records them), paged
+  decode at
   Dh 64 and 128 (device time, L2 flushed), then the train-moe and
   train-bert-sparse phases for their step ms and tokens/s;
 * moe: the MoE dispatch (#13) against its plain version and one
   index_select (device times, L2 flushed) at train-moe's shape (B 4,
   E 64, D 768, bf16, capacity factor 1) at top-1 and top-2, with groups
   of S 2048 and 4096;
+* sparse, ~1 min a turn after the build: the block-sparse forward (#7)
+  alone at train-bert-sparse's shape (`sparse_case` train-bfloat16
+  without and with dropout 0.1; device times, L2 flushed, and its worst
+  error over the bound);
 * xent: the fused cross-entropy kernels (#4-#6) at train-pallas's shape
   (chip_smoke `xent_case` train-bfloat16: N 8192, D 768, V 50304, bf16,
-  the tied head; device times, L2 flushed; dx's and dW's routes where the
-  checkout records them), then the train-pallas phase
+  the tied head; device times, L2 flushed; the routes where the checkout
+  records them; cuBLAS x @ W alone, the forward's bare product), then the
+  train-pallas phase
   (GPT-2 small bf16 through the fused CE: step ms, tokens/s, peak
   memory).
 
@@ -162,6 +169,9 @@ for rate in (0.0, 0.1):
     rec[f"sparse_dropout_{rate}"]["dq_bound_ms"] = \
         c["kernels"]["flash_sparse_dq"]["bound_ms"]
     rec[f"sparse_dropout_{rate}"]["dq_route"] = c.get("dq_route")
+    rec[f"sparse_dropout_{rate}"]["fwd_route"] = c.get("fwd_route")
+    rec[f"sparse_dropout_{rate}"]["fwd_bound_ms"] = \
+        c["kernels"]["flash_sparse_fwd"]["bound_ms"]
 
 for Dh, H in ((64, 25), (128, 16)):
     bs, W, Bq = 16, 64, 8
@@ -209,6 +219,24 @@ for name, S, k in (("k1-s2048", 2048, 1), ("k2-s2048", 2048, 2),
 print(json.dumps(rec))
 '''
 
+SPARSE = r'''
+import json, os, sys
+sys.path.insert(0, os.getcwd())
+import torch
+import chip_smoke as cs
+
+gen = torch.Generator(device="cuda").manual_seed(0)
+flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+train = cs.fixed_layout(16, 128, 4096)
+rec = {}
+for rate in (0.0, 0.1):
+    c = cs.sparse_case(f"train-{rate}", 2, 4096, 16, 64, 128, train,
+                       torch.bfloat16, False, rate, gen, flush, True)
+    rec[f"fwd_ms_{rate}"] = c["kernels"]["flash_sparse_fwd"]["kernel_ms"]
+    rec[f"fwd_err_over_tol_{rate}"] = c["max_err_over_tol"]["out"]
+print(json.dumps(rec))
+'''
+
 XENT = r'''
 import gc, json, os, sys
 sys.path.insert(0, os.getcwd())
@@ -222,9 +250,11 @@ c = cs.xent_case("train-bfloat16", 8192, 768, 50304, torch.bfloat16, gen,
 rec = {n: {f: c["kernels"][n].get(f) for f in ("kernel_ms", "plain_ms",
                                                "bound_ms")}
        for n in c["kernels"]}
+rec["fwd_route"] = c.get("fwd_route")
 rec["dx_route"] = c.get("dx_route")
 rec["dw_route"] = c.get("dw_route")
 rec["max_err_over_tol"] = c["max_err_over_tol"]
+rec["matmul_ms"] = c.get("matmul_ms")   # cuBLAS x @ W, the bare product
 del flush, c
 gc.collect()
 torch.cuda.empty_cache()
@@ -235,11 +265,11 @@ print(json.dumps(rec))
 '''
 
 TURNS = {"paged": PAGED + "print(json.dumps(rec))\n", "serve": PAGED + SERVE,
-         "kernels": KERNELS, "moe": MOE, "xent": XENT}
+         "kernels": KERNELS, "moe": MOE, "sparse": SPARSE, "xent": XENT}
 
 
 def main(argv):
-    turns = argv[3:] or [t for t in TURNS if t != "paged"]
+    turns = argv[3:] or [t for t in TURNS if t not in ("paged", "sparse")]
     if len(argv) < 3 or any(t not in TURNS for t in turns):
         print(__doc__, file=sys.stderr)
         return 2

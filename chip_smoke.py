@@ -56,33 +56,39 @@ any failure raises and the script exits nonzero:
    (timed beside block 128 with dropout), block 192 (fp32) and block 160
    (16-row tiles; bf16, causal, dropout), Dh 128 at block 128 (fp16,
    causal, dropout: the wgmma dQ at Dh 128), Dh 256 at block 128 (bf16
-   with dropout, fp32), each record naming dQ's route; errors against
+   with dropout, fp32), each record naming the forward's and dQ's routes
+   (the wgmma kernels at Dh 64 / 128 and blocks a multiple of 64); errors
+   against
    the per-element bounds of
    `kernels/flash_sparse.py` `kernel_tolerances`, the worst dQ element;
    device times beside the bound, the plain versions, SDPA with the layout
    as a boolean mask and the dense flash kernels at the same shape.  The
    mask probe (one live key per output element) holds the dropout masks
    element by element in three dtypes, at block 16 and at block 256 (Dh
-   256), and at block 64 (Dh 64, the wgmma dK/dV's transposed hash
-   coordinates); the wgmma dK/dV's empty row and column (block 64, causal,
-   dropout); sparse-repeat computes dQ and dK/dV 50 times after other
-   kernels, on the fp16 16-row-tile case, on the wgmma dQ's and dK/dV's
-   (bf16, Dh 64, block 128) and on the wgmma dQ at Dh 128 (fp16, causal),
-   and requires bitwise equal results.
+   256), at block 64 (Dh 64, the wgmma dK/dV's transposed hash
+   coordinates and the one-consumer wgmma forward) and at block 128 (Dh
+   128, the two-consumer wgmma forward); the wgmma dK/dV's empty row and
+   column (block 64, causal, dropout); sparse-repeat computes the forward,
+   dQ and dK/dV 50 times after other kernels, on the fp16 16-row-tile
+   case, on the wgmma forward's, dQ's and dK/dV's (bf16, Dh 64, block 128)
+   and on the wgmma forward and dQ at Dh 128 (fp16, causal), and requires
+   bitwise equal results.
 4. xent: the fused LM-head cross-entropy kernels (forward, dx, dW)
    against their plain versions at the training shape (N=8192 rows,
    D=768, V=50304, bf16, a fifth of the rows invalid, the tied head's
    transposed view), in fp32 at N=1024 (the train-exact shape), fp16 at
    N=2048, at GPT-2 XL width D=1600 in bf16 and fp32, at widths off
    the 64-column tile and past 1600 (nano's D=48, 2048, 2560), and at a
-   ragged N=1000 with GPT-2's real vocab V=50257 in fp16 (dx's and dW's
-   wgmma routes, named in each record with their issued FLOPs by design);
+   ragged N=1000 with GPT-2's real vocab V=50257 in fp16 (the forward's,
+   dx's and dW's wgmma routes, named in each record with their issued
+   FLOPs by design; the forward's at every bf16/fp16 width here);
    errors against the per-element bounds of `kernels/fused_xent.py`
    `kernel_tolerances`; device times beside the bound, the plain version
-   and the forward's bf16 product alone (`torch.matmul`, a yardstick the
-   port never calls).  xent-repeat computes dx and dW on their wgmma
-   routes 50 times after other kernels, at the training shape and the
-   ragged fp16 one, and requires bitwise equal results.
+   and the forward's bf16 product alone (cuBLAS `x @ W`, the bare
+   product, a yardstick the port never calls).  xent-repeat computes the
+   forward, dx and dW on their wgmma routes 50 times after other kernels,
+   at the training shape and the ragged fp16 one, and requires bitwise
+   equal results.
 4b. codec: the blockwise quantize and dequantize kernels (#11, #12)
    bitwise against their plain versions on the codec's edge cases (fp32
    subnormals, +-inf, NaN, an all-zero block, fp16 scale overflow and
@@ -1518,6 +1524,7 @@ def sparse_case(name, B, S, H, D, block, layout, dtype, causal, rate, gen,
                * 64 * 64 * 2 * D * 8 if block % 64 == 0 else None,
            "live_pairs": pairs, "density": pairs / (BH * S * S),
            "empty_rows": empty_rows, "tol": SPARSE_TOL,
+           "fwd_route": fsk.fwd_route(a[0], block),
            "dq_route": fsk.dq_route(a[0], block),
            "max_abs_err": errs, "max_err_over_tol": worst,
            "dq_worst": dq_report,
@@ -1648,9 +1655,11 @@ def phase_sparse(flush):
     block 256 with dropout (timed, beside block 128 with dropout); block
     192 (64-row tiles) in fp32 and block 160 (16-row tiles) in bf16 with
     causal dropout; Dh 256 at block 128, bf16 with dropout and fp32; the
-    mask probe at block 16, at block 256 (Dh 256) and at block 64 (Dh 64,
-    the wgmma dK/dV's transposed hash coordinates); the wgmma dK/dV's
-    empty row and empty column at block 64 (causal, dropout, bf16)."""
+    mask probe at block 16, at block 256 (Dh 256), at block 64 (Dh 64,
+    the wgmma dK/dV's transposed hash coordinates and the one-consumer
+    wgmma forward) and at block 128 (Dh 128, the two-consumer wgmma
+    forward); the wgmma dK/dV's empty row and empty column at block 64
+    (causal, dropout, bf16)."""
     import random
 
     import torch
@@ -1720,7 +1729,9 @@ def phase_sparse(flush):
                              1024, 4, 64, 64, empty64, bf16, True, 0.1, gen,
                              flush, False))
     probes = [sparse_mask_probe(), sparse_mask_probe(blk=256, D=256, nb=4),
-              sparse_mask_probe(blk=64, D=64, nb=8)]
+              sparse_mask_probe(blk=64, D=64, nb=8),
+              # the wgmma forward's two-consumer route (block 128)
+              sparse_mask_probe(blk=128, D=128, nb=4)]
     return cases, probes
 
 
@@ -1734,15 +1745,15 @@ SPARSE_REPEAT_CASES = (
 
 
 def phase_sparse_repeat(n=50):
-    """Sparse dQ and dK/dV as functions of their inputs alone, as
-    phase_flash_repeat checks dense dQ: on the fp16 Dh 128 causal dropout
-    case (block 16), on a bf16 Dh 64 fixed layout at block 128 with
-    dropout (the wgmma dQ and dK/dV, whose persistent grids hand out items
-    in order) and on an fp16 Dh 128 causal one (the wgmma dQ), each is
-    computed n times, each call after a different kernel
-    left its own data in shared memory (the sparse forward, the dense flash
-    dK/dV, or nothing), and every result must equal the first bit for bit;
-    the plain versions three times, likewise."""
+    """The sparse forward, dQ and dK/dV as functions of their inputs
+    alone, as phase_flash_repeat checks dense dQ: on the fp16 Dh 128 causal
+    dropout case (block 16), on a bf16 Dh 64 fixed layout at block 128 with
+    dropout (the wgmma forward, dQ and dK/dV, whose persistent grids hand
+    out items in order) and on an fp16 Dh 128 causal one (the wgmma
+    forward and dQ), each is computed n times, each call after a different
+    kernel left its own data in shared memory (the dense flash forward, the
+    dense flash dK/dV, or nothing), and every result must equal the first
+    bit for bit; the plain versions three times, likewise."""
     import torch
 
     from deepspeed_tpu_torch.kernels import flash_sparse as fsk
@@ -1767,18 +1778,20 @@ def phase_sparse_repeat(n=50):
                   rate=0.2, seed=7, bh_offset=0, n_heads=H)
 
         def both(impl):
-            return [registry.dispatch("flash_sparse_dq", *args, ft,
+            return [*registry.dispatch("flash_sparse_fwd", *a[:3], ft,
+                                       impl=impl, **opts),
+                    registry.dispatch("flash_sparse_dq", *args, ft,
                                       impl=impl, **opts),
                     *registry.dispatch("flash_sparse_dkv", *args, rt,
                                        order=order, impl=impl, **opts)]
 
-        others = [lambda: registry.dispatch("flash_sparse_fwd", *a[:3], ft,
-                                            impl="cuda", **opts),
+        others = [lambda: registry.dispatch("flash_attention_fwd", *a[:3],
+                                            None, impl="cuda", **fo),
                   lambda: registry.dispatch("flash_attention_dkv", *args,
                                             None, impl="cuda", **fo),
                   lambda: None]
         first = both("cuda")
-        differ = {"dq": 0, "dk": 0, "dv": 0}
+        differ = {"out": 0, "lse": 0, "dq": 0, "dk": 0, "dv": 0}
         for i in range(n):
             others[i % 3]()
             for name, x, y in zip(differ, both("cuda"), first):
@@ -1790,13 +1803,14 @@ def phase_sparse_repeat(n=50):
         rec = {"phase": "sparse-repeat", "runs": n,
                "case": f"B {B}, S {S}, H {H}, Dh {D}, block {blk}, {dname}, "
                f"{'causal, ' if causal else ''}dropout {rate}",
+               "fwd_route": fsk.fwd_route(a[0], blk),
                "dq_route": fsk.dq_route(a[0], blk),
                "kernel_runs_differing": differ,
                "plain_runs_differing": plain_differ}
         emit(rec)
         if any(differ.values()) or plain_differ:
-            raise AssertionError(f"sparse dQ / dK / dV differ from run to "
-                                 f"run: {rec}")
+            raise AssertionError(f"sparse forward / dQ / dK / dV differ from "
+                                 f"run to run: {rec}")
         recs.append(rec)
         del a, args, out, lse, delta, first, plain
     return recs
@@ -1847,6 +1861,7 @@ def xent_case(name, N, D, V, dtype, gen, flush, timed):
                                  g, impl=impl, **opts)
 
     ref["dx"], ref["dw"] = dx("torch"), dw("torch")
+    fwd_route = fused_xent.fwd_route(x, w, labels)
     dx_route = fused_xent.dx_route(x, w, labels, lse, valid)
     dw_route = fused_xent.dw_route(x, w, labels, lse, valid)
     got = dict(zip(("lse", "ll"), fwd("cuda")))
@@ -1876,7 +1891,15 @@ def xent_case(name, N, D, V, dtype, gen, flush, timed):
            "dtype": dname, "head": "tied (wte.t() view)",
            "invalid_rows": int((~valid).sum()), "tol": XENT_TOL,
            "max_abs_err": errs, "max_err_over_tol": worst, "kernels": {},
-           "dx_route": dx_route, "dw_route": dw_route}
+           "fwd_route": fwd_route, "dx_route": dx_route,
+           "dw_route": dw_route}
+    if fwd_route == "wgmma":
+        # derived from the wgmma forward's tiling (128-token x 256-vocab
+        # tiles over D in 64-column chunks), not measured: the one product
+        # over N, V and D rounded up to them
+        rec["fwd_tensor_flops_by_design"] = (2 * -(-N // 128) * 128 *
+                                             -(-D // 64) * 64 *
+                                             -(-V // 256) * 256)
     if dx_route == "wgmma":
         # derived from the wgmma kernel's tiling in its dx role (64-token
         # resident tiles, 16-row vocab tiles, the logits' D-sum split
@@ -1904,6 +1927,7 @@ def xent_case(name, N, D, V, dtype, gen, flush, timed):
         rec["kernels"][kname] = k
     if timed:
         # yardstick the port never calls: the forward's product alone
+        # (cuBLAS x @ W, the bare product; it computes no lse)
         rec["matmul_ms"] = time_ms(lambda: x @ w, 5, flush)
     emit(rec)
     del x, emb, w
@@ -1940,17 +1964,17 @@ def phase_xent(gen, flush):
 
 XENT_REPEAT_CASES = (
     # N, D, V, dtype: train-pallas's shape, then a ragged N and GPT-2's
-    # real vocab in fp16 (the wgmma dx and dW both)
+    # real vocab in fp16 (the wgmma forward, dx and dW all)
     (8192, 768, 50304, "bfloat16"),
     (1000, 768, 50257, "float16"))
 
 
 def phase_xent_repeat(n=50):
-    """The fused-CE dx and dW as functions of their inputs alone, on their
-    wgmma routes (the tied head): each is computed n times, each call
-    after a different kernel left its data in shared memory (the fused-CE
-    forward, a reduction, or nothing), and every result must equal the
-    first bit for bit."""
+    """The fused-CE forward, dx and dW as functions of their inputs alone,
+    on their wgmma routes (the tied head): each is computed n times, each
+    call after a different kernel left its data in shared memory (the
+    fused-CE forward's plain version, a reduction, or nothing), and every
+    result must equal the first bit for bit."""
     import torch
 
     from deepspeed_tpu_torch.kernels import fused_xent, registry
@@ -1968,22 +1992,25 @@ def phase_xent_repeat(n=50):
         opts = dict(block_rows=N, block_v=V)
         lse, _ = registry.dispatch("fused_xent_fwd", x, w, labels,
                                    impl="torch", **opts)
-        routes = {"dx": fused_xent.dx_route(x, w, labels, lse, valid),
+        routes = {"fwd": fused_xent.fwd_route(x, w, labels),
+                  "dx": fused_xent.dx_route(x, w, labels, lse, valid),
                   "dw": fused_xent.dw_route(x, w, labels, lse, valid)}
         if set(routes.values()) != {"wgmma"}:
             raise AssertionError(f"xent repeat: routes {routes}, want wgmma")
 
         def both():
-            return [registry.dispatch(f"fused_xent_{k}", x, w, labels, lse,
-                                      valid, g, impl="cuda", **opts)
-                    for k in ("dx", "dw")]
+            return [*registry.dispatch("fused_xent_fwd", x, w, labels,
+                                       impl="cuda", **opts),
+                    *(registry.dispatch(f"fused_xent_{k}", x, w, labels, lse,
+                                        valid, g, impl="cuda", **opts)
+                      for k in ("dx", "dw"))]
 
         others = [lambda: registry.dispatch("fused_xent_fwd", x, w, labels,
-                                            impl="cuda", **opts),
+                                            impl="torch", **opts),
                   lambda: torch.randn(1 << 20, device="cuda").sum(),
                   lambda: None]
         first = both()
-        differ = {"dx": 0, "dw": 0}
+        differ = {"lse": 0, "ll": 0, "dx": 0, "dw": 0}
         for i in range(n):
             others[i % 3]()
             for name, a, b in zip(differ, both(), first):
@@ -1994,8 +2021,8 @@ def phase_xent_repeat(n=50):
                "routes": routes, "kernel_runs_differing": differ}
         emit(rec)
         if any(differ.values()):
-            raise AssertionError(f"fused-CE dx / dW differ from run to run: "
-                                 f"{rec}")
+            raise AssertionError(f"fused-CE forward / dx / dW differ from run "
+                                 f"to run: {rec}")
         recs.append(rec)
         del x, w, first
     return recs
@@ -2127,8 +2154,9 @@ def train_kernel_class(name):
         return "flash_attention"
     if "dispatch_kernel" in n or "combine_kernel" in n:
         return "moe"
-    if any(k in n for k in ("fx_fwd_kernel", "fx_bwd_kernel",
-                            "fx_bwd_stream_kernel", "fx_wgmma_kernel")):
+    if any(k in n for k in ("fx_fwd_kernel", "fx_fwd_wgmma_kernel",
+                            "fx_bwd_kernel", "fx_bwd_stream_kernel",
+                            "fx_wgmma_kernel")):
         return "fused_xent"
     if "foreach" in n or "multi_tensor" in n:
         return "optimizer"
@@ -3372,9 +3400,11 @@ def phase_train_bert_sparse(warmup=3, steps=10):
 def sparse_entries(sparse_cases, probe, train_bert, exact):
     main = sparse_cases[0]           # the training shape, bf16
     out = []
-    for name, line, err in (("flash_sparse_fwd", 73, "out"),
-                            ("flash_sparse_dq", 171, "dq"),
-                            ("flash_sparse_dkv", 208, "dk")):
+    # name, JAX line, output whose error is reported, route key (the
+    # kernels that have more than one route)
+    for name, line, err, route in (("flash_sparse_fwd", 73, "out", "fwd_route"),
+                                   ("flash_sparse_dq", 171, "dq", "dq_route"),
+                                   ("flash_sparse_dkv", 208, "dk", None)):
         k = main["kernels"][name]
         out.append({
             "name": name, "route": "cuda",
@@ -3397,10 +3427,10 @@ def sparse_entries(sparse_cases, probe, train_bert, exact):
             "library_ms": k["library_ms"],
             "dense_flash_ms": main["dense_flash_ms"][
                 name.replace("sparse", "attention")],
-            **({"kernel_route": main["dq_route"],
-                "routes_by_case": {c["case"]: c["dq_route"]
+            **({"kernel_route": main[route],
+                "routes_by_case": {c["case"]: c[route]
                                    for c in sparse_cases}}
-               if name == "flash_sparse_dq" else {}),
+               if route else {}),
             "shape": "B=2 S=4096 H=16 Dh=64 bf16, fixed layout block 128 "
                      f"(W {main['W']}, Wq {main['Wq']}, density "
                      f"{main['density']:.3f})",
@@ -3521,11 +3551,20 @@ def xent_entries(xent_cases, train_pallas):
                           "derived from the design, is the xent record's "
                           "dx_tensor_flops_by_design"}
                if name == "fused_xent_dx" else {}),
+            **({"kernel_route": main["fwd_route"],
+                "design": "the wgmma forward issues the bound's product "
+                          "once over N, V and D rounded up to its 128 x "
+                          "256 tiles and 64-column chunks; the count, "
+                          "derived from the design, is the xent record's "
+                          "fwd_tensor_flops_by_design"}
+               if name == "fused_xent_fwd" else {}),
             "cases": [{"case": c["case"],
                        "max_err_over_tol": c["max_err_over_tol"],
                        "kernel_ms": c["kernels"][name].get("kernel_ms"),
                        "plain_ms": c["kernels"][name].get("plain_ms"),
                        "bound_ms": c["kernels"][name]["bound_ms"],
+                       **({"kernel_route": c["fwd_route"]}
+                          if name == "fused_xent_fwd" else {}),
                        **({"kernel_route": c["dw_route"]}
                           if name == "fused_xent_dw" else {}),
                        **({"kernel_route": c["dx_route"]}

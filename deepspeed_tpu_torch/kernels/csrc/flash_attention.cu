@@ -522,16 +522,6 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // the scale folded into one FMA: 2^(q.k scale log2 e - m scale log2 e)),
 // the same masks, guards, roundings and hash.
 
-constexpr float LOG2E = 1.4426950408889634f;
-
-// 2^x with subnormal results flushed to zero (one MUFU.EX2): a p below
-// 2^-126 is below every bound's 1e-6 floor
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 template <typename T, int D, int BK, int STAGES, int MB>
 struct WgFwd {
   static constexpr int THREADS = 256;               // consumer + producer

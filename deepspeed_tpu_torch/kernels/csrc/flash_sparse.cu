@@ -44,7 +44,9 @@
 // FLOP/byte ridge: the bound is operations, the bf16 tensor cores' 989
 // TFLOP/s (the forward about 0.05 ms).  The design is the dense kernels'
 // (flash_attention.cu) with the key loop replaced by the table walk:
-//   * bf16 / fp16: mma.sync m16n8k16 tiles with fp32 accumulators.  A block
+//   * bf16 / fp16, where no wgmma kernel below takes the operands (D 256,
+//     blocks that are not a multiple of 64, fp16 dK/dV): mma.sync m16n8k16
+//     tiles with fp32 accumulators, staged by plain 16-byte loads.  A block
 //     of 4 warps owns C rows of one layout row (C = 64 when blk % 64 == 0:
 //     blk / 64 tiles walking the same table row, two at 128, four at 256;
 //     else C = 16 with one warp computing); each active k-block is staged C
@@ -57,13 +59,13 @@
 //     (train-bert-sparse's): a wgmma kernel fed by TMA on a persistent grid
 //     whose items run heaviest reverse-table walk first (the global
 //     columns' long walks no longer finish last; below).
-//   * bf16 / fp16 dQ at D = 64 or 128 with a layout block that is a
-//     multiple of 64: a warp-specialised wgmma kernel fed by TMA on a
-//     persistent grid, the flash forward's shape with the table walk
-//     (below).
-//   * fp32: fp32 FMAs on the CUDA cores, the dense kernels' thread layout.
-// The other kernels stage with plain 16-byte loads; cp.async or TMA
-// pipelining and wgmma for them are later work.
+//   * bf16 / fp16 dQ and forward at D = 64 or 128 with a layout block that
+//     is a multiple of 64 (`wgmma_route_of`): warp-specialised wgmma
+//     kernels fed by TMA on a persistent grid, the flash forward's shape
+//     with the table walk (below); the forward's two 64-row tiles of a
+//     block-128 row share each (K, V) stage.
+//   * fp32: fp32 FMAs on the CUDA cores, the dense kernels' thread layout,
+//     staged by plain loads.
 
 #include <math.h>
 
@@ -1148,17 +1150,9 @@ sparse_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 // stages, 100 KB; two CTAs an SM either way, so one CTA's tensor-core work
 // overlaps the other's elementwise pass.
 
-constexpr float LOG2E = 1.4426950408889634f;
-
-// 2^x with subnormal results flushed to zero (one MUFU.EX2): exp(x - lse)
-// as 2^((x - lse) log2 e), the difference taken first as the function
-// takes it (a row whose live keys are all causally masked keeps p = 1); a
-// p below 2^-126 is below every bound's 1e-6 floor
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
+// exp(x - lse) is ex2((x - lse) log2 e) (hopper.cuh), the difference
+// taken first as the function takes it: a row whose live keys are all
+// causally masked keeps p = 1.
 
 template <int D>
 struct WgDq {
@@ -1362,6 +1356,352 @@ sparse_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
+// forward for bf16 / fp16 at D = 64 or 128, layout blocks a multiple of 64:
+// TMA, wgmma, warp-specialised, on the dQ kernel's walk
+// ---------------------------------------------------------------------------
+//
+// The dense flash forward's body (flash_attention.cu
+// `flash_fwd_wgmma_kernel`: S = Q.K^T by wgmma with both operands in shared
+// memory, the online softmax in registers, P rounded to V's dtype straight
+// into wgmma A fragments, O += P.V with B the SAME swizzled V tile read
+// MN-major) on the dQ kernel's table walk above.  The work items are (bh,
+// ROWS q rows of one layout row), taken by a persistent grid as c,
+// c + gridDim.x, ...; ROWS = 64 NC, and a ring stage holds BK = 64 NC keys.
+// A CTA is NC consumer warpgroups and one producer warpgroup:
+//   * NC = 2 where the layout block is a multiple of 128 (train-bert-sparse's
+//     128): the item is 128 rows, the two 64-row tiles that walk the SAME
+//     table row, and the two consumers (64 rows each) read every (K, V)
+//     stage of 128 keys the producer loads, so each key tile is loaded once
+//     per layout row (the L2 -> shared-memory traffic of 64-row items
+//     halves); one CTA an SM, 384 threads.
+//   * NC = 1 for the other multiples of 64 (64, 192, ...): 64-row items and
+//     64-key stages, two CTAs an SM, as the dQ kernel.
+// The producer (24 registers after setmaxnreg.dec) has one thread TMA-load
+// each item's Q tile (ROWS x D, 128-byte swizzled, 64-column chunks) into
+// one of two buffers, then a ring of STAGES (K, V) stages along the item's
+// forward-table row, up to the first -1; the ring runs on across items.
+// Consumer warp w of warpgroup c owns q rows [64 c + 16 w, 64 c + 16 w + 16)
+// of the item; per key tile it computes q.k by wgmma m64nBKk16, the causal
+// select to NEG_INF (only on tiles that cross its rows' diagonal), the
+// online softmax with the exp as one EX2 of q.k scale log2 e - m scale
+// log2 e (on a tile that crosses the diagonal, of (x - m) scale log2 e,
+// the difference first: a row whose live keys are all causally masked
+// keeps p = 1, as the function does), the denominator over the undropped
+// p, then p times the keep mask (`keep_scale`'s hash at the global (q, k),
+// its row term and the hash's first step on it hoisted out of the key
+// loop, its column term's out of the row loop, the same bits) rounded
+// once to V's dtype, and O += P.V by
+// wgmma m64nDk16.  Every output element is summed by one warp in table
+// order: no atomics, bitwise repeatable.  An empty table row writes zeros
+// and lse NEG_INF.  (Two schedules measured slower at train-bert-sparse's
+// shape and were not kept, PERF.md §6: a software-pipelined loop, tile
+// i + 1's S issued before tile i's P.V and its softmax run beside P_i.V_i;
+// and that loop with the two consumers taking turns to issue, by named
+// barriers.)
+// The budgets (train-bert-sparse: B 2, H 16, S 4096, D 64, block 128, 11
+// active blocks a row; NC = 2):
+//   * registers: a consumer holds O (D / 2 fp32), a tile's scores (BK / 2)
+//     and its P fragments (BK / 8): 240 after
+//     setmaxnreg.inc beside the producer's 24 (NC = 1: 232, as the dQ
+//     kernel).
+//   * shared memory: two Q buffers (16 KB each at D 64, 32 at D 128) and
+//     four (K, V) stages of 32 KB at D 64, two of 64 KB at D 128: 161 KB,
+//     193 KB (NC = 1: 81 KB at D 64, 97 KB at D 128).
+//   * issued FLOPs: every key of every active block, causal or not: 4 D a
+//     (row, key) pair, the bound's count (which takes the causal half of a
+//     diagonal block).
+//   * what holds it: per 64 x 64 tile the two products are 256 tensor-core
+//     cycles an SM at D 64 and its 4,096 EX2 256 MUFU cycles, but the
+//     elementwise pass (about 5 instructions an element: max, FFMA, EX2,
+//     sum, a share of the packing and the rescale; with dropout the hash
+//     about 10 more) runs on two consumer warps a scheduler, whose
+//     dependent chains it does not hide: each instruction an element
+//     removed saved about three times its issue-slot share (PERF.md
+//     §6).  One warpgroup's pass runs beside the other warpgroup's
+//     products.
+
+// fmix32 (flash_tiles.cuh) after its first step h ^= h >> 15.  A logical
+// right shift distributes over ^, so keep_scale's hash of row term x and
+// column term y is fmix32_tail((x ^ x >> 15) ^ (y ^ y >> 15)): the first
+// step of each term is taken once a row or a column, the same bits
+__device__ __forceinline__ uint32_t fmix32_tail(uint32_t h) {
+  h *= 0x2C1B3C6Du;
+  h ^= h >> 12;
+  h *= 0x297A2D39u;
+  h ^= h >> 15;
+  return h;
+}
+
+template <int D, int NC>
+struct WgFwdS {
+  static constexpr int THREADS = 128 * (NC + 1), MB = NC == 2 ? 1 : 2;
+  static constexpr int ROWS = 64 * NC;               // q rows an item
+  static constexpr int BK = 64 * NC;                 // keys a stage
+  static constexpr int NDC = D / 64;                 // 64-column chunks
+  static constexpr int KCHUNK = BK * 128;            // BK keys of one chunk
+  static constexpr int KTILE = NDC * KCHUNK;         // BK keys of all D
+  static constexpr int QCHUNK = ROWS * 128;
+  static constexpr int QTILE = NDC * QCHUNK;
+  static constexpr int QB = 2;                       // Q buffers
+  static constexpr int STAGES = D == 128 ? 2 : 4;    // (K, V) stages
+  static constexpr int STAGE = 2 * KTILE;
+  static constexpr size_t SMEM = 1024 + QB * size_t(QTILE) +
+                                 STAGES * size_t(STAGE) +
+                                 8 * (2 * STAGES + 2 * QB);
+  static constexpr int LAUNCH_REGS = (65536 / (THREADS * MB)) & ~7;
+  static constexpr int CONSUMER_REGS =
+      (((NC + 1) * LAUNCH_REGS - 24) / NC) & ~7;
+};
+
+template <typename T, int D, int NC>
+__global__ void __launch_bounds__(WgFwdS<D, NC>::THREADS, WgFwdS<D, NC>::MB)
+sparse_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        T* __restrict__ o, float* __restrict__ lse,
+                        SParams p) {
+  using LY = WgFwdS<D, NC>;
+  constexpr int BK = LY::BK, NT = BK / 8;
+  constexpr int KTILE = LY::KTILE, KCHUNK = LY::KCHUNK, NDC = LY::NDC;
+  constexpr int QTILE = LY::QTILE, QCHUNK = LY::QCHUNK;
+  constexpr int QB = LY::QB, STAGES = LY::STAGES;
+  extern __shared__ unsigned char smraw[];
+  // 1024-byte alignment for the swizzle atoms
+  unsigned char* sQ = smraw + ((1024 - (smem_u32(smraw) & 1023)) & 1023);
+  unsigned char* sKV = sQ + QB * QTILE;             // [STAGES][STAGE]: K, V
+  uint64_t* full = reinterpret_cast<uint64_t*>(sKV + STAGES * LY::STAGE);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qfull = empty + STAGES;                 // [QB]: Q buffer loaded
+  uint64_t* qempty = qfull + QB;                    // [QB]: Q buffer free
+
+  const int nq = p.S / LY::ROWS;
+  const int n_items = p.BH * nq;
+  // item w -> (bh, first q row); returns the q-block's forward-table row
+  auto item = [&](int w, int& bh, int& q0) {
+    bh = w / nq;
+    q0 = (w % nq) * LY::ROWS;
+    return table_row(p, bh, q0 / p.blk);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * NC);   // one arrival per consumer warp
+    }
+    for (int b = 0; b < QB; ++b) {
+      mbar_init(&qfull[b], 1);
+      mbar_init(&qempty[b], 4 * NC);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128 * NC) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 128 * NC) {
+      int it = 0;
+      for (int w = blockIdx.x, n = 0; w < n_items; w += gridDim.x, ++n) {
+        int bh, q0;
+        const int* row = item(w, bh, q0);
+        const int b = n % QB;
+        mbar_wait(&qempty[b], ((n / QB) & 1) ^ 1);
+        mbar_expect_tx(&qfull[b], QTILE);
+        unsigned char* qb = sQ + b * QTILE;
+        for (int c = 0; c < NDC; ++c)
+          tma_load_3d(qb + c * QCHUNK, &tq, &qfull[b], 64 * c, q0, bh);
+        for (int a = 0; a < p.W; ++a) {
+          const int kj = row[a];
+          if (kj < 0) break;
+          for (int k0 = kj * p.blk; k0 < (kj + 1) * p.blk; k0 += BK, ++it) {
+            const int s = it % STAGES;
+            mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+            mbar_expect_tx(&full[s], 2 * KTILE);
+            unsigned char* st = sKV + s * LY::STAGE;
+            for (int c = 0; c < NDC; ++c) {
+              tma_load_3d(st + c * KCHUNK, &tk, &full[s], 64 * c, k0, bh);
+              tma_load_3d(st + KTILE + c * KCHUNK, &tv, &full[s], 64 * c, k0, bh);
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers
+  setmaxnreg_inc<LY::CONSUMER_REGS>();
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  int ra, rb;
+  uint32_t ha, hb;
+  float acc[D / 2];
+  float m_a, m_b, l_a, l_b;
+
+  // The scores stay unscaled: scale > 0 commutes with the max (and with
+  // its rounding), so s = scale (q.k) enters only through sl2 = scale
+  // log2 e, p = 2^(q.k sl2 - m sl2), one FFMA and one EX2.  A tile that
+  // crosses the diagonal takes the difference first, 2^((x - m) sl2) with
+  // x = NEG_INF where masked: a row whose live keys are all masked so far
+  // keeps p = 1 there, as the function does.
+  const float sl2 = p.scale * LOG2E;
+  // the online softmax of one BK-key tile, its scores `sc` in place ->
+  // p * keep; EDGE: the tile crosses this warpgroup's causal diagonal;
+  // DROP: dropout on
+  auto softmax = [&](float* sc, int k0, auto edge_c, auto drop_c) {
+    constexpr bool EDGE = decltype(edge_c)::value;
+    constexpr bool DROP = decltype(drop_c)::value;
+    float mx_a = NEG_INF, mx_b = NEG_INF;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        float x = sc[4 * j + r];
+        if constexpr (EDGE) {
+          if ((r < 2 ? ra : rb) < k0 + 8 * j + 2 * t + (r & 1)) x = NEG_INF;
+          sc[4 * j + r] = x;
+        }
+        if (r < 2) mx_a = fmaxf(mx_a, x); else mx_b = fmaxf(mx_b, x);
+      }
+    const float mn_a = fmaxf(m_a, quad_max(mx_a));
+    const float mn_b = fmaxf(m_b, quad_max(mx_b));
+    const float ma2 = mn_a * sl2, mb2 = mn_b * sl2;
+    // keep_scale's column term of key k0 + 2t; key k0 + 2t + 8j + e adds
+    // (8j + e) times the multiplier (mod 2^32)
+    const uint32_t hc = uint32_t(k0 + 2 * t) * 0xC2B2AE35u;
+    float ps_a = 0.f, ps_b = 0.f;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        float pv;
+        if constexpr (EDGE)
+          pv = ex2((sc[4 * j + r] - (r < 2 ? mn_a : mn_b)) * sl2);
+        else
+          pv = ex2(fmaf(sc[4 * j + r], sl2, -(r < 2 ? ma2 : mb2)));
+        if (r < 2) ps_a += pv; else ps_b += pv;
+        if constexpr (DROP) {
+          const uint32_t c = hc + uint32_t(8 * j + (r & 1)) * 0xC2B2AE35u;
+          const uint32_t h = fmix32_tail((r < 2 ? ha : hb) ^ c ^ (c >> 15));
+          pv *= h < p.thr ? p.inv_keep : 0.f;
+        }
+        sc[4 * j + r] = pv;
+      }
+    const float al_a = ex2((m_a - mn_a) * sl2);
+    const float al_b = ex2((m_b - mn_b) * sl2);
+    l_a = al_a * l_a + quad_sum(ps_a);
+    l_b = al_b * l_b + quad_sum(ps_b);
+    m_a = mn_a;
+    m_b = mn_b;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      acc[4 * j] *= al_a;
+      acc[4 * j + 1] *= al_a;
+      acc[4 * j + 2] *= al_b;
+      acc[4 * j + 3] *= al_b;
+    }
+  };
+
+  int it = 0;
+  for (int w = blockIdx.x, n = 0; w < n_items; w += gridDim.x, ++n) {
+    int bh, q0;
+    const int* row = item(w, bh, q0);
+    const int b = n % QB;
+    const int r0 = q0 + 64 * wg;                    // this warpgroup's rows
+    ra = r0 + warp * 16 + g;
+    rb = ra + 8;
+    // keep_scale's row terms (flash_tiles.cuh), after fmix32's first step
+    const uint32_t bhm = uint32_t(bh) * 0x7FEB352Du;
+    ha = p.seed_h ^ bhm ^ (uint32_t(ra) * 0x85EBCA6Bu);
+    hb = p.seed_h ^ bhm ^ (uint32_t(rb) * 0x85EBCA6Bu);
+    ha ^= ha >> 15;
+    hb ^= hb >> 15;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    m_a = m_b = NEG_INF;
+    l_a = l_b = 0.f;
+    const unsigned char* qt = sQ + b * QTILE + wg * 64 * 128;
+    mbar_wait(&qfull[b], (n / QB) & 1);
+
+    for (int a = 0; a < p.W; ++a) {
+      const int kj = row[a];
+      if (kj < 0) break;
+      for (int k0 = kj * p.blk; k0 < (kj + 1) * p.blk; k0 += BK, ++it) {
+        const int s = it % STAGES;
+        mbar_wait(&full[s], (it / STAGES) & 1);
+        const unsigned char* kt = sKV + s * LY::STAGE;
+        const unsigned char* vt = kt + KTILE;
+
+        float sc[BK / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          Wgmma<T, BK>::ss(
+              sc, sw128_desc(qt + (kk >> 2) * QCHUNK + (kk & 3) * 32, 16, 1024),
+              sw128_desc(kt + (kk >> 2) * KCHUNK + (kk & 3) * 32, 16, 1024),
+              kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<BK / 2>(sc);
+
+        const bool edge = p.causal && k0 + BK - 1 > r0;
+        if (p.dropout) {
+          if (edge) softmax(sc, k0, std::true_type{}, std::true_type{});
+          else softmax(sc, k0, std::false_type{}, std::true_type{});
+        } else {
+          if (edge) softmax(sc, k0, std::true_type{}, std::false_type{});
+          else softmax(sc, k0, std::false_type{}, std::false_type{});
+        }
+        // p * keep rounded to V's dtype, as wgmma A fragments (16 keys each)
+        uint32_t pa[BK / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          pa[kk][0] = Mma<T>::pack(sc[8 * kk], sc[8 * kk + 1]);
+          pa[kk][1] = Mma<T>::pack(sc[8 * kk + 2], sc[8 * kk + 3]);
+          pa[kk][2] = Mma<T>::pack(sc[8 * kk + 4], sc[8 * kk + 5]);
+          pa[kk][3] = Mma<T>::pack(sc[8 * kk + 6], sc[8 * kk + 7]);
+        }
+        // O += P.V, B the stage's V tile read MN-major (16 keys a slice)
+        fence_regs<D / 2>(acc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          Wgmma<T, D>::rs(acc, pa[kk],
+                          sw128_desc(vt + kk * 16 * 128, KCHUNK, 1024), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<D / 2>(acc);
+        // the stage's K and V have been read: hand it back
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[s]);
+      }
+    }
+    // the item's Q has been read
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&qempty[b]);
+
+    const float sa = l_a == 0.f ? 1.f : l_a, sb = l_b == 0.f ? 1.f : l_b;
+    T* oh = o + size_t(bh) * p.S * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int cc = 8 * j + 2 * t;
+      *reinterpret_cast<uint32_t*>(oh + size_t(ra) * D + cc) =
+          Mma<T>::pack(acc[4 * j] / sa, acc[4 * j + 1] / sa);
+      *reinterpret_cast<uint32_t*>(oh + size_t(rb) * D + cc) =
+          Mma<T>::pack(acc[4 * j + 2] / sb, acc[4 * j + 3] / sb);
+    }
+    if (t == 0) {
+      // the max in the function's units; NEG_INF (every live key masked)
+      // stays NEG_INF, as the function's lse = NEG_INF + log l
+      const float ms_a = m_a == NEG_INF ? NEG_INF : m_a * p.scale;
+      const float ms_b = m_b == NEG_INF ? NEG_INF : m_b * p.scale;
+      lse[size_t(bh) * p.S + ra] = l_a == 0.f ? NEG_INF : ms_a + logf(sa);
+      lse[size_t(bh) * p.S + rb] = l_b == 0.f ? NEG_INF : ms_b + logf(sb);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -1425,10 +1765,42 @@ cudaError_t launch_dq_wgmma(const Ptrs& a, const SParams& p, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// 1: the wgmma dQ takes these operands (bf16 / fp16, D 64 or 128, a layout
-// block that is a multiple of 64); 0: the mma.sync dQ (other bf16 / fp16),
-// 2: the CUDA-core dQ (fp32)
-int dq_route_of(int dtype, int D, int blk) {
+// the wgmma forward (bf16 / fp16, D 64 / 128, blk % 64 == 0): NC = 2
+// consumer warpgroups sharing each (K, V) stage where the block is a
+// multiple of 128, one CTA an SM; else NC = 1, two CTAs an SM
+template <typename T, int D, int NC>
+cudaError_t launch_fwd_wgmma_nc(const Ptrs& a, const SParams& p,
+                                cudaStream_t st) {
+  using LY = WgFwdS<D, NC>;
+  CUtensorMap tq, tk, tv;
+  cudaError_t e;
+  if ((e = tensor_map<T>(&tq, a.q, p.BH, p.S, D, LY::ROWS)) != cudaSuccess ||
+      (e = tensor_map<T>(&tk, a.k, p.BH, p.S, D, LY::BK)) != cudaSuccess ||
+      (e = tensor_map<T>(&tv, a.v, p.BH, p.S, D, LY::BK)) != cudaSuccess)
+    return e;
+  auto kern = sparse_fwd_wgmma_kernel<T, D, NC>;
+  if ((e = set_smem(kern, LY::SMEM)) != cudaSuccess) return e;
+  int dev, sms;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+          cudaSuccess)
+    return e;
+  const int items = p.BH * (p.S / LY::ROWS);
+  kern<<<min(items, sms * LY::MB), LY::THREADS, LY::SMEM, st>>>(
+      tq, tk, tv, static_cast<T*>(a.o), static_cast<float*>(a.lse_out), p);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_fwd_wgmma(const Ptrs& a, const SParams& p, cudaStream_t st) {
+  return p.blk % 128 == 0 ? launch_fwd_wgmma_nc<T, D, 2>(a, p, st)
+                          : launch_fwd_wgmma_nc<T, D, 1>(a, p, st);
+}
+
+// 1: the wgmma forward and dQ take these operands (bf16 / fp16, D 64 or
+// 128, a layout block that is a multiple of 64); 0: the mma.sync kernels
+// (other bf16 / fp16), 2: the CUDA-core kernels (fp32)
+int wgmma_route_of(int dtype, int D, int blk) {
   if (dtype == 0) return 2;
   return (dtype == 1 || dtype == 2) && (D == 64 || D == 128) && blk > 0 &&
                  blk % 64 == 0
@@ -1440,12 +1812,12 @@ int dq_route_of(int dtype, int D, int blk) {
 // only for the dtypes that reach it (as in flash_attention.cu).  C is the
 // row tile (64 for a layout block that is a multiple of 64, walked as
 // blk / 64 tiles of one table row, else 16); CK the key tile of dQ, of the
-// fp32 forward and (at D = 256) of the tensor-core forward, halved to 32 at
-// D >= 128 where registers or shared memory would not fit (the D 64 / 128
-// tensor-core forward stages C keys); CKV the key rows of the CUDA-core
-// dK/dV, 16 at D = 256 for its shared memory.  The wgmma dQ takes bf16 /
-// fp16 at C = 64 and D 64 / 128 (`dq_route_of`), the wgmma dK/dV bf16 at
-// C = 64 and D 64.
+// fp32 forward and (at D = 256) of the mma.sync forward, halved to 32 at
+// D >= 128 where registers or shared memory would not fit (the mma.sync
+// forward at C = 16 stages C keys); CKV the key rows of the CUDA-core
+// dK/dV, 16 at D = 256 for its shared memory.  The wgmma forward and dQ
+// take bf16 / fp16 at C = 64 and D 64 / 128 (`wgmma_route_of`), the wgmma
+// dK/dV bf16 at C = 64 and D 64.
 template <typename T, int D, int C>
 cudaError_t launch(int which, const Ptrs& a, const SParams& p, cudaStream_t st) {
   constexpr bool mma = !std::is_same<T, float>::value;
@@ -1462,7 +1834,9 @@ cudaError_t launch(int which, const Ptrs& a, const SParams& p, cudaStream_t st) 
   const dim3 rows(p.S / C, p.BH);
   cudaError_t e;
   if (which == 0) {
-    if constexpr (mma) {
+    if constexpr (mma && C == 64 && D <= 128) {
+      return launch_fwd_wgmma<T, D>(a, p, st);
+    } else if constexpr (mma) {
       auto kern = sparse_fwd_mma_kernel<T, D, C, CKF>;
       const size_t smem = MmaLayout<T, D, CKF>::FWD_SMEM;
       if ((e = set_smem(kern, smem)) != cudaSuccess) return e;
@@ -1583,10 +1957,15 @@ int flash_sparse_dq(const void* q, const void* k, const void* v,
              inv_keep, dropout, dtype, stream);
 }
 
-// the kernel flash_sparse_dq launches for these operands: 1 = the wgmma
-// kernel, 0 = sparse_dq_mma_kernel, 2 = sparse_dq_kernel
+// the kernel flash_sparse_fwd / flash_sparse_dq launches for these
+// operands: 1 = the wgmma kernel, 0 = the mma.sync kernel (sparse_fwd_mma_kernel,
+// sparse_dq_mma_kernel), 2 = the CUDA-core kernel
+int flash_sparse_fwd_route(int dtype, int D, int blk) {
+  return wgmma_route_of(dtype, D, blk);
+}
+
 int flash_sparse_dq_route(int dtype, int D, int blk) {
-  return dq_route_of(dtype, D, blk);
+  return wgmma_route_of(dtype, D, blk);
 }
 
 // order: int32 [H * S / blk], the (head, k-block) pairs heaviest walk

@@ -34,7 +34,14 @@
 //     two bf16 (or fp16) values are exact in fp32, as the reference's
 //     preferred_element_type=float32 is.  fp32 inputs (the train-exact
 //     check) take the same tiles with fp32 FMAs on the CUDA cores.
-//   * fwd: a block of 4 warps owns 64 rows, each warp 16, and sweeps a
+//   * fwd for bf16 / fp16 with the tied head and D a multiple of 8 (every
+//     GPT-2 width: nano's 48, 768, XL's 1600): a persistent wgmma product
+//     fed by TMA whose epilogue reduces each 128 x 256 logits tile to the
+//     rows' running (max, sum, label logit) in registers
+//     (fx_fwd_wgmma_kernel, below: its note states the budgets); the
+//     launcher picks it (`fwd_route_of`).
+//   * fwd otherwise (fp32, an untied [D, V] head, a D off the 8-element
+//     stride): a block of 4 warps owns 64 rows, each warp 16, and sweeps a
 //     share of the vocab in tiles of 64 (the loop takes the place of the
 //     TPU's sequential grid axis); x and W are staged in 64-wide chunks of
 //     D, zero past D, so any D works at the same shared-memory size.  Per row it keeps
@@ -85,12 +92,14 @@
 //     (fx_wgmma_kernel, below: its note states how it meets the register,
 //     FLOP, shared-memory and L2 budgets); the launcher picks it
 //     (`route_of`).
-// Left to later work: pipelining the forward's chunks and the fp32 path,
-// wgmma for the forward, and larger resident tiles for the mma.sync
+// Left to later work: pipelining fx_fwd_kernel's chunks and the fp32
+// path, and larger resident tiles for the mma.sync
 // kernels (their W and x tiles are re-read from L2 by every block: 19.8 GB
 // of L2 traffic per backward kernel at the GPT-2 shape); dx at small N
 // (1024 rows at D = 1600 make 64 blocks) leaves SMs idle, and a split of
 // its vocab sweep would fill them.
+
+#include <math.h>
 
 #include <type_traits>
 
@@ -1050,6 +1059,254 @@ fx_wgmma_kernel(const __grid_constant__ CUtensorMap tres,
 }
 
 // ---------------------------------------------------------------------------
+// forward for bf16 / fp16, the tied head, any D a multiple of 8: a
+// persistent wgmma product with the logsumexp in its epilogue
+// ---------------------------------------------------------------------------
+//
+// The forward is one product, logits = x . W^T, reduced row by row as it is
+// formed: it keeps no [64, D] accumulator as dx / dW do, so the register
+// file holds a whole logits tile.  A tile is BM = 128 tokens x BN = 256
+// vocab rows; its logits are formed over D in 64-column chunks, each a
+// stage of a STAGES = 4 ring (x's 128 rows and the tied embedding's 256
+// vocab rows, both K-major, 128-byte swizzled; TMA reads the columns past
+// D, and the rows past N or V, as zeros, so any D that keeps a 16-byte row
+// stride takes it: nano's 48, GPT-2's 768, XL's 1600).  The CTA is three
+// warpgroups: the producer (24 registers after setmaxnreg.dec), one thread
+// of which keeps the ring's TMA loads in flight, and two consumers (240),
+// consumer c owning the tile's token rows [64 c, 64 c + 64) as one
+// m64n256k16 accumulator (128 fp32 a thread); both read every stage, so a
+// W chunk is loaded once per 128 tokens.  Per chunk a consumer issues its
+// four products and retires the previous chunk's (wait 1), handing that
+// stage back, so one chunk's products are always in flight.  Per tile, in
+// registers: vocab rows past V set to -inf (TMA's zero rows are logits 0,
+// not absent), the row max over the tile (quad shuffles), the exponential
+// sum against the running max (one EX2 of (s - m) log2 e, the difference
+// first), the label's logit picked by the one thread whose column holds it
+// (a label outside [0, V) picks none: 0), merged into each thread's running
+// (m, l, ll) of its two rows.  The two consumers' epilogues run beside the
+// other's products as far as the ring lets them drift apart (three chunks).
+// Work units are (128-token row tile, vocab split): VS splits of the vocab
+// tiles per row tile (the wrapper picks VS so the units fill the grid
+// evenly), unit u = (row tile u % n_rt, split u / n_rt), taken by a
+// persistent grid of one CTA an SM as c, c + gridDim.x, ...: the CTAs
+// resident at one time sweep the same splits' W tiles together, so W comes
+// from HBM about once and x (12.6 MB at the training shape) stays in L2.
+// Each unit writes its rows' partial (max, sum, label logit); the last of
+// a row tile's VS units to finish (a ticket) merges them in split order, as
+// fx_fwd_kernel does: the result does not depend on the schedule, and is
+// bitwise repeatable.
+// The budgets (N 8192, D 768, V 50304):
+//   * registers: 128 accumulators, the rows' (m, l, ll) and labels, the
+//     epilogue's temporaries: within the consumers' 240.
+//   * shared memory: four stages of 48 KB (x 16 KB, W 32 KB): 193 KB.
+//   * issued FLOPs: 2 N' D' V' over N and V rounded up to the tile and D
+//     to 64 columns: 1.003 x the bound's 632.9 GFLOP at this shape.
+//   * L2 traffic: every tile reads its x (196 KB) and W (393 KB) chunks:
+//     7.4 GB a call, 85 FLOP a byte.
+
+struct WgFwd {
+  static constexpr int THREADS = 384;                 // two consumers, producer
+  static constexpr int BM = 128, BN = 256, STAGES = 4;
+  static constexpr int X_BYTES = BM * 128, W_BYTES = BN * 128;  // a chunk
+  static constexpr int STAGE = X_BYTES + W_BYTES;
+  static constexpr size_t SMEM = 1024 + STAGES * size_t(STAGE) +
+                                 8 * 2 * STAGES + 16;
+};
+
+template <typename T>
+__global__ void __launch_bounds__(384, 1)
+fx_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                    const __grid_constant__ CUtensorMap tw,
+                    const int64_t* __restrict__ labels,
+                    float* __restrict__ lse, float* __restrict__ ll,
+                    float* __restrict__ part, int* __restrict__ tickets,
+                    int N, int D, int V, int VS) {
+  using LY = WgFwd;
+  constexpr int STAGES = LY::STAGES;
+  extern __shared__ unsigned char smraw[];
+  // 1024-byte alignment for the swizzle atoms
+  unsigned char* sbuf = smraw + ((1024 - (smem_u32(smraw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sbuf + STAGES * LY::STAGE);
+  uint64_t* empty = full + STAGES;
+  int* s_last = reinterpret_cast<int*>(empty + STAGES);
+
+  const int n_rt = (N + LY::BM - 1) / LY::BM;
+  const int n_vt = (V + LY::BN - 1) / LY::BN;
+  const int nk = (D + 63) / 64;
+  const int n_units = n_rt * VS;
+  // unit u -> (row tile, split); [t0, t1) its vocab tiles
+  auto unit = [&](int u, int& rt, int& vs, int& t0, int& t1) {
+    rt = u % n_rt;
+    vs = u / n_rt;
+    t0 = int((long long)vs * n_vt / VS);
+    t1 = int((long long)(vs + 1) * n_vt / VS);
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);   // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      int it = 0;
+      for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+        int rt, vs, t0, t1;
+        unit(u, rt, vs, t0, t1);
+        for (int vt = t0; vt < t1; ++vt)
+          for (int kc = 0; kc < nk; ++kc, ++it) {
+            const int s = it % STAGES;
+            mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+            mbar_expect_tx(&full[s], LY::STAGE);
+            unsigned char* st = sbuf + s * LY::STAGE;
+            tma_load_3d(st, &tx, &full[s], 64 * kc, rt * LY::BM, 0);
+            tma_load_3d(st + LY::X_BYTES, &tw, &full[s], 64 * kc, vt * LY::BN,
+                        0);
+          }
+      }
+    }
+    return;
+  }
+
+  // consumers
+  setmaxnreg_inc<240>();
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  float* pm = part;
+  float* pl = part + size_t(VS) * N;
+  float* pll = part + 2 * size_t(VS) * N;
+  float acc[128];
+  int it = 0;
+  for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+    int rt, vs, t0, t1;
+    unit(u, rt, vs, t0, t1);
+    // this thread's two token rows (register 4j + r holds row
+    // 16 warp + g + 8 (r >> 1) of the consumer's 64, vocab column
+    // 8j + 2t + (r & 1) of the tile) and their labels, -1 outside [0, V)
+    const int ra = rt * LY::BM + 64 * wg + 16 * warp + g, rb = ra + 8;
+    long long lab_a = ra < N ? labels[ra] : -1;
+    long long lab_b = rb < N ? labels[rb] : -1;
+    if (lab_a >= V) lab_a = -1;
+    if (lab_b >= V) lab_b = -1;
+    float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;
+    float ll_a = 0.f, ll_b = 0.f;
+    for (int vt = t0; vt < t1; ++vt) {
+      const int v0 = vt * LY::BN;
+      for (int kc = 0; kc < nk; ++kc, ++it) {
+        const int s = it % STAGES;
+        mbar_wait(&full[s], (it / STAGES) & 1);
+        const unsigned char* st = sbuf + s * LY::STAGE;
+        const uint64_t da = sw128_desc(st + wg * 64 * 128, 16, 1024);
+        const uint64_t db = sw128_desc(st + LY::X_BYTES, 16, 1024);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          Wgmma<T, 256>::ss(acc, da + 2 * kk, db + 2 * kk, kc | kk);
+        wgmma_commit();
+        // the previous chunk's products have retired: hand its stage back
+        wgmma_wait<1>();
+        __syncwarp();
+        if (kc > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+      }
+      wgmma_wait<0>();
+      fence_regs<128>(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+
+      // vocab rows past V are no logits (TMA's zero rows): -inf
+      if (v0 + LY::BN > V) {
+#pragma unroll
+        for (int j = 0; j < 32; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (v0 + 8 * j + 2 * t + e >= V) acc[4 * j + e] = acc[4 * j + 2 + e] = -INFINITY;
+      }
+      // the label's logit, in the one thread whose column holds it
+      if (lab_a >= v0 && lab_a < v0 + LY::BN) {
+        const int c = int(lab_a - v0) - 2 * t;
+#pragma unroll
+        for (int j = 0; j < 32; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (8 * j + e == c) ll_a += acc[4 * j + e];
+      }
+      if (lab_b >= v0 && lab_b < v0 + LY::BN) {
+        const int c = int(lab_b - v0) - 2 * t;
+#pragma unroll
+        for (int j = 0; j < 32; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (8 * j + e == c) ll_b += acc[4 * j + 2 + e];
+      }
+      float mx_a = -INFINITY, mx_b = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        mx_a = fmaxf(mx_a, fmaxf(acc[4 * j], acc[4 * j + 1]));
+        mx_b = fmaxf(mx_b, fmaxf(acc[4 * j + 2], acc[4 * j + 3]));
+      }
+      const float mn_a = fmaxf(m_a, quad_max(mx_a));
+      const float mn_b = fmaxf(m_b, quad_max(mx_b));
+      float ps_a = 0.f, ps_b = 0.f;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        ps_a += ex2((acc[4 * j] - mn_a) * LOG2E);
+        ps_a += ex2((acc[4 * j + 1] - mn_a) * LOG2E);
+        ps_b += ex2((acc[4 * j + 2] - mn_b) * LOG2E);
+        ps_b += ex2((acc[4 * j + 3] - mn_b) * LOG2E);
+      }
+      l_a = l_a * ex2((m_a - mn_a) * LOG2E) + quad_sum(ps_a);
+      l_b = l_b * ex2((m_b - mn_b) * LOG2E) + quad_sum(ps_b);
+      m_a = mn_a;
+      m_b = mn_b;
+    }
+    // the label logit sits in one lane of the quad (the others hold 0)
+    ll_a = quad_sum(ll_a);
+    ll_b = quad_sum(ll_b);
+    if (t == 0) {
+      if (ra < N) {
+        pm[size_t(vs) * N + ra] = m_a;
+        pl[size_t(vs) * N + ra] = l_a;
+        pll[size_t(vs) * N + ra] = ll_a;
+      }
+      if (rb < N) {
+        pm[size_t(vs) * N + rb] = m_b;
+        pl[size_t(vs) * N + rb] = l_b;
+        pll[size_t(vs) * N + rb] = ll_b;
+      }
+    }
+    __threadfence();  // the partials are visible before the ticket is taken
+    named_bar_sync(1, 256);
+    if (threadIdx.x == 0) *s_last = atomicAdd(&tickets[rt], 1) == VS - 1;
+    named_bar_sync(1, 256);
+    if (*s_last) {
+      // the last of the row tile's units merges the VS partials in split
+      // order (fx_fwd_kernel's merge)
+      __threadfence();
+      const int row = rt * LY::BM + threadIdx.x;
+      if (threadIdx.x < LY::BM && row < N) {
+        float m = NEG_INF, l = 0.f, lab = 0.f;
+        for (int k = 0; k < VS; ++k) {
+          const size_t i = size_t(k) * N + row;
+          const float mk = __ldcg(pm + i), lk = __ldcg(pl + i);
+          const float mn = fmaxf(m, mk);
+          l = l * expf(m - mn) + lk * expf(mk - mn);
+          m = mn;
+          lab += __ldcg(pll + i);
+        }
+        lse[row] = m + logf(l);
+        ll[row] = lab;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
 
@@ -1133,6 +1390,10 @@ cudaError_t launch_bwd_rt(const Args& a) {
   }
 }
 
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
 // 1: the wgmma kernel takes these operands in either role (bf16/fp16, the
 // tied head, D = 256, 512 or 768, every pointer it reads by TMA 16-byte
 // aligned: x and W, and for dW lse, labels and valid); 0: fx_bwd_kernel,
@@ -1140,10 +1401,9 @@ cudaError_t launch_bwd_rt(const Args& a) {
 int route_of(bool dw, int dtype, int D, long long w_sv, long long w_sd,
              const void* x, const void* w, const void* labels,
              const void* lse, const void* valid) {
-  auto al = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   if ((dtype == 1 || dtype == 2) && w_sv == D && w_sd == 1 && D % 256 == 0 &&
-      D <= 768 && al(x) && al(w) &&
-      (!dw || (al(labels) && al(lse) && al(valid))))
+      D <= 768 && aligned16(x) && aligned16(w) &&
+      (!dw || (aligned16(labels) && aligned16(lse) && aligned16(valid))))
     return 1;
   return round64(D) > 1600 ? 2 : 0;
 }
@@ -1188,9 +1448,53 @@ cudaError_t launch_wgmma(const Args& a) {
   return launch_wgmma_n<T, 3, DW>(a);
 }
 
+// 1: the wgmma forward takes these operands (bf16/fp16, the tied head, D a
+// multiple of 8 so that its rows are 16-byte strided for TMA, x and W
+// 16-byte aligned); 0: fx_fwd_kernel
+int fwd_route_of(int dtype, int D, long long w_sv, long long w_sd,
+                 const void* x, const void* w) {
+  return (dtype == 1 || dtype == 2) && w_sv == D && w_sd == 1 && D % 8 == 0 &&
+                 aligned16(x) && aligned16(w)
+             ? 1
+             : 0;
+}
+
+// the wgmma forward on a persistent grid of one CTA an SM over the
+// n_rt x VS units
+template <typename T>
+cudaError_t launch_fwd_wgmma(const Args& a) {
+  using LY = WgFwd;
+  if (a.VS < 1) return cudaErrorInvalidValue;
+  CUtensorMap tx, tw;
+  cudaError_t e;
+  if ((e = tensor_map<T>(&tx, a.x.p, 1, a.N, a.D, LY::BM)) != cudaSuccess ||
+      (e = tensor_map<T>(&tw, a.w.p, 1, a.V, a.D, LY::BN)) != cudaSuccess)
+    return e;
+  auto kern = fx_fwd_wgmma_kernel<T>;
+  if ((e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                int(LY::SMEM))) != cudaSuccess)
+    return e;
+  int dev, sms;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+          cudaSuccess)
+    return e;
+  const int units = (a.N + LY::BM - 1) / LY::BM * a.VS;
+  kern<<<min(units, sms), LY::THREADS, LY::SMEM, a.stream>>>(
+      tx, tw, a.labels, static_cast<float*>(a.out0),
+      static_cast<float*>(a.out1), a.part, a.tickets, a.N, a.D, a.V, a.VS);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_t(int which, const Args& a, int dtype) {
-  if (which == 0) return launch_fwd<T>(a);
+  if (which == 0) {
+    if constexpr (!std::is_same<T, float>::value) {
+      if (fwd_route_of(dtype, a.D, a.w.s_row, a.w.s_col, a.x.p, a.w.p) == 1)
+        return launch_fwd_wgmma<T>(a);
+    }
+    return launch_fwd<T>(a);
+  }
   const bool dw = which == 2;
   if constexpr (!std::is_same<T, float>::value) {
     if (route_of(dw, dtype, a.D, a.w.s_row, a.w.s_col, a.x.p, a.w.p, a.labels,
@@ -1234,15 +1538,23 @@ extern "C" {
 // g one fp32 (the upstream gradient).  Each returns the cudaError_t of the
 // launch (0 on success); the caller raises on anything else.
 
-// lse, ll [N] fp32; the vocab split over VS blocks per 64 rows, with
-// part fp32 [3, VS, N] scratch and tickets int32 [ceil(N / 64)], zero
-// before the launch
+// lse, ll [N] fp32; the vocab split VS ways per 64 rows (fx_fwd_kernel)
+// or per 128 rows (the wgmma route, `fused_xent_fwd_route`), with part
+// fp32 [3, VS, N] scratch and tickets int32 [ceil(N / 64)], zero before
+// the launch
 int fused_xent_fwd(const void* x, const void* w, long long w_sv,
                    long long w_sd, const void* labels, void* lse, void* ll,
                    void* part, void* tickets, int N, int D, int V, int VS,
                    int dtype, void* stream) {
   return run(0, x, w, w_sv, w_sd, labels, nullptr, nullptr, nullptr, lse, ll,
              part, tickets, N, D, V, VS, dtype, stream);
+}
+
+// the kernel fused_xent_fwd launches for these operands: 1 = the wgmma
+// kernel, 0 = fx_fwd_kernel
+int fused_xent_fwd_route(int dtype, int D, long long w_sv, long long w_sd,
+                         const void* x, const void* w) {
+  return fwd_route_of(dtype, D, w_sv, w_sd, x, w);
 }
 
 // dx [N, D] in the input dtype

@@ -13,9 +13,10 @@ up to the first -1.  The bf16 head_dim-64 dK/dV for blocks a multiple of
 64 is a persistent wgmma kernel that takes its (bh, key tile) items
 heaviest reverse walk first, in the order `dkv_work_order` computes once
 per layout (`ops/sparse_attention/flash_sparse.py` `device_tables`).  The
-bf16 / fp16 dQ at head_dim 64 or 128 for blocks a multiple of 64 is a
-persistent, warp-specialised wgmma kernel fed by TMA; `dq_route` says
-which kernel a dQ call takes.  A
+bf16 / fp16 forward and dQ at head_dim 64 or 128 for blocks a multiple of
+64 are persistent, warp-specialised wgmma kernels fed by TMA (the
+forward's two 64-row tiles of a block-128 row share each key tile's
+load); `fwd_route` and `dq_route` say which kernel a call takes.  A
 wrapper checks device, dtype, shape, contiguity and alignment, launches
 its kernel on PyTorch's current stream, raises on a launch error and
 counts the launch in `LAUNCHES`; it never falls back to the plain
@@ -51,6 +52,7 @@ _TAIL = [_I] * 6 + [_F, _I, _I, _U, _F, _I, _I, _P]
 _ARGTYPES = {"flash_sparse_fwd": [_P] * 6 + _TAIL,
              "flash_sparse_dq": [_P] * 8 + _TAIL,
              "flash_sparse_dkv": [_P] * 10 + _TAIL,
+             "flash_sparse_fwd_route": [_I] * 3,
              "flash_sparse_dq_route": [_I] * 3}
 
 
@@ -156,13 +158,23 @@ def flash_sparse_dq_cuda(q, k, v, dout, lse, delta, fwd_tbl, *, causal,
     return dq
 
 
+def _route(name, q, block) -> str:
+    code = getattr(_lib(), name)(_DTYPE_CODES[q.dtype], q.shape[-1], block)
+    return {1: "wgmma", 2: "cuda-cores"}.get(code, "mma.sync")
+
+
+def fwd_route(q, block) -> str:
+    """The kernel `flash_sparse_fwd_cuda` launches for q's dtype and
+    head_dim under layout block `block`, as the launcher picks it:
+    "wgmma", "mma.sync" or "cuda-cores"."""
+    return _route("flash_sparse_fwd_route", q, block)
+
+
 def dq_route(q, block) -> str:
     """The kernel `flash_sparse_dq_cuda` launches for q's dtype and
     head_dim under layout block `block`, as the launcher picks it:
     "wgmma", "mma.sync" or "cuda-cores"."""
-    code = _lib().flash_sparse_dq_route(_DTYPE_CODES[q.dtype], q.shape[-1],
-                                        block)
-    return {1: "wgmma", 2: "cuda-cores"}.get(code, "mma.sync")
+    return _route("flash_sparse_dq_route", q, block)
 
 
 def flash_sparse_dkv_cuda(q, k, v, dout, lse, delta, rev_tbl, *, order,

@@ -13,11 +13,15 @@ where it lies: the tied head `wte.t()` (strides (1, D)) or a contiguous
 the layout of the tied embedding.  Any D is taken, as the JAX kernel takes
 it: the tiles zero the columns past D, and above D = 1600 the backward
 kernels split the output columns between blocks and stream the logits'
-columns (`csrc/fused_xent.cu`).  dx and dW have a route of their own for
-the tied head in bf16/fp16 at D = 256, 512 and 768 (GPT-2 small's
+columns (`csrc/fused_xent.cu`).  The forward has a route of its own for
+the tied head in bf16/fp16 at any D that is a multiple of 8 (nano's 48,
+GPT-2's 768, XL's 1600): a persistent wgmma product fed by TMA with the
+logsumexp, the running max and the label's logit formed in its epilogue,
+128 x 256 logits tiles at a time.  dx and dW have a route of their own
+for the tied head in bf16/fp16 at D = 256, 512 and 768 (GPT-2 small's
 width): one wgmma kernel fed by TMA on a persistent grid, in its dx or its
-dW role; the launcher picks it, and `dx_route` / `dw_route` say which
-kernel a call takes.  A wrapper checks device, dtype, shape,
+dW role.  The launcher picks each route, and `fwd_route`, `dx_route` /
+`dw_route` say which kernel a call takes.  A wrapper checks device, dtype, shape,
 strides and alignment, launches its kernel on PyTorch's current stream,
 raises on a launch error and counts the launch in `LAUNCHES`; it never
 falls back to the plain version.
@@ -41,6 +45,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {"fused_xent_fwd": [_P, _P, _L, _L] + [_P] * 5 + [_I] * 5 + [_P],
              "fused_xent_dx": [_P, _P, _L, _L] + [_P] * 5 + [_I] * 4 + [_P],
              "fused_xent_dw": [_P, _P, _L, _L] + [_P] * 5 + [_I] * 4 + [_P],
+             "fused_xent_fwd_route": [_I, _I, _L, _L, _P, _P],
              "fused_xent_dx_route": [_I, _I, _L, _L] + [_P] * 5,
              "fused_xent_dw_route": [_I, _I, _L, _L] + [_P] * 5}
 
@@ -130,15 +135,41 @@ def _fwd_splits(N, V, device):
     return max(1, min(64, -(-V // 64), want))
 
 
+def _wgmma_fwd_splits(N, V, device):
+    """Vocab splits per 128-row tile of the wgmma forward: the count
+    whose units (row tile, split) of 256-row vocab tiles, one CTA an SM,
+    finish in the fewest rounds of tiles (the smaller count on a tie), at
+    most 64."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    n_rt, n_vt = -(-N // 128), -(-V // 256)
+    return min(range(1, min(64, n_vt) + 1),
+               key=lambda vs: (-(-n_rt * vs // sms) * -(-n_vt // vs), vs))
+
+
+def fwd_route(x, w, labels) -> str:
+    """The kernel `fused_xent_fwd_cuda` launches for these operands, as
+    the launcher picks it: "wgmma", "mma.sync" or "cuda-cores"."""
+    del labels  # the route depends on x and w alone
+    D = x.shape[1]
+    sv, sd = _w_strides(w, D, w.shape[1])
+    code = _lib().fused_xent_fwd_route(_DTYPE_CODES[x.dtype], D, sv, sd,
+                                       x.data_ptr(), w.data_ptr())
+    if code == 1:
+        return "wgmma"
+    return "cuda-cores" if x.dtype == torch.float32 else "mma.sync"
+
+
 def fused_xent_fwd_cuda(x, w, labels, *, block_rows, block_v):
     """-> (lse [N] fp32, label logit [N] fp32)."""
     del block_rows, block_v  # the kernel's own tiling
     N, D, V, sv, sd = _common(x, w, labels)
     lse = torch.empty((N,), dtype=torch.float32, device=x.device)
     ll = torch.empty((N,), dtype=torch.float32, device=x.device)
-    vs = _fwd_splits(N, V, x.device)
+    vs = (_wgmma_fwd_splits(N, V, x.device)
+          if fwd_route(x, w, labels) == "wgmma"
+          else _fwd_splits(N, V, x.device))
     # each split's partial (max, sum, label logit), and one ticket per 64
-    # rows that the last split to finish takes
+    # rows (per 128 on the wgmma route) that the last split to finish takes
     part = torch.empty((3, vs, N), dtype=torch.float32, device=x.device)
     tickets = torch.zeros((-(-N // 64),), dtype=torch.int32, device=x.device)
     _launch("fused_xent_fwd", x.data_ptr(), w.data_ptr(), sv, sd,

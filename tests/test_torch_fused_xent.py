@@ -89,6 +89,29 @@ def test_fused_xent_value_and_grads_match_jax(dtype):
         np.testing.assert_allclose(got, want, rtol=rtol, atol=1e-7)
 
 
+# name: (N, D, V): a token count and a vocab off every block multiple
+# (each taken as one block, as the dispatch does for GPT-2's real vocab),
+# and GPT-2 XL's width; the wgmma forward's tiles (128 x 256, 64-column
+# chunks) are ragged at all three
+RAGGED_CASES = {"ragged-n-v": (200, 64, 1001), "d1600": (64, 1600, 256)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(RAGGED_CASES))
+def test_fused_xent_ragged_shapes_match_jax(case, dtype):
+    """The plain versions at a ragged N and V and at D 1600 against JAX,
+    the whole rows and vocab one block each; the tolerances of
+    test_fused_xent_value_and_grads_match_jax."""
+    n, d, v = RAGGED_CASES[case]
+    x, w, labels, valid = _inputs(9, n=n, d=d, v=v)
+    jv, jgx, jgw = _jax_fused(x, w, labels, valid, dtype, br=n, bv=v)
+    tv, tgx, tgw = _port_fused(x, w, labels, valid, dtype, br=n, bv=v)
+    assert abs(jv - tv) <= 1e-6 * abs(jv), (jv, tv)
+    rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+    for got, want in ((tgx, jgx), (tgw, jgw)):
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=1e-7)
+
+
 def test_fused_xent_matches_the_dense_ce():
     """The fused CE computes the masked sum of logsumexp - label logit
     (fp32, rtol 1e-5 against one dense fp32 projection)."""
@@ -319,6 +342,9 @@ CUDA_CASES = {
     "wgmma-n1000-v50257": (1000, 768, 50257, True),
     "d512-tied": (300, 512, 1000, True),
     "n1000-v50257-untied": (1000, 768, 50257, False),
+    # the wgmma forward at nano's and XL's widths over GPT-2's vocab
+    "nano-d48-v50304-tied": (1024, 48, 50304, True),
+    "xl-d1600-v50257-tied": (1000, 1600, 50257, True),
 }
 
 
@@ -349,6 +375,9 @@ def test_cuda_kernels_match_plain_versions(cuda_device, case, dtype):
                 f"fused_xent_{name}", x, w, labels, lse, valid, g,
                 impl=impl, **opts)
     torch.cuda.synchronize()
+    assert fused_xent.fwd_route(x, w, labels) == (
+        "wgmma" if tied and dtype != torch.float32 and d % 8 == 0 else
+        "cuda-cores" if dtype == torch.float32 else "mma.sync")
     wgmma = tied and dtype != torch.float32 and d in (256, 512, 768)
     assert (fused_xent.dx_route(x, w, labels, lse, valid) == "wgmma") == wgmma
     assert (fused_xent.dw_route(x, w, labels, lse, valid) == "wgmma") == wgmma
@@ -404,7 +433,65 @@ def test_cuda_wgmma_dw_is_bitwise_repeatable(cuda_device, kernel, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["dx", "dw"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_cuda_wgmma_fwd_takes_labels_outside_the_vocab(cuda_device, dtype):
+    """The wgmma forward (tied head, D 1600, GPT-2's real vocab, a ragged
+    N) with labels of -100, V and beyond on some rows: their label logit is
+    0 exactly, as the plain version's, and lse and ll stay within their
+    bounds on every row."""
+    n, d, v = 1000, 1600, 50257
+    x, w, labels, valid = _inputs(10, n=n, d=d, v=v)
+    labels[::7] = -100
+    labels[3::7] = v
+    labels[5::7] = v + 300
+    x = torch.from_numpy(x).to(cuda_device, dtype)
+    w = torch.from_numpy(w).to(cuda_device, dtype).t().contiguous().t()
+    labels = torch.from_numpy(labels).to(cuda_device)
+    valid = torch.from_numpy(valid).to(cuda_device)
+    g = torch.tensor(1.0 / 37.0, device=cuda_device)
+    opts = dict(block_rows=n, block_v=v)
+    assert fused_xent.fwd_route(x, w, labels) == "wgmma"
+    res = {impl: dict(zip(("lse", "ll"), registry.dispatch(
+        "fused_xent_fwd", x, w, labels, impl=impl, **opts)))
+        for impl in ("torch", "cuda")}
+    torch.cuda.synchronize()
+    outside = (labels < 0) | (labels >= v)
+    assert bool((res["cuda"]["ll"][outside] == 0).all())
+    ref = dict(res["torch"])
+    for name in ("dx", "dw"):
+        ref[name] = registry.dispatch(f"fused_xent_{name}", x, w, labels,
+                                      ref["lse"], valid, g, impl="torch",
+                                      **opts)
+    tols = fused_xent.kernel_tolerances(x, w, labels, valid, g, ref)
+    for name in ("lse", "ll"):
+        diff = (res["cuda"][name] - ref[name]).abs()
+        assert bool((diff <= tols[name]).all()), (
+            name, float((diff / tols[name]).max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_cuda_wgmma_fwd_is_bitwise_repeatable(cuda_device, dtype):
+    """The wgmma forward (tied head, D 768, a ragged N and vocab) 50 times
+    after other kernels: lse and ll bitwise equal — each row's partials
+    are merged in split order whichever unit finishes last."""
+    x, w, labels, _ = _inputs(7, n=1000, d=768, v=3001)
+    x = torch.from_numpy(x).to(cuda_device, dtype)
+    w = torch.from_numpy(w).to(cuda_device, dtype).t().contiguous().t()
+    labels = torch.from_numpy(labels).to(cuda_device)
+    assert fused_xent.fwd_route(x, w, labels) == "wgmma"
+    call = lambda: registry.dispatch("fused_xent_fwd", x, w, labels,
+                                     impl="cuda", block_rows=1000,
+                                     block_v=3001)
+    first = call()
+    for _ in range(50):
+        torch.randn(1 << 20, device=cuda_device).sum()   # other kernels
+        for a, b in zip(call(), first):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fwd", "dx", "dw"])
 def test_cuda_wgmma_launches_from_a_fresh_thread(cuda_device, kernel):
     """The tensor maps are encoded on a thread that has made no CUDA call
     yet (the autograd worker, on which a backward kernel is often the
@@ -421,8 +508,10 @@ def test_cuda_wgmma_launches_from_a_fresh_thread(cuda_device, kernel):
     opts = dict(block_rows=256, block_v=1024)
     lse, _ = registry.dispatch("fused_xent_fwd", x, w, labels, impl="cuda",
                                **opts)
-    call = lambda: registry.dispatch(f"fused_xent_{kernel}", x, w, labels,
-                                     lse, valid, g, impl="cuda", **opts)
+    args = (x, w, labels) if kernel == "fwd" else (x, w, labels, lse,
+                                                     valid, g)
+    call = lambda: registry.dispatch(f"fused_xent_{kernel}", *args,
+                                     impl="cuda", **opts)
     got = {}
 
     def run():
@@ -437,4 +526,8 @@ def test_cuda_wgmma_launches_from_a_fresh_thread(cuda_device, kernel):
     if "error" in got:
         raise got["error"]
     torch.cuda.synchronize()
-    assert torch.equal(got["out"], call())
+    want = call()
+    if kernel == "fwd":     # (lse, label logit)
+        assert all(torch.equal(a, b) for a, b in zip(got["out"], want))
+    else:
+        assert torch.equal(got["out"], want)

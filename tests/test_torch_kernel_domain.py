@@ -156,6 +156,9 @@ SPARSE_CASES = {
     "block256-causal": (1, 512, 2, 64, 256, True, 0.0),
     "block192-causal-dropout": (1, 384, 2, 64, 192, True, 0.2),
     "d256-block128-dropout": (1, 256, 2, 256, 128, False, 0.2),
+    # the wgmma forward's block-256 walk at head_dim 128 (two 128-row
+    # items a layout row)
+    "d128-block256-causal-dropout": (1, 512, 2, 128, 256, True, 0.2),
 }
 
 

@@ -745,9 +745,10 @@ def test_cuda_kernels_match_plain_versions(cuda_device, case, dtype):
         res[impl] = dict(out=out, dq=dq, dk=dk, dv=dv, lse=lse)
     torch.cuda.synchronize()
     wgmma = dtype != torch.float32 and Dc in (64, 128) and blk % 64 == 0
-    assert fsk.dq_route(a[0], blk) == (
-        "wgmma" if wgmma else
-        "cuda-cores" if dtype == torch.float32 else "mma.sync")
+    for route in (fsk.fwd_route, fsk.dq_route):
+        assert route(a[0], blk) == (
+            "wgmma" if wgmma else
+            "cuda-cores" if dtype == torch.float32 else "mma.sync")
     tols = fsk.kernel_tolerances(*a, layout, res["torch"], **opts)
     for name, tol in tols.items():
         diff = (res["cuda"][name].float() - res["torch"][name].float()).abs()
@@ -880,3 +881,116 @@ def test_cuda_module_walk_launches_each_kernel_once(cuda_device):
     torch.cuda.synchronize()
     assert {k: fsk.LAUNCHES[k] - n0[k] for k in n0} == \
         {"flash_sparse_fwd": 1, "flash_sparse_dq": 1, "flash_sparse_dkv": 1}
+
+
+# name: (B, S, H, head_dim, block, layout kind, dtype, causal, dropout):
+# the wgmma forward at both head dims, blocks 64 (one 64-row tile an
+# item), 128 and 256 (two tiles sharing each key tile), causal with
+# dropout, a layout with an empty row and an empty column, and
+# train-bert-sparse's shape
+WGMMA_FWD_CASES = {
+    "block64-dh64-causal-dropout": (2, 1024, 4, 64, 64, "fixed",
+                                    torch.bfloat16, True, 0.1),
+    "block64-dh128-float16-causal-dropout": (2, 1024, 4, 128, 64, "fixed",
+                                             torch.float16, True, 0.1),
+    "block128-dh64-dropout": (2, 2048, 4, 64, 128, "fixed", torch.bfloat16,
+                              False, 0.1),
+    "block128-dh128-causal-dropout": (2, 1024, 4, 128, 128, "fixed",
+                                      torch.bfloat16, True, 0.1),
+    "block256-dh64-float16": (2, 2048, 4, 64, 256, "fixed", torch.float16,
+                              False, 0.0),
+    "block256-dh128-causal-dropout": (2, 2048, 4, 128, 256, "fixed",
+                                      torch.bfloat16, True, 0.2),
+    "empty-row-block64-causal-dropout": (2, 1024, 4, 64, 64, "empty",
+                                         torch.bfloat16, True, 0.1),
+    "empty-row-block128-dh128-dropout": (2, 1024, 4, 128, 128, "empty",
+                                         torch.float16, False, 0.1),
+    "train-dropout": (2, 4096, 16, 64, 128, "fixed", torch.bfloat16, False,
+                      0.1),
+}
+
+
+def _fwd_inputs(device, case, seed=0):
+    Bc, Sc, Hc, Dc, blk, kind, dtype, causal, rate = WGMMA_FWD_CASES[case]
+    layout = _kernel_layout("fixed", blk, Sc, Hc).copy()
+    if kind == "empty":
+        layout[:, 5, :] = 0           # q-block 5 attends nothing
+        layout[1, :, 3] = 0           # head 1: no q-block reads k-block 3
+    ft = tfs.device_tables(layout, device)[0]
+    g = torch.Generator(device=device).manual_seed(seed)
+    a = [torch.randn(Bc * Hc, Sc, Dc, device=device, generator=g).to(dtype)
+         for _ in range(4)]
+    opts = dict(causal=causal, scale=Dc ** -0.5, block=blk, rate=rate,
+                seed=1234, n_heads=Hc)
+    return layout, ft, a, opts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WGMMA_FWD_CASES))
+def test_cuda_wgmma_fwd_within_its_bound(cuda_device, case):
+    """#7's wgmma kernel against its plain version: out within
+    `kernel_tolerances`, lse within 1e-5 (1 + |lse|), one launch a call;
+    an empty table row gives zeros and lse NEG_INF on both sides."""
+    layout, ft, a, opts = _fwd_inputs(cuda_device, case)
+    assert fsk.fwd_route(a[0], opts["block"]) == "wgmma"
+    out, lse = registry.dispatch("flash_sparse_fwd", *a[:3], ft,
+                                 impl="torch", **opts)
+    n0 = fsk.LAUNCHES["flash_sparse_fwd"]
+    got, got_lse = registry.dispatch("flash_sparse_fwd", *a[:3], ft,
+                                     impl="cuda", **opts)
+    torch.cuda.synchronize()
+    assert fsk.LAUNCHES["flash_sparse_fwd"] == n0 + 1
+    tol = fsk.kernel_tolerances(*a, layout, {"out": out, "dq": out,
+                                             "dk": out, "dv": out},
+                                **opts)["out"]
+    diff = (got.float() - out.float()).abs()
+    assert bool((diff <= tol).all()), float((diff / tol).max())
+    assert bool(((got_lse - lse).abs() <= 1e-5 * (1 + lse.abs())).all())
+    if WGMMA_FWD_CASES[case][5] == "empty":
+        rows = slice(5 * opts["block"], 6 * opts["block"])
+        assert bool((got[:, rows] == 0).all())
+        assert bool((got_lse[:, rows] == -1e30).all())
+
+
+@pytest.mark.cuda
+def test_cuda_wgmma_fwd_is_bitwise_repeatable(cuda_device):
+    """The wgmma forward 50 times after other kernels (causal, dropout,
+    block 128): out and lse equal bit for bit."""
+    _, ft, a, opts = _fwd_inputs(cuda_device, "block128-dh128-causal-dropout",
+                                 seed=3)
+    first = registry.dispatch("flash_sparse_fwd", *a[:3], ft, impl="cuda",
+                              **opts)
+    for _ in range(50):
+        torch.randn(1 << 20, device=cuda_device).sum()   # other kernels
+        again = registry.dispatch("flash_sparse_fwd", *a[:3], ft,
+                                  impl="cuda", **opts)
+        for x, y in zip(first, again):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_cuda_wgmma_fwd_launches_from_a_fresh_thread(cuda_device):
+    """The forward's tensor maps encoded on a thread that has made no CUDA
+    call yet: the launch binds a context first, and the result equals the
+    main thread's."""
+    import threading
+
+    _, ft, a, opts = _fwd_inputs(cuda_device, "block64-dh64-causal-dropout")
+    call = lambda: registry.dispatch("flash_sparse_fwd", *a[:3], ft,
+                                     impl="cuda", **opts)
+    got = {}
+
+    def run():
+        try:
+            got["out"] = call()
+        except Exception as e:   # re-raised on the test's thread
+            got["error"] = e
+
+    th = threading.Thread(target=run)
+    th.start()
+    th.join()
+    if "error" in got:
+        raise got["error"]
+    torch.cuda.synchronize()
+    for x, y in zip(got["out"], call()):
+        assert torch.equal(x, y)
