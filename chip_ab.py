@@ -3,11 +3,12 @@
 A, B, B, A, each turn a fresh process run from the root of its checkout:
 
     python3 chip_ab.py OLD_DIR NEW_DIR [paged] [serve] [kernels] [moe] [sparse]
-                       [xent]
+                       [xent] [flash] [flash-kernels]
 
 Each turn uses that checkout's own `chip_smoke.py` and package, and runs
 the turn scripts named (when none is, all but `paged`, which `serve`
-holds, and `sparse`, which `kernels` holds):
+holds, `sparse`, which `kernels` holds, and `flash-kernels`, which
+`flash` holds):
 
 * paged: times the paged-attention dispatch at the decode shape (GPT-2
   XL heads, B=8, bf16 cache, q as the serving block's view of the fused
@@ -40,7 +41,16 @@ holds, and `sparse`, which `kernels` holds):
   records them; cuBLAS x @ W alone, the forward's bare product), then the
   train-pallas phase
   (GPT-2 small bf16 through the fused CE: step ms, tokens/s, peak
-  memory).
+  memory);
+* flash-kernels: the dense flash kernels (#1-#3) against their plain
+  versions (chip_smoke `flash_case`, bf16, causal, no dropout; device
+  times, L2 flushed) at train's shape (B 8, S 1024, H 12, Dh 64), at
+  train-moe's S 2048 (B 4) and at Dh 128 (B 2, S 512, H 4), with each
+  case's dQ and dK/dV routes where the checkout records them, SDPA's
+  backward (dQ, dK and dV in one call) and the worst error over the bound;
+* flash: the flash-kernels turn, then the train-pallas and train phases
+  (GPT-2 small bf16 with the fused and the plain CE: step ms, tokens/s,
+  peak memory).
 
 One JSON line per turn, then the card's name and power limit.  Use it to
 hold a change against its parent: unpack the parent with `git archive`
@@ -264,12 +274,51 @@ rec["train_pallas"] = {k: r.get(k) for k in ("step_ms_mean", "tokens_per_s",
 print(json.dumps(rec))
 '''
 
+FLASH = r'''
+import gc, json, os, sys
+sys.path.insert(0, os.getcwd())
+import torch
+import chip_smoke as cs
+
+gen = torch.Generator(device="cuda").manual_seed(0)
+flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+rec = {}
+for name, B, S, H, D in (("train_shape", 8, 1024, 12, 64),
+                         ("train_moe_shape", 4, 2048, 12, 64),
+                         ("dh128", 2, 512, 4, 128)):
+    c = cs.flash_case(f"{name}-bfloat16", B, S, H, D, torch.bfloat16, True,
+                      False, 0.0, 0, gen, flush, True)
+    rec[name] = {n.split("_")[-1]: {f: c["kernels"][n].get(f) for f in
+                                    ("kernel_ms", "plain_ms", "bound_ms")}
+                 for n in c["kernels"]}
+    rec[name].update(dq_route=c.get("dq_route"), dkv_route=c.get("dkv_route"),
+                     sdpa_fwd_ms=c.get("sdpa_fwd_ms"),
+                     sdpa_bwd_ms=c.get("sdpa_bwd_ms"),
+                     max_err_over_tol=c["max_err_over_tol"])
+del flush, c
+gc.collect()
+torch.cuda.empty_cache()
+'''
+
+FLASH_TRAIN = r'''
+for loss_impl, key in (("pallas", "train_pallas"), ("auto", "train")):
+    r, eng, data = cs.phase_train(loss_impl=loss_impl)
+    rec[key] = {k: r.get(k) for k in ("step_ms_mean", "tokens_per_s",
+                                      "peak_mem_bytes")}
+    del r, eng, data
+    gc.collect()
+    torch.cuda.empty_cache()
+'''
+
 TURNS = {"paged": PAGED + "print(json.dumps(rec))\n", "serve": PAGED + SERVE,
-         "kernels": KERNELS, "moe": MOE, "sparse": SPARSE, "xent": XENT}
+         "kernels": KERNELS, "moe": MOE, "sparse": SPARSE, "xent": XENT,
+         "flash-kernels": FLASH + "print(json.dumps(rec))\n",
+         "flash": FLASH + FLASH_TRAIN + "print(json.dumps(rec))\n"}
 
 
 def main(argv):
-    turns = argv[3:] or [t for t in TURNS if t not in ("paged", "sparse")]
+    turns = argv[3:] or [t for t in TURNS
+                         if t not in ("paged", "sparse", "flash-kernels")]
     if len(argv) < 3 or any(t not in TURNS for t in turns):
         print(__doc__, file=sys.stderr)
         return 2

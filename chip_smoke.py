@@ -36,15 +36,19 @@ any failure raises and the script exits nonzero:
    Dh=128 (timed), train-moe's S=2048 shape (B=4, H=12, timed), Dh=256
    (B=2, S=1024, H=4 bf16 timed; fp16 with a key bias, dropout 0.2 and
    bh_offset 7; fp32).  Errors against the per-element bounds of
-   `kernels/flash.py` `kernel_tolerances`; device times beside the
-   bound, the plain version, and SDPA forward and forward+backward as a
-   yardstick the port never calls.  Then the training shape on three
-   more draws and fp16 cases (Dh 128 with a key bias and dropout, from
-   fresh draws and from tests/test_torch_flash.py's inputs; the training
-   shape), each with its worst dQ element: both sides' values, the plain
-   version's fp32 value before rounding, the ulp, the bound with and
-   without dp's error term; on the fp16 repeat cases both sides against
-   dQ's plain version in float64, over the bound.
+   `kernels/flash.py` `kernel_tolerances`, each case naming dQ's and
+   dK/dV's routes (`flash.dq_route`, `dkv_route`); device times beside
+   the bound, the plain version, and SDPA forward, forward+backward and
+   backward alone (one autograd.grad: dQ, dK and dV together, the joint
+   library time of #2 and #3) as a yardstick the port never calls.  Then
+   the training shape on three more draws and fp16 cases (Dh 128 with a
+   key bias and dropout, from fresh draws and from
+   tests/test_torch_flash.py's inputs; the training shape, timed: fp16 dQ
+   on wgmma, dK/dV on the CUDA cores), each with its worst dQ element:
+   both sides' values, the plain version's fp32 value before rounding,
+   the ulp, the bound with and without dp's error term; on the fp16
+   repeat cases both sides against dQ's plain version in float64, over
+   the bound.
 3b. sparse: the block-sparse flash forward, dQ and dK/dV kernels (#7-#9)
    against their plain versions at the BERT training shape (B=2, S=4096,
    H=16, Dh=64, the sparse-attention tutorial's fixed layout at block 128:
@@ -1142,7 +1146,9 @@ def flash_case(name, B, S, H, D, dtype, causal, bias, rate, bh_offset, gen,
                                     6 * io + 2 * rows + kb_bytes)}
     rec = {"phase": "flash", "case": name, "B": B, "S": S, "H": H, "Dh": D,
            "dtype": dname, "causal": causal, "key_bias": bias,
-           "dropout": rate, "bh_offset": bh_offset, "tol": FLASH_TOL,
+           "dropout": rate, "bh_offset": bh_offset,
+           "dq_route": flash.dq_route(a[0]),
+           "dkv_route": flash.dkv_route(a[0]), "tol": FLASH_TOL,
            "max_abs_err": errs, "max_err_over_tol": worst,
            "dq_worst": dq_report, "lse_max_abs_err": lse_err, "kernels": {}}
     fns = {"flash_attention_fwd": fwd, "flash_attention_dq": dq,
@@ -1178,10 +1184,26 @@ def flash_case(name, B, S, H, D, dtype, causal, bias, rate, bh_offset, gen,
                                                is_causal=causal_flag)
             o.backward(do4)
 
+        # SDPA's backward alone: one autograd.grad over a retained graph
+        # computes dQ, dK and dV together, the library time of #2 and #3
+        # jointly
+        og = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask,
+                                            is_causal=causal_flag)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(og, (qg, kg, vg), do4,
+                                       retain_graph=True)
+
         rec["sdpa_fwd_ms"] = time_ms(sdpa, 10, flush)
         rec["sdpa_fwd_bwd_ms"] = time_ms(sdpa_fwd_bwd, 10, flush)
+        rec["sdpa_bwd_ms"] = time_ms(sdpa_bwd, 10, flush)
         rec["kernels"]["flash_attention_fwd"]["library_ms"] = \
             rec["sdpa_fwd_ms"]
+        for kname in ("flash_attention_dq", "flash_attention_dkv"):
+            rec["kernels"][kname]["library_ms"] = rec["sdpa_bwd_ms"]
+            rec["kernels"][kname]["library_joint"] = \
+                "SDPA backward: dQ, dK and dV in one call"
+        del og
     emit(rec)
     del a, ref, out, lse, delta
     torch.cuda.empty_cache()
@@ -1221,8 +1243,8 @@ def phase_flash_draws(seeds=(1, 2, 3)):
     """The flash kernels on other draws of their inputs: the training
     shape in bf16 from fresh generators, and the fp16 cases of dQ's
     cancelling rows (Dh 128 with a key bias and dropout, and the training
-    shape), each with its worst dQ element; the bound must hold whatever
-    the draw."""
+    shape, timed), each with its worst dQ element; the bound must hold
+    whatever the draw."""
     import torch
 
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
@@ -1239,8 +1261,9 @@ def phase_flash_draws(seeds=(1, 2, 3)):
     out.append(flash_case("test-dh128-bias-dropout-float16", *TEST_DH128,
                           fp16, True, True, 0.2, 0, None, flush, False,
                           inputs=dh128_test_inputs()))
+    # timed: fp16 dQ on the wgmma route, fp16 dK/dV on the CUDA cores
     out.append(flash_case("train-float16", 8, 1024, 12, 64, fp16, True,
-                          False, 0.0, 0, gen, flush, False))
+                          False, 0.0, 0, gen, flush, True))
     return out
 
 
@@ -1377,7 +1400,8 @@ def phase_flash_repeat(n=50):
                     "fp64": float(ref64.flatten()[at]),
                     "kernel": float(first.flatten()[at]),
                     "plain": float(plain[0].flatten()[at])}}
-        rec["cases"][name] = {"kernel_runs_differing": differ,
+        rec["cases"][name] = {"dq_route": flash.dq_route(a[0]),
+                              "kernel_runs_differing": differ,
                               "plain_runs_differing": plain_differ,
                               "dq_against_fp64": fp64}
         del a, args, first, plain, out, lse, delta, dk, dv, tol, ref64
@@ -2150,7 +2174,10 @@ def train_kernel_class(name):
     n = name.lower()
     if any(k in n for k in ("sparse_fwd", "sparse_dq", "sparse_dkv")):
         return "flash_sparse"
-    if "flash_" in n:
+    # #1-#3: flash_fwd_wgmma_kernel, flash_dq_wgmma_kernel,
+    # flash_dkv_wgmma_kernel on the bf16 path; flash_dq_mma_kernel (Dh 256)
+    # and the CUDA-core flash_{fwd,dq,dkv}_kernel elsewhere
+    if any(k in n for k in ("flash_fwd_", "flash_dq_", "flash_dkv_")):
         return "flash_attention"
     if "dispatch_kernel" in n or "combine_kernel" in n:
         return "moe"
@@ -3497,9 +3524,15 @@ def flash_entries(flash_cases, train):
             "ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k.get("library_ms"),
+            **({"library_joint": k["library_joint"]}
+               if "library_joint" in k else {}),
+            **({"kernel_route": main[f"{short}_route"]}
+               if short in ("dq", "dkv") else {}),
             "shape": "B=8 S=1024 H=12 Dh=64 bf16 causal",
             "cases": [{"case": c["case"],
                        "max_err_over_tol": c["max_err_over_tol"],
+                       "routes": {"dq": c["dq_route"],
+                                  "dkv": c["dkv_route"]},
                        **({"kernel_ms": c["kernels"][name]["kernel_ms"],
                            "plain_ms": c["kernels"][name]["plain_ms"],
                            "bound_ms": c["kernels"][name]["bound_ms"]}

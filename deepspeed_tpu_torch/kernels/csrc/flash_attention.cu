@@ -27,29 +27,29 @@
 // causal) attention does ~2·S·D FLOPs per byte it must move, far above the
 // H100's ~295 FLOP/byte ridge: the bound is operations, the bf16 tensor
 // cores' 989 TFLOP/s.  At D = 64 the softmax's exponentials are as many
-// MUFU.EX2 cycles as the tile's products take on the tensor cores, so the
-// forward has to overlap the two and keep the loads out of the way.
-//   * bf16 / fp16 forward (the training dtypes): the wgmma kernel below —
+// MUFU.EX2 cycles as the tile's products take on the tensor cores, so each
+// kernel has to overlap the two and keep the loads out of the way.  The
+// routes, chosen from the dtype and D alone (`dq_route_of`, `dkv_route_of`;
+// exported as flash_attention_dq_route / _dkv_route):
+//   * forward, bf16 / fp16: the wgmma kernel (flash_fwd_wgmma_kernel) —
 //     TMA loads into a ring of swizzled shared-memory stages by a producer
 //     warpgroup, S = Q.K^T and O += P.V by wgmma.mma_async with P fed from
 //     registers and V read in place (MN-major), the online softmax in
 //     registers with the masks only on the tiles that need them, a
 //     persistent grid of several CTAs an SM (their products and softmaxes
 //     interleave).  What holds it back (PERF.md): a consumer still waits
-//     for each product before the softmax that reads it; the softmax alone
-//     costs about a fifth of the time at D 64.
-//   * bf16 / fp16 dQ, and dK/dV in bf16 at D = 64: warp-level tensor-core
-//     tiles, mma.sync m16n8k16 with fp32 accumulators (flash_*_mma_kernel
-//     below).  A block of 4 warps owns a (bh, 64-row q tile) for dQ and a
-//     (bh, 64-key tile) for dK/dV, each warp 16 of those rows, and loops
-//     over the other axis, skipping the tiles above the causal diagonal;
-//     causal q tiles are scheduled heaviest first.  The second product of
-//     each kernel takes its A operand (ds, pd^T, ds^T) from the first
-//     product's accumulators in registers.  dK/dV keeps pd and ds in fp32,
-//     as the function does, by feeding each to the tensor cores as three
-//     bf16 terms (hi + mid + lo carries fp32's 24 bits); fp16 and D >= 128
-//     take the CUDA-core dK/dV.  dQ at D = 256 reads its Q and dO fragments
-//     from shared memory (in registers they would take 128 of them).
+//     for each product before the softmax that reads it.
+//   * dQ, bf16 / fp16 at D 64 and 128: flash_dq_wgmma_kernel, the same
+//     producer / consumer shape over (q tile, bh) items, largest q0 first;
+//     S and dP by wgmma, ds rounded to K's dtype into A fragments, dQ +=
+//     ds.K with K read MN-major from the same stage.  At D 256:
+//     flash_dq_mma_kernel, mma.sync m16n8k16 tiles staged by plain loads.
+//   * dK/dV, bf16 at D 64 and 128: flash_dkv_wgmma_kernel over (key tile,
+//     bh) items, key tile 0 of every bh first (the longest causal walk);
+//     S^T and dP^T by wgmma with keys as rows, pd and ds kept in fp32 and
+//     fed to dV += pd^T.dO and dK += ds^T.Q as three bf16 terms each, dO
+//     and Q read MN-major from the stage.  fp16 (whose residual terms would
+//     fall into subnormals) and D 256 take the CUDA-core dK/dV.
 //   * fp32, and the dK/dV cases above: fp32 FMAs on the CUDA cores (67
 //     TFLOP/s peak).  Tiles are staged in shared memory as fp32 rows padded
 //     by one word; a thread owns RM rows (strided by 16) and every 8th
@@ -57,7 +57,9 @@
 //     shuffles and the shared-memory reads are conflict free.
 // All keep scores, probabilities and accumulators in fp32 and make only the
 // roundings that define the function (p to V's dtype before P.V, ds to K's
-// dtype before dS.K).  The backward kernels stage with plain 16-byte loads.
+// dtype before dS.K).  The wgmma kernels are persistent and sum every
+// output element in one warp in a fixed order: no atomics, bitwise
+// repeatable.
 //
 // Exactness notes (the TPU kernels' guards, kept): masks are selects to the
 // finite NEG_INF = -1e30 (the bias is clamped to >= NEG_INF by the caller);
@@ -787,29 +789,26 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
-// dQ for bf16 / fp16: mma.sync m16n8k16
+// dQ for bf16 / fp16 at D = 256: mma.sync m16n8k16
 // ---------------------------------------------------------------------------
 //
 // One block of 4 warps per (64-row q tile, bh); each warp owns 16 q rows.
-// Its Q and dO operand fragments stay in registers for the whole k loop at
-// D 64 and 128; at D 256 they would take 128 registers, so the two 64-row
-// tiles are staged in shared memory once and each product reads its A
-// fragments there (QS).  A k tile of BK keys is staged in shared memory as
-// rows padded by 8 elements (conflict-free 32-bit fragment reads), K and V
-// row-major for S = Q.K^T and dP = dO.V^T and K transposed for dQ += dS.K.
-// ds is rounded to K's dtype once, as the function does, and fed back as
-// the A operand of the second product straight from registers.  Fragment
-// layouts (PTX ISA, mma.m16n8k16): lane = 4g + t; A regs {row g | g+8} x
-// {cols 2t, 2t+1 | +8}; B regs {k 2t, 2t+1 | +8} x {col g}; C {row g | g+8}
-// x {cols 2t, 2t+1}.
+// Its Q and dO operand fragments would take 128 registers at D 256, so the
+// two 64-row tiles are staged in shared memory once and each product reads
+// its A fragments there.  A k tile of BK keys is staged in shared
+// memory as rows padded by 8 elements (conflict-free 32-bit fragment
+// reads), K and V row-major for S = Q.K^T and dP = dO.V^T and K transposed
+// for dQ += dS.K.  ds is rounded to K's dtype once, as the function does,
+// and fed back as the A operand of the second product straight from
+// registers.  Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4g + t; A
+// regs {row g | g+8} x {cols 2t, 2t+1 | +8}; B regs {k 2t, 2t+1 | +8} x
+// {col g}; C {row g | g+8} x {cols 2t, 2t+1}.
 
 template <typename T, int D, int BK>
 struct MmaLayout {
-  static constexpr bool QS = D == 256;
   static constexpr int BQ = 64, LDK = D + 8, LDT = BK + 8;
   static constexpr size_t DQ_SMEM =
-      (2 * size_t(BK) * LDK + size_t(D) * LDT + (QS ? 2 * size_t(BQ) * LDK : 0)) *
-      sizeof(T);
+      (2 * size_t(BK) * LDK + size_t(D) * LDT + 2 * size_t(BQ) * LDK) * sizeof(T);
 };
 
 template <typename T, int D, int BK>
@@ -820,15 +819,14 @@ flash_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ delta, T* __restrict__ dq,
                     Params p) {
   using LY = MmaLayout<T, D, BK>;
-  constexpr bool QS = LY::QS;
   constexpr int BQ = LY::BQ, LDK = LY::LDK, LDT = LY::LDT;
   constexpr int KD = D / 16, NT = BK / 8, KK = BK / 16, DN = D / 8;
   extern __shared__ __align__(16) unsigned char smraw[];
   T* sK = reinterpret_cast<T*>(smraw);   // [BK][LDK]
   T* sV = sK + BK * LDK;                 // [BK][LDK]
   T* sKt = sV + BK * LDK;                // [D][LDT]
-  T* sQ = sKt + D * LDT;                 // QS: [BQ][LDK]
-  T* sO = sQ + BQ * LDK;                 // QS: dO [BQ][LDK]
+  T* sQ = sKt + D * LDT;                 // [BQ][LDK]
+  T* sO = sQ + BQ * LDK;                 // dO [BQ][LDK]
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -839,17 +837,11 @@ flash_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vh = v + size_t(bh) * p.Sk * D;
   if (p.kb) p.kb += size_t(bh / p.H) * p.Sk;
   const uint32_t bhm = uint32_t(bh + p.bh_offset) * 0x7FEB352Du;
-  const int r0 = q0 + warp * 16, ra = r0 + g, rb = ra + 8;
+  const int ra = q0 + warp * 16 + g, rb = ra + 8;
 
-  uint32_t qa[QS ? 1 : KD][4], da[QS ? 1 : KD][4];
-  if constexpr (QS) {
-    // read after the loop's first barrier
-    stage_rows<T, D, LDK>(sQ, q + size_t(bh) * p.S * D, q0, p.S, BQ);
-    stage_rows<T, D, LDK>(sO, dout + size_t(bh) * p.S * D, q0, p.S, BQ);
-  } else {
-    load_a<T, D>(qa, q + size_t(bh) * p.S * D, r0, p.S, g, t);
-    load_a<T, D>(da, dout + size_t(bh) * p.S * D, r0, p.S, g, t);
-  }
+  // read after the loop's first barrier
+  stage_rows<T, D, LDK>(sQ, q + size_t(bh) * p.S * D, q0, p.S, BQ);
+  stage_rows<T, D, LDK>(sO, dout + size_t(bh) * p.S * D, q0, p.S, BQ);
   const float lse_a = ra < p.S ? lse[size_t(bh) * p.S + ra] : 0.f;
   const float lse_b = rb < p.S ? lse[size_t(bh) * p.S + rb] : 0.f;
   const float dl_a = ra < p.S ? delta[size_t(bh) * p.S + ra] : 0.f;
@@ -871,13 +863,8 @@ flash_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
       for (int i = 0; i < 4; ++i) s[nt][i] = dp[nt][i] = 0.f;
-    if constexpr (QS) {
-      mma_tiles_sa<T, KD, NT, LDK, LDK>(s, sQ + warp * 16 * LDK, sK, g, t);
-      mma_tiles_sa<T, KD, NT, LDK, LDK>(dp, sO + warp * 16 * LDK, sV, g, t);
-    } else {
-      mma_tiles<T, KD, NT, LDK>(s, qa, sK, g, t);
-      mma_tiles<T, KD, NT, LDK>(dp, da, sV, g, t);
-    }
+    mma_tiles_sa<T, KD, NT, LDK, LDK>(s, sQ + warp * 16 * LDK, sK, g, t);
+    mma_tiles_sa<T, KD, NT, LDK, LDK>(dp, sO + warp * 16 * LDK, sV, g, t);
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
@@ -909,122 +896,614 @@ flash_dq_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <int D, int BKV, int BQ>
-struct DkvMmaLayout {
-  static constexpr int LDR = D + 8, LDT = BQ + 8;
-  static constexpr size_t BYTES =
-      (2 * size_t(BKV) * LDR + 2 * size_t(BQ) * LDR + 2 * size_t(D) * LDT) *
-          sizeof(__nv_bfloat16) + 2 * size_t(BQ) * sizeof(float);
+// ---------------------------------------------------------------------------
+// dQ for bf16 / fp16 at D = 64 or 128: TMA, wgmma, warp-specialised
+// ---------------------------------------------------------------------------
+//
+// The block-sparse dQ's shape (flash_sparse.cu `sparse_dq_wgmma_kernel`) on
+// the dense causal walk.  The work items are (64-row q tile, bh), the
+// largest q0 first under causal masking (its walk is the longest), taken by
+// a persistent grid of CTAs (two an SM) as c, c + gridDim.x, ...  A CTA is
+// two warpgroups.  Warpgroup 1 is the producer (24 registers after
+// setmaxnreg.dec): one thread TMA-loads each item's Q and dO tiles (64 x D,
+// 128-byte swizzled, in 64-column chunks) and its rows' lse and delta (64
+// floats each, through 1-d maps over the flat [BH S] buffers: any S and q0,
+// no alignment asked of bh S + q0) into one of QB buffers, then a ring of
+// STAGES (K, V) stages over the key tiles 0 ... min(Sk, q0 + 64) (all of
+// Sk without the causal mask); the ring runs on across items.  Warpgroup 0
+// is the consumer (setmaxnreg.inc); warp w owns q rows [16 w, 16 w + 16) of
+// the item.  Per key tile it computes S = Q.K^T and dP = dO.V^T by wgmma
+// m64n64k16 with both operands in shared memory, then in fp32 registers
+// the function's
+//   x = scale (q.k), the causal select to NEG_INF, + the key bias;
+//   p = exp(x - lse) as one EX2 of (x - lse) log2 e, the difference first
+//       (zeroed where x <= NEG_INF / 2 under a bias);
+//   ds = p (dp keep - delta)
+// (the causal select and the end-of-keys mask only on the tiles that cross
+// the diagonal or Sk; the hash of `keep_scale` at the global (q, k) with
+// bh + bh_offset, its row terms' first step taken once an item and its
+// column terms' once a tile), rounds ds once to K's dtype straight into
+// wgmma A fragments (the function's ds.astype(k.dtype)), and adds
+// dQ += ds.K by wgmma m64nDk16 with B the SAME swizzled K tile read MN-major:
+// no transposed copy.  TMA zero-fills rows past S and keys past Sk; a key
+// past Sk gets p = 0 (x = -inf), a row past S is computed on zeros and not
+// stored.  Every output element is summed by one warp in key order: no
+// atomics, bitwise repeatable.  Shared memory: D 64 two Q buffers and three
+// (K, V) stages, 83 KB; D 128 one Q buffer and two stages, 98 KB.
+
+template <int D>
+struct WgDq {
+  static constexpr int THREADS = 256, MB = 2;
+  static constexpr int NDC = D / 64;                // 64-column chunks
+  static constexpr int CHUNK = 64 * 128;            // 64 rows of one chunk
+  static constexpr int TILE = NDC * CHUNK;          // 64 rows of all D
+  static constexpr int QB = D == 64 ? 2 : 1;        // Q / dO buffers
+  static constexpr int STAGES = D == 64 ? 3 : 2;    // (K, V) stages
+  // a Q buffer: Q, dO, then lse[64] and delta[64] (padded so that buffers
+  // stay 1024-aligned)
+  static constexpr int QBUF = 2 * TILE + 1024;
+  static constexpr int STAGE = 2 * TILE;
+  static constexpr size_t SMEM = 1024 + QB * size_t(QBUF) +
+                                 STAGES * size_t(STAGE) +
+                                 8 * (2 * STAGES + 2 * QB);
+  static constexpr int LAUNCH_REGS = (65536 / (THREADS * MB)) & ~7;
+  static constexpr int CONSUMER_REGS = 2 * LAUNCH_REGS - 24;
 };
 
-// dK, dV in bf16 on the tensor cores: one block of 4 warps per (64-key tile,
-// bh), each warp 16 keys, sweeping the q tiles.  The transposed tiles
-// S^T = K.Q^T and dP^T = V.dO^T come out of the mma with keys as rows, so
-// pd^T and ds^T are C fragments and feed dV += pd^T.dO and dK += ds^T.Q as
-// A operands from registers, in three bf16 terms each (mma_fp32_a).
-template <int D, int BKV, int BQ>
-__global__ void __launch_bounds__(THREADS)
-flash_dkv_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     const __nv_bfloat16* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta,
-                     __nv_bfloat16* __restrict__ dk,
-                     __nv_bfloat16* __restrict__ dv, Params p) {
-  using T = __nv_bfloat16;
-  using LY = DkvMmaLayout<D, BKV, BQ>;
-  constexpr int LDR = LY::LDR, LDT = LY::LDT;
-  constexpr int KD = D / 16, NT = BQ / 8, KK = BQ / 16, DN = D / 8;
-  extern __shared__ __align__(16) unsigned char smraw[];
-  T* sK = reinterpret_cast<T*>(smraw);  // [BKV][LDR]
-  T* sV = sK + BKV * LDR;               // [BKV][LDR]
-  T* sQ = sV + BKV * LDR;               // [BQ][LDR]
-  T* sO = sQ + BQ * LDR;                // dO [BQ][LDR]
-  T* sQt = sO + BQ * LDR;               // [D][LDT]
-  T* sOt = sQt + D * LDT;               // [D][LDT]
-  float* sL = reinterpret_cast<float*>(sOt + D * LDT);
-  float* sDl = sL + BQ;
+template <typename T, int D>
+__global__ void __launch_bounds__(256, WgDq<D>::MB)
+flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo,
+                      const __grid_constant__ CUtensorMap tl,
+                      const __grid_constant__ CUtensorMap td,
+                      T* __restrict__ dq, Params p) {
+  using LY = WgDq<D>;
+  constexpr int TILE = LY::TILE, CHUNK = LY::CHUNK, NDC = LY::NDC;
+  constexpr int QB = LY::QB, STAGES = LY::STAGES;
+  extern __shared__ unsigned char smraw[];
+  // 1024-byte alignment for the swizzle atoms
+  unsigned char* sQ = smraw + ((1024 - (smem_u32(smraw) & 1023)) & 1023);
+  unsigned char* sKV = sQ + QB * LY::QBUF;          // [STAGES][STAGE]: K, V
+  uint64_t* full = reinterpret_cast<uint64_t*>(sKV + STAGES * LY::STAGE);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qfull = empty + STAGES;                 // [QB]: Q buffer loaded
+  uint64_t* qempty = qfull + QB;                    // [QB]: Q buffer free
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int k0 = blockIdx.x * BKV;
-  const int bh = blockIdx.y;
-  const T* qh = q + size_t(bh) * p.S * D;
-  const T* oh = dout + size_t(bh) * p.S * D;
-  const float* lh = lse + size_t(bh) * p.S;
-  const float* dh = delta + size_t(bh) * p.S;
-  if (p.kb) p.kb += size_t(bh / p.H) * p.Sk;
-  const uint32_t bhm = uint32_t(bh + p.bh_offset) * 0x7FEB352Du;
-  const int ka = k0 + warp * 16 + g, kb_ = ka + 8;
+  const int nq = (p.S + 63) / 64;
+  const int n_items = nq * p.BH;
+  // item w -> (q0, bh), the largest q0 first; returns its key tiles
+  auto item = [&](int w, int& q0, int& bh) {
+    q0 = (nq - 1 - w / p.BH) * 64;
+    bh = w % p.BH;
+    const int k_end = p.causal ? min(p.Sk, q0 + 64) : p.Sk;
+    return (k_end + 63) / 64;
+  };
 
-  stage_rows<T, D, LDR>(sK, k + size_t(bh) * p.Sk * D, k0, p.Sk, BKV);
-  stage_rows<T, D, LDR>(sV, v + size_t(bh) * p.Sk * D, k0, p.Sk, BKV);
-  float dka[DN][4], dva[DN][4];
-#pragma unroll
-  for (int dn = 0; dn < DN; ++dn)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) dka[dn][i] = dva[dn][i] = 0.f;
-
-  const int q_begin = p.causal ? (k0 / BQ) * BQ : 0;
-  for (int q0 = q_begin; q0 < p.S; q0 += BQ) {
-    __syncthreads();
-    stage_rows<T, D, LDR>(sQ, qh, q0, p.S, BQ);
-    stage_rows<T, D, LDR>(sO, oh, q0, p.S, BQ);
-    stage_cols<T, D, LDT>(sQt, qh, q0, p.S, BQ);
-    stage_cols<T, D, LDT>(sOt, oh, q0, p.S, BQ);
-    for (int i = threadIdx.x; i < BQ; i += THREADS) {
-      const bool in = q0 + i < p.S;
-      sL[i] = in ? lh[q0 + i] : 0.f;
-      sDl[i] = in ? dh[q0 + i] : 0.f;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4);   // one arrival per consumer warp
     }
-    __syncthreads();
+    for (int b = 0; b < QB; ++b) {
+      mbar_init(&qfull[b], 1);
+      mbar_init(&qempty[b], 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-    float st[NT][4], dpt[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) st[nt][i] = dpt[nt][i] = 0.f;
-    mma_tiles_sa<T, KD, NT, LDR, LDR>(st, sK + warp * 16 * LDR, sQ, g, t);
-    mma_tiles_sa<T, KD, NT, LDR, LDR>(dpt, sV + warp * 16 * LDR, sO, g, t);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int col = nt * 8 + 2 * t + (i & 1), qg = q0 + col;
-        const int kg = i < 2 ? ka : kb_;
-        // s = (q*scale).k: scale * (q.k) is the same number when scale is
-        // a power of two (D = 64)
-        const float x = masked_score(p, p.scale * st[nt][i], qg, kg);
-        float pv = (kg < p.Sk && qg < p.S) ? expf(x - sL[col]) : 0.f;
-        if (p.kb && x <= NEG_INF * 0.5f) pv = 0.f;
-        float pd = pv, dpv = dpt[nt][i];
-        if (p.dropout) {
-          const float ks = keep_scale(p, bhm, qg, kg);
-          pd *= ks;
-          dpv *= ks;
+  if (threadIdx.x >= 128) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 128) {
+      int it = 0;
+      for (int w = blockIdx.x, n = 0; w < n_items; w += gridDim.x, ++n) {
+        int q0, bh;
+        const int n_tiles = item(w, q0, bh);
+        const int b = n % QB;
+        mbar_wait(&qempty[b], ((n / QB) & 1) ^ 1);
+        mbar_expect_tx(&qfull[b], 2 * TILE + 512);
+        unsigned char* qb = sQ + b * LY::QBUF;
+        for (int c = 0; c < NDC; ++c) {
+          tma_load_3d(qb + c * CHUNK, &tq, &qfull[b], 64 * c, q0, bh);
+          tma_load_3d(qb + TILE + c * CHUNK, &tdo, &qfull[b], 64 * c, q0, bh);
         }
-        st[nt][i] = pd;                          // pd^T, fp32
-        dpt[nt][i] = pv * (dpv - sDl[col]);      // ds^T, fp32
+        tma_load_1d(qb + 2 * TILE, &tl, &qfull[b], bh * p.S + q0);
+        tma_load_1d(qb + 2 * TILE + 256, &td, &qfull[b], bh * p.S + q0);
+        for (int i = 0; i < n_tiles; ++i, ++it) {
+          const int s = it % STAGES;
+          mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          mbar_expect_tx(&full[s], 2 * TILE);
+          unsigned char* st = sKV + s * LY::STAGE;
+          for (int c = 0; c < NDC; ++c) {
+            tma_load_3d(st + c * CHUNK, &tk, &full[s], 64 * c, 64 * i, bh);
+            tma_load_3d(st + TILE + c * CHUNK, &tv, &full[s], 64 * c, 64 * i, bh);
+          }
+        }
       }
-    mma_fp32_a<KK, DN, LDT>(dva, st, sOt, g, t);
-    mma_fp32_a<KK, DN, LDT>(dka, dpt, sQt, g, t);
+    }
+    return;
   }
 
+  // consumer
+  setmaxnreg_inc<LY::CONSUMER_REGS>();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  int ra, rb;
+  uint32_t ha, hb;
+  float lse_a, lse_b, dl_a, dl_b;
+  const float* kb;
+  float acc[D / 2];
+
+  // ds of one tile in place of its scores (register 4j + r: q row
+  // r < 2 ? ra : rb, key k0 + 8j + 2t + (r & 1)); EDGE: the tile crosses
+  // the causal diagonal or Sk; BIAS: a key bias; DROP: dropout
+  auto ds_tile = [&](float* sc, const float* dp, int k0, auto edge_c,
+                     auto bias_c, auto drop_c) {
+    constexpr bool EDGE = decltype(edge_c)::value;
+    constexpr bool BIAS = decltype(bias_c)::value;
+    constexpr bool DROP = decltype(drop_c)::value;
 #pragma unroll
-  for (int dn = 0; dn < DN; ++dn) {
-    const int col = dn * 8 + 2 * t;
-    if (ka < p.Sk) {
-      const size_t o = (size_t(bh) * p.Sk + ka) * D + col;
-      *reinterpret_cast<uint32_t*>(dk + o) =
-          Mma<T>::pack(p.scale * dka[dn][0], p.scale * dka[dn][1]);
-      *reinterpret_cast<uint32_t*>(dv + o) = Mma<T>::pack(dva[dn][0], dva[dn][1]);
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int kg = k0 + 8 * j + 2 * t + e;
+        const bool live = !EDGE || kg < p.Sk;
+        float bias = 0.f;
+        if constexpr (BIAS) bias = live ? kb[kg] : 0.f;
+        uint32_t hc = 0;
+        if constexpr (DROP) {
+          hc = uint32_t(kg) * 0xC2B2AE35u;
+          hc ^= hc >> 15;
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * j + 2 * h + e;
+          // s = (q*scale).k: scale * (q.k) is the same number at the
+          // power-of-two scale of D 64, within one rounding at D 128
+          float x = p.scale * sc[i];
+          if constexpr (EDGE) {
+            if (p.causal && (h ? rb : ra) < kg) x = NEG_INF;
+            if (!live) x = -INFINITY;
+          }
+          if constexpr (BIAS) x += bias;
+          float pv = ex2((x - (h ? lse_b : lse_a)) * LOG2E);
+          if constexpr (BIAS) {
+            if (x <= NEG_INF * 0.5f) pv = 0.f;
+          }
+          float dpv = dp[i];
+          if constexpr (DROP)
+            dpv *= fmix32_tail((h ? hb : ha) ^ hc) < p.thr ? p.inv_keep : 0.f;
+          sc[i] = pv * (dpv - (h ? dl_b : dl_a));
+        }
+      }
+  };
+
+  int it = 0;
+  for (int w = blockIdx.x, n = 0; w < n_items; w += gridDim.x, ++n) {
+    int q0, bh;
+    const int n_tiles = item(w, q0, bh);
+    const int b = n % QB;
+    ra = q0 + warp * 16 + g;
+    rb = ra + 8;
+    kb = p.kb ? p.kb + size_t(bh / p.H) * p.Sk : nullptr;
+    // keep_scale's row terms (flash_tiles.cuh), after fmix32's first step
+    const uint32_t sb = p.seed_h ^ (uint32_t(bh + p.bh_offset) * 0x7FEB352Du);
+    ha = sb ^ (uint32_t(ra) * 0x85EBCA6Bu);
+    hb = sb ^ (uint32_t(rb) * 0x85EBCA6Bu);
+    ha ^= ha >> 15;
+    hb ^= hb >> 15;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    const unsigned char* qt = sQ + b * LY::QBUF;
+    const unsigned char* ot = qt + TILE;
+    mbar_wait(&qfull[b], (n / QB) & 1);
+    const float* sL = reinterpret_cast<const float*>(qt + 2 * TILE);
+    lse_a = sL[warp * 16 + g];
+    lse_b = sL[warp * 16 + g + 8];
+    dl_a = sL[64 + warp * 16 + g];
+    dl_b = sL[64 + warp * 16 + g + 8];
+
+    for (int i = 0; i < n_tiles; ++i, ++it) {
+      const int s = it % STAGES, k0 = 64 * i;
+      mbar_wait(&full[s], (it / STAGES) & 1);
+      const unsigned char* kt = sKV + s * LY::STAGE;
+      const unsigned char* vt = kt + TILE;
+
+      float sc[32], dp[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int off = (kk >> 2) * CHUNK + (kk & 3) * 32;
+        Wgmma<T, 64>::ss(sc, sw128_desc(qt + off, 16, 1024),
+                         sw128_desc(kt + off, 16, 1024), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int off = (kk >> 2) * CHUNK + (kk & 3) * 32;
+        Wgmma<T, 64>::ss(dp, sw128_desc(ot + off, 16, 1024),
+                         sw128_desc(vt + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<32>(sc);
+      fence_regs<32>(dp);
+
+      const bool edge = (p.causal && k0 + 63 > q0) || k0 + 64 > p.Sk;
+      with_flags(edge, kb != nullptr, p.dropout != 0,
+                 [&](auto e, auto b, auto d) { ds_tile(sc, dp, k0, e, b, d); });
+      // ds rounded to K's dtype, as wgmma A fragments (16 keys each)
+      uint32_t da[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        da[kk][0] = Mma<T>::pack(sc[8 * kk], sc[8 * kk + 1]);
+        da[kk][1] = Mma<T>::pack(sc[8 * kk + 2], sc[8 * kk + 3]);
+        da[kk][2] = Mma<T>::pack(sc[8 * kk + 4], sc[8 * kk + 5]);
+        da[kk][3] = Mma<T>::pack(sc[8 * kk + 6], sc[8 * kk + 7]);
+      }
+      // dQ += ds.K, B the stage's K tile read MN-major (16 keys a slice)
+      fence_regs<D / 2>(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        Wgmma<T, D>::rs(acc, da[kk], sw128_desc(kt + kk * 16 * 128, CHUNK, 1024),
+                        1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<D / 2>(acc);
+      // the stage's K and V have been read: hand it back
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
     }
-    if (kb_ < p.Sk) {
-      const size_t o = (size_t(bh) * p.Sk + kb_) * D + col;
-      *reinterpret_cast<uint32_t*>(dk + o) =
-          Mma<T>::pack(p.scale * dka[dn][2], p.scale * dka[dn][3]);
-      *reinterpret_cast<uint32_t*>(dv + o) = Mma<T>::pack(dva[dn][2], dva[dn][3]);
+    // the item's Q, dO, lse and delta have been read
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&qempty[b]);
+
+    T* dqh = dq + size_t(bh) * p.S * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int cc = 8 * j + 2 * t;
+      if (ra < p.S)
+        *reinterpret_cast<uint32_t*>(dqh + size_t(ra) * D + cc) =
+            Mma<T>::pack(p.scale * acc[4 * j], p.scale * acc[4 * j + 1]);
+      if (rb < p.S)
+        *reinterpret_cast<uint32_t*>(dqh + size_t(rb) * D + cc) =
+            Mma<T>::pack(p.scale * acc[4 * j + 2], p.scale * acc[4 * j + 3]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dK, dV for bf16 at D = 64 or 128: TMA, wgmma, warp-specialised
+// ---------------------------------------------------------------------------
+//
+// The block-sparse dK/dV's shape (flash_sparse.cu `sparse_dkv_wgmma_kernel`)
+// on the dense causal walk.  The work items are (BKV = 64 NC keys, bh),
+// heaviest causal walk first: item w takes key tile w / BH of bh w % BH, so
+// key tile 0 of every bh (which every q tile sees) comes before key tile 1,
+// and so on; a persistent grid of CTAs takes items c, c + gridDim.x, ...  A
+// CTA is NC consumer warpgroups and one producer warpgroup.  The producer
+// (24 registers after setmaxnreg.dec) has one thread TMA-load each item's K
+// and V tiles (BKV x D, 128-byte swizzled, 64-column chunks) into one of two
+// buffers, then a ring of STAGES stages over the q tiles from the one that
+// holds the item's first key (the diagonal tile) to the end of S, or over
+// all of S without the causal mask: Q and dO by TMA and that tile's lse and
+// delta (64 floats each through 1-d maps over the flat [BH S] buffers, so
+// any S and q0 work).  The ring runs on across items.  Consumer warpgroup c
+// owns keys [64 c, 64 c + 64) of the item, its warp w the 16 keys from
+// 64 c + 16 w; all NC consumers read every stage.  Per q tile it computes
+// S^T = K.Q^T and dP^T = V.dO^T by wgmma m64n64k16 with both operands in
+// shared memory (keys as rows, so p's and ds's transposes come out as
+// accumulators with no shuffle), then in fp32 registers the function's
+//   x = scale (q.k), the causal select to NEG_INF, + the key bias;
+//   p = exp(x - lse) as one EX2 of (x - lse) log2 e (zeroed where
+//       x <= NEG_INF / 2 under a bias);
+//   pd = p keep, ds = p (dp keep - delta)
+// (the causal select and the mask of rows past S only on the tiles that
+// cross the diagonal or S; the hash at the global (q, k) with bh +
+// bh_offset, the key terms' first step taken once an item and the q terms'
+// once a tile), and then dV += pd^T.dO and dK += ds^T.Q by wgmma with A
+// from registers and B the SAME swizzled dO and Q tiles read MN-major: no
+// transposed copy.  pd and ds stay fp32, as the function keeps them: each
+// goes to the tensor cores as three bf16 terms (`bf16_term`, hopper.cuh),
+// so a q tile issues 2 + 2 x 3 products where a plain bf16 backward issues
+// 4.  At D 64 the terms are issued as each is packed (two A buffers, the
+// third term reusing the first's once its products retire); at D 128 the
+// dK and dV accumulators take 128 registers, so one A buffer serves the
+// three terms in turn.  TMA zero-fills keys past Sk (their rows are not
+// stored) and rows past S (masked to p = 0).  Every output element is summed
+// by one warp in q order: no atomics, bitwise repeatable.  A key that no
+// row sees (causal, a key tile at or past S) writes zeros.  NC = 1 runs two
+// CTAs an SM; NC = 2 one CTA of two consumers sharing each (Q, dO) stage
+// (`MmaTiles`).
+
+template <int D, int NC>
+struct WgDkv {
+  static constexpr int THREADS = 128 * (NC + 1), MB = NC == 1 ? 2 : 1;
+  static constexpr int BKV = 64 * NC;               // keys an item
+  static constexpr int NDC = D / 64;                // 64-column chunks
+  static constexpr int QCHUNK = 64 * 128;           // 64 q rows of one chunk
+  static constexpr int QTILE = NDC * QCHUNK;
+  static constexpr int KCHUNK = BKV * 128;          // BKV keys of one chunk
+  static constexpr int KTILE = NDC * KCHUNK;
+  static constexpr int STAGES = D == 128 ? 2 : NC == 1 ? 3 : 4;
+  // a stage: Q, dO, then lse[64] and delta[64] (padded so that stages stay
+  // 1024-aligned)
+  static constexpr int STAGE = 2 * QTILE + 1024;
+  // two K and two V buffers (the next item's loads while this one runs),
+  // the ring, the barriers
+  static constexpr size_t SMEM = 1024 + 4 * size_t(KTILE) +
+                                 STAGES * size_t(STAGE) + 8 * (2 * STAGES + 4);
+  static constexpr int LAUNCH_REGS = (65536 / (THREADS * MB)) & ~7;
+  static constexpr int CONSUMER_REGS =
+      (((NC + 1) * LAUNCH_REGS - 24) / NC) & ~7;
+};
+
+template <int D, int NC>
+__global__ void __launch_bounds__(WgDkv<D, NC>::THREADS, WgDkv<D, NC>::MB)
+flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       const __grid_constant__ CUtensorMap tdo,
+                       const __grid_constant__ CUtensorMap tl,
+                       const __grid_constant__ CUtensorMap td,
+                       __nv_bfloat16* __restrict__ dk,
+                       __nv_bfloat16* __restrict__ dv, Params p) {
+  using LY = WgDkv<D, NC>;
+  using T = __nv_bfloat16;
+  constexpr int QTILE = LY::QTILE, QCHUNK = LY::QCHUNK, NDC = LY::NDC;
+  constexpr int KTILE = LY::KTILE, KCHUNK = LY::KCHUNK, STAGES = LY::STAGES;
+  extern __shared__ unsigned char smraw[];
+  // 1024-byte alignment for the swizzle atoms
+  unsigned char* sK = smraw + ((1024 - (smem_u32(smraw) & 1023)) & 1023);
+  unsigned char* sV = sK + 2 * KTILE;               // [2][KTILE] each
+  unsigned char* sR = sV + 2 * KTILE;               // [STAGES][STAGE]
+  uint64_t* full = reinterpret_cast<uint64_t*>(sR + STAGES * LY::STAGE);
+  uint64_t* empty = full + STAGES;
+  uint64_t* kvfull = empty + STAGES;                // [2]: K, V loaded
+  uint64_t* kvempty = kvfull + 2;                   // [2]: K, V free
+
+  const int nq = (p.S + 63) / 64;
+  const int n_items = (p.Sk + LY::BKV - 1) / LY::BKV * p.BH;
+  // item w -> (k0, bh), key tile 0 of every bh first; returns its first q
+  // tile (causal: the one that holds key k0; rows before it see none)
+  auto item = [&](int w, int& k0, int& bh) {
+    k0 = w / p.BH * LY::BKV;
+    bh = w % p.BH;
+    return p.causal ? k0 / 64 : 0;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 4 * NC);   // one arrival per consumer warp
+    }
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(&kvfull[b], 1);
+      mbar_init(&kvempty[b], 4 * NC);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128 * NC) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 128 * NC) {
+      int it = 0;
+      for (int w = blockIdx.x, n = 0; w < n_items; w += gridDim.x, ++n) {
+        int k0, bh;
+        const int q_first = item(w, k0, bh);
+        const int b = n & 1;
+        mbar_wait(&kvempty[b], ((n >> 1) & 1) ^ 1);
+        mbar_expect_tx(&kvfull[b], 2 * KTILE);
+        for (int c = 0; c < NDC; ++c) {
+          tma_load_3d(sK + b * KTILE + c * KCHUNK, &tk, &kvfull[b], 64 * c, k0, bh);
+          tma_load_3d(sV + b * KTILE + c * KCHUNK, &tv, &kvfull[b], 64 * c, k0, bh);
+        }
+        for (int qi = q_first; qi < nq; ++qi, ++it) {
+          const int s = it % STAGES;
+          mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          mbar_expect_tx(&full[s], 2 * QTILE + 512);
+          unsigned char* st = sR + s * LY::STAGE;
+          for (int c = 0; c < NDC; ++c) {
+            tma_load_3d(st + c * QCHUNK, &tq, &full[s], 64 * c, 64 * qi, bh);
+            tma_load_3d(st + QTILE + c * QCHUNK, &tdo, &full[s], 64 * c, 64 * qi,
+                        bh);
+          }
+          tma_load_1d(st + 2 * QTILE, &tl, &full[s], bh * p.S + 64 * qi);
+          tma_load_1d(st + 2 * QTILE + 256, &td, &full[s], bh * p.S + 64 * qi);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers
+  setmaxnreg_inc<LY::CONSUMER_REGS>();
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  int kc, ka, kb_;
+  uint32_t sb, ya, yb;
+  float bias_a, bias_b;
+  float dka[D / 2], dva[D / 2];
+
+  // pd^T in place of the scores and ds^T in place of dp^T (register
+  // 4j + r: key r < 2 ? ka : kb_, q row q0 + 8j + 2t + (r & 1)); EDGE: the
+  // tile crosses the causal diagonal or S; BIAS: a key bias; DROP: dropout
+  auto pd_ds_tile = [&](float* sc, float* dp, const float* sL, int q0,
+                        auto edge_c, auto bias_c, auto drop_c) {
+    constexpr bool EDGE = decltype(edge_c)::value;
+    constexpr bool BIAS = decltype(bias_c)::value;
+    constexpr bool DROP = decltype(drop_c)::value;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 8 * j + 2 * t;
+      const float2 l2 = *reinterpret_cast<const float2*>(sL + col);
+      const float2 d2 = *reinterpret_cast<const float2*>(sL + 64 + col);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int qg = q0 + col + e;
+        uint32_t hq = 0;
+        if constexpr (DROP) {
+          hq = sb ^ (uint32_t(qg) * 0x85EBCA6Bu);
+          hq ^= hq >> 15;
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = 4 * j + 2 * h + e;
+          // s = (q*scale).k: scale * (q.k) is the same number at the
+          // power-of-two scale of D 64, within one rounding at D 128
+          float x = p.scale * sc[i];
+          if constexpr (EDGE) {
+            if (p.causal && qg < (h ? kb_ : ka)) x = NEG_INF;
+          }
+          if constexpr (BIAS) x += h ? bias_b : bias_a;
+          float pv = ex2((x - (e ? l2.y : l2.x)) * LOG2E);
+          if constexpr (BIAS) {
+            if (x <= NEG_INF * 0.5f) pv = 0.f;
+          }
+          if constexpr (EDGE) {
+            if (qg >= p.S) pv = 0.f;   // a row past S (TMA's zeros)
+          }
+          float pd = pv, dpv = dp[i];
+          if constexpr (DROP) {
+            const float ks =
+                fmix32_tail(hq ^ (h ? yb : ya)) < p.thr ? p.inv_keep : 0.f;
+            pd *= ks;
+            dpv *= ks;
+          }
+          sc[i] = pd;                                 // pd^T, fp32
+          dp[i] = pv * (dpv - (e ? d2.y : d2.x));     // ds^T, fp32
+        }
+      }
+    }
+  };
+
+  int it = 0;
+  for (int w = blockIdx.x, n = 0; w < n_items; w += gridDim.x, ++n) {
+    int k0, bh;
+    const int q_first = item(w, k0, bh);
+    const int b = n & 1;
+    kc = k0 + 64 * wg;                              // this warpgroup's keys
+    ka = kc + warp * 16 + g;
+    kb_ = ka + 8;
+    bias_a = bias_b = 0.f;
+    if (p.kb) {
+      const float* kbr = p.kb + size_t(bh / p.H) * p.Sk;
+      bias_a = ka < p.Sk ? kbr[ka] : 0.f;           // keys past Sk: unstored
+      bias_b = kb_ < p.Sk ? kbr[kb_] : 0.f;
+    }
+    // keep_scale's terms (flash_tiles.cuh): the key terms after fmix32's
+    // first step, and the q terms' shared part
+    sb = p.seed_h ^ (uint32_t(bh + p.bh_offset) * 0x7FEB352Du);
+    ya = uint32_t(ka) * 0xC2B2AE35u;
+    yb = uint32_t(kb_) * 0xC2B2AE35u;
+    ya ^= ya >> 15;
+    yb ^= yb >> 15;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+    // this warpgroup's 64 rows of each 64-column chunk of K and V
+    const unsigned char* kt = sK + b * KTILE + wg * 64 * 128;
+    const unsigned char* vt = sV + b * KTILE + wg * 64 * 128;
+    mbar_wait(&kvfull[b], (n >> 1) & 1);
+
+    for (int qi = q_first; qi < nq; ++qi, ++it) {
+      const int s = it % STAGES, q0 = 64 * qi;
+      mbar_wait(&full[s], (it / STAGES) & 1);
+      const unsigned char* qt = sR + s * LY::STAGE;
+      const unsigned char* ot = qt + QTILE;
+      const float* sL = reinterpret_cast<const float*>(qt + 2 * QTILE);
+
+      float sc[32], dp[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<T, 64>::ss(sc,
+                         sw128_desc(kt + (kk >> 2) * KCHUNK + (kk & 3) * 32, 16, 1024),
+                         sw128_desc(qt + (kk >> 2) * QCHUNK + (kk & 3) * 32, 16, 1024),
+                         kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wgmma<T, 64>::ss(dp,
+                         sw128_desc(vt + (kk >> 2) * KCHUNK + (kk & 3) * 32, 16, 1024),
+                         sw128_desc(ot + (kk >> 2) * QCHUNK + (kk & 3) * 32, 16, 1024),
+                         kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<32>(sc);
+      fence_regs<32>(dp);
+
+      const bool edge = (p.causal && q0 < kc + 64) || q0 + 64 > p.S;
+      with_flags(edge, p.kb != nullptr, p.dropout != 0, [&](auto e, auto b, auto d) {
+        pd_ds_tile(sc, dp, sL, q0, e, b, d);
+      });
+
+      // dV += pd^T.dO and dK += ds^T.Q, three bf16 terms each; B is the
+      // stage's dO / Q tile read MN-major (16 q rows a slice)
+      auto issue = [&](uint32_t (&pa)[4][4], uint32_t (&da)[4][4]) {
+        fence_regs<D / 2>(dva);
+        fence_regs<D / 2>(dka);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          Wgmma<T, D>::rs(dva, pa[kk],
+                          sw128_desc(ot + kk * 16 * 128, QCHUNK, 1024), 1);
+          Wgmma<T, D>::rs(dka, da[kk],
+                          sw128_desc(qt + kk * 16 * 128, QCHUNK, 1024), 1);
+        }
+        wgmma_commit();
+      };
+      if constexpr (D == 64) {
+        uint32_t pa0[4][4], da0[4][4], pa1[4][4], da1[4][4];
+        bf16_term(pa0, sc);
+        bf16_term(da0, dp);
+        issue(pa0, da0);
+        bf16_term(pa1, sc);
+        bf16_term(da1, dp);
+        issue(pa1, da1);
+        wgmma_wait<1>();        // the first term's products have read pa0
+        bf16_term(pa0, sc);
+        bf16_term(da0, dp);
+        issue(pa0, da0);
+        wgmma_wait<0>();
+      } else {
+        uint32_t pa[4][4], da[4][4];
+#pragma unroll
+        for (int term = 0; term < 3; ++term) {
+          bf16_term(pa, sc);
+          bf16_term(da, dp);
+          issue(pa, da);
+          wgmma_wait<0>();
+        }
+      }
+      fence_regs<D / 2>(dva);
+      fence_regs<D / 2>(dka);
+      // the stage's Q, dO, lse and delta have been read: hand it back
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+    // the item's K and V have been read
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&kvempty[b]);
+
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int cc = 8 * j + 2 * t;
+      if (ka < p.Sk) {
+        const size_t o = (size_t(bh) * p.Sk + ka) * D + cc;
+        *reinterpret_cast<uint32_t*>(dk + o) =
+            Mma<T>::pack(p.scale * dka[4 * j], p.scale * dka[4 * j + 1]);
+        *reinterpret_cast<uint32_t*>(dv + o) = Mma<T>::pack(dva[4 * j], dva[4 * j + 1]);
+      }
+      if (kb_ < p.Sk) {
+        const size_t o = (size_t(bh) * p.Sk + kb_) * D + cc;
+        *reinterpret_cast<uint32_t*>(dk + o) =
+            Mma<T>::pack(p.scale * dka[4 * j + 2], p.scale * dka[4 * j + 3]);
+        *reinterpret_cast<uint32_t*>(dv + o) =
+            Mma<T>::pack(dva[4 * j + 2], dva[4 * j + 3]);
+      }
     }
   }
 }
@@ -1050,17 +1529,51 @@ template <> struct Tiles<256> { static constexpr int BQ = 32, BK = 32, BKV = 16,
 // an SM (MB: 4 at D 64, where a consumer needs 104 registers — S takes
 // BK / 2 of them and O D / 2 — and 4 x 49 KB of shared memory fit; 2 at
 // D 128; 1 at D 256, whose 128 O registers need all of a thread's), and
-// the mma.sync dQ's key tile (halved at D >= 128 for its registers)
+// the wgmma dK/dV's consumer warpgroups a CTA (DKV_NC; at D 128 two
+// consumers of one CTA share each (Q, dO) stage)
 template <int D> struct MmaTiles;
 template <> struct MmaTiles<64> {
-  static constexpr int FWD_BK = 64, STAGES = 2, MB = 4, DQ_BK = 64;
+  static constexpr int FWD_BK = 64, STAGES = 2, MB = 4, DKV_NC = 1;
 };
 template <> struct MmaTiles<128> {
-  static constexpr int FWD_BK = 64, STAGES = 2, MB = 2, DQ_BK = 32;
+  static constexpr int FWD_BK = 64, STAGES = 2, MB = 2, DKV_NC = 2;
 };
 template <> struct MmaTiles<256> {
-  static constexpr int FWD_BK = 64, STAGES = 2, MB = 1, DQ_BK = 32;
+  static constexpr int FWD_BK = 64, STAGES = 2, MB = 1;
 };
+// the mma.sync dQ's key tile (D 256)
+constexpr int DQ_MMA_BK = 32;
+
+// The kernel each entry point launches for these operands, from the dtype
+// code (0 fp32, 1 bf16, 2 fp16) and D alone: 1 = a wgmma kernel, 0 = the
+// mma.sync dQ (D 256), 2 = a CUDA-core kernel.  The forward takes wgmma for
+// bf16 / fp16; dQ for bf16 / fp16 at D 64 and 128; dK/dV for bf16 at D 64
+// and 128 (its pd and ds go to the tensor cores as three bf16 terms; in
+// fp16 the residual terms of a small p or ds fall into subnormals, and at
+// D 256 the accumulators would not fit in registers).
+constexpr int dq_route_of(int dtype, int D) {
+  return dtype == 0 ? 2 : (D == 64 || D == 128) ? 1 : 0;
+}
+constexpr int dkv_route_of(int dtype, int D) {
+  return dtype == 1 && (D == 64 || D == 128) ? 1 : 2;
+}
+template <typename T>
+constexpr int dtype_code =
+    std::is_same<T, float>::value ? 0
+    : std::is_same<T, __nv_bfloat16>::value ? 1 : 2;
+
+// a persistent grid: as many CTAs as fit on the card at once (per_sm an
+// SM), at most one an item; each walks its share of the items
+cudaError_t persistent_grid(int items, int per_sm, int& grid) {
+  int dev, sms;
+  cudaError_t e;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+          cudaSuccess)
+    return e;
+  grid = min(items, sms * per_sm);
+  return cudaSuccess;
+}
 
 template <typename T, int D>
 cudaError_t launch_fwd_wgmma(const Ptrs& a, const Params& p, cudaStream_t st) {
@@ -1073,31 +1586,81 @@ cudaError_t launch_fwd_wgmma(const Ptrs& a, const Params& p, cudaStream_t st) {
       (e = tensor_map<T>(&tv, a.v, p.BH, p.Sk, D, MT::FWD_BK)) != cudaSuccess)
     return e;
   auto kern = flash_fwd_wgmma_kernel<T, D, MT::FWD_BK, MT::STAGES, MT::MB>;
-  if ((e = set_smem(kern, LY::SMEM)) != cudaSuccess) return e;
-  // a persistent grid: as many CTAs as fit on the card at once, each
-  // walking its share of the (q tile, bh) items
-  int dev, sms;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
-      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+  int grid;
+  if ((e = set_smem(kern, LY::SMEM)) != cudaSuccess ||
+      (e = persistent_grid((p.S + LY::BQ - 1) / LY::BQ * p.BH, MT::MB, grid)) !=
           cudaSuccess)
     return e;
-  const int items = (p.S + LY::BQ - 1) / LY::BQ * p.BH;
-  kern<<<min(items, sms * MT::MB), LY::THREADS, LY::SMEM, st>>>(
+  kern<<<grid, LY::THREADS, LY::SMEM, st>>>(
       tq, tk, tv, static_cast<T*>(a.o), static_cast<float*>(a.lse_out), p);
   return cudaGetLastError();
 }
 
-// Which kernel runs, chosen at compile time so that each is instantiated
-// only for the dtypes that reach it: the wgmma forward and the mma.sync dQ
-// for bf16 / fp16, the tensor-core dK/dV for bf16 at D = 64 (at D >= 128 its
-// accumulators would not fit in registers), the CUDA-core kernels for the
-// rest.
+// the maps of lse and delta: 1-d over the flat [BH S] fp32 buffers, boxes
+// of 64 rows from any element (zeros past BH S)
+cudaError_t row_maps(CUtensorMap* tl, CUtensorMap* td, const Ptrs& a,
+                     const Params& p) {
+  const long long n = (long long)p.BH * p.S;
+  cudaError_t e = tensor_map_1d(tl, a.lse, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, n, 64);
+  if (e != cudaSuccess) return e;
+  return tensor_map_1d(td, a.delta, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, n, 64);
+}
+
+template <typename T, int D>
+cudaError_t launch_dq_wgmma(const Ptrs& a, const Params& p, cudaStream_t st) {
+  using LY = WgDq<D>;
+  CUtensorMap tq, tk, tv, tdo, tl, td;
+  cudaError_t e;
+  if ((e = tensor_map<T>(&tq, a.q, p.BH, p.S, D, 64)) != cudaSuccess ||
+      (e = tensor_map<T>(&tk, a.k, p.BH, p.Sk, D, 64)) != cudaSuccess ||
+      (e = tensor_map<T>(&tv, a.v, p.BH, p.Sk, D, 64)) != cudaSuccess ||
+      (e = tensor_map<T>(&tdo, a.dout, p.BH, p.S, D, 64)) != cudaSuccess ||
+      (e = row_maps(&tl, &td, a, p)) != cudaSuccess)
+    return e;
+  auto kern = flash_dq_wgmma_kernel<T, D>;
+  int grid;
+  if ((e = set_smem(kern, LY::SMEM)) != cudaSuccess ||
+      (e = persistent_grid((p.S + 63) / 64 * p.BH, LY::MB, grid)) != cudaSuccess)
+    return e;
+  kern<<<grid, LY::THREADS, LY::SMEM, st>>>(tq, tk, tv, tdo, tl, td,
+                                           static_cast<T*>(a.dq), p);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_wgmma(const Ptrs& a, const Params& p, cudaStream_t st) {
+  using T = __nv_bfloat16;
+  constexpr int NC = MmaTiles<D>::DKV_NC;
+  using LY = WgDkv<D, NC>;
+  CUtensorMap tq, tk, tv, tdo, tl, td;
+  cudaError_t e;
+  if ((e = tensor_map<T>(&tq, a.q, p.BH, p.S, D, 64)) != cudaSuccess ||
+      (e = tensor_map<T>(&tk, a.k, p.BH, p.Sk, D, LY::BKV)) != cudaSuccess ||
+      (e = tensor_map<T>(&tv, a.v, p.BH, p.Sk, D, LY::BKV)) != cudaSuccess ||
+      (e = tensor_map<T>(&tdo, a.dout, p.BH, p.S, D, 64)) != cudaSuccess ||
+      (e = row_maps(&tl, &td, a, p)) != cudaSuccess)
+    return e;
+  auto kern = flash_dkv_wgmma_kernel<D, NC>;
+  int grid;
+  if ((e = set_smem(kern, LY::SMEM)) != cudaSuccess ||
+      (e = persistent_grid((p.Sk + LY::BKV - 1) / LY::BKV * p.BH, LY::MB,
+                           grid)) != cudaSuccess)
+    return e;
+  kern<<<grid, LY::THREADS, LY::SMEM, st>>>(tq, tk, tv, tdo, tl, td,
+                                           static_cast<T*>(a.dk),
+                                           static_cast<T*>(a.dv), p);
+  return cudaGetLastError();
+}
+
+// Which kernel runs (`dq_route_of`, `dkv_route_of`), chosen at compile time
+// so that each is instantiated only for the dtypes and head dims that
+// reach it.
 template <typename T, int D>
 cudaError_t launch(int which, const Ptrs& a, const Params& p, cudaStream_t st) {
   using TL = Tiles<D>;
-  using MT = MmaTiles<D>;
   constexpr bool mma = !std::is_same<T, float>::value;
-  constexpr bool mma_dkv = std::is_same<T, __nv_bfloat16>::value && D == 64;
+  constexpr int dq_route = dq_route_of(dtype_code<T>, D);
+  constexpr int dkv_route = dkv_route_of(dtype_code<T>, D);
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
@@ -1117,9 +1680,11 @@ cudaError_t launch(int which, const Ptrs& a, const Params& p, cudaStream_t st) {
           q, k, v, static_cast<T*>(a.o), static_cast<float*>(a.lse_out), p);
     }
   } else if (which == 1) {
-    if constexpr (mma) {
-      using LY = MmaLayout<T, D, MT::DQ_BK>;
-      auto kern = flash_dq_mma_kernel<T, D, MT::DQ_BK>;
+    if constexpr (dq_route == 1) {
+      return launch_dq_wgmma<T, D>(a, p, st);
+    } else if constexpr (dq_route == 0) {
+      using LY = MmaLayout<T, D, DQ_MMA_BK>;
+      auto kern = flash_dq_mma_kernel<T, D, DQ_MMA_BK>;
       if ((e = set_smem(kern, LY::DQ_SMEM)) != cudaSuccess) return e;
       dim3 grid((p.S + LY::BQ - 1) / LY::BQ, p.BH);
       kern<<<grid, THREADS, LY::DQ_SMEM, st>>>(
@@ -1133,14 +1698,8 @@ cudaError_t launch(int which, const Ptrs& a, const Params& p, cudaStream_t st) {
           q, k, v, dout, lse, delta, static_cast<T*>(a.dq), p);
     }
   } else {
-    if constexpr (mma_dkv) {
-      using LY = DkvMmaLayout<D, 64, 64>;
-      auto kern = flash_dkv_mma_kernel<D, 64, 64>;
-      if ((e = set_smem(kern, LY::BYTES)) != cudaSuccess) return e;
-      dim3 grid((p.Sk + 63) / 64, p.BH);
-      kern<<<grid, THREADS, LY::BYTES, st>>>(
-          q, k, v, dout, lse, delta, static_cast<T*>(a.dk),
-          static_cast<T*>(a.dv), p);
+    if constexpr (dkv_route == 1) {
+      return launch_dkv_wgmma<D>(a, p, st);
     } else {
       using LY = DkvLayout<T, D, TL::BKV, TL::BQ2>;
       auto kern = flash_dkv_kernel<T, D, TL::BKV, TL::BQ2>;
@@ -1223,6 +1782,21 @@ int flash_attention_dkv(const void* q, const void* k, const void* v,
   Ptrs a{q, k, v, dout, lse, delta, nullptr, nullptr, nullptr, dk, dv};
   return run(2, a, BH, H, S, Sk, D, scale, causal, kb, seed, bh_offset, thr,
              inv_keep, dropout, dtype, stream);
+}
+
+// the kernel flash_attention_dq / flash_attention_dkv launches for these
+// operands (dtype as above, D 64 / 128 / 256): 1 = the wgmma kernel
+// (flash_dq_wgmma_kernel, flash_dkv_wgmma_kernel), 0 = the mma.sync dQ
+// (flash_dq_mma_kernel), 2 = the CUDA-core kernel; -1 for operands no
+// kernel takes
+int flash_attention_dq_route(int dtype, int D) {
+  if (dtype < 0 || dtype > 2 || (D != 64 && D != 128 && D != 256)) return -1;
+  return dq_route_of(dtype, D);
+}
+
+int flash_attention_dkv_route(int dtype, int D) {
+  if (dtype < 0 || dtype > 2 || (D != 64 && D != 128 && D != 256)) return -1;
+  return dkv_route_of(dtype, D);
 }
 
 const char* flash_attention_error_string(int err) {

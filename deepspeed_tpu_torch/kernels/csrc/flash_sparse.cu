@@ -900,22 +900,6 @@ struct WgDkv {
   static constexpr int CONSUMER_REGS = 2 * LAUNCH_REGS - 24;
 };
 
-// one bf16 term of an fp32 64 x 64 accumulator tile (wgmma layout, 32
-// registers a thread) as four wgmma A fragments of 16 columns; the tile is
-// left holding the residual c - bf16(c), exact in fp32
-__device__ __forceinline__ void bf16_term(uint32_t (*a)[4], float* c) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const __nv_bfloat162 h = __floats2bfloat162_rn(c[8 * kk + 2 * i],
-                                                     c[8 * kk + 2 * i + 1]);
-      a[kk][i] = *reinterpret_cast<const uint32_t*>(&h);
-      c[8 * kk + 2 * i] -= __low2float(h);
-      c[8 * kk + 2 * i + 1] -= __high2float(h);
-    }
-}
-
 __global__ void __launch_bounds__(256, WgDkv::MB)
 sparse_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
@@ -1419,18 +1403,6 @@ sparse_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 //     removed saved about three times its issue-slot share (PERF.md
 //     §6).  One warpgroup's pass runs beside the other warpgroup's
 //     products.
-
-// fmix32 (flash_tiles.cuh) after its first step h ^= h >> 15.  A logical
-// right shift distributes over ^, so keep_scale's hash of row term x and
-// column term y is fmix32_tail((x ^ x >> 15) ^ (y ^ y >> 15)): the first
-// step of each term is taken once a row or a column, the same bits
-__device__ __forceinline__ uint32_t fmix32_tail(uint32_t h) {
-  h *= 0x2C1B3C6Du;
-  h ^= h >> 12;
-  h *= 0x297A2D39u;
-  h ^= h >> 15;
-  return h;
-}
 
 template <int D, int NC>
 struct WgFwdS {

@@ -7,6 +7,8 @@
 
 #pragma once
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -22,6 +24,18 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   h ^= h >> 15;
+  h *= 0x2C1B3C6Du;
+  h ^= h >> 12;
+  h *= 0x297A2D39u;
+  h ^= h >> 15;
+  return h;
+}
+
+// fmix32 after its first step h ^= h >> 15.  A logical right shift
+// distributes over ^, so keep_scale's hash of row term x and column term y
+// is fmix32_tail((x ^ x >> 15) ^ (y ^ y >> 15)): the wgmma kernels take the
+// first step of each term once a row or a column, the same bits
+__device__ __forceinline__ uint32_t fmix32_tail(uint32_t h) {
   h *= 0x2C1B3C6Du;
   h ^= h >> 12;
   h *= 0x297A2D39u;
@@ -203,6 +217,21 @@ __device__ __forceinline__ void mma_fp32_a(float (*acc)[4], float (*c)[4],
       }
     mma_tiles<__nv_bfloat16, KK, DN, LDB>(acc, a, sB, g, t);
   }
+}
+
+// f(ea, eb, ec) with each flag as std::true_type or std::false_type: one
+// instantiation of f's body per combination, chosen at run time (the wgmma
+// kernels' elementwise passes, whose masks, bias and hash compile away
+// where they are off)
+template <typename F>
+__device__ __forceinline__ void with_flags(bool a, bool b, bool c, F&& f) {
+  auto on_c = [&](auto x, auto y) {
+    if (c) f(x, y, std::true_type{}); else f(x, y, std::false_type{});
+  };
+  auto on_b = [&](auto x) {
+    if (b) on_c(x, std::true_type{}); else on_c(x, std::false_type{});
+  };
+  if (a) on_b(std::true_type{}); else on_b(std::false_type{});
 }
 
 template <typename KernelT>

@@ -1,10 +1,10 @@
-// Hopper (sm_90a) building blocks of the wgmma kernels (the flash forward
-// of flash_attention.cu, the block-sparse forward, dQ and dK/dV of
-// flash_sparse.cu, the fused cross-entropy forward, dx and dW of
-// fused_xent.cu):
-// mbarriers, TMA tile and bulk loads, warpgroup register hand-over
-// (setmaxnreg), shared-memory matrix descriptors for the 128-byte swizzle
-// that TMA writes, the wgmma.mma_async products, and on the host the
+// Hopper (sm_90a) building blocks of the wgmma kernels (the flash
+// forward, dQ and dK/dV of flash_attention.cu, the block-sparse forward,
+// dQ and dK/dV of flash_sparse.cu, the fused cross-entropy forward, dx and
+// dW of fused_xent.cu): mbarriers, TMA tile and bulk loads, warpgroup
+// register hand-over (setmaxnreg), shared-memory matrix descriptors for the
+// 128-byte swizzle that TMA writes, the wgmma.mma_async products, the bf16
+// terms of an fp32 A operand, and on the host the
 // tensor maps (cuTensorMapEncodeTiled, fetched from the driver at run
 // time, on a thread with a current context).  Include after common.cuh.
 //
@@ -504,6 +504,24 @@ template <> struct Wgmma<__half, 256> {
           "r"(scale_d));
   }
 };
+
+// one bf16 term of an fp32 64 x 64 accumulator tile (wgmma layout, 32
+// registers a thread) as four wgmma A fragments of 16 columns; the tile is
+// left holding the residual c - bf16(c), exact in fp32.  Three terms (hi +
+// mid + lo) carry fp32's 24 bits into a bf16 product (the dK/dV kernels'
+// pd and ds, which the function keeps in fp32)
+__device__ __forceinline__ void bf16_term(uint32_t (*a)[4], float* c) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 h = __floats2bfloat162_rn(c[8 * kk + 2 * i],
+                                                     c[8 * kk + 2 * i + 1]);
+      a[kk][i] = *reinterpret_cast<const uint32_t*>(&h);
+      c[8 * kk + 2 * i] -= __low2float(h);
+      c[8 * kk + 2 * i + 1] -= __high2float(h);
+    }
+}
 
 // -- host: tensor maps ----------------------------------------------------------
 

@@ -8,10 +8,15 @@ Each takes the arguments of its plain PyTorch version
 `_dkv_plain`) and returns the same tensors, at head_dim 64, 128 or 256.
 The kernels tile the sequence themselves (64 rows or fewer), so
 `block_q` / `block_k` only pass the divisibility checks of the entry point
-and do not reach the card.  A wrapper checks device, dtype, shape,
-contiguity and alignment, launches its kernel on PyTorch's current
-stream, raises on a launch error and counts the launch in `LAUNCHES`; it
-never falls back to the plain version.
+and do not reach the card.  The launcher picks each kernel from the dtype
+and head_dim alone: the forward is a warp-specialised wgmma kernel fed by
+TMA for bf16 / fp16; dQ is one too for bf16 / fp16 at head_dim 64 and 128
+(mma.sync at 256) and dK/dV for bf16 at 64 and 128 (its fp32 pd and ds fed
+to the tensor cores as three bf16 terms); the rest run on the CUDA cores.
+`dq_route` and `dkv_route` say which kernel a call takes.  A wrapper checks
+device, dtype, shape, contiguity and alignment, launches its kernel on
+PyTorch's current stream, raises on a launch error and counts the launch
+in `LAUNCHES`; it never falls back to the plain version.
 """
 
 from __future__ import annotations
@@ -35,7 +40,9 @@ _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _TAIL = [_I] * 5 + [_F, _I, _I, _I, _U, _F, _I, _I, _P]
 _ARGTYPES = {"flash_attention_fwd": [_P] * 6 + _TAIL,
              "flash_attention_dq": [_P] * 8 + _TAIL,
-             "flash_attention_dkv": [_P] * 9 + _TAIL}
+             "flash_attention_dkv": [_P] * 9 + _TAIL,
+             "flash_attention_dq_route": [_I, _I],
+             "flash_attention_dkv_route": [_I, _I]}
 
 
 def _lib():
@@ -169,6 +176,28 @@ def flash_dkv_cuda(q, k, v, dout, lse, delta, kb, *, causal, scale, block_q,
             dk.data_ptr(), dv.data_ptr(),
             *_tail(shape, q, causal, scale, rate, seed, bh_offset))
     return dk, dv
+
+
+def _route(name, q) -> str:
+    _check(q.is_cuda, lambda: f"q is on {q.device}, not a CUDA device")
+    _check(q.dtype in _DTYPE_CODES,
+           lambda: f"dtype {q.dtype} not in {sorted(map(str, _DTYPE_CODES))}")
+    _check(q.shape[-1] in HEAD_DIMS,
+           lambda: f"head_dim {q.shape[-1]} not in {HEAD_DIMS}")
+    code = getattr(_lib(), name)(_DTYPE_CODES[q.dtype], q.shape[-1])
+    return {1: "wgmma", 0: "mma.sync", 2: "cuda-cores"}[code]
+
+
+def dq_route(q) -> str:
+    """The kernel `flash_dq_cuda` launches for q's dtype and head_dim, as
+    the launcher picks it: "wgmma", "mma.sync" or "cuda-cores"."""
+    return _route("flash_attention_dq_route", q)
+
+
+def dkv_route(q) -> str:
+    """The kernel `flash_dkv_cuda` launches for q's dtype and head_dim, as
+    the launcher picks it: "wgmma" or "cuda-cores"."""
+    return _route("flash_attention_dkv_route", q)
 
 
 # unit roundoff (half an ulp, relative) of each dtype the kernels take

@@ -220,10 +220,18 @@ def test_flash_on_cpu_runs_the_plain_versions():
 
 def test_kernel_wrappers_refuse_cpu_tensors():
     q = torch.zeros(2, 128, 64)
+    lse = torch.zeros(2, 128)
     opts = dict(causal=True, scale=0.125, block_q=128, block_k=128,
                 rate=0.0, seed=0, bh_offset=0, n_heads=1)
     with pytest.raises(ValueError, match="not a CUDA device"):
         flash.flash_fwd_cuda(q, q, q, None, **opts)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        flash.flash_dq_cuda(q, q, q, q, lse, lse, None, **opts)
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        flash.flash_dkv_cuda(q, q, q, q, lse, lse, None, **opts)
+    for route in (flash.dq_route, flash.dkv_route):
+        with pytest.raises(ValueError, match="not a CUDA device"):
+            route(q.to(torch.bfloat16))
 
 
 def test_kernel_tolerances_hold_the_plain_version_and_catch_a_fault():
@@ -255,6 +263,92 @@ def test_kernel_tolerances_hold_the_plain_version_and_catch_a_fault():
         assert bool(((emulated - ref).abs() <= t).all()), name
         faulty = ref * (1 + 2 ** -5) + 2 ** -5
         assert not bool(((faulty - ref).abs() <= t).all()), name
+
+
+def _wgmma_emulation(kernel, a, kb, lse, delta, opts):
+    """What the wgmma dQ ("dq") or dK/dV ("dkv") computes, in fp32 on the
+    CPU: p = exp(scale (q.k) - lse) after the causal select and the key
+    bias (zeroed where the score is <= NEG_INF / 2), dp times the keep
+    mask; dQ rounds ds to K's dtype and sums ds.K over key tiles of 64 in
+    order, scale applied once; dK/dV feed pd and ds as three bf16 terms
+    (hi, mid, lo: each the rounding of what the terms before it left) and
+    sum over q tiles of 64 in order.  Outputs rounded once to the input
+    dtype."""
+    from deepspeed_tpu_torch.ops.transformer.dropout import _keep_mask
+    from deepspeed_tpu_torch.ops.transformer.flash_attention import NEG_INF
+
+    q, k, v, do = (t.float() for t in a)
+    BH, S, _ = q.shape
+    Sk, H, scale = k.shape[1], opts["n_heads"], opts["scale"]
+    s = scale * (q @ k.transpose(-1, -2))
+    if opts["causal"]:
+        s = torch.where(torch.arange(S)[:, None] >= torch.arange(Sk)[None],
+                        s, NEG_INF)
+    if kb is not None:
+        s = s + kb[torch.arange(BH) // H][:, None, :]
+    p = torch.exp(s - lse[..., None])
+    if kb is not None:
+        p = torch.where(s <= NEG_INF * 0.5, 0.0, p)
+    mask = torch.ones_like(p)
+    if opts["rate"] > 0.0:
+        mask = _keep_mask(opts["seed"], torch.arange(BH) + opts["bh_offset"],
+                          0, 0, S, Sk, opts["rate"])
+    ds = p * ((do @ v.transpose(-1, -2)) * mask - delta[..., None])
+    dt = a[0].dtype
+    if kernel == "dq":
+        ds = ds.to(dt).float()
+        acc = sum(ds[..., k0:k0 + 64] @ k[:, k0:k0 + 64]
+                  for k0 in range(0, Sk, 64))
+        return {"dq": (scale * acc).to(dt)}
+
+    def terms(x):
+        out = []
+        for _ in range(3):
+            out.append(x.to(torch.bfloat16).float())
+            x = x - out[-1]
+        return out
+
+    pd = p * mask
+    dk = dv = 0.0
+    for q0 in range(0, S, 64):
+        rows = slice(q0, q0 + 64)
+        for tp, tq in zip(terms(pd[:, rows]), terms(ds[:, rows])):
+            dv = dv + tp.transpose(-1, -2) @ do[:, rows]
+            dk = dk + tq.transpose(-1, -2) @ q[:, rows]
+    return {"dk": (scale * dk).to(dt), "dv": dv.to(dt)}
+
+
+@pytest.mark.parametrize("kernel,dtype", [("dq", torch.bfloat16),
+                                          ("dq", torch.float16),
+                                          ("dkv", torch.bfloat16)])
+def test_kernel_tolerances_hold_the_wgmma_emulation(kernel, dtype):
+    """The wgmma dQ's and dK/dV's arithmetic (`_wgmma_emulation`) on a
+    ragged causal case with a key bias (one batch all masked), dropout and
+    a bh_offset stays inside `kernel_tolerances` of the plain version,
+    gives exact zeros for the masked batch, and the bound rejects outputs
+    off by 2^-5."""
+    B, S, H, D = 2, 96, 2, 64
+    q, k, v, g = _qkv(B=B, S=S, H=H, D=D)
+    a = [torch.from_numpy(x).permute(0, 2, 1, 3).reshape(B * H, S, D)
+         .contiguous().to(dtype) for x in (q, k, v, g)]
+    kb = torch.from_numpy(np.maximum(_key_bias(B, S), -1e30))
+    opts = dict(causal=True, scale=D ** -0.5, block_q=32, block_k=32,
+                rate=0.2, seed=1234, bh_offset=7, n_heads=H)
+    out, lse = registry.dispatch("flash_attention_fwd", *a[:3], kb, **opts)
+    delta = (a[3].float() * out.float()).sum(-1)
+    ref = {"out": out}
+    ref["dq"] = registry.dispatch("flash_attention_dq", *a, lse, delta, kb,
+                                  **opts)
+    ref["dk"], ref["dv"] = registry.dispatch("flash_attention_dkv", *a, lse,
+                                             delta, kb, **opts)
+    tols = flash.kernel_tolerances(*a, kb, ref, **opts)
+    for name, got in _wgmma_emulation(kernel, a, kb, lse, delta,
+                                      opts).items():
+        r = ref[name].float()
+        assert bool(((got.float() - r).abs() <= tols[name]).all()), name
+        assert bool((got[-H:] == 0).all()), name
+        faulty = r * (1 + 2 ** -5) + 2 ** -5
+        assert not bool(((faulty - r).abs() <= tols[name]).all()), name
 
 
 def test_kernel_tolerances_cover_the_error_of_dp_where_ds_cancels():
@@ -397,6 +491,15 @@ KERNEL_CASES = {
 }
 
 
+def _routes(dtype, D):
+    """(dQ's, dK/dV's) route as the launcher picks it from dtype and D."""
+    dq = ("cuda-cores" if dtype == torch.float32 else
+          "wgmma" if D in (64, 128) else "mma.sync")
+    dkv = "wgmma" if dtype == torch.bfloat16 and D in (64, 128) else \
+        "cuda-cores"
+    return dq, dkv
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
@@ -426,6 +529,8 @@ def test_cuda_kernels_match_plain_versions(cuda_device, case, dtype):
         res[impl]["dk"], res[impl]["dv"] = registry.dispatch(
             "flash_attention_dkv", *a, lse, delta, kb, impl=impl, **opts)
     torch.cuda.synchronize()
+    assert (flash.dq_route(a[0]), flash.dkv_route(a[0])) == \
+        _routes(dtype, D)
     tols = flash.kernel_tolerances(*a, kb, res["torch"], **opts)
     for name, tol in tols.items():
         diff = (res["cuda"][name].float() - res["torch"][name].float()).abs()
@@ -477,3 +582,157 @@ def test_cuda_autograd_launches_each_kernel_once(cuda_device):
     torch.cuda.synchronize()
     assert {n: flash.LAUNCHES[n] - before[n] for n in before} == \
         {n: 1 for n in before}
+
+
+
+# name: (B, S, Sk, H, D, causal, key bias, dropout, bh_offset, block_q,
+# block_k) of the wgmma dQ and dK/dV: both head dims, causal and full, a key
+# bias whose last batch has every key masked, dropout 0.2 with bh_offset 7,
+# ragged S (96, 200; tiles of 64 rows), Sk != S (under the causal mask the
+# keys past S see no row: dK/dV's items there walk no q tile), and the
+# training shape (the plain versions' blocks divide S and Sk)
+WGMMA_CASES = {
+    "dh64-causal": (2, 256, 256, 3, 64, True, False, 0.0, 0, 128, 128),
+    "dh64-full-bias": (2, 256, 256, 2, 64, False, True, 0.0, 0, 128, 128),
+    "dh64-causal-dropout-offset": (2, 256, 256, 2, 64, True, False, 0.2, 7,
+                                   128, 128),
+    "dh128-causal-bias-dropout-offset": (2, 256, 256, 2, 128, True, True,
+                                         0.2, 7, 128, 128),
+    "dh128-full": (2, 256, 256, 2, 128, False, False, 0.0, 0, 128, 128),
+    "s96-causal-bias-dropout-offset": (2, 96, 96, 2, 64, True, True, 0.2, 7,
+                                       32, 32),
+    "s200-dh128-causal": (1, 200, 200, 2, 128, True, False, 0.0, 0, 8, 8),
+    "s200-sk72-full-bias": (2, 200, 72, 2, 64, False, True, 0.0, 0, 8, 8),
+    "s96-sk200-dh128-full-dropout-offset": (1, 96, 200, 2, 128, False, False,
+                                            0.2, 7, 32, 8),
+    "s96-sk200-causal-dropout-offset": (2, 96, 200, 2, 64, True, False, 0.2,
+                                        7, 32, 8),
+    "train": (8, 1024, 1024, 12, 64, True, False, 0.0, 0, 128, 128),
+}
+
+
+def _wgmma_inputs(device, case, dtype, seed=0):
+    """q, k, v, dO [B*H, S or Sk, D] in dtype, the key bias (clamped to
+    NEG_INF, as the entry point passes it), the plain forward's out, lse
+    and delta, and the options."""
+    B, S, Sk, H, D, causal, bias, rate, off, bq, bk = WGMMA_CASES[case]
+    g = torch.Generator(device=device).manual_seed(seed)
+    a = [torch.randn(B * H, n, D, device=device, generator=g).to(dtype)
+         for n in (S, Sk, Sk, S)]
+    kb = (torch.from_numpy(np.maximum(_key_bias(B, Sk), -1e30)).to(device)
+          if bias else None)
+    opts = dict(causal=causal, scale=D ** -0.5, block_q=bq, block_k=bk,
+                rate=rate, seed=1234, bh_offset=off, n_heads=H)
+    out, lse = registry.dispatch("flash_attention_fwd", *a[:3], kb,
+                                 impl="torch", **opts)
+    delta = (a[3].float() * out.float()).sum(-1)
+    return a, kb, out, lse, delta, opts
+
+
+def _within_bound(kernel, case, dtype, device):
+    """The wgmma kernel `kernel` ("dq" | "dkv") against its plain version
+    within `kernel_tolerances`, one launch a call; a batch whose keys are
+    all masked gets exact zeros."""
+    a, kb, out, lse, delta, opts = _wgmma_inputs(device, case, dtype)
+    route = flash.dq_route if kernel == "dq" else flash.dkv_route
+    assert route(a[0]) == "wgmma"
+    args = (*a, lse, delta, kb)
+    ref = {"out": out}
+    ref["dq"] = registry.dispatch("flash_attention_dq", *args, impl="torch",
+                                  **opts)
+    ref["dk"], ref["dv"] = registry.dispatch("flash_attention_dkv", *args,
+                                             impl="torch", **opts)
+    name = f"flash_attention_{kernel}"
+    n0 = flash.LAUNCHES[name]
+    got = registry.dispatch(name, *args, impl="cuda", **opts)
+    torch.cuda.synchronize()
+    assert flash.LAUNCHES[name] == n0 + 1
+    got = dict(zip(("dq",) if kernel == "dq" else ("dk", "dv"),
+                   (got,) if kernel == "dq" else got))
+    tols = flash.kernel_tolerances(*a, kb, ref, **opts)
+    H = opts["n_heads"]
+    for out_name, x in got.items():
+        diff = (x.float() - ref[out_name].float()).abs()
+        assert bool((diff <= tols[out_name]).all()), \
+            (out_name, float((diff / tols[out_name]).max()))
+        if kb is not None:
+            assert bool((x[-H:] == 0).all()), out_name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("case", sorted(WGMMA_CASES))
+def test_cuda_wgmma_dq_within_its_bound(cuda_device, case, dtype):
+    _within_bound("dq", case, dtype, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(WGMMA_CASES))
+def test_cuda_wgmma_dkv_within_its_bound(cuda_device, case):
+    _within_bound("dkv", case, torch.bfloat16, cuda_device)
+
+
+def _repeats(kernel, case, dtype, device, n=50):
+    """The persistent grids hand items out in a fixed order and every
+    output element is summed by one warp: n calls, each after other
+    kernels ran, equal the first bit for bit."""
+    a, kb, _, lse, delta, opts = _wgmma_inputs(device, case, dtype, seed=3)
+    args = (*a, lse, delta, kb)
+    name = f"flash_attention_{kernel}"
+    first = registry.dispatch(name, *args, impl="cuda", **opts)
+    first = first if isinstance(first, tuple) else (first,)
+    other = "flash_attention_dkv" if kernel == "dq" else \
+        "flash_attention_dq"
+    for _ in range(n):
+        registry.dispatch("flash_attention_fwd", *a[:3], kb, impl="cuda",
+                          **opts)
+        registry.dispatch(other, *args, impl="cuda", **opts)
+        again = registry.dispatch(name, *args, impl="cuda", **opts)
+        again = again if isinstance(again, tuple) else (again,)
+        for x, y in zip(first, again):
+            assert torch.equal(x.view(torch.int16), y.view(torch.int16))
+
+
+@pytest.mark.cuda
+def test_cuda_wgmma_dq_is_bitwise_repeatable(cuda_device):
+    _repeats("dq", "dh128-causal-bias-dropout-offset", torch.float16,
+             cuda_device)
+
+
+@pytest.mark.cuda
+def test_cuda_wgmma_dkv_is_bitwise_repeatable(cuda_device):
+    _repeats("dkv", "dh64-causal-dropout-offset", torch.bfloat16,
+             cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+def test_cuda_wgmma_backward_launches_from_a_fresh_thread(cuda_device,
+                                                          kernel):
+    """The backward kernels' tensor maps encoded on a thread that has made
+    no CUDA call yet: the launch binds a context first, and the result
+    equals the main thread's."""
+    import threading
+
+    a, kb, _, lse, delta, opts = _wgmma_inputs(
+        cuda_device, "dh64-causal-dropout-offset", torch.bfloat16)
+    call = lambda: registry.dispatch(f"flash_attention_{kernel}", *a, lse,
+                                     delta, kb, impl="cuda", **opts)
+    got = {}
+
+    def run():
+        try:
+            got["out"] = call()
+        except Exception as e:   # re-raised on the test's thread
+            got["error"] = e
+
+    th = threading.Thread(target=run)
+    th.start()
+    th.join()
+    if "error" in got:
+        raise got["error"]
+    torch.cuda.synchronize()
+    mine = call()
+    for x, y in zip(*((t,) if kernel == "dq" else t
+                      for t in (got["out"], mine))):
+        assert torch.equal(x, y)
