@@ -1,14 +1,19 @@
 #!/usr/bin/env python3
-"""Compare two checkouts of the PyTorch/CUDA port on one GPU, in turns
-A, B, B, A, each turn a fresh process run from the root of its checkout:
+"""Compare checkouts of the PyTorch/CUDA port on one GPU, in turns A, B,
+B, A (A, B, C, C, B, A for three, and so on), each turn a fresh process
+run from the root of its checkout:
 
-    python3 chip_ab.py OLD_DIR NEW_DIR [paged] [serve] [kernels] [moe] [sparse]
-                       [xent] [flash] [flash-kernels]
+    python3 chip_ab.py OLD_DIR NEW_DIR [MORE_DIRS ...] [paged] [serve]
+                       [kernels] [moe] [sparse] [xent] [flash]
+                       [flash-kernels] [codec-leaves] [codec]
 
 Each turn uses that checkout's own `chip_smoke.py` and package, and runs
 the turn scripts named (when none is, all but `paged`, which `serve`
-holds, `sparse`, which `kernels` holds, and `flash-kernels`, which
-`flash` holds):
+holds, `sparse`, which `kernels` holds, `flash-kernels`, which `flash`
+holds, and `codec-leaves`, which `codec` holds).  Kernel-only device
+times (`profiled_flushed_ms`) come from the `chip_smoke.py` beside this
+script in every turn, so each checkout's kernels are read by the same
+tool:
 
 * paged: times the paged-attention dispatch at the decode shape (GPT-2
   XL heads, B=8, bf16 cache, q as the serving block's view of the fused
@@ -27,10 +32,24 @@ holds, `sparse`, which `kernels` holds, and `flash-kernels`, which
   decode at
   Dh 64 and 128 (device time, L2 flushed), then the train-moe and
   train-bert-sparse phases for their step ms and tokens/s;
-* moe: the MoE dispatch (#13) against its plain version and one
-  index_select (device times, L2 flushed) at train-moe's shape (B 4,
-  E 64, D 768, bf16, capacity factor 1) at top-1 and top-2, with groups
-  of S 2048 and 4096;
+* moe: the MoE dispatch (#13) and combine (#14) against their plain
+  versions and one index_select / embedding_bag (device times on CUDA
+  events, L2 flushed, and each kernel's own device time under
+  torch.profiler) at train-moe's shape (B 4, E 64, D 768, bf16, capacity
+  factor 1) at top-1 and top-2, with groups of S 2048 and 4096;
+* codec-leaves: the blockwise codec kernels (#11 quantize int8, #12
+  dequantize int8 and int4 to bf16) on one leaf of each GPT-2 XL matrix
+  shape (chip_smoke `codec_per_shape`: device times on CUDA events, L2
+  flushed, beside each kernel's own device time under torch.profiler and
+  the quantize's route where the checkout has routes), then over every
+  matrix leaf (`codec_tree_times`: the kernels' device time under
+  torch.profiler, the plain versions', the spans) and the store's
+  one-time quantize loop (`programs.QuantizedWeights`) as a span on CUDA
+  events;
+* codec: the codec-leaves turn, then GPT-2 XL bf16 served from int8
+  weights (chip_smoke phase 7's schedule and prompt lengths, fresh
+  tokens): the engine build's quantize loop as a span, tokens/s, the
+  mean decode step;
 * sparse, ~1 min a turn after the build: the block-sparse forward (#7)
   alone at train-bert-sparse's shape (`sparse_case` train-bfloat16
   without and with dropout 0.1; device times, L2 flushed, and its worst
@@ -58,6 +77,7 @@ into a git-ignored directory and pass both.
 """
 
 import json
+import os
 import subprocess
 import sys
 
@@ -209,12 +229,24 @@ for phase in ("phase_train_moe", "phase_train_bert_sparse"):
 print(json.dumps(rec))
 '''
 
+# the chip_smoke.py beside chip_ab.py, as `tool`: the same kernel-only
+# timing in every checkout's turn
+TOOL = r'''
+import importlib.util
+_spec = importlib.util.spec_from_file_location("chip_ab_tool",
+                                               os.environ["CHIP_AB_TOOL"])
+tool = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(tool)
+'''
+
 MOE = r'''
 import json, os, sys
 sys.path.insert(0, os.getcwd())
 import torch
 import chip_smoke as cs
-
+from deepspeed_tpu_torch.kernels import registry
+from deepspeed_tpu_torch.moe import dispatch as dsp
+''' + TOOL + r'''
 gen = torch.Generator(device="cuda").manual_seed(0)
 flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
 rec = {}
@@ -222,11 +254,104 @@ for name, S, k in (("k1-s2048", 2048, 1), ("k2-s2048", 2048, 2),
                    ("k1-s4096", 4096, 1), ("k2-s4096", 4096, 2)):
     m = cs.moe_case(name, 4, S, 64, k, 1.0, 768, torch.bfloat16, gen, flush,
                     True)
-    d = m["kernels"]["moe_dispatch"]
-    rec[name] = {"capacity": m["capacity"],
-                 **{f: d.get(f) for f in ("kernel_ms", "plain_ms", "bound_ms",
-                                          "library_ms")}}
+    rec[name] = {"capacity": m["capacity"]}
+    for kname in ("moe_dispatch", "moe_combine"):
+        d = m["kernels"][kname]
+        rec[name][kname] = {f: d.get(f) for f in (
+            "kernel_ms", "plain_ms", "bound_ms", "library_ms")}
+    # each kernel's own device time, and its library call's, on a draw of
+    # the same shape
+    C = m["capacity"]
+    eidx, gate, pos, keep, _ = dsp.topk_routing(torch.softmax(torch.randn(
+        4, S, 64, device="cuda", generator=gen), -1), k, C)
+    x = torch.randn(4, S, 768, device="cuda", generator=gen).bfloat16()
+    out = torch.randn(4, 64, C, 768, device="cuda", generator=gen).bfloat16()
+    rec[name]["moe_dispatch"]["kernel_device_ms"] = tool.profiled_flushed_ms(
+        lambda: registry.dispatch("moe_dispatch", x, eidx, pos, keep, 64, C,
+                                  impl="cuda"), flush)
+    rec[name]["moe_combine"]["kernel_device_ms"] = tool.profiled_flushed_ms(
+        lambda: registry.dispatch("moe_combine", out, eidx, gate, pos, keep,
+                                  impl="cuda"), flush)
 print(json.dumps(rec))
+'''
+
+CODEC = r'''
+import gc, json, os, sys, time
+sys.path.insert(0, os.getcwd())
+import numpy as np
+import torch
+import chip_smoke as cs
+from deepspeed_tpu_torch.kernels import quant_codec, registry
+from deepspeed_tpu_torch.models import GPT, gpt2_config
+from deepspeed_tpu_torch.serving import programs
+''' + TOOL + r'''
+cfg = gpt2_config("xl", param_dtype=torch.bfloat16)
+model = GPT(cfg, device="cuda",
+            generator=torch.Generator(device="cuda").manual_seed(0))
+flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+rec = {"per_shape": cs.codec_per_shape(model, flush), "device_ms": {}}
+params = dict(model.named_parameters())
+route = getattr(quant_codec, "quantize_route", None)
+for name, shape, count in cs.xl_leaf_shapes(cfg):
+    w = next(p for n, p in params.items() if n.endswith(name)).detach()
+    n = w.numel()
+    calls = {"quantize-int8": lambda: registry.dispatch(
+        "quant_codec_quantize", w, 256, "int8", impl="cuda")}
+    for wire in ("int8", "int4"):
+        p, s = registry.dispatch("quant_codec_quantize", w, 256, wire,
+                                 impl="cuda")
+        calls[f"dequantize-{wire}"] = (
+            lambda p=p, s=s, wire=wire: registry.dispatch(
+                "quant_codec_dequantize", p, s, wire, n,
+                out_dtype=torch.bfloat16, impl="cuda"))
+    rec["device_ms"][name] = {
+        key: tool.profiled_flushed_ms(fn, flush) for key, fn in calls.items()}
+    rec["device_ms"][name]["quantize_route"] = (
+        route(w, 256) if route else "generic (the only route)")
+leaves = [p.detach() for p in model.parameters() if p.dim() >= 2]
+store = []
+rec["store_quantize_span_ms"] = cs.events_span_ms(
+    lambda: store.append(programs.QuantizedWeights(model, "int8")))
+rec["tree"] = cs.codec_tree_times(leaves, store[0])
+del store, flush
+gc.collect()
+torch.cuda.empty_cache()
+'''
+
+SERVE_QW = r'''
+from deepspeed_tpu_torch.serving import ServeConfig, ServeEngine
+
+real_quantize_params, build_ms = programs.quantize_params, []
+
+
+def timed_quantize_params(*a, **kw):
+    out = []
+    build_ms.append(cs.events_span_ms(
+        lambda: out.append(real_quantize_params(*a, **kw))))
+    return out[0]
+
+
+programs.quantize_params = timed_quantize_params
+try:
+    eng = ServeEngine(model, ServeConfig(
+        block_size=16, num_blocks=513, max_batch=8, prefill_chunk=128,
+        quantized_weights="int8"), device="cuda")
+finally:
+    programs.quantize_params = real_quantize_params
+eng.generate([list(range(50000, 50016))], 2)           # warm-up
+lens = np.random.RandomState(0).randint(16, 513, size=8)
+rs = np.random.RandomState(2)
+prompts = [rs.randint(0, 50257, (int(n),)).tolist() for n in lens]
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+reqs, steps = cs.drive(eng, prompts, 64)
+torch.cuda.synchronize()
+wall = time.perf_counter() - t0
+rec["serve_qw"] = {
+    "build_quantize_ms": build_ms[0],
+    "tokens_per_s": sum(len(r.out) for r in reqs) / wall,
+    "decode_step_mean_ms": float(np.mean([ms for ms, pre in steps
+                                          if not pre]))}
 '''
 
 SPARSE = r'''
@@ -313,21 +438,27 @@ for loss_impl, key in (("pallas", "train_pallas"), ("auto", "train")):
 TURNS = {"paged": PAGED + "print(json.dumps(rec))\n", "serve": PAGED + SERVE,
          "kernels": KERNELS, "moe": MOE, "sparse": SPARSE, "xent": XENT,
          "flash-kernels": FLASH + "print(json.dumps(rec))\n",
-         "flash": FLASH + FLASH_TRAIN + "print(json.dumps(rec))\n"}
+         "flash": FLASH + FLASH_TRAIN + "print(json.dumps(rec))\n",
+         "codec-leaves": CODEC + "print(json.dumps(rec))\n",
+         "codec": CODEC + SERVE_QW + "print(json.dumps(rec))\n"}
+HELD = ("paged", "sparse", "flash-kernels", "codec-leaves")
 
 
 def main(argv):
-    turns = argv[3:] or [t for t in TURNS
-                         if t not in ("paged", "sparse", "flash-kernels")]
-    if len(argv) < 3 or any(t not in TURNS for t in turns):
+    trees = [a for a in argv[1:] if os.path.isdir(a)]
+    turns = [a for a in argv[1:] if a not in trees] or \
+        [t for t in TURNS if t not in HELD]
+    if len(trees) < 2 or any(t not in TURNS for t in turns):
         print(__doc__, file=sys.stderr)
         return 2
-    old, new = argv[1], argv[2]
-    for tag, tree in (("A", old), ("B", new), ("B", new), ("A", old)):
+    env = dict(os.environ, CHIP_AB_TOOL=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "chip_smoke.py"))
+    tagged = [(chr(ord("A") + i), tree) for i, tree in enumerate(trees)]
+    for tag, tree in tagged + tagged[::-1]:
         for turn in turns:
             proc = subprocess.run([sys.executable, "-c", TURNS[turn]],
                                   cwd=tree, stdout=subprocess.PIPE, text=True,
-                                  check=True)
+                                  check=True, env=env)
             rec = json.loads(proc.stdout.strip().splitlines()[-1])
             print(json.dumps({"turn": tag, "script": turn, "tree": tree,
                               **rec}), flush=True)

@@ -66,7 +66,9 @@ any failure raises and the script exits nonzero:
    the per-element bounds of
    `kernels/flash_sparse.py` `kernel_tolerances`, the worst dQ element;
    device times beside the bound, the plain versions, SDPA with the layout
-   as a boolean mask and the dense flash kernels at the same shape.  The
+   as a boolean mask (its forward, and without dropout its backward: the
+   joint library time of #8 and #9) and the dense flash kernels at the
+   same shape.  The
    mask probe (one live key per output element) holds the dropout masks
    element by element in three dtypes, at block 16 and at block 256 (Dh
    256), at block 64 (Dh 64, the wgmma dK/dV's transposed hash
@@ -97,16 +99,20 @@ any failure raises and the script exits nonzero:
    bitwise against their plain versions on the codec's edge cases (fp32
    subnormals, +-inf, NaN, an all-zero block, fp16 scale overflow and
    underflow, ties, a ragged tail), int8 and int4, fp32 and bf16 input,
-   blocks 256 and 2.
+   blocks 256, 64 and 512 (the quantize's vector route) and 2 (its
+   generic route).
 4c. moe-kernels: the MoE dispatch and combine kernels (#13, #14) against
    their plain versions (dispatch bitwise, combine within
    `moe/dispatch.py` `combine_tolerance`) at the training shape (B 4,
-   S 2048, E 64, C 32, D 768, bf16) at top-1 and top-2 and two small
-   cases; device times beside the bound, the plain version and one
+   S 2048, E 64, C 32, D 768, bf16) at top-1 and top-2, two small cases,
+   top-4, and capacity factor 0.25 (whole tokens dropped: exact zeros);
+   device times (on events, and kernel-only under torch.profiler)
+   beside the bound, the plain version and one
    PyTorch call the port never makes as a yardstick: `torch.index_select`
    for the dispatch, `F.embedding_bag` with per-sample weights for the
    combine (held to the combine's bound first); the dispatch's device
-   operations a call under torch.profiler (one kernel, no memset).
+   operations a call under torch.profiler (one kernel, no memset); the
+   device time of the combine's gate gradient (plain PyTorch).
 5. exact: GPT-2 XL width, 4 layers, fp32 — greedy serving through the
    kernel path against the port's `generate()` (plain attention).
    serve-nano-exact: GPT-2 nano (Dh 16), fp32 weights, 4 requests of 16
@@ -262,6 +268,38 @@ def time_ms(fn, iters, flush):
         b.synchronize()
         total += a.elapsed_time(b)
     return total / iters
+
+
+def profiled_flushed_ms(fn, flush, calls=20):
+    """fn's own device time per call, kernel records only: `calls` times
+    an L2 flush (`flush.bitwise_not_()`, a kernel fn never runs) then
+    fn(), under torch.profiler after one call outside the window and the
+    window's primer launches; the mean self device time of every kernel
+    but the flush's per call.  At 10-20 us a call, the CUDA events of
+    `time_ms` add their own cost; this does not."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        primed = prime_profiler()
+        for _ in range(calls):
+            flush.bitwise_not_()
+            fn()
+        torch.cuda.synchronize()
+    acts = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    primer_lost(primed, acts)
+    flushes = sum(n for name, _, n in acts if "bitwise_not" in name)
+    own = [(ms, n) for name, ms, n in acts
+           if not is_primer(name) and "bitwise_not" not in name]
+    if flushes != calls or not own:
+        raise AssertionError(f"profiled_flushed_ms: {flushes} flushes of "
+                             f"{calls}, fn's kernels {own}")
+    return sum(ms for ms, _ in own) / calls
 
 
 # -- phase 2: paged attention ---------------------------------------------------
@@ -610,7 +648,9 @@ def kernel_class(name):
     n = name.lower()
     if "paged_attention" in n or "paged_prefill" in n:   # both routes of #10
         return "paged_attention"
-    if "quantize_kernel" in n:       # kernels #11 and #12
+    # kernels #11 (quantize_kernel, quantize_vec_kernel,
+    # quantize_vec_stream_kernel) and #12 (dequantize_kernel)
+    if "quantize_kernel" in n or "quantize_vec" in n:
         return "quant_codec"
     if any(k in n for k in ("gemm", "nvjet", "cutlass", "xmma")):
         return "gemm"
@@ -1583,6 +1623,23 @@ def sparse_case(name, B, S, H, D, block, layout, dtype, causal, rate, gen,
             lambda: F.scaled_dot_product_attention(q4, k4, v4,
                                                    attn_mask=mask),
             10, flush)
+        if rate == 0.0:
+            # SDPA's backward under the same mask: one autograd.grad over a
+            # retained graph computes dQ, dK and dV together, the library
+            # time of #8 and #9 jointly
+            qg, kg, vg = (t.detach().clone().requires_grad_()
+                          for t in (q4, k4, v4))
+            og = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+            do4 = a[3].view(B, H, S, D)
+            rec["sdpa_bwd_ms"] = time_ms(
+                lambda: torch.autograd.grad(og, (qg, kg, vg), do4,
+                                            retain_graph=True), 10, flush)
+            for kname in ("flash_sparse_dq", "flash_sparse_dkv"):
+                rec["kernels"][kname]["library_ms"] = rec["sdpa_bwd_ms"]
+                rec["kernels"][kname]["library_joint"] = \
+                    "SDPA backward with the layout mask: dQ, dK and dV " \
+                    "in one call"
+            del qg, kg, vg, og
         del mask
         # the dense flash kernels at the same shape (all S x S pairs)
         fo = dict(causal=causal, scale=D ** -0.5, block_q=128, block_k=128,
@@ -2434,19 +2491,27 @@ def codec_check(x, wire, block=256, out_dtype=None):
 
 def phase_codec():
     """#11 and #12 on the edge cases, int8 and int4, fp32 and bf16 input,
-    block 256 (and 2); every mismatch count must be 0."""
+    blocks 256, 64 and 512 (the quantize's vector route) and 2 (its
+    generic route); every mismatch count must be 0."""
     import torch
+
+    from deepspeed_tpu_torch.kernels import quant_codec
 
     cases = []
     x32 = torch.from_numpy(codec_edge_cases()).cuda()
     for dtype in (torch.float32, torch.bfloat16):
         for wire in ("int8", "int4"):
-            for block in (256, 2):
+            for block in (256, 64, 512, 2):
+                x = x32.to(dtype)
+                route = quant_codec.quantize_route(x, block)
+                if route != ("generic" if block == 2 else "vector"):
+                    raise AssertionError(f"codec edge case at block {block}"
+                                         f" takes the {route} route")
                 for out_dtype in dict.fromkeys((torch.float32, dtype)):
-                    m = codec_check(x32.to(dtype), wire, block, out_dtype)
+                    m = codec_check(x, wire, block, out_dtype)
                     cases.append({"case": f"edge-{wire}-block{block}-"
                                   f"{str(dtype)[6:]}-to-{str(out_dtype)[6:]}",
-                                  **m})
+                                  "route": route, **m})
     torch.cuda.synchronize()
     bad = [c for c in cases if c["mismatches"]]
     if bad:
@@ -2467,14 +2532,17 @@ def xl_leaf_shapes(cfg):
 
 def codec_per_shape(model, flush):
     """Device times of #11 (int8) and #12 (int8 and int4, to bf16) on one
-    leaf of each of XL's matrix shapes, L2 flushed before each call,
-    beside their plain versions' and their bounds (bytes: each input read
-    once, each output written once); `count` says how many leaves of the
+    leaf of each of XL's matrix shapes, L2 flushed before each call:
+    `kernel_ms` on CUDA events around each call, as earlier runs recorded
+    it, and `kernel_device_ms` the kernel's own device time under
+    torch.profiler (`profiled_flushed_ms`), beside their plain versions'
+    and their bounds (bytes: each input read once, each output written
+    once), and the quantize's route; `count` says how many leaves of the
     shape a forward reads.  The whole tree's times are measured as spans
     in phase_serve_qw, not summed from these."""
     import torch
 
-    from deepspeed_tpu_torch.kernels import registry
+    from deepspeed_tpu_torch.kernels import quant_codec, registry
 
     params = dict(model.named_parameters())
     shapes = []
@@ -2482,7 +2550,8 @@ def codec_per_shape(model, flush):
         w = next(p for n, p in params.items() if n.endswith(name)).detach()
         n = w.numel()
         nb = -(-n // 256)
-        rec = {"leaf": name, "shape": list(shape), "count": count}
+        rec = {"leaf": name, "shape": list(shape), "count": count,
+               "quantize_route": quant_codec.quantize_route(w, 256)}
         for key, wire in (("quantize-int8", "int8"),
                           ("dequantize-int8", "int8"),
                           ("dequantize-int4", "int4")):
@@ -2498,6 +2567,8 @@ def codec_per_shape(model, flush):
                     out_dtype=torch.bfloat16, impl=impl)
                 nbytes = p.numel() + nb * 2 + n * 2
             rec[key] = {"kernel_ms": time_ms(lambda: fn("cuda"), 10, flush),
+                        "kernel_device_ms": profiled_flushed_ms(
+                            lambda: fn("cuda"), flush),
                         "plain_ms": time_ms(lambda: fn("torch"), 3, flush),
                         "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
         shapes.append(rec)
@@ -2691,8 +2762,7 @@ def phase_serve_qw(model, serve, flush):
         raise AssertionError(f"codec kernels differ from the plain versions "
                              f"on the XL leaves: {leaf_mismatch}")
     per_shape = codec_per_shape(model, flush)
-    for k in quant_codec.LAUNCHES:
-        quant_codec.LAUNCHES[k] = 0
+    quant_codec.reset_launches()
     scfg = ServeConfig(block_size=16, num_blocks=513, max_batch=8,
                        prefill_chunk=128, quantized_weights="int8")
     # #11 as the build runs it: events around the engine's quantize loop
@@ -2711,10 +2781,13 @@ def phase_serve_qw(model, serve, flush):
     finally:
         programs.quantize_params = real_quantize_params
     build_launches = dict(quant_codec.LAUNCHES)
-    if build_launches["quant_codec_quantize"] != len(leaves):
+    build_routes = dict(quant_codec.LAUNCHES_BY_ROUTE)
+    if build_launches["quant_codec_quantize"] != len(leaves) or \
+            build_routes != {"vector": len(leaves), "generic": 0}:
         raise AssertionError(f"the engine's build quantized "
-                             f"{build_launches} leaves, expected "
-                             f"{len(leaves)}")
+                             f"{build_launches} leaves by route "
+                             f"{build_routes}, expected {len(leaves)} on "
+                             f"the vector route")
     eng.generate([list(range(50000, 50016))], 2)           # warm-up
     rs = np.random.RandomState(2)
     lens = serve["prompt_lens"]
@@ -2723,8 +2796,7 @@ def phase_serve_qw(model, serve, flush):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     paged.reset_launches()
-    for k in quant_codec.LAUNCHES:
-        quant_codec.LAUNCHES[k] = 0
+    quant_codec.reset_launches()
     snap = COUNTERS.snapshot()
     ev0 = torch.cuda.Event(enable_timing=True)
     ev1 = torch.cuda.Event(enable_timing=True)
@@ -2774,6 +2846,7 @@ def phase_serve_qw(model, serve, flush):
            "decode_steps": n_decode, "forwards": fwd,
            "quantize_launches_at_build": build_launches[
                "quant_codec_quantize"],
+           "quantize_launches_at_build_by_route": build_routes,
            "dequantize_launches": launches["quant_codec_dequantize"],
            "dequantize_launches_per_forward":
                launches["quant_codec_dequantize"] / fwd,
@@ -2831,7 +2904,11 @@ def moe_case(name, B, S, E, k, factor, D, dtype, gen, flush, timed):
     from random gate logits; device times where `timed`, beside the bound
     (this draw's bytes: kept rows read, every slot or token row written)
     and, for the dispatch, one torch.index_select over x with a zero row
-    appended (a yardstick the port never calls)."""
+    appended (a yardstick the port never calls): `kernel_ms` /
+    `library_ms` on CUDA events around each call, `kernel_device_ms` /
+    `library_device_ms` their own device time under torch.profiler
+    (`profiled_flushed_ms`); and the combine's gate gradient
+    (`dsp.combine_gate_grad`) both ways."""
     import torch
 
     from deepspeed_tpu_torch.kernels import registry
@@ -2885,6 +2962,8 @@ def moe_case(name, B, S, E, k, factor, D, dtype, gen, flush, timed):
         if timed:
             fn = disp if kname == "moe_dispatch" else comb
             r["kernel_ms"] = time_ms(lambda: fn("cuda"), 20, flush)
+            r["kernel_device_ms"] = profiled_flushed_ms(lambda: fn("cuda"),
+                                                        flush)
             r["plain_ms"] = time_ms(lambda: fn("torch"), 5, flush)
         rec["kernels"][kname] = r
     if timed:
@@ -2902,6 +2981,9 @@ def moe_case(name, B, S, E, k, factor, D, dtype, gen, flush, timed):
                                  f"computes another gather")
         rec["kernels"]["moe_dispatch"]["library_ms"] = time_ms(
             lambda: torch.index_select(xz, 0, slot_tok), 20, flush)
+        rec["kernels"]["moe_dispatch"]["library_device_ms"] = \
+            profiled_flushed_ms(lambda: torch.index_select(xz, 0, slot_tok),
+                                flush)
         # #13's device operations a call: one kernel, no memset
         split = device_split(lambda: disp("cuda"))
         rec["kernels"]["moe_dispatch"]["profile"] = split
@@ -2933,6 +3015,16 @@ def moe_case(name, B, S, E, k, factor, D, dtype, gen, flush, timed):
             raise AssertionError(f"moe {name}: the embedding_bag yardstick "
                                  f"is {lb_ratio} x the combine's bound")
         rec["kernels"]["moe_combine"]["library_ms"] = time_ms(bag, 20, flush)
+        rec["kernels"]["moe_combine"]["library_device_ms"] = \
+            profiled_flushed_ms(bag, flush)
+        # the combine's gradient in the gate (plain PyTorch, no kernel of
+        # its own) on an upstream gradient of y's shape, beside #14
+        gy = torch.randn(B, S, D, device=dev, generator=gen).to(dtype)
+        rec["gate_grad"] = {
+            "ms": time_ms(lambda: dsp.combine_gate_grad(
+                out, eidx, gate, pos, keep, gy), 20, flush),
+            "device_ms": profiled_flushed_ms(lambda: dsp.combine_gate_grad(
+                out, eidx, gate, pos, keep, gy), flush)}
     emit(rec)
     return rec
 
@@ -2990,7 +3082,13 @@ def phase_moe_kernels(gen, flush):
             moe_case("exact-float32", 4, 256, 64, 1, 1.0, 768,
                      torch.float32, gen, flush, False),
             moe_case("tight-k2-float16-d100", 2, 256, 8, 2, 0.5, 100,
-                     torch.float16, gen, flush, False)]
+                     torch.float16, gen, flush, False),
+            # top-4, and capacity factor 0.25: whole tokens dropped, which
+            # the combine must write as exact zeros (their bound is 0)
+            moe_case("k4-bfloat16", 2, 256, 8, 4, 1.0, 768, bf16, gen, flush,
+                     False),
+            moe_case("dropped-k2-bfloat16", 4, 2048, 64, 2, 0.25, 768, bf16,
+                     gen, flush, False)]
 
 
 MOE_MODEL = dict(num_experts=64, moe_top_k=1, moe_layer_freq=2,
@@ -3449,9 +3547,11 @@ def sparse_entries(sparse_cases, probe, train_bert, exact):
             "max_err_over_tol": main["max_err_over_tol"],
             "ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-            # SDPA with the layout as a boolean mask for the forward; no one
-            # PyTorch call computes a sparse backward alone
+            # SDPA with the layout as a boolean mask for the forward; its
+            # backward (dQ, dK and dV in one call) jointly for #8 and #9
             "library_ms": k["library_ms"],
+            **({"library_joint": k["library_joint"]}
+               if "library_joint" in k else {}),
             "dense_flash_ms": main["dense_flash_ms"][
                 name.replace("sparse", "attention")],
             **({"kernel_route": main[route],
@@ -3619,6 +3719,12 @@ def codec_entries(codec, serve_qw):
         {"name": "quant_codec_quantize",
          "replaces": "deepspeed_tpu/kernels/quant_codec.py:64",
          "launches": leaves,
+         "launches_by_kernel_route":
+             serve_qw["quantize_launches_at_build_by_route"],
+         "kernel_routes": "vector: block % 8 == 0, block / 8 a power of "
+                          "two up to 32 or a multiple of 32, x 16-byte "
+                          "aligned (quant_codec.route_of); generic: the "
+                          "rest",
          "max_abs_err": serve_qw["leaf_max_abs_err"]["quantize_max_abs_err"],
          # device times (torch.profiler) over the tree's quantize loop,
          # the build's loop run again; the build itself as an events span
@@ -3629,7 +3735,7 @@ def codec_entries(codec, serve_qw):
          "shape": f"every matrix leaf of gpt2 xl bf16 ({leaves} leaves, "
                   f"{tree['elements']} elements), int8, block 256: the "
                   "engine's one-time build", **common,
-         "cases": [{k: c[k] for k in ("case", "mismatches",
+         "cases": [{k: c[k] for k in ("case", "route", "mismatches",
                                       "quantize_max_abs_err")}
                    for c in codec["cases"]]},
         {"name": "quant_codec_dequantize",
@@ -3663,21 +3769,28 @@ def moe_entries(moe_cases, train_moe):
             "replaces": f"deepspeed_tpu/kernels/moe_kernels.py:{line}",
             "launches": train_moe["moe_launches"][name],
             "max_abs_err": main["max_abs_err"][name],
-            "ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
+            # ms / library_ms on CUDA events around a call (as earlier
+            # runs recorded them); the *_device_ms their own kernels'
+            # device time under torch.profiler
+            "ms": k["kernel_ms"], "kernel_device_ms": k["kernel_device_ms"],
+            "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             "library_ms": k["library_ms"],
+            "library_device_ms": k["library_device_ms"],
             "library_call": ("torch.index_select" if name == "moe_dispatch"
                              else "F.embedding_bag(per_sample_weights)"),
             **({"device_ops_per_call": k["profile"]["device_ops_per_call"]}
                if "profile" in k else {}),
+            **({"gate_grad": main["gate_grad"]}
+               if name == "moe_combine" else {}),
             "shape": "B=4 S=2048 E=64 C=32 D=768 bf16 top-1",
             "cases": [{"case": c["case"],
                        "dispatch_mismatches": c["dispatch_mismatches"],
                        "combine_max_err_over_tol":
                            c["combine_max_err_over_tol"],
                        **{f: c["kernels"][name].get(f) for f in
-                          ("kernel_ms", "plain_ms", "bound_ms",
-                           "library_ms")}}
+                          ("kernel_ms", "kernel_device_ms", "plain_ms",
+                           "bound_ms", "library_ms", "library_device_ms")}}
                       for c in moe_cases]})
     return out
 

@@ -1,8 +1,8 @@
 // Sort-based MoE token movement, written for Hopper (sm_90a).
 //
 // Replaces the TPU kernels of deepspeed_tpu/kernels/moe_kernels.py:
-//   moe_dispatch  <- `_dispatch_kernel` (:52, pallas_call :90)
-//   moe_combine   <- `_combine_kernel`  (:100, pallas_call :150)
+//   moe_dispatch  <- `_dispatch_kernel` (:52, pallas_call :84)
+//   moe_combine   <- `_combine_kernel`  (:100, pallas_call :140)
 // and computes what their plain PyTorch versions compute
 // (deepspeed_tpu_torch/moe/dispatch.py `sorted_dispatch_ref`,
 // `sorted_combine_ref`) for B token groups at once (the JAX package vmaps
@@ -70,9 +70,31 @@
 // shared memory were slower at top-1 and top-2, S 2048 and 4096.  The
 // out-of-range check's printf sits in a function of its own, so that it
 // does not take registers from the copy.
-// The combine keeps its first design: one thread per vector of an output
-// row, neighbouring threads on neighbouring bytes of the row, the k
-// rounds a loop inside the thread.
+//
+// The combine is the same gather run the other way round, on the same
+// stages (`read_routing`; `copy_rows`, `load_rows` / `store_rows`).  (Its
+// first design ran one thread per 16-byte vector of an output row: two
+// 64-bit divisions a thread, and a chain of dependent loads keep ->
+// gate, eidx, pos -> the expert row -> the store that each of a row's
+// threads ran again for the same routing entries.)  Now one CTA of 256
+// threads owns CR consecutive tokens of one group:
+//   * it stages their k x CR routing entries in shared memory once, four
+//     entries a load where the rows allow: the slot row each assignment
+//     reads (-1 where it was dropped; a kept one routed past the buckets
+//     stops the kernel) and, gated, its weight rounded through T;
+//   * at k = 1 (the training path) the sum is one product, so the rows
+//     move through the dispatch's copy stage: each warp takes CR / 8
+//     tokens at once, each lane VU 16-byte vectors of each, every load
+//     issued before the first store, each element scaled by its weight
+//     in fp32 and rounded once to T;
+//   * at k > 1 each warp takes CRU tokens at once, each lane CVU vectors
+//     of each, and for r = 0 .. k-1 in order issues the round's loads
+//     before it adds w * row into fp32 accumulators with fmaf, then
+//     rounds the sums once to T;
+//   * a dropped assignment loads nothing, so a token whose every
+//     assignment dropped is written as zeros without a load; index
+//     arithmetic in 32 bits (the host checks E * C * row vectors fits),
+//     only the group's base pointers 64-bit.
 
 #include <cstdio>
 
@@ -98,9 +120,116 @@ __device__ __forceinline__ void check_slot(const char* kernel, long long i,
 }
 
 constexpr int DWARPS = THREADS / 32;
-constexpr int R = 64;    // slots a CTA owns
+constexpr int R = 64;    // slots a dispatch CTA owns
 constexpr int RU = 8;    // rows a warp moves at once (R / DWARPS: all of them)
 constexpr int VU = 3;    // 16-byte vectors a lane moves of each
+// The combine: tokens a CTA owns; at k = 1 each warp moves CR / DWARPS
+// of them at once, VU vectors a lane of each (the dispatch's copy
+// stage); at k > 1 it sums CRU of them at once, CVU vectors a lane of
+// each (chip_ab.py's moe turns over CR 16, 32 and 64 and CRU x CVU kept
+// the fastest at train-moe's shape, PERF.md)
+constexpr int CR = 32;
+constexpr int CRU = 2;
+constexpr int CVU = 3;
+
+// Round r's routing entries n in [n_begin, n_end), split over the CTA's
+// threads: take(n, kept, e, ps) for each.  VEC4 reads four entries a
+// load (n_begin and n_end multiples of 4, the rows 16-byte (eidx, pos)
+// and 4-byte (keep) aligned).
+template <bool VEC4, typename Take>
+__device__ __forceinline__ void read_routing(const int* __restrict__ er,
+                                             const int* __restrict__ pr,
+                                             const uint8_t* __restrict__ kr,
+                                             int n_begin, int n_end,
+                                             Take take) {
+  if constexpr (VEC4) {
+#pragma unroll 4
+    for (int qd = n_begin / 4 + int(threadIdx.x); qd < n_end / 4; qd += THREADS) {
+      const uint32_t kq = reinterpret_cast<const uint32_t*>(kr)[qd];
+      const int4 eq = reinterpret_cast<const int4*>(er)[qd];
+      const int4 pq = reinterpret_cast<const int4*>(pr)[qd];
+      take(4 * qd, kq & 0xFF, eq.x, pq.x);
+      take(4 * qd + 1, (kq >> 8) & 0xFF, eq.y, pq.y);
+      take(4 * qd + 2, (kq >> 16) & 0xFF, eq.z, pq.z);
+      take(4 * qd + 3, kq >> 24, eq.w, pq.w);
+    }
+  } else {
+#pragma unroll 4
+    for (int n = n_begin + int(threadIdx.x); n < n_end; n += THREADS)
+      take(n, kr[n] != 0, er[n], pr[n]);
+  }
+}
+
+// The row copy: RU rows' vectors v0, v0 + 32, ..., v0 + 32 (NV - 1) from
+// base (row src[u]), all RU x NV loads issued before any is used; a row
+// whose src is negative, and a vector past vpr, is zeros without a load.
+template <int RU_, int NV, typename V>
+__device__ __forceinline__ void load_rows(V (&val)[RU_][NV],
+                                          const V* __restrict__ base,
+                                          const int (&src)[RU_], int v0,
+                                          int vpr) {
+#pragma unroll
+  for (int u = 0; u < RU_; ++u)
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int v = v0 + 32 * j;
+      val[u][j] = src[u] >= 0 && v < vpr ? base[src[u] * vpr + v] : V{};
+    }
+}
+
+// ... and their store to rows r0 + u * DWARPS (those below nrows) of out
+template <int RU_, int NV, typename V>
+__device__ __forceinline__ void store_rows(V* __restrict__ out,
+                                           const V (&val)[RU_][NV], int r0,
+                                           int nrows, int v0, int vpr) {
+#pragma unroll
+  for (int u = 0; u < RU_; ++u) {
+    const int row = r0 + u * DWARPS;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int v = v0 + 32 * j;
+      if (row < nrows && v < vpr) out[row * vpr + v] = val[u][j];
+    }
+  }
+}
+
+// The copy stage: each warp moves RU_ of the CTA's nrows rows at once
+// (rows r0 + u * DWARPS), each lane NV vectors of each: row `row` of out
+// is row s_src[row] of in (zeros where it is negative, without a load),
+// scaled by T(s_w[row]) where GATED, every element rounded once to T.
+template <typename T, int RU_, int NV, bool GATED, typename V>
+__device__ __forceinline__ void copy_rows(V* __restrict__ out,
+                                          const V* __restrict__ in,
+                                          const int* s_src, const float* s_w,
+                                          int nrows, int vpr) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r0 = warp; r0 < nrows; r0 += DWARPS * RU_) {
+    int src[RU_];
+    float w[RU_];
+#pragma unroll
+    for (int u = 0; u < RU_; ++u) {
+      const int row = r0 + u * DWARPS;
+      src[u] = row < nrows ? s_src[row] : -1;
+      w[u] = GATED && src[u] >= 0 ? s_w[row] : 1.f;
+    }
+    for (int v0 = lane; v0 < vpr; v0 += 32 * NV) {
+      V val[RU_][NV];
+      load_rows(val, in, src, v0, vpr);
+      if constexpr (GATED) {
+#pragma unroll
+        for (int u = 0; u < RU_; ++u)
+#pragma unroll
+          for (int j = 0; j < NV; ++j) {
+            T* el = reinterpret_cast<T*>(&val[u][j]);
+#pragma unroll
+            for (int q = 0; q < int(sizeof(V) / sizeof(T)); ++q)
+              el[q] = from_f<T>(to_f(el[q]) * w[u]);
+          }
+      }
+      store_rows(out, val, r0, nrows, v0, vpr);
+    }
+  }
+}
 
 // V: the vector type one lane moves; T: the element type (for weights);
 // GATED: rows scaled by T(gate) (the combine's gradient; the forward's
@@ -114,121 +243,125 @@ dispatch_kernel(const V* __restrict__ x, const int* __restrict__ eidx,
                 int vpr, V* __restrict__ out) {
   __shared__ int s_tok[R];      // the token whose row fills the slot, or -1
   __shared__ float s_w[R];      // its weight T(gate), gated calls only
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const int b = blockIdx.y, EC = E * C, s0 = blockIdx.x * R;
   const int nrows = min(R, EC - s0);
   for (int i = tid; i < R; i += THREADS) s_tok[i] = -1;
   __syncthreads();
 
-  // the inverse of this CTA's slots, from the group's routing
+  // the inverse of this CTA's slots, from the group's routing (two quads
+  // a thread at the training shape)
   const size_t g0 = size_t(b) * k * N;
-  auto take = [&](int r, int n, bool kept, int e, int ps) {
-    if (!kept) return;
-    check_slot("moe_dispatch", (long long)g0 + (long long)r * N + n, e, ps, E, C);
-    const int rel = e * C + ps - s0;
-    if (rel >= 0 && rel < nrows) {
-      s_tok[rel] = n;
-      if constexpr (GATED)
-        s_w[rel] = to_f(from_f<T>(gate[g0 + size_t(r) * N + n]));
-    }
-  };
   for (int r = 0; r < k; ++r) {
-    const int* er = eidx + g0 + size_t(r) * N;
-    const int* pr = pos + g0 + size_t(r) * N;
-    const uint8_t* kr = keep + g0 + size_t(r) * N;
-    if constexpr (VEC4) {
-      // four entries a load of each (two quads a thread at the training
-      // shape)
-#pragma unroll 4
-      for (int qd = tid; qd < N / 4; qd += THREADS) {
-        const uint32_t kq = reinterpret_cast<const uint32_t*>(kr)[qd];
-        const int4 eq = reinterpret_cast<const int4*>(er)[qd];
-        const int4 pq = reinterpret_cast<const int4*>(pr)[qd];
-        take(r, 4 * qd, kq & 0xFF, eq.x, pq.x);
-        take(r, 4 * qd + 1, (kq >> 8) & 0xFF, eq.y, pq.y);
-        take(r, 4 * qd + 2, (kq >> 16) & 0xFF, eq.z, pq.z);
-        take(r, 4 * qd + 3, kq >> 24, eq.w, pq.w);
+    const size_t gr = g0 + size_t(r) * N;
+    read_routing<VEC4>(eidx + gr, pos + gr, keep + gr, 0, N,
+                       [&](int n, bool kept, int e, int ps) {
+      if (!kept) return;
+      check_slot("moe_dispatch", (long long)gr + n, e, ps, E, C);
+      const int rel = e * C + ps - s0;
+      if (rel >= 0 && rel < nrows) {
+        s_tok[rel] = n;
+        if constexpr (GATED) s_w[rel] = to_f(from_f<T>(gate[gr + n]));
       }
-    } else {
-#pragma unroll 4
-      for (int n = tid; n < N; n += THREADS) take(r, n, kr[n] != 0, er[n], pr[n]);
-    }
+    });
   }
   __syncthreads();
 
-  const V* xb = x + size_t(b) * N * vpr;
-  V* ob = out + (size_t(b) * EC + s0) * vpr;
-  for (int r0 = warp; r0 < nrows; r0 += DWARPS * RU) {
-    int tok[RU];
-    float w[RU];
+  // an empty slot's row is zeros, without a load
+  copy_rows<T, RU, VU, GATED>(out + (size_t(b) * EC + s0) * vpr,
+                              x + size_t(b) * N * vpr, s_tok, s_w, nrows,
+                              vpr);
+}
+
+// y[b, n] = sum over r of w[r, n] * eo[b, slot of (r, n)], in fp32, rounds
+// in order.  One CTA: tokens [CR c, CR c + CR) of group blockIdx.y; its
+// routing (k x CR entries) staged once in dynamic shared memory: the slot
+// row each assignment reads (-1 dropped) and, GATED, its weight T(gate).
+// K1 (k = 1): the sum is one product, T(w * row), so the rows move
+// through the dispatch's copy stage.
+template <typename T, typename V, bool GATED, bool VEC4, bool K1>
+__global__ void __launch_bounds__(THREADS)
+combine_kernel(const V* __restrict__ eo, const int* __restrict__ eidx,
+               const float* __restrict__ gate, const int* __restrict__ pos,
+               const uint8_t* __restrict__ keep, int N, int k, int E, int C,
+               int vpr, V* __restrict__ y) {
+  constexpr int EPV = sizeof(V) / sizeof(T);  // elements per vector
+  extern __shared__ int s_route[];
+  int* s_src = s_route;                                   // [k][CR]
+  float* s_w = reinterpret_cast<float*>(s_route + k * CR);  // [k][CR]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.y, n0 = blockIdx.x * CR;
+  const int nrows = min(CR, N - n0);
+
+  const size_t g0 = size_t(b) * k * N;
+  for (int r = 0; r < k; ++r) {
+    const size_t gr = g0 + size_t(r) * N;
+    read_routing<VEC4>(eidx + gr, pos + gr, keep + gr, n0, n0 + nrows,
+                       [&](int n, bool kept, int e, int ps) {
+      if (kept) check_slot("moe_combine", (long long)gr + n, e, ps, E, C);
+      s_src[r * CR + n - n0] = kept ? e * C + ps : -1;
+      if constexpr (GATED)
+        s_w[r * CR + n - n0] = kept ? to_f(from_f<T>(gate[gr + n])) : 0.f;
+    });
+  }
+  __syncthreads();
+
+  const V* eb = eo + size_t(b) * E * C * vpr;
+  V* yb = y + (size_t(b) * N + n0) * vpr;
+  if constexpr (K1) {
+    copy_rows<T, CR / DWARPS, VU, GATED>(yb, eb, s_src, s_w, nrows, vpr);
+  } else {
+    for (int r0 = warp; r0 < nrows; r0 += DWARPS * CRU) {
+      for (int v0 = lane; v0 < vpr; v0 += 32 * CVU) {
+        float acc[CRU][CVU][EPV];
 #pragma unroll
-    for (int u = 0; u < RU; ++u) {
-      const int row = r0 + u * DWARPS;
-      tok[u] = row < nrows ? s_tok[row] : -1;
-      w[u] = GATED && tok[u] >= 0 ? s_w[row] : 1.f;
-    }
-    for (int v0 = lane; v0 < vpr; v0 += 32 * VU) {
-      // RU x VU loads a lane, all issued before the first store; an empty
-      // slot's row is zeros, without a load
-      V val[RU][VU];
+        for (int u = 0; u < CRU; ++u)
 #pragma unroll
-      for (int u = 0; u < RU; ++u)
+          for (int j = 0; j < CVU; ++j)
 #pragma unroll
-        for (int j = 0; j < VU; ++j) {
-          const int v = v0 + 32 * j;
-          val[u][j] = tok[u] >= 0 && v < vpr ? xb[tok[u] * vpr + v] : V{};
-        }
+            for (int e = 0; e < EPV; ++e) acc[u][j][e] = 0.f;
+        for (int r = 0; r < k; ++r) {
+          int src[CRU];
+          float w[CRU];
 #pragma unroll
-      for (int u = 0; u < RU; ++u) {
-        const int row = r0 + u * DWARPS;
-#pragma unroll
-        for (int j = 0; j < VU; ++j) {
-          const int v = v0 + 32 * j;
-          if (row >= nrows || v >= vpr) continue;
-          if (GATED && tok[u] >= 0) {
-            T* el = reinterpret_cast<T*>(&val[u][j]);
-#pragma unroll
-            for (int q = 0; q < int(sizeof(V) / sizeof(T)); ++q)
-              el[q] = from_f<T>(to_f(el[q]) * w[u]);
+          for (int u = 0; u < CRU; ++u) {
+            const int row = r0 + u * DWARPS;
+            src[u] = row < nrows ? s_src[r * CR + row] : -1;
+            w[u] = GATED && row < nrows ? s_w[r * CR + row] : 1.f;
           }
-          ob[row * vpr + v] = val[u][j];
+          // a dropped assignment adds nothing and loads nothing
+          V val[CRU][CVU];
+          load_rows(val, eb, src, v0, vpr);
+#pragma unroll
+          for (int u = 0; u < CRU; ++u)
+#pragma unroll
+            for (int j = 0; j < CVU; ++j) {
+              const T* el = reinterpret_cast<const T*>(&val[u][j]);
+#pragma unroll
+              for (int e = 0; e < EPV; ++e)
+                acc[u][j][e] = fmaf(to_f(el[e]), w[u], acc[u][j][e]);
+            }
         }
+        V out[CRU][CVU];
+#pragma unroll
+        for (int u = 0; u < CRU; ++u)
+#pragma unroll
+          for (int j = 0; j < CVU; ++j) {
+            T* o = reinterpret_cast<T*>(&out[u][j]);
+#pragma unroll
+            for (int e = 0; e < EPV; ++e) o[e] = from_f<T>(acc[u][j][e]);
+          }
+        store_rows(yb, out, r0, nrows, v0, vpr);
       }
     }
   }
 }
 
-template <typename T, typename V>
-__global__ void __launch_bounds__(THREADS)
-combine_kernel(const V* __restrict__ eo, const int* __restrict__ eidx,
-               const float* __restrict__ gate, const int* __restrict__ pos,
-               const uint8_t* __restrict__ keep, int B, int N, int k, int EC,
-               int C, int vpr, V* __restrict__ y) {
-  constexpr int EPV = sizeof(V) / sizeof(T);  // elements per vector
-  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (i >= (long long)B * N * vpr) return;
-  const long long row = i / vpr;          // b * N + n
-  const int v = int(i - row * vpr);
-  const long long b = row / N;
-  const int n = int(row - b * N);
-  float acc[EPV];
-#pragma unroll
-  for (int j = 0; j < EPV; ++j) acc[j] = 0.f;
-  for (int r = 0; r < k; ++r) {
-    const long long ga = (b * k + r) * N + n;
-    if (!keep[ga]) continue;               // the plain version's zero term
-    const float w = gate ? to_f(from_f<T>(gate[ga])) : 1.f;
-    check_slot("moe_combine", ga, eidx[ga], pos[ga], EC / C, C);
-    V val = eo[(b * EC + eidx[ga] * C + pos[ga]) * vpr + v];
-    const T* e = reinterpret_cast<const T*>(&val);
-#pragma unroll
-    for (int j = 0; j < EPV; ++j) acc[j] = fmaf(to_f(e[j]), w, acc[j]);
-  }
-  V out;
-  T* o = reinterpret_cast<T*>(&out);
-#pragma unroll
-  for (int j = 0; j < EPV; ++j) o[j] = from_f<T>(acc[j]);
-  y[i] = out;
+// the routing read four entries a load where its rows allow
+bool routing_vec4(int N, const int* eidx, const int* pos, const uint8_t* keep) {
+  return N % 4 == 0 && reinterpret_cast<uintptr_t>(eidx) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(pos) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(keep) % 4 == 0;
 }
 
 template <typename T>
@@ -241,10 +374,7 @@ cudaError_t run_dispatch(const void* x, const int* eidx, const int* pos,
   // grid.y holds the groups
   if ((long long)N * vpr > 2147483647LL || B > 65535) return cudaErrorInvalidValue;
   const dim3 grid((E * C + R - 1) / R, B);
-  // the routing read four entries a load where its rows allow
-  const bool vec4 = N % 4 == 0 && reinterpret_cast<uintptr_t>(eidx) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(pos) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(keep) % 4 == 0;
+  const bool vec4 = routing_vec4(N, eidx, pos, keep);
 #define LAUNCH(V, G, Q)                                                      \
   dispatch_kernel<T, V, G, Q><<<grid, THREADS, 0, st>>>(                     \
       static_cast<const V*>(x), eidx, pos, keep, gate, N, k, E, C, vpr,      \
@@ -271,16 +401,28 @@ cudaError_t run_dispatch(const void* x, const int* eidx, const int* pos,
 template <typename T>
 cudaError_t run_combine(const void* eo, const int* eidx, const float* gate,
                         const int* pos, const uint8_t* keep, int B, int N,
-                        int k, int EC, int C, int D, int vec_bytes, void* y,
+                        int k, int E, int C, int D, int vec_bytes, void* y,
                         cudaStream_t st) {
   const int vpr = D * int(sizeof(T)) / vec_bytes;
-  const long long total = (long long)B * N * vpr;
-  const long long grid = (total + THREADS - 1) / THREADS;
-  if (grid > 2147483647LL) return cudaErrorInvalidValue;
-#define COMBINE(V)                                                          \
-  combine_kernel<T, V><<<unsigned(grid), THREADS, 0, st>>>(                 \
-      static_cast<const V*>(eo), eidx, gate, pos, keep, B, N, k, EC, C, vpr, \
+  // 32-bit offsets inside a group's slot rows; the CTA's routing in at
+  // most 48 KB of shared memory
+  const size_t smem = size_t(k) * CR * (sizeof(int) + sizeof(float));
+  if ((long long)E * C * vpr > 2147483647LL || B > 65535 || smem > 48 * 1024)
+    return cudaErrorInvalidValue;
+  const dim3 grid((N + CR - 1) / CR, B);
+  const bool vec4 = routing_vec4(N, eidx, pos, keep);
+#define LAUNCH(V, G, Q, K1)                                                  \
+  combine_kernel<T, V, G, Q, K1><<<grid, THREADS, smem, st>>>(               \
+      static_cast<const V*>(eo), eidx, gate, pos, keep, N, k, E, C, vpr,     \
       static_cast<V*>(y))
+#define ROUNDS(V, G, Q)                                                      \
+  if (k == 1) LAUNCH(V, G, Q, true); else LAUNCH(V, G, Q, false);
+#define COMBINE(V)                                                           \
+  if (gate != nullptr) {                                                     \
+    if (vec4) { ROUNDS(V, true, true) } else { ROUNDS(V, true, false) }      \
+  } else {                                                                   \
+    if (vec4) { ROUNDS(V, false, true) } else { ROUNDS(V, false, false) }    \
+  }
   switch (vec_bytes) {
     case 16: COMBINE(uint4); break;
     case 8: COMBINE(uint2); break;
@@ -290,6 +432,8 @@ cudaError_t run_combine(const void* eo, const int* eidx, const float* gate,
       COMBINE(T);
   }
 #undef COMBINE
+#undef ROUNDS
+#undef LAUNCH
   return cudaGetLastError();
 }
 
@@ -338,9 +482,9 @@ int moe_combine(const void* eo, const void* eidx, const void* gate,
   const float* g = static_cast<const float*>(gate);
   const uint8_t* kp = static_cast<const uint8_t*>(keep);
   switch (dtype) {
-    case 0: return run_combine<float>(eo, ei, g, ps, kp, B, N, k, E * C, C, D, vec_bytes, y, st);
-    case 1: return run_combine<__nv_bfloat16>(eo, ei, g, ps, kp, B, N, k, E * C, C, D, vec_bytes, y, st);
-    case 2: return run_combine<__half>(eo, ei, g, ps, kp, B, N, k, E * C, C, D, vec_bytes, y, st);
+    case 0: return run_combine<float>(eo, ei, g, ps, kp, B, N, k, E, C, D, vec_bytes, y, st);
+    case 1: return run_combine<__nv_bfloat16>(eo, ei, g, ps, kp, B, N, k, E, C, D, vec_bytes, y, st);
+    case 2: return run_combine<__half>(eo, ei, g, ps, kp, B, N, k, E, C, D, vec_bytes, y, st);
     default: return cudaErrorInvalidValue;
   }
 }

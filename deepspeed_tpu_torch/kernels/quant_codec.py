@@ -13,6 +13,13 @@ tensor and write the (payload, scales) pair at their final shapes.  A
 wrapper checks device, dtype and contiguity, launches its kernel on
 PyTorch's current stream, raises on a launch error and counts the launch
 in `LAUNCHES`; it never falls back to the plain version.
+
+The quantize kernel has two routes, chosen from the block size, the
+dtype and the input's alignment alone (`route_of`; `quantize_route(x,
+block)` names the one a call takes): "vector" (each lane holds 16-byte
+vectors of 8 elements in registers, one read of the input) and
+"generic" (a warp per block, two elements a lane at a time, the block
+read twice).
 """
 
 from __future__ import annotations
@@ -28,13 +35,21 @@ from ..runtime.comm.quant import qmax, validate_block_size
 # of use)
 LAUNCHES: Dict[str, int] = {"quant_codec_quantize": 0,
                             "quant_codec_dequantize": 0}
+# the quantize kernel's launches by route
+LAUNCHES_BY_ROUTE: Dict[str, int] = {"vector": 0, "generic": 0}
+
+
+def reset_launches():
+    for counts in (LAUNCHES, LAUNCHES_BY_ROUTE):
+        for key in counts:
+            counts[key] = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _PAYLOAD_DTYPES = {"int8": torch.int8, "int4": torch.uint8}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
-    # x, n, block, q, payload, scales, dtype, stream
-    "quant_codec_quantize": [_P, _L, _I, _I, _P, _P, _I, _P],
+    # x, n, block, q, payload, scales, vec, dtype, stream
+    "quant_codec_quantize": [_P, _L, _I, _I, _P, _P, _I, _I, _P],
     # payload, scales, block, q, nb, n, rows, out, vec, dtype, stream
     "quant_codec_dequantize": [_P, _P, _I, _I, _L, _L, _I, _P, _I, _I, _P]}
 
@@ -74,24 +89,52 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def quantize_blockwise_cuda(x, block: int, wire: str = "int8"):
-    """-> (payload int8 [nb, block] | uint8 [nb, block // 2], fp16 [nb])."""
-    q = qmax(wire)
-    block = validate_block_size(block)
+def route_of(block: int, dtype, address: int) -> str:
+    """The quantize kernel's route for a block size, an input dtype and
+    the input's address: "vector" where block % 8 == 0, block / 8 (the
+    16-byte vectors of 8 elements a block holds) is a power of two up to
+    32 or a multiple of 32, and the address is 16-byte aligned;
+    "generic" otherwise."""
+    _check(dtype in _DTYPE_CODES,
+           lambda: f"x dtype {dtype}; want one of "
+           f"{sorted(map(str, _DTYPE_CODES))}")
+    vecs = block // 8
+    whole = (vecs <= 32 and (vecs & (vecs - 1)) == 0) or vecs % 32 == 0
+    vector = block % 8 == 0 and whole and address % 16 == 0
+    return "vector" if vector else "generic"
+
+
+def _quantize_checks(x, block):
     _check(x.is_cuda, lambda: f"x is on {x.device}, not a CUDA device")
     _check(x.dtype in _DTYPE_CODES,
            lambda: f"x dtype {x.dtype}; want one of "
            f"{sorted(map(str, _DTYPE_CODES))}")
     _check(x.is_contiguous(), lambda: "x must be contiguous")
+    return validate_block_size(block)
+
+
+def quantize_route(x, block: int) -> str:
+    """The route `quantize_blockwise_cuda(x, block, ...)` takes: "vector"
+    or "generic" (`route_of`)."""
+    block = _quantize_checks(x, block)
+    return route_of(block, x.dtype, x.data_ptr())
+
+
+def quantize_blockwise_cuda(x, block: int, wire: str = "int8"):
+    """-> (payload int8 [nb, block] | uint8 [nb, block // 2], fp16 [nb])."""
+    q = qmax(wire)
+    block = _quantize_checks(x, block)
     n = x.numel()
     _check(n > 0, lambda: "x is empty")
     nb = -(-n // block)
     payload = torch.empty((nb, block if q == 127 else block // 2),
                           dtype=_PAYLOAD_DTYPES[wire], device=x.device)
     scales = torch.empty((nb,), dtype=torch.float16, device=x.device)
+    route = route_of(block, x.dtype, x.data_ptr())
     _launch("quant_codec_quantize", x.data_ptr(), n, block, q,
-            payload.data_ptr(), scales.data_ptr(), _DTYPE_CODES[x.dtype],
-            _stream(x))
+            payload.data_ptr(), scales.data_ptr(), int(route == "vector"),
+            _DTYPE_CODES[x.dtype], _stream(x))
+    LAUNCHES_BY_ROUTE[route] += 1
     return payload, scales
 
 

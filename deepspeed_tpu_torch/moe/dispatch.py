@@ -379,13 +379,19 @@ class _CombineFn(torch.autograd.Function):
             d_out = registry.dispatch("moe_dispatch", gy, eidx, pos, keep, E,
                                       C, gate=gate)
         if ctx.needs_input_grad[2]:
-            # d w[r, n] = gy[n] . out[slot of (r, n)], in the output dtype
-            # (the cotangent of the JAX `astype`), times keep
-            acc = torch.promote_types(expert_out.dtype, torch.float32)
-            dw = (_picked(expert_out, eidx, pos, keep).to(acc) *
-                  gy[:, None].to(acc)).sum(-1)
-            d_gate = dw.to(expert_out.dtype).to(gate.dtype) * keep
+            d_gate = combine_gate_grad(expert_out, eidx, gate, pos, keep, gy)
         return d_out, None, d_gate, None, None
+
+
+def combine_gate_grad(expert_out, eidx, gate, pos, keep, gy):
+    """The combine's gradient in `gate` [B, k, N]: d w[r, n] = gy[n] .
+    out[slot of (r, n)], in the output dtype (the cotangent of the JAX
+    `astype`), times keep.  Plain PyTorch: a gather, an fp32 product and a
+    sum (no Pallas kernel computes it)."""
+    acc = torch.promote_types(expert_out.dtype, torch.float32)
+    dw = (_picked(expert_out, eidx, pos, keep).to(acc) *
+          gy[:, None].to(acc)).sum(-1)
+    return dw.to(expert_out.dtype).to(gate.dtype) * keep
 
 
 def sorted_dispatch(x, eidx, pos, keep, num_experts: int, capacity: int):

@@ -573,6 +573,9 @@ CUDA_CASES = {
     "train-shape-k2": (4, 2048, 64, 2, 1.0, 768),
     "tight-k2-d100": (2, 256, 8, 2, 0.5, 100),
     "odd-d33": (2, 64, 4, 2, 2.0, 33),
+    "k4": (2, 256, 8, 4, 1.0, 768),
+    # capacity factor 0.25: whole tokens dropped
+    "dropped-k2": (4, 2048, 64, 2, 0.25, 768),
 }
 
 
@@ -604,6 +607,11 @@ def test_cuda_kernels_match_plain_versions(cuda_device, case, dtype):
                                impl="torch")
         tol = tdsp.combine_tolerance(out, eidx, g, pos, keep)
         assert bool(((ck.float() - cp.float()).abs() <= tol).all())
+        # a token whose every assignment was dropped comes back exact zeros
+        dropped = ~keep.any(1)
+        assert torch.equal(ck[dropped], torch.zeros_like(ck[dropped]))
+    if case == "dropped-k2":
+        assert bool(dropped.any())
     # the weighted dispatch (the combine's gradient)
     wk = registry.dispatch("moe_dispatch", *args, gate=gate, impl="cuda")
     wp = registry.dispatch("moe_dispatch", *args, gate=gate, impl="torch")
@@ -611,6 +619,24 @@ def test_cuda_kernels_match_plain_versions(cuda_device, case, dtype):
     torch.cuda.synchronize()
     assert moe_kernels.LAUNCHES == {"moe_dispatch": n0["moe_dispatch"] + 2,
                                     "moe_combine": n0["moe_combine"] + 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2])
+def test_cuda_combine_is_bitwise_repeatable(cuda_device, k):
+    """#14 50 times on train-moe's shape (bf16): the same bits every time
+    (its fp32 sums run over the rounds in order, in one thread)."""
+    B, S, E, D = 4, 2048, 64, 768
+    C = S * k // E
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    eidx, gate, pos, keep, _ = tdsp.topk_routing(torch.softmax(
+        torch.randn(B, S, E, generator=gen, device=cuda_device), -1), k, C)
+    out = torch.randn(B, E, C, D, generator=gen,
+                      device=cuda_device).to(torch.bfloat16)
+    y0 = moe_kernels.sorted_combine_cuda(out, eidx, gate, pos, keep)
+    for _ in range(50):
+        y = moe_kernels.sorted_combine_cuda(out, eidx, gate, pos, keep)
+        assert torch.equal(y.view(torch.int16), y0.view(torch.int16))
 
 
 @pytest.mark.cuda

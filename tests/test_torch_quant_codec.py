@@ -15,8 +15,10 @@ below qmax·2^-24 (its scale underflows: zeros), exact .5 ties (round half
 to even) and a ragged tail block.
 
 The kernels run only on a card: the `cuda`-marked tests at the end hold
-them bitwise against the plain versions there (`python -m pytest
---noconftest -m cuda tests/test_torch_quant_codec.py`)."""
+them bitwise against the plain versions there, on both of the quantize
+kernel's routes (`python -m pytest --noconftest -m cuda
+tests/test_torch_quant_codec.py`); the route rule itself is tested here.
+"""
 
 import numpy as np
 import pytest
@@ -146,6 +148,32 @@ def test_cpu_tensors_take_the_plain_versions():
                           impl="cuda")
     with pytest.raises(ValueError, match="not a CUDA device"):
         quant_codec.quantize_blockwise_cuda(x, 256, "int8")
+    with pytest.raises(ValueError, match="not a CUDA device"):
+        quant_codec.quantize_route(x, 256)
+
+
+# blocks the card tests run, with the quantize route each takes on a
+# 16-byte-aligned input: "vector" where block / 8 is a power of two up to
+# 32 or a multiple of 32 (768 and 4096 take its two-pass kernel)
+ROUTE_BLOCKS = {2: "generic", 8: "vector", 16: "vector", 64: "vector",
+                100: "generic", 256: "vector", 512: "vector",
+                768: "vector", 2048: "vector", 4096: "vector"}
+
+
+@pytest.mark.parametrize("block", sorted(ROUTE_BLOCKS))
+def test_quantize_route_is_a_function_of_block_dtype_and_alignment(block):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        assert quant_codec.route_of(block, dtype, 4096) == \
+            ROUTE_BLOCKS[block]
+        # an input that starts off a 16-byte boundary (a view offset by
+        # an element) takes the generic route at every block
+        assert quant_codec.route_of(block, dtype, 4096 + 2) == "generic"
+        assert quant_codec.route_of(block, dtype, 4096 + 8) == "generic"
+    # block / 8 neither a power of two up to 32 nor a multiple of 32
+    assert quant_codec.route_of(block * 3, torch.float32, 0) == (
+        "vector" if block * 3 % 256 == 0 else "generic")
+    with pytest.raises(ValueError, match="dtype"):
+        quant_codec.route_of(block, torch.int8, 0)
 
 
 # -- the kernels on the card --------------------------------------------------
@@ -176,18 +204,26 @@ def same_bits(a, b):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("block", [2, 256, 100])
+@pytest.mark.parametrize("block", sorted(ROUTE_BLOCKS))
 @pytest.mark.parametrize("wire", ["int8", "int4"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 def test_cuda_kernels_are_bitwise_with_the_plain_versions(cuda_device, dtype,
                                                           wire, block):
-    x = torch.from_numpy(edge_cases(4000)).to(dtype)
-    xs = [x, torch.randn(3, 257, 129, generator=torch.Generator()
-                         .manual_seed(1)).to(dtype)]
-    for t in xs:
-        t = t.to(cuda_device)
+    """Every route: the edge cases (4000 elements: a ragged last block at
+    blocks 64, 256, 512, 768, 2048 and 4096), 3 x 257 x 129 random
+    elements (no multiple of the block, nor of 8), and the edge cases as
+    a view offset by one element (the generic route)."""
+    g = torch.Generator().manual_seed(1)
+    buf = torch.from_numpy(edge_cases(4097)).to(dtype).to(cuda_device)
+    xs = [(buf[:4000], ROUTE_BLOCKS[block]),
+          (torch.randn(3, 257, 129, generator=g).to(dtype).to(cuda_device),
+           ROUTE_BLOCKS[block]),
+          (buf[1:], "generic")]
+    for t, route in xs:
+        assert quant_codec.quantize_route(t, block) == route
         n0 = dict(quant_codec.LAUNCHES)
+        r0 = dict(quant_codec.LAUNCHES_BY_ROUTE)
         pk, sk = registry.dispatch("quant_codec_quantize", t, block, wire,
                                    impl="cuda")
         pp, sp = registry.dispatch("quant_codec_quantize", t, block, wire,
@@ -209,3 +245,21 @@ def test_cuda_kernels_are_bitwise_with_the_plain_versions(cuda_device, dtype,
         torch.cuda.synchronize()
         assert quant_codec.LAUNCHES["quant_codec_quantize"] == \
             n0["quant_codec_quantize"] + 1
+        assert quant_codec.LAUNCHES_BY_ROUTE[route] == r0[route] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [256, 64, 2048])
+@pytest.mark.parametrize("wire", ["int8", "int4"])
+def test_cuda_vector_quantize_is_bitwise_repeatable(cuda_device, wire,
+                                                    block):
+    """The vector route 50 times on the same bf16 input (2^20 + 100
+    elements, a ragged tail): the same payload and scales every time."""
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.randn((1 << 20) + 100, generator=g, device=cuda_device).to(
+        torch.bfloat16) * 30
+    assert quant_codec.quantize_route(x, block) == "vector"
+    p0, s0 = quant_codec.quantize_blockwise_cuda(x, block, wire)
+    for _ in range(50):
+        p, s = quant_codec.quantize_blockwise_cuda(x, block, wire)
+        assert torch.equal(p, p0) and same_bits(s, s0)
