@@ -169,6 +169,16 @@ any failure raises and the script exits nonzero:
    bf16, the fused CE, sorted dispatch: #13 and #14 launched twice a step
    per MoE layer (forward, and each other's gradient in the backward),
    tokens/s, step, peak memory, dropped share, then its profile.
+   train-resume (between train-pallas and train-moe): train-pallas's
+   model trained from `initialize(training_data=...)` (24 stride-stream
+   sequences, 3 shuffled batches an epoch) by `train_batch()` with no
+   iterator; a sync save after step 4, an async save after step 6, 2 more
+   steps; a fresh engine loads the first tag (input pipeline off) and
+   runs 4 steps, another loads `latest` and runs 2: losses, the batches'
+   bytes and the fp32 masters bitwise equal to the run that never
+   stopped, each run's flash and fused-CE launches counted from zero
+   (12 and 1 a step); tag bytes, save stalls, load ms, the host's input
+   wait and step ms with the pipeline on and off.
 10b. bert-sparse-exact: BERT-large width (d1024, 16 heads), 2 layers,
    seq 1024, fixed layout block 128, fp32, TF32 off: 5 engine steps with
    dropout 0.1 through #7-#9 against the same steps with their plain
@@ -779,8 +789,10 @@ def profile_replay(eng, prompts, n_new, chunks, n_decode, span_ms, window):
     launches0 = paged.LAUNCHES
     snap = COUNTERS.snapshot()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # device activity only: the readings are device times by kernel, and
+    # the host-side operator events of a 48-layer serving run cost minutes
+    # of the profiler's post-processing
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         primed = prime_profiler()
         t0 = time.perf_counter()
         drive(eng, prompts, n_new)
@@ -2332,6 +2344,205 @@ def phase_train(warmup=3, steps=10, loss_impl="auto"):
     return rec, eng, data
 
 
+def resume_dataset(n=24, seq=1024, vocab=64, seed=11):
+    """n sequences of the stride stream as (x, y) samples: with micro 8,
+    three batches an epoch, so 8 steps of the engine-owned loader run
+    through three epochs, each shuffled anew."""
+    return [(x[i], y[i]) for x, y in stride_batches(n // 8, 8, seq, vocab,
+                                                     seed)
+            for i in range(8)]
+
+
+def phase_train_resume(size="small", device="cuda"):
+    """Resumable training on the full-width path: GPT-2 small, seq 1024,
+    micro 8, bf16, fused CE, trained from `initialize(training_data=...)`
+    with `train_batch()` and no iterator.  The uninterrupted run takes 4
+    steps, a sync save (tag A), 2 steps, an async save (tag B) and 2 more
+    steps; a fresh engine (input pipeline off) loads A and runs 4 steps,
+    another (pipeline on) loads `latest` (B) and runs 2.  Their losses,
+    batches (bytes the model received) and final fp32 masters must equal
+    the uninterrupted run's steps 5-8 and 7-8 bitwise, and each run
+    launches flash #1-#3 12 times a step and fused CE #4-#6 once a step,
+    with no plain version on the path.  (`size` and `device` let a CPU
+    rehearsal run the same control flow on GPT-2 nano, unchecked
+    launches.)"""
+    import hashlib
+    import shutil
+    import tempfile
+
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.kernels import flash, fused_xent
+    from deepspeed_tpu_torch.models import GPT, gpt2_config
+    from deepspeed_tpu_torch.monitor.counters import COUNTERS
+    from deepspeed_tpu_torch.runtime import checkpointing as ckpt_io
+
+    micro, seq = 8, 1024
+    cfg = gpt2_config(size, loss_impl="pallas", max_seq_len=seq)
+    data = resume_dataset(seq=seq)
+    on_card = device == "cuda"
+
+    def digest(batch):
+        return hashlib.sha256(b"".join(
+            (t.cpu().numpy() if torch.is_tensor(t) else np.asarray(t))
+            .tobytes() for t in batch)).hexdigest()
+
+    def engine(pipeline):
+        model = GPT(cfg, device=device,
+                    generator=torch.Generator(device=device).manual_seed(0))
+        conf = train_config(micro, 1e-4, "bf16")
+        if not pipeline:
+            conf["data_pipeline"] = {"enabled": False}
+        eng, *_ = dt.initialize(model=model, config_params=conf,
+                                training_data=data, device=device)
+        seen = []
+        forward = eng.forward
+
+        def recording(batch, generator=None):
+            seen.append(digest(batch))
+            return forward(batch, generator)
+
+        eng.forward = recording   # train_batch calls self.forward
+        return eng, seen
+
+    def run(eng, steps, run_name, counted):
+        """`steps` train_batch() calls, each timed to its synchronize;
+        the launches of the steps, counted from 0, checked."""
+        for counts in (flash.LAUNCHES, fused_xent.LAUNCHES):
+            for k in counts:
+                counts[k] = 0
+        snap = COUNTERS.snapshot()
+        losses, ms = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            losses.append(float(eng.train_batch()))
+            if on_card:
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        d = COUNTERS.delta_since(snap)
+        launches = {**flash.LAUNCHES, **fused_xent.LAUNCHES}
+        want = {**{k: cfg.num_layers * steps for k in flash.LAUNCHES},
+                **{k: steps for k in fused_xent.LAUNCHES}}
+        if on_card and (launches != want or d.get("kernel.fallbacks") or
+                        d["kernel.dispatches"]["calls"] !=
+                        3 * cfg.num_layers * steps + 3 * steps):
+            raise AssertionError(f"{run_name}: launches {launches}, "
+                                 f"expected {want}; counters {d}")
+        for k, v in launches.items():
+            counted[k] = counted.get(k, 0) + v
+        # the host's wait on the input iterator, per step
+        wait_ms = d.get("input.host_wait_ms", {"bytes": 0})["bytes"] / 1e3
+        return losses, ms, wait_ms / steps
+
+    def ckpt_delta(snap):
+        d = COUNTERS.delta_since(snap)
+        return {k: d.get(k, {}).get("bytes", 0)
+                for k in ("ckpt.stall_ms", "ckpt.bytes")}
+
+    tmp = tempfile.mkdtemp(prefix="train-resume-")
+    counted = {}
+    try:
+        eng, seen = engine(pipeline=True)
+        losses, ms_on, wait_on = run(eng, 4, "uninterrupted 1-4", counted)
+        snap = COUNTERS.snapshot()
+        t0 = time.perf_counter()
+        eng.save_checkpoint(tmp, tag="A")
+        sync_wall_ms = (time.perf_counter() - t0) * 1e3
+        sync = ckpt_delta(snap)
+        more, _, _ = run(eng, 2, "uninterrupted 5-6", counted)
+        losses += more
+        # the second save of the run is asynchronous: the snapshot goes
+        # to pinned host memory on a side stream, the write runs on
+        eng._config.checkpoint_async_save = True
+        snap = COUNTERS.snapshot()
+        eng.save_checkpoint(tmp, tag="B")
+        async_stall_us = ckpt_delta(snap)["ckpt.stall_ms"]
+        more, ms_async, _ = run(eng, 2, "uninterrupted 7-8", counted)
+        losses += more
+        t0 = time.perf_counter()
+        ckpt_io.flush_pending()
+        flush_ms = (time.perf_counter() - t0) * 1e3
+        async_bytes = ckpt_delta(snap)["ckpt.bytes"]
+        want_masters = [p.detach().clone() for p in eng.params.values()]
+        n_params = sum(p.numel() for p in want_masters)
+        ref_seen = list(seen)
+        eng.finalize_monitoring()
+        del eng
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+        resumed = {}
+        for name, tag, pipeline, steps in (("from-A", "A", False, 4),
+                                           ("from-latest", None, True, 2)):
+            eng, seen = engine(pipeline)
+            if on_card:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.load_checkpoint(tmp, tag=tag)
+            if on_card:
+                torch.cuda.synchronize()
+            load_ms = (time.perf_counter() - t0) * 1e3
+            want_tag = tag or "B"
+            if eng.loaded_checkpoint_tag != want_tag or \
+                    eng.global_steps != 8 - steps:
+                raise AssertionError(
+                    f"{name}: loaded {eng.loaded_checkpoint_tag} at step "
+                    f"{eng.global_steps}, expected {want_tag} at "
+                    f"{8 - steps}")
+            got, ms, wait = run(eng, steps, name, counted)
+            if got != losses[8 - steps:]:
+                raise AssertionError(f"{name}: losses {got} != "
+                                     f"{losses[8 - steps:]}")
+            if seen != ref_seen[8 - steps:]:
+                raise AssertionError(f"{name}: the batches differ from "
+                                     "the uninterrupted run's")
+            bad = [n for n, a, b in zip(eng.params, eng.params.values(),
+                                        want_masters)
+                   if not torch.equal(a, b)]
+            if bad:
+                raise AssertionError(f"{name}: masters differ: {bad[:5]}")
+            resumed[name] = {"tag": want_tag, "load_ms": load_ms,
+                             "losses": got, "step_ms": ms,
+                             "input_host_wait_ms_per_step": wait,
+                             "data_pipeline": pipeline}
+            eng.finalize_monitoring()
+            del eng
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    off = resumed["from-A"]
+    rec = {"phase": "train-resume",
+           "card": gpu_name_and_limit() if on_card else "cpu rehearsal",
+           "config": f"gpt2 {size} ({cfg.num_layers} layers, d"
+           f"{cfg.d_model}, vocab {cfg.vocab_size}), seq {seq}, micro 8, "
+           "bf16, Adam lr 1e-4, WarmupLR 10, clipping 1.0, loss_impl "
+           "pallas; training_data: 24 stride-stream sequences (3 batches "
+           "an epoch, reshuffled per epoch), train_batch() with no "
+           "iterator",
+           "param_count": n_params,
+           "losses": losses, "bitwise": True,
+           "tag_bytes": {"A_sync": sync["ckpt.bytes"], "B_async": async_bytes},
+           "save_stall_ms": {"sync": sync["ckpt.stall_ms"] / 1e3,
+                             "async": async_stall_us / 1e3},
+           "sync_save_wall_ms": sync_wall_ms,
+           "async_flush_wait_ms": flush_ms,
+           "step_ms_during_async_write": ms_async,
+           "load_ms": {k: v["load_ms"] for k, v in resumed.items()},
+           # steps 2.. of a run (its first step pays the warm-up)
+           "step_ms_pipeline_on": float(np.mean(ms_on[1:])),
+           "step_ms_pipeline_off": float(np.mean(off["step_ms"][1:])),
+           "input_host_wait_ms_per_step": {
+               "pipeline_on": wait_on,
+               "pipeline_off": off["input_host_wait_ms_per_step"]},
+           "launches": counted, "resumed": resumed}
+    emit(rec)
+    return rec
+
+
 def phase_train_profile(eng, data, train, steps=2):
     """Two more steps under torch.profiler: device time by kernel class;
     the idle share divides the busy time per step by the timed steps'
@@ -3602,7 +3813,7 @@ def build_all():
                       for src in sources}}
 
 
-def flash_entries(flash_cases, train):
+def flash_entries(flash_cases, train, train_resume):
     main = flash_cases[0]            # the training shape, bf16
     out = []
     for name in ("flash_attention_fwd", "flash_attention_dq",
@@ -3619,6 +3830,9 @@ def flash_entries(flash_cases, train):
                          "dkv": "deepspeed_tpu/ops/transformer/"
                                 "flash_attention.py:280"}[short],
             "launches": train["flash_launches"][name],
+            "launches_by_path": {
+                "train": train["flash_launches"][name],
+                "train-resume": train_resume["launches"][name]},
             "max_abs_err": main["max_abs_err"][
                 {"fwd": "out", "dq": "dq", "dkv": "dk"}[short]],
             "ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
@@ -3651,7 +3865,7 @@ def domain(cases, keys=("Dh", "dtype")):
     return {k: sorted({c[k] for c in cases}) for k in keys}
 
 
-def xent_entries(xent_cases, train_pallas):
+def xent_entries(xent_cases, train_pallas, train_resume):
     main = xent_cases[0]             # the training shape, bf16
     out = []
     for name, line, err in (("fused_xent_fwd", 52, "lse"),
@@ -3663,6 +3877,9 @@ def xent_entries(xent_cases, train_pallas):
             "source": "deepspeed_tpu_torch/kernels/csrc/fused_xent.cu",
             "replaces": f"deepspeed_tpu/ops/transformer/fused_xent.py:{line}",
             "launches": train_pallas["fused_xent_launches"][name],
+            "launches_by_path": {
+                "train-pallas": train_pallas["fused_xent_launches"][name],
+                "train-resume": train_resume["launches"][name]},
             "max_abs_err": main["max_abs_err"][err],
             "ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
@@ -3956,6 +4173,8 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     mark("train-pallas")
+    train_resume = phase_train_resume()
+    mark("train-resume")
     train_moe, teng, data = phase_train_moe()
     emit(phase_train_profile(teng, data, train_moe))
     del teng, data
@@ -4020,8 +4239,9 @@ def main():
                                      "max_err_over_tol", "kernel_ms",
                                      "plain_ms", "library_ms", "bound_ms",
                                      "bound_by", "kernel_host_us")}
-                  for c in cases]}] + flash_entries(flash_cases, train) +
-        xent_entries(xent_cases, train_pallas) +
+                  for c in cases]}] +
+        flash_entries(flash_cases, train, train_resume) +
+        xent_entries(xent_cases, train_pallas, train_resume) +
         codec_entries(codec, serve_qw) + moe_entries(moe_cases, train_moe) +
         sparse_entries(sparse_cases, sparse_probe, train_bert, bert_exact)})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -24,7 +24,10 @@ Ported so far:
   transformer layer (`ops/transformer/transformer.py`) with block-sparse
   attention (`ops/sparse_attention/`: the SparsityConfig layouts, the
   gather path, and the sparse flash forward, dQ and dK/dV as CUDA C++
-  kernels, `kernels/csrc/flash_sparse.cu`).
+  kernels, `kernels/csrc/flash_sparse.cu`);
+* resumable training: `save_checkpoint` / `load_checkpoint` in the JAX
+  engine's tag layout and msgpack encoding (`runtime/checkpointing.py`),
+  and the engine-owned loader (`training_data`, `runtime/dataloader.py`).
 
 Entry points run on the card unless the caller passes `device="cpu"`.
 Importing the package builds no kernel and touches no CUDA state: a
@@ -61,8 +64,11 @@ def initialize(args=None,
     Returns ``(engine, optimizer, training_dataloader, lr_scheduler)``.
     `model` is an `nn.Module` whose call returns the training loss (the
     port's `models.GPT`); `model_parameters`, when given, is a JAX-style
-    params tree loaded into it (`models.load_jax_params`).  The engine
-    runs on `device` — the card unless "cpu" is asked for."""
+    params tree loaded into it (`models.load_jax_params`);
+    `training_data`, when given, is an indexable dataset of samples that
+    the engine's own loader batches and shuffles (`train_batch()` with no
+    iterator trains from it).  The engine runs on `device` — the card
+    unless "cpu" is asked for."""
     from .runtime.engine import DeepSpeedEngine
 
     if config is None and config_params is not None:

@@ -9,6 +9,15 @@ convert to the module's.  An MoE block's leaves (`blocks.i.moe.gate.w`,
 `blocks.i.moe.experts.{w1,b1,w2,b2}`, stacked over the experts) come
 across the same way.  A missing key, an extra key or a shape
 mismatch raises before anything is written.
+
+The other direction, for checkpoints the JAX engine reads:
+`unflatten_tree` rebuilds the nested dicts and lists from dotted names
+(a node whose keys are exactly 0..n-1 is a list, as `GPT.init` builds
+`blocks` and `Bert.init` builds `layers`; gpt.py:446, bert.py:102), and
+`opt_state_to_jax` / `opt_state_from_jax` carry the optimizer's
+per-parameter lists (FusedAdam's `exp_avg` / `exp_avg_sq`,
+fused_adam.py:43-49 on both sides) to and from trees of the same shape,
+by name; every other entry (`step`) goes across as it is.
 """
 
 from __future__ import annotations
@@ -34,7 +43,57 @@ def flatten_tree(tree: Any, prefix: str = "") -> Dict[str, Any]:
     return out
 
 
+def unflatten_tree(flat: Dict[str, Any]) -> Any:
+    """Inverse of `flatten_tree`: {"blocks.3.attn.qkv.w": leaf, ...} ->
+    nested dicts, with lists where the keys are 0..n-1."""
+    root: Dict[str, Any] = {}
+    for name, leaf in flat.items():
+        *path, last = name.split(".")
+        node = root
+        for p in path:
+            node = node.setdefault(p, {})
+        node[last] = leaf
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        out = {k: listify(v) for k, v in node.items()}
+        if out and set(out) == {str(i) for i in range(len(out))}:
+            return [out[str(i)] for i in range(len(out))]
+        return out
+
+    return listify(root)
+
+
+def opt_state_to_jax(names, state: Dict[str, Any]) -> Dict[str, Any]:
+    """The port's optimizer state ({key: list over `names` | other}) ->
+    the JAX tree ({key: params-shaped tree | other})."""
+    return {k: unflatten_tree(dict(zip(names, v)))
+            if isinstance(v, (list, tuple)) and len(v) == len(names) else v
+            for k, v in state.items()}
+
+
+def opt_state_from_jax(names, tree: Dict[str, Any]) -> Dict[str, Any]:
+    """Inverse of `opt_state_to_jax`: a params-shaped entry becomes the
+    list of its leaves in `names` order (a missing or extra leaf
+    raises)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, (dict, list)):
+            flat = flatten_tree(v)
+            if set(flat) != set(names):
+                raise KeyError(
+                    f"optimizer state {k!r} does not match the module: "
+                    f"missing {sorted(set(names) - set(flat))}, extra "
+                    f"{sorted(set(flat) - set(names))}")
+            v = [flat[n] for n in names]
+        out[k] = v
+    return out
+
+
 def _to_tensor(leaf) -> torch.Tensor:
+    if torch.is_tensor(leaf):
+        return leaf
     a = np.asarray(leaf)
     if a.dtype.name == "bfloat16":
         # numpy has no native bfloat16 (JAX hands out ml_dtypes' type):

@@ -10,14 +10,17 @@ loss_scale_window, hysteresis, min_loss_scale, and the fork's
 `steps_per_print`, `wall_clock_breakdown`, `sparse_gradients`, the
 `sparse_attention` section (stored as given, config.py:1079), and
 `comm.moe` (the MoE token movement, `moe/dispatch.py` `parse_moe_config`,
-with `comm.quant_block_size` as its default block; config.py:247-259):
-an unknown key or a bad value raises ValueError here, at config time, as
-in the JAX package.
+with `comm.quant_block_size` as its default block; config.py:247-259),
+`data_pipeline` (`DeepSpeedDataPipelineConfig`, config.py:263-315) and
+`checkpoint` (`tag_validation`, `async_save`, `commit_timeout_ms`;
+config.py:1047-1075): an unknown key or a bad value raises ValueError
+here, at config time, as in the JAX package.
 
 A section the port cannot honour yet raises `DeepSpeedConfigError` naming
 its ROADMAP item, rather than training without it: ZeRO stage >= 1 and
 offload, a pipeline section, a mesh with more than one device, progressive
-layer drop, AMP, TensorBoard and the wall-clock breakdown.  (1-bit and
+layer drop, AMP, TensorBoard, the wall-clock breakdown and
+`checkpoint.preempt_save_dir` (the preemption handler).  (1-bit and
 LAMB optimizers are refused by the engine's optimizer selection.)
 """
 
@@ -108,6 +111,12 @@ def _refuse_unported(pd, zero_stage):
                "sequence parallelism")
     if get_scalar_param(pd, c.WALL_CLOCK_BREAKDOWN, False):
         refuse("wall_clock_breakdown", "the production runtime")
+    preempt = get_scalar_param(pd.get(c.CHECKPOINT) or {},
+                               c.CHECKPOINT_PREEMPT_SAVE_DIR,
+                               c.CHECKPOINT_PREEMPT_SAVE_DIR_DEFAULT)
+    if preempt is not None:
+        refuse(f"checkpoint.{c.CHECKPOINT_PREEMPT_SAVE_DIR} (the "
+               "preemption handler)", "the production runtime")
     for key, what, item in (
             (c.PROGRESSIVE_LAYER_DROP, "progressive layer drop",
              "the production runtime"),
@@ -133,6 +142,59 @@ def _parse_comm_moe(comm):
     # ValueError on an unknown key or a bad value, as the JAX package
     # raises; NotImplementedError for a valid selection not ported yet
     return parse_moe_config(comm.get(c.COMM_MOE), default_block=block)
+
+
+class DeepSpeedDataPipelineConfig(DeepSpeedConfigObject):
+    """The async input pipeline (config.py:263-315):
+
+    "data_pipeline": {
+      "enabled": true,          # master switch (default ON)
+      "prefetch_depth": 2,      # bounded host queue, in batches
+      "num_workers": 1,         # parallel collate threads
+      "device_prefetch": true   # copy batch N+1 to the card during step N
+    }
+
+    Batch order and content are the same with the pipeline on or off.
+    `prefetch_depth: 0` turns the host prefetch off and keeps the device
+    double buffer, and vice versa."""
+
+    def __init__(self, param_dict):
+        super().__init__()
+        d = param_dict.get(c.DATA_PIPELINE) or {}
+        known = {c.DATA_PIPELINE_ENABLED, c.DATA_PIPELINE_PREFETCH_DEPTH,
+                 c.DATA_PIPELINE_NUM_WORKERS, c.DATA_PIPELINE_DEVICE_PREFETCH}
+        unknown = set(d) - known
+        if unknown:
+            raise ValueError(
+                f"data_pipeline: unknown key(s) {sorted(unknown)}; "
+                f"expected a subset of {sorted(known)}")
+        self.enabled = bool(get_scalar_param(
+            d, c.DATA_PIPELINE_ENABLED, c.DATA_PIPELINE_ENABLED_DEFAULT))
+        depth = get_scalar_param(d, c.DATA_PIPELINE_PREFETCH_DEPTH,
+                                 c.DATA_PIPELINE_PREFETCH_DEPTH_DEFAULT)
+        workers = get_scalar_param(d, c.DATA_PIPELINE_NUM_WORKERS,
+                                   c.DATA_PIPELINE_NUM_WORKERS_DEFAULT)
+        for name, val, lo in ((c.DATA_PIPELINE_PREFETCH_DEPTH, depth, 0),
+                              (c.DATA_PIPELINE_NUM_WORKERS, workers, 1)):
+            if isinstance(val, bool) or not isinstance(val, int) or val < lo:
+                raise ValueError(
+                    f"data_pipeline.{name} must be an int >= {lo}, "
+                    f"got {val!r}")
+        self.prefetch_depth = int(depth)
+        self.num_workers = int(workers)
+        self.device_prefetch = bool(get_scalar_param(
+            d, c.DATA_PIPELINE_DEVICE_PREFETCH,
+            c.DATA_PIPELINE_DEVICE_PREFETCH_DEFAULT))
+
+    @property
+    def host_prefetch(self) -> bool:
+        """True when the background-thread host loop should engage."""
+        return self.enabled and self.prefetch_depth > 0
+
+    @property
+    def device_feed(self) -> bool:
+        """True when the engine double-buffers batches on the device."""
+        return self.enabled and self.device_prefetch
 
 
 class DeepSpeedConfig(DeepSpeedConfigObject):
@@ -214,6 +276,26 @@ class DeepSpeedConfig(DeepSpeedConfigObject):
 
         self.moe = _parse_comm_moe(pd.get(c.COMM) or {})
         self.sparse_attention = pd.get(c.SPARSE_ATTENTION, None)
+        self.data_pipeline_config = DeepSpeedDataPipelineConfig(pd)
+
+        ckpt = pd.get(c.CHECKPOINT) or {}
+        self.checkpoint_tag_validation_mode = str(get_scalar_param(
+            ckpt, c.CHECKPOINT_TAG_VALIDATION,
+            c.CHECKPOINT_TAG_VALIDATION_DEFAULT)).lower()
+        self.checkpoint_tag_validation_enabled = \
+            self.checkpoint_tag_validation_mode != "ignore"
+        self.checkpoint_tag_validation_fail = \
+            self.checkpoint_tag_validation_mode == "fail"
+        self.checkpoint_async_save = bool(get_scalar_param(
+            ckpt, c.CHECKPOINT_ASYNC_SAVE, c.CHECKPOINT_ASYNC_SAVE_DEFAULT))
+        self.checkpoint_commit_timeout_ms = int(get_scalar_param(
+            ckpt, c.CHECKPOINT_COMMIT_TIMEOUT_MS,
+            c.CHECKPOINT_COMMIT_TIMEOUT_MS_DEFAULT))
+        if self.checkpoint_commit_timeout_ms <= 0:
+            raise ValueError(
+                f"checkpoint.{c.CHECKPOINT_COMMIT_TIMEOUT_MS} must be a "
+                f"positive millisecond count, got "
+                f"{self.checkpoint_commit_timeout_ms}")
 
         self._set_batch_related_parameters()
         self._batch_assertion()

@@ -89,3 +89,27 @@ COMM_MOE = "moe"
 # block-sparse attention (config.py:1079): stored as given for the model
 # code (BertConfig.sparsity_config / SparseAttentionUtils) to read
 SPARSE_ATTENTION = "sparse_attention"
+
+# the async input pipeline (config.py:263-315): PrefetchLoader under the
+# engine-owned loader and the device double buffer (_DeviceFeed)
+DATA_PIPELINE = "data_pipeline"
+DATA_PIPELINE_ENABLED = "enabled"
+DATA_PIPELINE_ENABLED_DEFAULT = True
+DATA_PIPELINE_PREFETCH_DEPTH = "prefetch_depth"   # bounded-queue batches
+DATA_PIPELINE_PREFETCH_DEPTH_DEFAULT = 2
+DATA_PIPELINE_NUM_WORKERS = "num_workers"         # parallel collate threads
+DATA_PIPELINE_NUM_WORKERS_DEFAULT = 1
+DATA_PIPELINE_DEVICE_PREFETCH = "device_prefetch"  # double-buffer H2D
+DATA_PIPELINE_DEVICE_PREFETCH_DEFAULT = True
+
+# checkpointing (config.py:1047-1075)
+CHECKPOINT = "checkpoint"
+CHECKPOINT_TAG_VALIDATION = "tag_validation"
+CHECKPOINT_TAG_VALIDATION_MODES = ("ignore", "warn", "fail")
+CHECKPOINT_TAG_VALIDATION_DEFAULT = "warn"
+CHECKPOINT_ASYNC_SAVE = "async_save"
+CHECKPOINT_ASYNC_SAVE_DEFAULT = False
+CHECKPOINT_COMMIT_TIMEOUT_MS = "commit_timeout_ms"
+CHECKPOINT_COMMIT_TIMEOUT_MS_DEFAULT = 300_000
+CHECKPOINT_PREEMPT_SAVE_DIR = "preempt_save_dir"
+CHECKPOINT_PREEMPT_SAVE_DIR_DEFAULT = None

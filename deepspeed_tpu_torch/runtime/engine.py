@@ -17,33 +17,58 @@ compute dtype comes from the config (fp32, bf16 or fp16).
 installs it at construction, and its routing counters are sent to the
 host once a step without a wait (`flush_dispatch_stats`).
 
+Input: `training_data` builds the engine-owned loader (`deepspeed_io`,
+`runtime/dataloader.py`), and `train_batch()` with no iterator trains
+from it through `RepeatingLoader(PrefetchLoader(...))` (the
+`data_pipeline` section) and `_DeviceFeed`, which copies the next batch
+to the card from pinned memory on a side stream while the current step
+runs.  The loader's sample cursor is checkpointed.
+
+Checkpoints (`save_checkpoint` / `load_checkpoint`, engine.py:3027-3311)
+are the JAX engine's tags (`runtime/checkpointing.py`): the masters and
+the Adam moments as the JAX trees, the scaler, scheduler and optimizer
+hparams, the counters and the sample cursor; the port's dropout
+generator state rides under a key of its own, and a JAX tag's `rng_key`
+is carried through to the port's next save.  With `checkpoint.async_save`
+the state is copied to pinned host memory on a side stream and written
+in the background.
+
 What the single-process slice refuses (config.py raises): ZeRO >= 1,
 offload, pipelines, meshes over more than one device, progressive layer
-drop, AMP, TensorBoard; LAMB, 1-bit and optax optimizers raise here, as
-does the engine-owned data loader.  Entry points run on the card unless
+drop, AMP, TensorBoard, the preemption handler; LAMB, 1-bit and optax
+optimizers raise here.  Entry points run on the card unless
 `device="cpu"` is passed.
 """
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
-from ..models.convert import load_jax_params
+from ..models.convert import (load_jax_params, opt_state_from_jax,
+                              opt_state_to_jax, unflatten_tree)
 from ..ops.adam.fused_adam import FusedAdam
 from ..utils.device import check_same_device, resolve_device
-from ..utils.logging import log_dist
+from ..utils.logging import log_dist, logger
+from . import checkpointing as ckpt_io
 from . import constants as const
 from .config import DeepSpeedConfig
+from .dataloader import (DeepSpeedDataLoader, PrefetchLoader,
+                         RepeatingLoader, timed_next)
 from .fp16.loss_scaler import create_loss_scaler
 from .lr_schedules import SCHEDULERS
 from .step_builder import StepBuilder
 
 DTYPES = {"float32": torch.float32, "float16": torch.float16,
           "bfloat16": torch.bfloat16}
+
+# the model-states key of the port's dropout generator state (the JAX
+# engine keeps its PRNG key under "rng_key")
+TORCH_RNG_STATE = "torch_rng_state"
 
 
 def _place(batch, device):
@@ -59,6 +84,114 @@ def _place(batch, device):
     return batch
 
 
+def _map_tensors(fn, tree):
+    """`fn` over every tensor of a nest of dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return {k: _map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tensors(fn, v) for v in tree)
+    return fn(tree) if torch.is_tensor(tree) else tree
+
+
+def _as_like(value, like):
+    """A restored array as a tensor of `like`'s shape, dtype and device."""
+    t = value if torch.is_tensor(value) else torch.from_numpy(np.array(value))
+    if tuple(t.shape) != tuple(like.shape):
+        raise ValueError(f"checkpoint state of shape {tuple(t.shape)} for a "
+                         f"tensor of shape {tuple(like.shape)}")
+    return t.to(device=like.device, dtype=like.dtype)
+
+
+def _match_state(restored, like):
+    """`restored` (a nest of dicts and lists of arrays) as tensors shaped,
+    typed and placed like the nest `like`."""
+    if isinstance(like, dict):
+        if set(restored) != set(like):
+            raise KeyError(f"checkpoint optimizer state has keys "
+                           f"{sorted(restored)}, the optimizer "
+                           f"{sorted(like)}")
+        return {k: _match_state(restored[k], v) for k, v in like.items()}
+    if isinstance(like, (list, tuple)):
+        return type(like)(_match_state(r, v) for r, v in zip(restored, like))
+    return _as_like(restored, like) if torch.is_tensor(like) else restored
+
+
+def _pin(batch):
+    """Host arrays and CPU tensors of a batch -> pinned CPU tensors."""
+    if isinstance(batch, dict):
+        return {k: _pin(v) for k, v in batch.items()}
+    if isinstance(batch, (list, tuple)):
+        return type(batch)(_pin(v) for v in batch)
+    if isinstance(batch, np.ndarray):
+        batch = torch.from_numpy(np.ascontiguousarray(batch))
+    if torch.is_tensor(batch) and batch.device.type == "cpu":
+        return batch.pin_memory()
+    return batch
+
+
+class _DeviceFeed:
+    """Device-side double buffering of the input (the JAX engine's
+    `_DeviceFeed`, engine.py:75-134).
+
+    `next()` returns the current step's batch (fetched and placed on the
+    spot only at the first call, or when lookahead is off); `schedule()`,
+    called right after a step is enqueued, pulls the next host batch,
+    pins it, and copies it to the card on a side stream, so the copy runs
+    while the step computes.  `next()` then orders the compute stream
+    after the copy's event and hands the tensors to the compute stream
+    (`record_stream`), so the caching allocator does not reuse their
+    memory while a kernel of the step still reads them.  On the CPU the
+    batch is placed synchronously.  Lookahead engages only for the
+    engine-owned iterator: prefetching from a user's iterator would take
+    batches the caller may still expect to own."""
+
+    _EMPTY = object()
+
+    def __init__(self, source, fetch, device, lookahead: bool = True):
+        self.source = source          # identity key (the host iterator)
+        self._fetch = fetch
+        self.device = device
+        self._lookahead = lookahead
+        self._stream = None
+        self._pending = self._EMPTY
+        self._exhausted = False
+
+    def next(self):
+        if self._pending is not self._EMPTY:
+            batch, event = self._pending
+            self._pending = self._EMPTY
+            if event is not None:
+                stream = torch.cuda.current_stream(self.device)
+                stream.wait_event(event)
+                _map_tensors(lambda t: t.record_stream(stream), batch)
+            return batch
+        if self._exhausted:
+            raise StopIteration
+        return _place(self._fetch(), self.device)
+
+    def schedule(self) -> None:
+        """Fetch the NEXT batch and start its copy to the device."""
+        if not self._lookahead or self._exhausted or \
+                self._pending is not self._EMPTY:
+            return
+        try:
+            host = self._fetch()
+        except StopIteration:
+            self._exhausted = True
+            return
+        if self.device.type != "cuda":
+            self._pending = (_place(host, self.device), None)
+            return
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        pinned = _pin(host)
+        with torch.cuda.stream(self._stream):
+            batch = _place(pinned, self.device)
+            event = torch.cuda.Event()
+            event.record(self._stream)
+        self._pending = (batch, event)
+
+
 class DeepSpeedEngine:
     def __init__(self, args=None, model=None, optimizer=None,
                  model_parameters=None, training_data=None,
@@ -66,11 +199,6 @@ class DeepSpeedEngine:
                  collate_fn=None, config_params=None, device="cuda"):
         if model is None:
             raise ValueError("deepspeed_tpu_torch.initialize requires a model")
-        if training_data is not None:
-            raise NotImplementedError(
-                "training_data: the engine's data loader is not ported yet "
-                "(ROADMAP queue 1: data parallel and ZeRO-1/2); pass batches "
-                "to forward() or an iterator to train_batch()")
         if mpu is not None:
             raise NotImplementedError(
                 "mpu: model parallelism is not ported yet (ROADMAP queue 1: "
@@ -84,6 +212,8 @@ class DeepSpeedEngine:
         self.device = resolve_device(device)
         self.module = model
         self.client_optimizer = optimizer
+        self.collate_fn = collate_fn
+        self.loaded_checkpoint_tag = None
         self.global_steps = 0
         self.global_samples = 0
         self.micro_steps = 0
@@ -120,7 +250,16 @@ class DeepSpeedEngine:
         self._grad_acc = None   # fp32 gradients accumulated over micro steps
         self._cached = None     # loss from forward awaiting backward
         self.lr_scheduler = self._configure_lr_scheduler(lr_scheduler)
-        self.training_dataloader = None
+        self.training_dataloader = (self.deepspeed_io(training_data)
+                                    if training_data is not None else None)
+        self._device_feed = None       # the owned iterator's double buffer
+        self._user_device_feed = None  # the latest user iterator's
+        # a JAX tag's PRNG key, carried through to this engine's saves
+        self._rng_key = None
+        # the async checkpoint snapshot's device-to-host copies: the next
+        # in-place write of the masters waits for them (_wait_snapshot)
+        self._snapshot_event = None
+        self._ckpt_stream = None
         self.training = True
         self._step_fns = StepBuilder(self).build()
         # The overflow flag of the last step is resolved LAZILY, as the
@@ -290,17 +429,103 @@ class DeepSpeedEngine:
 
     def train_batch(self, data_iter=None):
         """Run a full global batch (gas micro steps + update); returns the
-        mean loss (engine.py:2360)."""
+        mean loss (engine.py:2360).  With no iterator it trains from the
+        engine-owned loader through the input pipeline (config
+        "data_pipeline", default on): background collate
+        (PrefetchLoader) and the next batch's copy to the card under the
+        current step (_DeviceFeed)."""
         if data_iter is None:
-            raise ValueError(
-                "train_batch needs data_iter (the engine's own data loader "
-                "is not ported yet)")
+            if self.training_dataloader is None:
+                raise ValueError(
+                    "train_batch needs data_iter or training_data")
+            if not hasattr(self, "_train_iter"):
+                self._train_iter = iter(RepeatingLoader(
+                    self._wrap_prefetch(self.training_dataloader)))
+            data_iter = self._train_iter
+        feed = self._data_feed(data_iter)
         losses = []
         for _ in range(self.gradient_accumulation_steps()):
-            losses.append(self.forward(next(data_iter)))
+            batch = (feed.next() if feed is not None
+                     else timed_next(data_iter))
+            losses.append(self.forward(batch))
             self.backward()
+            if feed is not None:
+                feed.schedule()   # the next batch's copy rides this step
         self.step()
+        self._advance_sample_cursor(data_iter)
         return torch.stack(losses).mean()
+
+    def _advance_sample_cursor(self, data_iter):
+        """Advance the engine-owned loader's consumed-side cursor by the
+        gas batches this train_batch trained on (engine.py:2400); a
+        user's iterator and the prefetch lookahead never count."""
+        if data_iter is not getattr(self, "_train_iter", None):
+            return
+        rec = getattr(self.training_dataloader, "record_consumed", None)
+        if rec is not None:
+            rec(self.gradient_accumulation_steps())
+
+    def _wrap_prefetch(self, loader):
+        """PrefetchLoader around the owned loader when the data_pipeline
+        config asks for host-side background collate."""
+        dp = self._config.data_pipeline_config
+        if not dp.host_prefetch:
+            return loader
+        return PrefetchLoader(loader, prefetch_depth=dp.prefetch_depth,
+                              num_workers=dp.num_workers)
+
+    def _data_feed(self, data_iter) -> Optional[_DeviceFeed]:
+        """The cached device double buffer bound to `data_iter`, or None
+        when device prefetch is off.  Two slots: the owned iterator's
+        feed (the only one with lookahead) and the latest user
+        iterator's, so a train_batch(user_iter) call never evicts an
+        owned feed whose pending batch the training stream already
+        gave up."""
+        if not self._config.data_pipeline_config.device_feed:
+            return None
+        owned = data_iter is getattr(self, "_train_iter", None)
+        feed = self._device_feed if owned else self._user_device_feed
+        if feed is not None and feed.source is data_iter:
+            return feed
+        feed = _DeviceFeed(data_iter, lambda: timed_next(data_iter),
+                           self.device, lookahead=owned)
+        if owned:
+            self._device_feed = feed
+        else:
+            self._user_device_feed = feed
+        return feed
+
+    def close_data_pipeline(self):
+        """Stop the owned PrefetchLoader's threads and drop the device
+        double buffers (engine.py:1054).  Idempotent."""
+        self._device_feed = None
+        self._user_device_feed = None
+        it = getattr(self, "_train_iter", None)
+        if it is not None:
+            loader = getattr(it, "loader", None)
+            if hasattr(loader, "close"):
+                loader.close()
+            del self._train_iter
+
+    def finalize_monitoring(self):
+        """Teardown (engine.py:1034): stops the input pipeline's threads
+        and blocks on any async checkpoint write still in flight, so
+        shutdown never abandons an uncommitted tag.  The port has no
+        monitor to flush yet."""
+        self.close_data_pipeline()
+        ckpt_io.flush_pending()
+
+    def deepspeed_io(self, dataset, batch_size=None, route=None,
+                     data_sampler=None, collate_fn=None,
+                     num_local_io_workers=None):
+        """The engine's loader over `dataset` (engine.py:2899): the micro
+        batch, shuffled with seed 0, one shard."""
+        return DeepSpeedDataLoader(
+            dataset, batch_size=(batch_size if batch_size is not None else
+                                 self.train_micro_batch_size_per_gpu() *
+                                 self.dp_world_size),
+            shuffle=True, collate_fn=collate_fn or self.collate_fn,
+            data_parallel_world_size=1, data_parallel_rank=0)
 
     @torch.no_grad()
     def eval_batch(self, batch, generator=None):
@@ -454,10 +679,225 @@ class DeepSpeedEngine:
             raise ValueError(
                 f"state_dict keys {sorted(state_dict)} do not match the "
                 f"module's {sorted(self._param_names)}")
+        self._wait_snapshot()
         with torch.no_grad():
             for n, p in self.params.items():
                 if n in state_dict:
                     p.copy_(torch.as_tensor(np.asarray(state_dict[n])))
+
+    # ------------------------------------------------------------------
+    # checkpointing (engine.py:2965-3311)
+    # ------------------------------------------------------------------
+
+    def _client_state(self, client_state: Optional[Dict[str, Any]]):
+        state = dict(client_state or {})
+        state.update({
+            "global_steps": self.global_steps,
+            "global_samples": self.global_samples,
+            "skipped_steps": self.skipped_steps,
+            "micro_steps": self.micro_steps,
+            "dp_world_size": self.dp_world_size,
+            "mp_world_size": self.mp_world_size,
+        })
+        return state
+
+    def _checkpoint_meta(self):
+        """The saving run's layout, in the commit marker (engine.py:3000,
+        with the ZeRO plan's `partition_layout` keys), and the loader's
+        sample cursor."""
+        meta = {
+            "world_size": 1,
+            "mp_world_size": self.mp_world_size,
+            "dp_world_size": self.dp_world_size,
+            "zero_stage": self.zero_optimization_stage(),
+            "data_outer": 1,
+            "data_inner": self.dp_world_size,
+            "partition_size": self.dp_world_size,
+            "hierarchical": False,
+            "global_steps": self.global_steps,
+        }
+        cursor_fn = getattr(self.training_dataloader, "sample_cursor", None)
+        if cursor_fn is not None:
+            meta["sample_cursor"] = cursor_fn()
+        return meta
+
+    def _checkpoint_tag_validation(self, tag):
+        """The tag must be printable (engine.py:3182): whitespace warns
+        or, with tag_validation "fail", raises."""
+        if self._config.checkpoint_tag_validation_enabled:
+            if any(ch in str(tag) for ch in "\n\t "):
+                msg = f"checkpoint tag {tag!r} contains whitespace"
+                if self._config.checkpoint_tag_validation_fail:
+                    raise ValueError(msg)
+                logger.warning(msg)
+
+    def _async_ckpt_snapshot(self, tree):
+        """Host copies of every tensor of `tree` that no later step
+        writes; returns (copies, ready).  On the card: one pinned host
+        buffer, filled on a side stream ordered after the work enqueued
+        so far (the step just taken), so the training thread does not
+        wait; `ready` blocks until the copies have landed (the writer
+        calls it), and the next in-place update of the masters waits
+        for them on the device (`_wait_snapshot`).  The state is never
+        cloned on the device: that would double its footprint.  On the
+        CPU: clones."""
+        if self.device.type != "cuda":
+            return _map_tensors(lambda t: t.detach().clone(), tree), None
+        leaves = []
+        _map_tensors(leaves.append, tree)
+        dev = [t for t in leaves if t.device.type == "cuda"]
+        offsets, total = {}, 0
+        for t in dev:
+            offsets[id(t)] = total
+            total += -(-t.numel() * t.element_size() // 256) * 256
+        flat = torch.empty(max(total, 1), dtype=torch.uint8,
+                           pin_memory=True)
+        if self._ckpt_stream is None:
+            self._ckpt_stream = torch.cuda.Stream(self.device)
+        side = self._ckpt_stream
+        side.wait_stream(torch.cuda.current_stream(self.device))
+
+        def snap(t):
+            if t.device.type != "cuda":
+                return t.detach().clone()
+            off = offsets[id(t)]
+            n = t.numel() * t.element_size()
+            buf = flat[off:off + n].view(t.dtype).view(t.shape)
+            buf.copy_(t.detach(), non_blocking=True)
+            t.record_stream(side)
+            return buf
+
+        with torch.cuda.stream(side):
+            out = _map_tensors(snap, tree)
+            done = torch.cuda.Event()
+            done.record(side)
+        self._snapshot_event = done
+        return out, done.synchronize
+
+    def _wait_snapshot(self):
+        """Order the next in-place write of the masters after the async
+        checkpoint snapshot's device-to-host copies."""
+        event, self._snapshot_event = self._snapshot_event, None
+        if event is not None:
+            torch.cuda.current_stream(self.device).wait_event(event)
+
+    def save_checkpoint(self, save_dir, tag=None, client_state=None,
+                        save_latest=True):
+        """Write a tag in the JAX engine's layout (engine.py:3027).  The
+        previous step's overflow flag is settled first, so the counters
+        and the scheduler written are final."""
+        self._resolve_pending_overflow()
+        if tag is None:
+            tag = f"global_step{self.global_steps}"
+        self._checkpoint_tag_validation(tag)
+        names = self._param_names
+        model_state = {
+            "module": unflatten_tree(dict(zip(names, self._masters))),
+            "lr_scheduler": (self.lr_scheduler.state_dict()
+                             if self.lr_scheduler is not None else None),
+            "loss_scaler": dict(self._scaler_state),
+            "rng_key": self._rng_key,
+            TORCH_RNG_STATE: self._generator.get_state(),
+            **self._client_state(client_state),
+        }
+        optim_state = {
+            "optimizer_state": opt_state_to_jax(names, self._opt_state),
+            "offload": False,
+            # json round trip: msgpack takes no tuples (betas)
+            "optimizer_hparams": (json.loads(json.dumps(
+                self.optimizer.state_dict()))
+                if hasattr(self.optimizer, "state_dict") else None),
+            "zero_stage": self.zero_optimization_stage(),
+        }
+        async_save = self._config.checkpoint_async_save
+        ready = None
+        if async_save:
+            (model_state, optim_state), ready = self._async_ckpt_snapshot(
+                (model_state, optim_state))
+        ckpt_io.save_checkpoint_state(
+            save_dir, tag, model_state, optim_state, save_latest=save_latest,
+            async_save=async_save, meta=self._checkpoint_meta(), ready=ready)
+        return True
+
+    def _restore_sample_cursor(self, marker):
+        """Apply the marker's sample cursor to the owned loader and drop
+        the iterator, prefetch and device-feed state built on the old
+        cursor (engine.py:3162)."""
+        loader = self.training_dataloader
+        restore = getattr(loader, "load_sample_cursor", None)
+        cursor = ((marker or {}).get("meta") or {}).get("sample_cursor")
+        if cursor is None or restore is None:
+            return
+        restore(cursor)
+        self.close_data_pipeline()
+        log_dist(f"sample cursor restored: epoch {loader._consumed_epoch}, "
+                 f"batch {loader._consumed_position} of {len(loader)}",
+                 ranks=[0])
+
+    def _install_module_weights(self, tree):
+        """The masters (the module's parameters) from a JAX-shaped tree;
+        a missing, extra or misshapen leaf raises before any write."""
+        self._wait_snapshot()
+        load_jax_params(self.module, tree)
+
+    def load_checkpoint(self, load_dir, tag=None, load_module_strict=True,
+                        load_optimizer_states=True,
+                        load_lr_scheduler_states=True):
+        """Restore a tag written by either engine (engine.py:3193);
+        returns (tag dir, client state), or (None, {}) when there is
+        nothing to resume from.  An uncommitted or incomplete tag raises
+        CheckpointIntegrityError."""
+        try:
+            ckpt_dir, model_state, optim_state = \
+                ckpt_io.load_checkpoint_state(load_dir, tag)
+        except FileNotFoundError as e:
+            logger.warning(f"load_checkpoint: {e}")
+            return None, {}
+        if optim_state is not None and optim_state.get("offload"):
+            raise NotImplementedError(
+                "an offload checkpoint: not ported to deepspeed_tpu_torch "
+                "yet (ROADMAP queue 1: ZeRO-3, Offload and Infinity)")
+        self._restore_sample_cursor(ckpt_io.read_tag_meta(
+            load_dir, os.path.basename(ckpt_dir)))
+        # load_module_strict is accepted and, as in the JAX engine, the
+        # module tree must match
+        self._install_module_weights(model_state["module"])
+        if load_optimizer_states and optim_state is not None:
+            restored = opt_state_from_jax(self._param_names,
+                                          optim_state["optimizer_state"])
+            self._opt_state = _match_state(restored, self._opt_state)
+            hparams = optim_state.get("optimizer_hparams")
+            if hparams is not None and hasattr(self.optimizer,
+                                               "load_state_dict"):
+                self.optimizer.load_state_dict(hparams)
+        if model_state.get("loss_scaler") is not None:
+            self._scaler_state = _match_state(model_state["loss_scaler"],
+                                              self._scaler_state)
+        if load_lr_scheduler_states and self.lr_scheduler is not None and \
+                model_state.get("lr_scheduler") is not None:
+            self.lr_scheduler.load_state_dict(model_state["lr_scheduler"])
+            # the restored position back into param_groups, so the first
+            # step after the resume takes its lr
+            it = getattr(self.lr_scheduler, "last_batch_iteration", None)
+            if it is not None and it >= 0:
+                self.lr_scheduler.step(it)
+        if model_state.get("rng_key") is not None:
+            self._rng_key = model_state["rng_key"]
+        if model_state.get(TORCH_RNG_STATE) is not None:
+            self._generator.set_state(torch.from_numpy(
+                np.array(model_state[TORCH_RNG_STATE])))
+        self.global_steps = int(model_state.get("global_steps", 0))
+        self.global_samples = int(model_state.get("global_samples", 0))
+        self._skipped_steps = int(model_state.get("skipped_steps", 0))
+        self.micro_steps = int(model_state.get("micro_steps", 0))
+        self._grad_acc = None
+        self._cached = None
+        self._pending_overflow = None
+        self._pending_full = None
+        self.loaded_checkpoint_tag = os.path.basename(ckpt_dir)
+        client_state = {k: v for k, v in model_state.items()
+                        if k not in ("module", "lr_scheduler", "loss_scaler")}
+        return ckpt_dir, client_state
 
     @property
     def skipped_steps(self):

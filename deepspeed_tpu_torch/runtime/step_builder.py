@@ -96,6 +96,8 @@ class StepBuilder:
                                     device=loss_scale.device)
             if clip > 0.0:
                 grads, grad_norm = clip_grad_norm(grads, clip)
+            # an async checkpoint's copies of the masters land first
+            eng._wait_snapshot()
             new_params, new_opt = opt.update(grads, opt_state, list(masters),
                                              lr=lr)
             del grads

@@ -1,6 +1,7 @@
 """Boundaries of the PyTorch port: `deepspeed_tpu_torch`,
-`chip_smoke.py` and `chip_ab.py` load neither JAX nor the JAX package,
-and the entry points run on the card unless the CPU is asked for."""
+`chip_smoke.py` and `chip_ab.py` load neither JAX, flax nor the JAX
+package, and the entry points run on the card unless the CPU is asked
+for."""
 
 import ast
 import os
@@ -14,7 +15,7 @@ torch = pytest.importorskip("torch")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "deepspeed_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "deepspeed_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "deepspeed_tpu")
 
 
 def _forbidden(module: str) -> bool:
@@ -88,7 +89,9 @@ print(" ".join(mods))
     # the modules of the quantized-weight serving and MoE slices
     assert {f"deepspeed_tpu_torch.{m}" for m in (
         "kernels.quant_codec", "kernels.moe_kernels", "moe.dispatch",
-        "moe.layer", "runtime.comm.quant", "serving.programs")} <= mods
+        "moe.layer", "runtime.comm.quant", "serving.programs",
+        "runtime.checkpointing", "runtime.dataloader",
+        "runtime.bs_schedules", "runtime.resilience")} <= mods
 
 
 def _no_cuda(monkeypatch):

@@ -321,18 +321,33 @@ def test_config_errors_and_unported_sections_raise(extra, match):
                       config_params=cfg, device="cpu")
 
 
-def test_unported_optimizers_pipeline_and_data_loader_raise():
+def test_unported_optimizers_pipeline_and_data_loader_raise(tmp_path):
     model = GPT(gpt2_config("nano"), device="cpu")
     cfg = dict(_engine_config("fp32", 1), optimizer={"type": "Lamb"})
     with pytest.raises(NotImplementedError, match="lamb"):
         dt.initialize(model=model, config_params=cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="data loader"):
-        dt.initialize(model=model, config_params=_engine_config("fp32", 1),
-                      training_data=[1, 2], device="cpu")
+    # the engine-owned data loader is ported: training_data builds it
+    data = [(x[i], y[i]) for x, y in synthetic_batches(2, 64, 32, 64, 3)
+            for i in range(64)]
+    eng, _, loader, _ = dt.initialize(
+        model=model, config_params=_engine_config("fp32", 1),
+        training_data=data, device="cpu")
+    assert loader is eng.training_dataloader and len(loader) == 2
+    assert loader.batch_size == 64 and loader.shuffle
     with pytest.raises(NotImplementedError, match="pipeline"):
         dt.PipelineModule(layers=[])
     with pytest.raises(ValueError, match="config"):
         dt.initialize(model=model, device="cpu")
+    with pytest.raises(DeepSpeedConfigError, match="preempt_save_dir"):
+        dt.initialize(model=model, device="cpu", config_params=dict(
+            _engine_config("fp32", 1),
+            checkpoint={"preempt_save_dir": str(tmp_path)}))
+    # a pipeline tag (per-layer files) is refused, naming its ROADMAP item
+    eng.save_checkpoint(str(tmp_path), tag="pipe")
+    open(tmp_path / "pipe" / "layer_00-model_00-model_states.msgpack",
+         "wb").close()
+    with pytest.raises(NotImplementedError, match="queue 1: pipeline"):
+        eng.load_checkpoint(str(tmp_path), tag="pipe")
 
 
 # -- the optimizer, the scaler and the schedules --------------------------------
