@@ -112,7 +112,13 @@ any failure raises and the script exits nonzero:
    for the dispatch, `F.embedding_bag` with per-sample weights for the
    combine (held to the combine's bound first); the dispatch's device
    operations a call under torch.profiler (one kernel, no memset); the
-   device time of the combine's gate gradient (plain PyTorch).
+   device time of the combine's gate gradient (plain PyTorch).  The
+   dropless overflow pass's shape (`moe_overflow_case`): train-moe's
+   top-1 routing at capacity 32 skewed toward 4 experts, the overflow
+   bucket at factor 1.0 as one group of 8192 tokens over one expert of
+   8192 slots in expert-grouped order: #13 bitwise and #14 within its
+   bound, kernel-only times beside the bound, the plain version and
+   index_select.
 5. exact: GPT-2 XL width, 4 layers, fp32 — greedy serving through the
    kernel path against the port's `generate()` (plain attention).
    serve-nano-exact: GPT-2 nano (Dh 16), fp32 weights, 4 requests of 16
@@ -156,6 +162,14 @@ any failure raises and the script exits nonzero:
    layer 1 of 2, `comm.moe.dispatch="sorted"`: the MoE kernels against
    their plain versions (loss within 1e-4 a step, weights within
    2 lr steps) and against the dense one-hot engine (loss within 1e-5).
+   moe-dropless-exact: the dropless MoE layer at train-moe's width (d768,
+   d_ff 3072, 64 experts), B 2, S 128, capacity factor 0.25, fp32, TF32
+   off, top-1 and top-2: output and gradients (input, gate, experts)
+   through #13/#14 on the card against its plain CPU version and against
+   the loose-capacity oracle (1e-4 of the largest value); nothing dropped
+   at overflow factor 1.0, and at 0.05 exactly B·k·S minus the two
+   buckets' kept assignments; #13/#14 4 launches a call, 2 of them on
+   the overflow bucket.
 10. train: GPT-2 small (12 layers, seq 1024, micro 8, bf16, Adam,
    WarmupLR, clipping 1.0) through `deepspeed_tpu_torch.initialize` on a
    learnable stride stream: warm-up steps, then timed steps with the
@@ -179,6 +193,25 @@ any failure raises and the script exits nonzero:
    stopped, each run's flash and fused-CE launches counted from zero
    (12 and 1 a step); tag bytes, save stalls, load ms, the host's input
    wait and step ms with the pipeline on and off.
+   dp-exact (after train-pallas): GPT-2 nano, fp32, TF32 off, 4 steps,
+   data parallel at world 1 over NCCL (a `file://` store in a temp
+   directory): ZeRO 0/1/2 x implicit / bucketed x the fp32 / split wires
+   against the single-process engine from the same weights and batches
+   (loss 1e-4 a step; masters 1e-6 on the fp32 wire, steps x lr on the
+   split wire).  train-dp: train-pallas's model (seq 1024, micro 8, bf16,
+   fused CE) on that process group at ZeRO-2 with the bucketed fp32 wire:
+   step ms, tokens/s and peak memory beside train-pallas's, the
+   `bucket.*` / `grad_wire.reduce` bytes equal to the plan's
+   `wire_nbytes` a step, each flash kernel 12 and each fused-CE kernel 1
+   a step; then two ranks on the one card over gloo: a probe of each
+   collective the path calls on CUDA tensors (the record names the first
+   that refuses), and where all run, world 2 (spawned, micro 4 each, the
+   same global batches) held to world 1's losses (3e-3 relative) with
+   each rank holding half of the optimizer state.  train-moe-dropless
+   (after train-moe): the same recipe with `comm.moe.dropless` at
+   overflow factor 1.0, 2 + 6 steps: nothing dropped at any step, #13
+   and #14 launched 4 x 6 layers a step (half on the overflow bucket),
+   step ms, tokens/s and peak memory beside train-moe's.
 10b. bert-sparse-exact: BERT-large width (d1024, 16 heads), 2 layers,
    seq 1024, fixed layout block 128, fp32, TF32 off: 5 engine steps with
    dropout 0.1 through #7-#9 against the same steps with their plain
@@ -3306,9 +3339,11 @@ MOE_MODEL = dict(num_experts=64, moe_top_k=1, moe_layer_freq=2,
                  moe_capacity_factor=1.0, moe_aux_loss_weight=0.01)
 
 
-def moe_train_config(micro, lr, precision, dispatch):
+def moe_train_config(micro, lr, precision, dispatch, dropless=False):
     cfg = train_config(micro, lr, precision)
     cfg["comm"] = {"moe": {"dispatch": dispatch}}
+    if dropless:
+        cfg["comm"]["moe"].update(dropless=True, overflow_factor=1.0)
     return cfg
 
 
@@ -3388,7 +3423,7 @@ def phase_moe_exact():
           "max_loss_diff_sorted_vs_dense": dense_err, "dense_tol": 1e-5})
 
 
-def phase_train_moe(warmup=3, steps=10):
+def phase_train_moe(warmup=3, steps=10, dropless=False):
     """DeepSpeed-MoE's 125M+MoE-64 GPT recipe
     (Megatron-DeepSpeed examples_deepspeed/MoE/ds_pretrain_gpt_125M_MoE64.sh):
     12 layers, d768, 12 heads, d_ff 3072, vocab 50304, 64 experts on every
@@ -3397,7 +3432,10 @@ def phase_train_moe(warmup=3, steps=10):
     the fused CE, comm.moe dispatch "sorted", on a Zipf token stream over
     the whole vocabulary (`vocab_batches`).  The gate noise is the JAX
     package's default (noisy_gate_std 1e-2), which the recipe does not
-    use."""
+    use.  `dropless`: train-moe-dropless, the same with `comm.moe.dropless`
+    and overflow factor 1.0 — the overflow bucket through #13/#14 as well
+    (launched as often again, over one expert's bucket), nothing dropped
+    at any step; its dropped-share-by-stream probe is left out."""
     import torch
 
     import deepspeed_tpu_torch as dt
@@ -3414,19 +3452,20 @@ def phase_train_moe(warmup=3, steps=10):
     model = GPT(cfg, device="cuda",
                 generator=torch.Generator(device="cuda").manual_seed(0))
     eng, *_ = dt.initialize(model=model, config_params=moe_train_config(
-        micro, 1e-4, "bf16", "sorted"))
+        micro, 1e-4, "bf16", "sorted", dropless))
     data = vocab_batches(warmup + steps + 2, micro, seq, cfg.vocab_size, 0)
     losses = [float(eng.train_batch(data)) for _ in range(warmup)]
     torch.cuda.synchronize()
     dsp.flush_dispatch_stats(wait=True)
     torch.cuda.reset_peak_memory_stats()
-    for counts in (flash.LAUNCHES, fused_xent.LAUNCHES, moe_kernels.LAUNCHES):
+    for counts in (flash.LAUNCHES, fused_xent.LAUNCHES):
         for k in counts:
             counts[k] = 0
+    moe_kernels.reset_launches()
     snap = COUNTERS.snapshot()
     ev0 = torch.cuda.Event(enable_timing=True)
     ev1 = torch.cuda.Event(enable_timing=True)
-    step_ms, timed = [], []
+    step_ms, timed, dropped_by_step = [], [], []
     ev0.record()
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -3434,6 +3473,12 @@ def phase_train_moe(warmup=3, steps=10):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         timed.append(loss)
+        if dropless:
+            # each step's dropped count (a host read, after the timing)
+            s0 = COUNTERS.snapshot()
+            dsp.flush_dispatch_stats(wait=True)
+            dropped_by_step.append(COUNTERS.delta_since(s0).get(
+                "moe.dropped_tokens", {"bytes": 0})["bytes"])
     ev1.record()
     ev1.synchronize()
     span_ms = ev0.elapsed_time(ev1)
@@ -3442,11 +3487,16 @@ def phase_train_moe(warmup=3, steps=10):
     losses += [float(x) for x in timed]
     launches = {"flash": dict(flash.LAUNCHES),
                 "fused_xent": dict(fused_xent.LAUNCHES),
-                "moe": dict(moe_kernels.LAUNCHES)}
+                "moe": dict(moe_kernels.LAUNCHES),
+                "moe_overflow": dict(moe_kernels.LAUNCHES_ONE_EXPERT)}
     # forward: one dispatch and one combine per MoE layer; backward: the
-    # combine's gradient is a dispatch, the dispatch's a combine
-    want_moe = {k: 2 * n_moe * steps for k in moe_kernels.LAUNCHES}
-    if launches["moe"] != want_moe or \
+    # combine's gradient is a dispatch, the dispatch's a combine; dropless
+    # runs the same again over the overflow bucket
+    passes = 2 if dropless else 1
+    want_moe = {k: 2 * passes * n_moe * steps for k in moe_kernels.LAUNCHES}
+    want_ov = {k: 2 * n_moe * steps if dropless else 0
+               for k in moe_kernels.LAUNCHES}
+    if launches["moe"] != want_moe or launches["moe_overflow"] != want_ov or \
             launches["flash"] != {k: cfg.num_layers * steps
                                   for k in flash.LAUNCHES} or \
             launches["fused_xent"] != {k: steps for k in fused_xent.LAUNCHES}:
@@ -3460,6 +3510,9 @@ def phase_train_moe(warmup=3, steps=10):
     assignments = micro * seq * cfg.moe_top_k * n_moe * steps
     dropped = d["moe.dropped_tokens"]["bytes"]
     tokens = micro * seq * steps
+    if dropless and (dropped or any(dropped_by_step)):
+        raise AssertionError(f"train-moe-dropless dropped {dropped_by_step} "
+                             f"assignments by step")
     # does the data set the routing?  Two more steps on each stream —
     # this run's, uniform over the vocabulary, and the dense phases'
     # stride stream over 64 ids — with the dropped share, and at every
@@ -3481,7 +3534,7 @@ def phase_train_moe(warmup=3, steps=10):
     by_stream = {}
     MoE.__call__ = spy
     try:
-        for name, stream in (
+        for name, stream in () if dropless else (
                 ("zipf", vocab_batches(2, micro, seq, cfg.vocab_size, 7)),
                 ("uniform", vocab_batches(2, micro, seq, cfg.vocab_size, 7,
                                           "uniform")),
@@ -3504,12 +3557,15 @@ def phase_train_moe(warmup=3, steps=10):
                 "moe_layer_calls": len(seen)}
     finally:
         MoE.__call__ = real_call
-    rec = {"phase": "train-moe", "config": "gpt2 125M+MoE-64: 12 layers, "
+    rec = {"phase": "train-moe-dropless" if dropless else "train-moe",
+           "config": "gpt2 125M+MoE-64: 12 layers, "
            "d768, 12 heads, d_ff 3072, vocab 50304, 64 experts on layers "
            "1,3,..,11, top-1, capacity factor 1.0, min capacity 4, aux 0.01, "
            "gate noise 1e-2; seq 2048, micro 4, bf16, Adam lr 1e-4, WarmupLR "
-           "10, clipping 1.0, fused CE, comm.moe sorted; Zipf(1) token "
-           "stream over the whole vocabulary", "warmup_steps": warmup,
+           "10, clipping 1.0, fused CE, comm.moe sorted" +
+           (", dropless, overflow factor 1.0" if dropless else "") +
+           "; Zipf(1) token stream over the whole vocabulary",
+           "warmup_steps": warmup,
            "timed_steps": steps,
            "tokens_per_s": tokens / (sum(step_ms) / 1e3),
            "step_ms_mean": float(np.mean(step_ms)),
@@ -3528,10 +3584,556 @@ def phase_train_moe(warmup=3, steps=10):
            "losses": losses, "flash_launches": launches["flash"],
            "fused_xent_launches": launches["fused_xent"],
            "moe_launches": launches["moe"],
+           "moe_launches_overflow": launches["moe_overflow"],
            "moe_launches_per_step": {k: v / steps for k, v in
                                      launches["moe"].items()}}
+    if dropless:
+        rec["dropped_by_step"] = dropped_by_step
+        rec["overflow_capacity_per_row"] = dsp.overflow_capacity(
+            cfg.moe_top_k, seq, 1.0)
     emit(rec)
     return rec, eng, data
+
+
+def moe_overflow_case(gen, flush, B=4, S=2048, E=64, D=768, hot=4):
+    """Kernels #13 and #14 at the dropless overflow pass's shape: the
+    train-moe layer's top-1 routing at capacity 32 (factor 1.0), skewed
+    toward `hot` experts as train-moe's Zipf stream skews it (83.5% of
+    assignments past capacity, PERF.md §6), then the overflow bucket
+    (factor 1.0: O = S a row) as one group of B·S tokens over one expert
+    of B·O slots, in expert-grouped order (`moe/dispatch.py`
+    `overflow_slots`).  Dispatch bitwise and combine within
+    `combine_tolerance` of their plain versions; kernel-only device
+    times beside the bound (kept rows read, every slot or token row
+    written), the plain version and `torch.index_select` (the dispatch's
+    yardstick)."""
+    import torch
+
+    from deepspeed_tpu_torch.kernels import registry
+    from deepspeed_tpu_torch.moe import dispatch as dsp
+
+    dev, dtype, k = "cuda", torch.bfloat16, 1
+    C = int(np.ceil(S * k / E - 1e-9))
+    bias = torch.zeros(E, device=dev)
+    bias[:hot] = 3.0
+    logits = torch.randn(B, S, E, device=dev, generator=gen) + bias
+    eidx, gate, pos, keep, _ = dsp.topk_routing(torch.softmax(logits, -1),
+                                                k, C)
+    O = dsp.overflow_capacity(k, S, 1.0)
+    _, ov_keep = dsp.overflow_keep(keep, O)
+    slot, counts = dsp.overflow_slots(eidx, ov_keep, E)
+    x = torch.randn(B, S, D, device=dev, generator=gen).to(dtype)
+    one = [dsp._one_group(t) for t in (torch.zeros_like(slot), slot, ov_keep,
+                                       gate)]
+    e1, p1, k1, g1 = one
+    x1 = x.reshape(1, B * S, D)
+    out = torch.randn(1, 1, B * O, D, device=dev, generator=gen).to(dtype)
+
+    def disp(impl):
+        return registry.dispatch("moe_dispatch", x1, e1, p1, k1, 1, B * O,
+                                 impl=impl)
+
+    def comb(impl):
+        return registry.dispatch("moe_combine", out, e1, g1, p1, k1,
+                                 impl=impl)
+
+    dk, dp_ = disp("cuda"), disp("torch")
+    ck, cp = comb("cuda"), comb("torch")
+    torch.cuda.synchronize()
+    d_mis = mismatches(dk, dp_)
+    tol = dsp.combine_tolerance(out, e1, g1, p1, k1)
+    c_err = (ck.float() - cp.float()).abs()
+    c_ratio = float(torch.where(tol > 0, c_err / tol.clamp_min(1e-30),
+                                torch.where(c_err > 0, np.inf, 0.0)).max())
+    if d_mis or not c_ratio <= 1.0:
+        raise AssertionError(f"moe overflow: dispatch mismatches {d_mis}, "
+                             f"combine {c_ratio} x its bound")
+    kept = int(ov_keep.sum())
+    isz = x.element_size()
+    route = B * k * S * (4 + 4 + 1)
+    work = {"moe_dispatch": kept * D * isz + route + B * O * D * isz,
+            "moe_combine": kept * D * isz + route + B * k * S * 4 +
+            B * S * D * isz}
+    rec = {"phase": "moe-kernels", "case": "overflow-k1-bfloat16",
+           "B": B, "S": S, "E": E, "k": k, "capacity": C,
+           "overflow_slots": B * O, "one_group_tokens": B * S, "D": D,
+           "dtype": "bfloat16", "primary_kept": int(keep.sum()),
+           "overflow_kept": kept, "assignments": B * k * S,
+           "experts_in_bucket": int((counts > 0).sum()),
+           "tol": MOE_TOL, "dispatch_mismatches": d_mis,
+           "max_abs_err": {"moe_dispatch": float((dk.float() - dp_.float())
+                                                 .abs().max()),
+                           "moe_combine": float(c_err.max())},
+           "combine_max_err_over_tol": c_ratio, "kernels": {}}
+    for kname, nbytes in work.items():
+        fn = disp if kname == "moe_dispatch" else comb
+        rec["kernels"][kname] = {
+            "bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "library_ms": None,
+            "kernel_ms": time_ms(lambda: fn("cuda"), 20, flush),
+            "kernel_device_ms": profiled_flushed_ms(lambda: fn("cuda"),
+                                                    flush),
+            "plain_ms": time_ms(lambda: fn("torch"), 5, flush)}
+    # the dispatch's yardstick: the same gather as one index_select
+    dest = torch.where(k1, p1.long(), B * O).reshape(-1)
+    flat = torch.full((B * O + 1,), B * S, dtype=torch.long, device=dev)
+    flat.scatter_(0, dest, torch.arange(B * S, device=dev))
+    slot_tok = flat[:B * O]
+    xz = torch.cat([x.reshape(B * S, D), x.new_zeros(1, D)])
+    if not torch.equal(torch.index_select(xz, 0, slot_tok),
+                       dk.reshape(B * O, D)):
+        raise AssertionError("moe overflow: the index_select yardstick "
+                             "computes another gather")
+    r = rec["kernels"]["moe_dispatch"]
+    r["library_ms"] = time_ms(lambda: torch.index_select(xz, 0, slot_tok),
+                              20, flush)
+    r["library_device_ms"] = profiled_flushed_ms(
+        lambda: torch.index_select(xz, 0, slot_tok), flush)
+    emit(rec)
+    return rec
+
+
+def phase_moe_dropless_exact(device="cuda", d=768, f=3072, E=64, B=2,
+                             S=128):
+    """fp32 (TF32 off): the dropless MoE layer (train-moe's width: d768,
+    d_ff 3072, 64 experts) at a tight capacity (factor 0.25, so most
+    assignments overflow), forward and gradients (input, gate, experts),
+    through kernels #13/#14 on the card against its plain CPU version at
+    the same weights and inputs (atol 1e-4 of the largest |value|: fp32
+    GEMM sums of 768 and 3072 terms in other orders on two devices), and
+    against the loose-capacity oracle on the card (the same bound; JAX's
+    `test_dropless_serves_overflow_exactly_once`).  `moe.dropped_tokens`
+    is 0 at overflow factor 1.0, and at factor 0.05 exactly B·k·S minus
+    the primary and the overflow bucket's kept assignments.  Top-1 and
+    top-2."""
+    import torch
+
+    from deepspeed_tpu_torch.kernels import moe_kernels
+    from deepspeed_tpu_torch.moe import dispatch as dsp
+    from deepspeed_tpu_torch.moe import layer as L
+    from deepspeed_tpu_torch.monitor.counters import COUNTERS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"phase": "moe-dropless-exact", "config": f"MoE layer d{d}, d_ff "
+           f"{f}, {E} experts, B {B}, S {S}, capacity factor 0.25, "
+           "fp32, TF32 off", "cases": []}
+    for k in (1, 2):
+        cfg = L.MoEConfig(d_model=d, d_ff=f, num_experts=E, top_k=k,
+                          capacity_factor=0.25, min_capacity=1,
+                          noisy_gate_std=0.0)
+        moe = L.MoE(cfg)
+        cpu_p = moe.init(torch.Generator().manual_seed(k))
+        # a gate that concentrates the tokens (a few experts preferred)
+        with torch.no_grad():
+            cpu_p.gate.w.add_(torch.randn(d, E, generator=torch.Generator()
+                                          .manual_seed(9)) * 0.05)
+        x_cpu = torch.randn(B, S, d, generator=torch.Generator()
+                            .manual_seed(10 + k))
+        g_cpu = torch.randn(B, S, d, generator=torch.Generator()
+                            .manual_seed(20 + k))
+
+        def run(params, x, g, oracle=False, factor=1.0):
+            x = x.clone().requires_grad_()
+            for p in params.parameters():
+                p.grad = None
+            m = moe
+            if oracle:
+                m = L.MoE(L.MoEConfig(d_model=d, d_ff=f, num_experts=E,
+                                      top_k=k, capacity_factor=float(E),
+                                      min_capacity=S, noisy_gate_std=0.0))
+            dsp.flush_dispatch_stats(wait=True)
+            snap = COUNTERS.snapshot()
+            with dsp.moe_wire(dispatch="sorted", dropless=not oracle,
+                              overflow_factor=factor):
+                y, aux = m(params, x, train=True)
+                ((y * g).sum() + aux).backward()
+            dsp.flush_dispatch_stats(wait=True)
+            dropped = COUNTERS.delta_since(snap).get(
+                "moe.dropped_tokens", {"bytes": 0})["bytes"]
+            grads = {n: p.grad.detach().clone()
+                     for n, p in params.named_parameters()}
+            grads["x"] = x.grad.detach().clone()
+            return y.detach(), grads, dropped
+
+        dev_p = L.MoEParams(*(t.detach().to(device) for t in (
+            cpu_p.gate.w, cpu_p.experts.w1, cpu_p.experts.b1,
+            cpu_p.experts.w2, cpu_p.experts.b2)))
+        xd, gd = x_cpu.to(device), g_cpu.to(device)
+        moe_kernels.reset_launches()
+        y_k, gr_k, drop_k = run(dev_p, xd, gd)
+        launches = {"all": dict(moe_kernels.LAUNCHES),
+                    "overflow": dict(moe_kernels.LAUNCHES_ONE_EXPERT)}
+        y_c, gr_c, drop_c = run(cpu_p, x_cpu, g_cpu)
+        y_o, gr_o, _ = run(dev_p, xd, gd, oracle=True)
+
+        def err(a, b):
+            a, b = a.float().cpu(), b.float().cpu()
+            return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+        errs = {"y_vs_cpu": err(y_k, y_c), "y_vs_oracle": err(y_k, y_o)}
+        for n in gr_k:
+            errs[f"grad_{n}_vs_cpu"] = err(gr_k[n], gr_c[n])
+            errs[f"grad_{n}_vs_oracle"] = err(gr_k[n], gr_o[n])
+        # the counts at a bucket too small: B·k·S - kept - overflow-kept
+        with torch.no_grad():
+            logits = xd @ dev_p.gate.w
+            eidx, gate, pos, keep, _ = dsp.topk_routing(
+                torch.softmax(logits, -1), k, moe.capacity(S, True))
+            O = dsp.overflow_capacity(k, S, 0.05)
+            _, ov_keep = dsp.overflow_keep(keep, O)
+            want_small = B * k * S - int(keep.sum()) - int(ov_keep.sum())
+        _, _, drop_small = run(dev_p, xd, gd, factor=0.05)
+        overflowed = int((~keep).sum())
+        # one call: a dispatch and a combine a bucket forward, each
+        # other's gradient backward (none on a CPU rehearsal)
+        n = 1 if device != "cpu" else 0
+        ok = (max(errs.values()) <= 1e-4 and drop_k == drop_c == 0 and
+              drop_small == want_small and overflowed > 0 and
+              launches["overflow"] == {"moe_dispatch": 2 * n,
+                                       "moe_combine": 2 * n}
+              and launches["all"] == {"moe_dispatch": 4 * n,
+                                      "moe_combine": 4 * n})
+        case = {"k": k, "assignments": B * k * S, "overflowed": overflowed,
+                "max_rel_err": errs, "tol": "1e-4 of max|value|",
+                "dropped_factor_1": drop_k, "dropped_factor_1_cpu": drop_c,
+                "dropped_factor_0.05": drop_small,
+                "want_factor_0.05": want_small, "launches": launches}
+        out["cases"].append(case)
+        if not ok:
+            emit(out)
+            raise AssertionError(f"moe-dropless-exact k={k}: {case}")
+    emit(out)
+    return out
+
+
+def train_dp_config(stage, red, wire, micro, world, lr, precision,
+                    loss_impl=None):
+    cfg = train_config(micro, lr, precision)
+    cfg["train_batch_size"] = micro * world
+    cfg["zero_optimization"] = {"stage": stage}
+    cfg["comm"] = {"gradient_reduction": red, "wire_dtype": wire}
+    return cfg
+
+
+def phase_dp_exact(device="cuda", steps=4, micro=4, seq=64):
+    """GPT-2 nano, fp32 (TF32 off), data parallel at world 1 over NCCL (a
+    `file://` store under a temp dir; gloo on the CPU): ZeRO 0, 1 and 2
+    × implicit / bucketed × the fp32 / split wires against the
+    single-process engine (no process group) from the same weights and
+    batches.  Bounds: losses within 1e-4 a step; masters within 1e-6 on
+    the fp32 wire (a sum over one rank, a gather of one) and within
+    steps × lr on the split wire (its fp16 mantissa rounds each gradient
+    to 2^-11, and an Adam step moves an element at most lr).  Leaves the
+    process group up for train-dp; returns the record."""
+    import tempfile
+
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.comm import dist
+    from deepspeed_tpu_torch.models import GPT, gpt2_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lr = 1e-3
+    batches = list(stride_batches(steps, micro, seq, 64, 3))
+    combos = [(st, red, w) for st in (0, 1, 2)
+              for red, wires in (("implicit", ("fp32",)),
+                                 ("bucketed", ("fp32", "split")))
+              for w in wires]
+
+    def run(stage, red, wire):
+        model = GPT(gpt2_config("nano", max_seq_len=seq, vocab_size=64),
+                    device=device,
+                    generator=torch.Generator(device=device).manual_seed(4))
+        eng, *_ = dt.initialize(model=model, config_params=train_dp_config(
+            stage, red, wire, micro, 1, lr, "fp32"), device=device)
+        losses = []
+        for b in batches:
+            losses.append(float(eng.forward(b)))
+            eng.backward()
+            eng.step()
+        return losses, eng.module_state_dict(), eng._dp
+
+    assert not dist.is_initialized()
+    base = {c: run(*c) for c in combos}
+    store = tempfile.mkdtemp(prefix="dstpu-dp-")
+    dist.init_distributed(init_method=f"file://{store}/store", world_size=1,
+                          rank=0, device=device)
+    backend = torch.distributed.get_backend()
+    rec = {"phase": "dp-exact", "config": f"gpt2 nano, seq {seq}, micro "
+           f"{micro}, fp32, TF32 off, {steps} steps, Adam lr {lr}, "
+           f"world 1 over {backend}", "backend": backend, "cases": []}
+    for c in combos:
+        losses, masters, on = run(*c)
+        wl, wm, off = base[c]
+        loss_err = max(abs(a - b) for a, b in zip(losses, wl))
+        m_err = max(float(np.abs(masters[n] - wm[n]).max()) for n in wm)
+        m_tol = 1e-6 if c[2] == "fp32" else steps * lr
+        case = {"stage": c[0], "reduction": c[1], "wire": c[2],
+                "data_parallel_path": on, "single_process_path": not off,
+                "max_loss_diff": loss_err, "loss_tol": 1e-4,
+                "max_master_diff": m_err, "master_tol": m_tol}
+        rec["cases"].append(case)
+        if not (on and not off and loss_err <= 1e-4 and m_err <= m_tol):
+            emit(rec)
+            raise AssertionError(f"dp-exact {c}: {case}")
+    emit(rec)
+    return rec
+
+
+def _dp_probe_worker(rank, world, store, device, out_dir):
+    """Each collective the data-parallel path calls, over gloo on CUDA
+    tensors: the first that raises is recorded (by name and message) and
+    stops the probe; the others after it are not tried."""
+    import torch
+
+    from deepspeed_tpu_torch.comm import dist
+
+    dist.init_distributed(init_method=f"file://{store}", world_size=world,
+                          rank=rank, dist_backend="gloo", device=device,
+                          verbose=False)
+    x = torch.arange(8, dtype=torch.float32, device=device) + rank
+    tried = {}
+    sync = torch.cuda.synchronize if device != "cpu" else (lambda: None)
+    ops = (("all_reduce", lambda: dist.all_reduce(x.clone())),
+           ("all_reduce_max_int32", lambda: dist.all_reduce(
+               x.to(torch.int32), op=dist.ReduceOp.MAX)),
+           ("all_reduce_bf16", lambda: dist.all_reduce(
+               x.to(torch.bfloat16))),
+           ("all_gather", lambda: dist.all_gather(x)),
+           ("all_gather_int8", lambda: dist.all_gather(x.to(torch.int8),
+                                                       tiled=False)),
+           ("reduce_scatter", lambda: dist.reduce_scatter(x)),
+           # rank r sends 3 elements to rank 0 and 5 to rank 1
+           ("all_to_all_uneven", lambda: dist.all_to_all_uneven(
+               x, [3, 5], [3, 3] if rank == 0 else [5, 5])),
+           ("broadcast", lambda: dist.broadcast(x)),
+           ("barrier", lambda: dist.barrier()))
+    for name, fn in ops:
+        try:
+            fn()
+            sync()
+            tried[name] = "ok"
+        except Exception as e:  # the finding is recorded, not passed over
+            tried[name] = f"{type(e).__name__}: {str(e)[:200]}"
+            break
+    with open(os.path.join(out_dir, f"probe{rank}.json"), "w") as f:
+        json.dump(tried, f)
+    dist.destroy()
+
+
+def _dp_train_worker(rank, world, store, device, out_dir, job):
+    """One rank of train-dp's world-2 run (gloo on the one card)."""
+    import torch
+
+    from deepspeed_tpu_torch.comm import dist
+
+    dist.init_distributed(init_method=f"file://{store}", world_size=world,
+                          rank=rank, dist_backend="gloo", device=device,
+                          verbose=False)
+    try:
+        rec = _train_dp_run(device=device, **job)
+    finally:
+        dist.barrier()
+        dist.destroy()
+    with open(os.path.join(out_dir, f"train{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def _train_dp_run(device, size, micro, world, warmup, steps, seq, data_seed):
+    """GPT-2 `size` with the fused CE, bf16, ZeRO-2, the bucketed fp32
+    wire, on the global batches of `stride_batches(..., micro × world)`:
+    warm-up, then timed steps with every kernel count reset just before;
+    -> the record (losses, step ms, peak memory, launches, the wire's
+    counters against `wire_nbytes`)."""
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.kernels import flash, fused_xent
+    from deepspeed_tpu_torch.models import GPT, gpt2_config
+    from deepspeed_tpu_torch.monitor.counters import COUNTERS
+    from deepspeed_tpu_torch.runtime.comm.bucketing import wire_nbytes
+
+    cfg = gpt2_config(size, loss_impl="pallas", max_seq_len=seq)
+    model = GPT(cfg, device=device,
+                generator=torch.Generator(device=device).manual_seed(0))
+    eng, *_ = dt.initialize(model=model, config_params=train_dp_config(
+        2, "bucketed", "fp32", micro, world, 1e-4, "bf16"), device=device)
+    data = stride_batches(warmup + steps, micro * world, seq, 64, data_seed)
+    losses = [float(eng.train_batch(data)) for _ in range(warmup)]
+    cuda = device != "cpu"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    for counts in (flash.LAUNCHES, fused_xent.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    snap = COUNTERS.snapshot()
+    step_ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(eng.train_batch(data)))
+        if cuda:
+            torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    d = COUNTERS.delta_since(snap)
+    plan = eng.bucket_plan   # None without a process group
+    want_wire = (sum(wire_nbytes(b.padded, "fp32", 256) for b in plan.buckets)
+                 if plan is not None else None)
+    wire = {k: v for k, v in d.items()
+            if k.startswith(("bucket.", "grad_wire.", "dist."))}
+    launches = {"flash": dict(flash.LAUNCHES),
+                "fused_xent": dict(fused_xent.LAUNCHES)}
+    held = sum(t.numel() for t in eng._opt_state["exp_avg"])
+    rec = {"world": world, "rank": eng.dp_rank, "micro_per_rank": micro,
+           "global_micro": micro * world, "losses": losses,
+           "step_ms_mean": float(np.mean(step_ms)),
+           "step_ms_min": float(np.min(step_ms)),
+           "tokens_per_s": micro * world * seq * steps /
+           (sum(step_ms) / 1e3),
+           "peak_mem_bytes": (torch.cuda.max_memory_allocated()
+                              if cuda else None),
+           "launches": launches, "wire_counters": wire,
+           "bucket_plan": plan.describe() if plan is not None else None,
+           "wire_nbytes_per_step": want_wire,
+           "optimizer_state_share": held / sum(p.numel()
+                                                for p in eng._masters),
+           "kernel_fallbacks": d.get("kernel.fallbacks", {}).get("calls", 0),
+           "layers": cfg.num_layers, "steps": steps}
+    eng.finalize_monitoring()
+    return rec
+
+
+def phase_train_dp(train_pallas, device="cuda", size="small", micro=8,
+                   seq=1024, warmup=3, steps=10, w2_warmup=2, w2_steps=3):
+    """train-dp: GPT-2 small at train-pallas's full width (seq 1024, micro
+    8, bf16, fused CE) through the data-parallel path — ZeRO-2, the
+    bucketed fp32 wire, world 1 over NCCL (dp-exact's process group):
+    step ms and tokens/s beside train-pallas's from this run, peak
+    memory, the `bucket.*` / `grad_wire.reduce` counters against the
+    plan's `wire_nbytes`, each flash kernel layers × steps and each
+    fused-CE kernel once a step.  Then two ranks on the one card over
+    gloo: a probe of every collective the path calls on CUDA tensors;
+    if all run, world 2 (spawned processes, micro 4 each, the same
+    global batches) against world 1's losses on those batches (bound:
+    3e-3 relative a step — bf16 products summed over two halves of the
+    batch in another order, then Adam at lr 1e-4) with each rank holding
+    about half of the optimizer state; if not, the record says which
+    collective refused and world 2 does not run."""
+    import multiprocessing as mp
+    import tempfile
+
+    import torch
+
+    from deepspeed_tpu_torch.comm import dist
+
+    if not dist.is_initialized():
+        raise AssertionError("train-dp runs on dp-exact's process group")
+    backend = torch.distributed.get_backend()
+    w1 = _train_dp_run(device, size, micro, 1, warmup, steps, seq, 0)
+    # every flash kernel once a layer a step, every fused-CE kernel once a
+    # step (none on a CPU rehearsal, where the plain versions run)
+    layers = w1["layers"]
+    n_layers = layers if device != "cpu" else 0
+    n_xent = 1 if device != "cpu" else 0
+    if w1["launches"] != {
+            "flash": {k: n_layers * steps for k in w1["launches"]["flash"]},
+            "fused_xent": {k: n_xent * steps
+                           for k in w1["launches"]["fused_xent"]}} \
+            or (w1["kernel_fallbacks"] and device != "cpu"):
+        raise AssertionError(f"train-dp launches {w1['launches']}, "
+                             f"fallbacks {w1['kernel_fallbacks']}")
+    wc = w1["wire_counters"]
+    if wc["grad_wire.reduce"]["bytes"] != w1["wire_nbytes_per_step"] * steps \
+            or wc["bucket.psum_scatter"]["bytes"] != \
+            w1["wire_nbytes_per_step"] * steps:
+        raise AssertionError(f"train-dp wire counters {wc} against "
+                             f"{w1['wire_nbytes_per_step']} a step")
+    if not all(np.isfinite(w1["losses"])) or \
+            not w1["losses"][-1] < w1["losses"][0]:
+        raise AssertionError(f"train-dp losses {w1['losses']}")
+    rec = {"phase": "train-dp", "config": f"gpt2 {size} ({layers} "
+           f"layers), seq {seq}, micro {micro}, bf16, fused CE, Adam lr 1e-4, "
+           "WarmupLR 10, clipping 1.0, ZeRO-2, bucketed fp32 wire; stride "
+           "stream over tokens < 64", "backend": backend, "world1": w1,
+           "train_pallas_step_ms_mean": train_pallas.get("step_ms_mean"),
+           "train_pallas_tokens_per_s": train_pallas.get("tokens_per_s"),
+           "train_pallas_peak_mem_bytes": train_pallas.get("peak_mem_bytes")}
+    dist.destroy()
+
+    # two ranks on one card over gloo
+    out = tempfile.mkdtemp(prefix="dstpu-dp2-")
+    ctx = mp.get_context("spawn")
+
+    def world2(target, args, timeout):
+        procs = [ctx.Process(target=target,
+                             args=(r, 2, f"{out}/{target.__name__}", device,
+                                   out) + args) for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        return [p.exitcode for p in procs]
+
+    codes = world2(_dp_probe_worker, (), 120)
+    probe = []
+    for r in range(2):
+        path = os.path.join(out, f"probe{r}.json")
+        probe.append(json.load(open(path)) if os.path.exists(path) else None)
+    rec["gloo_cuda_probe"] = {"exit_codes": codes, "ranks": probe}
+    if None in probe or codes != [0, 0]:
+        emit(rec)
+        raise AssertionError(f"train-dp: the gloo probe itself failed "
+                             f"(exit codes {codes})")
+    works = all(all(v == "ok" for v in p.values()) and len(p) == 9
+                for p in probe)
+    rec["world2_on_one_card"] = works
+    if not works:
+        rec["world2_note"] = ("gloo does not run every collective the "
+                              "data-parallel path calls on CUDA tensors "
+                              "(gloo_cuda_probe names the first that "
+                              "refused): world 2 on one card did not run")
+        emit(rec)
+        return rec
+    # world 1 on world 2's batches, from this process (no process group)
+    ref = _train_dp_run(device, size, micro, 1, w2_warmup, w2_steps, seq, 5)
+    job = dict(size=size, micro=micro // 2, world=2, warmup=w2_warmup,
+               steps=w2_steps, seq=seq, data_seed=5)
+    codes = world2(_dp_train_worker, (job,), 900)
+    ranks = []
+    for r in range(2):
+        path = os.path.join(out, f"train{r}.json")
+        ranks.append(json.load(open(path)) if os.path.exists(path) else None)
+    if codes != [0, 0] or None in ranks:
+        raise AssertionError(f"train-dp world 2 exit codes {codes}")
+    rel = max(abs(a - b) / abs(b) for r in ranks
+              for a, b in zip(r["losses"], ref["losses"]))
+    rec["world2"] = {"ranks": ranks, "world1_losses_same_batches":
+                     ref["losses"], "max_loss_rel_diff": rel,
+                     "loss_rel_tol": 3e-3}
+    for r in ranks:
+        if r["launches"] != {
+                "flash": {k: n_layers * w2_steps
+                          for k in r["launches"]["flash"]},
+                "fused_xent": {k: n_xent * w2_steps
+                               for k in r["launches"]["fused_xent"]}} \
+                or (r["kernel_fallbacks"] and device != "cpu") or \
+                not 0.45 < r["optimizer_state_share"] < 0.55:
+            emit(rec)
+            raise AssertionError(f"train-dp world 2 rank {r['rank']}: "
+                                 f"{r['launches']}, share "
+                                 f"{r['optimizer_state_share']}")
+    if not rel <= 3e-3:
+        emit(rec)
+        raise AssertionError(f"train-dp world 2 losses {rel} off world 1's")
+    emit(rec)
+    return rec
 
 
 # -- BERT pretraining through the sparse kernels ----------------------------------
@@ -3813,7 +4415,7 @@ def build_all():
                       for src in sources}}
 
 
-def flash_entries(flash_cases, train, train_resume):
+def flash_entries(flash_cases, train, train_resume, train_dp):
     main = flash_cases[0]            # the training shape, bf16
     out = []
     for name in ("flash_attention_fwd", "flash_attention_dq",
@@ -3832,7 +4434,8 @@ def flash_entries(flash_cases, train, train_resume):
             "launches": train["flash_launches"][name],
             "launches_by_path": {
                 "train": train["flash_launches"][name],
-                "train-resume": train_resume["launches"][name]},
+                "train-resume": train_resume["launches"][name],
+                **dp_launches(train_dp, "flash", name)},
             "max_abs_err": main["max_abs_err"][
                 {"fwd": "out", "dq": "dq", "dkv": "dk"}[short]],
             "ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
@@ -3865,7 +4468,7 @@ def domain(cases, keys=("Dh", "dtype")):
     return {k: sorted({c[k] for c in cases}) for k in keys}
 
 
-def xent_entries(xent_cases, train_pallas, train_resume):
+def xent_entries(xent_cases, train_pallas, train_resume, train_dp):
     main = xent_cases[0]             # the training shape, bf16
     out = []
     for name, line, err in (("fused_xent_fwd", 52, "lse"),
@@ -3879,7 +4482,8 @@ def xent_entries(xent_cases, train_pallas, train_resume):
             "launches": train_pallas["fused_xent_launches"][name],
             "launches_by_path": {
                 "train-pallas": train_pallas["fused_xent_launches"][name],
-                "train-resume": train_resume["launches"][name]},
+                "train-resume": train_resume["launches"][name],
+                **dp_launches(train_dp, "fused_xent", name)},
             "max_abs_err": main["max_abs_err"][err],
             "ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
@@ -3975,7 +4579,17 @@ def codec_entries(codec, serve_qw):
                    for c in codec["cases"]]}]
 
 
-def moe_entries(moe_cases, train_moe):
+def dp_launches(train_dp, family, name):
+    """train-dp's launches of one kernel: world 1 (NCCL), and each rank
+    of world 2 on the one card (gloo) where it ran."""
+    out = {"train-dp world 1": train_dp["world1"]["launches"][family][name]}
+    for r in (train_dp.get("world2") or {}).get("ranks", []):
+        out[f"train-dp world 2 rank {r['rank']}"] = \
+            r["launches"][family][name]
+    return out
+
+
+def moe_entries(moe_cases, train_moe, overflow_case, train_dropless):
     main = moe_cases[0]              # the training shape, top-1, bf16
     out = []
     for name, line in (("moe_dispatch", 52), ("moe_combine", 100)):
@@ -3985,6 +4599,23 @@ def moe_entries(moe_cases, train_moe):
             "source": "deepspeed_tpu_torch/kernels/csrc/moe_dispatch.cu",
             "replaces": f"deepspeed_tpu/kernels/moe_kernels.py:{line}",
             "launches": train_moe["moe_launches"][name],
+            "launches_by_path": {
+                "train-moe": train_moe["moe_launches"][name],
+                "train-moe-dropless (both passes)":
+                    train_dropless["moe_launches"][name],
+                "train-moe-dropless (overflow pass)":
+                    train_dropless["moe_launches_overflow"][name]},
+            # the overflow pass's shape: one group of B·S tokens, one
+            # expert of B·O slots (moe_overflow_case)
+            "overflow_shape": {
+                "shape": f"1 group of {overflow_case['one_group_tokens']} "
+                         f"tokens, 1 expert x {overflow_case['overflow_slots']}"
+                         f" slots, D=768 bf16, top-1, "
+                         f"{overflow_case['overflow_kept']} kept",
+                **{f: overflow_case["kernels"][name].get(f) for f in
+                   ("kernel_ms", "kernel_device_ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "library_device_ms")},
+                "max_abs_err": overflow_case["max_abs_err"][name]},
             "max_abs_err": main["max_abs_err"][name],
             # ms / library_ms on CUDA events around a call (as earlier
             # runs recorded them); the *_device_ms their own kernels'
@@ -4127,6 +4758,7 @@ def main():
     mark("xent")
     codec = phase_codec()
     moe_cases = phase_moe_kernels(gen, flush)
+    overflow_case = moe_overflow_case(gen, flush)
     mark("codec-moe-kernels")
 
     phase_exact()
@@ -4159,6 +4791,8 @@ def main():
     phase_train_exact_pallas()
     phase_moe_exact()
     mark("train-exact")
+    phase_moe_dropless_exact()
+    mark("moe-dropless-exact")
     train, teng, data = phase_train()
     emit(phase_train_profile(teng, data, train))
     # free the first engine (its objects hold reference cycles) before the
@@ -4173,6 +4807,12 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     mark("train-pallas")
+    phase_dp_exact()
+    mark("dp-exact")
+    train_dp = phase_train_dp(train_pallas)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("train-dp")
     train_resume = phase_train_resume()
     mark("train-resume")
     train_moe, teng, data = phase_train_moe()
@@ -4181,6 +4821,20 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     mark("train-moe")
+    train_dropless, teng, data = phase_train_moe(warmup=2, steps=6,
+                                                 dropless=True)
+    train_dropless["train_moe_step_ms_mean"] = train_moe["step_ms_mean"]
+    train_dropless["train_moe_tokens_per_s"] = train_moe["tokens_per_s"]
+    train_dropless["train_moe_peak_mem_bytes"] = train_moe["peak_mem_bytes"]
+    emit({"phase": "train-moe-dropless-vs-train-moe", **{
+        k: train_dropless[k] for k in (
+            "step_ms_mean", "tokens_per_s", "peak_mem_bytes",
+            "train_moe_step_ms_mean", "train_moe_tokens_per_s",
+            "train_moe_peak_mem_bytes", "dropped_by_step")}})
+    del teng, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("train-moe-dropless")
     bert_exact = phase_bert_sparse_exact()
     mark("bert-sparse-exact")
     train_bert, teng, data = phase_train_bert_sparse()
@@ -4240,9 +4894,10 @@ def main():
                                      "plain_ms", "library_ms", "bound_ms",
                                      "bound_by", "kernel_host_us")}
                   for c in cases]}] +
-        flash_entries(flash_cases, train, train_resume) +
-        xent_entries(xent_cases, train_pallas, train_resume) +
-        codec_entries(codec, serve_qw) + moe_entries(moe_cases, train_moe) +
+        flash_entries(flash_cases, train, train_resume, train_dp) +
+        xent_entries(xent_cases, train_pallas, train_resume, train_dp) +
+        codec_entries(codec, serve_qw) +
+        moe_entries(moe_cases, train_moe, overflow_case, train_dropless) +
         sparse_entries(sparse_cases, sparse_probe, train_bert, bert_exact)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

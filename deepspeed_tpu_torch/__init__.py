@@ -27,7 +27,11 @@ Ported so far:
   kernels, `kernels/csrc/flash_sparse.cu`);
 * resumable training: `save_checkpoint` / `load_checkpoint` in the JAX
   engine's tag layout and msgpack encoding (`runtime/checkpointing.py`),
-  and the engine-owned loader (`training_data`, `runtime/dataloader.py`).
+  and the engine-owned loader (`training_data`, `runtime/dataloader.py`);
+* MoE dropless (the overflow bucket, `moe/dispatch.py`), and
+  data-parallel training over `torch.distributed` (`comm/`,
+  `init_distributed`) at ZeRO stage 0, 1 and 2 (`runtime/zero/`) with
+  the implicit and the bucketed gradient wire (`runtime/comm/`).
 
 Entry points run on the card unless the caller passes `device="cpu"`.
 Importing the package builds no kernel and touches no CUDA state: a
@@ -35,6 +39,8 @@ kernel library is compiled at its first launch (`kernels/build.py`).
 """
 
 __version__ = "0.3.0"
+
+from .comm import init_distributed  # noqa: F401,E402
 
 
 class PipelineModule:

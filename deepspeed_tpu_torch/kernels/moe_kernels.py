@@ -28,8 +28,16 @@ from typing import Dict
 import torch
 
 # kernel launches since the last reset, per kernel (the main path's proof
-# of use)
+# of use), and among them the calls over one expert's bucket — the
+# dropless overflow pass (moe/dispatch.py `overflow_dispatch`)
 LAUNCHES: Dict[str, int] = {"moe_dispatch": 0, "moe_combine": 0}
+LAUNCHES_ONE_EXPERT: Dict[str, int] = {"moe_dispatch": 0, "moe_combine": 0}
+
+
+def reset_launches() -> None:
+    for counts in (LAUNCHES, LAUNCHES_ONE_EXPERT):
+        for k in counts:
+            counts[k] = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -134,6 +142,7 @@ def sorted_dispatch_cuda(x, eidx, pos, keep, num_experts: int,
           _vec_bytes(D, x, out), out.data_ptr(), _DTYPE_CODES[x.dtype],
           _stream(x))
     LAUNCHES["moe_dispatch"] += 1
+    LAUNCHES_ONE_EXPERT["moe_dispatch"] += E == 1
     return out
 
 
@@ -152,4 +161,5 @@ def sorted_combine_cuda(expert_out, eidx, gate, pos, keep):
           _vec_bytes(D, expert_out, y), y.data_ptr(),
           _DTYPE_CODES[expert_out.dtype], _stream(expert_out))
     LAUNCHES["moe_combine"] += 1
+    LAUNCHES_ONE_EXPERT["moe_combine"] += E == 1
     return y

@@ -65,6 +65,28 @@ def unflatten_tree(flat: Dict[str, Any]) -> Any:
     return listify(root)
 
 
+def jax_leaf_order(names) -> list:
+    """Indices into `names` in the order `jax.tree_util.tree_flatten`
+    visits the tree `unflatten_tree` builds from them: dict keys sorted,
+    list items in index order (the JAX gradient tree's leaf order, which
+    the bucketed gradient wire fills its buckets in)."""
+    tree = unflatten_tree({n: i for i, n in enumerate(names)})
+    out = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k])
+        elif isinstance(node, list):
+            for v in node:
+                walk(v)
+        else:
+            out.append(node)
+
+    walk(tree)
+    return out
+
+
 def opt_state_to_jax(names, state: Dict[str, Any]) -> Dict[str, Any]:
     """The port's optimizer state ({key: list over `names` | other}) ->
     the JAX tree ({key: params-shaped tree | other})."""

@@ -155,9 +155,11 @@ def _attn_rate(cfg: GPTConfig) -> float:
     return cfg.dropout if cfg.attn_dropout < 0 else cfg.attn_dropout
 
 
-def _dropout(x, rate, seed, train):
-    # counter-hash mask (ops/transformer/dropout.py), gpt.py:218
-    return hash_dropout(x, rate, seed, train)
+def _dropout(x, rate, seed, train, row_offset=0):
+    # counter-hash mask (ops/transformer/dropout.py), gpt.py:218; a
+    # data-parallel rank's rows take the global batch's mask
+    return hash_dropout(x, rate, seed, train,
+                        offset=row_offset * (x.numel() // max(1, x.shape[0])))
 
 
 def _block_seeds(cfg: GPTConfig, generator, train, moe=False):
@@ -173,9 +175,10 @@ def _block_seeds(cfg: GPTConfig, generator, train, moe=False):
 
 
 def gpt_block(x, blk, cfg: GPTConfig, seeds=(None, None, None, None),
-              train=True):
+              train=True, row_offset=0):
     """One pre-LN transformer block over x [B, S, D] (gpt.py:244) ->
-    (x, MoE aux loss: 0 for a dense block)."""
+    (x, MoE aux loss: 0 for a dense block).  `row_offset`: the global
+    batch row of x's first row (its dropout masks are those rows')."""
     B, S, D = x.shape
     H = cfg.num_heads
     s_attn, s_res1, s_res2, s_moe = seeds
@@ -188,9 +191,11 @@ def gpt_block(x, blk, cfg: GPTConfig, seeds=(None, None, None, None),
                                dropout_rate=_attn_rate(cfg),
                                dropout_seed=s_attn, train=train,
                                block_q=cfg.flash_block_q or None,
-                               block_k=cfg.flash_block_k or None)
+                               block_k=cfg.flash_block_k or None,
+                               bh_offset=row_offset * H,
+                               global_rows=True)
     attn = linear(attn.reshape(B, S, D), blk.attn.proj, h.dtype)
-    x = x + _dropout(attn, cfg.dropout, s_res1, train)
+    x = x + _dropout(attn, cfg.dropout, s_res1, train, row_offset)
     h = layer_norm(x, blk.ln2, cfg.layer_norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if hasattr(blk, "moe"):
@@ -201,7 +206,7 @@ def gpt_block(x, blk, cfg: GPTConfig, seeds=(None, None, None, None),
     else:
         h = F.gelu(linear(h, blk.mlp.fc1, h.dtype), approximate="tanh")
         h = linear(h, blk.mlp.fc2, h.dtype)
-    return x + _dropout(h, cfg.dropout, s_res2, train), aux
+    return x + _dropout(h, cfg.dropout, s_res2, train, row_offset), aux
 
 
 def _ce_rows(logits32, labels, valid):
@@ -382,7 +387,7 @@ class GPT(nn.Module):
                                else t, dtype=torch.long, device=self.device)
 
     def _trunk(self, tokens, generator=None, train=False, pld_mask=None,
-               capture_layers=None):
+               capture_layers=None, row_offset=0):
         """Everything up to and including the final layer norm: tokens
         [B, S] -> ([B, S, D] hidden states, summed MoE aux loss)
         (gpt.py:481)."""
@@ -399,16 +404,17 @@ class GPT(nn.Module):
         x = self.wte[tokens] + self.wpe[:S][None, :, :]
         if train and generator is not None and cfg.embed_dropout > 0.0:
             x = _dropout(x, cfg.embed_dropout,
-                         derive_seed(cfg.embed_dropout, generator)[0], train)
+                         derive_seed(cfg.embed_dropout, generator)[0], train,
+                         row_offset)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for blk in self.blocks:
             seeds = _block_seeds(cfg, generator, train, hasattr(blk, "moe"))
             if cfg.remat and torch.is_grad_enabled():
                 # recomputed in backward, with the same seeds
                 x, aux = checkpoint(gpt_block, x, blk, cfg, seeds, train,
-                                    use_reentrant=False)
+                                    row_offset, use_reentrant=False)
             else:
-                x, aux = gpt_block(x, blk, cfg, seeds, train)
+                x, aux = gpt_block(x, blk, cfg, seeds, train, row_offset)
             aux_total = aux_total + aux
         return layer_norm(x, self.ln_f, cfg.layer_norm_eps), aux_total
 
@@ -420,12 +426,14 @@ class GPT(nn.Module):
 
     def loss(self, batch, generator=None, train=True,
              progressive_layer_drop=False, pld_theta=None,
-             capture_layers=None):
+             capture_layers=None, row_offset=0):
         """Next-token cross entropy (gpt.py:577).  batch: (tokens, labels)
         or a dict with input_ids/labels; labels == -100 positions are
         masked; without labels the tokens are split into inputs
         tokens[:, :-1] and targets tokens[:, 1:].  `generator` draws the
-        dropout seeds (no generator: no dropout)."""
+        dropout seeds (no generator: no dropout); `row_offset` is the
+        global batch row of the batch's first row (a data-parallel
+        rank's slice), so its dropout masks are those rows'."""
         if isinstance(batch, dict):
             tokens, labels = batch["input_ids"], batch.get("labels")
         else:
@@ -438,7 +446,8 @@ class GPT(nn.Module):
         pld_mask = (True if progressive_layer_drop and pld_theta is not None
                     and train else None)
         x, moe_aux = self._trunk(tokens, generator, train, pld_mask=pld_mask,
-                                 capture_layers=capture_layers)
+                                 capture_layers=capture_layers,
+                                 row_offset=row_offset)
         valid = labels >= 0
         safe_labels = torch.where(valid, labels, 0)
         B, S, D = x.shape

@@ -12,6 +12,16 @@ deepspeed_tpu/moe/dispatch.py.
   the kernel registry (kernels #13 and #14 on the card), each a
   `torch.autograd.Function`; their plain versions `sorted_dispatch_ref` /
   `sorted_combine_ref` (:358-394) are the JAX expressions.
+* dropless mode (`overflow_capacity`, `overflow_dispatch`,
+  `overflow_ffn`, `overflow_combine`, :396-446): assignments past their
+  expert's capacity take a second bucket of ceil(f·k·S) slots a token
+  row, kept by JAX's rule (`overflow_keep`).  JAX computes that bucket's
+  FFN as a one-hot contraction over the experts (O·E·d·f); here each
+  kept assignment gets a slot in its expert's contiguous segment of the
+  B rows' buckets together (`overflow_slots`), the bucket moves through
+  kernels #13/#14 as one group with one "expert" of B·O slots, and each
+  expert segment takes one GEMM.  The function is JAX's; only the
+  slot order inside the bucket is the port's own.
 * `record_dispatch_stats` (:455-468): the `moe.dropped_tokens` /
   `moe.capacity_frac` counters.
 
@@ -32,16 +42,17 @@ engine calls it once a step) moves them to the host in one asynchronous
 copy and credits the counters once the copy has landed (`wait=True`
 waits for it).
 
-Not ported (they need more than one device, or are not on this path):
-the explicit all-to-all wire (`build_a2a_plan`, `wire_all_to_all`,
-`wire_engagement`), `dropless` and `overlap`; asking for them raises
-NotImplementedError naming the ROADMAP item.
+Not ported (they need more than one device): the explicit all-to-all
+wire (`build_a2a_plan`, `wire_all_to_all`, `wire_engagement`) and
+`overlap`; asking for them raises NotImplementedError naming the ROADMAP
+item.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 from typing import List, Optional
 
 import torch
@@ -95,10 +106,6 @@ def _refuse_unported(cfg: MoEWireConfig) -> MoEWireConfig:
             "comm.moe.a2a_wire_dtype: the explicit expert all-to-all wire "
             "needs more than one device and is not ported yet (ROADMAP "
             "queue 1: the explicit MoE wire)")
-    if cfg.dropless:
-        raise NotImplementedError(
-            "comm.moe.dropless: the overflow bucket is not ported yet "
-            "(ROADMAP queue 1: MoE dropless)")
     if cfg.overlap != "none":
         raise NotImplementedError(
             f"comm.moe.overlap={cfg.overlap!r}: the overlapped wire is not "
@@ -409,6 +416,101 @@ def sorted_combine(expert_out, eidx, gate, pos, keep):
     return _CombineFn.apply(expert_out.contiguous(), eidx.contiguous(),
                             gate.contiguous(), pos.contiguous(),
                             keep.contiguous())
+
+
+# ---------------------------------------------------------------------------
+# dropless: the overflow bucket
+# ---------------------------------------------------------------------------
+
+def overflow_capacity(k: int, tokens: int, factor: float) -> int:
+    """Overflow-bucket slots of one token row: ceil(factor · k · tokens)
+    (dispatch.py:396); factor 1.0 holds every assignment."""
+    return max(1, int(math.ceil(factor * k * tokens - 1e-9)))
+
+
+def overflow_keep(keep, ov_cap: int):
+    """JAX's rule for the overflow bucket (dispatch.py:403-408), per token
+    row: an assignment past its expert's capacity ranks by its place in
+    the row's round-major list of such assignments, and is kept iff that
+    rank is below `ov_cap`.  keep [B, k, N] -> (ov_rank int32, ov_keep
+    bool), each [B, k, N]."""
+    B, k, N = keep.shape
+    ov_mask = ~keep.reshape(B, k * N)
+    ov_rank = torch.cumsum(ov_mask.to(torch.int32), dim=-1,
+                           dtype=torch.int32) - 1
+    ov_keep = ov_mask & (ov_rank < ov_cap)
+    return ov_rank.reshape(B, k, N), ov_keep.reshape(B, k, N)
+
+
+def overflow_slots(eidx, ov_keep, num_experts: int):
+    """Expert-grouped slots of the kept overflow assignments, over the B
+    rows' buckets together: a stable sort by (expert, row, rank) — a
+    row's round-major order is its rank order — so each expert's kept
+    assignments fill a contiguous segment.  -> (slot int32 [B, k, N], 0
+    where not kept; per-expert counts int64 [E])."""
+    E = int(num_experts)
+    e = torch.where(ov_keep, eidx.long(), E).reshape(-1)
+    order = torch.argsort(e, stable=True)
+    slot = torch.empty_like(e).scatter_(
+        0, order, torch.arange(e.numel(), device=e.device))
+    slot = torch.where(ov_keep.reshape(-1), slot, 0)
+    counts = torch.zeros(E + 1, dtype=torch.int64, device=e.device)
+    counts.scatter_add_(0, e, torch.ones_like(e))
+    return slot.reshape(ov_keep.shape).to(torch.int32), counts[:E]
+
+
+def _one_group(t):
+    """Routing [B, k, N] -> [1, k, B·N]: the B rows as one token group,
+    token b·N + n (the layout of x.reshape(1, B·N, D))."""
+    B, k, N = t.shape
+    return t.permute(1, 0, 2).reshape(1, k, B * N).contiguous()
+
+
+def overflow_dispatch(x, slot, ov_keep, capacity: int):
+    """x [B, N, D] -> the overflow bucket [capacity, D] (capacity = B·O):
+    kernel #13 with one "expert" and the B rows as one group, each kept
+    assignment's token row copied to its slot, empty slots zero — JAX's
+    bucket rows (dispatch.py:410-414), in expert-grouped order."""
+    B, N, D = x.shape
+    zeros = torch.zeros_like(slot)
+    return sorted_dispatch(x.reshape(1, B * N, D), _one_group(zeros),
+                           _one_group(slot), _one_group(ov_keep), 1,
+                           capacity).reshape(capacity, D)
+
+
+def overflow_ffn(bucket, counts: List[int], w1, b1, w2, b2):
+    """The expert FFN over the expert-grouped bucket: one GEMM pair per
+    non-empty expert segment.  JAX's `overflow_ffn` (:424) selects each
+    row's weights by a one-hot contraction, O·E·d·f operations and an
+    [O, E, f] intermediate; the segments cost O·d·f.  Rows past the kept
+    ones stay zero (the combine never reads them).  The experts' weights
+    are taken apart by one `unbind` each, whose gradient is one stack:
+    indexing `w1[e]` an expert would make each expert's gradient a
+    zero-filled tensor of every expert's weights."""
+    w1s, b1s, w2s, b2s = (t.unbind(0) for t in (w1, b1, w2, b2))
+    outs, start = [], 0
+    for e, n in enumerate(counts):
+        if n:
+            h = bucket[start:start + n] @ w1s[e] + b1s[e]
+            h = torch.nn.functional.gelu(h, approximate="tanh")
+            outs.append(h @ w2s[e] + b2s[e])
+            start += n
+    if start < bucket.shape[0]:
+        outs.append(bucket.new_zeros((bucket.shape[0] - start,
+                                      bucket.shape[1])))
+    return torch.cat(outs) if len(outs) > 1 else outs[0]
+
+
+def overflow_combine(ov_out, gate, slot, ov_keep, B: int, N: int):
+    """The bucket's outputs back to tokens, gated like the primary
+    combine (dispatch.py:434): kernel #14 over the one-group view ->
+    y_ov [B, N, D]."""
+    C, D = ov_out.shape
+    zeros = torch.zeros_like(slot)
+    y = sorted_combine(ov_out.reshape(1, 1, C, D), _one_group(zeros),
+                       _one_group(gate), _one_group(slot),
+                       _one_group(ov_keep))
+    return y.reshape(B, N, D)
 
 
 # ---------------------------------------------------------------------------

@@ -21,8 +21,11 @@ the model adds to its training objective only.
 
 Gate noise (`noisy_gate_std`, on when training with a generator) is
 drawn by `gate_noise` — the one place the router takes its draw, so a
-test can feed it the JAX package's draw.  Not ported: `_sorted_wire`,
-the explicit all-to-all over a mesh (see `dispatch._refuse_unported`).
+test can feed it the JAX package's draw.  With `comm.moe.dropless` the
+sorted engine adds the overflow bucket's pass (`_overflow_route`,
+`_overflow`).  Not
+ported: `_sorted_wire`, the explicit all-to-all over a mesh (see
+`dispatch._refuse_unported`).
 """
 
 from __future__ import annotations
@@ -203,12 +206,53 @@ class MoE:
         E = cfg.num_experts
         eidx, gate, pos, keep, aux = self._route(logits, noise, noise_std,
                                                  cap)
+        # the overflow bucket's routing first: its segment lengths travel
+        # to the host while the primary bucket's work runs
+        ov = self._overflow_route(eidx, keep, S, wcfg) if wcfg.dropless \
+            else None
         expert_in = _dsp.sorted_dispatch(x, eidx, pos, keep, E, cap)
         expert_out = self._expert_ffn(expert_in.transpose(0, 1), params,
                                       x.dtype)
         y = _dsp.sorted_combine(expert_out.transpose(0, 1), eidx, gate, pos,
                                 keep)
+        dropped = (~keep).sum()
+        if ov is not None:
+            y = y + self._overflow(params, x, gate, ov)
+            dropped = B * cfg.top_k * S - keep.sum() - ov[1].sum()
         if wcfg.counters:
-            _dsp.record_dispatch_stats((~keep).sum(), keep.sum(),
-                                       B * E * cap)
+            _dsp.record_dispatch_stats(dropped, keep.sum(), B * E * cap)
         return y, aux.mean().to(torch.float32)
+
+    def _overflow_route(self, eidx, keep, S, wcfg):
+        """The dropless second pass's routing (layer.py:218-239): JAX's
+        kept set and the expert-grouped slots (`dispatch.overflow_*`),
+        and the per-expert segment lengths on their way to the host (an
+        asynchronous copy on the card, read in `_overflow`) ->
+        (slot, ov_keep, capacity, (lengths, event))."""
+        cfg = self.config
+        ov_cap = _dsp.overflow_capacity(cfg.top_k, S, wcfg.overflow_factor)
+        _, ov_keep = _dsp.overflow_keep(keep, ov_cap)
+        slot, counts = _dsp.overflow_slots(eidx, ov_keep, cfg.num_experts)
+        event = None
+        if counts.is_cuda:
+            host = torch.empty(counts.shape, dtype=counts.dtype,
+                               pin_memory=True)
+            host.copy_(counts, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            counts = host
+        return slot, ov_keep, eidx.shape[0] * ov_cap, (counts, event)
+
+    def _overflow(self, params, x, gate, ov):
+        """The overflow bucket through the experts and back: one host read
+        a call, the segment lengths `_overflow_route` sent."""
+        slot, ov_keep, capacity, (counts, event) = ov
+        B, S, D = x.shape
+        ex = params.experts
+        if event is not None:
+            event.synchronize()
+        bucket = _dsp.overflow_dispatch(x, slot, ov_keep, capacity)
+        ov_out = _dsp.overflow_ffn(bucket, counts.tolist(),
+                                   ex.w1.to(x.dtype), ex.b1.to(x.dtype),
+                                   ex.w2.to(x.dtype), ex.b2.to(x.dtype))
+        return _dsp.overflow_combine(ov_out, gate, slot, ov_keep, B, S)

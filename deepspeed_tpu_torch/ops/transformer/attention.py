@@ -7,7 +7,10 @@ tileable shapes on the card, and `xla_attention` (:68), the dense path,
 elsewhere: on the CPU, for short or untileable sequences and for a full
 `[.., S, Sk]` bias.  The JAX package's `_on_tpu()` test becomes "q is on
 a CUDA device"; the shape conditions, the explicit-block warning and the
-`bh_offset` + dropout error are JAX's.  `impl` keeps the JAX names
+`bh_offset` + dropout error are JAX's.  A caller whose batch is a
+data-parallel rank's rows of a global batch passes `global_rows=True`:
+the dense path then keys its dropout masks to those rows as the flash
+kernels do with `bh_offset`, instead of raising.  `impl` keeps the JAX names
 ("auto", "pallas" for the flash path, "xla" for the dense one) so the
 same model configs select the same paths.
 
@@ -30,11 +33,13 @@ _FLASH_MIN_SEQ = 256  # below this the [S,S] buffer fits easily
 
 def xla_attention(q, k, v, causal=True, bias=None, dropout_rate=0.0,
                   dropout_seed: Optional[int] = None, train=False,
-                  scale=None):
+                  scale=None, bh_offset: int = 0):
     """The dense path, [B,S,H,D] -> [B,S,H,D] (attention.py:68): fp32
     scores and softmax whatever the input dtype, a `finfo.min` causal
     mask offset for cached decoding, hash dropout over the
-    probabilities."""
+    probabilities.  `bh_offset` (a data-parallel rank's first batch·head
+    row) makes the probabilities' mask that of those rows of the global
+    [B·H, S, Sk] tensor."""
     B, S, H, D = q.shape
     Sk = k.shape[1]
     scale = (D ** -0.5) if scale is None else scale
@@ -48,7 +53,8 @@ def xla_attention(q, k, v, causal=True, bias=None, dropout_rate=0.0,
                              torch.finfo(torch.float32).min)
     probs = torch.softmax(scores, dim=-1)
     if train and dropout_rate > 0.0 and dropout_seed is not None:
-        probs = hash_dropout(probs, dropout_rate, dropout_seed)
+        probs = hash_dropout(probs, dropout_rate, dropout_seed,
+                             offset=int(bh_offset) * S * Sk)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype), v)
     return out.to(q.dtype)
 
@@ -74,13 +80,16 @@ def multihead_attention(q, k, v, causal: bool = True, impl: str = "auto",
                         scale: Optional[float] = None,
                         block_q: Optional[int] = None,
                         block_k: Optional[int] = None,
-                        bh_offset: int = 0):
+                        bh_offset: int = 0, global_rows: bool = False):
     """Dispatching attention entry point used by the GPT family.
 
     impl: "auto" (flash on the card when tileable), "pallas" (flash),
     "xla" (dense).  The flash path applies probability dropout in-kernel
     and accepts per-key biases ([B, 1, 1, Sk], not themselves needing a
-    gradient); a full [.., S, Sk] bias routes to the dense path."""
+    gradient); a full [.., S, Sk] bias routes to the dense path.
+    `global_rows`: q's rows are rows bh_offset / H on of a global batch,
+    and the dense path's dropout follows them (else it refuses a
+    bh_offset, as JAX's does)."""
     B, S, D = q.shape[0], q.shape[1], q.shape[3]
     Sk = k.shape[1]
     want_dropout = train and dropout_rate > 0.0 and dropout_seed is not None
@@ -105,7 +114,7 @@ def multihead_attention(q, k, v, causal: bool = True, impl: str = "auto",
             logger.warning(
                 f"flash blocks ({bq},{bk}) do not divide seq lens "
                 f"({S},{Sk}); falling back to dense attention")
-    if want_dropout and int(bh_offset) != 0:
+    if want_dropout and int(bh_offset) != 0 and not global_rows:
         # the dense path's dropout has no shard-offset notion — silently
         # dropping it would re-correlate the shard masks the caller is
         # explicitly decorrelating
@@ -117,4 +126,4 @@ def multihead_attention(q, k, v, causal: bool = True, impl: str = "auto",
             "drop bh_offset")
     return xla_attention(q, k, v, causal=causal, bias=bias,
                          dropout_rate=dropout_rate, dropout_seed=dropout_seed,
-                         train=train, scale=scale)
+                         train=train, scale=scale, bh_offset=bh_offset)

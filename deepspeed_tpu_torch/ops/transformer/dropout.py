@@ -93,21 +93,25 @@ def derive_seed(dropout_rate: float,
 
 
 def hash_dropout(x: torch.Tensor, rate: float, seed: Optional[int],
-                 train: bool = True) -> torch.Tensor:
+                 train: bool = True, offset: int = 0) -> torch.Tensor:
     """Inverted dropout on x: zero with probability `rate`, survivors
     scaled by 1/keep.  No-op when not training, at rate 0, or without a
-    seed (dropout.py:25, with the seed in place of the PRNG key)."""
+    seed (dropout.py:25, with the seed in place of the PRNG key).
+    `offset` is the element counter of x's first element: x is then the
+    slice of a larger tensor from that element on (a data-parallel
+    rank's rows of the global batch) and gets that tensor's mask."""
     if not train or rate <= 0.0 or seed is None:
         return x
     if not 0.0 <= rate < 1.0:
         raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
-    if x.numel() >= 1 << 32:
+    if x.numel() + int(offset) >= 1 << 32:
         # JAX draws a threefry mask here; the uint32 counter would wrap
         raise ValueError(
-            f"hash_dropout: {x.numel()} elements exceed the uint32 element "
-            f"counter")
+            f"hash_dropout: {x.numel() + int(offset)} elements exceed the "
+            f"uint32 element counter")
     keep = 1.0 - rate
-    idx = torch.arange(x.numel(), dtype=torch.int64, device=x.device)
+    idx = torch.arange(int(offset), int(offset) + x.numel(),
+                       dtype=torch.int64, device=x.device)
     h = fmix32(_mul32(_u32(seed).to(x.device), SEED_MUL)
                ^ _mul32(idx, Q_MUL))
     mask = (h < keep_threshold(rate)).reshape(x.shape)

@@ -23,9 +23,11 @@ Crash consistency (two-phase commit): every file lands as tmp + fsync +
 rename (`_atomic_write`), and a tag is COMMITTED only when its
 `.ckpt_commit.json` lands, after all its files; `latest` is rewritten
 after the marker.  `read_latest_tag` skips an uncommitted tag back to the
-newest committed one.  At world 1 the commit barrier is a direct call
-(the coordination-service barrier comes with multi-process data
-parallelism).  "Nothing to resume from" raises FileNotFoundError; a tag
+newest committed one.  Over several ranks the commit waits on
+`CommitBarrier` (checkpointing.py:207), a rendezvous over the process
+group's key-value store: every rank posts a done-key once its files have
+landed, rank 0 waits for all of them, publishes the marker and `latest`,
+and releases the others; at one rank the barrier is a direct call.  "Nothing to resume from" raises FileNotFoundError; a tag
 that exists but is uncommitted or incomplete raises
 CheckpointIntegrityError.
 
@@ -37,17 +39,20 @@ Counters: `ckpt.stall_ms` (µs of blocked training per save, in the bytes
 slot), `ckpt.bytes` (bytes per committed tag), `ckpt.pending` (writer
 queue depth sampled per save), `ckpt.skipped_tags`.
 
-Reassembly: the JAX engine's optimizer file is the v2 layout
-(`__dstpu_ckpt_v2__`, `pieces`, `state`), and a sharded JAX tag (ZeRO
-1-3) keeps a marker per sharded leaf with its pieces in the
-`zero_pp_rank_<r>` files; load puts the pieces back together into whole
-arrays.  Tags with pipeline layer files or ZeRO-Infinity stream groups
+Pieces: the optimizer file is the v2 layout (`__dstpu_ckpt_v2__`,
+`pieces`, `state`).  A sharded leaf (ZeRO 1-3) is a marker in the state
+(`shard_marker`: its key, shape, dtype and piece count) and its pieces
+(`index` + `piece`) lie in the `zero_pp_rank_<r>` files, one a rank that
+owns a distinct piece (checkpointing.py:334-420); load puts the pieces
+back together into whole arrays, whatever world wrote them.  Tags with pipeline layer files or ZeRO-Infinity stream groups
 raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
+import datetime
 import glob
+import hashlib
 import io
 import itertools
 import json
@@ -66,6 +71,19 @@ from ..utils.logging import logger
 from .resilience import retry_transient
 
 _SHARD_MARKER = "__dstpu_sharded_leaf__"
+
+
+def shard_key(prefix: str, path) -> str:
+    """A sharded leaf's key: `prefix` + `jax.tree_util.keystr` of its
+    path (list indices as [i], dict keys as ['k'])."""
+    return prefix + "".join(f"[{p}]" if isinstance(p, int) else f"['{p}']"
+                            for p in path)
+
+
+def shard_marker(key: str, shape, dtype: str, num_pieces: int) -> dict:
+    """The state's stand-in for a sharded leaf (`_split_sharded`)."""
+    return {_SHARD_MARKER: True, "key": key, "shape": [int(n) for n in shape],
+            "dtype": dtype, "num_pieces": int(num_pieces)}
 _V2_MARKER = "__dstpu_ckpt_v2__"
 _STREAM_PREFIX = "__dstpu_stream__:"
 COMMIT_MARKER = ".ckpt_commit.json"
@@ -305,6 +323,8 @@ _pending: Dict[Tuple[str, str], List[Future]] = {}
 # last commit-bearing future per save_dir: async commits chain on it so
 # `latest` lands in save-call order with several tags in flight
 _dir_chain: Dict[str, Future] = {}
+# saves per (save_dir, tag): the commit barrier's key round
+_tag_seq: Dict[Tuple[str, str], int] = {}
 
 
 def _pending_key(save_dir: str, tag) -> Tuple[str, str]:
@@ -486,16 +506,82 @@ def write_commit_marker(save_dir: str, tag,
     _fsync_dir(os.path.join(save_dir, str(tag)))
 
 
+class CommitBarrier:
+    """Two-phase commit rendezvous for one tag over the process group's
+    key-value store (checkpointing.py:207): every rank posts a done-key
+    after its files have landed; rank 0 waits for all of them, runs the
+    commit action (marker + latest), then posts a committed-key the
+    other ranks wait for — so once any rank's save returns, the tag is
+    committed.  Keys are scoped by the save directory (`scope`) and a
+    per-tag sequence number (`seq`), so a re-save of a tag never sees
+    the previous round's keys.  One rank: the action runs directly."""
+
+    def __init__(self, tag: str, timeout_ms: int = 300_000, seq: int = 0,
+                 scope: str = ""):
+        from ..comm import dist
+
+        self.store = dist.store()
+        self.world = dist.get_world_size()
+        self.rank = dist.get_rank()
+        self.tag, self.seq, self.scope = str(tag), int(seq), str(scope)
+        self.timeout = datetime.timedelta(milliseconds=int(timeout_ms))
+
+    def _key(self, kind: str, rank: Optional[int] = None) -> str:
+        scope = f"{self.scope}/" if self.scope else ""
+        base = f"dstpu-ckpt/{scope}{self.tag}/{self.seq}/{kind}"
+        return base if rank is None else f"{base}/{rank}"
+
+    def commit(self, commit_fn) -> None:
+        if self.world <= 1 or self.store is None:
+            commit_fn()
+            return
+        st = self.store
+        st.set(self._key("done", self.rank), "1")
+        if self.rank == 0:
+            try:
+                st.wait([self._key("done", r) for r in range(self.world)],
+                        self.timeout)
+            except Exception as e:
+                raise CheckpointIntegrityError(
+                    f"checkpoint tag {self.tag!r}: commit barrier timed out "
+                    f"waiting for rank done-keys ({e}); the tag was NOT "
+                    f"committed") from e
+            commit_fn()
+            st.set(self._key("committed"), "1")
+        else:
+            try:
+                st.wait([self._key("committed")], self.timeout)
+            except Exception as e:
+                raise CheckpointIntegrityError(
+                    f"checkpoint tag {self.tag!r}: commit barrier timed out "
+                    f"waiting for rank 0's commit marker ({e})") from e
+
+
+def _barrier_scope(save_dir: str) -> str:
+    """The commit barrier's per-directory key namespace: a hash of the
+    save_dir argument every rank passes (checkpointing.py:614)."""
+    return hashlib.md5(str(save_dir).encode()).hexdigest()[:12]
+
+
 def _commit(save_dir: str, tag, meta: Optional[Dict[str, Any]],
-            save_latest: bool, nbytes: int) -> None:
-    """Phase 2: the commit marker, then `latest` — both atomic renames,
-    in that order, so `latest` never names an uncommitted tag.  One
-    process: the barrier is this call.  Module-level so crash tests can
-    patch it away (a writer killed between its files and the commit)."""
-    write_commit_marker(save_dir, tag, meta, world_size=1, nbytes=nbytes)
-    if save_latest:
-        _atomic_write(os.path.join(save_dir, "latest"), str(tag).encode())
-        _fsync_dir(save_dir)
+            save_latest: bool, nbytes: int, commit_timeout_ms: int = 300_000,
+            seq: int = 0) -> None:
+    """Phase 2: rendezvous every rank, then (rank 0) the commit marker and
+    `latest` — both atomic renames, in that order, so `latest` never
+    names an uncommitted tag.  Module-level so crash tests can patch it
+    away (a writer killed between its files and the commit)."""
+    barrier = CommitBarrier(str(tag), timeout_ms=commit_timeout_ms, seq=seq,
+                            scope=_barrier_scope(save_dir))
+
+    def publish():
+        write_commit_marker(save_dir, tag, meta, world_size=barrier.world,
+                            nbytes=nbytes)
+        if save_latest:
+            _atomic_write(os.path.join(save_dir, "latest"),
+                          str(tag).encode())
+            _fsync_dir(save_dir)
+
+    barrier.commit(publish if barrier.rank == 0 else (lambda: None))
     COUNTERS.add("ckpt.bytes", int(nbytes))
 
 
@@ -509,11 +595,18 @@ def save_checkpoint_state(save_dir: str, tag: str, model_state: Dict[str, Any],
                           save_latest: bool = True, mp_rank: int = 0,
                           async_save: bool = False,
                           meta: Optional[Dict[str, Any]] = None,
-                          ready: Optional[Callable[[], None]] = None) -> str:
-    """Write one tag: files -> commit marker -> latest.  `meta` goes into
-    the marker.  With `async_save` the trees must be snapshots no later
-    step writes (the engine's pinned host copies); `ready`, when given,
-    is called on the writer before it reads them (the snapshot's
+                          ready: Optional[Callable[[], None]] = None,
+                          pieces: Optional[Dict[str, Any]] = None,
+                          rank: int = 0,
+                          commit_timeout_ms: int = 300_000) -> str:
+    """Write one tag: files -> commit barrier -> marker -> latest.  Every
+    rank calls it: rank 0 writes the model file and the optimizer state
+    (sharded leaves as `shard_marker`s) in its `zero_pp_rank_0` file,
+    and each rank holding `pieces` ({key: {"index", "piece"}}) writes
+    them to its own `zero_pp_rank_<rank>` file.  `meta` goes into the
+    marker.  With `async_save` the trees must be snapshots no later step
+    writes (the engine's pinned host copies); `ready`, when given, is
+    called on the writer before it reads them (the snapshot's
     device-to-host copies are then complete).  Returns the tag
     directory."""
     t0 = time.perf_counter()
@@ -521,15 +614,22 @@ def save_checkpoint_state(save_dir: str, tag: str, model_state: Dict[str, Any],
     flush_pending(save_dir, tag)
     ckpt_dir = os.path.join(save_dir, str(tag))
     os.makedirs(ckpt_dir, exist_ok=True)
+    with _pending_lock:
+        key = _pending_key(save_dir, tag)
+        seq = _tag_seq[key] = _tag_seq.get(key, -1) + 1
 
     def build_and_write(parallel: bool) -> int:
-        jobs = [(model_ckpt_name(ckpt_dir, mp_rank), model_state)]
-        if optim_state is not None:
-            # the v2 layout the JAX engine writes; one process owns every
-            # leaf whole, so there are no pieces
-            jobs.append((optim_ckpt_name(ckpt_dir, 0, mp_rank),
-                         {_V2_MARKER: True, "pieces": {},
-                          "state": optim_state}))
+        jobs = []
+        if rank == 0:
+            jobs.append((model_ckpt_name(ckpt_dir, mp_rank), model_state))
+            if optim_state is not None:
+                # the v2 layout the JAX engine writes
+                jobs.append((optim_ckpt_name(ckpt_dir, 0, mp_rank),
+                             {_V2_MARKER: True, "pieces": pieces or {},
+                              "state": optim_state}))
+        elif pieces:
+            jobs.append((optim_ckpt_name(ckpt_dir, rank, mp_rank),
+                         {_V2_MARKER: True, "pieces": pieces}))
 
         def write(path, payload) -> int:
             return _atomic_write(path,
@@ -549,7 +649,8 @@ def save_checkpoint_state(save_dir: str, tag: str, model_state: Dict[str, Any],
                 chain_after.result()
             except Exception:
                 pass   # its own flush surfaces the error
-        _commit(save_dir, tag, meta, save_latest, nbytes)
+        _commit(save_dir, tag, meta, save_latest, nbytes,
+                commit_timeout_ms=commit_timeout_ms, seq=seq)
 
     root = os.path.realpath(save_dir)
     with _pending_lock:

@@ -1,25 +1,29 @@
 """DeepSpeedConfig — the subset of deepspeed_tpu/runtime/config.py that the
-single-process training slice honours, with JAX's defaults and errors.
+port honours, with JAX's defaults and errors.
 
 Read: the batch-size triangle (train_batch_size = micro batch ×
-gradient_accumulation_steps × data-parallel world size, here 1; the
-solver of config.py:1088-1134), `fp16` (loss_scale, initial_scale_power,
+gradient_accumulation_steps × data-parallel world size; the solver of
+config.py:1088-1134), `fp16` (loss_scale, initial_scale_power,
 loss_scale_window, hysteresis, min_loss_scale, and the fork's
 "type": "bfloat16" spelling) and `bf16`, `optimizer`, `scheduler`,
 `gradient_clipping`, `prescale_gradients`, `gradient_predivide_factor`,
 `steps_per_print`, `wall_clock_breakdown`, `sparse_gradients`, the
-`sparse_attention` section (stored as given, config.py:1079), and
-`comm.moe` (the MoE token movement, `moe/dispatch.py` `parse_moe_config`,
-with `comm.quant_block_size` as its default block; config.py:247-259),
-`data_pipeline` (`DeepSpeedDataPipelineConfig`, config.py:263-315) and
-`checkpoint` (`tag_validation`, `async_save`, `commit_timeout_ms`;
+`sparse_attention` section (stored as given, config.py:1079),
+`zero_optimization` (`DeepSpeedZeroConfig`, runtime/zero/config.py),
+the `comm` section (`DeepSpeedCommConfig`, config.py:116-250: the
+gradient wire, its hierarchy and the MoE block `comm.moe`,
+`moe/dispatch.py` `parse_moe_config`), `data_pipeline`
+(`DeepSpeedDataPipelineConfig`, config.py:263-315) and `checkpoint`
+(`tag_validation`, `async_save`, `commit_timeout_ms`;
 config.py:1047-1075): an unknown key or a bad value raises ValueError
 here, at config time, as in the JAX package.
 
-A section the port cannot honour yet raises `DeepSpeedConfigError` naming
-its ROADMAP item, rather than training without it: ZeRO stage >= 1 and
-offload, a pipeline section, a mesh with more than one device, progressive
-layer drop, AMP, TensorBoard, the wall-clock breakdown and
+A section the port cannot honour yet raises `DeepSpeedConfigError` (or,
+for a valid `comm` selection, NotImplementedError) naming its ROADMAP
+item, rather than training without it: ZeRO stage 3 and offload, a
+pipeline section, a mesh with a model, pipe or seq axis above 1, the
+int8/int4 gradient wires and `comm.overlap`, progressive layer drop,
+AMP, TensorBoard, the wall-clock breakdown and
 `checkpoint.preempt_save_dir` (the preemption handler).  (1-bit and
 LAMB optimizers are refused by the engine's optimizer selection.)
 """
@@ -86,15 +90,14 @@ def _zero_stage(pd) -> int:
 
 
 def _refuse_unported(pd, zero_stage):
-    """Raise on a section the single-process slice cannot honour."""
+    """Raise on a section the port cannot honour yet."""
     def refuse(what, item):
         raise DeepSpeedConfigError(
             f"{what} is not ported to deepspeed_tpu_torch yet (ROADMAP "
             f"queue 1: {item})")
 
-    if zero_stage >= 1:
-        refuse(f"ZeRO stage {zero_stage}", "data parallel and ZeRO-1/2, "
-               "then ZeRO-3, Offload and Infinity")
+    if zero_stage >= 3:
+        refuse(f"ZeRO stage {zero_stage}", "ZeRO-3, Offload and Infinity")
     zero = pd.get(c.ZERO_OPTIMIZATION)
     if isinstance(zero, dict) and any(
             zero.get(k) for k in (c.ZERO_OPTIMIZATION_CPU_OFFLOAD,
@@ -105,10 +108,11 @@ def _refuse_unported(pd, zero_stage):
     if pd.get(c.PIPELINE):
         refuse("the pipeline section", "pipeline")
     mesh = pd.get(c.MESH) or {}
-    if any(int(mesh.get(ax, 1)) not in (1, -1)
-           for ax in ("data", "model", "pipe", "seq")):
-        refuse(f"mesh {mesh}", "data parallel and ZeRO-1/2; tensor and "
-               "sequence parallelism")
+    for ax, item in (("model", "tensor and sequence parallelism"),
+                     ("seq", "tensor and sequence parallelism"),
+                     ("pipe", "pipeline")):
+        if int(mesh.get(ax, 1)) not in (1, -1):
+            refuse(f"mesh {mesh} (axis {ax!r})", item)
     if get_scalar_param(pd, c.WALL_CLOCK_BREAKDOWN, False):
         refuse("wall_clock_breakdown", "the production runtime")
     preempt = get_scalar_param(pd.get(c.CHECKPOINT) or {},
@@ -126,22 +130,192 @@ def _refuse_unported(pd, zero_stage):
             refuse(what, item)
 
 
-def _parse_comm_moe(comm):
-    """The validated `comm.moe` selection (config.py:247-259); the other
-    `comm` keys belong to multi-device wires and are not read here."""
-    from ..moe.dispatch import parse_moe_config
-    from .comm.quant import validate_block_size
+def parse_comm_hierarchy(value):
+    """The `comm.hierarchy` knob -> "none" | "auto" | int outer factor
+    (config.py:47)."""
+    if value is None:
+        value = c.COMM_HIERARCHY_DEFAULT
+    if isinstance(value, dict):
+        unknown = set(value) - {"outer"}
+        if unknown:
+            raise ValueError(
+                f"comm.hierarchy: unknown key(s) {sorted(unknown)}; "
+                "expected {'outer': <int>}")
+        value = value.get("outer", 1)
+    if isinstance(value, str):
+        mode = value.lower()
+        if mode in ("none", "flat", "off"):
+            return "none"
+        if mode == "auto":
+            return "auto"
+        raise ValueError(
+            "comm.hierarchy must be 'none', 'auto', an int outer factor, "
+            f"or {{'outer': <int>}}, got {value!r}")
+    if isinstance(value, bool) or not isinstance(value, int):
+        raise ValueError(
+            "comm.hierarchy must be 'none', 'auto', an int outer factor, "
+            f"or {{'outer': <int>}}, got {value!r}")
+    if value < 1:
+        raise ValueError(
+            f"comm.hierarchy outer factor must be >= 1, got {value}")
+    return "none" if value == 1 else value
 
-    if not isinstance(comm, dict):
-        raise ValueError(f"comm must be an object, got {type(comm).__name__}")
-    try:
-        block = validate_block_size(get_scalar_param(
-            comm, c.COMM_QUANT_BLOCK_SIZE, c.COMM_QUANT_BLOCK_SIZE_DEFAULT))
-    except ValueError as e:
-        raise ValueError(f"comm.{c.COMM_QUANT_BLOCK_SIZE}: {e}")
-    # ValueError on an unknown key or a bad value, as the JAX package
-    # raises; NotImplementedError for a valid selection not ported yet
-    return parse_moe_config(comm.get(c.COMM_MOE), default_block=block)
+
+def check_hierarchy_divides(outer: int, dp_size: int) -> None:
+    """An explicit outer factor must factor the dp size (config.py:82)."""
+    if dp_size % outer != 0:
+        raise ValueError(
+            f"comm.hierarchy: data_outer={outer} does not divide the "
+            f"data-parallel axis size {dp_size} (data_inner would be "
+            f"{dp_size / outer:g}); pick an outer factor from the "
+            f"divisors of {dp_size}")
+
+
+def parse_comm_overlap(value):
+    """The `comm.overlap` knob -> "none" | "auto" | "on" (config.py:93)."""
+    if value is None:
+        value = c.COMM_OVERLAP_DEFAULT
+    if isinstance(value, bool):
+        return "on" if value else "none"
+    if isinstance(value, str):
+        mode = value.lower()
+        if mode in ("none", "off", "false"):
+            return "none"
+        if mode == "auto":
+            return "auto"
+        if mode in ("on", "true"):
+            return "on"
+    raise ValueError(
+        f"comm.{c.COMM_OVERLAP} must be one of {c.COMM_OVERLAP_MODES} "
+        f"(or a bool), got {value!r}")
+
+
+class DeepSpeedCommConfig(DeepSpeedConfigObject):
+    """The gradient-reduction wire (config.py:116-250):
+
+    "comm": {
+      "gradient_reduction": "implicit" | "bucketed",
+      "wire_dtype": "fp32" | "bf16" | "split" | "int8" | "int4",
+      "reduce_bucket_size": <elements>,  # default: zero_optimization's
+      "hierarchy": "none" | "auto" | <outer> | {"outer": <outer>},
+      "wire_dtype_inner": ..., "wire_dtype_outer": ...,
+      "quant_block_size": <elements per fp16 scale>,
+      "overlap": "none" | "auto" | "on" | bool, ...
+    }
+
+    `implicit` (the default) reduces each gradient leaf with its own
+    collective; `bucketed` goes through the BucketPlan's fused buckets.
+    `fp32_allreduce` (top level) forces every wire to fp32.  The inner
+    level of a hierarchy is scatter-structured: an inherited "split"
+    lowers to fp32 there, an explicit int8/int4 inner wire raises.  The
+    port runs neither the int8/int4 wires nor the overlap: a valid
+    request for them raises NotImplementedError naming the ROADMAP item,
+    after the checks JAX makes."""
+
+    def __init__(self, param_dict, zero_config, world_size=None):
+        from ..utils.logging import logger
+        from .comm.bucketing import (GATHER_WIRES, WIRE_MODES,
+                                     refuse_quantized)
+        from .comm.quant import QUANT_WIRES, validate_block_size
+
+        super().__init__()
+        d = param_dict.get(c.COMM) or {}
+        if not isinstance(d, dict):
+            raise ValueError(
+                f"comm must be an object, got {type(d).__name__}")
+        self.gradient_reduction = str(get_scalar_param(
+            d, c.COMM_GRADIENT_REDUCTION,
+            c.COMM_GRADIENT_REDUCTION_DEFAULT)).lower()
+        if self.gradient_reduction not in c.COMM_GRADIENT_REDUCTION_MODES:
+            raise ValueError(
+                f"comm.gradient_reduction must be one of "
+                f"{c.COMM_GRADIENT_REDUCTION_MODES}, "
+                f"got {self.gradient_reduction!r}")
+        self.fp32_allreduce = bool(get_scalar_param(
+            param_dict, c.FP32_ALLREDUCE, c.FP32_ALLREDUCE_DEFAULT))
+
+        def wire_param(key, default):
+            w = get_scalar_param(d, key, default)
+            if w is None:
+                return None
+            w = str(w).lower()
+            if w not in WIRE_MODES:
+                raise ValueError(f"comm.{key} must be one of {WIRE_MODES}, "
+                                 f"got {w!r}")
+            return "fp32" if self.fp32_allreduce else w
+
+        self.wire_dtype = wire_param(c.COMM_WIRE_DTYPE,
+                                     c.COMM_WIRE_DTYPE_DEFAULT)
+        self.hierarchy = parse_comm_hierarchy(
+            get_scalar_param(d, c.COMM_HIERARCHY, c.COMM_HIERARCHY_DEFAULT))
+        if isinstance(self.hierarchy, int) and world_size is not None:
+            check_hierarchy_divides(self.hierarchy, int(world_size))
+        inner_override = wire_param(c.COMM_WIRE_DTYPE_INNER, None)
+        self.wire_dtype_inner = inner_override or self.wire_dtype
+        self.wire_dtype_outer = wire_param(c.COMM_WIRE_DTYPE_OUTER, None) \
+            or self.wire_dtype
+        if inner_override in QUANT_WIRES:
+            raise ValueError(
+                f"comm.{c.COMM_WIRE_DTYPE_INNER} = {inner_override!r}: "
+                "the int8/int4 wires are gather-structured (per-block "
+                "scales cannot ride a reduce-scatter) and cannot run the "
+                "intra-group scatter level; use fp32 or bf16 for "
+                f"{c.COMM_WIRE_DTYPE_INNER} and put the quantized wire "
+                f"on {c.COMM_WIRE_DTYPE_OUTER}")
+        if self.wire_dtype_inner in GATHER_WIRES:
+            if inner_override is not None:
+                logger.warning(
+                    "comm: the split wire is gather-structured and cannot "
+                    "run the intra-group scatter level; wire_dtype_inner "
+                    "lowers to fp32")
+            self.wire_dtype_inner = "fp32"
+        self.overlap = parse_comm_overlap(
+            get_scalar_param(d, c.COMM_OVERLAP, c.COMM_OVERLAP_DEFAULT))
+
+        def overlap_int(key, default, minimum=1):
+            v = get_scalar_param(d, key, default)
+            try:
+                iv = int(v)
+            except (TypeError, ValueError):
+                raise ValueError(
+                    f"comm.{key} must be an integer >= {minimum}, "
+                    f"got {v!r}")
+            if iv < minimum:
+                raise ValueError(
+                    f"comm.{key} must be >= {minimum}, got {iv}")
+            return iv
+
+        self.overlap_timeout_ms = overlap_int(
+            c.COMM_OVERLAP_TIMEOUT_MS, c.COMM_OVERLAP_TIMEOUT_MS_DEFAULT)
+        self.overlap_reconnect_attempts = overlap_int(
+            c.COMM_OVERLAP_RECONNECT_ATTEMPTS,
+            c.COMM_OVERLAP_RECONNECT_ATTEMPTS_DEFAULT, minimum=0)
+        self.overlap_reconnect_window_ms = overlap_int(
+            c.COMM_OVERLAP_RECONNECT_WINDOW_MS,
+            c.COMM_OVERLAP_RECONNECT_WINDOW_MS_DEFAULT)
+        self.overlap_keepalive_ms = overlap_int(
+            c.COMM_OVERLAP_KEEPALIVE_MS, c.COMM_OVERLAP_KEEPALIVE_MS_DEFAULT)
+        self.reduce_bucket_size = int(get_scalar_param(
+            d, c.COMM_REDUCE_BUCKET_SIZE, zero_config.reduce_bucket_size))
+        block = get_scalar_param(d, c.COMM_QUANT_BLOCK_SIZE,
+                                 c.COMM_QUANT_BLOCK_SIZE_DEFAULT)
+        try:
+            self.quant_block_size = validate_block_size(block)
+        except ValueError as e:
+            raise ValueError(f"comm.{c.COMM_QUANT_BLOCK_SIZE}: {e}")
+        from ..moe.dispatch import parse_moe_config
+
+        # ValueError on an unknown key or a bad value, as the JAX package
+        # raises; NotImplementedError for a valid selection not ported yet
+        self.moe = parse_moe_config(d.get(c.COMM_MOE),
+                                    default_block=self.quant_block_size)
+        refuse_quantized(self.wire_dtype)
+        refuse_quantized(self.wire_dtype_outer, "comm.wire_dtype_outer")
+        if self.overlap != "none":
+            raise NotImplementedError(
+                f"comm.overlap={self.overlap!r}: the overlapped gradient "
+                f"wire is not ported to deepspeed_tpu_torch yet (ROADMAP "
+                f"queue 1: the explicit MoE wire and the quantized wires)")
 
 
 class DeepSpeedDataPipelineConfig(DeepSpeedConfigObject):
@@ -242,6 +416,14 @@ class DeepSpeedConfig(DeepSpeedConfigObject):
         self.zero_optimization_stage = _zero_stage(pd)
         self.zero_enabled = self.zero_optimization_stage > 0
         _refuse_unported(pd, self.zero_optimization_stage)
+        from .zero.config import DeepSpeedZeroConfig
+
+        self.zero_config = DeepSpeedZeroConfig(pd)
+        mesh_data = int((pd.get(c.MESH) or {}).get("data", -1))
+        if mesh_data not in (-1, self.world_size):
+            raise DeepSpeedConfigError(
+                f"mesh.data={mesh_data} but the data-parallel world has "
+                f"{self.world_size} rank(s) (-1 takes them all)")
 
         self.fp16_enabled = get_fp16_enabled(pd)
         self.precision = get_precision(pd)
@@ -274,7 +456,9 @@ class DeepSpeedConfig(DeepSpeedConfigObject):
         self.scheduler_params = (sched.get(c.SCHEDULER_PARAMS, {})
                                  if sched else None)
 
-        self.moe = _parse_comm_moe(pd.get(c.COMM) or {})
+        self.comm_config = DeepSpeedCommConfig(pd, self.zero_config,
+                                               world_size=self.world_size)
+        self.moe = self.comm_config.moe
         self.sparse_attention = pd.get(c.SPARSE_ATTENTION, None)
         self.data_pipeline_config = DeepSpeedDataPipelineConfig(pd)
 

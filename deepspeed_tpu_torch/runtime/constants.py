@@ -79,12 +79,38 @@ ZERO_OPTIMIZATION_OFFLOAD_OPTIMIZER = "offload_optimizer"
 PIPELINE = "pipeline"
 MESH = "mesh"  # {"data": -1, "model": 1, "pipe": 1, "seq": 1}
 
-# the `comm` section: the port reads its MoE block (moe/dispatch.py) and
-# the quantization block size it defaults to
+# the `comm` section (config.py DeepSpeedCommConfig): the gradient wire
+# (runtime/comm/bucketing.py), its two-level hierarchy, the overlap knobs
+# (validated; only "none" runs) and the MoE block (moe/dispatch.py).
+# FP32_ALLREDUCE is the reference key: true forces every wire to fp32.
 COMM = "comm"
+COMM_GRADIENT_REDUCTION = "gradient_reduction"
+COMM_GRADIENT_REDUCTION_DEFAULT = "implicit"  # or "bucketed"
+COMM_GRADIENT_REDUCTION_MODES = ("implicit", "bucketed")
+COMM_WIRE_DTYPE = "wire_dtype"
+COMM_WIRE_DTYPE_DEFAULT = "fp32"  # fp32 | bf16 | split | int8 | int4
+COMM_REDUCE_BUCKET_SIZE = "reduce_bucket_size"  # elements; falls back to
+                                                # zero_optimization's knob
+COMM_HIERARCHY = "hierarchy"    # "none" | "auto" | <outer> | {"outer": n}
+COMM_HIERARCHY_DEFAULT = "none"
+COMM_WIRE_DTYPE_INNER = "wire_dtype_inner"
+COMM_WIRE_DTYPE_OUTER = "wire_dtype_outer"
 COMM_QUANT_BLOCK_SIZE = "quant_block_size"
 COMM_QUANT_BLOCK_SIZE_DEFAULT = 256
+COMM_OVERLAP = "overlap"
+COMM_OVERLAP_DEFAULT = "none"
+COMM_OVERLAP_MODES = ("none", "auto", "on")
+COMM_OVERLAP_TIMEOUT_MS = "overlap_timeout_ms"
+COMM_OVERLAP_TIMEOUT_MS_DEFAULT = 300_000
+COMM_OVERLAP_RECONNECT_ATTEMPTS = "overlap_reconnect_attempts"
+COMM_OVERLAP_RECONNECT_ATTEMPTS_DEFAULT = 8
+COMM_OVERLAP_RECONNECT_WINDOW_MS = "overlap_reconnect_window_ms"
+COMM_OVERLAP_RECONNECT_WINDOW_MS_DEFAULT = 60_000
+COMM_OVERLAP_KEEPALIVE_MS = "overlap_keepalive_ms"
+COMM_OVERLAP_KEEPALIVE_MS_DEFAULT = 5_000
 COMM_MOE = "moe"
+FP32_ALLREDUCE = "fp32_allreduce"
+FP32_ALLREDUCE_DEFAULT = False
 
 # block-sparse attention (config.py:1079): stored as given for the model
 # code (BertConfig.sparsity_config / SparseAttentionUtils) to read

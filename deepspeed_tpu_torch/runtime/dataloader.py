@@ -99,7 +99,8 @@ class DeepSpeedDataLoader:
                  collate_fn: Optional[Callable] = None,
                  local_rank: int = -1, shuffle: bool = False, seed: int = 0,
                  drop_last: bool = True, data_parallel_world_size: Optional[int] = None,
-                 data_parallel_rank: Optional[int] = None):
+                 data_parallel_rank: Optional[int] = None,
+                 row_slice: Optional[tuple] = None):
         self.dataset = dataset
         self.batch_size = int(batch_size)
         self.collate_fn = collate_fn or _default_collate
@@ -112,6 +113,10 @@ class DeepSpeedDataLoader:
         self.shard_id = (data_parallel_rank if data_parallel_rank is not None
                          else 0)
         self.epoch = 0
+        # (start, stop): the rows of every batch this reader materializes —
+        # a data-parallel rank's contiguous slice of the global batch;
+        # the batch stream and the cursor stay the global batches'
+        self.row_slice = row_slice
         if self.batch_size % max(1, self.num_shards) == 0:
             self._per_shard = self.batch_size // max(1, self.num_shards)
         else:
@@ -249,7 +254,8 @@ class DeepSpeedDataLoader:
         start, self._start_batch = self._start_batch, 0
         for i, ids in enumerate(self._epoch_batch_indices()):
             if i >= start:
-                yield ids
+                yield (ids if self.row_slice is None
+                       else ids[self.row_slice[0]:self.row_slice[1]])
 
     def _epoch_batch_indices(self):
         """The full epoch's batch-index stream (no cursor skip)."""

@@ -33,15 +33,32 @@ is carried through to the port's next save.  With `checkpoint.async_save`
 the state is copied to pinned host memory on a side stream and written
 in the background.
 
-What the single-process slice refuses (config.py raises): ZeRO >= 1,
-offload, pipelines, meshes over more than one device, progressive layer
-drop, AMP, TensorBoard, the preemption handler; LAMB, 1-bit and optax
-optimizers raise here.  Entry points run on the card unless
-`device="cpu"` is passed.
+Data parallelism: with a `torch.distributed` process group (made by
+`init_distributed`, which the engine calls unless `dist_init_required`
+is False: a no-op without WORLD_SIZE / MASTER_ADDR / an init_method) the
+data-parallel world is every rank (`comm/mesh.py`, with `comm.hierarchy`
+its two-level factoring), `dp_world_size` and `train_batch_size = micro
+× gas × dp` follow it, and the step reduces gradients over it
+(`step_builder.py`) at ZeRO stage 0, 1 or 2 (`zero/partition.py`).
+`forward(batch)` and a user's iterator take the GLOBAL micro batch, as
+the JAX engine does, and each rank trains on its contiguous rows of it
+(rank r: rows r·micro to (r+1)·micro); the engine-owned loader reads only
+those rows.  The model is called with `row_offset`, the index of the
+rank's first row, so dropout masks are those of its rows of the global
+batch.  A ZeRO-1/2 tag holds the optimizer moments as pieces, one
+`zero_pp_rank_<r>` file a rank, and a load re-partitions them for the
+current world.
+
+What the port refuses (config.py raises): ZeRO stage 3, offload,
+pipelines, model / pipe / seq axes above 1, progressive layer drop, AMP,
+TensorBoard, the preemption handler; LAMB, 1-bit and optax optimizers,
+and MoE models over more than one rank, raise here.  Entry points run on
+the card unless `device="cpu"` is passed.
 """
 
 from __future__ import annotations
 
+import inspect
 import json
 import os
 from typing import Any, Dict, Optional
@@ -49,8 +66,12 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from ..models.convert import (load_jax_params, opt_state_from_jax,
-                              opt_state_to_jax, unflatten_tree)
+from ..comm import dist
+from ..comm.mesh import (DATA_AXIS, DATA_INNER_AXIS, DATA_OUTER_AXIS,
+                         derive_data_outer, make_mesh)
+from ..models.convert import (jax_leaf_order, load_jax_params,
+                              opt_state_from_jax, opt_state_to_jax,
+                              unflatten_tree)
 from ..ops.adam.fused_adam import FusedAdam
 from ..utils.device import check_same_device, resolve_device
 from ..utils.logging import log_dist, logger
@@ -59,9 +80,11 @@ from . import constants as const
 from .config import DeepSpeedConfig
 from .dataloader import (DeepSpeedDataLoader, PrefetchLoader,
                          RepeatingLoader, timed_next)
+from .comm.bucketing import BucketPlan, OwnerExchange, WireLevel
 from .fp16.loss_scaler import create_loss_scaler
 from .lr_schedules import SCHEDULERS
 from .step_builder import StepBuilder
+from .zero.partition import ZeroShardingPlan, describe_reshard
 
 DTYPES = {"float32": torch.float32, "float16": torch.float16,
           "bfloat16": torch.bfloat16}
@@ -210,6 +233,8 @@ class DeepSpeedEngine:
             raise ValueError(
                 "DeepSpeed requires --deepspeed_config or a config dict")
         self.device = resolve_device(device)
+        if dist_init_required is None or dist_init_required:
+            dist.init_distributed(device=self.device)
         self.module = model
         self.client_optimizer = optimizer
         self.collate_fn = collate_fn
@@ -219,7 +244,12 @@ class DeepSpeedEngine:
         self.micro_steps = 0
         self._skipped_steps = 0
 
-        self._config = DeepSpeedConfig(config, world_size=1)
+        self._config = DeepSpeedConfig(config,
+                                       world_size=dist.get_world_size())
+        self.mesh_info = self._build_mesh()
+        # data parallelism runs wherever there is a process group, one
+        # rank included (its collectives are then real calls of one)
+        self._dp = self.mesh_info.group(DATA_AXIS) is not None
         # MoE token movement: install the validated comm.moe selection
         # process-globally (engine.py:177-185); the layer reads it
         from ..moe import dispatch as _moe_dispatch
@@ -227,7 +257,8 @@ class DeepSpeedEngine:
         _moe_dispatch.set_wire_config(self._config.moe)
         if self._config.moe != _moe_dispatch.MoEWireConfig():
             log_dist(self._config.moe.describe(), ranks=[0])
-        self.dp_world_size = 1
+        self.dp_world_size = self.mesh_info.axis_size(DATA_AXIS)
+        self.dp_rank = self.mesh_info.axis_index(DATA_AXIS)
         self.mp_world_size = 1
         self.compute_dtype = DTYPES[self._config.precision]
         self.loss_scaler = create_loss_scaler(self._config)
@@ -243,9 +274,24 @@ class DeepSpeedEngine:
             # a JAX params tree (as numpy) becomes the masters unrounded
             load_jax_params(model, model_parameters)
         self._param_names, self._masters = zip(*model.named_parameters())
+        self._check_data_parallel_model()
+        # ZeRO partitions; the bucketed wire fills its buckets in the JAX
+        # tree's leaf order
+        self.zero_plan = ZeroShardingPlan(
+            self._config.zero_optimization_stage, self.mesh_info,
+            [p.shape for p in self._masters])
+        log_dist(self.zero_plan.describe(), ranks=[0])
+        self._jax_order = jax_leaf_order(self._param_names)
+        self.bucket_plan = self._build_bucket_plan()
+        self._owner_exchange = (
+            OwnerExchange(self.bucket_plan,
+                          [self.zero_plan.leaves[i] for i in self._jax_order],
+                          self.device)
+            if self.bucket_plan is not None and self.bucket_plan.scatter
+            and self.zero_plan.partitioned else None)
 
         self.optimizer = self._configure_optimizer()
-        self._opt_state = self.optimizer.init(list(self._masters))
+        self._opt_state = self.optimizer.init(self._owned_masters())
         self._scaler_state = self.loss_scaler.jit_state(self.device)
         self._grad_acc = None   # fp32 gradients accumulated over micro steps
         self._cached = None     # loss from forward awaiting backward
@@ -307,6 +353,111 @@ class DeepSpeedEngine:
         raise ValueError(f"unknown optimizer {name!r}; supported: "
                          f"{const.DEEPSPEED_OPTIMIZERS}")
 
+    def _build_mesh(self):
+        """The data axis over the process group, factored by
+        `comm.hierarchy` (engine.py:527, 638: "auto" is one outer group
+        per node)."""
+        hier = self._config.comm_config.hierarchy
+        outer = 1
+        if hier == "auto":
+            outer = derive_data_outer(dist.get_world_size())
+        elif isinstance(hier, int):
+            outer = hier
+        return make_mesh(data=-1, data_outer=outer)
+
+    def _check_data_parallel_model(self):
+        """More than one rank needs a model that takes `row_offset` (its
+        dropout masks follow the global batch's rows) and no MoE layer
+        (an MoE layer's gate noise is drawn per local batch)."""
+        if self.dp_world_size <= 1:
+            return
+        cfg = getattr(self.module, "config", None)
+        if int(getattr(cfg, "num_experts", 1) or 1) > 1:
+            raise NotImplementedError(
+                "MoE training over more than one rank is not ported to "
+                "deepspeed_tpu_torch yet (ROADMAP queue 1: the explicit MoE "
+                "wire and the quantized wires)")
+        if "row_offset" not in inspect.signature(
+                self.module.forward).parameters:
+            raise NotImplementedError(
+                f"{type(self.module).__name__}: data parallelism needs a "
+                f"model whose call takes row_offset (the index of the "
+                f"rank's first row of the global batch, for its dropout "
+                f"masks); models.GPT takes it")
+
+    def _build_bucket_plan(self):
+        """The bucketed gradient wire's static plan (engine.py:1080), or
+        None for the implicit wire.  Unlike the JAX engine the plan is
+        built at one rank too, wherever a process group is: the wire
+        then runs as collectives of one."""
+        cc = self._config.comm_config
+        if cc.gradient_reduction != "bucketed":
+            return None
+        if not self._dp:
+            log_dist("bucketed gradient wire requested but there is no "
+                     "process group: nothing to reduce", ranks=[0])
+            return None
+        mi = self.mesh_info
+        scatter = (self._config.zero_optimization_stage >= 2
+                   and bool(self._config.zero_config.reduce_scatter))
+        levels = None
+        if mi.hierarchical:
+            levels = (WireLevel(DATA_INNER_AXIS, mi.data_inner_size,
+                                cc.wire_dtype_inner),
+                      WireLevel(DATA_OUTER_AXIS, mi.data_outer_size,
+                                cc.wire_dtype_outer))
+        plan = BucketPlan([self._masters[i] for i in self._jax_order],
+                          dp_size=self.dp_world_size,
+                          bucket_elems=cc.reduce_bucket_size,
+                          wire=cc.wire_dtype, scatter=scatter, levels=levels,
+                          quant_block=cc.quant_block_size)
+        log_dist(plan.describe(), ranks=[0])
+        return plan
+
+    def _owned_masters(self):
+        """The slices of the masters this rank's optimizer updates."""
+        return [lp.owned(p) for lp, p in zip(self.zero_plan.leaves,
+                                             self._masters)]
+
+    def _full_masters(self):
+        """The fp32 masters, exact on every rank: where the other ranks'
+        slices hold compute-dtype values (ZeRO >= 1 in bf16/fp16), copies
+        with every slice from its owner by an fp32 all-gather (a
+        collective: every rank calls it)."""
+        plan = self.zero_plan
+        if not (self._dp and plan.stage >= 1 and plan.partitioned) or \
+                self.compute_dtype == torch.float32:
+            return list(self._masters)
+        full = [p.detach().clone() for p in self._masters]
+        plan.all_gather_slices(full, self._owned_masters(), torch.float32)
+        return full
+
+    def _local_rows(self, batch):
+        """This rank's contiguous rows of a global micro batch (every
+        array's leading dim is micro × dp), as JAX's batch sharding gives
+        its data index."""
+        dp = self.dp_world_size
+        if dp == 1:
+            return batch
+        micro = self.train_micro_batch_size_per_gpu()
+        lo, hi = self.dp_rank * micro, (self.dp_rank + 1) * micro
+
+        def cut(x):
+            if isinstance(x, dict):
+                return {k: cut(v) for k, v in x.items()}
+            if isinstance(x, (list, tuple)):
+                return type(x)(cut(v) for v in x)
+            if isinstance(x, np.ndarray) or torch.is_tensor(x):
+                if x.shape[0] != micro * dp:
+                    raise ValueError(
+                        f"a batch array of {x.shape[0]} rows: the engine "
+                        f"takes the global micro batch, micro "
+                        f"{micro} x dp {dp} = {micro * dp} rows")
+                return x[lo:hi]
+            return x
+
+        return cut(batch)
+
     def _configure_lr_scheduler(self, client_scheduler):
         sched = client_scheduler
         if sched is None:
@@ -332,11 +483,16 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------
 
     def forward(self, batch, generator: Optional[torch.Generator] = None):
-        """Compute the loss AND the gradients of a micro batch; returns
-        the (unscaled) loss.  With gas == 1 the whole step runs here and
-        step() does the bookkeeping; the previous step's deferred overflow
-        is settled first, so the lr read below is the rolled-back one.
-        `generator` draws the dropout seeds (default: the engine's)."""
+        """Compute the loss AND the gradients of a (global) micro batch;
+        returns the (unscaled) loss, the mean over the data ranks.  With
+        gas == 1 the whole step runs here and step() does the
+        bookkeeping; the previous step's deferred overflow is settled
+        first, so the lr read below is the rolled-back one.  `generator`
+        draws the dropout seeds (default: the engine's)."""
+        return self._forward(self._local_rows(batch), generator)
+
+    def _forward(self, batch, generator=None):
+        """`forward` on this rank's rows."""
         batch = _place(batch, self.device)
         gen = generator if generator is not None else self._generator
         if self.gradient_accumulation_steps() == 1:
@@ -379,14 +535,14 @@ class DeepSpeedEngine:
     def _boundary_step(self):
         """The micro/apply boundary: apply the accumulated gradients."""
         self._resolve_pending_overflow()
-        (overflow, _grad_norm, self._opt_state,
+        (overflow, self._grad_norm, self._opt_state,
          self._scaler_state) = self._step_fns["apply"](self._current_lr())
         self._finish_step(overflow)
 
     def _fused_step_bookkeeping(self):
         """Host-side tail of the gas == 1 step, whose update forward()
         already made."""
-        new_scaler, overflow, _grad_norm = self._pending_full
+        new_scaler, overflow, self._grad_norm = self._pending_full
         self._pending_full = None
         self._scaler_state = new_scaler
         self._finish_step(overflow)
@@ -442,12 +598,17 @@ class DeepSpeedEngine:
                 self._train_iter = iter(RepeatingLoader(
                     self._wrap_prefetch(self.training_dataloader)))
             data_iter = self._train_iter
-        feed = self._data_feed(data_iter)
+        # the owned loader reads this rank's rows; a user's iterator gives
+        # global batches
+        if data_iter is getattr(self, "_train_iter", None):
+            fetch = lambda: timed_next(data_iter)  # noqa: E731
+        else:
+            fetch = lambda: self._local_rows(timed_next(data_iter))  # noqa
+        feed = self._data_feed(data_iter, fetch)
         losses = []
         for _ in range(self.gradient_accumulation_steps()):
-            batch = (feed.next() if feed is not None
-                     else timed_next(data_iter))
-            losses.append(self.forward(batch))
+            batch = feed.next() if feed is not None else fetch()
+            losses.append(self._forward(batch))
             self.backward()
             if feed is not None:
                 feed.schedule()   # the next batch's copy rides this step
@@ -474,7 +635,7 @@ class DeepSpeedEngine:
         return PrefetchLoader(loader, prefetch_depth=dp.prefetch_depth,
                               num_workers=dp.num_workers)
 
-    def _data_feed(self, data_iter) -> Optional[_DeviceFeed]:
+    def _data_feed(self, data_iter, fetch) -> Optional[_DeviceFeed]:
         """The cached device double buffer bound to `data_iter`, or None
         when device prefetch is off.  Two slots: the owned iterator's
         feed (the only one with lookahead) and the latest user
@@ -487,8 +648,7 @@ class DeepSpeedEngine:
         feed = self._device_feed if owned else self._user_device_feed
         if feed is not None and feed.source is data_iter:
             return feed
-        feed = _DeviceFeed(data_iter, lambda: timed_next(data_iter),
-                           self.device, lookahead=owned)
+        feed = _DeviceFeed(data_iter, fetch, self.device, lookahead=owned)
         if owned:
             self._device_feed = feed
         else:
@@ -518,24 +678,35 @@ class DeepSpeedEngine:
     def deepspeed_io(self, dataset, batch_size=None, route=None,
                      data_sampler=None, collate_fn=None,
                      num_local_io_workers=None):
-        """The engine's loader over `dataset` (engine.py:2899): the micro
-        batch, shuffled with seed 0, one shard."""
+        """The engine's loader over `dataset` (engine.py:2899): global
+        micro batches (micro × dp samples), shuffled with seed 0, of which
+        this rank reads its contiguous rows."""
+        micro = self.train_micro_batch_size_per_gpu()
+        rows = None
+        if self.dp_world_size > 1 and batch_size is None:
+            rows = (self.dp_rank * micro, (self.dp_rank + 1) * micro)
         return DeepSpeedDataLoader(
             dataset, batch_size=(batch_size if batch_size is not None else
-                                 self.train_micro_batch_size_per_gpu() *
-                                 self.dp_world_size),
+                                 micro * self.dp_world_size),
             shuffle=True, collate_fn=collate_fn or self.collate_fn,
-            data_parallel_world_size=1, data_parallel_rank=0)
+            data_parallel_world_size=1, data_parallel_rank=0,
+            row_slice=rows)
 
     @torch.no_grad()
     def eval_batch(self, batch, generator=None):
-        """Loss without gradients or bookkeeping (engine.py:2509)."""
+        """Loss without gradients or bookkeeping (engine.py:2509): the
+        global micro batch's, the mean over the data ranks."""
         cparams = {n: p.to(self.compute_dtype)
                    for n, p in zip(self._param_names, self._masters)}
         out = torch.func.functional_call(
-            self.module, cparams, (_place(batch, self.device),),
+            self.module, cparams,
+            (_place(self._local_rows(batch), self.device),),
             {"generator": generator, "train": False})
-        return out[0] if isinstance(out, tuple) else out
+        loss = out[0] if isinstance(out, tuple) else out
+        if self._dp:
+            loss = dist.all_reduce(loss.float().clone(), DATA_AXIS) / \
+                self.dp_world_size
+        return loss
 
     # ------------------------------------------------------------------
     # accessors (engine.py:2533-2897)
@@ -583,7 +754,8 @@ class DeepSpeedEngine:
         self._grad_acc = None
 
     def allreduce_gradients(self, bucket_size=None, hierarchy=None):
-        """One process, one device: there is nothing to reduce."""
+        """The reduction runs inside forward() (the step's reduce stage,
+        runtime/step_builder.py); nothing is left to reduce here."""
 
     def get_mom(self):
         """First-moment decay (beta1) per param group."""
@@ -669,9 +841,10 @@ class DeepSpeedEngine:
         return self._config.zero_allow_untested_optimizer
 
     def module_state_dict(self):
-        """{name: fp32 numpy copy} of the module weights."""
+        """{name: fp32 numpy copy} of the module weights (the exact
+        masters: a collective under ZeRO >= 1 in bf16/fp16)."""
         return {n: p.detach().cpu().numpy().copy()
-                for n, p in self.params.items()}
+                for n, p in zip(self._param_names, self._full_masters())}
 
     def load_module_state_dict(self, state_dict, strict=True):
         """Replace the weights from {name: array}; strict: the same names."""
@@ -706,14 +879,9 @@ class DeepSpeedEngine:
         with the ZeRO plan's `partition_layout` keys), and the loader's
         sample cursor."""
         meta = {
-            "world_size": 1,
+            "world_size": dist.get_world_size(),
             "mp_world_size": self.mp_world_size,
-            "dp_world_size": self.dp_world_size,
-            "zero_stage": self.zero_optimization_stage(),
-            "data_outer": 1,
-            "data_inner": self.dp_world_size,
-            "partition_size": self.dp_world_size,
-            "hierarchical": False,
+            **self.zero_plan.partition_layout(),
             "global_steps": self.global_steps,
         }
         cursor_fn = getattr(self.training_dataloader, "sample_cursor", None)
@@ -792,7 +960,7 @@ class DeepSpeedEngine:
         self._checkpoint_tag_validation(tag)
         names = self._param_names
         model_state = {
-            "module": unflatten_tree(dict(zip(names, self._masters))),
+            "module": unflatten_tree(dict(zip(names, self._full_masters()))),
             "lr_scheduler": (self.lr_scheduler.state_dict()
                              if self.lr_scheduler is not None else None),
             "loss_scaler": dict(self._scaler_state),
@@ -800,8 +968,9 @@ class DeepSpeedEngine:
             TORCH_RNG_STATE: self._generator.get_state(),
             **self._client_state(client_state),
         }
+        opt_tree, pieces = self._opt_state_pieces()
         optim_state = {
-            "optimizer_state": opt_state_to_jax(names, self._opt_state),
+            "optimizer_state": opt_tree,
             "offload": False,
             # json round trip: msgpack takes no tuples (betas)
             "optimizer_hparams": (json.loads(json.dumps(
@@ -812,12 +981,59 @@ class DeepSpeedEngine:
         async_save = self._config.checkpoint_async_save
         ready = None
         if async_save:
-            (model_state, optim_state), ready = self._async_ckpt_snapshot(
-                (model_state, optim_state))
+            (model_state, optim_state, pieces), ready = \
+                self._async_ckpt_snapshot((model_state, optim_state, pieces))
         ckpt_io.save_checkpoint_state(
             save_dir, tag, model_state, optim_state, save_latest=save_latest,
-            async_save=async_save, meta=self._checkpoint_meta(), ready=ready)
+            async_save=async_save, meta=self._checkpoint_meta(), ready=ready,
+            pieces=pieces, rank=dist.get_rank(),
+            commit_timeout_ms=self._config.checkpoint_commit_timeout_ms)
         return True
+
+    def _opt_state_pieces(self):
+        """The optimizer state as the JAX tree, each partitioned moment a
+        `shard_marker`, and this rank's pieces of them ({key: {"index",
+        "piece"}}): written by the ranks of the first outer group only,
+        one rank a distinct piece, as JAX writes the lowest device's
+        replica (checkpointing.py:334)."""
+        plan, names = self.zero_plan, self._param_names
+        if not plan.partitioned:
+            return opt_state_to_jax(names, self._opt_state), {}
+        writes = (not self.mesh_info.hierarchical or
+                  self.mesh_info.axis_index(DATA_OUTER_AXIS) == 0)
+        pieces, state = {}, {}
+        for k, v in self._opt_state.items():
+            if not (isinstance(v, (list, tuple)) and len(v) == len(names)):
+                state[k] = v
+                continue
+            out = []
+            for name, t, lp in zip(names, v, plan.leaves):
+                if not lp.sharded:
+                    out.append(t)
+                    continue
+                path = ["optimizer_state", k] + [
+                    int(c) if c.isdigit() else c for c in name.split(".")]
+                key = ckpt_io.shard_key("optim:", path)
+                out.append(ckpt_io.shard_marker(key, lp.shape, "float32",
+                                                lp.parts))
+                if writes:
+                    pieces[key] = {"index": lp.piece_index(lp.index),
+                                   "piece": t}
+            state[k] = out
+        return opt_state_to_jax(names, state), pieces
+
+    def _partition_opt_state(self, restored):
+        """Whole restored moments -> this rank's slices of them (a tag
+        written at any world size re-partitions to this one)."""
+        out = {}
+        for k, v in restored.items():
+            if isinstance(v, (list, tuple)) and len(v) == len(self._masters):
+                v = [lp.owned(t if torch.is_tensor(t) else
+                              torch.from_numpy(np.array(t))).clone(
+                                  memory_format=torch.contiguous_format)
+                     for lp, t in zip(self.zero_plan.leaves, v)]
+            out[k] = v
+        return out
 
     def _restore_sample_cursor(self, marker):
         """Apply the marker's sample cursor to the owned loader and drop
@@ -857,14 +1073,18 @@ class DeepSpeedEngine:
             raise NotImplementedError(
                 "an offload checkpoint: not ported to deepspeed_tpu_torch "
                 "yet (ROADMAP queue 1: ZeRO-3, Offload and Infinity)")
-        self._restore_sample_cursor(ckpt_io.read_tag_meta(
-            load_dir, os.path.basename(ckpt_dir)))
+        marker = ckpt_io.read_tag_meta(load_dir, os.path.basename(ckpt_dir))
+        change = describe_reshard((marker or {}).get("meta"),
+                                  self.zero_plan.partition_layout())
+        if change:
+            log_dist(change, ranks=[0])
+        self._restore_sample_cursor(marker)
         # load_module_strict is accepted and, as in the JAX engine, the
         # module tree must match
         self._install_module_weights(model_state["module"])
         if load_optimizer_states and optim_state is not None:
-            restored = opt_state_from_jax(self._param_names,
-                                          optim_state["optimizer_state"])
+            restored = self._partition_opt_state(opt_state_from_jax(
+                self._param_names, optim_state["optimizer_state"]))
             self._opt_state = _match_state(restored, self._opt_state)
             hparams = optim_state.get("optimizer_hparams")
             if hparams is not None and hasattr(self.optimizer,
@@ -905,6 +1125,13 @@ class DeepSpeedEngine:
         settled counters."""
         self._resolve_pending_overflow()
         return self._skipped_steps
+
+    def get_global_grad_norm(self):
+        """The last step's gradient norm before clipping, over the whole
+        (data-parallel mean) gradient; 0.0 when clipping is off (the norm
+        is then not computed) or before the first step."""
+        norm = getattr(self, "_grad_norm", None)
+        return 0.0 if norm is None else float(norm)
 
     @property
     def loss_scale(self):

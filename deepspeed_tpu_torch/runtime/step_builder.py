@@ -1,29 +1,48 @@
 """The training step's stages — the port of the serial path of
-deepspeed_tpu/runtime/step_builder.py (`apply_core` :319-359,
-`micro_step` / `full_step` :371-405).
+deepspeed_tpu/runtime/step_builder.py (`implicit_grads`, the BucketPlan
+path :267-310, `apply_core` :319-359, `micro_step` / `full_step`
+:371-405).
 
-  prep   fp32 masters -> the compute-dtype replica (:223-232)
-  grad   replica + micro batch -> fp32 gradients of the scaled loss
-  apply  unscale by loss_scale·gas (with prescale/predivide), overflow
-         check, clip, optimizer update, branchless skip on overflow for
-         params and optimizer state, loss-scale update
+  prep    fp32 masters -> the compute-dtype replica (:223-232)
+  grad    replica + this rank's rows of the micro batch -> local fp32
+          gradients of the scaled loss
+  reduce  the data-parallel mean of the local gradients, down to the
+          part this rank's optimizer partition owns: per leaf
+          ("implicit": an all-reduce, or at ZeRO stage 2 a
+          reduce-scatter to the owner's slice) or over the BucketPlan's
+          buckets ("bucketed", runtime/comm/bucketing.py)
+  apply   unscale by loss_scale·gas (with prescale/predivide), the
+          overflow flag agreed by every rank, the clipping norm over the
+          whole gradient, the optimizer update on this rank's partition,
+          branchless skip on overflow, loss-scale update, then ONE
+          all-gather of the updated slices in the compute dtype
 
 The replica is each master cast with `.to(compute_dtype)`, and the module
 runs on it through `torch.func.functional_call`; autograd through the
 casts returns fp32 gradients on the masters — what `cast(grads, fp32)`
 (:267) does.  JAX composes these into jitted programs; PyTorch runs them
 eagerly, so the stages are closures over the engine that read and write
-its state (the masters are updated in place, which saves a copy of the
-parameters).  There is one composition: the gas == 1 `full` step and the
-`micro` + `apply` pair; the JAX package's scan, overlap and 1-bit
-compositions belong to later slices.
+its state (the masters are updated in place).
+
+Data parallelism (`engine._dp`, a process group is present): every rank
+keeps every master in fp32; at ZeRO stage >= 1 a rank updates only the
+slices its partition owns (`runtime/zero/partition.py`) and its Adam
+moments are those slices' moments; the other ranks' slices come back in
+the compute dtype, so they equal the owners' masters rounded as the next
+forward reads them.  The gradient is the mean over ranks of each rank's
+own loss gradient (JAX's bucketed path); with equal label counts per
+rank that is the gradient of the global batch's mean loss.  Without a
+process group the reduce stage is skipped and the step is the
+single-process one.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .utils import clip_grad_norm, has_overflow
+from ..comm import dist
+from ..comm.mesh import DATA_AXIS, DATA_INNER_AXIS, DATA_OUTER_AXIS
+from .utils import clip_grad_norm, global_grad_norm_sq, has_overflow
 
 
 def _select(overflow, new, old):
@@ -56,6 +75,21 @@ class StepBuilder:
         prescale = eng._config.prescale_gradients
         predivide = float(eng._config.gradient_predivide_factor or 1.0)
         scaler = eng.loss_scaler
+        dp_on = eng._dp
+        dp = eng.dp_world_size
+        plan = eng.zero_plan
+        leaves = plan.leaves
+        stage = plan.stage
+        owned_masters = [lp.owned(p) for lp, p in zip(leaves, masters)]
+        wire = eng.bucket_plan
+        exchange = eng._owner_exchange
+        order = eng._jax_order
+        hier = eng.mesh_info.hierarchical
+        part_axis = plan.partition_axes[0]
+        first_part = plan.partition_index == 0
+        model_kwargs = ({"row_offset": eng.dp_rank *
+                         eng.train_micro_batch_size_per_gpu()}
+                        if dp > 1 else {})
 
         def prep_params():
             """Master params -> the compute-side replica the loss reads."""
@@ -64,10 +98,45 @@ class StepBuilder:
         def run_loss(cparams, batch, generator, loss_scale):
             out = torch.func.functional_call(
                 model, cparams, (batch,),
-                {"generator": generator, "train": True})
+                {"generator": generator, "train": True, **model_kwargs})
             loss = out[0] if isinstance(out, tuple) else out
             scale_factor = loss_scale / predivide if prescale else loss_scale
             return loss.float() * scale_factor, loss
+
+        def reduce_implicit(grads):
+            """One collective a leaf: the mean over the data ranks, cut
+            to the owned slice (a reduce-scatter at stage 2)."""
+            out = []
+            for g, lp in zip(grads, leaves):
+                if stage >= 2 and lp.sharded:
+                    if hier:
+                        g = dist.reduce_scatter(g, DATA_INNER_AXIS,
+                                                scatter_axis=lp.dim)
+                        g = dist.all_reduce(g, DATA_OUTER_AXIS)
+                    else:
+                        g = dist.reduce_scatter(g, DATA_AXIS,
+                                                scatter_axis=lp.dim)
+                    out.append(g.div_(dp))
+                else:
+                    out.append(lp.owned(dist.all_reduce(g, DATA_AXIS)
+                                        .div_(dp)))
+            return out
+
+        def reduce_bucketed(grads):
+            """The BucketPlan's buckets, in the JAX tree's leaf order."""
+            buckets = wire.reduce(wire.flatten([grads[i] for i in order]))
+            wire.account(1)
+            # scattered chunks go to their owners; with one partition a
+            # chunk is the whole bucket
+            if exchange is not None:
+                got = exchange.owned(buckets)
+            else:
+                got = wire.unflatten(buckets)
+            out = [None] * len(grads)
+            for j, i in enumerate(order):
+                out[i] = got[j] if exchange is not None else \
+                    leaves[i].owned(got[j])
+            return out
 
         def compute_grads(batch, generator, loss_scale):
             scaled, loss = run_loss(prep_params(), batch, generator,
@@ -75,17 +144,46 @@ class StepBuilder:
             grads = torch.autograd.grad(scaled, masters, allow_unused=True)
             grads = [torch.zeros_like(p) if g is None else g
                      for g, p in zip(grads, masters)]
-            return grads, loss.detach()
+            loss = loss.detach()
+            if dp_on:
+                grads = (reduce_bucketed(grads) if wire is not None
+                         else reduce_implicit(grads))
+                # the reported loss is the global batch's mean
+                loss = dist.all_reduce(loss.float().clone(), DATA_AXIS) / dp
+            return grads, loss
+
+        def agreed_overflow(grads):
+            """The overflow flag of the owned gradients, the same on every
+            rank (an all-reduce MAX)."""
+            overflow = has_overflow(grads)
+            if dp_on:
+                flag = overflow.to(torch.int32)
+                overflow = dist.all_reduce(flag, DATA_AXIS,
+                                           dist.ReduceOp.MAX) > 0
+            return overflow
+
+        def grad_norm_sq(grads):
+            """Sum of squares of the whole gradient: at stage >= 1 each
+            rank's owned slices (unsharded leaves counted by partition
+            index 0 only), summed over the partition group."""
+            if not (dp_on and stage >= 1 and plan.partitioned):
+                return global_grad_norm_sq(grads)
+            mine = [g for g, lp in zip(grads, leaves)
+                    if lp.sharded or first_part]
+            sq = (global_grad_norm_sq(mine) if mine else
+                  torch.zeros((), dtype=torch.float32,
+                              device=grads[0].device))
+            return dist.all_reduce(sq, part_axis)
 
         @torch.no_grad()
         def apply_core(grads, lr, gas_div):
             """Unscale -> overflow -> clip -> optimizer -> branchless
-            skip -> loss-scale update.  Writes the masters in place;
-            returns (overflow, grad_norm, new optimizer state, new scaler
-            state)."""
+            skip -> loss-scale update -> parameter gather.  Writes the
+            masters in place; returns (overflow, grad_norm, new optimizer
+            state, new scaler state)."""
             opt_state, scaler_state = eng._opt_state, eng._scaler_state
             loss_scale = scaler_state["cur_scale"]
-            overflow = has_overflow(grads)
+            overflow = agreed_overflow(grads)
             denom = loss_scale * gas_div
             if prescale:
                 denom = denom / predivide
@@ -95,18 +193,22 @@ class StepBuilder:
             grad_norm = torch.zeros((), dtype=torch.float32,
                                     device=loss_scale.device)
             if clip > 0.0:
-                grads, grad_norm = clip_grad_norm(grads, clip)
+                grads, grad_norm = clip_grad_norm(grads, clip,
+                                                  grad_norm_sq(grads))
             # an async checkpoint's copies of the masters land first
             eng._wait_snapshot()
-            new_params, new_opt = opt.update(grads, opt_state, list(masters),
-                                             lr=lr)
+            new_params, new_opt = opt.update(grads, opt_state,
+                                             list(owned_masters), lr=lr)
             del grads
             # branchless skip-step on overflow (reference: step skipped,
             # scale halved — fp16/loss_scaler + stage2.py:1385-1404)
-            for old, new in zip(masters, new_params):
+            for old, new in zip(owned_masters, new_params):
                 torch.where(overflow, old, new, out=old)
             new_opt = _select(overflow, new_opt, opt_state)
             new_scaler = scaler.jit_update(scaler_state, overflow)
+            if dp_on and stage >= 1:
+                # every rank's updated slices, in the compute dtype
+                plan.all_gather_slices(masters, owned_masters, compute_dtype)
             return overflow, grad_norm, new_opt, new_scaler
 
         def micro_step(batch, generator):

@@ -610,3 +610,90 @@ def test_cuda_async_snapshot_right_after_a_step_equals_a_sync_save(
               "zero_pp_rank_0_mp_rank_00_optim_states.msgpack"):
         assert (tmp_path / "async" / "t" / f).read_bytes() == \
             (tmp_path / "sync" / "t" / f).read_bytes(), f
+
+
+# -- ZeRO-1/2 tags across world sizes ---------------------------------------------
+
+
+def test_world2_zero2_tags_in_pieces_and_across_world_sizes(jx, tmp_path):
+    """A world-2 ZeRO-2 port tag holds its Adam moments as two
+    `zero_pp_rank_*` pieces files in JAX's format; the JAX engine reads
+    it at dp 8, and the port's single process resumes it, each going on
+    with the same sample stream (the cursor counts global batches) and
+    the loss curve of the world-2 run; the port reads the JAX engine's
+    dp-8 ZeRO-2 tag at world 2.  Tolerances: cross-engine fp32 1e-5 a
+    step (above); the port across world sizes 1e-6 relative
+    (tests/test_torch_dp.py's fp32 wire bound)."""
+    from test_torch_dp import spawn_world
+
+    data = [(x[i].astype(np.int64), y[i].astype(np.int64))
+            for x, y in synthetic_batches(8, 64, 32, 64, 11)
+            for i in range(64)]
+    je, _ = _engine_pair(jx, training_data=data, zero_stage=2)
+    tree = flatten_tree(jx.jax.tree_util.tree_map(np.asarray, je.params))
+    tree = {k: np.array(v) for k, v in tree.items()}
+    for _ in range(2):
+        je.train_batch()
+    je.save_checkpoint(str(tmp_path / "jax"), tag="jz2")
+    want_j = [float(je.train_batch()) for _ in range(2)]
+    assert len(glob.glob(str(tmp_path / "jax" / "jz2" /
+                             "zero_pp_rank_*"))) == 8
+
+    w2 = _cfg(micro=32, train_batch_size=64,
+              zero_optimization={"stage": 2},
+              comm={"gradient_reduction": "bucketed",
+                    "reduce_bucket_size": 5000})
+    jobs = {"save": {"run": "resume", "cfg": w2, "tree": tree, "data": data,
+                     "steps": 6, "save_at": 3,
+                     "save": (str(tmp_path / "port"), "w2")},
+            "load-jax": {"run": "resume", "cfg": w2, "tree": tree,
+                         "data": data, "steps": 2,
+                         "load": (str(tmp_path / "jax"), "jz2")}}
+    ranks = spawn_world(2, jobs, tmp_path)
+    for res in ranks:
+        np.testing.assert_allclose(res["load-jax"]["losses"], want_j,
+                                   atol=1e-5, rtol=0)
+    stream = ranks[0]["save"]["losses"]
+    assert ranks[1]["save"]["losses"] == stream
+
+    # the tag: two piece files, rank 0's holding the state with markers
+    tag = tmp_path / "port" / "w2"
+    files = sorted(os.path.basename(p) for p in
+                   glob.glob(str(tag / "zero_pp_rank_*")))
+    assert files == ["zero_pp_rank_0_mp_rank_00_optim_states.msgpack",
+                     "zero_pp_rank_1_mp_rank_00_optim_states.msgpack"]
+    with open(tag / files[1], "rb") as f:
+        r1 = ck.msgpack_restore(f.read())
+    assert set(r1) == {"__dstpu_ckpt_v2__", "pieces"} and r1["pieces"]
+    meta = ck.read_tag_meta(str(tmp_path / "port"), "w2")
+    assert (meta["world_size"], meta["meta"]["dp_world_size"],
+            meta["meta"]["zero_stage"],
+            meta["meta"]["sample_cursor"]["position"]) == (2, 2, 2, 3)
+
+    # the JAX engine reads it at dp 8 and follows the stream
+    je2, _ = _engine_pair(jx, training_data=data, zero_stage=2)
+    je2.load_checkpoint(str(tmp_path / "port"), tag="w2")
+    _, _, optim = ck.load_checkpoint_state(str(tmp_path / "port"), "w2")
+    jo = flatten_tree(jx.jax.tree_util.tree_map(
+        np.asarray, je2._opt_state["exp_avg"]))
+    po = flatten_tree(optim["optimizer_state"]["exp_avg"])
+    assert set(jo) == set(po)
+    for n in jo:
+        assert np.array_equal(jo[n], np.asarray(po[n])), n
+    got_j = [float(je2.train_batch()) for _ in range(3)]
+    np.testing.assert_allclose(got_j, stream[3:], atol=1e-5, rtol=0)
+
+    # the port's single process resumes it on the same stream
+    te = dt.initialize(model=GPT(gpt2_config("nano", max_seq_len=32,
+                                             vocab_size=64), device="cpu"),
+                       model_parameters=tree, training_data=data,
+                       config_params=_cfg(micro=64,
+                                          zero_optimization={"stage": 2}),
+                       device="cpu")[0]
+    te.load_checkpoint(str(tmp_path / "port"), tag="w2")
+    assert te.global_steps == 3
+    got = [float(te.train_batch()) for _ in range(3)]
+    np.testing.assert_allclose(got, stream[3:], rtol=1e-6, atol=0)
+    for n, v in te.module_state_dict().items():
+        np.testing.assert_allclose(v, ranks[0]["save"]["masters"][n],
+                                   atol=1e-5, rtol=0, err_msg=n)

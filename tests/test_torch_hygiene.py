@@ -1,7 +1,7 @@
 """Boundaries of the PyTorch port: `deepspeed_tpu_torch`,
-`chip_smoke.py` and `chip_ab.py` load neither JAX, flax nor the JAX
-package, and the entry points run on the card unless the CPU is asked
-for."""
+`chip_smoke.py`, `chip_ab.py` and `chip_profile_moe.py` load neither
+JAX, flax nor the JAX package, and the entry points run on the card
+unless the CPU is asked for."""
 
 import ast
 import os
@@ -30,6 +30,7 @@ def _python_files():
                 yield os.path.join(root, f)
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "chip_ab.py")
+    yield os.path.join(REPO, "chip_profile_moe.py")
 
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():

@@ -532,8 +532,10 @@ def test_engine_curve_with_sorted_dispatch_matches_jax(monkeypatch,
     ({"dispatch": "fast"}, ValueError, "dispatch must be one of"),
     ({"dropless": "yes"}, ValueError, "must be a bool"),
     ({"a2a_wire_dtype": "int8"}, NotImplementedError, "explicit MoE wire"),
-    ({"dispatch": "sorted", "dropless": True}, NotImplementedError,
-     "MoE dropless"),
+    ({"dispatch": "sorted", "dropless": True, "overlap": "on"},
+     NotImplementedError, "explicit MoE wire"),
+    ({"dispatch": "sorted", "dropless": True, "a2a_wire_dtype": "bf16"},
+     ValueError, "cannot ride the explicit a2a wire"),
     ({"overlap": "on"}, NotImplementedError, "explicit MoE wire"),
 ])
 def test_comm_moe_is_validated_at_config_time(moe, err, match):

@@ -302,12 +302,14 @@ def test_engine_train_batch_eval_batch_and_accessors():
 
 
 @pytest.mark.parametrize("extra,match", [
-    ({"zero_optimization": {"stage": 2}}, "ZeRO stage 2"),
-    ({"zero_optimization": True}, "ZeRO stage 1"),
+    ({"zero_optimization": {"stage": 3}},
+     "ZeRO stage 3.*ZeRO-3, Offload and Infinity"),
+    ({"zero_optimization": {"stage": 2, "offload_param": {"device": "cpu"}}},
+     "offload.*ZeRO-3, Offload and Infinity"),
     ({"zero_optimization": {"stage": 0, "offload_optimizer":
                             {"device": "cpu"}}}, "offload"),
     ({"pipeline": {"stages": 2}}, "pipeline"),
-    ({"mesh": {"data": 2}}, "mesh"),
+    ({"mesh": {"model": 2}}, "mesh.*tensor and sequence parallelism"),
     ({"progressive_layer_drop": {"enabled": True}}, "progressive"),
     ({"train_batch_size": 24, "gradient_accumulation_steps": 2},
      "batch related"),
