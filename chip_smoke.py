@@ -212,6 +212,30 @@ any failure raises and the script exits nonzero:
    overflow factor 1.0, 2 + 6 steps: nothing dropped at any step, #13
    and #14 launched 4 x 6 layers a step (half on the overflow bucket),
    step ms, tokens/s and peak memory beside train-moe's.
+10a. The quantized and expert-parallel wires (two or four ranks on the
+   one card run over gloo, which stages every collective through host
+   memory: their times are gloo's, not a wire's).  qgz-exact (after
+   train-dp): GPT-2 nano, fp32, the bucketed int8 and int4 wires (block
+   256) at ZeRO 0 and 2: at world 1 over NCCL each reduced bucket bitwise
+   the plain CPU codec's, at world 2 each rank's bitwise the numpy fp32
+   sum of both ranks' dequantized contributions / 2; #11 and #12 once a
+   bucket a reduction.  train-dp-qgz: train-dp with `wire_dtype` int8:
+   step ms, tokens/s and peak memory beside train-dp's fp32 wire, the
+   `bucket.all_gather` bytes equal to `wire_nbytes`, #11 / #12 once a
+   step and timed at the bucket's shape; world 2 (gloo, micro 4 each)
+   within 2% of train-dp's world-2 losses.  moe-wire-exact (after
+   train-moe-dropless): a small MoE GPT (4 layers, d256, 8 experts,
+   top-2), fp32, TF32 off, ZeRO-1, against world 1 (the local dispatch):
+   world 2 through the fp32 (1e-5 relative on losses and clipping
+   norms), bf16, int8 and int4 wires (2e-2 / 5e-2 / 0.5 on the losses),
+   world 4 (outer 2 x inner 2) through fp32 under placement data and
+   inner and int8 under data; the a2a counters equal to the plan's bytes,
+   #11-#14 launches counted.  train-moe-ep: train-moe's model at full
+   width, global batch 4, ZeRO-1, two ranks (32 experts each) through the
+   int8 then the fp32 wire, each from the same init against world 1 on
+   the same batches (2% and 1e-3 relative); step ms, tokens/s, peak
+   memory a rank, #11-#14 a step, the a2a bytes, and #11 / #12 timed at
+   one hop's shape.
 10b. bert-sparse-exact: BERT-large width (d1024, 16 heads), 2 layers,
    seq 1024, fixed layout block 128, fp32, TF32 off: 5 engine steps with
    dropout 0.1 through #7-#9 against the same steps with their plain
@@ -3942,16 +3966,17 @@ def _dp_train_worker(rank, world, store, device, out_dir, job):
         json.dump(rec, f)
 
 
-def _train_dp_run(device, size, micro, world, warmup, steps, seq, data_seed):
-    """GPT-2 `size` with the fused CE, bf16, ZeRO-2, the bucketed fp32
-    wire, on the global batches of `stride_batches(..., micro × world)`:
-    warm-up, then timed steps with every kernel count reset just before;
-    -> the record (losses, step ms, peak memory, launches, the wire's
-    counters against `wire_nbytes`)."""
+def _train_dp_run(device, size, micro, world, warmup, steps, seq, data_seed,
+                  wire="fp32", block=256):
+    """GPT-2 `size` with the fused CE, bf16, ZeRO-2, the bucketed `wire`
+    (block `block` for int8 / int4), on the global batches of
+    `stride_batches(..., micro × world)`: warm-up, then timed steps with
+    every kernel count reset just before; -> the record (losses, step ms,
+    peak memory, launches, the wire's counters against `wire_nbytes`)."""
     import torch
 
     import deepspeed_tpu_torch as dt
-    from deepspeed_tpu_torch.kernels import flash, fused_xent
+    from deepspeed_tpu_torch.kernels import flash, fused_xent, quant_codec
     from deepspeed_tpu_torch.models import GPT, gpt2_config
     from deepspeed_tpu_torch.monitor.counters import COUNTERS
     from deepspeed_tpu_torch.runtime.comm.bucketing import wire_nbytes
@@ -3959,8 +3984,9 @@ def _train_dp_run(device, size, micro, world, warmup, steps, seq, data_seed):
     cfg = gpt2_config(size, loss_impl="pallas", max_seq_len=seq)
     model = GPT(cfg, device=device,
                 generator=torch.Generator(device=device).manual_seed(0))
-    eng, *_ = dt.initialize(model=model, config_params=train_dp_config(
-        2, "bucketed", "fp32", micro, world, 1e-4, "bf16"), device=device)
+    conf = train_dp_config(2, "bucketed", wire, micro, world, 1e-4, "bf16")
+    conf["comm"]["quant_block_size"] = block
+    eng, *_ = dt.initialize(model=model, config_params=conf, device=device)
     data = stride_batches(warmup + steps, micro * world, seq, 64, data_seed)
     losses = [float(eng.train_batch(data)) for _ in range(warmup)]
     cuda = device != "cpu"
@@ -3970,6 +3996,7 @@ def _train_dp_run(device, size, micro, world, warmup, steps, seq, data_seed):
     for counts in (flash.LAUNCHES, fused_xent.LAUNCHES):
         for k in counts:
             counts[k] = 0
+    quant_codec.reset_launches()
     snap = COUNTERS.snapshot()
     step_ms = []
     for _ in range(steps):
@@ -3980,10 +4007,10 @@ def _train_dp_run(device, size, micro, world, warmup, steps, seq, data_seed):
         step_ms.append((time.perf_counter() - t0) * 1e3)
     d = COUNTERS.delta_since(snap)
     plan = eng.bucket_plan   # None without a process group
-    want_wire = (sum(wire_nbytes(b.padded, "fp32", 256) for b in plan.buckets)
-                 if plan is not None else None)
-    wire = {k: v for k, v in d.items()
-            if k.startswith(("bucket.", "grad_wire.", "dist."))}
+    want_wire = (sum(wire_nbytes(b.padded, wire, block)
+                     for b in plan.buckets) if plan is not None else None)
+    wire_counts = {k: v for k, v in d.items()
+                   if k.startswith(("bucket.", "grad_wire.", "dist."))}
     launches = {"flash": dict(flash.LAUNCHES),
                 "fused_xent": dict(fused_xent.LAUNCHES)}
     held = sum(t.numel() for t in eng._opt_state["exp_avg"])
@@ -3995,7 +4022,11 @@ def _train_dp_run(device, size, micro, world, warmup, steps, seq, data_seed):
            (sum(step_ms) / 1e3),
            "peak_mem_bytes": (torch.cuda.max_memory_allocated()
                               if cuda else None),
-           "launches": launches, "wire_counters": wire,
+           "launches": launches, "wire_counters": wire_counts,
+           "quant_launches": dict(quant_codec.LAUNCHES), "wire": wire,
+           "n_buckets": plan.n_buckets if plan is not None else 0,
+           "bucket_elems": ([b.padded for b in plan.buckets]
+                            if plan is not None else []),
            "bucket_plan": plan.describe() if plan is not None else None,
            "wire_nbytes_per_step": want_wire,
            "optimizer_state_share": held / sum(p.numel()
@@ -4116,7 +4147,7 @@ def phase_train_dp(train_pallas, device="cuda", size="small", micro=8,
               for a, b in zip(r["losses"], ref["losses"]))
     rec["world2"] = {"ranks": ranks, "world1_losses_same_batches":
                      ref["losses"], "max_loss_rel_diff": rel,
-                     "loss_rel_tol": 3e-3}
+                     "loss_rel_tol": 3e-3, "job": job}
     for r in ranks:
         if r["launches"] != {
                 "flash": {k: n_layers * w2_steps
@@ -4132,6 +4163,721 @@ def phase_train_dp(train_pallas, device="cuda", size="small", micro=8,
     if not rel <= 3e-3:
         emit(rec)
         raise AssertionError(f"train-dp world 2 losses {rel} off world 1's")
+    emit(rec)
+    return rec
+
+
+# -- the quantized gradient wire (qgZ) ----------------------------------------
+
+
+def _spawn_ranks(target, world, out, args, timeout):
+    """`target(rank, world, store, *args)` in `world` spawned processes
+    (gloo on the one card); -> their exit codes.  Every process is joined,
+    or killed past `timeout`."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    store = os.path.join(out, f"{target.__name__}-{world}-store")
+    procs = [ctx.Process(target=target, args=(r, world, store) + tuple(args))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    return [p.exitcode for p in procs]
+
+
+def _capture_reduce(plan):
+    """Keep the first reduction's flat buckets in and reduced buckets out
+    (CPU copies) of a BucketPlan, by wrapping its `reduce`."""
+    real, seen = plan.reduce, []
+
+    def reduce(buckets):
+        out = real(buckets)
+        if not seen:
+            # copies: the step unscales and clips the gradients in place
+            seen.append(([b.detach().float().cpu().clone() for b in buckets],
+                         [o.detach().float().cpu().clone() for o in out]))
+        return out
+
+    plan.reduce = reduce
+    return seen
+
+
+def qgz_oracle(flats, wire, block):
+    """The reduced bucket from each rank's flat bucket `flats[r]` through
+    the codec's plain version on the CPU (quantize, pack, unpack,
+    dequantize: bitwise JAX's, tests/test_torch_qgz.py), the fp32 sum of
+    the ranks' rows in rank order, / world."""
+    import torch
+
+    from deepspeed_tpu_torch.runtime.comm import quant as q
+
+    rows = []
+    for f in flats:
+        n = f.numel()
+        p, s = q.unpack_wire(q.pack_wire(*q.quantize_blockwise_ref(
+            f, block, wire)), wire, block, n)
+        rows.append(q.dequantize_blockwise_ref(p, s, wire, n).numpy())
+    total = rows[0].copy()
+    for r in rows[1:]:
+        total = total + r
+    return torch.from_numpy(total / np.float32(len(flats)))
+
+
+_QGZ_CASES = [(w, st) for w in ("int8", "int4") for st in (0, 2)]
+
+
+def _qgz_engine(device, wire, stage, world, micro=4, seq=64):
+    """GPT-2 nano, fp32, ZeRO `stage`, the bucketed `wire` at block 256:
+    one step on the first stride batch; -> the first reduction's buckets
+    (in, out) and the #11 / #12 launches of the step."""
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.kernels import quant_codec
+    from deepspeed_tpu_torch.models import GPT, gpt2_config
+
+    model = GPT(gpt2_config("nano", max_seq_len=seq, vocab_size=64),
+                device=device,
+                generator=torch.Generator(device=device).manual_seed(4))
+    cfg = train_dp_config(stage, "bucketed", wire, micro, world, 1e-3, "fp32")
+    cfg["comm"]["quant_block_size"] = 256
+    eng, *_ = dt.initialize(model=model, config_params=cfg, device=device)
+    seen = _capture_reduce(eng.bucket_plan)
+    quant_codec.reset_launches()
+    batch = next(stride_batches(1, micro * world, seq, 64, 3))
+    loss = float(eng.forward(batch))
+    eng.backward()
+    eng.step()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return seen[0], dict(quant_codec.LAUNCHES), eng.bucket_plan.n_buckets, \
+        loss
+
+
+def _qgz_exact_worker(rank, world, store, device, out_dir):
+    """One rank of qgz-exact's world 2 (gloo on the one card): each case's
+    first reduction, in and out, to `out_dir`."""
+    import torch
+
+    from deepspeed_tpu_torch.comm import dist
+
+    dist.init_distributed(init_method=f"file://{store}", world_size=world,
+                          rank=rank, dist_backend="gloo", device=device,
+                          verbose=False)
+    try:
+        got = {}
+        for wire, stage in _QGZ_CASES:
+            (ins, outs), launches, nb, loss = _qgz_engine(device, wire,
+                                                          stage, world)
+            for i, (a, b) in enumerate(zip(ins, outs)):
+                got[f"{wire}-z{stage}-in{i}"] = a.numpy()
+                got[f"{wire}-z{stage}-out{i}"] = b.numpy()
+            got[f"{wire}-z{stage}-launches"] = np.array(
+                [launches["quant_codec_quantize"],
+                 launches["quant_codec_dequantize"], nb])
+    finally:
+        dist.barrier()
+        dist.destroy()
+    np.savez(os.path.join(out_dir, f"qgz{rank}.npz"), **got)
+
+
+def phase_qgz_exact(device="cuda"):
+    """qgz-exact: GPT-2 nano, fp32, the bucketed int8 and int4 wires
+    (block 256) at ZeRO 0 and 2.  World 1 over NCCL (a `file://` store
+    in a temp directory): a gather of one still quantizes and dequantizes,
+    and each step's reduced buckets are bitwise `qgz_oracle`'s, the plain
+    CPU version of the same buckets.  World 2 on the one card over gloo:
+    each rank's reduced bucket bitwise the oracle's fp32 sum of both
+    ranks' dequantized contributions / 2.  #11 and #12 launched once a
+    bucket a reduction (none on a CPU rehearsal)."""
+    import tempfile
+
+    import torch
+
+    from deepspeed_tpu_torch.comm import dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = tempfile.mkdtemp(prefix="dstpu-qgz-")
+    dist.init_distributed(init_method=f"file://{out}/w1", world_size=1,
+                          rank=0, device=device)
+    rec = {"phase": "qgz-exact", "config": "gpt2 nano, seq 64, fp32, TF32 "
+           "off, bucketed int8 / int4 wire, block 256, one step",
+           "backend_world1": torch.distributed.get_backend(), "world1": [],
+           "world2": []}
+    want_launch = 1 if device != "cpu" else 0
+    try:
+        for wire, stage in _QGZ_CASES:
+            (ins, outs), launches, nb, loss = _qgz_engine(device, wire,
+                                                          stage, 1,
+                                                          micro=8)
+            bad = sum(mismatches(o, qgz_oracle([i], wire, 256))
+                      for i, o in zip(ins, outs))
+            case = {"wire": wire, "stage": stage, "buckets": nb,
+                    "elements": sum(i.numel() for i in ins),
+                    "mismatches_vs_plain": bad, "launches": launches,
+                    "loss": loss}
+            rec["world1"].append(case)
+            if bad or launches != {"quant_codec_quantize": want_launch * nb,
+                                   "quant_codec_dequantize": want_launch * nb}:
+                emit(rec)
+                raise AssertionError(f"qgz-exact world 1 {case}")
+    finally:
+        dist.destroy()
+    codes = _spawn_ranks(_qgz_exact_worker, 2, out, (device, out), 300)
+    if codes != [0, 0]:
+        emit(rec)
+        raise AssertionError(f"qgz-exact world 2 exit codes {codes}")
+    ranks = [dict(np.load(os.path.join(out, f"qgz{r}.npz")))
+             for r in range(2)]
+    for wire, stage in _QGZ_CASES:
+        key = f"{wire}-z{stage}"
+        nb = int(ranks[0][f"{key}-launches"][2])
+        bad = 0
+        for i in range(nb):
+            want = qgz_oracle([torch.from_numpy(r[f"{key}-in{i}"])
+                               for r in ranks], wire, 256)
+            bad += sum(mismatches(torch.from_numpy(r[f"{key}-out{i}"]), want)
+                       for r in ranks)
+        launches = [r[f"{key}-launches"][:2].tolist() for r in ranks]
+        case = {"wire": wire, "stage": stage, "buckets": nb,
+                "mismatches_vs_numpy_sum": bad, "launches_by_rank": launches}
+        rec["world2"].append(case)
+        if bad or any(x != [want_launch * nb] * 2 for x in launches):
+            emit(rec)
+            raise AssertionError(f"qgz-exact world 2 {case}")
+    emit(rec)
+    return rec
+
+
+def codec_wire_shape(n, dtype, block, flush, rows=1):
+    """#11 and #12 at one wire shape: `rows` chunks of `n` elements of
+    `dtype` quantized int8 (one launch), and dequantized back to `dtype`
+    (one launch): device times on events (L2 flushed), beside their plain
+    versions' and their byte bounds, and the quantize's route."""
+    import torch
+
+    from deepspeed_tpu_torch.kernels import quant_codec, registry
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x = (torch.randn((rows, n), generator=gen, device="cuda") *
+         1e-3).to(dtype)
+    p, s = registry.dispatch("quant_codec_quantize", x, block, "int8",
+                             impl="cuda")
+    nb = p.shape[0] // rows
+    pb, sb = p.reshape(rows, nb, block), s.reshape(rows, nb)
+    total = rows * n
+    esize = torch.finfo(dtype).bits // 8
+    out = {"shape": f"{rows} x {n} {str(dtype).replace('torch.', '')}, "
+           f"block {block}", "quantize_route":
+           quant_codec.quantize_route(x, block)}
+    for key, fn, nbytes in (
+            ("quantize", lambda impl: registry.dispatch(
+                "quant_codec_quantize", x, block, "int8", impl=impl),
+             total * esize + p.numel() + s.numel() * 2),
+            ("dequantize", lambda impl: registry.dispatch(
+                "quant_codec_dequantize", pb, sb, "int8", n,
+                out_dtype=dtype, impl=impl),
+             p.numel() + s.numel() * 2 + total * esize)):
+        got, want = fn("cuda"), fn("torch")
+        pairs = zip(got, want) if isinstance(got, tuple) else [(got, want)]
+        out[key] = {"kernel_ms": time_ms(lambda: fn("cuda"), 5, flush),
+                    "plain_ms": time_ms(lambda: fn("torch"), 2, flush),
+                    "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                    "bytes": nbytes,
+                    "mismatches": sum(mismatches(a, b) for a, b in pairs)}
+        del got, want
+        if out[key]["mismatches"]:
+            raise AssertionError(f"codec at a wire shape: {out}")
+    del x, p, s
+    return out
+
+
+def phase_train_dp_qgz(train_dp, flush, device="cuda", size="small",
+                       micro=8, seq=1024, warmup=3, steps=10):
+    """train-dp-qgz: train-dp's configuration (GPT-2 small, seq 1024,
+    bf16, fused CE, ZeRO-2, bucketed) with `wire_dtype` "int8", block 256.
+    World 1 over NCCL, micro 8: step ms and tokens/s beside train-dp's
+    fp32 wire from this run, peak memory, `bucket.all_gather` and
+    `grad_wire.reduce` bytes equal to the plan's `wire_nbytes` a step,
+    #11 and #12 once a bucket a step, and the two kernels timed at the
+    bucket's shape against their byte bounds.  Then two ranks on the one
+    card over gloo, micro 4 each, on train-dp's world-2 batches: each
+    step's loss within 2% of train-dp's world-2 fp32-wire losses
+    (tests/test_comm_quant.py's int8 loss envelope)."""
+    import tempfile
+
+    import torch
+
+    from deepspeed_tpu_torch.comm import dist
+
+    out = tempfile.mkdtemp(prefix="dstpu-qgz-dp-")
+    dist.init_distributed(init_method=f"file://{out}/w1", world_size=1,
+                          rank=0, device=device)
+    backend = torch.distributed.get_backend()
+    try:
+        w1 = _train_dp_run(device, size, micro, 1, warmup, steps, seq, 0,
+                           wire="int8")
+    finally:
+        dist.destroy()
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_kernel = 1 if device != "cpu" else 0
+    nb = w1["n_buckets"]
+    wc = w1["wire_counters"]
+    if w1["quant_launches"] != {"quant_codec_quantize": n_kernel * nb * steps,
+                                "quant_codec_dequantize":
+                                n_kernel * nb * steps} or \
+            wc["bucket.all_gather"]["bytes"] != \
+            w1["wire_nbytes_per_step"] * steps or \
+            wc["grad_wire.reduce"]["bytes"] != \
+            w1["wire_nbytes_per_step"] * steps or \
+            (w1["kernel_fallbacks"] and device != "cpu"):
+        raise AssertionError(f"train-dp-qgz world 1: {w1}")
+    if not all(np.isfinite(w1["losses"])) or \
+            not w1["losses"][-1] < w1["losses"][0]:
+        raise AssertionError(f"train-dp-qgz losses {w1['losses']}")
+    rec = {"phase": "train-dp-qgz", "config": f"gpt2 {size} "
+           f"({w1['layers']} layers), seq {seq}, micro {micro}, bf16, fused "
+           "CE, Adam lr 1e-4, WarmupLR 10, clipping 1.0, ZeRO-2, bucketed "
+           "int8 wire, block 256; stride stream over tokens < 64",
+           "backend": backend, "world1": w1,
+           "train_dp_fp32_wire_step_ms_mean":
+               train_dp["world1"]["step_ms_mean"],
+           "train_dp_fp32_wire_tokens_per_s":
+               train_dp["world1"]["tokens_per_s"],
+           "train_dp_fp32_wire_peak_mem_bytes":
+               train_dp["world1"]["peak_mem_bytes"]}
+    if device != "cpu":
+        rec["codec_at_bucket_shape"] = codec_wire_shape(
+            w1["bucket_elems"][0], torch.float32, 256, flush)
+    w2 = train_dp.get("world2")
+    if not w2:
+        rec["world2_note"] = "train-dp's world 2 did not run"
+        emit(rec)
+        return rec
+    job = dict(w2["job"], wire="int8")
+    codes = _spawn_ranks(_dp_train_worker, 2, out, (device, out, job), 900)
+    ranks = []
+    for r in range(2):
+        path = os.path.join(out, f"train{r}.json")
+        ranks.append(json.load(open(path)) if os.path.exists(path) else None)
+    if codes != [0, 0] or None in ranks:
+        raise AssertionError(f"train-dp-qgz world 2 exit codes {codes}")
+    ref = {r["rank"]: r["losses"] for r in w2["ranks"]}
+    rel = max(abs(a - b) / abs(b) for r in ranks
+              for a, b in zip(r["losses"], ref[r["rank"]]))
+    rec["world2"] = {"ranks": ranks, "fp32_wire_losses": ref,
+                     "max_loss_rel_diff_vs_fp32_wire": rel,
+                     "loss_rel_tol": 0.02}
+    for r in ranks:
+        if r["quant_launches"]["quant_codec_quantize"] != \
+                n_kernel * r["n_buckets"] * r["steps"] or \
+                (r["kernel_fallbacks"] and device != "cpu"):
+            emit(rec)
+            raise AssertionError(f"train-dp-qgz world 2 rank {r['rank']}: "
+                                 f"{r['quant_launches']}")
+    if not rel <= 0.02:
+        emit(rec)
+        raise AssertionError(f"train-dp-qgz world 2 losses {rel} off the "
+                             f"fp32 wire's")
+    emit(rec)
+    return rec
+
+
+# -- expert-parallel MoE over the explicit all-to-all wire --------------------
+
+# a small MoE GPT for moe-wire-exact: E 8, top-2, on layers 1 and 3 of 4
+MOE_WIRE_MODEL = dict(num_layers=4, d_model=256, num_heads=4, d_ff=1024,
+                      vocab_size=512, num_experts=8, moe_top_k=2,
+                      moe_layer_freq=2, moe_capacity_factor=1.25)
+_MOE_WIRE_CASES = {2: [("fp32", "auto"), ("bf16", "auto"), ("int8", "auto"),
+                       ("int4", "auto")],
+                   4: [("fp32", "data"), ("fp32", "inner"),
+                       ("int8", "data")]}
+_MOE_WIRE_TOL = {"fp32": None, "bf16": 2e-2, "int8": 5e-2, "int4": 0.5}
+
+
+def _moe_wire_run(device, world, wire, placement, hierarchy, steps, micro,
+                  seq):
+    """The small MoE GPT, fp32, TF32 off, ZeRO-1, the implicit reduction
+    and `wire` (None: the local dispatch) over `steps` Zipf batches of the
+    global batch; -> losses, grad norms, a2a counters, the #11-#14
+    launches and the expert rows a rank holds."""
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.kernels import moe_kernels, quant_codec
+    from deepspeed_tpu_torch.models import GPT, gpt2_config
+    from deepspeed_tpu_torch.moe import dispatch as dsp
+    from deepspeed_tpu_torch.monitor.counters import COUNTERS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = gpt2_config("nano", max_seq_len=seq, **MOE_WIRE_MODEL)
+    model = GPT(cfg, device=device,
+                generator=torch.Generator(device=device).manual_seed(8))
+    moe = {"dispatch": "sorted"}
+    if wire is not None:
+        moe.update(a2a_wire_dtype=wire, placement=placement)
+    conf = train_config(micro, 1e-3, "fp32")
+    conf["train_batch_size"] = micro * world
+    conf["zero_optimization"] = {"stage": 1}
+    conf["comm"] = {"moe": moe, "hierarchy": hierarchy}
+    eng, *_ = dt.initialize(model=model, config_params=conf, device=device)
+    quant_codec.reset_launches()
+    moe_kernels.reset_launches()
+    snap = COUNTERS.snapshot()
+    losses, norms = [], []
+    for b in vocab_batches(steps, micro * world, seq, cfg.vocab_size, 12):
+        losses.append(float(eng.forward(b)))
+        eng.backward()
+        eng.step()
+        norms.append(eng.get_global_grad_norm())
+    d = COUNTERS.delta_since(snap)
+    held = sorted({tuple(p.shape)[0] for n, p in eng.params.items()
+                   if ".experts." in n})
+    rec = {"losses": losses, "grad_norms": norms,
+           "a2a": {k: v for k, v in d.items() if k.startswith("moe.a2a")},
+           "launches": {**dict(moe_kernels.LAUNCHES),
+                        **dict(quant_codec.LAUNCHES)},
+           "experts_held": held,
+           "moe_layers": sum(cfg.is_moe_layer(i)
+                             for i in range(cfg.num_layers)),
+           "capacity": None}
+    from deepspeed_tpu_torch.moe.layer import MoE
+
+    rec["capacity"] = MoE(cfg.moe_config()).capacity(seq, True)
+    dsp.set_wire_config(dsp.MoEWireConfig())
+    del eng, model
+    gc.collect()
+    if device != "cpu":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _moe_wire_worker(rank, world, store, device, out_dir, cases, hierarchy,
+                     steps, micro, seq):
+    """One rank of moe-wire-exact's world (gloo on the one card)."""
+    from deepspeed_tpu_torch.comm import dist
+
+    dist.init_distributed(init_method=f"file://{store}", world_size=world,
+                          rank=rank, dist_backend="gloo", device=device,
+                          verbose=False)
+    try:
+        got = {f"{w}-{p}": _moe_wire_run(device, world, w, p, hierarchy,
+                                         steps, micro, seq)
+               for w, p in cases}
+    finally:
+        dist.barrier()
+        dist.destroy()
+    with open(os.path.join(out_dir, f"moewire{world}-{rank}.json"), "w") as f:
+        json.dump(got, f)
+
+
+def _a2a_plan_bytes(world, outer, wire, placement, micro, cap, d, E=8,
+                    block=256):
+    """(bytes, inter bytes) one traversal of one rank of the plan."""
+    from deepspeed_tpu_torch.comm.mesh import MeshInfo
+    from deepspeed_tpu_torch.moe import dispatch as dsp
+
+    mesh = MeshInfo(axis_sizes={"data": world},
+                    data_hierarchy=(outer, world // outer)
+                    if outer > 1 else None)
+    plan = dsp.build_a2a_plan(dsp.MoEWireConfig(
+        dispatch="sorted", a2a_wire_dtype=wire, placement=placement,
+        quant_block_size=block), mesh, E, micro, cap, d)
+    return plan.bytes_per_traversal, plan.inter_bytes_per_traversal, \
+        len(plan.hops)
+
+
+def phase_moe_wire_exact(device="cuda", steps=3, seq=128):
+    """moe-wire-exact: a small MoE GPT (4 layers, d256, 8 experts on
+    layers 1 and 3, top-2, capacity factor 1.25), fp32, TF32 off, ZeRO-1,
+    the implicit reduction, global batch 4, 3 steps on a Zipf stream.
+    World 1 (no process group: the local dispatch) is the reference.
+    Two ranks on the one card over gloo (flat, ep 2) through the fp32,
+    bf16, int8 and int4 wires, then four ranks (outer 2 x inner 2)
+    through the fp32 wire under placement "data" (two hops) and "inner"
+    (one hop inside an inner group) and int8 under "data".  Bounds: fp32
+    losses and clipping norms within 1e-5 relative a step (only the
+    expert products' row count differs); bf16 2e-2, int8 5e-2, int4 0.5
+    absolute on the losses (JAX's `test_wire_parity_flat_mesh` bounds);
+    `moe.a2a_bytes` / `moe.a2a_inter` equal to the plan's bytes x 4
+    traversals x 2 MoE layers x steps; #13 / #14 twice a MoE layer a
+    step, #11 / #12 four times a quantized hop a MoE layer a step."""
+    import tempfile
+
+    from deepspeed_tpu_torch.comm import dist
+
+    if dist.is_initialized():
+        raise AssertionError("moe-wire-exact: a process group is up")
+    micro = 4
+    ref = _moe_wire_run(device, 1, None, None, "none", steps, micro, seq)
+    rec = {"phase": "moe-wire-exact", "config": "gpt2 4 layers, d256, 4 "
+           "heads, d_ff 1024, vocab 512, 8 experts on layers 1 and 3, "
+           f"top-2, capacity factor 1.25; seq {seq}, global batch {micro},"
+           f" fp32, TF32 off, Adam lr 1e-3, ZeRO-1, implicit reduction; "
+           f"{steps} steps on a Zipf stream", "world1": ref}
+    out = tempfile.mkdtemp(prefix="dstpu-moewire-")
+    kern = 1 if device != "cpu" else 0
+    for world, outer in ((2, 1), (4, 2)):
+        cases = _MOE_WIRE_CASES[world]
+        codes = _spawn_ranks(_moe_wire_worker, world, out,
+                             (device, out, cases, outer if outer > 1 else
+                              "none", steps, micro // world, seq), 600)
+        if codes != [0] * world:
+            emit(rec)
+            raise AssertionError(f"moe-wire-exact world {world} exit codes "
+                                 f"{codes}")
+        ranks = [json.load(open(os.path.join(out,
+                                             f"moewire{world}-{r}.json")))
+                 for r in range(world)]
+        rec[f"world{world}"] = {}
+        for wire, placement in cases:
+            key = f"{wire}-{placement}"
+            byt, inter, hops = _a2a_plan_bytes(
+                world, outer, wire, placement, micro // world,
+                ref["capacity"], MOE_WIRE_MODEL["d_model"])
+            n_moe = ref["moe_layers"]
+            worst_loss = max(abs(a - b) for r in ranks
+                             for a, b in zip(r[key]["losses"],
+                                             ref["losses"]))
+            worst_rel = max(abs(a - b) / abs(b) for r in ranks
+                            for a, b in zip(r[key]["losses"] +
+                                            r[key]["grad_norms"],
+                                            ref["losses"] +
+                                            ref["grad_norms"]))
+            quant_hops = hops if wire in ("int8", "int4") else 0
+            want_launch = {"moe_dispatch": kern * 2 * n_moe * steps,
+                           "moe_combine": kern * 2 * n_moe * steps,
+                           "quant_codec_quantize":
+                               kern * 4 * quant_hops * n_moe * steps,
+                           "quant_codec_dequantize":
+                               kern * 4 * quant_hops * n_moe * steps}
+            case = {"world": world, "outer": outer, "wire": wire,
+                    "placement": placement,
+                    "max_loss_abs_diff": worst_loss,
+                    "max_rel_diff_losses_and_norms": worst_rel,
+                    "tol": _MOE_WIRE_TOL[wire] or 1e-5,
+                    "a2a_by_rank": [r[key]["a2a"] for r in ranks],
+                    "plan_bytes_per_traversal": byt,
+                    "plan_inter_bytes_per_traversal": inter,
+                    "launches_by_rank": [r[key]["launches"] for r in ranks],
+                    "experts_held": ranks[0][key]["experts_held"]}
+            rec[f"world{world}"][key] = case
+            ok = (worst_rel <= 1e-5 if wire == "fp32" else
+                  worst_loss <= _MOE_WIRE_TOL[wire])
+            ok = ok and all(
+                r[key]["a2a"].get("moe.a2a_bytes", {}).get("bytes") ==
+                byt * 4 * n_moe * steps and
+                r[key]["a2a"].get("moe.a2a_inter", {"bytes": 0})["bytes"] ==
+                inter * 4 * n_moe * steps and
+                r[key]["launches"] == want_launch for r in ranks)
+            if not ok:
+                emit(rec)
+                raise AssertionError(f"moe-wire-exact {case}")
+    emit(rec)
+    return rec
+
+
+def _moe_ep_run(device, world, wire, steps, micro, seq, layers, over=None):
+    """train-moe's model at `layers` layers through the explicit `wire`
+    (None: world 1's local dispatch), ZeRO-1, implicit, on the first
+    `steps` Zipf batches of the global batch from the same init; -> the
+    record (losses, step ms, peak memory, launches, counters, what a rank
+    holds).  `over`: model overrides (a CPU rehearsal's small widths)."""
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.kernels import (flash, fused_xent, moe_kernels,
+                                             quant_codec)
+    from deepspeed_tpu_torch.models import GPT, gpt2_config
+    from deepspeed_tpu_torch.moe import dispatch as dsp
+    from deepspeed_tpu_torch.moe.layer import MoE
+    from deepspeed_tpu_torch.monitor.counters import COUNTERS
+
+    cfg = gpt2_config("small", max_seq_len=seq, loss_impl="pallas",
+                      **dict(MOE_MODEL, num_layers=layers, **(over or {})))
+    n_moe = sum(cfg.is_moe_layer(i) for i in range(cfg.num_layers))
+    model = GPT(cfg, device=device,
+                generator=torch.Generator(device=device).manual_seed(0))
+    cuda = device != "cpu"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    conf = moe_train_config(micro, 1e-4, "bf16", "sorted")
+    conf["train_batch_size"] = micro * world
+    conf["zero_optimization"] = {"stage": 1}
+    if wire is not None:
+        conf["comm"]["moe"]["a2a_wire_dtype"] = wire
+    eng, *_ = dt.initialize(model=model, config_params=conf, device=device)
+    data = vocab_batches(steps, micro * world, seq, cfg.vocab_size, 21)
+    losses = [float(eng.train_batch(data))]       # the first step: warm-up
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    for counts in (flash.LAUNCHES, fused_xent.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    moe_kernels.reset_launches()
+    quant_codec.reset_launches()
+    snap = COUNTERS.snapshot()
+    step_ms = []
+    for _ in range(steps - 1):
+        t0 = time.perf_counter()
+        losses.append(float(eng.train_batch(data)))
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    d = COUNTERS.delta_since(snap)
+    held = {n: list(p.shape) for n, p in eng.params.items()
+            if ".experts." in n}
+    moments = {n: list(t.shape) for n, t in
+               zip(eng._param_names, eng._opt_state["exp_avg"])
+               if ".experts." in n}
+    dense_share = (sum(t.numel() for n, t in zip(eng._param_names,
+                                                  eng._opt_state["exp_avg"])
+                       if ".experts." not in n) /
+                   sum(p.numel() for n, p in eng.params.items()
+                       if ".experts." not in n))
+    rec = {"world": world, "rank": eng.dp_rank, "wire": wire,
+           "micro_per_rank": micro, "losses": losses,
+           "step_ms": step_ms, "step_ms_mean": float(np.mean(step_ms)),
+           "tokens_per_s": micro * world * seq * len(step_ms) /
+           (sum(step_ms) / 1e3),
+           "peak_mem_bytes": (torch.cuda.max_memory_allocated() if cuda
+                              else None),
+           "launches": {"flash": dict(flash.LAUNCHES),
+                        "fused_xent": dict(fused_xent.LAUNCHES),
+                        "moe": dict(moe_kernels.LAUNCHES),
+                        "codec": dict(quant_codec.LAUNCHES)},
+           "timed_steps": len(step_ms), "moe_layers": n_moe,
+           "num_experts": cfg.num_experts, "d_model": cfg.d_model,
+           "capacity": MoE(cfg.moe_config()).capacity(seq, True),
+           "a2a": {k: v for k, v in d.items() if k.startswith("moe.a2a")},
+           "kernel_fallbacks": d.get("kernel.fallbacks", {}).get("calls", 0),
+           "expert_leaf_shapes": held, "expert_moment_shapes": moments,
+           "dense_optimizer_state_share": dense_share}
+    dsp.set_wire_config(dsp.MoEWireConfig())
+    eng.finalize_monitoring()
+    del eng, model
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _moe_ep_worker(rank, world, store, device, out_dir, wires, steps, micro,
+                   seq, layers, over):
+    """One rank of train-moe-ep (gloo on the one card): each wire in turn,
+    a fresh engine from the same init."""
+    from deepspeed_tpu_torch.comm import dist
+
+    dist.init_distributed(init_method=f"file://{store}", world_size=world,
+                          rank=rank, dist_backend="gloo", device=device,
+                          verbose=False)
+    try:
+        got = {w: _moe_ep_run(device, world, w, steps, micro, seq, layers,
+                              over) for w in wires}
+    finally:
+        dist.barrier()
+        dist.destroy()
+    with open(os.path.join(out_dir, f"moeep{rank}.json"), "w") as f:
+        json.dump(got, f)
+
+
+def phase_train_moe_ep(train_moe, flush, device="cuda", steps=3, seq=2048,
+                       layers=12, over=None):
+    """train-moe-ep: train-moe's configuration at full width (12 layers,
+    d768, 64 experts every other layer, top-1, capacity 1.0, seq 2048,
+    bf16, fused CE), global batch 4, ZeRO-1, the implicit reduction,
+    expert-parallel over two ranks on the one card over gloo (micro 2
+    each): the int8 wire, then the fp32 wire, each a fresh engine from
+    the same init over the same `steps` batches (the first a warm-up),
+    against world 1 (micro 4, the local dispatch) on those batches:
+    losses within 1e-3 relative (fp32 wire: bf16 products over another
+    row count) and 2% (int8); step ms and tokens/s beside train-moe's;
+    peak memory a rank; 32 experts a rank and their moments, half of
+    the dense moments; #13 / #14 twice a MoE layer a step, #11 / #12
+    four times a MoE layer a step on int8; the a2a counters equal to the
+    plan's bytes; then #11 / #12 timed at one hop's shape (two chunks of
+    E/2 x 2 x C x D bf16 elements).  A CPU rehearsal passes `device`
+    "cpu", a short `seq` and small widths in `over` (no launches then,
+    no timing of the codec)."""
+    import tempfile
+
+    import torch
+
+    from deepspeed_tpu_torch.comm import dist
+
+    if dist.is_initialized():
+        raise AssertionError("train-moe-ep: a process group is up")
+    ref = _moe_ep_run(device, 1, None, steps, 4, seq, layers, over)
+    out = tempfile.mkdtemp(prefix="dstpu-moeep-")
+    wires = ("int8", "fp32")
+    codes = _spawn_ranks(_moe_ep_worker, 2, out,
+                         (device, out, wires, steps, 2, seq, layers, over),
+                         1200)
+    ranks = []
+    for r in range(2):
+        path = os.path.join(out, f"moeep{r}.json")
+        ranks.append(json.load(open(path)) if os.path.exists(path) else None)
+    rec = {"phase": "train-moe-ep", "config": f"gpt2 125M+MoE-64 ({layers} "
+           "layers, d768, 64 experts on every other layer, top-1, capacity "
+           f"1.0, gate noise 1e-2), seq {seq}, global batch 4 (micro 2 a "
+           "rank), bf16, fused CE, Adam lr 1e-4, WarmupLR 10, clipping 1.0, "
+           "ZeRO-1, implicit reduction, comm.moe sorted + a2a_wire_dtype; "
+           "two ranks on the one card over gloo (host-staged collectives: "
+           "a time here measures gloo's host staging, not a wire)",
+           "exit_codes": codes, "world1": ref,
+           "train_moe_step_ms_mean": train_moe["step_ms_mean"],
+           "train_moe_tokens_per_s": train_moe["tokens_per_s"],
+           "train_moe_peak_mem_bytes": train_moe["peak_mem_bytes"]}
+    if codes != [0, 0] or None in ranks:
+        emit(rec)
+        raise AssertionError(f"train-moe-ep exit codes {codes}")
+    rec["ranks"] = ranks
+    n_moe = ref["moe_layers"]
+    timed = ref["timed_steps"]
+    E = ref["num_experts"]
+    kern = 1 if device != "cpu" else 0
+    for wire, tol in (("int8", 0.02), ("fp32", 1e-3)):
+        byt, inter, hops = _a2a_plan_bytes(2, 1, wire, "auto", 2,
+                                           ref["capacity"], ref["d_model"],
+                                           E=E)
+        rel = max(abs(a - b) / abs(b) for r in ranks
+                  for a, b in zip(r[wire]["losses"], ref["losses"]))
+        q = kern * 4 * n_moe * timed if wire == "int8" else 0
+        checks = {
+            "max_loss_rel_diff_vs_world1": rel, "loss_rel_tol": tol,
+            "plan_bytes_per_traversal": byt}
+        rec[f"{wire}_checks"] = checks
+        for r in ranks:
+            g = r[wire]
+            ok = (rel <= tol and not (kern and g["kernel_fallbacks"]) and
+                  g["launches"]["moe"] == {k: kern * 2 * n_moe * timed
+                                           for k in g["launches"]["moe"]} and
+                  g["launches"]["codec"] == {k: q for k in
+                                             g["launches"]["codec"]} and
+                  g["a2a"]["moe.a2a_bytes"]["bytes"] ==
+                  byt * 4 * n_moe * timed and
+                  all(s[0] == E // 2 for s in
+                      g["expert_leaf_shapes"].values()) and
+                  all(s[0] == E // 2 for s in
+                      g["expert_moment_shapes"].values()) and
+                  0.45 < g["dense_optimizer_state_share"] < 0.55)
+            if not ok:
+                emit(rec)
+                raise AssertionError(f"train-moe-ep {wire} rank "
+                                     f"{g['rank']}: {checks}, {g}")
+    if device != "cpu":
+        rec["codec_at_a2a_chunk_shape"] = codec_wire_shape(
+            E // 2 * 2 * ref["capacity"] * ref["d_model"], torch.bfloat16,
+            256, flush, rows=2)
     emit(rec)
     return rec
 
@@ -4527,7 +5273,22 @@ def xent_entries(xent_cases, train_pallas, train_resume, train_dp):
     return out
 
 
-def codec_entries(codec, serve_qw):
+def wire_codec_launches(train_dp_qgz, train_moe_ep, name):
+    """#11's or #12's launches on the quantized wires' paths: train-dp-qgz
+    (world 1 over NCCL, each rank of world 2 over gloo) and train-moe-ep's
+    int8 wire (each rank)."""
+    out = {"train-dp-qgz world 1":
+           train_dp_qgz["world1"]["quant_launches"][name]}
+    for r in (train_dp_qgz.get("world2") or {}).get("ranks", []):
+        out[f"train-dp-qgz world 2 rank {r['rank']}"] = \
+            r["quant_launches"][name]
+    for r in train_moe_ep["ranks"]:
+        out[f"train-moe-ep rank {r['int8']['rank']} (int8 wire)"] = \
+            r["int8"]["launches"]["codec"][name]
+    return out
+
+
+def codec_entries(codec, serve_qw, train_dp_qgz, train_moe_ep):
     tree = serve_qw["codec_tree"]
     leaves = serve_qw["quantize_launches_at_build"]
     q, dq = tree["quantize-int8"], tree["dequantize-int8"]
@@ -4540,6 +5301,14 @@ def codec_entries(codec, serve_qw):
         {"name": "quant_codec_quantize",
          "replaces": "deepspeed_tpu/kernels/quant_codec.py:64",
          "launches": leaves,
+         "launches_by_path": {
+             "serve-qw (build)": leaves,
+             **wire_codec_launches(train_dp_qgz, train_moe_ep,
+                                   "quant_codec_quantize")},
+         "qgz_bucket_shape":
+             train_dp_qgz.get("codec_at_bucket_shape", {}).get("quantize"),
+         "a2a_chunk_shape":
+             train_moe_ep["codec_at_a2a_chunk_shape"]["quantize"],
          "launches_by_kernel_route":
              serve_qw["quantize_launches_at_build_by_route"],
          "kernel_routes": "vector: block % 8 == 0, block / 8 a power of "
@@ -4562,6 +5331,14 @@ def codec_entries(codec, serve_qw):
         {"name": "quant_codec_dequantize",
          "replaces": "deepspeed_tpu/kernels/quant_codec.py:128",
          "launches": serve_qw["dequantize_launches"],
+         "launches_by_path": {
+             "serve-qw (forwards)": serve_qw["dequantize_launches"],
+             **wire_codec_launches(train_dp_qgz, train_moe_ep,
+                                   "quant_codec_dequantize")},
+         "qgz_bucket_shape":
+             train_dp_qgz.get("codec_at_bucket_shape", {}).get("dequantize"),
+         "a2a_chunk_shape":
+             train_moe_ep["codec_at_a2a_chunk_shape"]["dequantize"],
          "max_abs_err":
              serve_qw["leaf_max_abs_err"]["dequantize_max_abs_err"],
          # the profiler's device time of a served forward's dequantizes;
@@ -4589,7 +5366,8 @@ def dp_launches(train_dp, family, name):
     return out
 
 
-def moe_entries(moe_cases, train_moe, overflow_case, train_dropless):
+def moe_entries(moe_cases, train_moe, overflow_case, train_dropless,
+                train_moe_ep):
     main = moe_cases[0]              # the training shape, top-1, bf16
     out = []
     for name, line in (("moe_dispatch", 52), ("moe_combine", 100)):
@@ -4604,7 +5382,10 @@ def moe_entries(moe_cases, train_moe, overflow_case, train_dropless):
                 "train-moe-dropless (both passes)":
                     train_dropless["moe_launches"][name],
                 "train-moe-dropless (overflow pass)":
-                    train_dropless["moe_launches_overflow"][name]},
+                    train_dropless["moe_launches_overflow"][name],
+                **{f"train-moe-ep rank {r[w]['rank']} ({w} wire)":
+                   r[w]["launches"]["moe"][name]
+                   for r in train_moe_ep["ranks"] for w in ("int8", "fp32")}},
             # the overflow pass's shape: one group of B·S tokens, one
             # expert of B·O slots (moe_overflow_case)
             "overflow_shape": {
@@ -4813,6 +5594,13 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     mark("train-dp")
+    phase_qgz_exact()
+    mark("qgz-exact")
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    train_dp_qgz = phase_train_dp_qgz(train_dp, flush)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("train-dp-qgz")
     train_resume = phase_train_resume()
     mark("train-resume")
     train_moe, teng, data = phase_train_moe()
@@ -4835,6 +5623,13 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     mark("train-moe-dropless")
+    phase_moe_wire_exact()
+    mark("moe-wire-exact")
+    train_moe_ep = phase_train_moe_ep(train_moe, flush)
+    del flush
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("train-moe-ep")
     bert_exact = phase_bert_sparse_exact()
     mark("bert-sparse-exact")
     train_bert, teng, data = phase_train_bert_sparse()
@@ -4896,8 +5691,9 @@ def main():
                   for c in cases]}] +
         flash_entries(flash_cases, train, train_resume, train_dp) +
         xent_entries(xent_cases, train_pallas, train_resume, train_dp) +
-        codec_entries(codec, serve_qw) +
-        moe_entries(moe_cases, train_moe, overflow_case, train_dropless) +
+        codec_entries(codec, serve_qw, train_dp_qgz, train_moe_ep) +
+        moe_entries(moe_cases, train_moe, overflow_case, train_dropless,
+                    train_moe_ep) +
         sparse_entries(sparse_cases, sparse_probe, train_bert, bert_exact)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,9 @@ RANK) or an `init_method` the caller passes (`file://<path>`, or a
 
 `all_reduce` reduces in place and returns its input; every other
 collective returns a new tensor.  `ppermute` and `all_to_all` wait for
-their own work items only.
+their own work items only.  The quantized wires' fused uint8 buffers
+(runtime/comm/quant.py `pack_wire`) ride `all_gather` and `all_to_all`
+as int8 views of the same bytes (`_as_sendable`).
 """
 
 from __future__ import annotations
@@ -195,6 +197,12 @@ def _group(group):
     return group
 
 
+def _as_sendable(x):
+    """A uint8 tensor as an int8 view of the same bytes (the collectives
+    move bits, and int8 is a type every backend carries), else `x`."""
+    return x.view(torch.int8) if x.dtype == torch.uint8 else x
+
+
 def _record_volume(kind: str, x) -> None:
     COUNTERS.add(f"dist.{kind}", x.numel() * x.element_size())
 
@@ -233,6 +241,8 @@ def all_gather(x, group=None, *, tiled: bool = True, gather_axis: int = 0):
     _record_volume("all_gather", x)
     g = _group(group)
     n = 1 if g is None else tdist.get_world_size(g)
+    dtype = x.dtype
+    x = _as_sendable(x)
     src = x.movedim(gather_axis, 0).contiguous() if tiled else x.contiguous()
     if not tiled:
         src = src.unsqueeze(0)
@@ -241,6 +251,7 @@ def all_gather(x, group=None, *, tiled: bool = True, gather_axis: int = 0):
     else:
         out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
         _gather_into(out, src, g)
+    out = out.view(dtype)
     return out.movedim(0, gather_axis) if tiled else out
 
 
@@ -310,12 +321,13 @@ def all_to_all(x, group=None, *, split_axis: int, concat_axis: int):
     if g is None:
         return x.clone()
     n = tdist.get_world_size(g)
-    src = x.movedim(split_axis, 0).contiguous()
+    src = _as_sendable(x.movedim(split_axis, 0).contiguous())
     if src.shape[0] % n:
         raise ValueError(f"all_to_all: dim {split_axis} of {tuple(x.shape)} "
                          f"does not split {n} ways")
     out = torch.empty_like(src)
     tdist.all_to_all_single(out, src, group=g, async_op=True).wait()
+    out = out.view(x.dtype)
     chunks = [c.movedim(0, split_axis) for c in out.chunk(n, dim=0)]
     return torch.cat(chunks, dim=concat_axis)
 

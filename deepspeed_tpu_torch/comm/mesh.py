@@ -12,7 +12,10 @@ process group (`MeshInfo.group`):
     data_inner   ranks [o·inner, (o+1)·inner): the ranks of one node
 
 `data_outer` × `data_inner` exist only when `comm.hierarchy` factors the
-axis (the ZeRO++ two-level wire, runtime/comm/bucketing.py).  Rank r has
+axis, for the two consumers that ride it: the ZeRO++ two-level gradient
+wire (runtime/comm/bucketing.py) and the explicit MoE expert exchange
+(moe/dispatch.py: two hops, or one over `data_inner` under inner
+placement).  Rank r has
 outer index r // inner and inner index r % inner, outer-major as the JAX
 mesh lays its devices, so "auto" — one outer group per node, the
 `LOCAL_WORLD_SIZE` ranks of a node inner — is JAX's one outer group per
@@ -82,6 +85,24 @@ class MeshInfo:
     @property
     def hierarchical(self) -> bool:
         return self.data_hierarchy is not None
+
+    def axes_extent(self, axes: Sequence[str]) -> Tuple[int, int]:
+        """(the product of `axes`' sizes, this rank's rank-major index over
+        them): the width and this rank's shard of a dim sharded over
+        `axes`, as a NamedSharding lays it."""
+        size, index = 1, 0
+        for a in axes:
+            n = self.axis_size(a)
+            size, index = size * n, index * n + self.axis_index(a)
+        return size, index
+
+    @property
+    def data_axes(self) -> Tuple[str, ...]:
+        """The axes the data dimension lives on, outermost first:
+        ("data",) flat, ("data_outer", "data_inner") factored (mesh.py:105)."""
+        if self.data_hierarchy is not None:
+            return (DATA_OUTER_AXIS, DATA_INNER_AXIS)
+        return (DATA_AXIS,)
 
     @property
     def data_outer_size(self) -> int:
@@ -186,6 +207,11 @@ def make_mesh(data: int = -1, model: int = 1, pipe: int = 1, seq: int = 1,
 def set_current_mesh(info: Optional[MeshInfo]) -> None:
     global _CURRENT_MESH
     _CURRENT_MESH = info
+
+
+def peek_mesh() -> Optional[MeshInfo]:
+    """The current mesh or None; never makes one (mesh.py:319)."""
+    return _CURRENT_MESH
 
 
 def get_current_mesh() -> MeshInfo:

@@ -18,10 +18,19 @@ The other direction, for checkpoints the JAX engine reads:
 per-parameter lists (FusedAdam's `exp_avg` / `exp_avg_sq`,
 fused_adam.py:43-49 on both sides) to and from trees of the same shape,
 by name; every other entry (`step`) goes across as it is.
+
+Expert parallelism: under the explicit MoE wire a rank holds only its
+El = E / ep experts of each expert leaf (`is_expert_leaf`: a MoE
+block's `experts.{w1,b1,w2,b2}`, stacked on dim 0).
+`slice_expert_leaves` cuts a whole tree (a JAX params tree, a
+checkpoint's module tree) to a rank's experts, rank `index` holding
+experts [index·El, (index+1)·El), the JAX NamedSharding of the expert
+dim.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict
 
 import numpy as np
@@ -111,6 +120,30 @@ def opt_state_from_jax(names, tree: Dict[str, Any]) -> Dict[str, Any]:
             v = [flat[n] for n in names]
         out[k] = v
     return out
+
+
+_EXPERT_LEAF = re.compile(r"(^|\.)experts\.(w1|b1|w2|b2)$")
+
+
+def is_expert_leaf(name: str) -> bool:
+    """A MoE block's stacked expert leaf (`...moe.experts.w1` etc.)."""
+    return _EXPERT_LEAF.search(name) is not None
+
+
+def slice_expert_leaves(tree, ep: int, index: int):
+    """`tree` (nested dicts/lists) with each expert leaf cut to experts
+    [index·El, (index+1)·El) of its leading dim, El = E / ep; the other
+    leaves as they are."""
+    flat = flatten_tree(tree)
+    for name, leaf in flat.items():
+        if is_expert_leaf(name):
+            n = int(np.shape(leaf)[0])
+            if n % ep:
+                raise ValueError(f"{name}: {n} experts do not split {ep} "
+                                 f"ways")
+            el = n // ep
+            flat[name] = leaf[index * el:(index + 1) * el]
+    return unflatten_tree(flat)
 
 
 def _to_tensor(leaf) -> torch.Tensor:

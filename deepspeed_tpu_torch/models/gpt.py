@@ -175,10 +175,12 @@ def _block_seeds(cfg: GPTConfig, generator, train, moe=False):
 
 
 def gpt_block(x, blk, cfg: GPTConfig, seeds=(None, None, None, None),
-              train=True, row_offset=0):
+              train=True, row_offset=0, batch_rows=None):
     """One pre-LN transformer block over x [B, S, D] (gpt.py:244) ->
     (x, MoE aux loss: 0 for a dense block).  `row_offset`: the global
-    batch row of x's first row (its dropout masks are those rows')."""
+    batch row of x's first row (its dropout masks are those rows');
+    `batch_rows`: the global batch's rows (an MoE block's gate noise is
+    drawn for all of them; None: x is the whole batch)."""
     B, S, D = x.shape
     H = cfg.num_heads
     s_attn, s_res1, s_res2, s_moe = seeds
@@ -202,7 +204,8 @@ def gpt_block(x, blk, cfg: GPTConfig, seeds=(None, None, None, None),
         gen = (None if s_moe is None else
                torch.Generator(device=x.device).manual_seed(s_moe))
         h, aux = MoE(cfg.moe_config())(blk.moe, h, generator=gen,
-                                       train=train)
+                                       train=train, row_offset=row_offset,
+                                       batch_rows=batch_rows)
     else:
         h = F.gelu(linear(h, blk.mlp.fc1, h.dtype), approximate="tanh")
         h = linear(h, blk.mlp.fc2, h.dtype)
@@ -387,7 +390,7 @@ class GPT(nn.Module):
                                else t, dtype=torch.long, device=self.device)
 
     def _trunk(self, tokens, generator=None, train=False, pld_mask=None,
-               capture_layers=None, row_offset=0):
+               capture_layers=None, row_offset=0, batch_rows=None):
         """Everything up to and including the final layer norm: tokens
         [B, S] -> ([B, S, D] hidden states, summed MoE aux loss)
         (gpt.py:481)."""
@@ -412,9 +415,11 @@ class GPT(nn.Module):
             if cfg.remat and torch.is_grad_enabled():
                 # recomputed in backward, with the same seeds
                 x, aux = checkpoint(gpt_block, x, blk, cfg, seeds, train,
-                                    row_offset, use_reentrant=False)
+                                    row_offset, batch_rows,
+                                    use_reentrant=False)
             else:
-                x, aux = gpt_block(x, blk, cfg, seeds, train, row_offset)
+                x, aux = gpt_block(x, blk, cfg, seeds, train, row_offset,
+                                   batch_rows)
             aux_total = aux_total + aux
         return layer_norm(x, self.ln_f, cfg.layer_norm_eps), aux_total
 
@@ -426,14 +431,15 @@ class GPT(nn.Module):
 
     def loss(self, batch, generator=None, train=True,
              progressive_layer_drop=False, pld_theta=None,
-             capture_layers=None, row_offset=0):
+             capture_layers=None, row_offset=0, batch_rows=None):
         """Next-token cross entropy (gpt.py:577).  batch: (tokens, labels)
         or a dict with input_ids/labels; labels == -100 positions are
         masked; without labels the tokens are split into inputs
         tokens[:, :-1] and targets tokens[:, 1:].  `generator` draws the
         dropout seeds (no generator: no dropout); `row_offset` is the
         global batch row of the batch's first row (a data-parallel
-        rank's slice), so its dropout masks are those rows'."""
+        rank's slice), so its dropout masks are those rows', and
+        `batch_rows` the global batch's rows, for the MoE gate noise."""
         if isinstance(batch, dict):
             tokens, labels = batch["input_ids"], batch.get("labels")
         else:
@@ -447,7 +453,8 @@ class GPT(nn.Module):
                     and train else None)
         x, moe_aux = self._trunk(tokens, generator, train, pld_mask=pld_mask,
                                  capture_layers=capture_layers,
-                                 row_offset=row_offset)
+                                 row_offset=row_offset,
+                                 batch_rows=batch_rows)
         valid = labels >= 0
         safe_labels = torch.where(valid, labels, 0)
         B, S, D = x.shape

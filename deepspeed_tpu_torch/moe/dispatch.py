@@ -24,6 +24,15 @@ deepspeed_tpu/moe/dispatch.py.
   slot order inside the bucket is the port's own.
 * `record_dispatch_stats` (:455-468): the `moe.dropped_tokens` /
   `moe.capacity_frac` counters.
+* the explicit expert all-to-all wire (:471-754): `A2AHop` / `A2APlan`
+  (the hop sequence and its exact bytes), `resolve_placement`,
+  `expert_axes`, `build_a2a_plan`, `_hop_a2a` (one hop over one mesh
+  axis's process group: fp32 / bf16 cast and exchanged, int8 / int4
+  quantized per destination chunk with kernel #11, the fused buffers
+  exchanged, dequantized per source chunk with kernel #12),
+  `wire_all_to_all` (the hops with a mirrored backward) and
+  `wire_engagement` (whether a call can take the wire, each fallback
+  logged once).  `moe/layer.py` `_sorted_wire` drives them.
 
 The JAX functions take one token group and are vmapped over the batch
 rows by their caller; these take the rows as a leading batch dimension:
@@ -42,10 +51,8 @@ engine calls it once a step) moves them to the host in one asynchronous
 copy and credits the counters once the copy has landed (`wait=True`
 waits for it).
 
-Not ported (they need more than one device): the explicit all-to-all
-wire (`build_a2a_plan`, `wire_all_to_all`, `wire_engagement`) and
-`overlap`; asking for them raises NotImplementedError naming the ROADMAP
-item.
+`comm.moe.overlap` "auto" / "on" is accepted and logged, and the wire
+runs serially, as in the JAX package (:740-752).
 """
 
 from __future__ import annotations
@@ -53,13 +60,20 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
+from ..comm import dist
+from ..comm.mesh import (DATA_AXIS, DATA_INNER_AXIS, DATA_OUTER_AXIS,
+                         MODEL_AXIS, PIPE_AXIS, SEQ_AXIS, MeshInfo, peek_mesh)
 from ..kernels import registry
 from ..monitor.counters import COUNTERS
-from ..runtime.comm.quant import DEFAULT_BLOCK_SIZE, validate_block_size
+from ..runtime.comm.quant import (DEFAULT_BLOCK_SIZE, dequantize_blockwise,
+                                  pack_wire, payload_bytes,
+                                  quantize_blockwise, unpack_wire,
+                                  validate_block_size)
 from ..utils.logging import logger
 
 DISPATCH_MODES = ("dense", "sorted")
@@ -94,31 +108,26 @@ class MoEWireConfig:
                 or self.a2a_wire_dtype_inner is not None
                 or self.a2a_wire_dtype_outer is not None)
 
+    def wire_inner(self) -> str:
+        return self.a2a_wire_dtype_inner or self.a2a_wire_dtype or "fp32"
+
+    def wire_outer(self) -> str:
+        return self.a2a_wire_dtype_outer or self.a2a_wire_dtype or "fp32"
+
     def describe(self) -> str:
-        return (f"moe wire: dispatch={self.dispatch}, a2a=implicit, "
-                f"dropless={self.dropless}")
-
-
-def _refuse_unported(cfg: MoEWireConfig) -> MoEWireConfig:
-    """A valid selection that needs what the port has not got yet."""
-    if cfg.explicit:
-        raise NotImplementedError(
-            "comm.moe.a2a_wire_dtype: the explicit expert all-to-all wire "
-            "needs more than one device and is not ported yet (ROADMAP "
-            "queue 1: the explicit MoE wire)")
-    if cfg.overlap != "none":
-        raise NotImplementedError(
-            f"comm.moe.overlap={cfg.overlap!r}: the overlapped wire is not "
-            f"ported yet (ROADMAP queue 1: the explicit MoE wire)")
-    return cfg
+        if not self.explicit:
+            return (f"moe wire: dispatch={self.dispatch}, a2a=implicit, "
+                    f"dropless={self.dropless}")
+        return (f"moe wire: dispatch={self.dispatch}, a2a=explicit "
+                f"inner={self.wire_inner()} outer={self.wire_outer()} "
+                f"placement={self.placement} block={self.quant_block_size}")
 
 
 def parse_moe_config(d, default_block: int = DEFAULT_BLOCK_SIZE
                      ) -> MoEWireConfig:
     """Validate the `comm.moe` dict -> MoEWireConfig, with the JAX
     package's errors (ValueError naming the key and the valid set) for
-    unknown keys and bad values, then NotImplementedError for a valid
-    selection the port does not run yet."""
+    unknown keys and bad values."""
     d = d or {}
     if not isinstance(d, dict):
         raise ValueError(
@@ -199,12 +208,12 @@ def parse_moe_config(d, default_block: int = DEFAULT_BLOCK_SIZE
     if not isinstance(counters, bool):
         raise ValueError(
             f"comm.moe.counters must be a bool, got {counters!r}")
-    return _refuse_unported(MoEWireConfig(
+    return MoEWireConfig(
         dispatch=dispatch, a2a_wire_dtype=base,
         a2a_wire_dtype_inner=inner, a2a_wire_dtype_outer=outer,
         placement=placement, dropless=dropless,
         overflow_factor=float(of), quant_block_size=block,
-        overlap=overlap, counters=bool(counters)))
+        overlap=overlap, counters=bool(counters))
 
 
 _WIRE_CONFIG = MoEWireConfig()
@@ -218,7 +227,7 @@ def set_wire_config(cfg: MoEWireConfig) -> MoEWireConfig:
     """Install `cfg` process-globally; returns the previous config."""
     global _WIRE_CONFIG
     prev = _WIRE_CONFIG
-    _WIRE_CONFIG = _refuse_unported(cfg)
+    _WIRE_CONFIG = cfg
     if cfg != prev:
         logger.debug(cfg.describe())
     return prev
@@ -563,3 +572,284 @@ def flush_dispatch_stats(wait: bool = False) -> None:
             event.synchronize()
         _credit(host, totals)
         _IN_FLIGHT.pop(0)
+
+
+# ---------------------------------------------------------------------------
+# the explicit expert all-to-all wire
+# ---------------------------------------------------------------------------
+
+_WIRE_ITEMSIZE = {"fp32": 4, "bf16": 2}
+
+
+def _bump_a2a(nbytes: int, inter: bool) -> None:
+    COUNTERS.add("moe.a2a_bytes", nbytes)
+    if inter:
+        COUNTERS.add("moe.a2a_inter", nbytes)
+
+
+@dataclasses.dataclass(frozen=True)
+class A2AHop:
+    axis: str        # mesh axis name
+    dim: int         # which leading buffer dim this hop exchanges
+    world: int
+    wire: str        # fp32 | bf16 | int8 | int4
+    inter: bool      # True = the slow-fabric (data_outer) hop
+
+
+@dataclasses.dataclass(frozen=True)
+class A2APlan:
+    """One MoE layer's expert exchange on this mesh (dispatch.py:481):
+    the hop sequence (fast to slow on dispatch) and each hop's exact wire
+    bytes for one traversal of one rank, which `moe.a2a_bytes` is held
+    to."""
+
+    hops: Tuple[A2AHop, ...]
+    ep: int                  # expert-parallel width (product of worlds)
+    local_elems: int         # buffer elements a rank (the same every hop)
+    quant_block: int
+
+    def hop_bytes(self, hop: A2AHop) -> int:
+        if hop.wire in _WIRE_ITEMSIZE:
+            return self.local_elems * _WIRE_ITEMSIZE[hop.wire]
+        chunk = self.local_elems // hop.world
+        return hop.world * payload_bytes(chunk, hop.wire, self.quant_block)
+
+    @property
+    def bytes_per_traversal(self) -> int:
+        """Wire bytes one rank moves in one direction (dispatch or
+        combine); a training step runs 4 traversals a layer (the forward
+        dispatch and combine and their mirrored backward), eval 2."""
+        return sum(self.hop_bytes(h) for h in self.hops)
+
+    @property
+    def inter_bytes_per_traversal(self) -> int:
+        return sum(self.hop_bytes(h) for h in self.hops if h.inter)
+
+    @property
+    def hops_per_traversal(self) -> int:
+        return len(self.hops)
+
+    def describe(self) -> str:
+        legs = ", ".join(
+            f"{h.axis}[{h.world}]={h.wire}"
+            f"{' (slow)' if h.inter else ''}" for h in self.hops)
+        return (f"moe a2a: ep={self.ep}, {legs}, "
+                f"{self.bytes_per_traversal} B/traversal/shard")
+
+
+def resolve_placement(wcfg: MoEWireConfig, mesh_info: MeshInfo) -> str:
+    """"inner" keeps the experts on `data_inner` (the exchange never
+    leaves the fast fabric) where the mesh is factored; a flat mesh and
+    placement "data" use the whole data axis (dispatch.py:523)."""
+    if wcfg.placement == "inner":
+        return "inner" if mesh_info.hierarchical else "data"
+    if wcfg.placement == "data":
+        return "data"
+    return "inner" if mesh_info.hierarchical else "data"
+
+
+def expert_axes(wcfg: MoEWireConfig, mesh_info: MeshInfo
+                ) -> Tuple[str, ...]:
+    """The mesh axes the expert dim is sharded over under the explicit
+    wire (= the hops' axes, outermost first)."""
+    if resolve_placement(wcfg, mesh_info) == "inner":
+        return (DATA_INNER_AXIS,)
+    return mesh_info.data_axes
+
+
+def build_a2a_plan(wcfg: MoEWireConfig, mesh_info: MeshInfo,
+                   num_experts: int, local_rows: int, capacity: int,
+                   d_model: int) -> A2APlan:
+    """The static plan of one MoE layer's exchange (dispatch.py:546):
+    `local_rows` is this rank's batch rows (B / dp); the buffer holds
+    E · local_rows · C · D elements on every hop (an all-to-all
+    permutes, never grows)."""
+    axes = expert_axes(wcfg, mesh_info)
+    local_elems = num_experts * local_rows * capacity * d_model
+    hops = []
+    if len(axes) == 1:
+        wire = (wcfg.wire_inner() if axes[0] == DATA_INNER_AXIS
+                else wcfg.wire_outer() if axes[0] == DATA_OUTER_AXIS
+                else (wcfg.a2a_wire_dtype or "fp32"))
+        hops.append(A2AHop(axis=axes[0], dim=0,
+                           world=mesh_info.axis_size(axes[0]), wire=wire,
+                           inter=axes[0] == DATA_OUTER_AXIS))
+    else:
+        # dispatch takes the fast hop first (regroup inside the node,
+        # then one aggregated slow exchange)
+        outer_ax, inner_ax = axes
+        hops.append(A2AHop(axis=inner_ax, dim=1,
+                           world=mesh_info.axis_size(inner_ax),
+                           wire=wcfg.wire_inner(), inter=False))
+        hops.append(A2AHop(axis=outer_ax, dim=0,
+                           world=mesh_info.axis_size(outer_ax),
+                           wire=wcfg.wire_outer(), inter=True))
+    return A2APlan(hops=tuple(hops), ep=mesh_info.axes_extent(axes)[0],
+                   local_elems=local_elems,
+                   quant_block=wcfg.quant_block_size)
+
+
+def _hop_a2a(buf, hop: A2AHop, plan: A2APlan, record: bool):
+    """One all-to-all hop on `buf` (leading dims: the hop grid) over
+    `hop.axis`'s process group (dispatch.py:579).  fp32 / bf16: cast and
+    exchanged.  int8 / int4: the hop dim moved first and each destination
+    chunk quantized on its own (blocks never straddle chunks), with
+    kernel #11 in one launch over every chunk, each chunk zero-padded to
+    whole blocks first when the block does not divide it (the bits of a
+    per-chunk quantize); payload and scales fused into one uint8 buffer a
+    chunk, exchanged by one all-to-all, and every received chunk
+    dequantized by kernel #12 in one launch, rounded once to `buf`'s
+    dtype."""
+    if record:
+        _bump_a2a(plan.hop_bytes(hop), hop.inter)
+    if hop.wire in _WIRE_ITEMSIZE:
+        wired = buf.to(torch.float32 if hop.wire == "fp32"
+                       else torch.bfloat16)
+        return dist.all_to_all(wired, hop.axis, split_axis=hop.dim,
+                               concat_axis=hop.dim).to(buf.dtype)
+    shape = buf.shape
+    chunks = buf.movedim(hop.dim, 0).reshape(hop.world, -1)
+    chunk_elems = chunks.shape[1]
+    block = plan.quant_block
+    pad = -chunk_elems % block
+    src = F.pad(chunks, (0, pad)) if pad else chunks.contiguous()
+    payload, scales = quantize_blockwise(src, block, hop.wire)
+    nb = payload.shape[0] // hop.world
+    wire_buf = pack_wire(payload.reshape((hop.world, nb) +
+                                         tuple(payload.shape[1:])),
+                         scales.reshape(hop.world, nb))
+    wire_buf = dist.all_to_all(wire_buf, hop.axis, split_axis=0,
+                               concat_axis=0)
+    p, s = unpack_wire(wire_buf, hop.wire, block, chunk_elems)
+    out = dequantize_blockwise(p, s, hop.wire, chunk_elems,
+                               out_dtype=buf.dtype)
+    moved = (shape[hop.dim],) + shape[:hop.dim] + shape[hop.dim + 1:]
+    return out.reshape(moved).movedim(0, hop.dim)
+
+
+def _run_hops(x, hops, plan: A2APlan, record: bool):
+    for hop in hops:
+        x = _hop_a2a(x, hop, plan, record)
+    return x
+
+
+class _WireA2A(torch.autograd.Function):
+    """The exchange with a mirrored backward (dispatch.py:619): the
+    cotangent crosses the same hops in reverse order on the same wires.
+    A hop is its own inverse on its dim, so for fp32 that is the exact
+    transpose; a quantized hop quantizes the cotangent once a crossing
+    (straight-through)."""
+
+    @staticmethod
+    def forward(ctx, buf, hops, plan, record):
+        ctx.hops, ctx.plan, ctx.record = hops, plan, record
+        return _run_hops(buf, hops, plan, record)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_run_hops(g.contiguous(), tuple(reversed(ctx.hops)),
+                          ctx.plan, ctx.record), None, None, None)
+
+
+def wire_all_to_all(buf, plan: A2APlan, reverse: bool, record: bool):
+    """The whole (one- or two-hop) exchange of `buf`, whose leading dims
+    are the hop grid ([outer, inner, ...] factored, [ep, ...] flat);
+    `reverse` takes the hops in the combine's order."""
+    hops = tuple(reversed(plan.hops)) if reverse else plan.hops
+    return _WireA2A.apply(buf, hops, plan, record)
+
+
+# ---------------------------------------------------------------------------
+# engagement
+# ---------------------------------------------------------------------------
+
+_warned: set = set()
+_LOCAL_GRADS_REGION = [False]
+
+
+def _warn_once(key: str, msg: str) -> None:
+    if key not in _warned:
+        _warned.add(key)
+        logger.warning(msg)
+
+
+@contextlib.contextmanager
+def local_grads_region():
+    """The bucketed gradient wire's local-gradients region: the engine
+    computes each rank's gradients with the experts whole on every rank
+    (JAX hands that shard_map replicated parameters,
+    step_builder.py:300-304), so the wire falls back to the local
+    dispatch inside it (`wire_engagement`'s "manual-region" case)."""
+    prev = _LOCAL_GRADS_REGION[0]
+    _LOCAL_GRADS_REGION[0] = True
+    try:
+        yield
+    finally:
+        _LOCAL_GRADS_REGION[0] = prev
+
+
+def wire_engagement(wcfg: MoEWireConfig, num_experts: int, batch: int
+                    ) -> Optional[Tuple[MeshInfo, Tuple[str, ...]]]:
+    """Whether the explicit wire serves this call (dispatch.py:677): ->
+    (mesh, expert axes), or None with the reason logged once.  `batch`
+    is the global batch's rows."""
+    if not wcfg.explicit:
+        return None
+    mesh_info = peek_mesh()
+    if mesh_info is None:
+        _warn_once("no-mesh", "comm.moe a2a wire requested but no mesh "
+                   "is current: running the local dispatch")
+        return None
+    for ax in (MODEL_AXIS, SEQ_AXIS, PIPE_AXIS):
+        if mesh_info.axis_size(ax) > 1:
+            _warn_once(
+                f"axis-{ax}",
+                f"comm.moe a2a wire requires a pure data-parallel mesh "
+                f"({ax} axis is {mesh_info.axis_size(ax)}): running the "
+                "local dispatch")
+            return None
+    axes = expert_axes(wcfg, mesh_info)
+    if wcfg.placement == "inner" and not mesh_info.hierarchical:
+        _warn_once("inner-flat",
+                   "comm.moe.placement='inner' on a flat mesh: no "
+                   "data_inner axis exists, the exchange runs over the "
+                   "whole data axis")
+    ep = mesh_info.axes_extent(axes)[0]
+    dp = mesh_info.axis_size(DATA_AXIS)
+    if dp <= 1 or ep <= 1:
+        reason = ("data-parallel width is 1" if dp <= 1 else
+                  f"the expert-parallel width over {'/'.join(axes)} "
+                  f"is 1 (dp={dp})")
+        _warn_once(f"ep1-{dp}-{ep}",
+                   f"comm.moe a2a wire: {reason}: nothing to exchange, "
+                   "running the local dispatch")
+        return None
+    if num_experts % ep != 0:
+        _warn_once(
+            f"experts-{num_experts}-{ep}",
+            f"comm.moe a2a wire: num_experts={num_experts} is not "
+            f"divisible by the expert-parallel width {ep}: running the "
+            "local dispatch")
+        return None
+    if batch % dp != 0:
+        _warn_once(
+            f"batch-{batch}-{dp}",
+            f"comm.moe a2a wire: batch rows {batch} not divisible by "
+            f"the data width {dp}: running the local dispatch")
+        return None
+    if _LOCAL_GRADS_REGION[0]:
+        _warn_once(
+            "manual-region",
+            "comm.moe a2a wire: inside the bucketed gradient wire's "
+            "local-gradients region (the experts are whole on every "
+            "rank there): running the local dispatch")
+        return None
+    if wcfg.overlap in ("auto", "on"):
+        key = f"overlap-{wcfg.overlap}"
+        if key not in _warned:
+            _warned.add(key)
+            level = logger.warning if wcfg.overlap == "on" else logger.info
+            level("comm.moe.overlap: the expert all-to-all feeds the very "
+                  "next expert product, so it has no independent compute "
+                  "to hide behind: running the serial wire")
+    return mesh_info, axes

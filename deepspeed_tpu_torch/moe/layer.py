@@ -1,5 +1,5 @@
 """Mixture-of-Experts FFN — the port of deepspeed_tpu/moe/layer.py
-(`MoEConfig` :41, `top_k_gating` :59, `MoE` :91-244), on one device.
+(`MoEConfig` :41, `top_k_gating` :59, `MoE` :91-303).
 
 Experts are stacked on a leading dim [E, ...]; the parameters are
 `gate.w` [d, E] and `experts.{w1 [E, d, f], b1 [E, f], w2 [E, f, d],
@@ -14,18 +14,22 @@ drops are identical:
   einsum token movement (`_dense`);
 * "sorted": gather tokens into [B, E, C, D] expert buckets and back
   through `dispatch.sorted_dispatch` / `sorted_combine` (kernels #13 and
-  #14 on the card; `_sorted_local`).
+  #14 on the card; `_sorted_local`), or, where `comm.moe.a2a_wire_dtype`
+  asks for it and `dispatch.wire_engagement` allows it, with the experts
+  sharded over the data ranks and the buckets moved to their owners by
+  the explicit all-to-all (`_sorted_wire`).
 
 Both return (y, aux): the Switch-Transformer load-balancing loss, which
 the model adds to its training objective only.
 
 Gate noise (`noisy_gate_std`, on when training with a generator) is
 drawn by `gate_noise` — the one place the router takes its draw, so a
-test can feed it the JAX package's draw.  With `comm.moe.dropless` the
+test can feed it the JAX package's draw.  It is drawn for the whole
+global batch (`batch_rows` rows) and a rank takes its rows from
+`row_offset`, as JAX draws one key a global row: every data-parallel
+world computes the function world 1 does.  With `comm.moe.dropless` the
 sorted engine adds the overflow bucket's pass (`_overflow_route`,
-`_overflow`).  Not
-ported: `_sorted_wire`, the explicit all-to-all over a mesh (see
-`dispatch._refuse_unported`).
+`_overflow`).
 """
 
 from __future__ import annotations
@@ -150,19 +154,33 @@ class MoE:
         return max(cap, cfg.min_capacity)
 
     def __call__(self, params: MoEParams, x,
-                 generator: Optional[torch.Generator] = None, train=True):
+                 generator: Optional[torch.Generator] = None, train=True,
+                 row_offset: int = 0, batch_rows: Optional[int] = None):
         """x [B, S, D] -> (y [B, S, D], aux fp32 scalar).  Gating runs per
-        batch row (GShard groups), so C ~ S / E."""
+        batch row (GShard groups), so C ~ S / E.  Under data parallelism x
+        is this rank's rows [row_offset, row_offset + B) of a global batch
+        of `batch_rows` rows (default B: the whole batch), and aux is this
+        rank's mean (the engine's gradient mean makes it the global one,
+        as JAX's is the mean over shards)."""
         cfg = self.config
         wcfg = _dsp.get_wire_config()
         B, S, D = x.shape
+        rows = B if batch_rows is None else int(batch_rows)
         cap = self.capacity(S, train)
         noise_std = cfg.noisy_gate_std if (train and generator is not None) \
             else 0.0
         logits = x @ params.gate.w.to(x.dtype)                  # [B, S, E]
-        noise = (gate_noise(logits.shape, generator, x.device)
-                 if noise_std > 0.0 else None)
+        noise = None
+        if noise_std > 0.0:
+            noise = gate_noise((rows,) + tuple(logits.shape[1:]), generator,
+                               x.device)
+            if rows != B:
+                noise = noise[row_offset:row_offset + B]
         if wcfg.dispatch == "sorted":
+            engaged = _dsp.wire_engagement(wcfg, cfg.num_experts, rows)
+            if engaged is not None:
+                return self._sorted_wire(params, x, logits, noise,
+                                         noise_std, cap, wcfg, *engaged)
             return self._sorted_local(params, x, logits, noise, noise_std,
                                       cap, wcfg)
         return self._dense(params, x, logits, noise, noise_std, cap)
@@ -176,15 +194,18 @@ class MoE:
         probs = torch.softmax(logits.to(torch.float32), dim=-1)
         return _dsp.topk_routing(probs, self.config.top_k, cap)
 
-    def _expert_ffn(self, expert_in, params, dtype):
-        """[E, B, C, D] expert compute — the same products on both
-        engines, so their parity reduces to the token movement."""
-        ex = params.experts
+    def _expert_ffn(self, expert_in, params, dtype, experts=None):
+        """[E, B, C, D] expert compute — the same products on every
+        engine, so their parity reduces to the token movement.  `experts`
+        (w1, b1, w2, b2) overrides the parameters' (the wire's local
+        experts)."""
+        w1, b1, w2, b2 = experts or (params.experts.w1, params.experts.b1,
+                                     params.experts.w2, params.experts.b2)
         E, B, C, D = expert_in.shape
-        h = torch.bmm(expert_in.reshape(E, B * C, D), ex.w1.to(dtype)) + \
-            ex.b1.to(dtype)[:, None, :]
+        h = torch.bmm(expert_in.reshape(E, B * C, D), w1.to(dtype)) + \
+            b1.to(dtype)[:, None, :]
         h = F.gelu(h, approximate="tanh")
-        out = torch.bmm(h, ex.w2.to(dtype)) + ex.b2.to(dtype)[:, None, :]
+        out = torch.bmm(h, w2.to(dtype)) + b2.to(dtype)[:, None, :]
         return out.reshape(E, B, C, D)
 
     # -- dense one-hot engine ------------------------------------------
@@ -256,3 +277,61 @@ class MoE:
                                    ex.w1.to(x.dtype), ex.b1.to(x.dtype),
                                    ex.w2.to(x.dtype), ex.b2.to(x.dtype))
         return _dsp.overflow_combine(ov_out, gate, slot, ov_keep, B, S)
+
+    # -- sorted engine over the explicit all-to-all wire -----------------
+
+    def _local_experts(self, params, ep: int, index: int):
+        """This rank's El = E / ep experts: the parameters as they are
+        where the engine keeps only them, else their slice of the full
+        stack (a direct caller's whole experts)."""
+        ex = params.experts
+        E = self.config.num_experts
+        El = E // ep
+        out = []
+        for t in (ex.w1, ex.b1, ex.w2, ex.b2):
+            if t.shape[0] == El:
+                out.append(t)
+            elif t.shape[0] == E:
+                out.append(t.narrow(0, index * El, El))
+            else:
+                raise ValueError(
+                    f"expert leaf of {t.shape[0]} experts: the wire at "
+                    f"ep {ep} takes {E} (whole) or {El} (this rank's)")
+        return tuple(out)
+
+    def _sorted_wire(self, params, x, logits, noise, noise_std, cap, wcfg,
+                     mesh_info, axes):
+        """The explicit wire (layer.py:246-303), on this rank's Bl rows:
+        route, dispatch through #13, the [E, Bl, C, D] buckets onto the
+        hop grid, the all-to-all to the experts' owners, the local
+        experts' FFN over [El, ep·Bl, C, D] (source rank-major rows), the
+        reverse all-to-all, and the combine through #14."""
+        cfg = self.config
+        Bl, S, D = x.shape
+        E = cfg.num_experts
+        plan = _dsp.build_a2a_plan(wcfg, mesh_info, E, Bl, cap, D)
+        ep = plan.ep
+        El = E // ep
+        grid = tuple(mesh_info.axis_size(a) for a in axes)
+        _, index = mesh_info.axes_extent(axes)
+        experts = self._local_experts(params, ep, index)
+        eidx, gate, pos, keep, aux = self._route(logits, noise, noise_std,
+                                                 cap)
+        expert_in = _dsp.sorted_dispatch(x, eidx, pos, keep, E, cap)
+        buf = expert_in.transpose(0, 1).reshape(grid + (El, Bl, cap, D))
+        buf = _dsp.wire_all_to_all(buf, plan, reverse=False,
+                                   record=wcfg.counters)
+        # the leading grid dims now index the SOURCE ranks, rank-major
+        buf = buf.reshape(ep, El, Bl, cap, D).transpose(0, 1).reshape(
+            El, ep * Bl, cap, D)
+        out = self._expert_ffn(buf, params, x.dtype, experts)
+        out = out.reshape(El, ep, Bl, cap, D).transpose(0, 1).reshape(
+            grid + (El, Bl, cap, D))
+        out = _dsp.wire_all_to_all(out, plan, reverse=True,
+                                   record=wcfg.counters)
+        out = out.reshape(E, Bl, cap, D).transpose(0, 1)
+        y = _dsp.sorted_combine(out, eidx, gate, pos, keep)
+        if wcfg.counters:
+            _dsp.record_dispatch_stats((~keep).sum(), keep.sum(),
+                                       Bl * E * cap)
+        return y, aux.mean().to(torch.float32)

@@ -17,6 +17,19 @@ meanings:
   launched the hand-written kernel / ran the plain PyTorch version.  The
   port runs eagerly, so these count every call (the JAX package counts
   once per traced program).
+
+Training's wires write, with the JAX names, once per collective a rank
+makes (bytes = what this rank hands to it):
+
+* `bucket.psum`, `bucket.psum_scatter`, `bucket.all_gather` (the split
+  and int8/int4 gather wires: one fused buffer a bucket), and per level
+  of a hierarchy `bucket.intra.*` / `bucket.inter.*`; `grad_wire.*` the
+  plan's bytes a reduction (runtime/comm/bucketing.py);
+* `moe.a2a_bytes` — one explicit expert all-to-all hop, its plan bytes
+  (`A2APlan.hop_bytes`), and `moe.a2a_inter` the same for a hop over
+  `data_outer` (moe/dispatch.py `_bump_a2a`); `moe.dropped_tokens`,
+  `moe.capacity_frac` the routing stats;
+* `dist.<collective>` — every `comm/dist.py` collective's input bytes.
 """
 
 from __future__ import annotations

@@ -16,14 +16,23 @@ Wire modes (what crosses between ranks):
 * "split" the EleutherAI 24-bit frexp wire with gather semantics: each
           rank's bucket decomposes into an fp16 mantissa + int8 exponent
           (`compressed_ar.decompose_int8_safe`), both all-gathered, then
-          ldexp-reconstructed in fp32 and summed locally.
+          ldexp-reconstructed in fp32 and summed locally;
+* "int8" / "int4"  the blockwise-quantized gather wire (qgZ,
+          `_quant_gather_sum`): each rank's bucket quantized with one
+          fp16 scale a `quant_block` elements (kernel #11 on the card),
+          payload and scales fused into one uint8 buffer and all-gathered
+          (runtime/comm/quant.py `quantized_all_gather`), every rank's
+          contribution dequantized to fp32 (kernel #12) and summed
+          locally, so the error never compounds across ranks.
 
 At ZeRO stage >= 2 the reduction is a reduce-scatter: each rank keeps
 the 1/n chunk of a bucket; `OwnerExchange` then moves each element of
 the chunks to the rank whose optimizer partition owns it
 (runtime/zero/partition.py), one uneven all-to-all a bucket — the
 placement XLA's sharding propagation makes after JAX's psum_scatter.
-A gather-structured wire (split) stays all-reduce-lowered.
+A gather-structured wire (split, int8, int4) rebuilds the whole bucket
+on every rank, so its plan is never scattered: at stage 2 a rank keeps
+its owned slices of the gathered sum.
 
 With a hierarchical data axis (comm/mesh.py; the ZeRO++ two-level
 recipe) a bucket lowers per level: reduce-scatter over `data_inner`,
@@ -35,9 +44,8 @@ optimizer partitions live.
 Every collective adds its payload to a `bucket.*` counter (`_record`);
 the engine adds `grad_wire.reduce` from `wire_bytes_per_reduction` /
 `collectives_per_reduction` each reduction, so the two can be held
-against each other.  Not ported: the int8/int4 wires
-(`_quant_gather_sum`) and the overlapped lowering (`overlap_*`), ROADMAP
-queue 1: the quantized wires.
+against each other.  Not ported: the overlapped lowering
+(`overlap_*`; ROADMAP queue 1: the overlapped host-exchange wire).
 """
 
 from __future__ import annotations
@@ -52,7 +60,7 @@ from ...comm.mesh import DATA_AXIS
 from ...monitor.counters import COUNTERS
 from .compressed_ar import _ldexp, decompose_int8_safe
 from .quant import (DEFAULT_BLOCK_SIZE, QUANT_WIRES, payload_bytes,
-                    validate_block_size)
+                    quantized_all_gather, validate_block_size)
 
 WIRE_MODES = ("fp32", "bf16", "split", "int8", "int4")
 
@@ -75,14 +83,6 @@ def wire_nbytes(n_elems: int, wire: str, block: int, *,
 
 def _record(op: str, nbytes: int) -> None:
     COUNTERS.add(f"bucket.{op}", int(nbytes))
-
-
-def refuse_quantized(wire: str, where: str = "comm.wire_dtype") -> None:
-    if wire in QUANT_WIRES:
-        raise NotImplementedError(
-            f"{where}={wire!r}: the blockwise-quantized gradient wire is "
-            f"not ported to deepspeed_tpu_torch yet (ROADMAP queue 1: the "
-            f"explicit MoE wire and the quantized wires)")
 
 
 class WireLevel(NamedTuple):
@@ -127,7 +127,6 @@ class BucketPlan:
         if bucket_elems <= 0:
             raise ValueError(f"reduce_bucket_size must be > 0, "
                              f"got {bucket_elems}")
-        refuse_quantized(wire)
         if levels is not None:
             inner, outer = levels[0], levels[1]
             for name, lvl in (("inner", inner), ("outer", outer)):
@@ -135,7 +134,6 @@ class BucketPlan:
                     raise ValueError(
                         f"unknown {name}-level wire mode {lvl.wire!r}; "
                         f"choose from {WIRE_MODES}")
-                refuse_quantized(lvl.wire, f"comm.wire_dtype_{name}")
             if inner.size * outer.size != int(dp_size):
                 raise ValueError(
                     f"hierarchy levels {outer.size} x {inner.size} do not "
@@ -293,6 +291,15 @@ class BucketPlan:
         return torch.sum(_ldexp(m_all.to(torch.float32),
                                 e_all.to(torch.int32)), dim=0)
 
+    def _quant_gather_sum(self, x, wire: str, axis: str, prefix: str):
+        """The blockwise-quantized gather wire (bucketing.py:357): one
+        fused payload + scales buffer all-gathered over `axis`, each
+        rank's contribution dequantized to fp32 and summed locally."""
+        per_rank = quantized_all_gather(
+            x, (axis,), self.quant_block, wire,
+            record=lambda nb: _record(f"{prefix}all_gather", nb))
+        return torch.sum(per_rank, dim=0)
+
     def _reduce_one_hier(self, flat, spec: BucketSpec):
         """Two levels (bucketing.py:374): reduce-scatter over the inner
         group (the whole bucket), the outer collective on the 1/inner
@@ -307,6 +314,10 @@ class BucketPlan:
         shard = dist.reduce_scatter(wired, inner.axis).to(torch.float32)
         if outer.wire == "split":
             shard = self._split_gather_sum(shard, shard_elems, outer.axis,
+                                           "inter.")
+        elif outer.wire in QUANT_WIRES:
+            # the qgZ placement: compression on the slow hop only
+            shard = self._quant_gather_sum(shard, outer.wire, outer.axis,
                                            "inter.")
         elif outer.wire == "bf16":
             _record("inter.psum", shard_elems * 2)
@@ -338,6 +349,9 @@ class BucketPlan:
         if self.wire == "split":
             total = self._split_gather_sum(flat, spec.padded, axis, "")
             return (total / dp).to(flat.dtype)
+        if self.wire in QUANT_WIRES:
+            total = self._quant_gather_sum(flat, self.wire, axis, "")
+            return (total / dp).to(flat.dtype)
         wired = flat.to(torch.float32)
         if self.scatter:
             _record("psum_scatter", nbytes)
@@ -360,6 +374,21 @@ class BucketPlan:
     @property
     def hierarchical(self) -> bool:
         return self.levels is not None
+
+    @property
+    def exact_fp32(self) -> bool:
+        """Every hop accumulates at full fp32 width (the engine's
+        `allreduce_always_fp32()`)."""
+        if self.levels is not None:
+            return all(lvl.wire == "fp32" for lvl in self.levels)
+        return self.wire == "fp32"
+
+    @property
+    def quantized(self) -> bool:
+        """Some hop rides a blockwise-quantized wire (bucketing.py:697)."""
+        if self.levels is not None:
+            return any(lvl.wire in QUANT_WIRES for lvl in self.levels)
+        return self.wire in QUANT_WIRES
 
     def account(self, events: int = 1) -> None:
         """`grad_wire.*` for `events` reductions (step_builder.py:114)."""
@@ -389,6 +418,8 @@ class BucketPlan:
                                             if b.padded > b.n_elems else "")
                           for b in self.buckets)
         lowering = "reduce-scatter" if self.scatter else "allreduce"
+        if self.quantized:
+            lowering += f", quant block={self.quant_block}"
         if self.levels is not None:
             inner, outer = self.levels
             return (f"BucketPlan: {self.n_leaves} grad leaves -> "

@@ -29,8 +29,12 @@ Range semantics, shared by both:
 * int4 packs two codes per byte, low nibble first (two's complement), and
   needs an even trailing axis.
 
-`pack_wire` / `unpack_wire` (the fused wire buffer of the qwZ gather) are
-not ported yet.
+The wire protocol (`pack_wire` :264, `unpack_wire` :275,
+`quantized_all_gather` :293): a rank's quantized tensor travels as ONE
+uint8 buffer, the payload bytes then the fp16 scales' bytes, so a
+quantized collective is one collective; the bucketed gradient wire
+(qgZ, runtime/comm/bucketing.py) gathers it and the MoE expert exchange
+(moe/dispatch.py `_hop_a2a`) sends one a destination rank.
 """
 
 from __future__ import annotations
@@ -210,3 +214,56 @@ def dequantize_blockwise_ref(payload, scales, wire: str, n_elems: int,
     vals = torch.where(codes == -q - 1, float("nan"), vals)
     flat = vals.reshape(vals.shape[:-2] + (-1,))
     return flat[..., :n_elems].to(out_dtype)
+
+
+# -- the fused wire buffer ----------------------------------------------------
+
+
+def pack_wire(payload, scales):
+    """(payload [..., nb, w], scales [..., nb]) -> ONE uint8 buffer [...,
+    bytes] a leading index: the payload bytes, then the fp16 scales' bytes
+    (little-endian, as JAX's bitcast lays them out).  Without leading dims
+    it is the flat buffer of quant.py:264."""
+    lead = tuple(payload.shape[:-2])
+    p = payload.contiguous().view(torch.uint8).reshape(lead + (-1,))
+    s = scales.contiguous().view(torch.uint8).reshape(lead + (-1,))
+    return torch.cat([p, s], dim=-1)
+
+
+def unpack_wire(buf, wire: str, block: int, n_elems: int):
+    """Inverse of `pack_wire`, with leading batch dims (a gathered wire
+    arrives as [world, bytes]) -> (payload [..., nb, w], scales [..., nb])
+    shaped for `dequantize_blockwise`."""
+    q = qmax(wire)
+    nb = padded_elems(n_elems, block) // block
+    width = block if q == 127 else block // 2
+    data = nb * width
+    lead = tuple(buf.shape[:-1])
+    p = buf[..., :data].contiguous()
+    if q == 127:
+        p = p.view(torch.int8)
+    # a copy: the scales start at any byte, and fp16 wants an even one
+    s = buf[..., data:].clone().view(torch.float16)
+    return p.reshape(lead + (nb, width)), s.reshape(lead + (nb,))
+
+
+def quantized_all_gather(x, axes, block: int, wire: str, record=None):
+    """The quantized gather (quant.py:293): quantize `x` blockwise (kernel
+    #11 on the card), fuse payload and scales into one buffer, all-gather
+    it over `axes` one hop an axis, innermost first (a later hop resends
+    the accumulated buffer, as the byte accounting prices it), and return
+    every rank's contribution dequantized to fp32 as [world, n] (kernel
+    #12, one launch for every rank's row), outermost axis leading.
+    `record(nbytes)` fires once a hop with the bytes this rank sends."""
+    from ...comm import dist
+
+    n = x.numel()
+    payload, scales = quantize_blockwise(x.reshape(-1), block, wire)
+    buf = pack_wire(payload, scales)
+    nbytes = buf.shape[0]
+    for axis in reversed(tuple(axes)):
+        if record is not None:
+            record(int(buf.numel()))
+        buf = dist.all_gather(buf, axis, tiled=False)
+    p, s = unpack_wire(buf.reshape(-1, nbytes), wire, block, n)
+    return dequantize_blockwise(p, s, wire, n)

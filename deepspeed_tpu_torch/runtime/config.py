@@ -20,9 +20,10 @@ here, at config time, as in the JAX package.
 
 A section the port cannot honour yet raises `DeepSpeedConfigError` (or,
 for a valid `comm` selection, NotImplementedError) naming its ROADMAP
-item, rather than training without it: ZeRO stage 3 and offload, a
-pipeline section, a mesh with a model, pipe or seq axis above 1, the
-int8/int4 gradient wires and `comm.overlap`, progressive layer drop,
+item, rather than training without it: ZeRO stage 3, offload and
+`zero_optimization.quantized_weights` (qwZ), a pipeline section, a mesh
+with a model, pipe or seq axis above 1, `comm.overlap`, progressive
+layer drop,
 AMP, TensorBoard, the wall-clock breakdown and
 `checkpoint.preempt_save_dir` (the preemption handler).  (1-bit and
 LAMB optimizers are refused by the engine's optimizer selection.)
@@ -205,17 +206,17 @@ class DeepSpeedCommConfig(DeepSpeedConfigObject):
 
     `implicit` (the default) reduces each gradient leaf with its own
     collective; `bucketed` goes through the BucketPlan's fused buckets.
-    `fp32_allreduce` (top level) forces every wire to fp32.  The inner
-    level of a hierarchy is scatter-structured: an inherited "split"
-    lowers to fp32 there, an explicit int8/int4 inner wire raises.  The
-    port runs neither the int8/int4 wires nor the overlap: a valid
-    request for them raises NotImplementedError naming the ROADMAP item,
-    after the checks JAX makes."""
+    `fp32_allreduce` (top level) forces every wire to fp32, the int8 and
+    int4 wires included.  The inner level of a hierarchy is
+    scatter-structured: an inherited "split", "int8" or "int4" lowers to
+    fp32 there, an explicit int8/int4 inner wire raises.  The port does
+    not run the overlap: a valid request for it raises
+    NotImplementedError naming the ROADMAP item, after the checks JAX
+    makes."""
 
     def __init__(self, param_dict, zero_config, world_size=None):
         from ..utils.logging import logger
-        from .comm.bucketing import (GATHER_WIRES, WIRE_MODES,
-                                     refuse_quantized)
+        from .comm.bucketing import GATHER_WIRES, WIRE_MODES
         from .comm.quant import QUANT_WIRES, validate_block_size
 
         super().__init__()
@@ -309,13 +310,11 @@ class DeepSpeedCommConfig(DeepSpeedConfigObject):
         # raises; NotImplementedError for a valid selection not ported yet
         self.moe = parse_moe_config(d.get(c.COMM_MOE),
                                     default_block=self.quant_block_size)
-        refuse_quantized(self.wire_dtype)
-        refuse_quantized(self.wire_dtype_outer, "comm.wire_dtype_outer")
         if self.overlap != "none":
             raise NotImplementedError(
                 f"comm.overlap={self.overlap!r}: the overlapped gradient "
                 f"wire is not ported to deepspeed_tpu_torch yet (ROADMAP "
-                f"queue 1: the explicit MoE wire and the quantized wires)")
+                f"queue 1: the overlapped host-exchange wire)")
 
 
 class DeepSpeedDataPipelineConfig(DeepSpeedConfigObject):
@@ -419,6 +418,14 @@ class DeepSpeedConfig(DeepSpeedConfigObject):
         from .zero.config import DeepSpeedZeroConfig
 
         self.zero_config = DeepSpeedZeroConfig(pd)
+        if self.zero_config.quantized_weights is not None:
+            # the JAX engine builds the quantized weight gather (qwZ) only
+            # over stage 3's sharded parameters (engine.py:1132-1170)
+            raise NotImplementedError(
+                f"zero_optimization.quantized_weights="
+                f"{self.zero_config.quantized_weights!r} (qwZ) is not "
+                f"ported to deepspeed_tpu_torch yet (ROADMAP queue 1: "
+                f"ZeRO-3, Offload and Infinity)")
         mesh_data = int((pd.get(c.MESH) or {}).get("data", -1))
         if mesh_data not in (-1, self.world_size):
             raise DeepSpeedConfigError(

@@ -49,11 +49,28 @@ batch.  A ZeRO-1/2 tag holds the optimizer moments as pieces, one
 `zero_pp_rank_<r>` file a rank, and a load re-partitions them for the
 current world.
 
-What the port refuses (config.py raises): ZeRO stage 3, offload,
-pipelines, model / pipe / seq axes above 1, progressive layer drop, AMP,
-TensorBoard, the preemption handler; LAMB, 1-bit and optax optimizers,
-and MoE models over more than one rank, raise here.  Entry points run on
-the card unless `device="cpu"` is passed.
+MoE under data parallelism: an MoE model's gate noise is drawn for the
+global batch (`batch_rows`, moe/layer.py), so world N computes world 1's
+function.  With `comm.moe.a2a_wire_dtype` and the implicit gradient
+reduction, the explicit expert wire engages (`moe/dispatch.py`
+`wire_engagement`): each rank keeps only its El = E / ep experts of every
+expert leaf, cut from the same whole init (`_expert_parallel_axes`), and
+the zero plan marks those leaves `local`.  Their gradients are not
+reduced over the expert axes (the all-to-all's backward already summed
+every rank's loss into the owner's gradient); under inner placement they
+are summed over `data_outer`, where the experts are replicated; like
+every leaf they are divided by dp.  The clipping norm counts each expert
+once, the post-step gather skips them, and a tag holds them whole in the
+module tree and as the owners' pieces in the optimizer's.  Under the
+bucketed reduction the wire falls back to the local dispatch with the
+experts whole on every rank, as JAX's local-grads region does; without a
+wire the experts are whole and reduced like any leaf.
+
+What the port refuses (config.py raises): ZeRO stage 3, offload, qwZ,
+pipelines, model / pipe / seq axes above 1, `comm.overlap`, progressive
+layer drop, AMP, TensorBoard, the preemption handler; LAMB, 1-bit and
+optax optimizers raise here.  Entry points run on the card unless
+`device="cpu"` is passed.
 """
 
 from __future__ import annotations
@@ -69,8 +86,9 @@ import torch
 from ..comm import dist
 from ..comm.mesh import (DATA_AXIS, DATA_INNER_AXIS, DATA_OUTER_AXIS,
                          derive_data_outer, make_mesh)
-from ..models.convert import (jax_leaf_order, load_jax_params,
-                              opt_state_from_jax, opt_state_to_jax,
+from ..models.convert import (is_expert_leaf, jax_leaf_order,
+                              load_jax_params, opt_state_from_jax,
+                              opt_state_to_jax, slice_expert_leaves,
                               unflatten_tree)
 from ..ops.adam.fused_adam import FusedAdam
 from ..utils.device import check_same_device, resolve_device
@@ -273,13 +291,24 @@ class DeepSpeedEngine:
         if model_parameters is not None:
             # a JAX params tree (as numpy) becomes the masters unrounded
             load_jax_params(model, model_parameters)
-        self._param_names, self._masters = zip(*model.named_parameters())
         self._check_data_parallel_model()
-        # ZeRO partitions; the bucketed wire fills its buckets in the JAX
-        # tree's leaf order
+        names = [n for n, _ in model.named_parameters()]
+        whole_shapes = [tuple(p.shape) for _, p in model.named_parameters()]
+        expert_axes = self._expert_parallel_axes()
+        expert = [bool(expert_axes) and is_expert_leaf(n) for n in names]
+        # ZeRO partitions (and the expert leaves' shards); the bucketed
+        # wire fills its buckets in the JAX tree's leaf order
         self.zero_plan = ZeroShardingPlan(
             self._config.zero_optimization_stage, self.mesh_info,
-            [p.shape for p in self._masters])
+            whole_shapes, expert=expert, expert_axes=expert_axes)
+        if any(expert):
+            # each rank keeps its experts of the same whole init
+            with torch.no_grad():
+                for (_, p), lp in zip(model.named_parameters(),
+                                      self.zero_plan.leaves):
+                    if lp.local:
+                        p.data = lp.from_full(p.data).clone()
+        self._param_names, self._masters = zip(*model.named_parameters())
         log_dist(self.zero_plan.describe(), ranks=[0])
         self._jax_order = jax_leaf_order(self._param_names)
         self.bucket_plan = self._build_bucket_plan()
@@ -365,25 +394,61 @@ class DeepSpeedEngine:
             outer = hier
         return make_mesh(data=-1, data_outer=outer)
 
+    def _num_experts(self) -> int:
+        cfg = getattr(self.module, "config", None)
+        return int(getattr(cfg, "num_experts", 1) or 1)
+
     def _check_data_parallel_model(self):
         """More than one rank needs a model that takes `row_offset` (its
-        dropout masks follow the global batch's rows) and no MoE layer
-        (an MoE layer's gate noise is drawn per local batch)."""
+        dropout masks follow the global batch's rows) and, with MoE
+        layers, `batch_rows` (their gate noise is drawn for the global
+        batch)."""
         if self.dp_world_size <= 1:
             return
-        cfg = getattr(self.module, "config", None)
-        if int(getattr(cfg, "num_experts", 1) or 1) > 1:
-            raise NotImplementedError(
-                "MoE training over more than one rank is not ported to "
-                "deepspeed_tpu_torch yet (ROADMAP queue 1: the explicit MoE "
-                "wire and the quantized wires)")
-        if "row_offset" not in inspect.signature(
+        takes = inspect.signature(self.module.forward).parameters
+        needed = [("row_offset", "the index of the rank's first row of the "
+                   "global batch, for its dropout masks")]
+        if self._num_experts() > 1:
+            needed.append(("batch_rows", "the global batch's rows, for the "
+                           "MoE gate noise"))
+        for arg, why in needed:
+            if arg not in takes:
+                raise NotImplementedError(
+                    f"{type(self.module).__name__}: data parallelism needs "
+                    f"a model whose call takes {arg} ({why}); models.GPT "
+                    f"takes it")
+
+    def _model_kwargs(self) -> dict:
+        """The data-parallel arguments of the model's call: this rank's
+        first global row and, where the call takes it, the global batch's
+        rows."""
+        if self.dp_world_size <= 1:
+            return {}
+        micro = self.train_micro_batch_size_per_gpu()
+        out = {"row_offset": self.dp_rank * micro}
+        if "batch_rows" in inspect.signature(
                 self.module.forward).parameters:
-            raise NotImplementedError(
-                f"{type(self.module).__name__}: data parallelism needs a "
-                f"model whose call takes row_offset (the index of the "
-                f"rank's first row of the global batch, for its dropout "
-                f"masks); models.GPT takes it")
+            out["batch_rows"] = micro * self.dp_world_size
+        return out
+
+    def _expert_parallel_axes(self):
+        """The mesh axes the experts are sharded over, or () when each
+        rank keeps them whole: the explicit wire engages only for an MoE
+        model with `comm.moe.a2a_wire_dtype`, the implicit gradient
+        reduction (the bucketed wire's local-grads region computes with
+        whole experts, and the layer logs that fallback) and what
+        `wire_engagement` allows, which logs why not."""
+        from ..moe.dispatch import wire_engagement
+
+        wcfg = self._config.moe
+        E = self._num_experts()
+        if E <= 1 or not wcfg.explicit or wcfg.dispatch != "sorted" or \
+                self._config.comm_config.gradient_reduction == "bucketed":
+            return ()
+        engaged = wire_engagement(
+            wcfg, E, self.train_micro_batch_size_per_gpu() *
+            self.dp_world_size)
+        return engaged[1] if engaged is not None else ()
 
     def _build_bucket_plan(self):
         """The bucketed gradient wire's static plan (engine.py:1080), or
@@ -420,16 +485,21 @@ class DeepSpeedEngine:
                                              self._masters)]
 
     def _full_masters(self):
-        """The fp32 masters, exact on every rank: where the other ranks'
-        slices hold compute-dtype values (ZeRO >= 1 in bf16/fp16), copies
-        with every slice from its owner by an fp32 all-gather (a
-        collective: every rank calls it)."""
+        """The whole fp32 masters, exact on every rank: where the other
+        ranks' slices hold compute-dtype values (ZeRO >= 1 in bf16/fp16),
+        copies with every slice from its owner by an fp32 all-gather, and
+        every local expert leaf gathered whole from its owners (both
+        collectives: every rank calls this)."""
         plan = self.zero_plan
-        if not (self._dp and plan.stage >= 1 and plan.partitioned) or \
-                self.compute_dtype == torch.float32:
-            return list(self._masters)
-        full = [p.detach().clone() for p in self._masters]
-        plan.all_gather_slices(full, self._owned_masters(), torch.float32)
+        full = list(self._masters)
+        if self._dp and plan.stage >= 1 and plan.partitioned and \
+                self.compute_dtype != torch.float32:
+            full = [p.detach().clone() for p in self._masters]
+            plan.all_gather_slices(full, self._owned_masters(),
+                                   torch.float32)
+        if plan.expert_local:
+            full = [dist.all_gather(p.detach(), plan.expert_group_axis)
+                    if lp.local else p for p, lp in zip(full, plan.leaves)]
         return full
 
     def _local_rows(self, batch):
@@ -701,7 +771,8 @@ class DeepSpeedEngine:
         out = torch.func.functional_call(
             self.module, cparams,
             (_place(self._local_rows(batch), self.device),),
-            {"generator": generator, "train": False})
+            {"generator": generator, "train": False,
+             **self._model_kwargs()})
         loss = out[0] if isinstance(out, tuple) else out
         if self._dp:
             loss = dist.all_reduce(loss.float().clone(), DATA_AXIS) / \
@@ -796,7 +867,10 @@ class DeepSpeedEngine:
         return not self._config.prescale_gradients
 
     def allreduce_always_fp32(self):
-        return True
+        """Every hop of the gradient reduction accumulates in fp32 (the
+        bucketed wire's plan says; the implicit reduction does)."""
+        plan = self.bucket_plan
+        return True if plan is None else plan.exact_fp32
 
     def optimizer_name(self):
         return self._config.optimizer_name
@@ -854,9 +928,10 @@ class DeepSpeedEngine:
                 f"module's {sorted(self._param_names)}")
         self._wait_snapshot()
         with torch.no_grad():
-            for n, p in self.params.items():
+            for (n, p), lp in zip(self.params.items(), self.zero_plan.leaves):
                 if n in state_dict:
-                    p.copy_(torch.as_tensor(np.asarray(state_dict[n])))
+                    t = torch.as_tensor(np.asarray(state_dict[n]))
+                    p.copy_(lp.from_full(t) if lp.local else t)
 
     # ------------------------------------------------------------------
     # checkpointing (engine.py:2965-3311)
@@ -995,12 +1070,15 @@ class DeepSpeedEngine:
         `shard_marker`, and this rank's pieces of them ({key: {"index",
         "piece"}}): written by the ranks of the first outer group only,
         one rank a distinct piece, as JAX writes the lowest device's
-        replica (checkpointing.py:334)."""
+        replica (checkpointing.py:334).  A local expert leaf's piece is
+        its owner's experts, written by every owner where every rank
+        holds distinct experts."""
         plan, names = self.zero_plan, self._param_names
-        if not plan.partitioned:
+        if not (plan.partitioned or plan.expert_local):
             return opt_state_to_jax(names, self._opt_state), {}
         writes = (not self.mesh_info.hierarchical or
                   self.mesh_info.axis_index(DATA_OUTER_AXIS) == 0)
+        experts_distinct = plan.expert_replica_axis is None
         pieces, state = {}, {}
         for k, v in self._opt_state.items():
             if not (isinstance(v, (list, tuple)) and len(v) == len(names)):
@@ -1016,7 +1094,7 @@ class DeepSpeedEngine:
                 key = ckpt_io.shard_key("optim:", path)
                 out.append(ckpt_io.shard_marker(key, lp.shape, "float32",
                                                 lp.parts))
-                if writes:
+                if writes or (lp.local and experts_distinct):
                     pieces[key] = {"index": lp.piece_index(lp.index),
                                    "piece": t}
             state[k] = out
@@ -1024,11 +1102,12 @@ class DeepSpeedEngine:
 
     def _partition_opt_state(self, restored):
         """Whole restored moments -> this rank's slices of them (a tag
-        written at any world size re-partitions to this one)."""
+        written at any world size and expert-parallel width re-partitions
+        to this one)."""
         out = {}
         for k, v in restored.items():
             if isinstance(v, (list, tuple)) and len(v) == len(self._masters):
-                v = [lp.owned(t if torch.is_tensor(t) else
+                v = [lp.from_full(t if torch.is_tensor(t) else
                               torch.from_numpy(np.array(t))).clone(
                                   memory_format=torch.contiguous_format)
                      for lp, t in zip(self.zero_plan.leaves, v)]
@@ -1051,9 +1130,14 @@ class DeepSpeedEngine:
                  ranks=[0])
 
     def _install_module_weights(self, tree):
-        """The masters (the module's parameters) from a JAX-shaped tree;
+        """The masters (the module's parameters) from a JAX-shaped tree
+        of whole leaves (a rank keeps its experts of each expert leaf);
         a missing, extra or misshapen leaf raises before any write."""
         self._wait_snapshot()
+        plan = self.zero_plan
+        if plan.expert_local:
+            lp = next(lp for lp in plan.leaves if lp.local)
+            tree = slice_expert_leaves(tree, lp.parts, lp.index)
         load_jax_params(self.module, tree)
 
     def load_checkpoint(self, load_dir, tag=None, load_module_strict=True,

@@ -25,7 +25,11 @@ eagerly, so the stages are closures over the engine that read and write
 its state (the masters are updated in place).
 
 Data parallelism (`engine._dp`, a process group is present): every rank
-keeps every master in fp32; at ZeRO stage >= 1 a rank updates only the
+keeps every master in fp32 (of an expert leaf under the explicit MoE
+wire, only its own experts: the zero plan's `local` leaves, whose
+gradients the all-to-all's backward has already summed over the ranks,
+so the reduce stage only divides them by dp, after a sum over
+`data_outer` under inner placement); at ZeRO stage >= 1 a rank updates only the
 slices its partition owns (`runtime/zero/partition.py`) and its Adam
 moments are those slices' moments; the other ranks' slices come back in
 the compute dtype, so they equal the owners' masters rounded as the next
@@ -38,10 +42,13 @@ single-process one.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from ..comm import dist
 from ..comm.mesh import DATA_AXIS, DATA_INNER_AXIS, DATA_OUTER_AXIS
+from ..moe.dispatch import local_grads_region
 from .utils import clip_grad_norm, global_grad_norm_sq, has_overflow
 
 
@@ -87,9 +94,13 @@ class StepBuilder:
         hier = eng.mesh_info.hierarchical
         part_axis = plan.partition_axes[0]
         first_part = plan.partition_index == 0
-        model_kwargs = ({"row_offset": eng.dp_rank *
-                         eng.train_micro_batch_size_per_gpu()}
-                        if dp > 1 else {})
+        model_kwargs = eng._model_kwargs()
+        expert_replica = plan.expert_replica_axis
+        # the bucketed wire computes each rank's gradients with whole
+        # experts: the explicit MoE wire falls back inside it (JAX's
+        # local-grads region), in the forward and in any recompute
+        region = (local_grads_region if wire is not None
+                  else contextlib.nullcontext)
 
         def prep_params():
             """Master params -> the compute-side replica the loss reads."""
@@ -108,7 +119,13 @@ class StepBuilder:
             to the owned slice (a reduce-scatter at stage 2)."""
             out = []
             for g, lp in zip(grads, leaves):
-                if stage >= 2 and lp.sharded:
+                if lp.local:
+                    # an owner's expert gradient: already the sum over
+                    # every rank's loss, through the all-to-all's backward
+                    if expert_replica is not None:
+                        g = dist.all_reduce(g, expert_replica)
+                    out.append(g.div_(dp))
+                elif stage >= 2 and lp.sharded:
                     if hier:
                         g = dist.reduce_scatter(g, DATA_INNER_AXIS,
                                                 scatter_axis=lp.dim)
@@ -139,9 +156,11 @@ class StepBuilder:
             return out
 
         def compute_grads(batch, generator, loss_scale):
-            scaled, loss = run_loss(prep_params(), batch, generator,
-                                    loss_scale)
-            grads = torch.autograd.grad(scaled, masters, allow_unused=True)
+            with region():
+                scaled, loss = run_loss(prep_params(), batch, generator,
+                                        loss_scale)
+                grads = torch.autograd.grad(scaled, masters,
+                                            allow_unused=True)
             grads = [torch.zeros_like(p) if g is None else g
                      for g, p in zip(grads, masters)]
             loss = loss.detach()
@@ -162,18 +181,28 @@ class StepBuilder:
                                            dist.ReduceOp.MAX) > 0
             return overflow
 
+        def sum_sq(gs, device):
+            return (global_grad_norm_sq(gs) if gs else
+                    torch.zeros((), dtype=torch.float32, device=device))
+
         def grad_norm_sq(grads):
             """Sum of squares of the whole gradient: at stage >= 1 each
             rank's owned slices (unsharded leaves counted by partition
-            index 0 only), summed over the partition group."""
-            if not (dp_on and stage >= 1 and plan.partitioned):
-                return global_grad_norm_sq(grads)
-            mine = [g for g, lp in zip(grads, leaves)
-                    if lp.sharded or first_part]
-            sq = (global_grad_norm_sq(mine) if mine else
-                  torch.zeros((), dtype=torch.float32,
-                              device=grads[0].device))
-            return dist.all_reduce(sq, part_axis)
+            index 0 only), summed over the partition group; each local
+            expert counted once, by a sum over the ranks holding distinct
+            experts."""
+            device = grads[0].device
+            dense = [(g, lp) for g, lp in zip(grads, leaves) if not lp.local]
+            if dp_on and stage >= 1 and plan.partitioned:
+                mine = [g for g, lp in dense if lp.sharded or first_part]
+                sq = dist.all_reduce(sum_sq(mine, device), part_axis)
+            else:
+                sq = sum_sq([g for g, _ in dense], device)
+            if plan.expert_local:
+                experts = [g for g, lp in zip(grads, leaves) if lp.local]
+                sq = sq + dist.all_reduce(sum_sq(experts, device),
+                                          plan.expert_group_axis)
+            return sq
 
         @torch.no_grad()
         def apply_core(grads, lr, gas_div):

@@ -21,10 +21,19 @@ its slice, and the outer groups hold replicas — so the post-step
 parameter all-gather stays inside an inner group, where the two-level
 wire's reduce-scatter leaves the gradients (runtime/comm/bucketing.py).
 
+Expert parallelism (the explicit MoE wire, moe/dispatch.py): an expert
+leaf's spec shards its expert dim over the expert axes (JAX
+moe/layer.py:110-122: over `data`, which `_translate_data_axes`,
+partition.py:169, narrows to `data_inner` under inner placement), and
+`add_data_axis` leaves an already data-sharded leaf alone (:75).  The
+engine keeps only a rank's El experts of such a leaf, so its partition
+is `local`: the rank's tensor IS its slice, its optimizer state is the
+owner's experts at every stage, and no post-step gather touches it.
+
 Specs are tuples with one entry a dimension (None, an axis name, or a
 tuple of axis names), what `tuple(PartitionSpec(...))` gives in JAX.
 Not ported: stage 3's parameter sharding and `QuantizedWeightGather`
-(qwZ; ROADMAP queue 1: the quantized wires).
+(qwZ; ROADMAP queue 1: ZeRO-3, Offload and Infinity).
 """
 
 from __future__ import annotations
@@ -83,7 +92,9 @@ def _sharded_dim(spec) -> Optional[int]:
 
 class LeafPartition(NamedTuple):
     """This rank's part of one leaf: `length` elements along `dim` from
-    `start` (dim None: the whole leaf, on every rank)."""
+    `start` (dim None: the whole leaf, on every rank).  `local`: the
+    rank holds only that part (an expert leaf under the explicit MoE
+    wire); otherwise it holds the whole leaf and owns the part."""
 
     dim: Optional[int]
     parts: int
@@ -91,6 +102,7 @@ class LeafPartition(NamedTuple):
     start: int
     length: int
     shape: Tuple[int, ...]
+    local: bool = False
 
     @property
     def sharded(self) -> bool:
@@ -105,7 +117,14 @@ class LeafPartition(NamedTuple):
         return tuple(s)
 
     def owned(self, t):
-        """The owned slice of a leaf-shaped tensor (a view)."""
+        """The owned slice of the tensor this rank holds for the leaf (a
+        view; a local leaf's tensor is that slice already)."""
+        return t if self.dim is None or self.local else \
+            t.narrow(self.dim, self.start, self.length)
+
+    def from_full(self, t):
+        """This rank's part of the WHOLE leaf `t` (a restored checkpoint
+        leaf), a view."""
         return t if self.dim is None else t.narrow(self.dim, self.start,
                                                    self.length)
 
@@ -124,7 +143,11 @@ class ZeroShardingPlan:
     (`shapes`, in the engine's parameter order)."""
 
     def __init__(self, stage: int, mesh_info: MeshInfo, shapes,
-                 min_size_to_shard: int = 1024):
+                 min_size_to_shard: int = 1024, expert=None,
+                 expert_axes: Sequence[str] = ()):
+        """`shapes`: the whole leaves' shapes; `expert[i]`: leaf i is an
+        expert leaf a rank holds only its experts of, sharded over
+        `expert_axes` (the explicit MoE wire's)."""
         self.stage = int(stage)
         self.mesh_info = mesh_info
         self.min_size_to_shard = min_size_to_shard
@@ -139,18 +162,32 @@ class ZeroShardingPlan:
         self.partition_axes = part_axes
         self.partition_size = part_size
         self.shapes = [tuple(int(n) for n in s) for s in shapes]
+        self.expert = [bool(e) for e in (expert or [False] * len(shapes))]
+        self.expert_axes = tuple(expert_axes)
+        ep, e_index = mesh_info.axes_extent(self.expert_axes)
+        self.expert_parallel = ep
+        e_spec = (self.expert_axes[0] if len(self.expert_axes) == 1
+                  else self.expert_axes)
 
-        replicated = [tuple([None] * len(s)) for s in self.shapes]
-        with_partition = [add_data_axis(None, s, part_size,
+        base = [((e_spec,) + (None,) * (len(s) - 1)) if is_exp
+                else tuple([None] * len(s))
+                for s, is_exp in zip(self.shapes, self.expert)]
+        with_partition = [add_data_axis(b, s, part_size,
                                         min_size_to_shard, axes=part_axes)
-                          for s in self.shapes]
-        self.param_spec = replicated
-        self.grad_spec = with_partition if self.stage >= 2 else replicated
-        self.opt_spec = with_partition if self.stage >= 1 else replicated
+                          for b, s in zip(base, self.shapes)]
+        self.param_spec = base
+        self.grad_spec = with_partition if self.stage >= 2 else base
+        self.opt_spec = with_partition if self.stage >= 1 else base
         self.leaves = []
-        for shape, spec in zip(self.shapes, self.opt_spec):
+        for shape, spec, is_exp in zip(self.shapes, self.opt_spec,
+                                       self.expert):
             dim = _sharded_dim(spec)
-            if dim is None:
+            if is_exp:
+                n = shape[0] // ep
+                self.leaves.append(LeafPartition(0, ep, e_index,
+                                                 e_index * n, n, shape,
+                                                 local=True))
+            elif dim is None:
                 self.leaves.append(LeafPartition(None, 1, 0, 0, 0, shape))
             else:
                 n = shape[dim] // part_size
@@ -160,8 +197,29 @@ class ZeroShardingPlan:
 
     @property
     def partitioned(self) -> bool:
-        """True when a rank owns part of the optimizer state."""
-        return any(leaf.sharded for leaf in self.leaves)
+        """True when a rank owns part of a leaf it holds whole (ZeRO's
+        partitions; the local expert leaves are not counted)."""
+        return any(leaf.sharded and not leaf.local for leaf in self.leaves)
+
+    @property
+    def expert_local(self) -> bool:
+        """True when a rank holds only its experts of some leaf."""
+        return any(leaf.local for leaf in self.leaves)
+
+    @property
+    def expert_group_axis(self) -> str:
+        """The axis whose ranks hold distinct experts: `data_inner` under
+        inner placement, the whole data axis otherwise."""
+        return (DATA_INNER_AXIS if self.expert_axes == (DATA_INNER_AXIS,)
+                else DATA_AXIS)
+
+    @property
+    def expert_replica_axis(self) -> Optional[str]:
+        """The axis the experts are replicated over (`data_outer` under
+        inner placement), whose ranks sum the expert gradients; None when
+        every rank holds distinct experts."""
+        return (DATA_OUTER_AXIS if self.expert_axes == (DATA_INNER_AXIS,)
+                else None)
 
     @torch.no_grad()
     def all_gather_slices(self, full, owned, dtype) -> None:
@@ -169,7 +227,8 @@ class ZeroShardingPlan:
         (leaf tensors, plan order) from `owned` (this rank's slices), as
         ONE all-gather in `dtype` over the partition group; this rank's
         own slices are left as they are."""
-        sharded = [i for i, lp in enumerate(self.leaves) if lp.sharded]
+        sharded = [i for i, lp in enumerate(self.leaves)
+                   if lp.sharded and not lp.local]
         if not sharded:
             return
         flat = torch.cat([owned[i].to(dtype).reshape(-1) for i in sharded])
@@ -207,8 +266,13 @@ class ZeroShardingPlan:
                  f"{self.mesh_info.data_outer_size} outer groups)"
                  if self.mesh_info.hierarchical
                  else f"{self.partition_size} shards")
-        return (f"ZeRO stage {self.stage}: {n_shard}/{n_total} tensors "
-                f"dp-sharded over {where}")
+        n_exp = sum(self.expert)
+        experts = (f"; {n_exp} expert tensors sharded over "
+                   f"{'/'.join(self.expert_axes)} (ep="
+                   f"{self.expert_parallel})" if n_exp else "")
+        return (f"ZeRO stage {self.stage}: {n_shard - n_exp}/"
+                f"{n_total - n_exp} tensors dp-sharded over {where}"
+                f"{experts}")
 
 
 def describe_reshard(saved: Optional[dict], current: dict,

@@ -531,16 +531,30 @@ def test_engine_curve_with_sorted_dispatch_matches_jax(monkeypatch,
     ({"dispach": "sorted"}, ValueError, "unknown key"),
     ({"dispatch": "fast"}, ValueError, "dispatch must be one of"),
     ({"dropless": "yes"}, ValueError, "must be a bool"),
-    ({"a2a_wire_dtype": "int8"}, NotImplementedError, "explicit MoE wire"),
+    # the explicit wire and the overlap request now parse, as in JAX
+    # (the overlap is logged at engagement and the wire runs serially)
+    ({"a2a_wire_dtype": "int8"}, None, "a2a_wire_dtype='int8'"),
     ({"dispatch": "sorted", "dropless": True, "overlap": "on"},
-     NotImplementedError, "explicit MoE wire"),
+     None, "dropless=True.*overlap='on'"),
     ({"dispatch": "sorted", "dropless": True, "a2a_wire_dtype": "bf16"},
      ValueError, "cannot ride the explicit a2a wire"),
-    ({"overlap": "on"}, NotImplementedError, "explicit MoE wire"),
+    ({"overlap": "on"}, None, "overlap='on'"),
 ])
 def test_comm_moe_is_validated_at_config_time(moe, err, match):
+    """JAX's errors for a bad `comm.moe`; a valid selection parses into
+    the MoEWireConfig JAX's parse makes (err None: `match` is searched in
+    its repr)."""
+    import re
+
+    from deepspeed_tpu.moe import dispatch as jdsp
     from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 
+    if err is None:
+        got = DeepSpeedConfig({"train_batch_size": 2,
+                               "comm": {"moe": moe}}).comm_config.moe
+        assert re.search(match, repr(got)), repr(got)
+        assert vars(got) == vars(jdsp.parse_moe_config(moe))
+        return
     with pytest.raises(err, match=match):
         DeepSpeedConfig({"train_batch_size": 2, "comm": {"moe": moe}})
 

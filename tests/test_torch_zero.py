@@ -247,10 +247,12 @@ def test_one_rank_collectives_are_the_identity():
     ({"quant_block_size": 3}, ValueError, "quant_block_size"),
     ({"overlap": "sometimes"}, ValueError, "overlap must be one of"),
     ({"overlap_timeout_ms": 0}, ValueError, "must be >= 1"),
-    ({"wire_dtype": "int8"}, NotImplementedError, "quantized wires"),
-    ({"wire_dtype_outer": "int4", "hierarchy": 2}, NotImplementedError,
-     "quantized wires"),
-    ({"overlap": True}, NotImplementedError, "quantized wires"),
+    # the int8/int4 wires run; the overlap beside them is still refused
+    ({"wire_dtype": "int8", "overlap": "auto"}, NotImplementedError,
+     "overlapped host-exchange wire"),
+    ({"wire_dtype_outer": "int4", "hierarchy": 2, "overlap": "on"},
+     NotImplementedError, "overlapped host-exchange wire"),
+    ({"overlap": True}, NotImplementedError, "overlapped host-exchange wire"),
 ])
 def test_comm_section_is_validated_at_config_time(comm, err, match):
     """JAX's keys and errors (config.py:116-250); a valid selection the
@@ -260,6 +262,25 @@ def test_comm_section_is_validated_at_config_time(comm, err, match):
 
     with pytest.raises(err, match=match):
         DeepSpeedConfig({"train_batch_size": 4, "comm": comm}, world_size=4)
+
+
+@pytest.mark.parametrize("qw", [True, "int8", "int4"])
+def test_quantized_weights_are_refused_naming_their_item(qw):
+    """qwZ (`zero_optimization.quantized_weights`) rides stage 3's
+    parameter gather in the JAX engine; the port refuses it, naming the
+    ZeRO-3 item, after JAX's validation of the value."""
+    from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+
+    with pytest.raises(NotImplementedError,
+                       match="qwZ.*ZeRO-3, Offload and Infinity"):
+        DeepSpeedConfig({"train_batch_size": 4, "zero_optimization": {
+            "stage": 2, "quantized_weights": qw}}, world_size=4)
+    with pytest.raises(ValueError, match="quantized_weights"):
+        DeepSpeedConfig({"train_batch_size": 4, "zero_optimization": {
+            "stage": 2, "quantized_weights": "int2"}}, world_size=4)
+    c = DeepSpeedConfig({"train_batch_size": 4, "zero_optimization": {
+        "stage": 2, "quantized_weights": False}}, world_size=4)
+    assert c.zero_config.quantized_weights is None
 
 
 def test_comm_section_defaults_and_fp32_allreduce():
