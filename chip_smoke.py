@@ -236,7 +236,22 @@ any failure raises and the script exits nonzero:
    the same batches (2% and 1e-3 relative); step ms, tokens/s, peak
    memory a rank, #11-#14 a step, the a2a bytes, and #11 / #12 timed at
    one hop's shape.
-10b. bert-sparse-exact: BERT-large width (d1024, 16 heads), 2 layers,
+10b. ZeRO stage 3 (two ranks on the one card over gloo).  z3-exact
+   (after train-moe-ep): GPT-2 nano, seq 64, deterministic algorithms,
+   TF32 off: stage 3 (each block gathered for its forward and again for
+   its backward) bitwise stage 2 on the implicit wire in losses, norms
+   and masters, fp32 and bf16; qwZ int8 and int4 (bf16, block 256):
+   every gathered replica bitwise the plain CPU codec's round trip of
+   both ranks' slices, the losses and masters inside
+   tests/test_comm_quant.py's `_assert_tracks` envelope of the
+   unquantized stage 3, `qwz.gather` the plan's bytes a pass and #11 /
+   #12 once a gather group a pass, two passes a micro step.  train-z3:
+   GPT-2 XL at full width, seq 1024, micro 1 a rank, bf16, the fused CE:
+   stage 2 (1 + 1 steps), then stage 3 with qwZ int8 (1 + 2 steps):
+   peak memory a rank (stage 3 below stage 2), step ms, `qwz.gather`
+   bytes a step, #1-#6 and #11 / #12 launches, stage-3 losses within 2%
+   of stage 2's; #11 / #12 timed at a block's fused slice shape.
+10c. bert-sparse-exact: BERT-large width (d1024, 16 heads), 2 layers,
    seq 1024, fixed layout block 128, fp32, TF32 off: 5 engine steps with
    dropout 0.1 through #7-#9 against the same steps with their plain
    versions forced, and at dropout 0 the kernel walk against the gather
@@ -4882,6 +4897,474 @@ def phase_train_moe_ep(train_moe, flush, device="cuda", steps=3, seq=2048,
     return rec
 
 
+# -- ZeRO stage 3 and the qwZ weight gather -------------------------------------
+
+Z3_SEQ = 64
+
+
+def _z3_nano_engine(device, stage, precision, wire=None, micro=4, world=2,
+                    lr=1e-3):
+    """GPT-2 nano (seq 64) at ZeRO `stage` on the implicit wire, qwZ
+    `wire` (block 256) when given."""
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import GPT, gpt2_config
+
+    model = GPT(gpt2_config("nano", max_seq_len=Z3_SEQ, vocab_size=64),
+                device=device,
+                generator=torch.Generator(device=device).manual_seed(4))
+    cfg = train_dp_config(stage, "implicit", "fp32", micro, world, lr,
+                          precision)
+    if wire:
+        cfg["zero_optimization"]["quantized_weights"] = wire
+        cfg["comm"]["quant_block_size"] = 256
+    eng, *_ = dt.initialize(model=model, config_params=cfg, device=device)
+    return eng
+
+
+def _z3_steps(eng, batches):
+    losses, norms = [], []
+    for b in batches:
+        losses.append(float(eng.forward(b)))
+        eng.backward()
+        eng.step()
+        norms.append(eng.get_global_grad_norm())
+    return losses, norms
+
+
+def _bits(t):
+    """A CPU copy of `t` as numpy bits (bf16 as int16)."""
+    import torch
+
+    t = t.detach().cpu()
+    return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _z3_exact_worker(rank, world, store, device, out_dir, steps, micro):
+    """One rank of z3-exact's world 2 (gloo on the one card): stage 2 and
+    stage 3 in fp32 and bf16, then qwZ int8 and int4 in bf16 with every
+    gather's slices and replicas kept, to `out_dir`."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    import torch
+
+    from deepspeed_tpu_torch.comm import dist
+    from deepspeed_tpu_torch.kernels import quant_codec
+    from deepspeed_tpu_torch.monitor.counters import COUNTERS
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_distributed(init_method=f"file://{store}", world_size=world,
+                          rank=rank, dist_backend="gloo", device=device,
+                          verbose=False)
+    batches = list(stride_batches(steps, micro * world, Z3_SEQ, 64, 3))
+    got = {}
+    try:
+        for prec in ("fp32", "bf16"):
+            for stage in (2, 3):
+                eng = _z3_nano_engine(device, stage, prec, micro=micro,
+                                      world=world)
+                losses, norms = _z3_steps(eng, batches)
+                key = f"{prec}-z{stage}"
+                got[f"{key}:losses"] = np.array(losses)
+                got[f"{key}:norms"] = np.array(norms)
+                for n, v in eng.module_state_dict().items():
+                    got[f"{key}:m:{n}"] = v
+        for wire in ("int8", "int4"):
+            eng = _z3_nano_engine(device, 3, "bf16", wire, micro, world)
+            g = eng._qwz_gather
+            seen = []
+            real = g.gather_leaves
+
+            def spy(indices, slices, out_dtype, real=real, seen=seen):
+                out = real(indices, slices, out_dtype)
+                seen.append((list(indices), [_bits(s) for s in slices],
+                             [_bits(o) for o in out]))
+                return out
+
+            g.gather_leaves = spy
+            quant_codec.reset_launches()
+            snap = COUNTERS.snapshot()
+            losses, _ = _z3_steps(eng, batches)
+            if device != "cpu":
+                torch.cuda.synchronize()
+            d = COUNTERS.delta_since(snap).get("qwz.gather", {})
+            got[f"{wire}:losses"] = np.array(losses)
+            for n, v in eng.module_state_dict().items():
+                got[f"{wire}:m:{n}"] = v
+            got[f"{wire}:stats"] = np.array([
+                d.get("bytes", 0), d.get("calls", 0),
+                g.wire_bytes_per_gather, g.collectives_per_gather,
+                len(eng._stage3.groups), eng.micro_steps,
+                quant_codec.LAUNCHES["quant_codec_quantize"],
+                quant_codec.LAUNCHES["quant_codec_dequantize"]])
+            got[f"{wire}:gathers"] = np.array(len(seen))
+            for k, (idx, sl, reps) in enumerate(seen):
+                got[f"{wire}:g{k}:idx"] = np.array(idx)
+                got[f"{wire}:g{k}:dims"] = np.array(
+                    [eng.zero_plan.leaves[i].dim for i in idx])
+                for j, (a, b) in enumerate(zip(sl, reps)):
+                    got[f"{wire}:g{k}:s{j}"] = a
+                    got[f"{wire}:g{k}:r{j}"] = b
+    finally:
+        dist.barrier()
+        dist.destroy()
+    np.savez(os.path.join(out_dir, f"z3x{rank}.npz"), **got)
+
+
+def qwz_oracle(slices_by_rank, dims, wire, block=256):
+    """The replicas of one gather from each rank's bf16 slices through the
+    codec's plain version on the CPU (each slice zero-padded to whole
+    blocks, quantize, pack, unpack, dequantize to bf16; bitwise JAX's,
+    tests/test_torch_zero3.py), each rank's segment put at its place
+    along the leaf's dimension."""
+    import torch
+
+    from deepspeed_tpu_torch.runtime.comm import quant as q
+
+    rows, sizes = [], []
+    for slices in slices_by_rank:
+        flats, sizes = [], []
+        for s in slices:
+            f = s.reshape(-1)
+            pad = q.padded_elems(f.numel(), block) - f.numel()
+            flats.append(torch.cat([f, f.new_zeros(pad)]))
+            sizes.append((f.numel(), f.numel() + pad))
+        buf = torch.cat(flats)
+        n = buf.numel()
+        p, s = q.unpack_wire(q.pack_wire(*q.quantize_blockwise_ref(
+            buf, block, wire)), wire, block, n)
+        rows.append(q.dequantize_blockwise_ref(p, s, wire, n,
+                                               out_dtype=torch.bfloat16))
+    out, off = [], 0
+    for j, (n, padded) in enumerate(sizes):
+        shape = slices_by_rank[0][j].shape
+        out.append(torch.cat([r[off:off + n].reshape(shape) for r in rows],
+                             dim=int(dims[j])))
+        off += padded
+    return out
+
+
+def tracks(ref_losses, ref_masters, losses, masters, wire):
+    """tests/test_comm_quant.py's `_assert_tracks` (:326-345), copied:
+    the last loss within 2%, every master element inside the wire's
+    envelope, a rare near-zero gradient flipped by the quantization
+    allowed to drift by Adam's lr.  -> (ok, the numbers)."""
+    la, lb = ref_losses[-1], losses[-1]
+    rtol = {"int8": 5e-2, "int4": 2.5e-1}[wire]
+    max_abs = {"int8": 5e-2, "int4": 1.2e-1}[wire]
+    bad_frac = {"int8": 0.05, "int4": 0.12}[wire]
+    n_bad = n_total = 0
+    worst = 0.0
+    for n, x in ref_masters.items():
+        diff = np.abs(x - masters[n])
+        n_bad += int((diff > 1e-3 + rtol * np.abs(x)).sum())
+        n_total += diff.size
+        worst = max(worst, float(diff.max()))
+    out = {"last_loss_ref": la, "last_loss": lb,
+           "loss_rel_tol": 0.02, "max_master_diff": worst,
+           "max_master_tol": max_abs, "off_share": n_bad / n_total,
+           "off_share_tol": bad_frac}
+    ok = abs(la - lb) <= 0.02 * max(abs(la), 1.0) and worst < max_abs \
+        and n_bad / n_total < bad_frac
+    return ok, out
+
+
+def phase_z3_exact(device="cuda", steps=3, micro=4):
+    """z3-exact: GPT-2 nano (seq 64), two ranks on the one card over gloo,
+    deterministic algorithms, TF32 off.  Stage 3 (each block gathered for
+    its forward and again for its backward) against stage 2 on the
+    implicit wire: losses, clipping norms and masters bitwise, fp32 and
+    bf16.  qwZ int8 and int4 (bf16, block 256): every gathered replica
+    bitwise `qwz_oracle` of both ranks' slices, the losses and masters
+    inside `tracks`' envelope of the unquantized bf16 stage 3, the
+    `qwz.gather` bytes the plan's `wire_bytes_per_gather` a pass and #11
+    and #12 once a group a pass, two passes a micro step."""
+    import tempfile
+
+    import torch
+
+    out = tempfile.mkdtemp(prefix="dstpu-z3x-")
+    codes = _spawn_ranks(_z3_exact_worker, 2, out, (device, out, steps,
+                                                    micro), 300)
+    rec = {"phase": "z3-exact", "config": f"gpt2 nano, seq {Z3_SEQ}, micro "
+           f"{micro} a rank, world 2 over gloo on the one card, {steps} "
+           "steps, Adam lr 1e-3, clipping 1.0, deterministic algorithms, "
+           "TF32 off; qwZ block 256", "exit_codes": codes}
+    if codes != [0, 0]:
+        emit(rec)
+        raise AssertionError(f"z3-exact exit codes {codes}")
+    ranks = [dict(np.load(os.path.join(out, f"z3x{r}.npz")))
+             for r in range(2)]
+    want_kernel = 1 if device != "cpu" else 0
+
+    def masters(r, key):
+        return {k.split(":", 2)[2]: v for k, v in r.items()
+                if k.startswith(f"{key}:m:")}
+
+    bad = 0
+    for r in ranks:
+        for prec in ("fp32", "bf16"):
+            a, b = f"{prec}-z2", f"{prec}-z3"
+            bad += int(not np.array_equal(r[f"{a}:losses"], r[f"{b}:losses"]))
+            bad += int(not np.array_equal(r[f"{a}:norms"], r[f"{b}:norms"]))
+            ma, mb = masters(r, a), masters(r, b)
+            bad += sum(int(not np.array_equal(ma[n], mb[n])) for n in ma)
+    rec["stage3_vs_stage2_mismatches"] = bad
+    rec["losses"] = {k: ranks[0][f"{k}:losses"].tolist() for k in (
+        "fp32-z2", "fp32-z3", "bf16-z2", "bf16-z3", "int8", "int4")}
+    rec["qwz"] = {}
+    ok = bad == 0
+    for wire in ("int8", "int4"):
+        n = int(ranks[0][f"{wire}:gathers"])
+        rep_bad = 0
+        for k in range(n):
+            idx = ranks[0][f"{wire}:g{k}:idx"]
+            dims = ranks[0][f"{wire}:g{k}:dims"]
+            sl = [[torch.from_numpy(r[f"{wire}:g{k}:s{j}"]).view(
+                torch.bfloat16) for j in range(len(idx))] for r in ranks]
+            want = qwz_oracle(sl, dims, wire)
+            for r in ranks:
+                for j, w in enumerate(want):
+                    got = torch.from_numpy(r[f"{wire}:g{k}:r{j}"]).view(
+                        torch.bfloat16)
+                    rep_bad += mismatches(got, w)
+        st = [ranks[i][f"{wire}:stats"].tolist() for i in range(2)]
+        nbytes, calls, wire_bytes, coll, groups, micro_steps, l11, l12 = st[0]
+        passes = 2 * micro_steps
+        t_ok, env = tracks(ranks[0]["bf16-z3:losses"],
+                           masters(ranks[0], "bf16-z3"),
+                           ranks[0][f"{wire}:losses"],
+                           masters(ranks[0], wire), wire)
+        case = {"gathers": n, "replica_mismatches_vs_plain": rep_bad,
+                "qwz_gather_bytes": nbytes, "qwz_gather_calls": calls,
+                "wire_bytes_per_gather": wire_bytes,
+                "collectives_per_gather": coll, "groups": groups,
+                "micro_steps": micro_steps, "passes": passes,
+                "launches_by_rank": {"quant_codec_quantize": [s[6] for s in st],
+                                     "quant_codec_dequantize": [s[7] for s in st]},
+                "tracks_unquantized": env}
+        rec["qwz"][wire] = case
+        ok = ok and rep_bad == 0 and t_ok and \
+            nbytes == wire_bytes * passes and calls == coll * passes and \
+            n == groups * passes and \
+            all(s[6] == s[7] == want_kernel * groups * passes for s in st)
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"z3-exact: {rec}")
+    return rec
+
+
+def _z3_xl_run(device, stage, wire, micro, world, seq, warmup, steps,
+               data_seed):
+    """GPT-2 XL at full width with the fused CE, bf16, Adam lr 1e-4, at
+    ZeRO `stage` on the implicit wire (qwZ `wire`, block 256, when given):
+    warm-up, then timed steps with the counts reset just before; peak
+    memory from the first step on."""
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.kernels import flash, fused_xent, quant_codec
+    from deepspeed_tpu_torch.models import GPT, gpt2_config
+    from deepspeed_tpu_torch.monitor.counters import COUNTERS
+    from deepspeed_tpu_torch.runtime.comm.quant import padded_elems
+
+    cfg = gpt2_config("xl", loss_impl="pallas", max_seq_len=seq)
+    model = GPT(cfg, device=device,
+                generator=torch.Generator(device=device).manual_seed(0))
+    conf = train_dp_config(stage, "implicit", "fp32", micro, world, 1e-4,
+                           "bf16")
+    if wire:
+        conf["zero_optimization"]["quantized_weights"] = wire
+        conf["comm"]["quant_block_size"] = 256
+    eng, *_ = dt.initialize(model=model, config_params=conf, device=device)
+    del model
+    gc.collect()
+    cuda = device != "cpu"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    # the peak up to the first optimizer update (the first step's
+    # forward, backward and reduction) beside the whole run's: the
+    # update's new moments and parameters are a step's last transient
+    before_update = [None]
+    update = eng.optimizer.update
+
+    def timed_update(*a, **kw):
+        if cuda and before_update[0] is None:
+            before_update[0] = torch.cuda.max_memory_allocated()
+        return update(*a, **kw)
+
+    eng.optimizer.update = timed_update
+    data = stride_batches(warmup + steps, micro * world, seq, 64, data_seed)
+    losses = [float(eng.train_batch(data)) for _ in range(warmup)]
+    for counts in (flash.LAUNCHES, fused_xent.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    quant_codec.reset_launches()
+    snap = COUNTERS.snapshot()
+    step_ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(eng.train_batch(data)))
+        if cuda:
+            torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    d = COUNTERS.delta_since(snap)
+    s3, g = eng._stage3, eng._qwz_gather
+    plan = eng.zero_plan
+    rec = {"stage": stage, "wire": wire, "rank": eng.dp_rank,
+           "losses": losses, "step_ms": step_ms,
+           "step_ms_mean": float(np.mean(step_ms)),
+           "tokens_per_s": micro * world * seq * steps /
+           (sum(step_ms) / 1e3),
+           "peak_mem_bytes": (torch.cuda.max_memory_allocated()
+                              if cuda else None),
+           "peak_mem_bytes_before_update": before_update[0],
+           "masters_bytes_held": sum(p.numel() * 4 for p in eng._masters),
+           "optimizer_state_share": sum(
+               t.numel() for t in eng._opt_state["exp_avg"]) /
+           sum(math_prod(lp.shape) for lp in plan.leaves),
+           "launches": {"flash": dict(flash.LAUNCHES),
+                        "fused_xent": dict(fused_xent.LAUNCHES),
+                        "quant_codec": dict(quant_codec.LAUNCHES)},
+           "kernel_fallbacks": d.get("kernel.fallbacks", {}).get("calls", 0),
+           "layers": cfg.num_layers, "steps": steps}
+    if s3 is not None:
+        rec.update(groups=len(s3.groups), gathers=s3.gathers,
+                   peak_replica_bytes=s3.peak_bytes,
+                   group_bytes_root=s3.group_bytes()[0],
+                   group_bytes_block=max(s3.group_bytes()[1:]))
+    if g is not None:
+        blk = s3.groups[1]
+        rec.update(
+            qwz_gather_bytes_per_step=d["qwz.gather"]["bytes"] / steps,
+            wire_bytes_per_gather=g.wire_bytes_per_gather,
+            collectives_per_gather=g.collectives_per_gather,
+            block_slice_elems=sum(padded_elems(
+                math_prod(plan.leaves[i].owned_shape), 256) for i in blk))
+    eng.finalize_monitoring()
+    return rec
+
+
+def math_prod(shape):
+    n = 1
+    for s in shape:
+        n *= int(s)
+    return n
+
+
+def _z3_train_worker(rank, world, store, device, out_dir, job):
+    """One rank of train-z3 (gloo on the one card): stage 2, then stage 3
+    with qwZ int8, each from the same init on the same batches."""
+    import torch
+
+    from deepspeed_tpu_torch.comm import dist
+
+    dist.init_distributed(init_method=f"file://{store}", world_size=world,
+                          rank=rank, dist_backend="gloo", device=device,
+                          verbose=False)
+    rec = {}
+    try:
+        for name, stage, wire, warmup, steps in job["cases"]:
+            rec[name] = _z3_xl_run(device, stage, wire, job["micro"], world,
+                                   job["seq"], warmup, steps, 7)
+            gc.collect()
+            if device != "cpu":
+                torch.cuda.empty_cache()
+    finally:
+        dist.barrier()
+        dist.destroy()
+    with open(os.path.join(out_dir, f"z3train{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def phase_train_z3(device="cuda", seq=1024, micro=1):
+    """train-z3: GPT-2 XL at full width (48 layers, d 1600, 25 heads), seq
+    1024, micro 1 a rank, bf16, fp32 masters, Adam, the fused CE, two
+    ranks on the one card over gloo (whose host staging the step times
+    measure, not a wire).  Stage 2 on the implicit wire (1 warm-up, 1
+    timed step), then stage 3 with qwZ int8 at block 256 (1 warm-up, 2
+    timed): peak memory a rank (stage 3 must hold less), step ms, the
+    `qwz.gather` bytes a step (the plan's two passes), #1-#6 and #11 /
+    #12 launches a step (#11 / #12 once a gather group a pass), and the
+    stage-3 losses within 2% of stage 2's on the same batches.  Then #11
+    and #12 timed at a block's fused slice shape against their byte
+    bounds, beside their plain versions."""
+    import tempfile
+
+    import torch
+
+    out = tempfile.mkdtemp(prefix="dstpu-z3t-")
+    job = {"micro": micro, "seq": seq,
+           "cases": [("z2", 2, None, 1, 1), ("z3-int8", 3, "int8", 1, 2)]}
+    codes = _spawn_ranks(_z3_train_worker, 2, out, (device, out, job), 900)
+    ranks = []
+    for r in range(2):
+        path = os.path.join(out, f"z3train{r}.json")
+        ranks.append(json.load(open(path)) if os.path.exists(path) else None)
+    rec = {"phase": "train-z3", "config": f"gpt2 xl (48 layers, d 1600, 25 "
+           f"heads), seq {seq}, micro {micro} a rank, world 2 over gloo on "
+           "the one card, bf16, fp32 masters, Adam lr 1e-4, WarmupLR 10, "
+           "clipping 1.0, fused CE; stage 2 implicit wire (1 + 1 steps), "
+           "stage 3 qwZ int8 block 256 (1 + 2 steps); stride stream over "
+           "tokens < 64", "exit_codes": codes, "ranks": ranks}
+    if codes != [0, 0] or None in ranks:
+        emit(rec)
+        raise AssertionError(f"train-z3 exit codes {codes}")
+    n_kernel = 1 if device != "cpu" else 0
+    rel = max(abs(a - b) / abs(b) for r in ranks
+              for a, b in zip(r["z3-int8"]["losses"], r["z2"]["losses"]))
+    rec["max_loss_rel_diff_z3_vs_z2"] = rel
+    rec["loss_rel_tol"] = 0.02
+    rec["peak_mem_bytes"] = {
+        name: [r[name]["peak_mem_bytes"] for r in ranks]
+        for name in ("z2", "z3-int8")}
+    rec["peak_mem_bytes_before_update"] = {
+        name: [r[name]["peak_mem_bytes_before_update"] for r in ranks]
+        for name in ("z2", "z3-int8")}
+    ok = rel <= 0.02 and all(np.isfinite(r[c]["losses"]).all()
+                             for r in ranks for c in ("z2", "z3-int8"))
+    for r in ranks:
+        z2, z3 = r["z2"], r["z3-int8"]
+        if device != "cpu":
+            ok = ok and z3["peak_mem_bytes"] < z2["peak_mem_bytes"]
+        for case in (z2, z3):
+            st = case["steps"]
+            ok = ok and case["launches"]["flash"] == {
+                k: n_kernel * case["layers"] * st
+                for k in case["launches"]["flash"]} and \
+                case["launches"]["fused_xent"] == {
+                    k: n_kernel * st
+                    for k in case["launches"]["fused_xent"]} and \
+                not (case["kernel_fallbacks"] and device != "cpu")
+        passes = 2 * z3["steps"]
+        ok = ok and z3["qwz_gather_bytes_per_step"] == \
+            z3["wire_bytes_per_gather"] * 2 and \
+            z3["launches"]["quant_codec"] == {
+                "quant_codec_quantize": n_kernel * z3["groups"] * passes,
+                "quant_codec_dequantize": n_kernel * z3["groups"] * passes}
+    if device != "cpu":
+        flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+        n = ranks[0]["z3-int8"]["block_slice_elems"]
+        rec["codec_at_block_shape"] = {
+            "quantize": codec_wire_shape(n, torch.bfloat16, 256,
+                                         flush)["quantize"],
+            "dequantize": codec_wire_shape(n, torch.bfloat16, 256, flush,
+                                           rows=2)["dequantize"],
+            "shape": f"one GPT-2 XL block's slices at world 2: {n} bf16 "
+                     "elements (each leaf's slice padded to whole blocks) "
+                     "quantized int8, block 256; 2 rows of them "
+                     "dequantized to bf16"}
+        del flush
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"train-z3: {rec}")
+    return rec
+
+
 # -- BERT pretraining through the sparse kernels ----------------------------------
 
 
@@ -5161,7 +5644,15 @@ def build_all():
                       for src in sources}}
 
 
-def flash_entries(flash_cases, train, train_resume, train_dp):
+def z3_launches(train_z3, family, name):
+    """train-z3's launches of one kernel, each rank, stage 2 and stage 3
+    (qwZ int8)."""
+    return {f"train-z3 {case} rank {r['z2']['rank']}":
+            r[case]["launches"][family][name]
+            for r in train_z3["ranks"] for case in ("z2", "z3-int8")}
+
+
+def flash_entries(flash_cases, train, train_resume, train_dp, train_z3):
     main = flash_cases[0]            # the training shape, bf16
     out = []
     for name in ("flash_attention_fwd", "flash_attention_dq",
@@ -5181,7 +5672,8 @@ def flash_entries(flash_cases, train, train_resume, train_dp):
             "launches_by_path": {
                 "train": train["flash_launches"][name],
                 "train-resume": train_resume["launches"][name],
-                **dp_launches(train_dp, "flash", name)},
+                **dp_launches(train_dp, "flash", name),
+                **z3_launches(train_z3, "flash", name)},
             "max_abs_err": main["max_abs_err"][
                 {"fwd": "out", "dq": "dq", "dkv": "dk"}[short]],
             "ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
@@ -5214,7 +5706,8 @@ def domain(cases, keys=("Dh", "dtype")):
     return {k: sorted({c[k] for c in cases}) for k in keys}
 
 
-def xent_entries(xent_cases, train_pallas, train_resume, train_dp):
+def xent_entries(xent_cases, train_pallas, train_resume, train_dp,
+                 train_z3):
     main = xent_cases[0]             # the training shape, bf16
     out = []
     for name, line, err in (("fused_xent_fwd", 52, "lse"),
@@ -5229,7 +5722,8 @@ def xent_entries(xent_cases, train_pallas, train_resume, train_dp):
             "launches_by_path": {
                 "train-pallas": train_pallas["fused_xent_launches"][name],
                 "train-resume": train_resume["launches"][name],
-                **dp_launches(train_dp, "fused_xent", name)},
+                **dp_launches(train_dp, "fused_xent", name),
+                **z3_launches(train_z3, "fused_xent", name)},
             "max_abs_err": main["max_abs_err"][err],
             "ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
@@ -5288,8 +5782,24 @@ def wire_codec_launches(train_dp_qgz, train_moe_ep, name):
     return out
 
 
-def codec_entries(codec, serve_qw, train_dp_qgz, train_moe_ep):
+def qwz_codec_launches(z3_exact, train_z3, name):
+    """#11's or #12's launches on the qwZ weight gather's path: z3-exact
+    (int8 and int4, each rank) and train-z3's stage 3 (each rank)."""
+    out = {}
+    for wire in ("int8", "int4"):
+        for r, n in enumerate(z3_exact["qwz"][wire]["launches_by_rank"][
+                name]):
+            out[f"z3-exact qwZ {wire} rank {r}"] = n
+    for r in train_z3["ranks"]:
+        out[f"train-z3 qwZ int8 rank {r['z3-int8']['rank']}"] = \
+            r["z3-int8"]["launches"]["quant_codec"][name]
+    return out
+
+
+def codec_entries(codec, serve_qw, train_dp_qgz, train_moe_ep, z3_exact,
+                  train_z3):
     tree = serve_qw["codec_tree"]
+    block = train_z3.get("codec_at_block_shape", {})
     leaves = serve_qw["quantize_launches_at_build"]
     q, dq = tree["quantize-int8"], tree["dequantize-int8"]
     common = {"route": "cuda", "bound_by": "bytes", "library_ms": None,
@@ -5304,7 +5814,11 @@ def codec_entries(codec, serve_qw, train_dp_qgz, train_moe_ep):
          "launches_by_path": {
              "serve-qw (build)": leaves,
              **wire_codec_launches(train_dp_qgz, train_moe_ep,
-                                   "quant_codec_quantize")},
+                                   "quant_codec_quantize"),
+             **qwz_codec_launches(z3_exact, train_z3,
+                                  "quant_codec_quantize")},
+         "qwz_block_shape": {"shape": block.get("shape"),
+                             **(block.get("quantize") or {})},
          "qgz_bucket_shape":
              train_dp_qgz.get("codec_at_bucket_shape", {}).get("quantize"),
          "a2a_chunk_shape":
@@ -5334,7 +5848,11 @@ def codec_entries(codec, serve_qw, train_dp_qgz, train_moe_ep):
          "launches_by_path": {
              "serve-qw (forwards)": serve_qw["dequantize_launches"],
              **wire_codec_launches(train_dp_qgz, train_moe_ep,
-                                   "quant_codec_dequantize")},
+                                   "quant_codec_dequantize"),
+             **qwz_codec_launches(z3_exact, train_z3,
+                                  "quant_codec_dequantize")},
+         "qwz_block_shape": {"shape": block.get("shape"),
+                             **(block.get("dequantize") or {})},
          "qgz_bucket_shape":
              train_dp_qgz.get("codec_at_bucket_shape", {}).get("dequantize"),
          "a2a_chunk_shape":
@@ -5630,6 +6148,12 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     mark("train-moe-ep")
+    z3_exact = phase_z3_exact()
+    mark("z3-exact")
+    train_z3 = phase_train_z3()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("train-z3")
     bert_exact = phase_bert_sparse_exact()
     mark("bert-sparse-exact")
     train_bert, teng, data = phase_train_bert_sparse()
@@ -5689,9 +6213,12 @@ def main():
                                      "plain_ms", "library_ms", "bound_ms",
                                      "bound_by", "kernel_host_us")}
                   for c in cases]}] +
-        flash_entries(flash_cases, train, train_resume, train_dp) +
-        xent_entries(xent_cases, train_pallas, train_resume, train_dp) +
-        codec_entries(codec, serve_qw, train_dp_qgz, train_moe_ep) +
+        flash_entries(flash_cases, train, train_resume, train_dp,
+                      train_z3) +
+        xent_entries(xent_cases, train_pallas, train_resume, train_dp,
+                     train_z3) +
+        codec_entries(codec, serve_qw, train_dp_qgz, train_moe_ep,
+                      z3_exact, train_z3) +
         moe_entries(moe_cases, train_moe, overflow_case, train_dropless,
                     train_moe_ep) +
         sparse_entries(sparse_cases, sparse_probe, train_bert, bert_exact)})

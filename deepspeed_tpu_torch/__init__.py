@@ -31,7 +31,11 @@ Ported so far:
 * MoE dropless (the overflow bucket, `moe/dispatch.py`), and
   data-parallel training over `torch.distributed` (`comm/`,
   `init_distributed`) at ZeRO stage 0, 1 and 2 (`runtime/zero/`) with
-  the implicit and the bucketed gradient wire (`runtime/comm/`).
+  the implicit and the bucketed gradient wire (`runtime/comm/`);
+* ZeRO stage 3 (parameters sharded over the data ranks, gathered a
+  block at a time on use, `runtime/zero/stage3.py`) with the int8/int4
+  weight gather (qwZ), and `zero.Init`, `zero.GatheredParameters`,
+  `zero.TiledLinear` and `utils/zero_to_fp32.py`.
 
 Entry points run on the card unless the caller passes `device="cpu"`.
 Importing the package builds no kernel and touches no CUDA state: a
@@ -41,6 +45,7 @@ kernel library is compiled at its first launch (`kernels/build.py`).
 __version__ = "0.3.0"
 
 from .comm import init_distributed  # noqa: F401,E402
+from .runtime import zero  # noqa: F401,E402
 
 
 class PipelineModule:

@@ -22,7 +22,10 @@ checkpointed cross-entropy `_softmax_xent_from_hidden` (with
 kernels #4-#6 on the card).  The functions
 read the module's parameters, so the engine runs them through
 `torch.func.functional_call` on a compute-dtype replica of its fp32
-masters.  Dropout seeds are drawn from an explicit `torch.Generator`
+masters.  Under ZeRO stage 3 each block runs inside its gather scope
+(`runtime/zero/stage3.py` `gathered`), and the engine gathers the
+leaves outside the blocks (`wte`, `wpe`, `ln_f`, `lm_head`) around the
+whole call.  Dropout seeds are drawn from an explicit `torch.Generator`
 (`ops/transformer/dropout.py`) before each block, so a block recomputed
 under `remat` draws the same masks; an MoE block's gate-noise seed is
 drawn there too.
@@ -51,6 +54,7 @@ from torch.utils.checkpoint import checkpoint
 from ..moe.layer import MoE, MoEConfig
 from ..ops.transformer.attention import multihead_attention
 from ..ops.transformer.dropout import derive_seed, hash_dropout
+from ..runtime.zero import stage3 as zero3
 from ..utils.device import resolve_device
 from ..utils.logging import logger
 
@@ -212,6 +216,17 @@ def gpt_block(x, blk, cfg: GPTConfig, seeds=(None, None, None, None),
     return x + _dropout(h, cfg.dropout, s_res2, train, row_offset), aux
 
 
+def _gathered_block(x, blk, cfg, seeds, train, row_offset, batch_rows,
+                    remat):
+    """`gpt_block` inside the block's stage-3 gather scope (a no-op
+    outside a stage-3 engine): the block's leaves are gathered for it,
+    and again for its backward — by the mark on its output, or under
+    `remat` by the recomputation, which re-enters the scope."""
+    with zero3.gathered(blk, remat=remat) as scope:
+        x, aux = gpt_block(x, blk, cfg, seeds, train, row_offset, batch_rows)
+        return scope.output(x), aux
+
+
 def _ce_rows(logits32, labels, valid):
     """Sum of masked next-token NLL over rows, from fp32 logits
     (gpt.py:330): `logsumexp - label_logit`."""
@@ -331,7 +346,11 @@ class MLP(nn.Module):
 
 class Block(nn.Module):
     """One pre-LN decoder block's parameters (gpt.py:143-166): `mlp`, or
-    `moe` on an MoE layer."""
+    `moe` on an MoE layer.  Under ZeRO stage 3 a block is a gather unit:
+    its sharded leaves are gathered together, for its forward and again
+    for its backward (runtime/zero/stage3.py)."""
+
+    zero3_gather_unit = True
 
     def __init__(self, cfg: GPTConfig, device, generator, layer_idx=0):
         super().__init__()
@@ -414,12 +433,12 @@ class GPT(nn.Module):
             seeds = _block_seeds(cfg, generator, train, hasattr(blk, "moe"))
             if cfg.remat and torch.is_grad_enabled():
                 # recomputed in backward, with the same seeds
-                x, aux = checkpoint(gpt_block, x, blk, cfg, seeds, train,
-                                    row_offset, batch_rows,
+                x, aux = checkpoint(_gathered_block, x, blk, cfg, seeds,
+                                    train, row_offset, batch_rows, True,
                                     use_reentrant=False)
             else:
-                x, aux = gpt_block(x, blk, cfg, seeds, train, row_offset,
-                                   batch_rows)
+                x, aux = _gathered_block(x, blk, cfg, seeds, train,
+                                         row_offset, batch_rows, False)
             aux_total = aux_total + aux
         return layer_norm(x, self.ln_f, cfg.layer_norm_eps), aux_total
 

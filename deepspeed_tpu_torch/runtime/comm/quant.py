@@ -247,14 +247,16 @@ def unpack_wire(buf, wire: str, block: int, n_elems: int):
     return p.reshape(lead + (nb, width)), s.reshape(lead + (nb,))
 
 
-def quantized_all_gather(x, axes, block: int, wire: str, record=None):
+def quantized_all_gather(x, axes, block: int, wire: str, record=None,
+                         out_dtype=torch.float32):
     """The quantized gather (quant.py:293): quantize `x` blockwise (kernel
     #11 on the card), fuse payload and scales into one buffer, all-gather
     it over `axes` one hop an axis, innermost first (a later hop resends
     the accumulated buffer, as the byte accounting prices it), and return
-    every rank's contribution dequantized to fp32 as [world, n] (kernel
-    #12, one launch for every rank's row), outermost axis leading.
-    `record(nbytes)` fires once a hop with the bytes this rank sends."""
+    every rank's contribution dequantized as [world, n] (kernel #12, one
+    launch for every rank's row), outermost axis leading: fp32, or the
+    fp32 values rounded once to `out_dtype`.  `record(nbytes)` fires once
+    a hop with the bytes this rank sends."""
     from ...comm import dist
 
     n = x.numel()
@@ -266,4 +268,4 @@ def quantized_all_gather(x, axes, block: int, wire: str, record=None):
             record(int(buf.numel()))
         buf = dist.all_gather(buf, axis, tiled=False)
     p, s = unpack_wire(buf.reshape(-1, nbytes), wire, block, n)
-    return dequantize_blockwise(p, s, wire, n)
+    return dequantize_blockwise(p, s, wire, n, out_dtype=out_dtype)

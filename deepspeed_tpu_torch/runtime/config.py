@@ -20,8 +20,7 @@ here, at config time, as in the JAX package.
 
 A section the port cannot honour yet raises `DeepSpeedConfigError` (or,
 for a valid `comm` selection, NotImplementedError) naming its ROADMAP
-item, rather than training without it: ZeRO stage 3, offload and
-`zero_optimization.quantized_weights` (qwZ), a pipeline section, a mesh
+item, rather than training without it: offload, a pipeline section, a mesh
 with a model, pipe or seq axis above 1, `comm.overlap`, progressive
 layer drop,
 AMP, TensorBoard, the wall-clock breakdown and
@@ -97,8 +96,6 @@ def _refuse_unported(pd, zero_stage):
             f"{what} is not ported to deepspeed_tpu_torch yet (ROADMAP "
             f"queue 1: {item})")
 
-    if zero_stage >= 3:
-        refuse(f"ZeRO stage {zero_stage}", "ZeRO-3, Offload and Infinity")
     zero = pd.get(c.ZERO_OPTIMIZATION)
     if isinstance(zero, dict) and any(
             zero.get(k) for k in (c.ZERO_OPTIMIZATION_CPU_OFFLOAD,
@@ -418,14 +415,6 @@ class DeepSpeedConfig(DeepSpeedConfigObject):
         from .zero.config import DeepSpeedZeroConfig
 
         self.zero_config = DeepSpeedZeroConfig(pd)
-        if self.zero_config.quantized_weights is not None:
-            # the JAX engine builds the quantized weight gather (qwZ) only
-            # over stage 3's sharded parameters (engine.py:1132-1170)
-            raise NotImplementedError(
-                f"zero_optimization.quantized_weights="
-                f"{self.zero_config.quantized_weights!r} (qwZ) is not "
-                f"ported to deepspeed_tpu_torch yet (ROADMAP queue 1: "
-                f"ZeRO-3, Offload and Infinity)")
         mesh_data = int((pd.get(c.MESH) or {}).get("data", -1))
         if mesh_data not in (-1, self.world_size):
             raise DeepSpeedConfigError(

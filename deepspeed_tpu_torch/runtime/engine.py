@@ -39,7 +39,7 @@ is False: a no-op without WORLD_SIZE / MASTER_ADDR / an init_method) the
 data-parallel world is every rank (`comm/mesh.py`, with `comm.hierarchy`
 its two-level factoring), `dp_world_size` and `train_batch_size = micro
 × gas × dp` follow it, and the step reduces gradients over it
-(`step_builder.py`) at ZeRO stage 0, 1 or 2 (`zero/partition.py`).
+(`step_builder.py`) at ZeRO stage 0, 1, 2 or 3 (`zero/partition.py`).
 `forward(batch)` and a user's iterator take the GLOBAL micro batch, as
 the JAX engine does, and each rank trains on its contiguous rows of it
 (rank r: rows r·micro to (r+1)·micro); the engine-owned loader reads only
@@ -66,8 +66,22 @@ bucketed reduction the wire falls back to the local dispatch with the
 experts whole on every rank, as JAX's local-grads region does; without a
 wire the experts are whole and reduced like any leaf.
 
-What the port refuses (config.py raises): ZeRO stage 3, offload, qwZ,
-pipelines, model / pipe / seq axes above 1, `comm.overlap`, progressive
+ZeRO stage 3: a rank keeps only its fp32 slice of each sharded leaf
+(the module's parameter IS that slice, tagged `ds_shape` /
+`ds_partition` as `zero.Init` tags it), with its Adam moments; the
+model is run through `zero/stage3.py`'s gather on use — a block's
+compute-dtype replica gathered for its forward and again for its
+backward, its gradient reduce-scattered to the owners as soon as it is
+complete — through the int8/int4 wire with
+`zero_optimization.quantized_weights` (qwZ, `QuantizedWeightGather`).
+The data axis stays flat, the bucketed wire falls back to the implicit
+reduction, and qwZ below stage 3 or at dp 1 falls back to the
+full-width gather, each logged in the JAX engine's words.  A stage-3
+tag holds the module's sharded leaves as `model:` pieces, and
+`params`, `module_state_dict` and a save gather them (collectives:
+every rank calls them).
+
+What the port refuses (config.py raises): offload, pipelines, model / pipe / seq axes above 1, `comm.overlap`, progressive
 layer drop, AMP, TensorBoard, the preemption handler; LAMB, 1-bit and
 optax optimizers raise here.  Entry points run on the card unless
 `device="cpu"` is passed.
@@ -86,10 +100,10 @@ import torch
 from ..comm import dist
 from ..comm.mesh import (DATA_AXIS, DATA_INNER_AXIS, DATA_OUTER_AXIS,
                          derive_data_outer, make_mesh)
-from ..models.convert import (is_expert_leaf, jax_leaf_order,
-                              load_jax_params, opt_state_from_jax,
-                              opt_state_to_jax, slice_expert_leaves,
-                              unflatten_tree)
+from ..models.convert import (flatten_tree, is_expert_leaf,
+                              jax_leaf_order, load_jax_params,
+                              opt_state_from_jax, opt_state_to_jax,
+                              slice_expert_leaves, unflatten_tree)
 from ..ops.adam.fused_adam import FusedAdam
 from ..utils.device import check_same_device, resolve_device
 from ..utils.logging import log_dist, logger
@@ -102,7 +116,9 @@ from .comm.bucketing import BucketPlan, OwnerExchange, WireLevel
 from .fp16.loss_scaler import create_loss_scaler
 from .lr_schedules import SCHEDULERS
 from .step_builder import StepBuilder
-from .zero.partition import ZeroShardingPlan, describe_reshard
+from .zero import stage3
+from .zero.partition import (QuantizedWeightGather, ZeroShardingPlan,
+                             describe_reshard)
 
 DTYPES = {"float32": torch.float32, "float16": torch.float16,
           "bfloat16": torch.bfloat16}
@@ -288,12 +304,15 @@ class DeepSpeedEngine:
         check_same_device("model", next(model.parameters()).device,
                           self.device)
         model.float()  # the module's parameters become the fp32 masters
-        if model_parameters is not None:
+        # a model built under zero.Init holds only its slices already
+        pre_sliced = any(hasattr(p, "ds_shape") for p in model.parameters())
+        if model_parameters is not None and not pre_sliced:
             # a JAX params tree (as numpy) becomes the masters unrounded
             load_jax_params(model, model_parameters)
         self._check_data_parallel_model()
         names = [n for n, _ in model.named_parameters()]
-        whole_shapes = [tuple(p.shape) for _, p in model.named_parameters()]
+        whole_shapes = [tuple(getattr(p, "ds_shape", p.shape))
+                        for _, p in model.named_parameters()]
         expert_axes = self._expert_parallel_axes()
         expert = [bool(expert_axes) and is_expert_leaf(n) for n in names]
         # ZeRO partitions (and the expert leaves' shards); the bucketed
@@ -301,14 +320,10 @@ class DeepSpeedEngine:
         self.zero_plan = ZeroShardingPlan(
             self._config.zero_optimization_stage, self.mesh_info,
             whole_shapes, expert=expert, expert_axes=expert_axes)
-        if any(expert):
-            # each rank keeps its experts of the same whole init
-            with torch.no_grad():
-                for (_, p), lp in zip(model.named_parameters(),
-                                      self.zero_plan.leaves):
-                    if lp.local:
-                        p.data = lp.from_full(p.data).clone()
+        self._keep_slices(model)
         self._param_names, self._masters = zip(*model.named_parameters())
+        if model_parameters is not None and pre_sliced:
+            self._install_module_weights(model_parameters)
         log_dist(self.zero_plan.describe(), ranks=[0])
         self._jax_order = jax_leaf_order(self._param_names)
         self.bucket_plan = self._build_bucket_plan()
@@ -318,6 +333,12 @@ class DeepSpeedEngine:
                           self.device)
             if self.bucket_plan is not None and self.bucket_plan.scatter
             and self.zero_plan.partitioned else None)
+
+        self._qwz_gather = self._build_qwz_gather()
+        self._stage3 = (stage3.Stage3Gather(model, self.zero_plan,
+                                     self._param_names, self._masters,
+                                     self.compute_dtype, self._qwz_gather)
+                        if self.zero_plan.gathered else None)
 
         self.optimizer = self._configure_optimizer()
         self._opt_state = self.optimizer.init(self._owned_masters())
@@ -382,13 +403,45 @@ class DeepSpeedEngine:
         raise ValueError(f"unknown optimizer {name!r}; supported: "
                          f"{const.DEEPSPEED_OPTIMIZERS}")
 
+    def _keep_slices(self, model):
+        """Each rank keeps only its slice of a leaf it holds sliced (its
+        experts of an expert leaf; its partition of a stage-3 leaf), cut
+        from the same whole init, unless the model was built sliced
+        (`zero.Init`); a stage-3 slice is tagged with its whole shape and
+        partition."""
+        with torch.no_grad():
+            for (n, p), lp in zip(model.named_parameters(),
+                                  self.zero_plan.leaves):
+                if not lp.held_sliced:
+                    if hasattr(p, "ds_shape"):
+                        raise ValueError(
+                            f"{n}: built sliced by zero.Init, but this "
+                            f"engine's plan keeps it whole")
+                    continue
+                if hasattr(p, "ds_shape"):
+                    if tuple(p.shape) != lp.owned_shape or \
+                            getattr(p, "ds_partition", lp) != lp:
+                        raise ValueError(
+                            f"{n}: zero.Init sliced it as "
+                            f"{tuple(p.shape)}, this engine's plan owns "
+                            f"{lp.owned_shape} at partition {lp.index}")
+                else:
+                    p.data = lp.from_full(p.data).clone()
+                if lp.gathered:
+                    p.ds_shape = torch.Size(lp.shape)
+                    p.ds_partition = lp
+
     def _build_mesh(self):
         """The data axis over the process group, factored by
         `comm.hierarchy` (engine.py:527, 638: "auto" is one outer group
-        per node)."""
+        per node); flat at ZeRO stage 3 (engine.py:623)."""
         hier = self._config.comm_config.hierarchy
         outer = 1
-        if hier == "auto":
+        if hier != "none" and self._config.zero_optimization_stage >= 3:
+            log_dist("comm.hierarchy requested but unavailable — keeping "
+                     "the flat data axis: ZeRO-3 (param sharding keeps the "
+                     "flat axis)", ranks=[0])
+        elif hier == "auto":
             outer = derive_data_outer(dist.get_world_size())
         elif isinstance(hier, int):
             outer = hier
@@ -442,8 +495,11 @@ class DeepSpeedEngine:
 
         wcfg = self._config.moe
         E = self._num_experts()
-        if E <= 1 or not wcfg.explicit or wcfg.dispatch != "sorted" or \
-                self._config.comm_config.gradient_reduction == "bucketed":
+        # the bucketed wire is a request only below stage 3 (it falls back
+        # to the implicit reduction there)
+        if E <= 1 or not wcfg.explicit or wcfg.dispatch != "sorted" or (
+                self._config.comm_config.gradient_reduction == "bucketed"
+                and self._config.zero_optimization_stage < 3):
             return ()
         engaged = wire_engagement(
             wcfg, E, self.train_micro_batch_size_per_gpu() *
@@ -457,6 +513,12 @@ class DeepSpeedEngine:
         then runs as collectives of one."""
         cc = self._config.comm_config
         if cc.gradient_reduction != "bucketed":
+            return None
+        if self._config.zero_optimization_stage >= 3:
+            log_dist("bucketed gradient wire requested but unavailable — "
+                     "falling back to implicit XLA reduction: ZeRO-3 "
+                     "(gathering the full param tree at the shard_map "
+                     "boundary would defeat param sharding)", ranks=[0])
             return None
         if not self._dp:
             log_dist("bucketed gradient wire requested but there is no "
@@ -479,20 +541,58 @@ class DeepSpeedEngine:
         log_dist(plan.describe(), ranks=[0])
         return plan
 
+    def _build_qwz_gather(self):
+        """qwZ (engine.py:1132-1170): the blockwise-quantized stage-3
+        parameter gather (zero/partition.QuantizedWeightGather), or None
+        when not requested or not applicable, which is logged."""
+        qw = self._config.zero_config.quantized_weights
+        if not qw:
+            return None
+        blockers = []
+        if self._config.zero_optimization_stage < 3:
+            blockers.append("ZeRO stage < 3 (parameters are replicated — "
+                            "there is no gather to quantize)")
+        if self.dp_world_size <= 1:
+            blockers.append("dp==1 (nothing to gather)")
+        if blockers:
+            log_dist("zero_optimization.quantized_weights requested but "
+                     "unavailable — parameters gather at full width: "
+                     + "; ".join(blockers), ranks=[0])
+            return None
+        gather = QuantizedWeightGather(
+            self.zero_plan, wire=qw,
+            block=self._config.comm_config.quant_block_size,
+            groups=stage3.unit_groups(self.module, self._param_names))
+        if not gather.active:
+            log_dist("zero_optimization.quantized_weights: no stage-3 "
+                     "leaf is data-sharded (all below min_size_to_shard) "
+                     "— parameters gather at full width", ranks=[0])
+            return None
+        log_dist(gather.describe(), ranks=[0])
+        return gather
+
     def _owned_masters(self):
         """The slices of the masters this rank's optimizer updates."""
         return [lp.owned(p) for lp, p in zip(self.zero_plan.leaves,
                                              self._masters)]
 
-    def _full_masters(self):
+    def _full_masters(self, gather_sliced: bool = True):
         """The whole fp32 masters, exact on every rank: where the other
-        ranks' slices hold compute-dtype values (ZeRO >= 1 in bf16/fp16),
-        copies with every slice from its owner by an fp32 all-gather, and
-        every local expert leaf gathered whole from its owners (both
-        collectives: every rank calls this)."""
+        ranks' slices hold compute-dtype values (ZeRO 1/2 in bf16/fp16),
+        copies with every slice from its owner by an fp32 all-gather,
+        every local expert leaf gathered whole from its owners, and at
+        stage 3 every sharded leaf gathered whole in fp32 (collectives:
+        every rank calls this).  `gather_sliced` False leaves the stage-3
+        leaves as this rank's slices."""
         plan = self.zero_plan
         full = list(self._masters)
-        if self._dp and plan.stage >= 1 and plan.partitioned and \
+        idx = plan.gathered
+        if idx and gather_sliced:
+            whole = plan.gather_whole(idx, [full[i] for i in idx],
+                                      torch.float32)
+            for i, t in zip(idx, whole):
+                full[i] = t
+        if self._dp and 1 <= plan.stage < 3 and plan.partitioned and \
                 self.compute_dtype != torch.float32:
             full = [p.detach().clone() for p in self._masters]
             plan.all_gather_slices(full, self._owned_masters(),
@@ -766,13 +866,18 @@ class DeepSpeedEngine:
     def eval_batch(self, batch, generator=None):
         """Loss without gradients or bookkeeping (engine.py:2509): the
         global micro batch's, the mean over the data ranks."""
-        cparams = {n: p.to(self.compute_dtype)
-                   for n, p in zip(self._param_names, self._masters)}
-        out = torch.func.functional_call(
-            self.module, cparams,
-            (_place(self._local_rows(batch), self.device),),
-            {"generator": generator, "train": False,
-             **self._model_kwargs()})
+        args = (_place(self._local_rows(batch), self.device),)
+        kwargs = {"generator": generator, "train": False,
+                  **self._model_kwargs()}
+        if self._stage3 is not None:
+            # the stage-3 leaves gathered a unit at a time, as in training
+            with stage3.active(self._stage3), self._stage3.root_scope():
+                out = self.module(*args, **kwargs)
+        else:
+            cparams = {n: p.to(self.compute_dtype)
+                       for n, p in zip(self._param_names, self._masters)}
+            out = torch.func.functional_call(self.module, cparams, args,
+                                             kwargs)
         loss = out[0] if isinstance(out, tuple) else out
         if self._dp:
             loss = dist.all_reduce(loss.float().clone(), DATA_AXIS) / \
@@ -785,7 +890,11 @@ class DeepSpeedEngine:
 
     @property
     def params(self):
-        """{name: fp32 master tensor} (the module's parameters)."""
+        """{name: fp32 master tensor} (the module's parameters); at ZeRO
+        stage 3 whole fp32 copies of the sharded leaves, gathered (a
+        collective: every rank reads it)."""
+        if self._stage3 is not None:
+            return dict(zip(self._param_names, self._full_masters()))
         return dict(zip(self._param_names, self._masters))
 
     def get_batch_info(self):
@@ -908,6 +1017,9 @@ class DeepSpeedEngine:
     def zero_optimization_partition_weights(self):
         return self.zero_optimization_stage() >= 3
 
+    def zero_param_persistence_threshold(self):
+        return self._config.zero_config.param_persistence_threshold
+
     def zero_cpu_offload(self):
         return False
 
@@ -928,10 +1040,11 @@ class DeepSpeedEngine:
                 f"module's {sorted(self._param_names)}")
         self._wait_snapshot()
         with torch.no_grad():
-            for (n, p), lp in zip(self.params.items(), self.zero_plan.leaves):
+            for n, p, lp in zip(self._param_names, self._masters,
+                                self.zero_plan.leaves):
                 if n in state_dict:
                     t = torch.as_tensor(np.asarray(state_dict[n]))
-                    p.copy_(lp.from_full(t) if lp.local else t)
+                    p.copy_(lp.from_full(t) if lp.held_sliced else t)
 
     # ------------------------------------------------------------------
     # checkpointing (engine.py:2965-3311)
@@ -1033,9 +1146,9 @@ class DeepSpeedEngine:
         if tag is None:
             tag = f"global_step{self.global_steps}"
         self._checkpoint_tag_validation(tag)
-        names = self._param_names
+        module, model_pieces = self._module_pieces()
         model_state = {
-            "module": unflatten_tree(dict(zip(names, self._full_masters()))),
+            "module": module,
             "lr_scheduler": (self.lr_scheduler.state_dict()
                              if self.lr_scheduler is not None else None),
             "loss_scaler": dict(self._scaler_state),
@@ -1044,6 +1157,7 @@ class DeepSpeedEngine:
             **self._client_state(client_state),
         }
         opt_tree, pieces = self._opt_state_pieces()
+        pieces.update(model_pieces)
         optim_state = {
             "optimizer_state": opt_tree,
             "offload": False,
@@ -1064,6 +1178,26 @@ class DeepSpeedEngine:
             pieces=pieces, rank=dist.get_rank(),
             commit_timeout_ms=self._config.checkpoint_commit_timeout_ms)
         return True
+
+    def _module_pieces(self):
+        """The module tree for a tag, and this rank's pieces of it: at
+        ZeRO stage 3 each sharded leaf is a `shard_marker` under a
+        `model:` key and every rank writes its slice (JAX's
+        `_split_sharded(model_state, ..., "model:")`,
+        checkpointing.py:719); every other leaf whole."""
+        plan, names = self.zero_plan, self._param_names
+        full = self._full_masters(gather_sliced=False)
+        pieces = {}
+        for i in plan.gathered:
+            lp = plan.leaves[i]
+            path = ["module"] + [int(c) if c.isdigit() else c
+                                 for c in names[i].split(".")]
+            key = ckpt_io.shard_key("model:", path)
+            pieces[key] = {"index": lp.piece_index(lp.index),
+                           "piece": full[i]}
+            full[i] = ckpt_io.shard_marker(key, lp.shape, "float32",
+                                           lp.parts)
+        return unflatten_tree(dict(zip(names, full))), pieces
 
     def _opt_state_pieces(self):
         """The optimizer state as the JAX tree, each partitioned moment a
@@ -1131,13 +1265,27 @@ class DeepSpeedEngine:
 
     def _install_module_weights(self, tree):
         """The masters (the module's parameters) from a JAX-shaped tree
-        of whole leaves (a rank keeps its experts of each expert leaf);
-        a missing, extra or misshapen leaf raises before any write."""
+        of whole leaves (a rank keeps its experts of each expert leaf and
+        its slice of each stage-3 leaf); a missing, extra or misshapen
+        leaf raises before any write."""
         self._wait_snapshot()
         plan = self.zero_plan
         if plan.expert_local:
             lp = next(lp for lp in plan.leaves if lp.local)
             tree = slice_expert_leaves(tree, lp.parts, lp.index)
+        if plan.gathered:
+            # this rank's slices of the whole stage-3 leaves, whatever
+            # stage and world size wrote them
+            flat = flatten_tree(tree)
+            for i in plan.gathered:
+                name, lp = self._param_names[i], plan.leaves[i]
+                v = flat.get(name)
+                if v is not None and tuple(np.shape(v)) == lp.shape:
+                    cut = [slice(None)] * len(lp.shape)
+                    cut[lp.dim] = slice(lp.start, lp.start + lp.length)
+                    flat[name] = (lp.from_full(v) if torch.is_tensor(v)
+                                  else np.asarray(v)[tuple(cut)])
+            tree = unflatten_tree(flat)
         load_jax_params(self.module, tree)
 
     def load_checkpoint(self, load_dir, tag=None, load_module_strict=True,

@@ -38,6 +38,21 @@ own loss gradient (JAX's bucketed path); with equal label counts per
 rank that is the gradient of the global batch's mean loss.  Without a
 process group the reduce stage is skipped and the step is the
 single-process one.
+
+ZeRO stage 3 (`engine._stage3`, runtime/zero/stage3.py): there is no
+whole replica to prepare.  The model runs inside the gather's root
+scope, each block's compute-dtype replica gathered for its forward and
+again for its backward, and each stage-3 leaf's gradient reaches the
+step already reduce-scattered to its owner (cast to fp32, summed over
+the ranks, divided by dp: `reduce_implicit`'s stage-2 branch, run as
+soon as the block's gradients are complete); the other leaves are
+reduced here as at stage 2.  The update writes the owned slices, which
+ARE the masters, so no post-step all-gather runs.  With qwZ the
+`qwz.gather` counter gets each group's collective bytes where it is
+issued, so `wire_bytes_per_gather` a gather pass, TWO passes a micro
+step (forward and backward); JAX's `_account_qwz` (step_builder.py
+:145-150) counts one a micro step, since XLA keeps the gathered
+replica for the backward.
 """
 
 from __future__ import annotations
@@ -49,6 +64,7 @@ import torch
 from ..comm import dist
 from ..comm.mesh import DATA_AXIS, DATA_INNER_AXIS, DATA_OUTER_AXIS
 from ..moe.dispatch import local_grads_region
+from .zero import stage3 as zero3
 from .utils import clip_grad_norm, global_grad_norm_sq, has_overflow
 
 
@@ -96,6 +112,7 @@ class StepBuilder:
         first_part = plan.partition_index == 0
         model_kwargs = eng._model_kwargs()
         expert_replica = plan.expert_replica_axis
+        s3 = eng._stage3
         # the bucketed wire computes each rank's gradients with whole
         # experts: the explicit MoE wire falls back inside it (JAX's
         # local-grads region), in the forward and in any recompute
@@ -106,20 +123,35 @@ class StepBuilder:
             """Master params -> the compute-side replica the loss reads."""
             return {n: p.to(compute_dtype) for n, p in zip(names, masters)}
 
-        def run_loss(cparams, batch, generator, loss_scale):
-            out = torch.func.functional_call(
-                model, cparams, (batch,),
-                {"generator": generator, "train": True, **model_kwargs})
-            loss = out[0] if isinstance(out, tuple) else out
+        def call_model(batch, generator):
+            """-> (loss, the stage-3 root scope or None)."""
+            kwargs = {"generator": generator, "train": True, **model_kwargs}
+            if s3 is None:
+                out = torch.func.functional_call(model, prep_params(),
+                                                 (batch,), kwargs)
+                return (out[0] if isinstance(out, tuple) else out), None
+            # stage 3: the root group gathered around the call, each
+            # block inside its own scope; the mark on the loss gathers
+            # the root group again when the backward starts
+            with s3.root_scope() as root:
+                out = model(batch, **kwargs)
+                return root.output(out[0] if isinstance(out, tuple)
+                                   else out), root
+
+        def run_loss(batch, generator, loss_scale):
+            loss, root = call_model(batch, generator)
             scale_factor = loss_scale / predivide if prescale else loss_scale
-            return loss.float() * scale_factor, loss
+            return loss.float() * scale_factor, loss, root
 
         def reduce_implicit(grads):
             """One collective a leaf: the mean over the data ranks, cut
             to the owned slice (a reduce-scatter at stage 2)."""
             out = []
             for g, lp in zip(grads, leaves):
-                if lp.local:
+                if lp.gathered:
+                    # a stage-3 leaf: reduce-scattered in the backward
+                    out.append(g)
+                elif lp.local:
                     # an owner's expert gradient: already the sum over
                     # every rank's loss, through the all-to-all's backward
                     if expert_replica is not None:
@@ -156,11 +188,14 @@ class StepBuilder:
             return out
 
         def compute_grads(batch, generator, loss_scale):
-            with region():
-                scaled, loss = run_loss(prep_params(), batch, generator,
-                                        loss_scale)
-                grads = torch.autograd.grad(scaled, masters,
-                                            allow_unused=True)
+            # the stage-3 gather stays active through the backward, whose
+            # recomputation under remat gathers again
+            with region(), zero3.active(s3):
+                scaled, loss, root = run_loss(batch, generator, loss_scale)
+                with (s3.backward_scope(root) if s3 is not None
+                      else contextlib.nullcontext()):
+                    grads = torch.autograd.grad(scaled, masters,
+                                                allow_unused=True)
             grads = [torch.zeros_like(p) if g is None else g
                      for g, p in zip(grads, masters)]
             loss = loss.detach()
@@ -235,8 +270,9 @@ class StepBuilder:
                 torch.where(overflow, old, new, out=old)
             new_opt = _select(overflow, new_opt, opt_state)
             new_scaler = scaler.jit_update(scaler_state, overflow)
-            if dp_on and stage >= 1:
-                # every rank's updated slices, in the compute dtype
+            if dp_on and 1 <= stage < 3:
+                # every rank's updated slices, in the compute dtype (at
+                # stage 3 the slices are all a rank keeps)
                 plan.all_gather_slices(masters, owned_masters, compute_dtype)
             return overflow, grad_norm, new_opt, new_scaler
 

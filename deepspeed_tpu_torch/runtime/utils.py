@@ -1,7 +1,7 @@
 """Overflow check and gradient norms — the port of
 deepspeed_tpu/runtime/utils.py:101-142, over lists of tensors (the leaves
 of the JAX pytree), as multi-tensor `_foreach` reductions that stay on
-the device."""
+the device — and `partition_uniform` (:36)."""
 
 from __future__ import annotations
 
@@ -31,3 +31,19 @@ def clip_grad_norm(grads, max_norm: float, norm_sq=None):
     scale = torch.clamp_max(max_norm / (norm + 1e-6), 1.0)
     torch._foreach_mul_(grads, scale)
     return grads, norm
+
+
+def partition_uniform(num_items: int, num_parts: int):
+    """num_parts+1 boundaries splitting num_items as evenly as possible
+    (the port's copy of deepspeed_tpu/runtime/utils.py:36, reference
+    runtime/utils.py:333)."""
+    parts = [0] * (num_parts + 1)
+    if num_items <= num_parts:
+        for p in range(num_parts + 1):
+            parts[p] = min(p, num_items)
+        return parts
+    chunksize = num_items // num_parts
+    residual = num_items % num_parts
+    for p in range(1, num_parts + 1):
+        parts[p] = parts[p - 1] + chunksize + (1 if p <= residual else 0)
+    return parts

@@ -4,8 +4,11 @@ zero/config.py:177): the same keys, defaults and errors.
 
 Stages resolve to per-leaf partitions over the data ranks
 (zero/partition.py): stage 1 partitions the optimizer state, stage 2
-also reduce-scatters the gradients to their owners.  The runtime config
-(runtime/config.py) refuses stage 3 and offload, which are not ported.
+also reduce-scatters the gradients to their owners, stage 3 also stores
+only a rank's slice of each parameter and gathers it on use
+(zero/stage3.py), through the int8/int4 wire with `quantized_weights`
+(qwZ).  The runtime config (runtime/config.py) refuses offload, which
+is not ported.
 """
 
 from ..config_utils import DeepSpeedConfigObject, get_scalar_param

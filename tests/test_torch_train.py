@@ -302,8 +302,8 @@ def test_engine_train_batch_eval_batch_and_accessors():
 
 
 @pytest.mark.parametrize("extra,match", [
-    ({"zero_optimization": {"stage": 3}},
-     "ZeRO stage 3.*ZeRO-3, Offload and Infinity"),
+    ({"zero_optimization": {"stage": 3, "offload_param": {"device": "cpu"}}},
+     "offload.*ZeRO-3, Offload and Infinity"),
     ({"zero_optimization": {"stage": 2, "offload_param": {"device": "cpu"}}},
      "offload.*ZeRO-3, Offload and Infinity"),
     ({"zero_optimization": {"stage": 0, "offload_optimizer":

@@ -267,14 +267,18 @@ def test_comm_section_is_validated_at_config_time(comm, err, match):
 @pytest.mark.parametrize("qw", [True, "int8", "int4"])
 def test_quantized_weights_are_refused_naming_their_item(qw):
     """qwZ (`zero_optimization.quantized_weights`) rides stage 3's
-    parameter gather in the JAX engine; the port refuses it, naming the
-    ZeRO-3 item, after JAX's validation of the value."""
+    parameter gather; the port accepts it now at every stage (below
+    stage 3 the engine logs JAX's fallback, tests/test_torch_zero3.py),
+    after JAX's validation of the value, which still refuses a bad one
+    by name."""
     from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 
-    with pytest.raises(NotImplementedError,
-                       match="qwZ.*ZeRO-3, Offload and Infinity"):
-        DeepSpeedConfig({"train_batch_size": 4, "zero_optimization": {
-            "stage": 2, "quantized_weights": qw}}, world_size=4)
+    for stage in (2, 3):
+        c = DeepSpeedConfig({"train_batch_size": 4, "zero_optimization": {
+            "stage": stage, "quantized_weights": qw}}, world_size=4)
+        assert c.zero_config.quantized_weights == \
+            ("int8" if qw is True else qw)
+        assert c.zero_optimization_stage == stage
     with pytest.raises(ValueError, match="quantized_weights"):
         DeepSpeedConfig({"train_batch_size": 4, "zero_optimization": {
             "stage": 2, "quantized_weights": "int2"}}, world_size=4)
