@@ -10,7 +10,9 @@ any failure raises and the script exits nonzero:
 
 1. build: compile the nine kernel libraries from the sources in the
    checkout (paged attention as one library per cache kind), one nvcc
-   each, started together; print ptxas's lines.
+   each, and the host ops (the CPU Adam and the aio engine, one g++
+   each), all started together; print ptxas's lines, the host compiler
+   and whether io_uring is allowed.
 2. kernel: paged attention, the Hopper kernel against its plain PyTorch
    version on the same inputs on the card, at the serving shapes
    (GPT-2 XL heads H=25, Dh=64, block 16, table width 64; decode B=8
@@ -262,6 +264,25 @@ any failure raises and the script exits nonzero:
    position table extended to 4096 rows; each of #7-#9 launched exactly
    24 x steps over the timed steps, tokens/s, step, peak memory, finite
    and falling losses, then its profile.
+10d. ZeRO-Offload and ZeRO-Infinity (after train-z3).  offload-exact:
+   GPT nano's depth (3 layers) at Dh 64, fp32, TF32 off, deterministic
+   algorithms: the offload engine (host Adam) against the port's ZeRO-0
+   engine (losses 1e-4 relative, masters 5e-3 relative + 1e-5), the
+   NVMe-moments run bitwise the RAM run, and the card's host step
+   (pinned, overlapped copies) bitwise the synchronous numpy step at one
+   GPT-2 XL block's leaves (bf16 weights, clip 1.0, one step skipped for
+   an inf).  infinity-exact: the streamed engine against the resident one
+   on the same model (the same bounds, eval too), params_on_nvme with the
+   moments on NVMe bitwise the RAM run, gas 2, and #1 2L, #2 / #3 L, #4-#6
+   once a micro step exactly.  train-offload-infinity: GPT-2 XL at full
+   width, seq 1024, micro 1, bf16, fused CE, 1 + 2 steps each at ZeRO-0,
+   Offload (stage 0, offload_optimizer cpu) and Infinity (stage 3,
+   offload_param cpu) from the same init: device peak (falling in that
+   order), step ms split into device busy, D2H, host Adam and H2D, host
+   memory held and pinned, #1-#6 launches, losses within 2% of ZeRO-0's.
+   train-infinity-nvme: XL widths cut to 4 layers, masters and moments on
+   NVMe in a temporary directory: bytes read and written a step and the
+   aio engine that ran.
 11. kernels: one line per kernel with its launches on its main path,
    its error against the plain version, its times beside its bound, and
    per family the head dims (blocks, dtypes) this run launched.
@@ -5365,6 +5386,493 @@ def phase_train_z3(device="cuda", seq=1024, micro=1):
     return rec
 
 
+# -- ZeRO-Offload and ZeRO-Infinity (host Adam, streamed blocks) -------------------
+
+OX_TOL = {"loss_rtol": 1e-4, "master_rtol": 5e-3, "master_atol": 1e-5}
+
+
+def host_rss_bytes():
+    """This process's resident host memory (VmRSS)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return None
+
+
+def free_host_cache():
+    """Return the caching host allocator's pinned blocks to the system."""
+    import torch
+
+    gc.collect()
+    empty = getattr(torch._C, "_host_emptyCache", None)
+    if empty is not None:
+        empty()
+
+
+class deterministic:
+    """torch's deterministic algorithms for the bitwise comparisons (the
+    embedding's backward sums its rows in a fixed order), TF32 off; both
+    restored on exit."""
+
+    def __enter__(self):
+        import torch
+
+        self.prev = (torch.are_deterministic_algorithms_enabled(),
+                     torch.backends.cuda.matmul.allow_tf32)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.use_deterministic_algorithms(self.prev[0])
+        torch.backends.cuda.matmul.allow_tf32 = self.prev[1]
+
+
+def reset_train_launches():
+    from deepspeed_tpu_torch.kernels import flash, fused_xent
+
+    for counts in (flash.LAUNCHES, fused_xent.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def train_launches():
+    from deepspeed_tpu_torch.kernels import flash, fused_xent
+
+    return {**dict(flash.LAUNCHES), **dict(fused_xent.LAUNCHES)}
+
+
+def ox_nano_config():
+    """GPT nano's depth (3 layers) at head_dim 64 (d 128, 2 heads), seq
+    256, vocab 512, the fused CE: the shape at which #1-#6 launch."""
+    from deepspeed_tpu_torch.models import gpt2_config
+
+    return gpt2_config("nano", d_model=128, num_heads=2, max_seq_len=256,
+                       vocab_size=512, loss_impl="pallas")
+
+
+def _ox_train(zero, device, steps, precision="fp32", micro=4, seq=256,
+              gas=1):
+    """`steps` engine steps of the nano model from seed 3 at ZeRO `zero`
+    -> (losses, {name: fp32 master copy}, engine, launches)."""
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import GPT
+
+    cfg = ox_nano_config()
+    model = GPT(cfg, device=device,
+                generator=torch.Generator(device=device).manual_seed(3))
+    conf = train_config(micro, 1e-3, precision)
+    conf["train_batch_size"] = micro * gas
+    conf["gradient_accumulation_steps"] = gas
+    conf["zero_optimization"] = zero
+    eng, *_ = dt.initialize(model=model, config_params=conf, device=device)
+    reset_train_launches()
+    losses = []
+    for x, y in stride_batches(steps * gas, micro, seq, 64, 5):
+        losses.append(float(eng.forward((x, y))))
+        eng.backward()
+        eng.step()
+    launches = train_launches()
+    masters = {n: t.detach().float().cpu().clone()
+               for n, t in eng.params.items()}
+    return losses, masters, eng, launches
+
+
+def _tracks(ref, got, what):
+    """Losses within loss_rtol, masters within master_atol + master_rtol
+    |ref| (OX_TOL); returns the worst ratios."""
+    (lr_, mr), (lg, mg) = ref, got
+    loss = max(abs(a - b) / abs(b) for a, b in zip(lg, lr_))
+    w = max(float(((mg[n] - mr[n]).abs() /
+                   (OX_TOL["master_atol"] +
+                    OX_TOL["master_rtol"] * mr[n].abs())).max())
+            for n in mr)
+    if not (loss <= OX_TOL["loss_rtol"] and w <= 1.0):
+        raise AssertionError(f"{what}: losses {lg} against {lr_} (worst "
+                             f"rel {loss}), masters at {w} of the bound")
+    return {"max_loss_rel_diff": loss, "max_master_diff_over_tol": w}
+
+
+def _bitwise(ref, got, what):
+    (lr_, mr), (lg, mg) = ref, got
+    bad = sum(mismatches(mg[n], mr[n]) for n in mr)
+    if lg != lr_ or bad:
+        raise AssertionError(f"{what}: losses {lg} against {lr_}, {bad} "
+                             "master elements differ")
+    return {"loss_mismatches": 0, "master_mismatches": 0}
+
+
+def phase_offload_exact(device="cuda", steps=3):
+    """offload-exact: the nano model, fp32, TF32 off, deterministic
+    algorithms.  The offload engine
+    (the host Adam) against the port's own ZeRO-0 engine (FusedAdam on
+    the device) within OX_TOL; the NVMe-moments run bitwise the RAM run;
+    the card's host step (pinned, overlapped copies) bitwise the
+    synchronous numpy step on the same gradients, at one GPT-2 XL
+    block's leaf shapes, bf16 weights, clipping 1.0, with a step skipped
+    for an inf."""
+    with deterministic():
+        return _offload_exact(device, steps)
+
+
+def _offload_exact(device, steps):
+    import tempfile
+
+    import torch
+
+    from deepspeed_tpu_torch.runtime.zero.offload import CPUOffloadRuntime
+
+    rec = {"phase": "offload-exact", "tolerance": OX_TOL,
+           "config": "gpt2 nano depth (3 layers) at d 128, 2 heads (Dh 64), "
+                     "seq 256, vocab 512, fused CE, micro 4, fp32, Adam lr "
+                     "1e-3, clip 1.0", "steps": steps}
+    l0, m0, e0, _ = _ox_train({"stage": 0}, device, steps)
+    del e0
+    l1, m1, e1, n1 = _ox_train({"stage": 0, "offload_optimizer":
+                                {"device": "cpu"}}, device, steps)
+    assert e1._opt_state is None and e1._offload is not None
+    rec["offload_vs_zero0"] = _tracks((l0, m0), (l1, m1), "offload-exact")
+    rec["launches_offload"] = n1
+    del e1
+    with tempfile.TemporaryDirectory(prefix="dstpu-ox-") as d:
+        l2, m2, e2, _ = _ox_train({"stage": 0, "offload_optimizer": {
+            "device": "nvme", "nvme_path": d}}, device, steps)
+        nv = e2._offload.nvme
+        rec["nvme_vs_ram"] = _bitwise((l1, m1), (l2, m2), "offload nvme")
+        rec["nvme_aio_engine"] = nv.handle.engine
+        rec["nvme_bytes"] = {"read": nv.bytes_read,
+                             "written": nv.bytes_written}
+        del e2, nv
+        gc.collect()
+    # the host step: overlapped on the card against synchronous numpy
+    from deepspeed_tpu_torch.models import GPT, gpt2_config
+
+    blk = GPT(gpt2_config("xl", num_layers=1), device="meta").blocks[0]
+    shapes = [tuple(p.shape) for _, p in sorted(blk.named_parameters())]
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    leaves = [torch.randn(s, generator=gen) * 0.02 for s in shapes]
+    hp = {"lr": 1e-3, "weight_decay": 0.01}
+    card = CPUOffloadRuntime(leaves, hp, param_dtype=torch.bfloat16,
+                             device=device)
+    sync = CPUOffloadRuntime(leaves, hp, param_dtype=torch.bfloat16)
+    out = [torch.empty(s, dtype=torch.bfloat16, device=device)
+           for s in shapes]
+    dgen = torch.Generator(device=device).manual_seed(6)
+    steps_rec = []
+    for step in range(4):
+        g = [torch.randn(s, device=device, generator=dgen) * 64.0
+             for s in shapes]
+        if step == 2:
+            g[-1].view(-1)[7] = float("inf")
+        _, ov_c, n_c = card.step(g, 128.0, 1e-3, clip=1.0, out=out)
+        host, ov_s, n_s = sync.step([t.cpu().numpy() for t in g], 128.0,
+                                    1e-3, clip=1.0)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        bad = sum(mismatches(torch.from_numpy(a), torch.from_numpy(b))
+                  for a, b in zip(card.masters, sync.masters))
+        if not ov_s:
+            bad += sum(mismatches(o.cpu(), h) for o, h in zip(out, host))
+        if ov_c != ov_s or n_c != n_s or bad:
+            raise AssertionError(f"offload host step {step}: overflow "
+                                 f"{ov_c}/{ov_s}, norm {n_c}/{n_s}, {bad} "
+                                 "elements differ")
+        steps_rec.append({"overflow": ov_c, "norm": n_c,
+                          **{k: round(v, 3)
+                             for k, v in card.last_timing.items()}})
+    rec["host_step_card_vs_sync"] = {
+        "leaves": len(shapes), "elements": sum(int(np.prod(s))
+                                               for s in shapes),
+        "mismatches": 0, "steps": steps_rec}
+    del card, sync, out
+    free_host_cache()
+    emit(rec)
+    return rec
+
+
+def phase_infinity_exact(device="cuda", steps=3):
+    """infinity-exact: the nano model, fp32, TF32 off, deterministic
+    algorithms.  The streamed
+    engine (stage 3 + offload_param) against the resident ZeRO-0 engine
+    from the same init: losses within 1e-4 relative, masters 5e-3
+    relative + 1e-5; eval losses likewise; params_on_nvme with the
+    moments on NVMe bitwise the RAM run; gradient accumulation (gas 2);
+    launches exactly #1 2L, #2 / #3 L and #4-#6 1 a micro step."""
+    with deterministic():
+        return _infinity_exact(device, steps)
+
+
+def _infinity_exact(device, steps):
+    import tempfile
+
+    n_kernel = 1 if device != "cpu" else 0
+    rec = {"phase": "infinity-exact", "tolerance": OX_TOL, "steps": steps,
+           "config": "as offload-exact"}
+    l0, m0, e0, _ = _ox_train({"stage": 0}, device, steps)
+    x, y = next(stride_batches(1, 4, 256, 64, 9))
+    ev0 = float(e0.eval_batch((x, y)))
+    del e0
+    inf = {"stage": 3, "offload_param": {"device": "cpu"}}
+    l1, m1, e1, n1 = _ox_train(inf, device, steps)
+    rt = e1._infinity
+    assert rt is not None and e1._opt_state is None and \
+        all(p.device.type == "meta" for p in e1.module.parameters())
+    rec["infinity_vs_zero0"] = _tracks((l0, m0), (l1, m1), "infinity-exact")
+    ev1 = float(e1.eval_batch((x, y)))
+    rec["eval_loss"] = {"zero0": ev0, "infinity": ev1}
+    if abs(ev1 - ev0) > OX_TOL["loss_rtol"] * abs(ev0):
+        raise AssertionError(f"infinity eval {ev1} against {ev0}")
+    L = ox_nano_config().num_layers
+    want = {"flash_attention_fwd": 2 * L * steps,
+            "flash_attention_dq": L * steps, "flash_attention_dkv": L * steps,
+            "fused_xent_fwd": steps, "fused_xent_dx": steps,
+            "fused_xent_dw": steps}
+    rec["launches"] = n1
+    rec["launches_wanted"] = {k: n_kernel * v for k, v in want.items()}
+    if n1 != rec["launches_wanted"]:
+        raise AssertionError(f"infinity launches {n1}, wanted "
+                             f"{rec['launches_wanted']}")
+    del e1, rt
+    with tempfile.TemporaryDirectory(prefix="dstpu-ix-") as d:
+        l2, m2, e2, _ = _ox_train({"stage": 3, "offload_param": {
+            "device": "nvme", "nvme_path": d}, "offload_optimizer": {
+            "device": "nvme", "nvme_path": d}}, device, steps)
+        rt = e2._infinity
+        rec["nvme_vs_ram"] = _bitwise((l1, m1), (l2, m2), "infinity nvme")
+        rec["nvme_aio_engine"] = rt.pager.engine
+        rec["nvme_bytes"] = {
+            "masters_read": rt.pager.bytes_read,
+            "masters_written": rt.pager.bytes_written,
+            "moments_read": rt.nvme.bytes_read,
+            "moments_written": rt.nvme.bytes_written}
+        del e2, rt
+        gc.collect()
+    # gradient accumulation: two micro steps of half the rows
+    lg, mg, eg, _ = _ox_train(inf, device, steps, micro=2, gas=2)
+    rec["gas2_losses"] = lg
+    del eg
+    free_host_cache()
+    emit(rec)
+    return rec
+
+
+def _xl_engine_run(kind, device, layers, seq, micro, warmup, steps,
+                   nvme_dir=None):
+    """GPT-2 XL widths (`layers` deep), bf16, Adam lr 1e-4, WarmupLR,
+    clip 1.0, fused CE, from DSTPU_SEED's init (the resident model drawn
+    from a generator of that seed, the streamed one by `stream_init`, the
+    same weights): kind "zero0", "offload" or "infinity" (RAM, or
+    `nvme_dir` for masters and moments).  Warm-up, then timed steps with
+    the counts reset just before: device peak from the first step on,
+    step ms split into device busy, D2H, host Adam and H2D, host memory,
+    #1-#6 launches."""
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import GPT, gpt2_config
+    from deepspeed_tpu_torch.monitor.counters import COUNTERS
+
+    cuda = device != "cpu"
+    seed = int(os.environ.get("DSTPU_SEED", 42))
+    cfg = gpt2_config("xl", loss_impl="pallas", max_seq_len=seq,
+                      num_layers=layers)
+    zero = {"zero0": {"stage": 0},
+            "offload": {"stage": 0, "offload_optimizer": {"device": "cpu"}},
+            "infinity": {"stage": 3, "offload_param": {"device": "cpu"}}}[kind]
+    if nvme_dir is not None:
+        zero = {"stage": 3,
+                "offload_param": {"device": "nvme", "nvme_path": nvme_dir},
+                "offload_optimizer": {"device": "nvme",
+                                      "nvme_path": nvme_dir}}
+    conf = train_config(micro, 1e-4, "bf16")
+    conf["zero_optimization"] = zero
+    rss0 = host_rss_bytes()
+    t0 = time.perf_counter()
+    if kind == "infinity":
+        model = GPT(cfg, device="meta")
+    else:
+        model = GPT(cfg, device=device,
+                    generator=torch.Generator(device=device).manual_seed(seed))
+    eng, *_ = dt.initialize(model=model, config_params=conf, device=device)
+    del model
+    gc.collect()
+    init_s = time.perf_counter() - t0
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    rt = eng._infinity
+    if rt is not None:
+        rt.profile = True
+    data = stride_batches(warmup + steps, micro, seq, 64, 7)
+    losses, split = [], []
+    for i in range(warmup + steps):
+        if i == warmup:
+            reset_train_launches()
+            snap = COUNTERS.snapshot()
+            if rt is not None:
+                rt.timing()
+                if rt.pager is not None:
+                    io0 = (rt.pager.bytes_read, rt.pager.bytes_written,
+                           rt.nvme.bytes_read, rt.nvme.bytes_written)
+        x, y = next(data)
+        ts = time.perf_counter()
+        if cuda:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+        loss = eng.forward((x, y))
+        if cuda:
+            e1.record()
+        eng.backward()
+        eng.step()
+        losses.append(float(loss))
+        if cuda:
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - ts) * 1e3
+        s = {"step_ms": ms}
+        if rt is not None:
+            t = rt.timing()
+            s.update(device_busy_ms=t["compute_ms"], h2d_ms=t["h2d_ms"],
+                     d2h_ms=t["d2h_ms"], host_check_ms=t["host_check_ms"],
+                     host_adam_ms=t["adam_ms"])
+        elif cuda:
+            s["device_fwd_bwd_ms"] = e0.elapsed_time(e1)
+            if eng._offload is not None:
+                lt = eng._offload.last_timing
+                s.update(device_busy_ms=s["device_fwd_bwd_ms"],
+                         d2h_ms=lt.get("d2h_ms"),
+                         host_check_ms=lt.get("host_check_ms"),
+                         host_adam_ms=lt.get("adam_ms"),
+                         h2d_ms=lt.get("h2d_ms"))
+        if i >= warmup:
+            split.append(s)
+    d = COUNTERS.delta_since(snap)
+    step_ms = [s["step_ms"] for s in split]
+    rec = {"kind": kind if nvme_dir is None else "infinity-nvme",
+           "layers": layers, "init_s": init_s, "losses": losses,
+           "step_ms": step_ms, "step_ms_mean": float(np.mean(step_ms)),
+           "tokens_per_s": micro * seq * steps / (sum(step_ms) / 1e3),
+           "split": split,
+           "peak_mem_bytes": (torch.cuda.max_memory_allocated()
+                              if cuda else None),
+           "host_rss_bytes": host_rss_bytes(),
+           "host_rss_growth_bytes": host_rss_bytes() - rss0,
+           "launches": train_launches(),
+           "kernel_fallbacks": d.get("kernel.fallbacks", {}).get("calls", 0),
+           "steps": steps}
+    host = rt if rt is not None else eng._offload
+    if host is not None:
+        rec["runtime_host_bytes"] = host.host_bytes()
+        rec["pinned_bytes"] = host.pinned_bytes()
+    if rt is not None and rt.pager is not None:
+        io1 = (rt.pager.bytes_read, rt.pager.bytes_written,
+               rt.nvme.bytes_read, rt.nvme.bytes_written)
+        rec["nvme_bytes_per_step"] = dict(zip(
+            ("masters_read", "masters_written", "moments_read",
+             "moments_written"), [(b - a) / steps for a, b in zip(io0, io1)]))
+        rec["aio_engine"] = rt.pager.engine
+    if rt is not None:
+        rec["device_param_tensors"] = sum(
+            1 for p in eng.module.parameters() if p.device.type != "meta")
+    eng.finalize_monitoring()
+    del eng, rt, host
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    free_host_cache()
+    return rec
+
+
+def _check_xl(rec, layers, device):
+    n_kernel = 1 if device != "cpu" else 0
+    st = rec["steps"]
+    infinity = rec["kind"].startswith("infinity")
+    fwd = (2 if infinity else 1) * layers * st
+    want = {"flash_attention_fwd": fwd, "flash_attention_dq": layers * st,
+            "flash_attention_dkv": layers * st, "fused_xent_fwd": st,
+            "fused_xent_dx": st, "fused_xent_dw": st}
+    want = {k: n_kernel * v for k, v in want.items()}
+    ok = rec["launches"] == want and np.isfinite(rec["losses"]).all() and \
+        not (rec["kernel_fallbacks"] and device != "cpu")
+    if infinity:
+        ok = ok and rec["device_param_tensors"] == 0
+    return ok, want
+
+
+def phase_train_offload_infinity(device="cuda", seq=1024, micro=1,
+                                 layers=48, warmup=1, steps=2):
+    """train-offload and train-infinity: GPT-2 XL at full width (48
+    layers, d 1600, 25 heads, 1.56 B parameters), seq 1024, micro 1,
+    bf16, fp32 masters, Adam, WarmupLR, clip 1.0, fused CE, dropout 0;
+    1 warm-up + 2 timed steps each: ZeRO-0 on the card, then ZeRO-Offload
+    (stage 0, offload_optimizer cpu), then ZeRO-Infinity (stage 3,
+    offload_param cpu), from the same init on the same batches.  Device
+    peak must fall from ZeRO-0 to Offload to Infinity; #1 L (Infinity
+    2L), #2 / #3 L and #4-#6 once a step; losses within 2% of ZeRO-0's."""
+    runs = {}
+    for kind in ("zero0", "offload", "infinity"):
+        runs[kind] = _xl_engine_run(kind, device, layers, seq, micro, warmup,
+                                    steps)
+        emit({"phase": f"train-{kind}", **runs[kind]})
+    rec = {"phase": "train-offload-infinity",
+           "config": f"gpt2 xl widths, {layers} layers, seq {seq}, micro "
+                     f"{micro}, bf16, fp32 masters, Adam lr 1e-4, WarmupLR "
+                     "10, clip 1.0, fused CE, dropout 0; stride stream over "
+                     "tokens < 64", "loss_rel_tol": 0.02}
+    ok = True
+    for kind, r in runs.items():
+        good, want = _check_xl(r, layers, device)
+        ok = ok and good
+        rec[f"{kind}_launches_wanted"] = want
+        rec[f"{kind}_loss_rel_diff_vs_zero0"] = max(
+            abs(a - b) / abs(b) for a, b in zip(r["losses"],
+                                                runs["zero0"]["losses"]))
+        ok = ok and rec[f"{kind}_loss_rel_diff_vs_zero0"] <= 0.02
+    peaks = [runs[k]["peak_mem_bytes"] for k in ("zero0", "offload",
+                                                 "infinity")]
+    rec["peak_mem_bytes"] = dict(zip(("zero0", "offload", "infinity"),
+                                     peaks))
+    if device != "cpu":
+        ok = ok and peaks[0] > peaks[1] > peaks[2]
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"train-offload-infinity: {rec}")
+    return runs
+
+
+def phase_train_infinity_nvme(device="cuda", seq=1024, micro=1, layers=4,
+                              warmup=1, steps=2):
+    """train-infinity-nvme: GPT-2 XL widths with the depth cut to 4
+    layers (a cut), masters and moments on NVMe in a temporary directory
+    removed afterwards: bytes read and written a step, the aio engine
+    that ran, step ms split, #1-#6 launches."""
+    import shutil
+    import tempfile
+
+    d = tempfile.mkdtemp(prefix="dstpu-inf-nvme-")
+    try:
+        r = _xl_engine_run("infinity", device, layers, seq, micro, warmup,
+                           steps, nvme_dir=d)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    ok, want = _check_xl(r, layers, device)
+    rec = {"phase": "train-infinity-nvme",
+           "config": f"gpt2 xl widths, depth cut to {layers} layers, seq "
+                     f"{seq}, micro {micro}, bf16, masters and moments on "
+                     "NVMe (a temporary directory, removed)", **r,
+           "launches_wanted": want}
+    ok = ok and all(v > 0 for v in r["nvme_bytes_per_step"].values())
+    emit(rec)
+    if not ok:
+        raise AssertionError(f"train-infinity-nvme: {rec}")
+    return rec
+
+
 # -- BERT pretraining through the sparse kernels ----------------------------------
 
 
@@ -5618,9 +6126,11 @@ def sparse_entries(sparse_cases, probe, train_bert, exact):
 
 
 def build_all():
-    """Compile the kernel libraries, one nvcc per source, all started
+    """Compile the kernel libraries, one nvcc per source, and the host
+    ops (the CPU Adam, the aio engine), one g++ each, all started
     together; returns the build record."""
     from deepspeed_tpu_torch.kernels import build
+    from deepspeed_tpu_torch.ops import op_builder
 
     sources = ("paged_attention.cu", "paged_attention_f16.cu",
                "paged_attention_int8.cu", "paged_attention_int4.cu",
@@ -5633,10 +6143,22 @@ def build_all():
         build.build(src)
         return src, time.perf_counter() - t
 
-    with ThreadPoolExecutor(len(sources)) as pool:
+    def timed_host_op(name):
+        t = time.perf_counter()
+        op_builder.get_op(name)
+        return name, time.perf_counter() - t
+
+    with ThreadPoolExecutor(len(sources) + 2) as pool:
+        host = pool.map(timed_host_op, list(op_builder.ALL_OPS))
         each = dict(pool.map(timed_build, sources))
+        host = dict(host)
+    from deepspeed_tpu_torch.ops.aio import uring_supported
+
     return {"phase": "build", "seconds": time.perf_counter() - t0,
             "seconds_by_source": each,
+            "host_ops": {"seconds": host,
+                         "compiler": op_builder.builder.find_cxx(),
+                         "io_uring_supported": uring_supported()},
             "ptxas": {src: [ln.strip() for ln in
                             build.BUILD_LOGS.get(src, "").splitlines()
                             if "registers" in ln or "Compiling entry" in ln
@@ -5652,7 +6174,15 @@ def z3_launches(train_z3, family, name):
             for r in train_z3["ranks"] for case in ("z2", "z3-int8")}
 
 
-def flash_entries(flash_cases, train, train_resume, train_dp, train_z3):
+def xl_launches(xl_runs, name):
+    """train-zero0 / train-offload / train-infinity (GPT-2 XL) and
+    train-infinity-nvme launches of one of #1-#6 over their timed
+    steps."""
+    return {f"train-{r['kind']}": r["launches"][name] for r in xl_runs}
+
+
+def flash_entries(flash_cases, train, train_resume, train_dp, train_z3,
+                  xl_runs):
     main = flash_cases[0]            # the training shape, bf16
     out = []
     for name in ("flash_attention_fwd", "flash_attention_dq",
@@ -5673,7 +6203,8 @@ def flash_entries(flash_cases, train, train_resume, train_dp, train_z3):
                 "train": train["flash_launches"][name],
                 "train-resume": train_resume["launches"][name],
                 **dp_launches(train_dp, "flash", name),
-                **z3_launches(train_z3, "flash", name)},
+                **z3_launches(train_z3, "flash", name),
+                **xl_launches(xl_runs, name)},
             "max_abs_err": main["max_abs_err"][
                 {"fwd": "out", "dq": "dq", "dkv": "dk"}[short]],
             "ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
@@ -5707,7 +6238,7 @@ def domain(cases, keys=("Dh", "dtype")):
 
 
 def xent_entries(xent_cases, train_pallas, train_resume, train_dp,
-                 train_z3):
+                 train_z3, xl_runs):
     main = xent_cases[0]             # the training shape, bf16
     out = []
     for name, line, err in (("fused_xent_fwd", 52, "lse"),
@@ -5723,7 +6254,8 @@ def xent_entries(xent_cases, train_pallas, train_resume, train_dp,
                 "train-pallas": train_pallas["fused_xent_launches"][name],
                 "train-resume": train_resume["launches"][name],
                 **dp_launches(train_dp, "fused_xent", name),
-                **z3_launches(train_z3, "fused_xent", name)},
+                **z3_launches(train_z3, "fused_xent", name),
+                **xl_launches(xl_runs, name)},
             "max_abs_err": main["max_abs_err"][err],
             "ms": k["kernel_ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
@@ -6154,6 +6686,14 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     mark("train-z3")
+    phase_offload_exact()
+    mark("offload-exact")
+    phase_infinity_exact()
+    mark("infinity-exact")
+    xl_runs = list(phase_train_offload_infinity().values())
+    mark("train-offload-infinity")
+    xl_runs.append(phase_train_infinity_nvme())
+    mark("train-infinity-nvme")
     bert_exact = phase_bert_sparse_exact()
     mark("bert-sparse-exact")
     train_bert, teng, data = phase_train_bert_sparse()
@@ -6214,9 +6754,9 @@ def main():
                                      "bound_by", "kernel_host_us")}
                   for c in cases]}] +
         flash_entries(flash_cases, train, train_resume, train_dp,
-                      train_z3) +
+                      train_z3, xl_runs) +
         xent_entries(xent_cases, train_pallas, train_resume, train_dp,
-                     train_z3) +
+                     train_z3, xl_runs) +
         codec_entries(codec, serve_qw, train_dp_qgz, train_moe_ep,
                       z3_exact, train_z3) +
         moe_entries(moe_cases, train_moe, overflow_case, train_dropless,

@@ -35,7 +35,13 @@ Ported so far:
 * ZeRO stage 3 (parameters sharded over the data ranks, gathered a
   block at a time on use, `runtime/zero/stage3.py`) with the int8/int4
   weight gather (qwZ), and `zero.Init`, `zero.GatheredParameters`,
-  `zero.TiledLinear` and `utils/zero_to_fp32.py`.
+  `zero.TiledLinear` and `utils/zero_to_fp32.py`;
+* ZeRO-Offload (fp32 masters and Adam moments on the host, updated by
+  the native CPU Adam, `runtime/zero/offload.py`, with the moments on
+  NVMe through the aio engine) and ZeRO-Infinity (GPT blocks streamed
+  from host RAM or NVMe, `runtime/zero/infinity.py`), over the host ops
+  of `ops/op_builder`, `ops/adam/cpu_adam.py` and `ops/aio` (C++ built
+  with g++ at first use).
 
 Entry points run on the card unless the caller passes `device="cpu"`.
 Importing the package builds no kernel and touches no CUDA state: a

@@ -26,6 +26,11 @@ block's `experts.{w1,b1,w2,b2}`, stacked on dim 0).
 checkpoint's module tree) to a rank's experts, rank `index` holding
 experts [index·El, (index+1)·El), the JAX NamedSharding of the expert
 dim.
+
+ZeRO-Infinity: `groups_from_jax` takes JAX's stream groups (`stream_groups`
+over a JAX params tree) to the port's, the nested dicts `GPT.stream_groups`
+makes, and `jax_ordered_leaves` lists a group's leaves in JAX's order, the
+order the streamed runtime keys its Adam state and checkpoint leaves by.
 """
 
 from __future__ import annotations
@@ -94,6 +99,28 @@ def jax_leaf_order(names) -> list:
 
     walk(tree)
     return out
+
+
+def jax_ordered_leaves(tree) -> list:
+    """[(dotted name, leaf)] of a nested tree in `jax.tree_util`'s leaf
+    order (dict keys sorted, list items in index order)."""
+    flat = flatten_tree(tree)
+    names = list(flat)
+    return [(names[i], flat[names[i]]) for i in jax_leaf_order(names)]
+
+
+def groups_from_jax(groups) -> list:
+    """JAX's stream groups (`GPT.stream_groups` of a JAX params tree, or
+    `stream_init`'s) -> the port's: the same names and nesting, each leaf
+    an fp32 CPU tensor (bf16 leaves are widened exactly)."""
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [conv(v) for v in node]
+        return _to_tensor(node).float()
+
+    return [(name, conv(tree)) for name, tree in groups]
 
 
 def opt_state_to_jax(names, state: Dict[str, Any]) -> Dict[str, Any]:

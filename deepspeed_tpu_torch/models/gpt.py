@@ -37,12 +37,22 @@ in place of `mlp`; its load-balancing loss, summed over the layers and
 weighted by `moe_aux_loss_weight`, is added to the training loss only.
 The serving programs
 (`serving/programs.py`) and `generation.py` read the parameters directly.
+
+ZeRO-Infinity's streaming protocol (gpt.py:621-725): `stream_supported`,
+`stream_init` (the groups drawn one at a time from an explicit
+generator, in `__init__`'s order), `stream_groups` / `assemble_groups`
+(the JAX tree's embed / block:i / head cover), `stream_embed`,
+`stream_block` and `stream_head_loss` (through
+`_softmax_xent_from_hidden` with the config's `loss_impl`), over nested
+dicts of tensors.  `GPT(cfg, device="meta")` builds the module without
+parameter memory, for a model streamed from the host.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import types
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -379,7 +389,7 @@ class GPT(nn.Module):
                 "ported yet (ROADMAP queue 1: pipeline; tensor and sequence "
                 "parallelism)")
         dev = resolve_device(device)
-        if generator is None:
+        if generator is None and dev.type != "meta":
             generator = torch.Generator(device=dev).manual_seed(0)
         self.config = cfg
         dt = cfg.param_dtype
@@ -491,3 +501,98 @@ class GPT(nn.Module):
     # the module's call is the training loss: the engine runs it through
     # torch.func.functional_call on the compute-dtype replica
     forward = loss
+
+    # -- ZeRO-Infinity streaming protocol (gpt.py:621-725) --------------
+    # runtime/zero/infinity.py trains a model larger than the card by
+    # holding one block's weights on it at a time: the model as embed ->
+    # blocks -> head stages over nested dicts of tensors (the JAX tree's
+    # groups), and a group-wise init.  A model built on the "meta" device
+    # holds no parameter memory at all.
+
+    def stream_supported(self) -> bool:
+        cfg = self.config
+        return (cfg.num_experts == 1 and cfg.pipeline_stages == 1
+                and cfg.dropout == 0.0 and cfg.embed_dropout == 0.0)
+
+    def stream_init(self, generator: torch.Generator):
+        """Yield (group name, nested dict of host fp32 tensors), drawn on
+        the generator's device one group at a time, in `GPT.__init__`'s
+        order: the same generator state gives the resident model's
+        weights."""
+        cfg = self.config
+        dev = generator.device
+        f32 = dataclasses.replace(cfg, param_dtype=torch.float32)
+
+        def host(module):
+            out = {}
+            for name, p in module.named_parameters():
+                node = out
+                *path, last = name.split(".")
+                for k in path:
+                    node = node.setdefault(k, {})
+                node[last] = p.detach().cpu()
+            return out
+
+        wte = _normal((cfg.vocab_size, cfg.d_model), 0.02, torch.float32,
+                      dev, generator).cpu()
+        wpe = _normal((cfg.max_seq_len, cfg.d_model), 0.01, torch.float32,
+                      dev, generator).cpu()
+        yield "embed", {"wte": wte, "wpe": wpe}
+        del wte, wpe
+        for i in range(cfg.num_layers):
+            yield f"block:{i}", host(Block(f32, dev, generator, i))
+        head = {"ln_f": host(Norm(cfg.d_model, torch.float32, dev))}
+        if not cfg.tie_embeddings:
+            head["lm_head"] = _normal((cfg.d_model, cfg.vocab_size), 0.02,
+                                      torch.float32, dev, generator).cpu()
+        yield "head", head
+
+    def stream_groups(self, params):
+        """Disjoint group cover of a nested params tree (the inverse of
+        assemble_groups)."""
+        groups = [("embed", {"wte": params["wte"], "wpe": params["wpe"]})]
+        for i, bp in enumerate(params["blocks"]):
+            groups.append((f"block:{i}", bp))
+        head = {"ln_f": params["ln_f"]}
+        if not self.config.tie_embeddings:
+            head["lm_head"] = params["lm_head"]
+        groups.append(("head", head))
+        return groups
+
+    def assemble_groups(self, groups: Dict[str, Any]):
+        params = {"wte": groups["embed"]["wte"],
+                  "wpe": groups["embed"]["wpe"],
+                  "blocks": [groups[f"block:{i}"]
+                             for i in range(self.config.num_layers)],
+                  "ln_f": groups["head"]["ln_f"]}
+        if not self.config.tie_embeddings:
+            params["lm_head"] = groups["head"]["lm_head"]
+        return params
+
+    def stream_embed(self, embed_p, tokens):
+        S = tokens.shape[1]
+        return embed_p["wte"][tokens] + embed_p["wpe"][:S][None, :, :]
+
+    def stream_block(self, block_p, x):
+        return gpt_block(x, _attrs(block_p), self.config)[0]
+
+    def stream_head_loss(self, head_p, wte_or_lm_head, x, labels, valid):
+        """ln_f + the projection CE (`loss_impl` selects the fused kernels
+        #4-#6).  `wte_or_lm_head`: the tied wte [V, D] or lm_head [D, V];
+        the caller takes the tied gradient."""
+        cfg = self.config
+        x = layer_norm(x, _attrs(head_p["ln_f"]), cfg.layer_norm_eps)
+        w = wte_or_lm_head.t() if cfg.tie_embeddings else wte_or_lm_head
+        B, S, D = x.shape
+        nll = _softmax_xent_from_hidden(
+            x.reshape(B * S, D), w, labels.reshape(-1), valid.reshape(-1),
+            cfg.loss_chunks, impl=cfg.loss_impl)
+        return nll / torch.clamp_min(valid.sum(), 1)
+
+
+def _attrs(tree):
+    """A nested dict as nested namespaces, the attribute access the block
+    functions read parameters with (`blk.attn.qkv.w`)."""
+    if isinstance(tree, dict):
+        return types.SimpleNamespace(**{k: _attrs(v) for k, v in tree.items()})
+    return tree

@@ -44,8 +44,14 @@ Pieces: the optimizer file is the v2 layout (`__dstpu_ckpt_v2__`,
 (`shard_marker`: its key, shape, dtype and piece count) and its pieces
 (`index` + `piece`) lie in the `zero_pp_rank_<r>` files, one a rank that
 owns a distinct piece (checkpointing.py:334-420); load puts the pieces
-back together into whole arrays, whatever world wrote them.  Tags with pipeline layer files or ZeRO-Infinity stream groups
-raise NotImplementedError naming their ROADMAP item.
+back together into whole arrays, whatever world wrote them.  Tags with
+pipeline layer files raise NotImplementedError naming their ROADMAP item.
+
+ZeRO-Infinity (checkpointing.py:424-490): a tag of NVMe-paged masters
+holds one `stream_group_<group>.msgpack` file a stream group, and its
+model and optimizer files hold string markers (`stream_marker`) in their
+place; `load_checkpoint_state` resolves them into arrays unless asked
+not to (a paged engine reads the group files one at a time).
 """
 
 from __future__ import annotations
@@ -751,6 +757,73 @@ def _load_rank_pieces(ckpt_dir: str, mp_rank: int) -> Dict[str, list]:
     return pieces
 
 
+# ---------------------------------------------------------------------------
+# ZeRO-Infinity stream-group files (checkpointing.py:424-490)
+# ---------------------------------------------------------------------------
+
+
+def stream_group_ckpt_name(ckpt_dir: str, group: str) -> str:
+    """A stream group's file (its masters, Adam moments and sink
+    entries): the unit of the streamed, RAM-bounded writer."""
+    safe = group.replace(":", "_").replace("/", "_")
+    return os.path.join(ckpt_dir, f"stream_group_{safe}.msgpack")
+
+
+def stream_marker(group: str, slot: str) -> str:
+    """A leaf standing in for streamed data: slot 'leaf:<j>' (the group's
+    master leaf j), 'optim:<key>' (the Adam moments of leaf <key>) or
+    'acc:<key>' (a mid-accumulation sink entry)."""
+    return f"{_STREAM_PREFIX}{group}|{slot}"
+
+
+def write_stream_group(ckpt_dir: str, group: str, payload) -> str:
+    path = stream_group_ckpt_name(ckpt_dir, group)
+    _atomic_write(path, lambda f: write_tree(f.write, payload))
+    return path
+
+
+def read_stream_group(ckpt_dir: str, group: str):
+    path = stream_group_ckpt_name(ckpt_dir, group)
+    if not os.path.isfile(path):
+        raise CheckpointIntegrityError(
+            f"checkpoint at {ckpt_dir} is incomplete: streamed group file "
+            f"not found: {path}")
+    return _read(path)
+
+
+def resolve_streamed(tree, ckpt_dir: str):
+    """Stream markers -> their data, reading the group files (one cached
+    at a time: markers come in group order).  A paged engine skips this
+    and walks the files itself (`InfinityRuntime.load_streamed`)."""
+    cache: Dict[str, Any] = {}
+
+    def lookup(marker: str):
+        group, slot = marker[len(_STREAM_PREFIX):].split("|", 1)
+        if group not in cache:
+            cache.clear()
+            cache[group] = read_stream_group(ckpt_dir, group)
+        payload = cache[group]
+        kind, _, idx = slot.partition(":")
+        if kind == "leaf":
+            return payload["leaves"][idx]
+        if kind == "optim":
+            return dict(payload["optim"][idx])
+        if kind == "acc":
+            return payload["acc"][idx]
+        raise ValueError(f"unknown stream marker slot {slot!r}")
+
+    def visit(node):
+        if isinstance(node, str) and node.startswith(_STREAM_PREFIX):
+            return lookup(node)
+        if isinstance(node, dict):
+            return {k: visit(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(visit(v) for v in node)
+        return node
+
+    return visit(tree)
+
+
 def has_stream_markers(tree) -> bool:
     if isinstance(tree, str):
         return tree.startswith(_STREAM_PREFIX)
@@ -762,13 +835,15 @@ def has_stream_markers(tree) -> bool:
 
 
 def load_checkpoint_state(load_dir: str, tag: Optional[str] = None,
-                          mp_rank: int = 0, dp_rank: int = 0):
+                          mp_rank: int = 0, dp_rank: int = 0,
+                          resolve_streams: bool = True):
     """Returns (ckpt_dir, model_state, optim_state_or_None).
 
     Raises FileNotFoundError when there is nothing to resume from,
     CheckpointIntegrityError when the requested tag exists but is
-    uncommitted or incomplete, and NotImplementedError for a pipeline or
-    ZeRO-Infinity tag."""
+    uncommitted or incomplete, and NotImplementedError for a pipeline
+    tag.  resolve_streams=False leaves ZeRO-Infinity stream markers in
+    place, for an engine that walks the group files itself."""
     flush_pending(load_dir)   # never race an in-flight save of the dir
     explicit = tag is not None
     if tag is None:
@@ -792,9 +867,6 @@ def load_checkpoint_state(load_dir: str, tag: Optional[str] = None,
     if glob.glob(os.path.join(ckpt_dir, "layer_*-model_states.msgpack")):
         _refuse(f"checkpoint tag {tag!r} holds pipeline layer files",
                 "pipeline")
-    if glob.glob(os.path.join(ckpt_dir, "stream_group_*.msgpack")):
-        _refuse(f"checkpoint tag {tag!r} holds ZeRO-Infinity stream groups",
-                "ZeRO-3, Offload and Infinity")
     path = model_ckpt_name(ckpt_dir, mp_rank)
     if not os.path.isfile(path):
         raise CheckpointIntegrityError(
@@ -816,7 +888,9 @@ def load_checkpoint_state(load_dir: str, tag: Optional[str] = None,
         if isinstance(optim_state, dict) and optim_state.get(_V2_MARKER):
             optim_state = _reassemble(optim_state.get("state"), pieces,
                                       tag=tag)
-    if has_stream_markers(model_state) or has_stream_markers(optim_state):
-        _refuse(f"checkpoint tag {tag!r} streams its state",
-                "ZeRO-3, Offload and Infinity")
+    if resolve_streams:
+        if has_stream_markers(model_state):
+            model_state = resolve_streamed(model_state, ckpt_dir)
+        if has_stream_markers(optim_state):
+            optim_state = resolve_streamed(optim_state, ckpt_dir)
     return ckpt_dir, model_state, optim_state

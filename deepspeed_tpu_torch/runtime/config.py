@@ -20,9 +20,11 @@ here, at config time, as in the JAX package.
 
 A section the port cannot honour yet raises `DeepSpeedConfigError` (or,
 for a valid `comm` selection, NotImplementedError) naming its ROADMAP
-item, rather than training without it: offload, a pipeline section, a mesh
-with a model, pipe or seq axis above 1, `comm.overlap`, progressive
-layer drop,
+item, rather than training without it: ZeRO-Offload or Infinity at
+more than one rank, `offload_optimizer` at stage 3 without
+`offload_param`, a pipeline section, a mesh with a model, pipe or seq
+axis above 1, `comm.overlap` (outside ZeRO-Infinity, where the engine
+warns, as JAX's does), progressive layer drop,
 AMP, TensorBoard, the wall-clock breakdown and
 `checkpoint.preempt_save_dir` (the preemption handler).  (1-bit and
 LAMB optimizers are refused by the engine's optimizer selection.)
@@ -96,13 +98,6 @@ def _refuse_unported(pd, zero_stage):
             f"{what} is not ported to deepspeed_tpu_torch yet (ROADMAP "
             f"queue 1: {item})")
 
-    zero = pd.get(c.ZERO_OPTIMIZATION)
-    if isinstance(zero, dict) and any(
-            zero.get(k) for k in (c.ZERO_OPTIMIZATION_CPU_OFFLOAD,
-                                  c.ZERO_OPTIMIZATION_CPU_OFFLOAD_PARAMS,
-                                  c.ZERO_OPTIMIZATION_OFFLOAD_PARAM,
-                                  c.ZERO_OPTIMIZATION_OFFLOAD_OPTIMIZER)):
-        refuse("ZeRO offload", "ZeRO-3, Offload and Infinity")
     if pd.get(c.PIPELINE):
         refuse("the pipeline section", "pipeline")
     mesh = pd.get(c.MESH) or {}
@@ -126,6 +121,44 @@ def _refuse_unported(pd, zero_stage):
             (c.TENSORBOARD, "TensorBoard", "the production runtime")):
         if get_scalar_param(pd.get(key) or {}, "enabled", False):
             refuse(what, item)
+
+
+def infinity_requested(zero_config) -> bool:
+    """ZeRO-Infinity: stage 3 with `offload_param` (engine.py:325-330;
+    the model must also carry the streaming protocol)."""
+    return zero_config.stage >= 3 and zero_config.offload_param is not None
+
+
+def offload_requested(zero_config) -> bool:
+    """ZeRO-Offload: `offload_optimizer` or the legacy `cpu_offload`
+    (engine.py:705)."""
+    return bool(zero_config.cpu_offload or
+                zero_config.offload_optimizer is not None)
+
+
+def _refuse_unported_offload(zero_config, world_size: int):
+    """The offload configurations the port cannot honour yet."""
+    def refuse(what, item):
+        raise DeepSpeedConfigError(
+            f"{what} is not ported to deepspeed_tpu_torch yet (ROADMAP "
+            f"queue 1: {item})")
+
+    infinity = infinity_requested(zero_config)
+    offload = offload_requested(zero_config)
+    if (infinity or offload) and world_size > 1:
+        refuse(f"ZeRO-{'Infinity' if infinity else 'Offload'} at "
+               f"{world_size} ranks", "Offload and Infinity across ranks")
+    if offload and zero_config.stage >= 3 and not infinity:
+        refuse("offload_optimizer at ZeRO stage 3 without offload_param",
+               "offload_optimizer with stage-3 slices")
+    if zero_config.offload_param is not None and zero_config.stage < 3:
+        from ..utils.logging import logger
+
+        # the JAX engine engages offload_param at stage 3 only, and
+        # ignores it below (engine.py:325-330)
+        logger.warning(f"zero_optimization.offload_param at ZeRO stage "
+                       f"{zero_config.stage} has no effect: parameters "
+                       f"stream from the host only at stage 3")
 
 
 def parse_comm_hierarchy(value):
@@ -307,7 +340,8 @@ class DeepSpeedCommConfig(DeepSpeedConfigObject):
         # raises; NotImplementedError for a valid selection not ported yet
         self.moe = parse_moe_config(d.get(c.COMM_MOE),
                                     default_block=self.quant_block_size)
-        if self.overlap != "none":
+        # under ZeRO-Infinity the engine warns instead (engine.py:363)
+        if self.overlap != "none" and not infinity_requested(zero_config):
             raise NotImplementedError(
                 f"comm.overlap={self.overlap!r}: the overlapped gradient "
                 f"wire is not ported to deepspeed_tpu_torch yet (ROADMAP "
@@ -415,6 +449,7 @@ class DeepSpeedConfig(DeepSpeedConfigObject):
         from .zero.config import DeepSpeedZeroConfig
 
         self.zero_config = DeepSpeedZeroConfig(pd)
+        _refuse_unported_offload(self.zero_config, self.world_size)
         mesh_data = int((pd.get(c.MESH) or {}).get("data", -1))
         if mesh_data not in (-1, self.world_size):
             raise DeepSpeedConfigError(

@@ -81,10 +81,34 @@ tag holds the module's sharded leaves as `model:` pieces, and
 `params`, `module_state_dict` and a save gather them (collectives:
 every rank calls them).
 
-What the port refuses (config.py raises): offload, pipelines, model / pipe / seq axes above 1, `comm.overlap`, progressive
-layer drop, AMP, TensorBoard, the preemption handler; LAMB, 1-bit and
-optax optimizers raise here.  Entry points run on the card unless
-`device="cpu"` is passed.
+ZeRO-Offload (`zero_optimization.offload_optimizer`, or the legacy
+`cpu_offload`, at stages 0-2; engine.py:701-717, 2238-2277): the fp32
+masters and the Adam moments live on the host (`zero/offload.py`), the
+module's parameters are the compute-dtype weights, their fp32 gradients
+accumulate on the device, and step() runs the host step: the gradients
+to pinned host buffers, the native Adam, the new weights back.  A tag
+holds the host masters and the host Adam's state (`"offload": true`).
+`store_gradients` stashes the unscaled gradients before the clip, as
+JAX's offload path does.
+
+ZeRO-Infinity (stage 3 with `offload_param`, a model with the streaming
+protocol; engine.py:325-412, 1832-1851): the engine keeps no parameter
+tree on the device (the module's parameters move to the "meta" device
+once their values are on the host); `zero/infinity.py` streams each
+micro step's blocks and runs the host update at the accumulation
+boundary.  With NVMe-paged masters a tag is `stream_group_*.msgpack`
+files under stream markers, which any engine resolves on load.  The
+Adam moments cross only between engines that keep them on the host (a
+host tag into a device engine, or the reverse, loads the masters and
+restarts the moments, as in JAX).
+
+What the port refuses (config.py raises): offload and Infinity at more
+than one rank, `offload_optimizer` at stage 3 without `offload_param`,
+pipelines, model / pipe / seq axes above 1, `comm.overlap` (outside
+Infinity, which warns), progressive layer drop, AMP, TensorBoard, the
+preemption handler; LAMB, 1-bit and optax optimizers, and Infinity for
+a MoE, pipeline or dropout model, raise here.  Entry points run on the
+card unless `device="cpu"` is passed.
 """
 
 from __future__ import annotations
@@ -300,6 +324,15 @@ class DeepSpeedEngine:
         # device sync (engine.py:211 seeds its PRNG key the same way)
         self._generator = torch.Generator().manual_seed(
             int(os.environ.get("DSTPU_SEED", 42)))
+        self._store_gradients = False
+        self.stored_gradients = None
+        self._offload = None
+        # ZeRO-Infinity: stage 3 + offload_param streams the parameters
+        # from the host; no parameter tree is ever resident on the device
+        self._infinity = self._configure_infinity(model, model_parameters)
+        if self._infinity is not None:
+            self._finish_infinity_init(lr_scheduler, training_data)
+            return
 
         check_same_device("model", next(model.parameters()).device,
                           self.device)
@@ -341,7 +374,11 @@ class DeepSpeedEngine:
                         if self.zero_plan.gathered else None)
 
         self.optimizer = self._configure_optimizer()
-        self._opt_state = self.optimizer.init(self._owned_masters())
+        # ZeRO-Offload: the fp32 masters and the optimizer state move to
+        # the host; the device keeps the compute-dtype weights only
+        self._offload = self._configure_offload()
+        self._opt_state = (None if self._offload is not None else
+                           self.optimizer.init(self._owned_masters()))
         self._scaler_state = self.loss_scaler.jit_state(self.device)
         self._grad_acc = None   # fp32 gradients accumulated over micro steps
         self._cached = None     # loss from forward awaiting backward
@@ -402,6 +439,122 @@ class DeepSpeedEngine:
                 f"yet (ROADMAP queue 1: the production runtime); use Adam")
         raise ValueError(f"unknown optimizer {name!r}; supported: "
                          f"{const.DEEPSPEED_OPTIMIZERS}")
+
+    def _optimizer_hparams(self):
+        """(the Adam hyperparameters of the config, adam_w_mode) for the
+        host Adam (engine.py:331-332)."""
+        hparams = dict(self._config.optimizer_params or {})
+        return hparams, bool(hparams.pop(const.ADAM_W_MODE, True))
+
+    def _configure_offload(self):
+        """ZeRO-Offload (engine.py:701-717): the host runtime over the
+        masters in the JAX leaf order, the module's parameters cast to the
+        compute dtype in place."""
+        zc = self._config.zero_config
+        from .config import offload_requested
+
+        if not offload_requested(zc):
+            return None
+        from .zero.offload import CPUOffloadRuntime
+
+        nvme = None
+        if zc.offload_optimizer is not None and \
+                zc.offload_optimizer.device == "nvme":
+            nvme = zc.offload_optimizer.nvme_path
+        hparams, adam_w = self._optimizer_hparams()
+        rt = CPUOffloadRuntime(
+            [self._masters[i].detach() for i in self._jax_order], hparams,
+            adam_w_mode=adam_w, nvme_path=nvme,
+            param_dtype=self.compute_dtype, device=self.device)
+        with torch.no_grad():
+            for p in self._masters:
+                p.data = p.data.to(self.compute_dtype)
+        return rt
+
+    def _configure_infinity(self, model, model_parameters):
+        """ZeRO-Infinity (engine.py:325-348) for a model with the
+        streaming protocol: the host masters come from `model_parameters`
+        (a JAX-shaped params tree), else from the module's parameters
+        when they hold values (they are then moved to the "meta" device),
+        else from `model.stream_init` drawn on the engine's device, one
+        group at a time."""
+        from .config import infinity_requested
+
+        zc = self._config.zero_config
+        if not infinity_requested(zc):
+            return None
+        if not hasattr(model, "stream_init"):
+            log_dist("zero_optimization.offload_param requested but "
+                     f"{type(model).__name__} has no streaming protocol "
+                     "(stream_init): ZeRO-3 keeps its parameters on the "
+                     "device", ranks=[0])
+            return None
+        if not model.stream_supported():
+            raise NotImplementedError(
+                "ZeRO-Infinity streams dense dropout-free models only (no "
+                "MoE, pipeline or dropout, as in the JAX package): not "
+                "ported to deepspeed_tpu_torch yet (ROADMAP queue 1: "
+                "streamed MoE, pipeline and dropout models)")
+        from ..models.convert import unflatten_tree as unflatten
+        from .zero.infinity import InfinityRuntime
+
+        on_nvme = zc.offload_param.device == "nvme"
+        opt = zc.offload_optimizer
+        opt_nvme = opt is not None and opt.device == "nvme"
+        nvme = (zc.offload_param.nvme_path if on_nvme
+                else opt.nvme_path if opt_nvme else None)
+        resident = any(p.device.type != "meta" for p in model.parameters())
+        if model_parameters is not None:
+            groups = model.stream_groups(model_parameters)
+        elif resident:
+            groups = model.stream_groups(unflatten(
+                {n: p.detach() for n, p in model.named_parameters()}))
+        else:
+            groups = model.stream_init(torch.Generator(
+                device=self.device).manual_seed(
+                    int(os.environ.get("DSTPU_SEED", 42))))
+        hparams, adam_w = self._optimizer_hparams()
+        rt = InfinityRuntime(model, groups, hparams, adam_w_mode=adam_w,
+                             compute_dtype=self.compute_dtype,
+                             device=self.device, nvme_path=nvme,
+                             params_on_nvme=on_nvme)
+        if resident:
+            model.to(torch.device("meta"))
+        return rt
+
+    def _finish_infinity_init(self, lr_scheduler, training_data):
+        """The engine state of the streamed path (engine.py:350-412): no
+        device parameter tree, no zero plan, no step functions."""
+        self.zero_plan = self.bucket_plan = self._owner_exchange = None
+        self._qwz_gather = self._stage3 = None
+        self._param_names, self._masters = (), ()
+        self._jax_order = []
+        mode = self._config.comm_config.overlap
+        if mode != "none":
+            msg = ("comm.overlap requested but ZeRO-Infinity streams "
+                   "parameters and gradients host-side; the serial "
+                   "streamed path stays in charge")
+            if mode == "on":
+                logger.warning(msg)
+            else:
+                log_dist(msg, ranks=[0])
+        self.optimizer = self._configure_optimizer()   # the lr's holder
+        self._opt_state = None
+        self._scaler_state = self.loss_scaler.jit_state(self.device)
+        self._grad_acc = None
+        self._cached = None
+        self.lr_scheduler = self._configure_lr_scheduler(lr_scheduler)
+        self.training_dataloader = (self.deepspeed_io(training_data)
+                                    if training_data is not None else None)
+        self._device_feed = None
+        self._user_device_feed = None
+        self._rng_key = None
+        self._snapshot_event = None
+        self._ckpt_stream = None
+        self.training = True
+        self._step_fns = {}
+        self._pending_overflow = None
+        self._pending_full = None
 
     def _keep_slices(self, model):
         """Each rank keeps only its slice of a leaf it holds sliced (its
@@ -584,6 +737,12 @@ class DeepSpeedEngine:
         stage 3 every sharded leaf gathered whole in fp32 (collectives:
         every rank calls this).  `gather_sliced` False leaves the stage-3
         leaves as this rank's slices."""
+        if self._offload is not None:
+            full = [None] * len(self._masters)
+            for k, i in enumerate(self._jax_order):
+                full[i] = torch.from_numpy(self._offload.masters[k]).view(
+                    self._offload.shapes[k])
+            return full
         plan = self.zero_plan
         full = list(self._masters)
         idx = plan.gathered
@@ -663,9 +822,11 @@ class DeepSpeedEngine:
 
     def _forward(self, batch, generator=None):
         """`forward` on this rank's rows."""
+        if self._infinity is not None:
+            return self._infinity_forward(batch)
         batch = _place(batch, self.device)
         gen = generator if generator is not None else self._generator
-        if self.gradient_accumulation_steps() == 1:
+        if self.gradient_accumulation_steps() == 1 and self._offload is None:
             self._resolve_pending_overflow()
             (loss, overflow, grad_norm, self._opt_state,
              new_scaler) = self._step_fns["full"](batch, gen,
@@ -675,6 +836,23 @@ class DeepSpeedEngine:
             self._pending_full = (new_scaler, overflow, grad_norm)
         else:
             loss = self._step_fns["micro"](batch, gen)
+        self._cached = loss
+        return loss
+
+    def _infinity_forward(self, batch):
+        """A streamed micro step (engine.py:1832-1851); the host update
+        runs at the accumulation boundary over the summed fp32 gradients,
+        and step() does the bookkeeping through `_pending_full`."""
+        gas = self.gradient_accumulation_steps()
+        if self.micro_steps % gas == 0:
+            self._resolve_pending_overflow()   # settle the previous step
+        loss = self._infinity.micro_step(batch)
+        if self.micro_steps % gas == gas - 1:
+            overflow = self._infinity.apply_accumulated(
+                lr=self._current_lr(),
+                clip=float(self._config.gradient_clipping or 0.0))
+            self._pending_full = (self._scaler_state, bool(overflow),
+                                  torch.zeros((), device=self.device))
         self._cached = loss
         return loss
 
@@ -697,10 +875,70 @@ class DeepSpeedEngine:
         if self.micro_steps == 0 or \
                 not self.is_gradient_accumulation_boundary():
             return
-        if self._pending_full is not None:
+        if self._offload is not None:
+            self._offload_step()
+        elif self._pending_full is not None:
             self._fused_step_bookkeeping()
         else:
             self._boundary_step()
+
+    def _offload_step(self):
+        """The host step (engine.py:2238-2277): gradients to the host,
+        the native Adam on the fp32 masters, the new weights to the
+        device; loss-scale bookkeeping as on the device path."""
+        denom = float(self._scaler_state["cur_scale"]) * \
+            self.gradient_accumulation_steps()
+        if self._config.prescale_gradients:
+            denom /= float(self._config.gradient_predivide_factor or 1.0)
+        order = self._jax_order
+        grads = [self._grad_acc[i] for i in order]
+        _, overflow, norm = self._offload.step(
+            grads, denom, self._current_lr(),
+            clip=float(self._config.gradient_clipping or 0.0),
+            out=[self._masters[i] for i in order])
+        if self._store_gradients:
+            # the host path stashes the unscaled gradients BEFORE the clip
+            # (the native step clips inside: JAX's documented divergence
+            # from the device path's post-clip stash), zeros on overflow
+            self.stored_gradients = {
+                self._param_names[i]: (
+                    np.zeros(tuple(g.shape), np.float32) if overflow else
+                    (g.float() / denom).cpu().numpy())
+                for i, g in zip(order, grads)}
+        self._scaler_state = self.loss_scaler.jit_update(
+            self._scaler_state, torch.tensor(overflow, device=self.device))
+        self._grad_norm = norm
+        self._grad_acc = None
+        self.global_steps += 1
+        if overflow:
+            self._skipped_steps += 1
+            log_dist(f"offload step overflow: skipping, new loss scale "
+                     f"{float(self._scaler_state['cur_scale'])}", ranks=[0])
+        elif self.lr_scheduler is not None:
+            self.lr_scheduler.step()
+
+    @property
+    def store_gradients(self) -> bool:
+        """When True, each optimizer step of the offload path stashes the
+        unscaled gradients, before the clip, in `stored_gradients`
+        ({name: host fp32 array}; zeros on a skipped step)."""
+        return self._store_gradients
+
+    @store_gradients.setter
+    def store_gradients(self, value):
+        value = bool(value)
+        if value and self._infinity is not None:
+            raise NotImplementedError(
+                "gradient stashing is unavailable under ZeRO-Infinity "
+                "streaming (per-block grads are consumed as they stream)")
+        if value and self._offload is None:
+            raise NotImplementedError(
+                "gradient stashing on the device step paths is not ported "
+                "to deepspeed_tpu_torch yet (ROADMAP queue 1: the "
+                "production runtime); the offload path stashes")
+        self._store_gradients = value
+        if not value:
+            self.stored_gradients = None
 
     def _boundary_step(self):
         """The micro/apply boundary: apply the accumulated gradients."""
@@ -866,6 +1104,8 @@ class DeepSpeedEngine:
     def eval_batch(self, batch, generator=None):
         """Loss without gradients or bookkeeping (engine.py:2509): the
         global micro batch's, the mean over the data ranks."""
+        if self._infinity is not None:
+            return self._infinity.eval_loss(batch)
         args = (_place(self._local_rows(batch), self.device),)
         kwargs = {"generator": generator, "train": False,
                   **self._model_kwargs()}
@@ -892,8 +1132,12 @@ class DeepSpeedEngine:
     def params(self):
         """{name: fp32 master tensor} (the module's parameters); at ZeRO
         stage 3 whole fp32 copies of the sharded leaves, gathered (a
-        collective: every rank reads it)."""
-        if self._stage3 is not None:
+        collective: every rank reads it).  Under Offload and Infinity the
+        host fp32 masters (views under Offload, copies under Infinity)."""
+        if self._infinity is not None:
+            return {n: torch.from_numpy(a) for n, a in
+                    flatten_tree(self._infinity.masters_tree()).items()}
+        if self._stage3 is not None or self._offload is not None:
             return dict(zip(self._param_names, self._full_masters()))
         return dict(zip(self._param_names, self._masters))
 
@@ -1021,23 +1265,35 @@ class DeepSpeedEngine:
         return self._config.zero_config.param_persistence_threshold
 
     def zero_cpu_offload(self):
-        return False
+        return self._config.zero_config.cpu_offload
 
     def zero_allow_untested_optimizer(self):
         return self._config.zero_allow_untested_optimizer
 
     def module_state_dict(self):
         """{name: fp32 numpy copy} of the module weights (the exact
-        masters: a collective under ZeRO >= 1 in bf16/fp16)."""
+        masters: a collective under ZeRO >= 1 in bf16/fp16; the host
+        masters under Offload and Infinity)."""
+        if self._infinity is not None:
+            return {n: t.numpy() for n, t in self.params.items()}
         return {n: p.detach().cpu().numpy().copy()
                 for n, p in zip(self._param_names, self._full_masters())}
 
     def load_module_state_dict(self, state_dict, strict=True):
-        """Replace the weights from {name: array}; strict: the same names."""
-        if strict and set(state_dict) != set(self._param_names):
+        """Replace the weights from {name: array}; strict: the same names.
+        Under Offload and Infinity the host masters take the values."""
+        host = self._infinity is not None or self._offload is not None
+        names = set(self.params) if host else set(self._param_names)
+        if strict and set(state_dict) != names:
             raise ValueError(
                 f"state_dict keys {sorted(state_dict)} do not match the "
-                f"module's {sorted(self._param_names)}")
+                f"module's {sorted(names)}")
+        if host:
+            full = {n: t.numpy() for n, t in self.params.items()}
+            full.update(state_dict)
+            self._install_module_weights(unflatten_tree(
+                {n: np.array(v) for n, v in full.items()}))
+            return
         self._wait_snapshot()
         with torch.no_grad():
             for n, p, lp in zip(self._param_names, self._masters,
@@ -1069,7 +1325,8 @@ class DeepSpeedEngine:
         meta = {
             "world_size": dist.get_world_size(),
             "mp_world_size": self.mp_world_size,
-            **self.zero_plan.partition_layout(),
+            **(self.zero_plan.partition_layout()
+               if self.zero_plan is not None else {}),
             "global_steps": self.global_steps,
         }
         cursor_fn = getattr(self.training_dataloader, "sample_cursor", None)
@@ -1146,7 +1403,19 @@ class DeepSpeedEngine:
         if tag is None:
             tag = f"global_step{self.global_steps}"
         self._checkpoint_tag_validation(tag)
-        module, model_pieces = self._module_pieces()
+        inf = self._infinity
+        inf_sd = None
+        if inf is not None:
+            model_pieces = {}
+            if inf.pager is not None:
+                # NVMe-paged masters: group files written from the pages,
+                # never the whole fp32 set in RAM (engine.py:3036-3041)
+                module, inf_sd = inf.save_streamed(
+                    os.path.join(save_dir, str(tag)))
+            else:
+                module = inf.masters_tree()
+        else:
+            module, model_pieces = self._module_pieces()
         model_state = {
             "module": module,
             "lr_scheduler": (self.lr_scheduler.state_dict()
@@ -1156,11 +1425,17 @@ class DeepSpeedEngine:
             TORCH_RNG_STATE: self._generator.get_state(),
             **self._client_state(client_state),
         }
-        opt_tree, pieces = self._opt_state_pieces()
+        if inf is not None:
+            opt_tree, pieces = inf_sd or inf.state_dict(), {}
+        elif self._offload is not None:
+            # the host masters and the host Adam's state (engine.py:3042)
+            opt_tree, pieces = self._offload.state_dict(), {}
+        else:
+            opt_tree, pieces = self._opt_state_pieces()
         pieces.update(model_pieces)
         optim_state = {
             "optimizer_state": opt_tree,
-            "offload": False,
+            "offload": self._offload is not None or inf is not None,
             # json round trip: msgpack takes no tuples (betas)
             "optimizer_hparams": (json.loads(json.dumps(
                 self.optimizer.state_dict()))
@@ -1269,6 +1544,9 @@ class DeepSpeedEngine:
         its slice of each stage-3 leaf); a missing, extra or misshapen
         leaf raises before any write."""
         self._wait_snapshot()
+        if self._infinity is not None:
+            self._infinity.load_masters_tree(tree)
+            return
         plan = self.zero_plan
         if plan.expert_local:
             lp = next(lp for lp in plan.leaves if lp.local)
@@ -1287,6 +1565,11 @@ class DeepSpeedEngine:
                                   else np.asarray(v)[tuple(cut)])
             tree = unflatten_tree(flat)
         load_jax_params(self.module, tree)
+        if self._offload is not None:
+            # the fp32 masters unrounded; the device weights were cast
+            flat = flatten_tree(tree)
+            self._offload.load_masters(
+                [flat[self._param_names[i]] for i in self._jax_order])
 
     def load_checkpoint(self, load_dir, tag=None, load_module_strict=True,
                         load_optimizer_states=True,
@@ -1295,29 +1578,52 @@ class DeepSpeedEngine:
         returns (tag dir, client state), or (None, {}) when there is
         nothing to resume from.  An uncommitted or incomplete tag raises
         CheckpointIntegrityError."""
+        inf = self._infinity
+        # a paged Infinity engine walks the stream-group files one at a
+        # time; every other engine gets the markers resolved
+        paged = inf is not None and inf.pager is not None
         try:
             ckpt_dir, model_state, optim_state = \
-                ckpt_io.load_checkpoint_state(load_dir, tag)
+                ckpt_io.load_checkpoint_state(load_dir, tag,
+                                              resolve_streams=not paged)
         except FileNotFoundError as e:
             logger.warning(f"load_checkpoint: {e}")
             return None, {}
-        if optim_state is not None and optim_state.get("offload"):
-            raise NotImplementedError(
-                "an offload checkpoint: not ported to deepspeed_tpu_torch "
-                "yet (ROADMAP queue 1: ZeRO-3, Offload and Infinity)")
         marker = ckpt_io.read_tag_meta(load_dir, os.path.basename(ckpt_dir))
-        change = describe_reshard((marker or {}).get("meta"),
-                                  self.zero_plan.partition_layout())
-        if change:
-            log_dist(change, ranks=[0])
+        if self.zero_plan is not None:
+            change = describe_reshard((marker or {}).get("meta"),
+                                      self.zero_plan.partition_layout())
+            if change:
+                log_dist(change, ranks=[0])
         self._restore_sample_cursor(marker)
-        # load_module_strict is accepted and, as in the JAX engine, the
-        # module tree must match
-        self._install_module_weights(model_state["module"])
-        if load_optimizer_states and optim_state is not None:
-            restored = self._partition_opt_state(opt_state_from_jax(
-                self._param_names, optim_state["optimizer_state"]))
-            self._opt_state = _match_state(restored, self._opt_state)
+        host_tag = optim_state is not None and bool(optim_state.get("offload"))
+        load_opt = load_optimizer_states and optim_state is not None
+        host_engine = inf is not None or self._offload is not None
+        if load_opt and host_tag != host_engine:
+            # as in the JAX engine, the moments cross only between engines
+            # that keep them on the host
+            log_dist("load_checkpoint: the tag's optimizer state "
+                     f"({'host' if host_tag else 'device'}) does not match "
+                     f"this engine's ({'host' if host_engine else 'device'}"
+                     "); the masters load, the Adam moments restart",
+                     ranks=[0])
+            load_opt = False
+        if paged and ckpt_io.has_stream_markers(model_state["module"]):
+            inf.load_streamed(ckpt_dir, optim_state["optimizer_state"]
+                              if load_opt else None)
+        else:
+            # load_module_strict is accepted and, as in the JAX engine,
+            # the module tree must match
+            self._install_module_weights(model_state["module"])
+            if load_opt and inf is not None:
+                inf.load_state_dict(optim_state["optimizer_state"])
+            elif load_opt and self._offload is not None:
+                self._offload.load_state_dict(optim_state["optimizer_state"])
+            elif load_opt:
+                restored = self._partition_opt_state(opt_state_from_jax(
+                    self._param_names, optim_state["optimizer_state"]))
+                self._opt_state = _match_state(restored, self._opt_state)
+        if load_opt:
             hparams = optim_state.get("optimizer_hparams")
             if hparams is not None and hasattr(self.optimizer,
                                                "load_state_dict"):

@@ -20,7 +20,11 @@ path :267-310, `apply_core` :319-359, `micro_step` / `full_step`
 The replica is each master cast with `.to(compute_dtype)`, and the module
 runs on it through `torch.func.functional_call`; autograd through the
 casts returns fp32 gradients on the masters — what `cast(grads, fp32)`
-(:267) does.  JAX composes these into jitted programs; PyTorch runs them
+(:267) does.  Under ZeRO-Offload (`engine._offload`) the module's
+parameters are the compute-dtype weights themselves (the fp32 masters
+live on the host): their gradients are cast to fp32, accumulated over
+the micro steps, and the engine's host step (`runtime/zero/offload.py`)
+replaces `apply`.  JAX composes these into jitted programs; PyTorch runs them
 eagerly, so the stages are closures over the engine that read and write
 its state (the masters are updated in place).
 
@@ -196,8 +200,12 @@ class StepBuilder:
                       else contextlib.nullcontext()):
                     grads = torch.autograd.grad(scaled, masters,
                                                 allow_unused=True)
-            grads = [torch.zeros_like(p) if g is None else g
-                     for g, p in zip(grads, masters)]
+            # fp32 gradients: already so through the casts of the fp32
+            # masters; under offload the weights are the compute-dtype
+            # tensors, whose gradients are cast here (JAX's
+            # `cast(grads, fp32)`, step_builder.py:267)
+            grads = [torch.zeros_like(p, dtype=torch.float32) if g is None
+                     else g.float() for g, p in zip(grads, masters)]
             loss = loss.detach()
             if dp_on:
                 grads = (reduce_bucketed(grads) if wire is not None

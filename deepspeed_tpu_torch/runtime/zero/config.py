@@ -7,8 +7,10 @@ Stages resolve to per-leaf partitions over the data ranks
 also reduce-scatters the gradients to their owners, stage 3 also stores
 only a rank's slice of each parameter and gathers it on use
 (zero/stage3.py), through the int8/int4 wire with `quantized_weights`
-(qwZ).  The runtime config (runtime/config.py) refuses offload, which
-is not ported.
+(qwZ).  `offload_optimizer` (or the legacy `cpu_offload`) at stages 0-2
+selects ZeRO-Offload (zero/offload.py), `offload_param` at stage 3
+ZeRO-Infinity (zero/infinity.py); runtime/config.py refuses both at more
+than one rank.
 """
 
 from ..config_utils import DeepSpeedConfigObject, get_scalar_param

@@ -481,9 +481,23 @@ def test_nothing_to_resume_from_and_refused_tags(tmp_path):
     assert eng.global_steps == 0
     eng.train_batch()
     eng.save_checkpoint(str(tmp_path), tag="S")
+    # ZeRO-Infinity stream groups load now: a stray group file beside a
+    # tag without stream markers is not read ...
     open(tmp_path / "S" / "stream_group_g0.msgpack", "wb").close()
-    with pytest.raises(NotImplementedError, match="Infinity"):
-        eng.load_checkpoint(str(tmp_path), tag="S")
+    assert eng.load_checkpoint(str(tmp_path), tag="S")[0] is not None
+    # ... and a streamed tag missing a group file is incomplete
+    inf, *_ = dt.initialize(
+        model=GPT(gpt2_config("nano", num_layers=1, vocab_size=64,
+                              max_seq_len=16), device="cpu"),
+        config_params=_cfg(zero_optimization={
+            "stage": 3, "offload_param": {
+                "device": "nvme", "nvme_path": str(tmp_path / "nvme")}}),
+        device="cpu")
+    inf.save_checkpoint(str(tmp_path), tag="T")
+    os.remove(tmp_path / "T" / "stream_group_block_0.msgpack")
+    with pytest.raises(ck.CheckpointIntegrityError,
+                       match="stream_group_block_0"):
+        eng.load_checkpoint(str(tmp_path), tag="T")
 
 
 def test_tag_validation_and_checkpoint_config():

@@ -1,5 +1,6 @@
 """Boundaries of the PyTorch port: `deepspeed_tpu_torch`,
-`chip_smoke.py`, `chip_ab.py` and `chip_profile_moe.py` load neither
+`chip_smoke.py`, `chip_ab.py`, `chip_profile_moe.py` and
+`chip_dq_processes.py` load neither
 JAX, flax nor the JAX package, and the entry points run on the card
 unless the CPU is asked for."""
 
@@ -31,6 +32,7 @@ def _python_files():
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "chip_ab.py")
     yield os.path.join(REPO, "chip_profile_moe.py")
+    yield os.path.join(REPO, "chip_dq_processes.py")
 
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():
