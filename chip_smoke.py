@@ -155,6 +155,31 @@ any failure raises and the script exits nonzero:
    launches (leaves x forwards) counted from zero; tokens/s, TTFT, decode
    step, resident weight bytes; the traffic replayed under
    `torch.profiler` (idle share, #12's device time a forward).
+8c. the fleet and the chaos lane.  fleet-exact: phase 6's nano model
+   (fp32, TF32 off), two replicas from build_fleet behind
+   FleetRouter.start() (a ServeWorker thread each), its four prompts and
+   two two-turn sessions submitted from the main thread; every greedy
+   stream equals generate(), a session's second turn lands on its first
+   turn's replica and prefills only its new tokens, the paged launches
+   (all from the two worker threads) are layers x (chunks + decode
+   steps); run with both workers on the default stream, then with a
+   stream each.  serve-fleet: phase 7's GPT-2 XL, two replicas sharing
+   the model (phase 7's ServeConfig each), phase 7's 8 prompts and 4
+   two-turn sessions submitted while the workers run, a TraceRecorder
+   and a ServingSLO on each replica: every request finishes in the
+   vocabulary, launches exact over both replicas, sessions stay home,
+   each SLO's nearest-rank TTFT p50 / p99 equal its requests', the
+   traces' decode_step and first_token counts equal the counters';
+   tokens/s, TTFT p50 / p99, the decode span, peak memory and the pools'
+   bytes, the idle share of a short profiled burst; a burst at
+   queue_limit 2 (spills and sheds); then the same with a CUDA stream a
+   replica, with both replicas stepped in turn on the main thread, and
+   through one replica.
+   serve-chaos: one XL replica (max_batch 2) on a ServeWorker, a
+   FaultPlan hanging the third decode call 1.5 s, a 0.5 s StepWatchdog
+   whose on_trip sheds: one trip, the wedged batch shed with its blocks
+   evicted, the waiting requests' tokens equal to each served alone, the
+   trip file and snapshot (trace tail, the serving thread group).
 9. train-exact: GPT-2 small width (d768, 12 heads), 2 layers, seq 256,
    fp32, TF32 off: 5 engine steps through the flash kernels, then the
    same steps from the same weights on the dense plain attention path;
@@ -3192,6 +3217,603 @@ def phase_serve_qw(model, serve, flush):
     rec["codec_tree"] = codec_tree_times(leaves, eng.model)
     emit({"phase": "serve-qw-codec-tree", **rec["codec_tree"]})
     del eng
+    torch.cuda.empty_cache()
+    return rec
+
+
+# -- phase 8c: the fleet (replicas behind the router, worker threads,
+#    tracing and SLO windows) and the chaos lane ----------------------------
+
+
+class LaunchThreads:
+    """While open, counts the paged kernel's launches by the thread that
+    made them (the registry looks `paged.paged_attention_cuda` up at each
+    call, so the wrapper sees every launch of the serving path)."""
+
+    def __enter__(self):
+        import threading
+
+        from deepspeed_tpu_torch.kernels import paged
+
+        self._paged, self._real = paged, paged.paged_attention_cuda
+        self.by_thread, lock, real = {}, threading.Lock(), self._real
+        main = threading.main_thread().ident
+
+        def counted(*a, **kw):
+            out = real(*a, **kw)
+            key = ("main" if threading.get_ident() == main
+                   else threading.get_ident())
+            with lock:
+                self.by_thread[key] = self.by_thread.get(key, 0) + 1
+            return out
+
+        paged.paged_attention_cuda = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._paged.paged_attention_cuda = self._real
+        return False
+
+    def check(self, workers, what):
+        """Every launch came from `workers` distinct non-main threads (0:
+        from the main thread alone)."""
+        want = (len(self.by_thread) == workers and "main" not in
+                self.by_thread) if workers else set(self.by_thread) == {
+                    "main"}
+        if not want:
+            raise AssertionError(f"{what}: paged launches by thread "
+                                 f"{self.by_thread}, expected {workers} "
+                                 f"worker threads (0: the main one alone)")
+        return sorted(self.by_thread.values())
+
+
+def wait_done(reqs, what, timeout=600.0):
+    t0 = time.monotonic()
+    while not all(r.done for r in reqs):
+        if time.monotonic() - t0 > timeout:
+            raise AssertionError(f"{what}: requests not done after "
+                                 f"{timeout} s: {[r.state for r in reqs]}")
+        time.sleep(0.001)
+
+
+def fleet_traffic(router, prompts, n_new, sessions, n_turn, what,
+                  wait=lambda: time.sleep(0.001)):
+    """Submit `prompts` and each session's first turn at once from this
+    thread, each session's second turn (its first turn's prompt and output
+    and its fresh tokens) the moment the first finishes; `wait()` between
+    polls (a sleep while workers step the replicas, or `router.step_all`
+    to step them on this thread).  -> (requests, first turns, second
+    turns)."""
+    reqs = [router.submit(p, n_new) for p in prompts]
+    firsts = [router.submit(p, n_turn, session_id=f"s{i}")
+              for i, (p, _) in enumerate(sessions)]
+    seconds = [None] * len(sessions)
+    t0 = time.monotonic()
+    while True:
+        for i, f in enumerate(firsts):
+            if seconds[i] is None and f.done:
+                seconds[i] = router.submit(f.prompt + f.out + sessions[i][1],
+                                           n_turn, session_id=f"s{i}")
+        if all(r.done for r in reqs + firsts) and \
+                all(s is not None and s.done for s in seconds):
+            return reqs, firsts, seconds
+        if time.monotonic() - t0 > 600:
+            raise AssertionError(f"{what}: traffic not done after 600 s")
+        wait()
+
+
+def check_sessions(firsts, seconds, what):
+    """Each second turn landed on its first turn's replica and prefilled
+    only its new tokens (the pin holds every row but the first turn's last
+    token's)."""
+    for f, s in zip(firsts, seconds):
+        if s.replica != f.replica or \
+                s.prefix_cached_tokens != len(f.prompt) + len(f.out) - 1:
+            raise AssertionError(
+                f"{what}: session turn on replica {s.replica} (first turn "
+                f"{f.replica}) reused {s.prefix_cached_tokens} tokens of "
+                f"{len(f.prompt) + len(f.out)}")
+
+
+def check_paged_launches(d, num_layers, what):
+    """Paged launches = layers x (prefill chunks + decode steps) over
+    every replica, by kind too; every dispatch the kernel."""
+    from deepspeed_tpu_torch.kernels import paged
+
+    chunks = d["serve.prefill_chunks"]["calls"]
+    n_decode = d["serve.decode_steps"]["calls"]
+    by_kind = dict(paged.LAUNCHES_BY_KIND)
+    if paged.LAUNCHES != num_layers * (chunks + n_decode) or by_kind != {
+            "decode": num_layers * n_decode, "verify": 0,
+            "prefill": num_layers * chunks}:
+        raise AssertionError(
+            f"{what}: paged kernel launched {paged.LAUNCHES} times "
+            f"({by_kind}), expected {num_layers} x ({chunks} prefill chunks "
+            f"+ {n_decode} decode steps)")
+    if d.get("kernel.fallbacks") or \
+            d["kernel.dispatches"]["calls"] != paged.LAUNCHES:
+        raise AssertionError(f"{what}: registry counts disagree with the "
+                             f"launches: {d}")
+    return {"prefill_chunks": chunks, "decode_steps": n_decode,
+            "paged_launches": paged.LAUNCHES,
+            "paged_launches_by_kind": by_kind,
+            "paged_launches_by_route": dict(paged.LAUNCHES_BY_ROUTE)}
+
+
+def phase_fleet_exact():
+    """GPT-2 nano in fp32 (phase_serve_nano_exact's model, TF32 off), two
+    replicas from build_fleet behind FleetRouter.start(): each replica
+    driven by its own ServeWorker thread, the traffic (the nano phase's
+    four prompts and two two-turn sessions) submitted from this thread.
+    Every greedy stream equals generate() on its whole prompt; a
+    session's second turn lands on its first turn's replica and prefills
+    only its new tokens; the paged launches, all from the two worker
+    threads, are layers x (chunks + decode steps)."""
+    import torch
+
+    from deepspeed_tpu_torch.kernels import paged
+    from deepspeed_tpu_torch.models import GPT, generate, gpt2_config
+    from deepspeed_tpu_torch.monitor.counters import COUNTERS
+    from deepspeed_tpu_torch.serving import (FINISHED, FleetRouter,
+                                             ServeConfig, build_fleet)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = gpt2_config("nano", param_dtype=torch.float32)
+    model = GPT(cfg, device="cuda",
+                generator=torch.Generator(device="cuda").manual_seed(2))
+    rs = np.random.RandomState(6)
+    prompts = [rs.randint(0, cfg.vocab_size, (n,)).tolist()
+               for n in (9, 33, 5, 60)]
+    rs = np.random.RandomState(8)
+    sessions = [(rs.randint(0, cfg.vocab_size, (n,)).tolist(),
+                 rs.randint(0, cfg.vocab_size, (8,)).tolist())
+                for n in (20, 41)]
+    n_new = 16
+    scfg = ServeConfig(block_size=16, num_blocks=40, max_batch=4,
+                       prefill_chunk=32)
+
+    def oracle(p):
+        with torch.no_grad():
+            want = generate(model, [p], n_new, cache_len=cfg.max_seq_len,
+                            device="cuda")[0].tolist()
+        return want, greedy_with_margins(model, p, n_new)[1]
+
+    wants = [oracle(p) for p in prompts]
+    first_wants = [oracle(p) for p, _ in sessions]
+    second_wants = [oracle(p + w + fresh) for (p, fresh), (w, _) in
+                    zip(sessions, first_wants)]
+    what = "fleet-exact"
+    router = FleetRouter(build_fleet(model, scfg, replicas=2, device="cuda"))
+    paged.reset_launches()
+    snap = COUNTERS.snapshot()
+    with LaunchThreads() as lt:
+        router.start()
+        try:
+            reqs, firsts, seconds = fleet_traffic(
+                router, prompts, n_new, sessions, n_new, what)
+        finally:
+            router.close()
+    d = COUNTERS.delta_since(snap)
+    every = reqs + firsts + seconds
+    if not all(r.state == FINISHED for r in every):
+        raise AssertionError(f"{what}: {[r.state for r in every]}")
+    div = [first_divergence(r.out, w, m, f"{what} stream {i}")
+           for i, (r, (w, m)) in enumerate(
+               zip(every, wants + first_wants + second_wants))]
+    check_sessions(firsts, seconds, what)
+    counts = check_paged_launches(d, cfg.num_layers, what)
+    rec = {"phase": "fleet-exact", "config": "gpt2 nano (d 48, 3 heads of "
+           "Dh 16, 3 layers), fp32 params and KV, TF32 off; 2 replicas, "
+           "ServeConfig(block_size=16, num_blocks=40, max_batch=4, "
+           "prefill_chunk=32), the default stream",
+           "prompt_lens": [len(p) for p in prompts],
+           "session_prompt_lens": [len(p) for p, _ in sessions],
+           "tokens_per_request": n_new, "first_divergence": div,
+           "replicas": [r.replica for r in every],
+           "session_prefix_hit_tokens": d["kv.prefix_hit_tokens"]["bytes"],
+           "launches_by_worker_thread": lt.check(2, what), **counts}
+    emit(rec)
+    del model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def fleet_idle_window(router, prompts, n_new, what,
+                      wait=lambda: time.sleep(0.001)):
+    """A short burst through the running fleet under torch.profiler
+    (device activity only): the device's busy time over the window's
+    wall, from the first submit to the last token on the host.  The
+    profiler's own host cost stretches that wall a little, so the share
+    errs high."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        primed = prime_profiler()
+        t0 = time.perf_counter()
+        reqs = [router.submit(p, n_new) for p in prompts]
+        while not all(r.done for r in reqs):
+            wait()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    p0 = time.perf_counter()
+    acts = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    post_s = time.perf_counter() - p0
+    lost = primer_lost(primed, acts)
+    busy_ms = sum(a[1] for a in acts if not is_primer(a[0]))
+    if busy_ms <= 0:
+        raise AssertionError(f"{what}: the profiler recorded no device time")
+    return {"requests": len(prompts), "new_tokens": n_new,
+            "prompt_lens": [len(p) for p in prompts],
+            "device_busy_ms": busy_ms, "profiled_wall_ms": wall_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "profiler_primer_lost": lost, "profiler_post_s": post_s}
+
+
+def serve_fleet_traffic(serve):
+    """phase 7's 8 prompts (checked against its record) and new tokens,
+    and 4 two-turn sessions whose second turn adds 32 fresh tokens to the
+    first's prompt and output, 32 new tokens a turn.  -> (prompts, n_new,
+    sessions, n_turn)."""
+    rs = np.random.RandomState(0)                # phase 7's traffic
+    lens = rs.randint(16, 513, size=8)
+    prompts = [rs.randint(0, 50257, (int(n),)).tolist() for n in lens]
+    if [int(n) for n in lens] != serve["prompt_lens"]:
+        raise AssertionError("serve-fleet: not phase 7's prompts")
+    rs = np.random.RandomState(9)
+    sessions = [(rs.randint(0, 50257, (int(n),)).tolist(),
+                 rs.randint(0, 50257, (32,)).tolist())
+                for n in rs.randint(64, 257, size=4)]
+    return prompts, serve["max_new_tokens"], sessions, 32
+
+
+def serve_fleet_run(model, traffic, replicas, tdir, drive="workers"):
+    """One serve-fleet run: `replicas` engines with phase 7's ServeConfig
+    sharing `model`, a TraceRecorder (sample_rate 1.0) and a ServingSLO
+    (600 s window) on each, `traffic` (serve_fleet_traffic's) submitted
+    from this thread.  `drive`: "workers" runs FleetRouter.start()'s
+    ServeWorker threads; "main" steps the replicas in turn on this
+    thread; a callable starts the router's stepping threads itself (the
+    variants of chip_fleet_threads.py), its __name__ the run's label.  Checks: every request finishes with
+    in-vocabulary tokens; paged launches = layers x (chunks + decode
+    steps) over every replica, from the worker threads alone (the main
+    one alone under "main"), no fallback; session turns stay on their
+    replica; each SLO's nearest-rank TTFT p50 / p99 equal those of its
+    replica's requests (3 decimals of a ms); the traces hold a
+    decode_step per decode step and a first_token per request.  Then the
+    idle share of a short profiled burst.  -> (record, router, engines),
+    the router still running."""
+    import resource
+
+    import torch
+
+    from deepspeed_tpu_torch.kernels import paged
+    from deepspeed_tpu_torch.monitor.counters import COUNTERS
+    from deepspeed_tpu_torch.monitor.tracing import (ServingSLO,
+                                                     TraceRecorder,
+                                                     percentile_nearest_rank,
+                                                     read_trace_file)
+    from deepspeed_tpu_torch.serving import (FINISHED, FleetRouter,
+                                             ServeConfig, build_fleet)
+
+    def nearest(ms, q):
+        return round(percentile_nearest_rank(sorted(ms), q), 3)
+
+    cfg = model.config
+    prompts, n_new, sessions, n_turn = traffic
+    threaded = drive != "main"
+    label = drive if isinstance(drive, str) else drive.__name__
+    what = (f"serve-fleet ({replicas} replica{'s' * (replicas > 1)}, "
+            f"{label})")
+    scfg = ServeConfig(block_size=16, num_blocks=513, max_batch=8,
+                       prefill_chunk=128)
+    engines = build_fleet(model, scfg, replicas=replicas, device="cuda",
+                          prepared=model)
+    router = FleetRouter(engines)
+    if drive == "workers":
+        router.start()
+    elif threaded:
+        drive(router)
+    wait = {} if threaded else {"wait": router.step_all}
+    # warm-up in the stepping threads (cuBLAS handles), unmeasured; its
+    # tokens share no block with the traffic
+    warm = [e.submit(list(range(50000, 50016)), 2) for e in engines]
+    if not threaded:
+        router.run()
+    wait_done(warm, what)
+    tracers = [TraceRecorder(tdir, rank=i, sample_rate=1.0,
+                             flush_interval_s=1.0)
+               for i in range(replicas)]
+    slos = [ServingSLO(window_s=600.0, emit_interval_s=600.0)
+            for _ in engines]
+    for e, tr, slo in zip(engines, tracers, slos):
+        e.attach_tracing(tracer=tr, slo=slo)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    paged.reset_launches()
+    snap = COUNTERS.snapshot()
+    with LaunchThreads() as lt:
+        ru0 = resource.getrusage(resource.RUSAGE_SELF)
+        t0 = time.perf_counter()
+        reqs, firsts, seconds = fleet_traffic(
+            router, prompts, n_new, sessions, n_turn, what, **wait)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ru1 = resource.getrusage(resource.RUSAGE_SELF)
+    d = COUNTERS.delta_since(snap)
+    peak = torch.cuda.max_memory_allocated()
+    counts = check_paged_launches(d, cfg.num_layers, what)
+    by_thread = lt.check(replicas if threaded else 0, what)
+    every = reqs + firsts + seconds
+    if not all(r.state == FINISHED and
+               len(r.out) == r.max_new_tokens for r in every):
+        raise AssertionError(f"{what}: not every request finished: "
+                             f"{[(r.state, len(r.out)) for r in every]}")
+    if not all(0 <= t < cfg.vocab_size for r in every for t in r.out):
+        raise AssertionError(f"{what}: a served token is outside the "
+                             f"vocabulary")
+    check_sessions(firsts, seconds, what)
+    slo_snaps = []
+    for i, slo in enumerate(slos):
+        mine = [r.ttft_s * 1e3 for r in every if r.replica == i]
+        s = slo.snapshot()
+        want = {"p50": nearest(mine, 50), "p99": nearest(mine, 99),
+                "n": len(mine)}
+        if s["ttft_ms"] != want:
+            raise AssertionError(f"{what}: replica {i}'s SLO TTFT "
+                                 f"{s['ttft_ms']}, its requests {want}")
+        slo_snaps.append(s)
+    for e in engines:
+        e.attach_tracing(tracer=None, slo=None)
+    for tr in tracers:
+        tr.close()
+    events = [e for i in range(replicas) for e in read_trace_file(
+        os.path.join(tdir, f"trace.rank{i:05d}.jsonl"))[0][0][1]]
+    names = [e["name"] for e in events]
+    if names.count("decode_step") != counts["decode_steps"] or \
+            names.count("first_token") != len(every):
+        raise AssertionError(
+            f"{what}: the traces hold {names.count('decode_step')} "
+            f"decode_step and {names.count('first_token')} first_token "
+            f"events; the counters {counts['decode_steps']} decode steps "
+            f"and {len(every)} requests")
+    decode_ms = [e["dur"] / 1e3 for e in events
+                 if e["name"] == "decode_step"]
+    idle = fleet_idle_window(
+        router, [np.random.RandomState(20 + k).randint(
+            0, 50257, (64,)).tolist() for k in range(4)], 8,
+        f"{what} profiled window", **wait)
+    ttft = [r.ttft_s * 1e3 for r in every]
+    n_tok = sum(len(r.out) for r in every)
+    rec = {"replicas": replicas,
+           "drive": label,
+           "requests": len(every),
+           "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+           "ttft_p50_ms": nearest(ttft, 50),
+           "ttft_p99_ms": nearest(ttft, 99),
+           "decode_step_span_mean_ms": float(np.mean(decode_ms)),
+           "slo_ttft_ms_by_replica": [s["ttft_ms"] for s in slo_snaps],
+           "slo_tok_per_s_by_replica": [s["tok_per_s"] for s in slo_snaps],
+           "requests_by_replica": [sum(r.replica == i for r in every)
+                                   for i in range(replicas)],
+           "trace_events": len(events),
+           # the process's host CPU time over the run, every thread:
+           # divided by the wall, the cores the host kept busy
+           "host_cpu_s": (ru1.ru_utime - ru0.ru_utime +
+                          ru1.ru_stime - ru0.ru_stime),
+           "launches_by_worker_thread": by_thread,
+           "peak_mem_bytes": peak,
+           "kv_pool_bytes": [e.kv.nbytes() for e in engines],
+           "session_prefix_hit_tokens": d["kv.prefix_hit_tokens"]["bytes"],
+           "idle_window": idle, **counts}
+    return rec, router, engines
+
+
+def phase_serve_fleet(model, serve, serve_idle_share):
+    """GPT-2 XL bf16 at full width (phase 7's model), two replicas sharing
+    the model, each with phase 7's ServeConfig and its own KV pool, behind
+    FleetRouter.start() (a ServeWorker each, the default stream), driven
+    by serve_fleet_run with phase 7's traffic and 4 two-turn sessions.
+    Then a burst at queue_limit 2 (spills and sheds: each shed request in
+    state error, never enqueued), and the same traffic, telemetry and
+    checks through one replica.  (chip_fleet_threads.py compares these
+    with the replicas stepped on one thread and on a stream each.)"""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from deepspeed_tpu_torch.monitor.counters import COUNTERS
+    from deepspeed_tpu_torch.serving import ERROR, FINISHED, FleetRouter
+
+    traffic = serve_fleet_traffic(serve)
+    tmp = tempfile.mkdtemp(prefix="serve-fleet-")
+    try:
+        fleet, router, engines = serve_fleet_run(
+            model, traffic, 2, os.path.join(tmp, "r2"))
+        router.close()
+        # the burst: replica 1 holds live blocks, so replica 0 is the
+        # least-loaded pick until its queue of 2 is full; then spills to
+        # replica 1 until its queue is full too; then sheds
+        burst = FleetRouter(engines, queue_limit=2)
+        rs = np.random.RandomState(30)
+        busy = engines[1].submit(rs.randint(0, 50257, (200,)).tolist(), 8)
+        engines[1].step()
+        snap = COUNTERS.snapshot()
+        reqs = [burst.submit(rs.randint(0, 50257, (40,)).tolist(), 4)
+                for _ in range(6)]
+        d = COUNTERS.delta_since(snap)
+        shed = [r for r in reqs if r.state == ERROR]
+        queued = {id(r) for e in engines for r in e.scheduler.requests}
+        if not (d.get("router.spills", {}).get("calls", 0) > 0 and
+                d.get("router.shed", {}).get("calls", 0) == len(shed) > 0) \
+                or any(getattr(r, "replica", None) is not None or
+                       id(r) in queued for r in shed):
+            raise AssertionError(f"serve-fleet burst: {d}, "
+                                 f"{[r.state for r in reqs]}")
+        burst.start()
+        live = [busy] + [r for r in reqs if r.state != ERROR]
+        wait_done(live, "serve-fleet burst")
+        burst.close()
+        if not all(r.state == FINISHED for r in live):
+            raise AssertionError("serve-fleet burst: a queued request "
+                                 "failed")
+        fleet["burst"] = {"queue_limit": 2, "requests": len(reqs),
+                          "replicas": [getattr(r, "replica", None)
+                                       for r in reqs],
+                          "spills": d["router.spills"]["calls"],
+                          "shed": d["router.shed"]["calls"],
+                          "dispatches": d["router.dispatches"]["calls"]}
+        del router, engines, burst
+        gc.collect()
+        torch.cuda.empty_cache()
+        one, router, engines = serve_fleet_run(model, traffic, 1,
+                                               os.path.join(tmp, "r1"))
+        router.close()
+        del router, engines
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _, n_new, sessions, n_turn = traffic
+    rec = {"phase": "serve-fleet", "config": "gpt2 xl, 48 layers, bf16 "
+           "params and KV, 2 replicas sharing the model, the default stream",
+           "serve_config": {"block_size": 16, "num_blocks": 513,
+                            "max_batch": 8, "prefill_chunk": 128},
+           "prompt_lens": serve["prompt_lens"], "max_new_tokens": n_new,
+           "session_prompt_lens": [len(p) for p, _ in sessions],
+           "session_new_tokens_a_turn": n_turn,
+           "fleet": fleet, "one_replica": one,
+           "serve_one_engine": {k: serve[k] for k in (
+               "tokens_per_s", "ttft_p50_ms", "decode_step_mean_ms",
+               "peak_mem_bytes", "kv_pool_bytes")},
+           "serve_one_engine_idle_share": serve_idle_share,
+           "paged_launches": fleet["paged_launches"],
+           "paged_launches_by_kind": fleet["paged_launches_by_kind"],
+           "paged_launches_by_route": fleet["paged_launches_by_route"]}
+    emit(rec)
+    return rec
+
+
+def phase_serve_chaos(model):
+    """The chaos lane (JAX tools/serve_bench.py `run_dry_chaos`) on the
+    card at GPT-2 XL width: one replica (bf16, max_batch 2) driven by a
+    ServeWorker, a FaultPlan that hangs the third decode call for 1.5 s,
+    a StepWatchdog (0.5 s deadline) whose on_trip sheds.  Checks: exactly
+    one trip; the wedged batch shed (serve.shed = its size, its blocks in
+    kv.evictions); the requests that waited finish with the tokens they
+    get served alone; the trip file and snapshot written, the snapshot
+    carrying the tracer's tail and the serving thread group; the plan
+    uninstalled after."""
+    import json as _json
+    import shutil
+    import tempfile
+
+    import torch
+
+    from deepspeed_tpu_torch.kernels import paged
+    from deepspeed_tpu_torch.monitor.counters import COUNTERS
+    from deepspeed_tpu_torch.monitor.tracing import TraceRecorder
+    from deepspeed_tpu_torch.runtime import resilience
+    from deepspeed_tpu_torch.serving import (ERROR, ServeConfig,
+                                             ServeEngine, ServeWorker)
+
+    cfg = model.config
+    scfg = ServeConfig(block_size=16, num_blocks=129, max_batch=2,
+                       prefill_chunk=128)
+    rs = np.random.RandomState(10)
+    prompts = [rs.randint(0, 50257, (n,)).tolist() for n in (40, 70, 33, 90)]
+    n_new = 6
+    oracle = ServeEngine(model, scfg, device="cuda", prepared=model)
+    want = [oracle.generate([p], n_new)[0] for p in prompts[2:]]
+    del oracle
+    tmp = tempfile.mkdtemp(prefix="serve-chaos-")
+    eng = ServeEngine(model, scfg, device="cuda", prepared=model)
+    rec_tr = TraceRecorder(tmp, flush_interval_s=1.0)
+    eng.attach_tracing(tracer=rec_tr)
+    held = []
+
+    def on_trip(trip):
+        held.append(eng.kv.blocks_in_use)
+        eng.request_shed(trip["reason"])
+
+    wd = resilience.StepWatchdog(deadline_s=0.5, snapshot_dir=tmp,
+                                 poll_s=0.05, on_trip=on_trip)
+    eng.attach_watchdog(wd)
+    worker = ServeWorker(eng)
+    worker.start()
+    plan = resilience.FaultPlan([resilience.FaultRule(
+        site="serve.decode", kind="hang", hang_s=1.5, calls=[2])], seed=0)
+    try:
+        wait_done([eng.submit(list(range(50000, 50016)), 2)],
+                  "serve-chaos warm-up")
+        paged.reset_launches()
+        snap = COUNTERS.snapshot()
+        resilience.install_fault_plan(plan)
+        t0 = time.perf_counter()
+        with LaunchThreads() as lt:
+            try:
+                r01 = [eng.submit(p, n_new) for p in prompts[:2]]
+                wait_done(r01, "serve-chaos wedged batch")
+                r23 = [eng.submit(p, n_new) for p in prompts[2:]]
+                wait_done(r23, "serve-chaos survivors")
+            finally:
+                resilience.install_fault_plan(None)
+        wall = time.perf_counter() - t0
+        d = COUNTERS.delta_since(snap)
+        eng.close()
+        wd.stop()
+        rec_tr.close()
+        trip = resilience.read_watchdog_trip(tmp)
+        snapshot = None
+        if trip is not None and trip.get("snapshot"):
+            with open(trip["snapshot"]) as f:
+                snapshot = _json.load(f)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    shed_calls = d.get("serve.shed", {}).get("calls", 0)
+    evicted = d.get("kv.evictions", {}).get("calls", 0)
+    problems = []
+    if wd.trips != 1 or d.get("watchdog.trips", {}).get("calls") != 1:
+        problems.append(f"{wd.trips} trips")
+    if [r.state for r in r01] != [ERROR, ERROR] or shed_calls != 2:
+        problems.append(f"wedged batch {[r.state for r in r01]}, "
+                        f"serve.shed {shed_calls}")
+    if len(held) != 1 or evicted != held[0] or not evicted:
+        problems.append(f"kv.evictions {evicted}, blocks held at the trip "
+                        f"{held}")
+    if [r.out for r in r23] != want:
+        problems.append("the survivors' tokens differ from alone")
+    if plan.injection_log != [{"site": "serve.decode", "kind": "hang",
+                               "rule": 0, "rank": 0, "step": 0,
+                               "call": 2}] or \
+            resilience.active_plan() is not None:
+        problems.append(f"injections {plan.injection_log}")
+    if trip is None or snapshot is None or not snapshot.get("trace_tail") \
+            or [t["alive"] for t in
+                snapshot["thread_groups"].get("serving", [])] != [True]:
+        problems.append(f"trip file {trip}, snapshot keys "
+                        f"{sorted(snapshot or {})}")
+    if problems:
+        raise AssertionError(f"serve-chaos: {problems}")
+    counts = check_paged_launches(d, cfg.num_layers, "serve-chaos")
+    rec = {"phase": "serve-chaos", "config": "gpt2 xl, 48 layers, bf16, one "
+           "replica, ServeConfig(block_size=16, num_blocks=129, "
+           "max_batch=2, prefill_chunk=128), a ServeWorker",
+           "fault_rule": plan.rules[0].describe(), "hang_s": 1.5,
+           "watchdog_deadline_s": 0.5, "trips": wd.trips,
+           "trip_reason": trip["reason"], "stalled_s": trip["stalled_s"],
+           "shed": shed_calls, "blocks_evicted": evicted,
+           "survivors_equal_alone": True, "wall_s": wall,
+           "trace_tail_events": len(snapshot["trace_tail"]),
+           "launches_by_worker_thread": lt.check(1, "serve-chaos"),
+           **counts}
+    emit(rec)
     torch.cuda.empty_cache()
     return rec
 
@@ -6602,18 +7224,26 @@ def main():
     mark("serve-qw-exact")
     serve, eng = phase_serve()
     rs = np.random.RandomState(1)   # fresh tokens: no prefix-cache hit
-    emit(profile_replay(
+    serve_profile = profile_replay(
         eng, [rs.randint(0, 50257, (n,)).tolist() for n in
               serve["prompt_lens"]], serve["max_new_tokens"],
         serve["prefill_chunks"], serve["decode_steps"],
         serve["device_span_ms"], "phase 5's traffic replayed on fresh "
         f"prompts: lengths {serve['prompt_lens']}, "
-        f"{serve['max_new_tokens']} new tokens each, gpt2 xl bf16"))
+        f"{serve['max_new_tokens']} new tokens each, gpt2 xl bf16")
+    emit(serve_profile)
     mark("serve")
     serve_spec = phase_serve_spec(eng.model)
     mark("serve-spec")
     serve_qw = phase_serve_qw(eng.model, serve, flush)
     mark("serve-qw")
+    fleet_exact = phase_fleet_exact()
+    mark("fleet-exact")
+    serve_fleet = phase_serve_fleet(eng.model, serve,
+                                    serve_profile["device_idle_share"])
+    mark("serve-fleet")
+    serve_chaos = phase_serve_chaos(eng.model)
+    mark("serve-chaos")
     del eng, flush
     gc.collect()
     torch.cuda.empty_cache()
@@ -6705,29 +7335,30 @@ def main():
     main_case = next(c for c in cases if c["case"] == "decode-bfloat16")
     prefill_case = next(c for c in cases if c["case"] == "prefill-bfloat16")
     spec4 = serve_spec["spec"]
+    # the paged kernel's main paths: their launches, by kind and by route
+    paged_paths = {"serve (dense bf16 KV)": serve,
+                   "serve-spec (int8 KV, draft 4)": spec4,
+                   "serve-qw (int8 weights)": serve_qw,
+                   "serve-fleet (2 replicas, worker threads)": serve_fleet,
+                   "fleet-exact (nano fp32, 2 replicas)": fleet_exact,
+                   "serve-chaos (a worker, a shed)": serve_chaos}
     print(card, flush=True)
     emit({"kernels": [{
         "name": "paged_attention", "route": "cuda",
         "source": "deepspeed_tpu_torch/kernels/csrc/paged_attention.cuh",
         "replaces": "deepspeed_tpu/kernels/paged.py:127",
-        "launches": serve["paged_launches"] +
-        serve_spec["spec"]["paged_launches"] + serve_qw["paged_launches"],
-        "launches_by_path": {"serve (dense bf16 KV)": serve["paged_launches"],
-                             "serve-spec (int8 KV, draft 4)":
-                             serve_spec["spec"]["paged_launches"],
-                             "serve-qw (int8 weights)":
-                             serve_qw["paged_launches"]},
+        "launches": sum(r["paged_launches"] for r in paged_paths.values()),
+        "launches_by_path": {k: r["paged_launches"]
+                             for k, r in paged_paths.items()},
         # the serving runs' launches by kind of call and by route, as the
         # wrapper counts them where it launches
         "launches_by_kind": {
-            k: serve["paged_launches_by_kind"][k] +
-            spec4["paged_launches_by_kind"][k] +
-            serve_qw["paged_launches_by_kind"][k]
+            k: sum(r["paged_launches_by_kind"][k]
+                   for r in paged_paths.values())
             for k in serve["paged_launches_by_kind"]},
         "launches_by_kernel_route": {
-            k: serve["paged_launches_by_route"][k] +
-            spec4["paged_launches_by_route"][k] +
-            serve_qw["paged_launches_by_route"][k]
+            k: sum(r["paged_launches_by_route"][k]
+                   for r in paged_paths.values())
             for k in serve["paged_launches_by_route"]},
         "kernel_route": main_case["route"],
         "kernel_routes": "split-keys: decode, verify, every cache kind and "

@@ -43,7 +43,8 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Dict
+import threading
+from typing import Dict, Tuple
 
 import torch
 
@@ -52,7 +53,9 @@ from ..runtime.comm.quant import dequantize_rows, qmax
 
 # kernel launches since the last reset (the main path's proof of use), and
 # the same launches by route and by kind of call: decode (T = 1), verify
-# (1 < T < TC_MIN_T, a draft and its bonus row) and prefill (T >= TC_MIN_T)
+# (1 < T < TC_MIN_T, a draft and its bonus row) and prefill (T >= TC_MIN_T);
+# bumped under _LAUNCH_LOCK, since serving worker threads launch at once
+_LAUNCH_LOCK = threading.Lock()
 LAUNCHES = 0
 LAUNCHES_BY_ROUTE: Dict[str, int] = {"split-keys": 0, "tensor-cores": 0}
 LAUNCHES_BY_KIND: Dict[str, int] = {"decode": 0, "verify": 0, "prefill": 0}
@@ -136,10 +139,11 @@ def bf16_tolerance(q, ck, cv, rows, q_pos, ref):
 def reset_launches():
     """Zero the launch counts: in all, by route and by kind."""
     global LAUNCHES
-    LAUNCHES = 0
-    for counts in (LAUNCHES_BY_ROUTE, LAUNCHES_BY_KIND):
-        for k in counts:
-            counts[k] = 0
+    with _LAUNCH_LOCK:
+        LAUNCHES = 0
+        for counts in (LAUNCHES_BY_ROUTE, LAUNCHES_BY_KIND):
+            for k in counts:
+                counts[k] = 0
 
 
 def call_kind(T: int) -> str:
@@ -216,23 +220,31 @@ def _plan(B, H, T, L, bs, Dh, way):
     return n, keys, groups, groups * n * rows * (min(Dh, COLS) + 2)
 
 
-# per device: the merge's tickets, one a group, zero between launches (the
-# merging block resets its own), and the splits' partials, written before
-# they are read; both grown, never shrunk.  Calls on one device are ordered
-# on one stream, so one call's merge is done before the next call writes.
-_TICKETS: Dict[torch.device, torch.Tensor] = {}
-_PARTS: Dict[torch.device, torch.Tensor] = {}
+# per (device, stream): the merge's tickets, one a group, zero between
+# launches (the merging block resets its own), and the splits' partials,
+# written before they are read; both grown, never shrunk.  Calls on one
+# stream are ordered, so one call's merge is done before the next call on
+# that stream writes; calls on two streams (two serving replicas, each
+# with a stream of its own) may run at once, so each stream has its own.
+# A buffer is made on the stream that uses it (the tickets' zero fill
+# lands before that stream's first launch); _SCRATCH_LOCK guards the maps
+# against two worker threads growing them at once.
+_SCRATCH_LOCK = threading.Lock()
+_TICKETS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
+_PARTS: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 
 
-def _scratch(device, groups, floats):
-    t = _TICKETS.get(device)
-    if t is None or t.numel() < groups:
-        t = _TICKETS[device] = torch.zeros(max(groups, 4096),
-                                           dtype=torch.int32, device=device)
-    p = _PARTS.get(device)
-    if p is None or p.numel() < floats:
-        p = _PARTS[device] = torch.empty(floats, dtype=torch.float32,
-                                         device=device)
+def _scratch(device, stream, groups, floats):
+    key = (device, stream.cuda_stream)
+    with _SCRATCH_LOCK:
+        t = _TICKETS.get(key)
+        if t is None or t.numel() < groups:
+            t = _TICKETS[key] = torch.zeros(max(groups, 4096),
+                                            dtype=torch.int32, device=device)
+        p = _PARTS.get(key)
+        if p is None or p.numel() < floats:
+            p = _PARTS[key] = torch.empty(floats, dtype=torch.float32,
+                                          device=device)
     return p, t
 
 
@@ -248,9 +260,12 @@ def _lib(code):
 
     lib = build.load(_SOURCES[code])
     fn = lib.paged_attention_fwd
-    if fn.argtypes is None:
-        # without argtypes ctypes passes every int as a 32-bit C int and
-        # cuts the pointers
+    if lib.paged_attention_error_string.restype is ctypes.c_char_p:
+        return lib
+    with _LAUNCH_LOCK:
+        # bound once, whole, before any thread calls: without argtypes
+        # ctypes passes every int as a 32-bit C int and cuts the pointers
+        # (the error string's restype, set last, marks a bound library)
         fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3 +
                        [ctypes.c_int] + [ctypes.c_void_p] * 7 +
                        [ctypes.c_int] * 6 +
@@ -303,10 +318,12 @@ def _cache_parts(ck, cv, kv_mode, H, Dh):
 
 def paged_attention_cuda(q, ck, cv, rows, q_pos, *, kv_mode: str = "dense",
                          block_size: int):
-    """Launch the Hopper kernel; same contract as the reference.  Raises
-    on anything the kernel does not take — it never falls back.  The
-    split merge's tickets and partials are kept per device: calls on one
-    device are ordered on one stream, as the serving programs make them."""
+    """Launch the Hopper kernel on the calling thread's current stream;
+    same contract as the reference.  Raises on anything the kernel does
+    not take — it never falls back.  The split merge's tickets and
+    partials are kept per (device, stream): calls on one stream are
+    ordered, and calls on two streams may overlap without sharing
+    them."""
     global LAUNCHES
     B, T, H, Dh = q.shape
     L = rows.shape[1]
@@ -359,9 +376,10 @@ def paged_attention_cuda(q, ck, cv, rows, q_pos, *, kv_mode: str = "dense",
     out = torch.empty((B, T, H, Dh), dtype=out_dtype, device=q.device)
     way = route(q, pk, kv_mode)
     n_splits, split_keys, groups, floats = _plan(B, H, T, L, bs, Dh, way)
+    stream = torch.cuda.current_stream(q.device)
     part = tickets = None
     if n_splits > 1:
-        part, tickets = _scratch(q.device, groups, floats)
+        part, tickets = _scratch(q.device, stream, groups, floats)
     lib = _lib(code)
     err = lib.paged_attention_fwd(
         q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
@@ -372,13 +390,13 @@ def paged_attention_cuda(q, ck, cv, rows, q_pos, *, kv_mode: str = "dense",
         ctypes.c_float(Dh ** -0.5), code,
         None if part is None else part.data_ptr(),
         None if tickets is None else tickets.data_ptr(), n_splits,
-        split_keys, 1 if way == "tensor-cores" else 0,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        split_keys, 1 if way == "tensor-cores" else 0, stream.cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"paged attention kernel launch failed: cudaError {err} "
             f"({lib.paged_attention_error_string(err).decode()})")
-    LAUNCHES += 1
-    LAUNCHES_BY_ROUTE[way] += 1
-    LAUNCHES_BY_KIND[call_kind(T)] += 1
+    with _LAUNCH_LOCK:
+        LAUNCHES += 1
+        LAUNCHES_BY_ROUTE[way] += 1
+        LAUNCHES_BY_KIND[call_kind(T)] += 1
     return out

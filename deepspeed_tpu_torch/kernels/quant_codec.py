@@ -25,6 +25,7 @@ read twice).
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict
 
 import torch
@@ -32,7 +33,8 @@ import torch
 from ..runtime.comm.quant import qmax, validate_block_size
 
 # kernel launches since the last reset, per kernel (the main path's proof
-# of use)
+# of use), bumped under _LOCK: serving worker threads launch at once
+_LOCK = threading.Lock()
 LAUNCHES: Dict[str, int] = {"quant_codec_quantize": 0,
                             "quant_codec_dequantize": 0}
 # the quantize kernel's launches by route
@@ -40,9 +42,10 @@ LAUNCHES_BY_ROUTE: Dict[str, int] = {"vector": 0, "generic": 0}
 
 
 def reset_launches():
-    for counts in (LAUNCHES, LAUNCHES_BY_ROUTE):
-        for key in counts:
-            counts[key] = 0
+    with _LOCK:
+        for counts in (LAUNCHES, LAUNCHES_BY_ROUTE):
+            for key in counts:
+                counts[key] = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _PAYLOAD_DTYPES = {"int8": torch.int8, "int4": torch.uint8}
@@ -58,15 +61,19 @@ def _lib():
     from . import build
 
     lib = build.load("quant_codec.cu")
-    if lib.quant_codec_quantize.argtypes is None:
-        # without argtypes ctypes passes every int as a 32-bit C int and
-        # cuts the pointers
-        for name, types in _ARGTYPES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = types
-            fn.restype = ctypes.c_int
-        lib.quant_codec_error_string.argtypes = [ctypes.c_int]
-        lib.quant_codec_error_string.restype = ctypes.c_char_p
+    if lib.quant_codec_error_string.restype is ctypes.c_char_p:
+        return lib
+    with _LOCK:
+        # bound once, whole, before any thread calls: without argtypes
+        # ctypes passes every int as a 32-bit C int and cuts the pointers
+        # (the error string's restype, set last, marks a bound library)
+        if lib.quant_codec_error_string.restype is not ctypes.c_char_p:
+            for name, types in _ARGTYPES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = types
+                fn.restype = ctypes.c_int
+            lib.quant_codec_error_string.argtypes = [ctypes.c_int]
+            lib.quant_codec_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -77,7 +84,8 @@ def _launch(name, *args):
         raise RuntimeError(
             f"{name} kernel launch failed: cudaError {err} "
             f"({lib.quant_codec_error_string(err).decode()})")
-    LAUNCHES[name] += 1
+    with _LOCK:
+        LAUNCHES[name] += 1
 
 
 def _check(cond, msg):
@@ -134,7 +142,8 @@ def quantize_blockwise_cuda(x, block: int, wire: str = "int8"):
     _launch("quant_codec_quantize", x.data_ptr(), n, block, q,
             payload.data_ptr(), scales.data_ptr(), int(route == "vector"),
             _DTYPE_CODES[x.dtype], _stream(x))
-    LAUNCHES_BY_ROUTE[route] += 1
+    with _LOCK:
+        LAUNCHES_BY_ROUTE[route] += 1
     return payload, scales
 
 

@@ -30,36 +30,67 @@ makes (bytes = what this rank hands to it):
   `data_outer` (moe/dispatch.py `_bump_a2a`); `moe.dropped_tokens`,
   `moe.capacity_frac` the routing stats;
 * `dist.<collective>` — every `comm/dist.py` collective's input bytes.
+
+Serving's fleet, telemetry and chaos families (the JAX names and
+meanings):
+
+* `router.dispatches` — requests dispatched to a replica (bytes += the
+  chosen replica's `kv.blocks_in_use` at dispatch, so bytes/calls is the
+  mean load a dispatch landed on); `router.spills` — dispatches
+  deflected from the least-loaded pick because its queue was full;
+  `router.shed` — requests refused at the front door with every replica
+  queue saturated (returned in state 'error', never enqueued)
+  (serving/router.py);
+* `trace.events` — span events flushed to the rank-local trace file
+  (bytes = JSONL bytes written, bounded by `max_file_bytes`);
+  `trace.dropped` — events the byte cap rejected (the ring buffer still
+  holds them for the watchdog's flight recorder); `slo.windows` — SLO
+  windows emitted by `ServingSLO` (monitor/tracing.py);
+* `fault.injected` — FaultPlan injections fired; `fault.retried` —
+  retry_transient attempts after a transient failure;
+  `fault.recovered_ms` — time spent recovering before a success
+  (integer MICROSECONDS in the bytes slot); `watchdog.trips` —
+  StepWatchdog deadline trips, each with its snapshot and escalation
+  file (runtime/resilience.py).
+
+The registry takes a lock around every read and write: serving worker
+threads bump it at once, and an unlocked read-modify-write could lose
+an update, or a key inserted during `snapshot()` break the iteration.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, Optional
 
 
 class CounterRegistry:
-    """Named (calls, bytes) accumulators with snapshot/delta reads."""
+    """Named (calls, bytes) accumulators with snapshot/delta reads, safe
+    from any thread."""
 
-    __slots__ = ("_c",)
+    __slots__ = ("_c", "_lock")
 
     def __init__(self):
         self._c: Dict[str, list] = {}
+        self._lock = threading.Lock()
 
     def add(self, name: str, nbytes: int = 0, calls: int = 1) -> None:
-        e = self._c.get(name)
-        if e is None:
-            self._c[name] = [calls, nbytes]
-        else:
-            e[0] += calls
-            e[1] += nbytes
+        with self._lock:
+            e = self._c.get(name)
+            if e is None:
+                self._c[name] = [calls, nbytes]
+            else:
+                e[0] += calls
+                e[1] += nbytes
 
     def snapshot(self) -> Dict[str, tuple]:
-        return {k: (v[0], v[1]) for k, v in self._c.items()}
+        with self._lock:
+            return {k: (v[0], v[1]) for k, v in self._c.items()}
 
     def delta_since(self, snap: Optional[Dict[str, tuple]]) -> Dict[str, dict]:
         snap = snap or {}
         out = {}
-        for k, v in self._c.items():
+        for k, v in self.snapshot().items():
             c0, b0 = snap.get(k, (0, 0))
             dc, db = v[0] - c0, v[1] - b0
             if dc or db:
@@ -67,10 +98,12 @@ class CounterRegistry:
         return out
 
     def totals(self) -> Dict[str, dict]:
-        return {k: {"calls": v[0], "bytes": v[1]} for k, v in self._c.items()}
+        return {k: {"calls": v[0], "bytes": v[1]}
+                for k, v in self.snapshot().items()}
 
     def reset(self) -> None:
-        self._c.clear()
+        with self._lock:
+            self._c.clear()
 
 
 # THE process-global registry every instrumented site writes to.

@@ -15,8 +15,11 @@ gradient wire, its hierarchy and the MoE block `comm.moe`,
 `moe/dispatch.py` `parse_moe_config`), `data_pipeline`
 (`DeepSpeedDataPipelineConfig`, config.py:263-315) and `checkpoint`
 (`tag_validation`, `async_save`, `commit_timeout_ms`;
-config.py:1047-1075): an unknown key or a bad value raises ValueError
-here, at config time, as in the JAX package.
+config.py:1047-1075) and `serving` (`DeepSpeedServingConfig`,
+config.py:625-780: `to_serve_kwargs()` for `ServeConfig`,
+`to_fleet_kwargs()` for `build_fleet` / `FleetRouter`): an unknown key or
+a bad value raises ValueError here, at config time, as in the JAX
+package.
 
 A section the port cannot honour yet raises `DeepSpeedConfigError` (or,
 for a valid `comm` selection, NotImplementedError) naming its ROADMAP
@@ -25,8 +28,11 @@ more than one rank, `offload_optimizer` at stage 3 without
 `offload_param`, a pipeline section, a mesh with a model, pipe or seq
 axis above 1, `comm.overlap` (outside ZeRO-Infinity, where the engine
 warns, as JAX's does), progressive layer drop,
-AMP, TensorBoard, the wall-clock breakdown and
-`checkpoint.preempt_save_dir` (the preemption handler).  (1-bit and
+AMP, TensorBoard, the wall-clock breakdown,
+`checkpoint.preempt_save_dir` (the preemption handler), a `faults` block
+that injects (`rules`) or arms the step watchdog, and
+`monitor.tracing.enabled` (the training engine installs none of them
+yet; serving takes a plan, watchdog and tracer directly).  (1-bit and
 LAMB optimizers are refused by the engine's optimizer selection.)
 """
 
@@ -121,6 +127,20 @@ def _refuse_unported(pd, zero_stage):
             (c.TENSORBOARD, "TensorBoard", "the production runtime")):
         if get_scalar_param(pd.get(key) or {}, "enabled", False):
             refuse(what, item)
+    # the training engine installs no fault plan, watchdog or tracer yet:
+    # refuse the blocks that would switch one on (rules inject unless the
+    # block says enabled: false, as in the JAX package)
+    faults = pd.get(c.FAULTS) or {}
+    if faults.get(c.FAULTS_RULES) and \
+            get_scalar_param(faults, c.FAULTS_ENABLED, True):
+        refuse("faults.rules (fault injection)", "the production runtime")
+    if get_scalar_param(faults.get(c.FAULTS_WATCHDOG) or {}, "enabled",
+                        False):
+        refuse("faults.watchdog (the step watchdog)",
+               "the production runtime")
+    tracing = (pd.get(c.MONITOR) or {}).get(c.MONITOR_TRACING) or {}
+    if get_scalar_param(tracing, "enabled", False):
+        refuse("monitor.tracing", "the production runtime")
 
 
 def infinity_requested(zero_config) -> bool:
@@ -401,6 +421,162 @@ class DeepSpeedDataPipelineConfig(DeepSpeedConfigObject):
         return self.enabled and self.device_prefetch
 
 
+# accepted serving.kv_dtype spellings; must stay a superset of what
+# serving.kv_cache.resolve_kv_dtype() resolves (kept local so the
+# training-side config never imports the serving package)
+SERVING_KV_DTYPES = ("bf16", "bfloat16", "fp16", "float16", "fp32",
+                     "float32", "int8", "int4")
+
+
+class DeepSpeedServingConfig(DeepSpeedConfigObject):
+    """Inference-side knobs (deepspeed_tpu_torch.serving), the JAX
+    package's block with its keys, defaults and errors.
+
+    "serving": {"kv_dtype": null,
+                "speculative": {"enabled": false, "draft_len": 4,
+                                "ngram": 3},
+                "prefix_cache": {"enabled": true, "min_match_blocks": 1,
+                                 "session_ttl_s": 120.0},
+                "fleet": {"replicas": 1, "queue_limit": 64,
+                          "session_affinity": true}}
+
+    `kv_dtype` selects the paged KV cache's storage mode: null stores
+    at the param dtype; "bf16"/"fp16"/"fp32" store dense at that dtype;
+    "int8"/"int4" store per-(row, head) quantized payload + fp16 scale
+    pairs (runtime/comm/quant.py row kernels).  `speculative.enabled`
+    arms self-speculative n-gram decoding: `draft_len` candidate tokens
+    drafted host-side per verify step by an `ngram`-suffix match over
+    the request's own context (no extra model).  `prefix_cache` governs
+    block-level KV sharing (serving/kv_cache.py chain hashes) and the
+    pinned-session residency window; `fleet` sizes the multi-replica
+    router (serving/router.py).  Every knob is validated HERE so a typo
+    fails at config time, not mid-serve."""
+
+    def __init__(self, param_dict):
+        super().__init__()
+        d = param_dict.get(c.SERVING) or {}
+        known = {c.SERVING_KV_DTYPE, c.SERVING_SPECULATIVE,
+                 c.SERVING_PREFIX_CACHE, c.SERVING_FLEET}
+        unknown = set(d) - known
+        if unknown:
+            raise ValueError(
+                f"serving: unknown key(s) {sorted(unknown)}; expected a "
+                f"subset of {sorted(known)}")
+        kv = get_scalar_param(d, c.SERVING_KV_DTYPE,
+                              c.SERVING_KV_DTYPE_DEFAULT)
+        if kv is not None:
+            if not isinstance(kv, str) or \
+                    kv.lower() not in SERVING_KV_DTYPES:
+                raise ValueError(
+                    f"serving.{c.SERVING_KV_DTYPE} must be null or one of "
+                    f"{SERVING_KV_DTYPES}, got {kv!r}")
+            kv = kv.lower()
+        self.kv_dtype = kv
+
+        s = d.get(c.SERVING_SPECULATIVE) or {}
+        known_s = {c.SERVING_SPEC_ENABLED, c.SERVING_SPEC_DRAFT_LEN,
+                   c.SERVING_SPEC_NGRAM}
+        unknown = set(s) - known_s
+        if unknown:
+            raise ValueError(
+                f"serving.{c.SERVING_SPECULATIVE}: unknown key(s) "
+                f"{sorted(unknown)}; expected a subset of {sorted(known_s)}")
+        self.spec_enabled = bool(get_scalar_param(
+            s, c.SERVING_SPEC_ENABLED, c.SERVING_SPEC_ENABLED_DEFAULT))
+
+        def spec_int(key, default, minimum=1):
+            v = get_scalar_param(s, key, default)
+            if isinstance(v, bool) or not isinstance(v, int) or v < minimum:
+                raise ValueError(
+                    f"serving.speculative.{key} must be an int >= "
+                    f"{minimum}, got {v!r}")
+            return int(v)
+
+        self.spec_draft_len = spec_int(c.SERVING_SPEC_DRAFT_LEN,
+                                       c.SERVING_SPEC_DRAFT_LEN_DEFAULT)
+        self.spec_ngram = spec_int(c.SERVING_SPEC_NGRAM,
+                                   c.SERVING_SPEC_NGRAM_DEFAULT)
+
+        p = d.get(c.SERVING_PREFIX_CACHE) or {}
+        known_p = {c.SERVING_PREFIX_ENABLED,
+                   c.SERVING_PREFIX_MIN_MATCH_BLOCKS,
+                   c.SERVING_PREFIX_SESSION_TTL_S}
+        unknown = set(p) - known_p
+        if unknown:
+            raise ValueError(
+                f"serving.{c.SERVING_PREFIX_CACHE}: unknown key(s) "
+                f"{sorted(unknown)}; expected a subset of {sorted(known_p)}")
+        self.prefix_enabled = bool(get_scalar_param(
+            p, c.SERVING_PREFIX_ENABLED, c.SERVING_PREFIX_ENABLED_DEFAULT))
+        mm = get_scalar_param(p, c.SERVING_PREFIX_MIN_MATCH_BLOCKS,
+                              c.SERVING_PREFIX_MIN_MATCH_BLOCKS_DEFAULT)
+        if isinstance(mm, bool) or not isinstance(mm, int) or mm < 1:
+            raise ValueError(
+                f"serving.prefix_cache.{c.SERVING_PREFIX_MIN_MATCH_BLOCKS} "
+                f"must be an int >= 1, got {mm!r}")
+        self.prefix_min_match_blocks = int(mm)
+        ttl = get_scalar_param(p, c.SERVING_PREFIX_SESSION_TTL_S,
+                               c.SERVING_PREFIX_SESSION_TTL_S_DEFAULT)
+        try:
+            ttl = float(ttl)
+        except (TypeError, ValueError):
+            ttl = -1.0
+        if ttl <= 0:
+            raise ValueError(
+                f"serving.prefix_cache.{c.SERVING_PREFIX_SESSION_TTL_S} "
+                f"must be a second count > 0, got "
+                f"{p.get(c.SERVING_PREFIX_SESSION_TTL_S)!r}")
+        self.session_ttl_s = ttl
+
+        f = d.get(c.SERVING_FLEET) or {}
+        known_f = {c.SERVING_FLEET_REPLICAS, c.SERVING_FLEET_QUEUE_LIMIT,
+                   c.SERVING_FLEET_SESSION_AFFINITY}
+        unknown = set(f) - known_f
+        if unknown:
+            raise ValueError(
+                f"serving.{c.SERVING_FLEET}: unknown key(s) "
+                f"{sorted(unknown)}; expected a subset of {sorted(known_f)}")
+
+        def fleet_int(key, default):
+            v = get_scalar_param(f, key, default)
+            if isinstance(v, bool) or not isinstance(v, int) or v < 1:
+                raise ValueError(
+                    f"serving.fleet.{key} must be an int >= 1, got {v!r}")
+            return int(v)
+
+        self.fleet_replicas = fleet_int(c.SERVING_FLEET_REPLICAS,
+                                        c.SERVING_FLEET_REPLICAS_DEFAULT)
+        self.fleet_queue_limit = fleet_int(
+            c.SERVING_FLEET_QUEUE_LIMIT, c.SERVING_FLEET_QUEUE_LIMIT_DEFAULT)
+        self.fleet_session_affinity = bool(get_scalar_param(
+            f, c.SERVING_FLEET_SESSION_AFFINITY,
+            c.SERVING_FLEET_SESSION_AFFINITY_DEFAULT))
+
+    def to_serve_kwargs(self):
+        """The ServeConfig fragment this block selects: feed as
+        `ServeConfig(**cfg.serving_config.to_serve_kwargs(), ...)`.
+        Disabled speculation maps to draft_len=0 (the engine's plain
+        decode path), not a missing key."""
+        return {
+            "kv_dtype": self.kv_dtype,
+            "draft_len": self.spec_draft_len if self.spec_enabled else 0,
+            "spec_ngram": self.spec_ngram,
+            "prefix_cache": self.prefix_enabled,
+            "prefix_min_match_blocks": self.prefix_min_match_blocks,
+            "session_ttl_s": self.session_ttl_s,
+        }
+
+    def to_fleet_kwargs(self):
+        """The FleetRouter sizing this block selects: feed as
+        `FleetRouter(build_fleet(..., replicas=k['replicas']),
+        queue_limit=k['queue_limit'], ...)`."""
+        return {
+            "replicas": self.fleet_replicas,
+            "queue_limit": self.fleet_queue_limit,
+            "session_affinity": self.fleet_session_affinity,
+        }
+
+
 class DeepSpeedConfig(DeepSpeedConfigObject):
     def __init__(self, json_file_or_dict, world_size: int = 1):
         super().__init__()
@@ -492,6 +668,8 @@ class DeepSpeedConfig(DeepSpeedConfigObject):
         self.moe = self.comm_config.moe
         self.sparse_attention = pd.get(c.SPARSE_ATTENTION, None)
         self.data_pipeline_config = DeepSpeedDataPipelineConfig(pd)
+        # inference-side knobs: the serving engine's and the fleet's
+        self.serving_config = DeepSpeedServingConfig(pd)
 
         ckpt = pd.get(c.CHECKPOINT) or {}
         self.checkpoint_tag_validation_mode = str(get_scalar_param(

@@ -67,6 +67,41 @@ FP16_MIN_LOSS_SCALE_DEFAULT = 1
 AMP = "amp"
 TENSORBOARD = "tensorboard"
 PROGRESSIVE_LAYER_DROP = "progressive_layer_drop"
+# sections the slice refuses when they would act: a fault plan with rules
+# (injection on), the step watchdog, and monitor.tracing
+FAULTS = "faults"
+FAULTS_ENABLED = "enabled"
+FAULTS_RULES = "rules"
+FAULTS_WATCHDOG = "watchdog"
+MONITOR = "monitor"
+MONITOR_TRACING = "tracing"
+
+# serving (config.py:625-780): the inference-side block, read by
+# DeepSpeedServingConfig and handed to ServeConfig / FleetRouter
+SERVING = "serving"
+SERVING_KV_DTYPE = "kv_dtype"
+SERVING_KV_DTYPE_DEFAULT = None
+SERVING_SPECULATIVE = "speculative"
+SERVING_SPEC_ENABLED = "enabled"
+SERVING_SPEC_ENABLED_DEFAULT = False
+SERVING_SPEC_DRAFT_LEN = "draft_len"
+SERVING_SPEC_DRAFT_LEN_DEFAULT = 4
+SERVING_SPEC_NGRAM = "ngram"
+SERVING_SPEC_NGRAM_DEFAULT = 3
+SERVING_PREFIX_CACHE = "prefix_cache"
+SERVING_PREFIX_ENABLED = "enabled"
+SERVING_PREFIX_ENABLED_DEFAULT = True
+SERVING_PREFIX_MIN_MATCH_BLOCKS = "min_match_blocks"
+SERVING_PREFIX_MIN_MATCH_BLOCKS_DEFAULT = 1
+SERVING_PREFIX_SESSION_TTL_S = "session_ttl_s"
+SERVING_PREFIX_SESSION_TTL_S_DEFAULT = 120.0
+SERVING_FLEET = "fleet"
+SERVING_FLEET_REPLICAS = "replicas"
+SERVING_FLEET_REPLICAS_DEFAULT = 1
+SERVING_FLEET_QUEUE_LIMIT = "queue_limit"
+SERVING_FLEET_QUEUE_LIMIT_DEFAULT = 64
+SERVING_FLEET_SESSION_AFFINITY = "session_affinity"
+SERVING_FLEET_SESSION_AFFINITY_DEFAULT = True
 
 # ZeRO (runtime/zero/constants.py)
 ZERO_OPTIMIZATION = "zero_optimization"

@@ -22,9 +22,35 @@ non-cached position, and a request submitted with a `session_id` keeps
 its blocks resident after finishing (`SessionPin`, TTL + released under
 pressure) so the next turn re-prefills only its new tokens.
 
-`request_shed()` (safe from any thread) makes the next step finish the
-in-flight batch in state "error" with its blocks reclaimed
-(`kv.evictions`); waiting requests proceed.
+Resilience (the JAX package's contract): `fault_point` sites
+`serve.step`, `serve.admit`, `serve.prefill` and `serve.decode` make the
+engine chaos-testable (`runtime/resilience.py` `FaultPlan`).
+`attach_watchdog(wd)` beats a `StepWatchdog` at every step boundary and
+reports the engine's worker as its 'serving' thread group; with the
+watchdog's `on_trip` wired to `request_shed()` (safe from any thread), a
+wedged decode step trips the deadline and, the moment the engine thread
+is live again, the in-flight batch finishes in state "error" with its
+blocks reclaimed (`kv.evictions`) while waiting requests proceed.
+
+Telemetry: `attach_tracing(tracer, slo)` records each sampled request's
+lifecycle (`queue_wait`, `prefill_chunk`, `first_token`, `finish`) and
+each sampled step's `decode_step` / `verify_step` span on a
+`monitor.tracing.TraceRecorder`, plus `shed` instants; a `ServingSLO`
+gets every observation unsampled and is ticked at each step boundary.
+No site synchronises the device: a traced run gives the same tokens and
+kernel launches as an untraced one.
+
+Threads: `ServeWorker` drives one engine's `step()` in a daemon thread
+(`submit()` is safe from any other thread); `serving/router.py`'s
+`FleetRouter` runs one per replica.  Stream policy: a worker binds the
+engine's card (fixed when the engine is built, in the caller's thread)
+and launches on that card's default stream, so replicas' kernels
+interleave in one device queue while their host work overlaps (ctypes
+and most ATen calls release the GIL).  The paged kernel keys its
+split-merge scratch by (device, stream) all the same, so a caller that
+steps an engine on a stream of its own never shares it.  A worker that
+raises sheds its batch, fails every request that is not terminal, and
+re-raises on `stop()`.
 
 Counters: `serve.requests`, `serve.tokens`, `serve.decode_steps`,
 `serve.prefill_chunks`, `serve.ttft_ms` (µs in the bytes slot),
@@ -39,14 +65,16 @@ the card) and dequantized as each layer runs (kernel #12); the engine then
 holds no dense copy of them.  They compose with `kv_dtype` and
 `draft_len` as in the JAX package.
 
-Not ported yet: fault points, tracing and SLO telemetry, the watchdog,
-`ServeWorker` and the fleet router.  MoE and pipeline configs are refused,
-as in the JAX package.
+Replicas of one fleet share the prepared weights (`prepared=`: the
+model, or under `quantized_weights` the one `QuantizedWeights` store);
+each keeps its own `PagedKVCache` and prefix cache.  MoE and pipeline
+configs are refused, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Any, List, Optional, Sequence
 
@@ -54,6 +82,7 @@ import numpy as np
 
 from ..models.gpt import GPT
 from ..monitor.counters import COUNTERS
+from ..runtime.resilience import fault_point
 from ..utils.device import check_same_device, resolve_device
 from ..utils.logging import logger
 from . import programs
@@ -147,12 +176,20 @@ class ServeEngine:
     `device` (the card by default; the model must live there).  One
     thread drives `step()`; `submit()` is safe from any thread.
     `self.model` is what the programs read: the model, or its
-    `QuantizedWeights` under `quantized_weights`."""
+    `QuantizedWeights` under `quantized_weights`.  `prepared` hands in
+    another engine's `self.model` so that replicas share one set of
+    prepared weights (`router.build_fleet`); it must be for this
+    schedule's quant mode and this model's config, or this raises."""
 
     def __init__(self, model: GPT, config: Optional[ServeConfig] = None,
-                 device="cuda", clock=time.monotonic):
+                 device="cuda", clock=time.monotonic, prepared=None):
         self.device = resolve_device(device)
         check_same_device("model", model.device, self.device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # "cuda" means the model's card: fix the index here, in the
+            # caller's thread, so that the cache and a worker thread bind
+            # the card the weights are on, whatever is current elsewhere
+            self.device = model.device
         self.config = config or ServeConfig()
         self.clock = clock
         cfg = model.config
@@ -198,7 +235,19 @@ class ServeEngine:
             draft_len=int(c.draft_len))
         # the one-time weight prep (engine.py:224): under quantized_weights
         # the programs read the quantized store, never the dense matrices
-        self.model = programs.prepare_params(model, self.schedule)
+        if prepared is None:
+            prepared = programs.prepare_params(model, self.schedule)
+        else:
+            have = ("none" if isinstance(prepared, GPT)
+                    else getattr(prepared, "wire", None))
+            if have != c.quant_mode or prepared.config != cfg:
+                raise ValueError(
+                    f"prepared weights are for quantized_weights={have!r} "
+                    f"of {prepared.config} but this engine needs "
+                    f"{c.quant_mode!r} of {cfg}")
+            check_same_device("prepared weights", prepared.device,
+                              self.device)
+        self.model = prepared
         logger.info(f"serving engine up: {self.schedule.describe()}; "
                     f"{self.kv.describe()}")
         # packed decode-batch state (one row per slot), host-side
@@ -212,7 +261,13 @@ class ServeEngine:
         self._seeds = np.zeros((R,), np.int64)
         self.steps = 0
         self.peak_blocks_in_use = 0
+        self.peak_resident = 0        # max concurrent block-holding reqs
         self._shed_reason: Optional[str] = None
+        self._watchdog = None
+        self._worker: Optional["ServeWorker"] = None
+        self._wake = threading.Event()
+        self._tracer = None               # monitor.tracing.TraceRecorder
+        self._slo = None                  # monitor.tracing.ServingSLO
 
     # -- submission ---------------------------------------------------
 
@@ -239,6 +294,7 @@ class ServeEngine:
                       seed=int(seed), eos_token=eos_token,
                       session_id=session_id)
         self.scheduler.submit(req)
+        self._wake.set()
         return req
 
     # -- pinned sessions ----------------------------------------------
@@ -246,6 +302,15 @@ class ServeEngine:
     @property
     def resident_sessions(self) -> int:
         return len(self._sessions)
+
+    def session_active(self, sid) -> bool:
+        """True while routing `sid` here still wins: a resident pin, or a
+        live request carrying the session (whose natural finish will
+        re-pin it).  Safe from any thread — the fleet router's
+        affinity-staleness probe."""
+        if sid in self._sessions:
+            return True
+        return self.scheduler.has_session(sid)
 
     def _session_lookup(self, req: Request):
         """Scheduler hook: the pin `req` can adopt, or None.  A pin is
@@ -311,11 +376,47 @@ class ServeEngine:
             if sch.admit():
                 break
 
-    # -- shedding -----------------------------------------------------
+    # -- tracing / SLO telemetry --------------------------------------
 
-    def request_shed(self, reason: str = "shed requested") -> None:
-        """Flag the in-flight batch for shedding; safe from any thread.
-        Consumed at the next point the engine thread is live."""
+    def attach_tracing(self, tracer=None, slo=None) -> None:
+        """Attach a `monitor.tracing.TraceRecorder` and/or a
+        `monitor.tracing.ServingSLO`.  The tracer records the per-request
+        lifecycle (`queue_wait` at admission, `prefill_chunk` spans, a
+        `first_token` instant, `finish`) sampled per rid, per-step
+        `decode_step` / `verify_step` spans sampled per step, and `shed`
+        instants — all cat "serve".  The SLO is fed UNSAMPLED and ticked
+        at every step boundary.  With a watchdog attached (before or
+        after this call) the tracer's tail is its trip-snapshot flight
+        recorder."""
+        self._tracer = tracer
+        self._slo = slo
+        self.scheduler.tracer = tracer
+        if slo is not None and getattr(slo, "tracer", None) is None:
+            slo.tracer = tracer
+        if tracer is not None and self._watchdog is not None:
+            self._watchdog.set_flight_recorder(tracer.last_events)
+
+    def _req_tracer(self, req: Request):
+        """The tracer, iff this request's rid is sampled in."""
+        tr = self._tracer
+        if tr is not None and tr.sampled(f"rid:{req.rid}"):
+            return tr
+        return None
+
+    def _step_tracer(self):
+        """The tracer, iff this engine step's index is sampled in
+        (decode/verify spans are per-step, not per-request)."""
+        tr = self._tracer
+        if tr is not None and tr.sampled(f"step:{self.steps}"):
+            return tr
+        return None
+
+    # -- shedding (the watchdog's escalation target) -------------------
+
+    def request_shed(self, reason: str = "watchdog trip") -> None:
+        """Flag the in-flight batch for shedding; safe from any thread
+        (the watchdog's on_trip handler).  Consumed at the next point the
+        engine thread is live."""
         self._shed_reason = str(reason)
 
     def _check_shed(self) -> bool:
@@ -332,6 +433,11 @@ class ServeEngine:
                 self._tables[slot] = TRASH_BLOCK
         if victims:
             COUNTERS.add("serve.shed", calls=len(victims))
+            if self._slo is not None:
+                self._slo.observe_shed(len(victims))
+            if self._tracer is not None:
+                self._tracer.instant("shed", "serve", n=len(victims),
+                                     reason=reason)
             logger.error(
                 f"serving: SHED {len(victims)} in-flight request(s) "
                 f"({reason}); {self.kv.blocks_in_use} blocks still held, "
@@ -343,19 +449,29 @@ class ServeEngine:
     def step(self) -> bool:
         """One engine iteration: admit -> prefill chunk round -> decode.
         Returns True when any work was done."""
+        fault_point("serve.step")
         self._check_shed()
+        if self._watchdog is not None:
+            self._watchdog.beat(self.steps)
+        fault_point("serve.admit")
         self._expire_sessions()
         self.scheduler.admit()
         self._session_pressure_release()
+        if self._slo is not None:
+            # depth AFTER admission: the backlog the cache and slots could
+            # not absorb this step
+            self._slo.observe_queue_depth(self.scheduler.n_waiting)
         did = False
         for req in self.scheduler.prefilling()[
                 :self.config.max_prefill_chunks_per_step]:
+            fault_point("serve.prefill")
             if self._check_shed():
                 return True
             self._prefill_chunk(req)
             did = True
         running = self.scheduler.running()
         if running:
+            fault_point("serve.decode")
             if self._check_shed():
                 return True
             self._decode_step(running)
@@ -365,6 +481,10 @@ class ServeEngine:
             self.kv.sample_occupancy()
             self.peak_blocks_in_use = max(self.peak_blocks_in_use,
                                           self.kv.blocks_in_use)
+            self.peak_resident = max(self.peak_resident,
+                                     len(self.scheduler.occupied()))
+            if self._slo is not None:
+                self._slo.tick()
         return did
 
     def has_work(self) -> bool:
@@ -398,6 +518,9 @@ class ServeEngine:
         C = self.config.prefill_chunk
         chunk = req.prompt[req.prefill_pos:req.prefill_pos + C]
         n_valid = len(chunk)
+        pos0 = req.prefill_pos
+        tr = self._req_tracer(req)
+        tus0 = tr.now_us() if tr is not None else 0
         tokens = np.zeros((1, C), np.int64)
         tokens[0, :n_valid] = chunk
         tok, _logits = programs.prefill(
@@ -407,6 +530,14 @@ class ServeEngine:
         req.prefill_pos += n_valid
         req.cached_len = req.prefill_pos
         COUNTERS.add("serve.prefill_chunks", nbytes=n_valid)
+        if tr is not None:
+            # cached/computed: the prefix-cache outcome per request
+            tr.add_complete("prefill_chunk", "serve", ts_us=tus0,
+                            dur_us=tr.now_us() - tus0, rid=req.rid,
+                            pos=pos0, n=n_valid,
+                            cached=req.prefix_cached_tokens,
+                            computed=(len(req.prompt)
+                                      - req.prefix_cached_tokens))
         if req.prefill_pos < len(req.prompt):
             return
         # final chunk committed: publish the prompt's full blocks under
@@ -422,6 +553,11 @@ class ServeEngine:
         req.out.append(first)
         COUNTERS.add("serve.tokens")
         COUNTERS.add("serve.ttft_ms", nbytes=int(req.ttft_s * 1e6))
+        if self._slo is not None:
+            self._slo.observe_ttft(req.ttft_s)
+        if tr is not None:
+            tr.instant("first_token", "serve", rid=req.rid,
+                       ttft_ms=round(req.ttft_s * 1e3, 3))
         if self._is_finished(req, first):
             self._finish(req)
             return
@@ -440,6 +576,8 @@ class ServeEngine:
         if int(self.config.draft_len) > 0:
             self._verify_step(running)
             return
+        tr = self._step_tracer()
+        tus0 = tr.now_us() if tr is not None else 0
         t0 = time.perf_counter()
         toks = programs.decode(
             self.model, self.kv.caches, self.schedule, self._tokens,
@@ -462,6 +600,12 @@ class ServeEngine:
             else:
                 self._tokens[slot] = tok
                 self._positions[slot] += 1
+        if self._slo is not None:
+            self._slo.observe_tokens(len(running))
+        if tr is not None:
+            tr.add_complete("decode_step", "serve", ts_us=tus0,
+                            dur_us=tr.now_us() - tus0, step=self.steps,
+                            batch=len(running))
 
     def _record_dequant(self, t0: float) -> None:
         """`kv.dequant_ms` (µs in the bytes slot): the host time of a
@@ -525,6 +669,8 @@ class ServeEngine:
         written again before any later query's mask reaches them."""
         R = self.config.max_batch
         k = int(self.config.draft_len)
+        tr = self._step_tracer()
+        tus0 = tr.now_us() if tr is not None else 0
         drafts = np.zeros((R, k), np.int64)
         n_draft = np.zeros((R,), np.int64)
         for req in running:
@@ -542,6 +688,8 @@ class ServeEngine:
         self._record_dequant(t0)
         now = self.clock()
         COUNTERS.add("serve.decode_steps", nbytes=len(running))
+        tot_emitted = 0
+        tot_accepted = 0
         for req in running:
             slot = req.slot
             nd = int(n_draft[slot])
@@ -567,6 +715,8 @@ class ServeEngine:
                 # emitted - 1 draft tokens were accepted and used (the last
                 # emitted token is always the target's own)
                 COUNTERS.add("serve.accepted_tokens", calls=emitted - 1)
+                tot_accepted += emitted - 1
+            tot_emitted += emitted
             if finished:
                 self._finish(req)
                 self._active[slot] = False
@@ -574,6 +724,15 @@ class ServeEngine:
             else:
                 self._tokens[slot] = int(toks[slot, emitted - 1])
                 self._positions[slot] += emitted
+        if self._slo is not None:
+            self._slo.observe_tokens(tot_emitted)
+            self._slo.observe_accept(tot_accepted, int(n_draft.sum()))
+        if tr is not None:
+            tr.add_complete("verify_step", "serve", ts_us=tus0,
+                            dur_us=tr.now_us() - tus0, step=self.steps,
+                            batch=len(running),
+                            drafted=int(n_draft.sum()),
+                            accepted=tot_accepted)
 
     def _is_finished(self, req: Request, last_tok: int) -> bool:
         if req.eos_token is not None and last_tok == req.eos_token:
@@ -582,10 +741,102 @@ class ServeEngine:
 
     def _finish(self, req: Request) -> None:
         COUNTERS.add("serve.requests", nbytes=len(req.out))
+        tr = self._req_tracer(req)
+        if tr is not None:
+            tr.instant("finish", "serve", rid=req.rid, tokens=len(req.out))
         if req.session_id is not None and self.config.prefix_cache:
             self._pin_session(req)
         self.scheduler.finish(req, FINISHED)
 
+    # -- watchdog / worker integration ---------------------------------
+
+    def attach_watchdog(self, watchdog) -> None:
+        """Register with a runtime.resilience.StepWatchdog: the engine
+        beats it at every step boundary and its worker thread (when one
+        is attached) reports as the 'serving' thread group in trip
+        snapshots.  Wire the watchdog's `on_trip` to `request_shed` to
+        shed instead of hang.
+
+        Idle semantics: a ServeWorker beats the watchdog from its idle
+        loop too (no traffic is not a wedge).  Driving step() yourself
+        without a worker, keep stepping or beating through quiet periods,
+        or arm the watchdog only while work is in flight."""
+        self._watchdog = watchdog
+        if self._tracer is not None:
+            watchdog.set_flight_recorder(self._tracer.last_events)
+        watchdog.register_threads(
+            "serving",
+            lambda: [t for t in (self._worker,)
+                     if t is not None and t.is_alive()])
+
     def close(self) -> None:
-        for sid in list(self._sessions):
-            self.release_session(sid)
+        """Stop the worker (re-raising its error, if it died), then release
+        the pinned sessions and unregister from the watchdog."""
+        worker, self._worker = self._worker, None
+        try:
+            if worker is not None:
+                worker.stop()
+        finally:
+            for sid in list(self._sessions):
+                self.release_session(sid)
+            if self._watchdog is not None:
+                self._watchdog.unregister_threads("serving")
+                self._watchdog = None
+
+
+class ServeWorker(threading.Thread):
+    """Daemon thread driving engine.step() while work is pending, so that
+    submission and decoding overlap (one per replica under FleetRouter).
+    It binds the engine's card and launches on its default stream.  An
+    exception terminates every in-flight and waiting request loudly
+    (state 'error'), never silently, and `stop()` re-raises it."""
+
+    def __init__(self, engine: ServeEngine, idle_wait_s: float = 0.002):
+        super().__init__(name="dstpu-serve-worker", daemon=True)
+        self.engine = engine
+        self.idle_wait_s = float(idle_wait_s)
+        self._halt = threading.Event()
+        self.error: Optional[BaseException] = None
+        engine._worker = self
+
+    def run(self) -> None:
+        eng = self.engine
+        try:
+            if eng.device.type == "cuda":
+                import torch
+
+                # a new thread's current device is 0: bind the engine's
+                torch.cuda.set_device(eng.device)
+            self._loop(eng)
+        except BaseException as e:  # noqa: BLE001 — reported, not hidden
+            self.error = e
+            logger.error(f"serving worker died: {type(e).__name__}: {e}")
+            eng.request_shed(f"serving worker died: {e}")
+            for req in eng.scheduler.requests:
+                if not req.done:
+                    eng.scheduler.finish(req, ERROR,
+                                         error=f"worker died: {e}")
+
+    def _loop(self, eng: ServeEngine) -> None:
+        while not self._halt.is_set():
+            if eng.has_work():
+                eng.step()
+            else:
+                # idle is not wedged: keep beating the watchdog so a quiet
+                # traffic period never trips it.  A truly wedged step
+                # blocks THIS thread inside step(), so the idle beat can
+                # never mask a real hang.
+                if eng._watchdog is not None:
+                    eng._watchdog.beat(eng.steps)
+                eng._wake.wait(self.idle_wait_s)
+                eng._wake.clear()
+
+    def stop(self, timeout: float = 10.0) -> None:
+        self._halt.set()
+        self.engine._wake.set()
+        self.join(timeout=timeout)
+        if self.engine._worker is self:
+            self.engine._worker = None
+        if self.error is not None:
+            raise RuntimeError(
+                f"serving worker failed: {self.error}") from self.error

@@ -1,6 +1,7 @@
 """Continuous-batching scheduler: in-flight admission over the paged
 KV cache — a copy of deepspeed_tpu/serving/scheduler.py (:65-305), on
-the port's counters and cache, without the tracing hook.
+the port's counters and cache, with its tracing hook (`tracer`: one
+back-dated `queue_wait` span per sampled admitted request).
 
 The scheduling loop the engine drives once per `step()`:
 
@@ -127,6 +128,10 @@ class Scheduler:
         self._lock = threading.Lock()
         self._rid = itertools.count()
         self.requests: List[Request] = []
+        # monitor.tracing.TraceRecorder (or None) — set by
+        # ServeEngine.attach_tracing; admit() emits one `queue_wait`
+        # complete event per sampled admitted request.
+        self.tracer = None
         # session hooks (set by ServeEngine when sessions are enabled):
         # session_lookup(req) -> pin info or None; session_consumed(req,
         # pin) runs after the pin's blocks transferred to the request.
@@ -242,6 +247,21 @@ class Scheduler:
                 req.state = PREFILL
                 self.slots[req.slot] = req
                 admitted.append(req)
+        tr = self.tracer
+        if tr is not None and admitted:
+            # Queue wait is measured on the SCHEDULER clock (injectable
+            # for tests) and back-dated onto the tracer clock so the
+            # span ends at the admission instant.
+            now = self.clock()
+            for req in admitted:
+                if not tr.sampled(f"rid:{req.rid}"):
+                    continue
+                dur_us = max(0, int((now - req.t_submit) * 1e6))
+                tr.add_complete("queue_wait", "serve",
+                                ts_us=tr.now_us() - dur_us,
+                                dur_us=dur_us, rid=req.rid,
+                                prompt=len(req.prompt),
+                                cached=req.prefix_cached_tokens)
         return admitted
 
     def prefilling(self) -> List[Request]:

@@ -497,6 +497,92 @@ def test_cuda_split_kernel_is_bitwise_repeatable(cuda_device, T):
         assert torch.equal(again, first)
 
 
+@pytest.mark.cuda
+def test_cuda_split_decode_on_two_streams_at_once(cuda_device):
+    """Two split decode calls (B 4 at GPT-2 XL's heads: 8 key ranges),
+    each from its own thread on its own stream, 40 times each with
+    nothing between: every result bitwise equal to the same call run
+    alone, and the launches counted exactly (the split merge's scratch is
+    per (device, stream), the counts are taken under a lock)."""
+    import threading
+
+    inputs = [_route_inputs(4, 1, 25, 64, 64, torch.bfloat16,
+                            [300 + 70 * b for b in range(4)], cuda_device,
+                            seed=seed) for seed in (1, 2)]
+    assert paged._plan(4, 25, 1, 1024, 16, 64, "split-keys")[0] > 1
+    alone = [registry.dispatch("paged_attention", *x[:5], block_size=x[5])
+             for x in inputs]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(cuda_device) for _ in inputs]
+    outs = [[], []]
+    start = threading.Barrier(2)
+    n0 = paged.LAUNCHES
+
+    def replica(i):
+        with torch.cuda.stream(streams[i]):
+            start.wait()
+            for _ in range(40):
+                outs[i].append(registry.dispatch(
+                    "paged_attention", *inputs[i][:5],
+                    block_size=inputs[i][5]))
+
+    threads = [threading.Thread(target=replica, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    assert paged.LAUNCHES == n0 + 80
+    for i in (0, 1):
+        assert all(torch.equal(o, alone[i]) for o in outs[i])
+
+
+@pytest.mark.cuda
+def test_cuda_worker_binds_the_engine_card(cuda_device):
+    """An engine built with device "cuda" while the caller's current card
+    is the last one (card 1 or more where the host has several) holds that
+    card's index, and its ServeWorker thread, whose current card starts at
+    0, binds it and launches the paged kernel there: the worker's greedy
+    tokens equal another engine's on the caller's thread, exactly (the
+    same fp32 weights, the same kernels, the same batch)."""
+    import time
+
+    from deepspeed_tpu_torch import serving
+    from deepspeed_tpu_torch.models import GPT, gpt2_config
+
+    card = torch.cuda.device_count() - 1
+    prev = torch.cuda.current_device()
+    torch.cuda.set_device(card)
+    try:
+        cfg = gpt2_config("nano", param_dtype=torch.float32)
+        model = GPT(cfg, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(3))
+        scfg = serving.ServeConfig(block_size=16, num_blocks=40, max_batch=4,
+                                   prefill_chunk=32)
+        prompts = [np.random.RandomState(s).randint(
+            0, cfg.vocab_size, (n,)).tolist() for s, n in ((1, 9), (2, 30),
+                                                          (3, 17))]
+        want = serving.ServeEngine(model, scfg, device="cuda").generate(
+            prompts, 8)
+        eng = serving.ServeEngine(model, scfg, device="cuda")
+        assert eng.device == torch.device("cuda", card)
+        n0 = paged.LAUNCHES
+        # all submitted before the worker's first step, as generate() does,
+        # so that both engines step the same batches
+        reqs = [eng.submit(p, 8) for p in prompts]
+        serving.ServeWorker(eng).start()
+        t0 = time.monotonic()
+        while not all(r.done for r in reqs):
+            assert time.monotonic() - t0 < 120
+            time.sleep(0.005)
+        eng.close()
+        assert [r.state for r in reqs] == [serving.FINISHED] * 3
+        assert [r.out for r in reqs] == want
+        assert paged.LAUNCHES > n0
+    finally:
+        torch.cuda.set_device(prev)
+
+
 # -- the build (kernels/build.py), exercised with stand-in compilers ---------
 
 

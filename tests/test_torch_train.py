@@ -313,6 +313,13 @@ def test_engine_train_batch_eval_batch_and_accessors():
     ({"pipeline": {"stages": 2}}, "pipeline"),
     ({"mesh": {"model": 2}}, "mesh.*tensor and sequence parallelism"),
     ({"progressive_layer_drop": {"enabled": True}}, "progressive"),
+    # the training engine installs no fault plan, watchdog or tracer yet
+    ({"faults": {"rules": [{"site": "engine.step", "kind": "raise"}]}},
+     "faults.rules.*the production runtime"),
+    ({"faults": {"watchdog": {"enabled": True}}},
+     "faults.watchdog.*the production runtime"),
+    ({"monitor": {"tracing": {"enabled": True}}},
+     "monitor.tracing.*the production runtime"),
     ({"train_batch_size": 24, "gradient_accumulation_steps": 2},
      "batch related"),
     ({"bf16": {"enabled": True}, "fp16": {"enabled": True}}, "both"),
