@@ -308,7 +308,31 @@ any failure raises and the script exits nonzero:
    train-infinity-nvme: XL widths cut to 4 layers, masters and moments on
    NVMe in a temporary directory: bytes read and written a step and the
    aio engine that ran.
-11. kernels: one line per kernel with its launches on its main path,
+12. HF interop, the optimizer family and layer drop (after
+   train-bert-sparse).  hf-gpt2-serve: GPT-2 XL built from a seeded
+   numpy state dict under GPT2LMHeadModel's key names (std 0.02) and
+   imported by `load_hf_gpt2`; the fp32 import's greedy streams of two
+   requests equal `generate()`, then the bf16 import serves `serve`'s
+   traffic (tokens/s, TTFT p50, decode step, #10 by route); the CE route
+   a training of vocab 50257 would take, by name (plain).
+   hf-bert-lamb-exact / hf-bert-lamb: BERT-large from a seeded
+   BertForPreTraining-keyed dict through `load_hf_bert`, the
+   `HFBertLayerPolicy(torch_layout=True)` injection bitwise the import
+   and its revert the dict; 2 layers in fp32 through the flash kernels
+   against the dense path (LAMB, 1e-4 a step); then MLM + NSP with LAMB
+   at seq 512, micro 8, bf16, an attention mask (the key bias): tokens/s,
+   step ms, peak, the optimizer's device ms, #1-#3 once a layer a step.
+   onebit-exact / train-onebit: GPT-2 small (12 layers, vocab 50304,
+   fused CE) on two gloo ranks on the card, 1-bit Adam and 1-bit
+   LAMB on the sign and int8 wires, freeze 2, 5 steps: 1-bit Adam's
+   compressed call at every frozen step, and 1-bit LAMB's call of each
+   leaf at one of the frozen steps (leaf i at frozen step i mod 3),
+   bitwise `onebit_wire_model` of both ranks' inputs and errors; step ms
+   (gloo's staging).  train-pld: train-pallas
+   with progressive layer drop (theta 0.5, gamma 0.001): theta 1 is the
+   dense step bit for bit; tokens/s, the share of blocks run, #1-#3 once
+   a run block, #4-#6 once a step.
+13. kernels: one line per kernel with its launches on its main path,
    its error against the plain version, its times beside its bound, and
    per family the head dims (blocks, dtypes) this run launched.
 
@@ -6747,6 +6771,904 @@ def sparse_entries(sparse_cases, probe, train_bert, exact):
     return out
 
 
+# -- HF interop: seeded numpy state dicts under transformers' key names ------
+
+
+class _SeededNormals:
+    """Normal draws at std 0.02 for a state dict's matrices, in the order
+    they are asked for: each matrix is cut into pieces of at most 4 Mi
+    elements, each piece with a generator of its own spawned from `seed`
+    in that order, and the pieces are filled by 8 threads (numpy's
+    generators release the GIL), so a GPT-2 XL dict takes seconds."""
+
+    PIECE = 1 << 22
+
+    def __init__(self, seed):
+        self.seq = np.random.SeedSequence(seed)
+        self.jobs = []
+
+    def __call__(self, shape, std=0.02):
+        out = np.empty(shape, np.float32)
+        flat = out.reshape(-1)
+        for lo in range(0, flat.size, self.PIECE):
+            self.jobs.append((flat[lo:lo + self.PIECE], std,
+                              self.seq.spawn(1)[0]))
+        return out
+
+    def fill(self):
+        def one(job):
+            piece, std, seed = job
+            np.random.default_rng(seed).standard_normal(
+                out=piece, dtype=np.float32)
+            piece *= np.float32(std)
+
+        with ThreadPoolExecutor(8) as ex:
+            list(ex.map(one, self.jobs))
+        self.jobs = []
+
+
+def hf_gpt2_numpy_state_dict(cfg, seed=0):
+    """A GPT2LMHeadModel's weights as numpy fp32 under HF's key names and
+    shapes (Conv1D [in, out]), for a GPT2Config or a dict of its fields,
+    drawn from `seed` (`_SeededNormals`): matrices and embeddings normal
+    at std 0.02, biases 0, LayerNorm weights 1 (HF's init scheme; the
+    card machine has no transformers).  `lm_head.weight` is the tied
+    `wte`."""
+    get = cfg.get if isinstance(cfg, dict) else (
+        lambda k, d=None: getattr(cfg, k, d))
+    normal = _SeededNormals(seed)
+    d, V, L = get("n_embd"), get("vocab_size"), get("n_layer")
+    f = get("n_inner", None) or 4 * d
+    z = lambda *s: np.zeros(s, np.float32)  # noqa: E731
+    sd = {"transformer.wte.weight": normal((V, d)),
+          "transformer.wpe.weight": normal((get("n_positions"), d))}
+    for i in range(L):
+        p = f"transformer.h.{i}."
+        sd.update({p + "ln_1.weight": np.ones(d, np.float32),
+                   p + "ln_1.bias": z(d),
+                   p + "attn.c_attn.weight": normal((d, 3 * d)),
+                   p + "attn.c_attn.bias": z(3 * d),
+                   p + "attn.c_proj.weight": normal((d, d)),
+                   p + "attn.c_proj.bias": z(d),
+                   p + "ln_2.weight": np.ones(d, np.float32),
+                   p + "ln_2.bias": z(d),
+                   p + "mlp.c_fc.weight": normal((d, f)),
+                   p + "mlp.c_fc.bias": z(f),
+                   p + "mlp.c_proj.weight": normal((f, d)),
+                   p + "mlp.c_proj.bias": z(d)})
+    sd["transformer.ln_f.weight"] = np.ones(d, np.float32)
+    sd["transformer.ln_f.bias"] = z(d)
+    sd["lm_head.weight"] = sd["transformer.wte.weight"]
+    normal.fill()
+    return sd
+
+
+def hf_bert_numpy_state_dict(cfg, seed=0):
+    """A BertForPreTraining's weights as numpy fp32 under HF's key names
+    and shapes (nn.Linear [out, in]), drawn from `seed` as
+    `hf_gpt2_numpy_state_dict` draws GPT-2's; the decoder is the tied
+    word embedding and its bias `cls.predictions.bias`."""
+    get = cfg.get if isinstance(cfg, dict) else (
+        lambda k, d=None: getattr(cfg, k, d))
+    normal = _SeededNormals(seed)
+    d, V, f = get("hidden_size"), get("vocab_size"), get("intermediate_size")
+    z = lambda *s: np.zeros(s, np.float32)  # noqa: E731
+    one = lambda n: np.ones(n, np.float32)  # noqa: E731
+    e = "bert.embeddings."
+    sd = {e + "word_embeddings.weight": normal((V, d)),
+          e + "position_embeddings.weight": normal(
+              (get("max_position_embeddings"), d)),
+          e + "token_type_embeddings.weight": normal(
+              (get("type_vocab_size", 2), d)),
+          e + "LayerNorm.weight": one(d), e + "LayerNorm.bias": z(d)}
+    for i in range(get("num_hidden_layers")):
+        p = f"bert.encoder.layer.{i}."
+        for m in ("query", "key", "value"):
+            sd[p + f"attention.self.{m}.weight"] = normal((d, d))
+            sd[p + f"attention.self.{m}.bias"] = z(d)
+        sd.update({
+            p + "attention.output.dense.weight": normal((d, d)),
+            p + "attention.output.dense.bias": z(d),
+            p + "attention.output.LayerNorm.weight": one(d),
+            p + "attention.output.LayerNorm.bias": z(d),
+            p + "intermediate.dense.weight": normal((f, d)),
+            p + "intermediate.dense.bias": z(f),
+            p + "output.dense.weight": normal((d, f)),
+            p + "output.dense.bias": z(d),
+            p + "output.LayerNorm.weight": one(d),
+            p + "output.LayerNorm.bias": z(d)})
+    sd.update({
+        "bert.pooler.dense.weight": normal((d, d)),
+        "bert.pooler.dense.bias": z(d),
+        "cls.predictions.bias": z(V),
+        "cls.predictions.transform.dense.weight": normal((d, d)),
+        "cls.predictions.transform.dense.bias": z(d),
+        "cls.predictions.transform.LayerNorm.weight": one(d),
+        "cls.predictions.transform.LayerNorm.bias": z(d),
+        "cls.seq_relationship.weight": normal((2, d)),
+        "cls.seq_relationship.bias": z(2)})
+    sd["cls.predictions.decoder.weight"] = sd[e + "word_embeddings.weight"]
+    sd["cls.predictions.decoder.bias"] = sd["cls.predictions.bias"]
+    normal.fill()
+    return sd
+
+
+# -- 1-bit wire: a numpy model of runtime/comm/compressed.py ---------------
+
+
+def _np_mean_abs(t):
+    """mean(|t|): the sum in fp64, one rounding to fp32 (the port's)."""
+    return np.float32(np.abs(t).astype(np.float64).sum() / max(t.size, 1))
+
+
+def _np_quant(t, g):
+    blocks = t.reshape(*t.shape[:-1], -1, g)
+    scale = (np.abs(blocks).max(axis=-1) / np.float32(127.0)
+             + np.float32(1e-12)).astype(np.float32)
+    q = np.clip(np.round(blocks / scale[..., None]), -127, 127)
+    return q.astype(np.int8).reshape(t.shape), scale
+
+
+def _np_dequant(q, scale, g):
+    blocks = q.astype(np.float32).reshape(*q.shape[:-1], -1, g)
+    return (blocks * scale[..., None]).reshape(q.shape)
+
+
+def onebit_wire_model(xs, wes, ses, wire, ranks=None):
+    """The compressed mean of `compressed_allreduce` (wire "sign") or
+    `int8_compressed_allreduce` ("int8") over len(xs) ranks, in numpy
+    from every rank's fp32 input, worker error and server error -> [(out,
+    new worker error, new server error)] for each rank of `ranks` (all by
+    default).  The mean over the ranks is their sum in rank order divided
+    by W (exact at W = 2)."""
+    W = len(xs)
+    ranks = range(W) if ranks is None else ranks
+    f32 = np.float32
+    # the ranks' worker stages (and the owners' rows) run in threads:
+    # numpy's elementwise passes release the GIL
+    pool = ThreadPoolExecutor(W)
+    if wire == "sign":
+        def worker(x, we):
+            c = x + we
+            comp = np.sign(c)
+            comp *= _np_mean_abs(c)
+            return c, comp
+
+        cs_, comps = zip(*pool.map(worker, xs, wes))
+        pool.shutdown()
+        avg = comps[0].copy()
+        for comp in comps[1:]:
+            avg += comp
+        if W > 1:
+            np.divide(avg, f32(W), out=avg)
+        res = []
+        for r in ranks:
+            s = avg + ses[r]
+            out = np.sign(s)
+            out *= _np_mean_abs(s)
+            res.append((out, cs_[r] - comps[r], s - out))
+        return res
+    n = xs[0].size
+    g = max(1, min(2048, -(-n // W)))
+    pad = (-n) % (W * g)
+    def worker(x, we):
+        c = np.pad((x + we).ravel(), (0, pad)).reshape(W, -1)
+        return c, _np_quant(c, g)
+
+    cs_, coded = zip(*pool.map(worker, xs, wes))
+
+    def owner(r):                   # every owner's row goes into out
+        avg = _np_dequant(coded[0][0][r], coded[0][1][r], g)
+        for q, sw in coded[1:]:
+            avg += _np_dequant(q[r], sw[r], g)
+        avg /= f32(W)
+        srow = avg + np.pad(ses[r].ravel(), (0, pad)).reshape(W, -1)[r]
+        q2, ss = _np_quant(srow, g)
+        return q2, ss, srow
+
+    rows = list(pool.map(owner, range(W)))
+    pool.shutdown()
+    out = np.concatenate([_np_dequant(q2, ss, g) for q2, ss, _ in rows])
+    out = out[:n].reshape(xs[0].shape)
+    res = []
+    for r in ranks:
+        q, sw = coded[r]
+        we = (cs_[r] - _np_dequant(q, sw, g)).ravel()[:n].reshape(
+            xs[0].shape)
+        q2, ss, srow = rows[r]
+        se = np.zeros((W, srow.size), f32)
+        se[r] = srow - _np_dequant(q2, ss, g)
+        res.append((out, we, se.ravel()[:n].reshape(ses[r].shape)))
+    return res
+
+
+class OnebitWireCheck:
+    """Holds every call of the 1-bit optimizers' compressed collectives to
+    `onebit_wire_model`: inside the context, each call (a frozen step's
+    momentum, per leaf for 1-bit LAMB) all-gathers every rank's input,
+    worker error and server error over the call's axis and copies this
+    rank's output and errors to the host; the numpy model and the
+    bitwise comparison then run on a pool of `workers` threads while the
+    training goes on, and the context's exit waits for them.  With
+    `select`, only the calls whose index in the context it accepts are
+    held (the same on every rank of the axis, whose collectives must
+    match).  `seen` counts the calls, `calls`, `elements` and
+    `mismatches` the held ones; `seconds` is the time the held calls'
+    gathers and copies held the training, `model_seconds` the pool's
+    work."""
+
+    def __init__(self, workers=3, select=None):
+        self.seen = self.calls = self.elements = self.mismatches = 0
+        self.seconds = self.model_seconds = 0.0
+        self._workers = workers
+        self._select = select
+
+    def __enter__(self):
+        from deepspeed_tpu_torch.runtime.fp16.onebit import adam as ob
+
+        self._mod = ob
+        self._pool = ThreadPoolExecutor(self._workers)
+        self._pending = []
+        self._saved = (ob.compressed_allreduce, ob.int8_compressed_allreduce)
+        ob.compressed_allreduce = self._wrap(self._saved[0], "sign")
+        ob.int8_compressed_allreduce = self._wrap(self._saved[1], "int8")
+        return self
+
+    def __exit__(self, *exc):
+        (self._mod.compressed_allreduce,
+         self._mod.int8_compressed_allreduce) = self._saved
+        for f in self._pending:
+            elements, mismatches, seconds = f.result()
+            self.elements += elements
+            self.mismatches += mismatches
+            self.model_seconds += seconds
+        self._pool.shutdown()
+        return False
+
+    @staticmethod
+    def _check(ins, wire, r, got):
+        t0 = time.perf_counter()
+        want = onebit_wire_model(*ins, wire, ranks=[r])[0]
+        bad = sum(int(np.sum(a != b)) for a, b in zip(got, want))
+        return sum(a.size for a in got), bad, time.perf_counter() - t0
+
+    def _wrap(self, fn, wire):
+        import torch
+
+        from deepspeed_tpu_torch.comm import dist
+        from deepspeed_tpu_torch.comm import mesh as mesh_mod
+
+        def call(x, we, se, axis):
+            out = fn(x, we, se, axis)
+            self.seen += 1
+            if self._select is not None and not self._select(self.seen - 1):
+                return out
+            t0 = time.perf_counter()
+            mi = mesh_mod.get_current_mesh()
+            W = 1 if axis is None else mi.axis_size(axis)
+            r = 0 if axis is None else mi.axis_index(axis)
+            # the three inputs in one buffer, gathered on the host (gloo),
+            # where the model runs: one collective a call
+            n = x.numel()
+            flat = torch.cat([t.detach().float().reshape(-1)
+                              for t in (x, we, se)]).cpu()
+            g = (dist.all_gather(flat, axis, tiled=False) if W > 1
+                 else flat[None])
+            ins = [[row[i * n:(i + 1) * n].numpy().reshape(t.shape)
+                    for row in g] for i, t in enumerate((x, we, se))]
+            got = [a.detach().cpu().numpy().copy() for a in out]
+            self._pending.append(self._pool.submit(self._check, ins, wire,
+                                                   r, got))
+            self.calls += 1
+            self.seconds += time.perf_counter() - t0
+            return out
+
+        return call
+
+
+# -- phases 12-15: HF interop, the optimizer family, layer drop ---------------
+
+
+def _sync(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _empty(device):
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+HF_GPT2_XL = dict(vocab_size=50257, n_positions=1024, n_embd=1600,
+                  n_layer=48, n_head=25, activation_function="gelu_new",
+                  layer_norm_epsilon=1e-5, tie_word_embeddings=True)
+
+
+def phase_hf_gpt2_serve(device="cuda", over=None, gate_new=16, n_new=64,
+                        num_blocks=513):
+    """GPT-2 XL imported from a seeded numpy state dict under
+    GPT2LMHeadModel's key names (std 0.02; the card machine has no
+    transformers) through `load_hf_gpt2` (`hf_gpt2_state_dict_to_params`
+    -> `load_jax_params`).  Gate: the fp32 import's greedy streams of two
+    requests equal `generate()` on it.  Then the bf16 import serves
+    `serve`'s traffic (8 requests of 63-375 tokens, 64 new each, half
+    arriving mid-flight): tokens/s, TTFT p50, the mean decode step and
+    #10's launches by route, exactly layers x (prefill chunks + decode
+    steps).  The CE route a training of this vocabulary would take is
+    recorded by name (50257 has no lane-aligned divisor: plain)."""
+    import torch
+
+    from deepspeed_tpu_torch.kernels import paged
+    from deepspeed_tpu_torch.models import generate, load_hf_gpt2
+    from deepspeed_tpu_torch.models.gpt import xent_route
+    from deepspeed_tpu_torch.monitor.counters import COUNTERS
+    from deepspeed_tpu_torch.serving import (FINISHED, ServeConfig,
+                                             ServeEngine)
+
+    cuda = torch.device(device).type == "cuda"
+    hcfg = dict(HF_GPT2_XL, **(over or {}))
+    t0 = time.perf_counter()
+    sd = hf_gpt2_numpy_state_dict(hcfg, seed=0)
+    dict_s = time.perf_counter() - t0
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    model32, _ = load_hf_gpt2(sd, config=hcfg, device=device)
+    _sync(device)
+    import_fp32_s = time.perf_counter() - t0
+    V = hcfg["vocab_size"]
+    rs = np.random.RandomState(5)
+    gate_prompts = [rs.randint(0, V, (n,)).tolist() for n in (37, 150)]
+    eng = ServeEngine(model32, ServeConfig(block_size=16, num_blocks=40,
+                                           max_batch=2, prefill_chunk=128),
+                      device=device)
+    served = eng.generate(gate_prompts, gate_new)
+    gate = []
+    with torch.no_grad():
+        for i, (p, got) in enumerate(zip(gate_prompts, served)):
+            want = generate(model32, [p], gate_new,
+                            cache_len=model32.config.max_seq_len,
+                            device=device)[0].tolist()
+            _, margins = greedy_with_margins(model32, p, gate_new)
+            gate.append(first_divergence(got, want, margins,
+                                         f"hf-gpt2-serve fp32 stream {i}"))
+    del eng, model32
+    gc.collect()
+    _empty(device)
+
+    t0 = time.perf_counter()
+    model, params = load_hf_gpt2(sd, config=hcfg, device=device,
+                                 param_dtype=torch.bfloat16)
+    _sync(device)
+    import_bf16_s = time.perf_counter() - t0
+    del sd, params
+    gc.collect()
+    cfg = model.config
+    scfg = ServeConfig(block_size=16, num_blocks=num_blocks, max_batch=8,
+                       prefill_chunk=128)
+    eng = ServeEngine(model, scfg, device=device)
+    rs = np.random.RandomState(0)          # serve's prompts
+    lens = rs.randint(16, min(513, cfg.max_seq_len - n_new), size=8)
+    prompts = [rs.randint(0, V, (int(n),)).tolist() for n in lens]
+    eng.generate([list(range(V - 257, V - 241))], 2)   # warm-up
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    paged.reset_launches()
+    snap = COUNTERS.snapshot()
+    t_start = time.perf_counter()
+    reqs, steps = drive(eng, prompts, n_new)
+    wall = time.perf_counter() - t_start
+    launches = paged.LAUNCHES
+    by_route = dict(paged.LAUNCHES_BY_ROUTE)
+    by_kind = dict(paged.LAUNCHES_BY_KIND)
+    d = COUNTERS.delta_since(snap)
+    if not all(r.state == FINISHED and len(r.out) == n_new for r in reqs):
+        raise AssertionError("hf-gpt2-serve: not every request finished")
+    chunks = d["serve.prefill_chunks"]["calls"]
+    n_decode = d["serve.decode_steps"]["calls"]
+    if cuda and (launches != cfg.num_layers * (chunks + n_decode) or
+                 d.get("kernel.fallbacks")):
+        raise AssertionError(
+            f"hf-gpt2-serve: paged kernel launched {launches} times "
+            f"({by_kind}), expected {cfg.num_layers} x ({chunks} + "
+            f"{n_decode}); fallbacks {d.get('kernel.fallbacks')}")
+    decode_only = [ms for ms, pre in steps if not pre]
+    ttft = sorted(r.ttft_s for r in reqs)
+    n_tok = sum(len(r.out) for r in reqs)
+    rows = 8 * cfg.max_seq_len
+    rec = {"phase": "hf-gpt2-serve",
+           "config": "GPT-2 XL imported from a seeded HF-keyed numpy state "
+           "dict (n_embd 1600, 48 layers, 25 heads, vocab 50257, n_positions "
+           "1024, std 0.02), bf16 params and KV",
+           "hf_config": hcfg, "state_dict_s": dict_s,
+           "import_fp32_s": import_fp32_s, "import_bf16_s": import_bf16_s,
+           "gate_fp32_first_divergence": gate,
+           "gate_tokens_per_request": gate_new,
+           "prompt_lens": [int(n) for n in lens], "max_new_tokens": n_new,
+           "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+           "ttft_p50_ms": float(np.median(ttft)) * 1e3,
+           "decode_step_mean_ms": float(np.mean(decode_only)),
+           "prefill_chunks": chunks, "decode_steps": n_decode,
+           "paged_launches": launches, "paged_launches_by_kind": by_kind,
+           "paged_launches_by_route": by_route,
+           "peak_mem_bytes": (torch.cuda.max_memory_allocated() if cuda
+                              else None),
+           "ce_route_if_trained": {
+               "loss_impl": "pallas", "rows": rows, "vocab": V,
+               "route": xent_route(rows, V, "pallas"),
+               "why": "50257 has no lane-aligned block divisor (JAX's rule, "
+                      "gpt.py:377-388): kernels #4-#6 would not run"}}
+    emit(rec)
+    del eng, model
+    gc.collect()
+    _empty(device)
+    return rec
+
+
+HF_BERT_LARGE = dict(vocab_size=30522, hidden_size=1024, num_hidden_layers=24,
+                     num_attention_heads=16, intermediate_size=4096,
+                     max_position_embeddings=512, type_vocab_size=2,
+                     hidden_act="gelu", hidden_dropout_prob=0.1,
+                     attention_probs_dropout_prob=0.1, layer_norm_eps=1e-12)
+
+
+def lamb_config(micro, lr, precision):
+    cfg = {"train_batch_size": micro, "train_micro_batch_size_per_gpu": micro,
+           "optimizer": {"type": "Lamb",
+                         "params": {"lr": lr, "weight_decay": 0.01}},
+           "gradient_clipping": 1.0, "steps_per_print": 0}
+    if precision == "bf16":
+        cfg["bf16"] = {"enabled": True}
+    return cfg
+
+
+def _masked_bert_batches(steps, micro, seq, vocab, seed):
+    """bert_batches with an attention mask: the last eighth of every other
+    row is padding (the flash kernels take it as a key bias)."""
+    keep = np.ones((micro, seq), np.int64)
+    keep[1::2, seq - seq // 8:] = 0
+    for b in bert_batches(steps, micro, seq, vocab, seed):
+        b["attention_mask"] = keep
+        b["mlm_labels"] = np.where(keep == 1, b["mlm_labels"], -100)
+        yield b
+
+
+def _lamb_bert_exact(sd, hcfg, device, layers, micro, seq, steps=3):
+    """The training gate: `layers` layers of the import in fp32, dropout
+    0, TF32 off, LAMB: `steps` steps through the flash kernels against
+    the same steps through the dense plain attention; per-step losses
+    within 1e-4, #1-#3 exactly once a layer a step in the kernel run and
+    never in the plain one."""
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.kernels import flash
+    from deepspeed_tpu_torch.models import load_hf_bert
+
+    cfg = dict(hcfg, num_hidden_layers=layers, hidden_dropout_prob=0.0,
+               attention_probs_dropout_prob=0.0)
+    runs = []
+    batches = list(_masked_bert_batches(steps, micro, seq,
+                                        hcfg["vocab_size"], 3))
+    for impl in ("auto", "xla"):
+        model, _ = load_hf_bert(sd, config=cfg, device=device,
+                                compute_dtype=torch.float32, attn_impl=impl)
+        eng, *_ = dt.initialize(model=model, device=device,
+                                config_params=lamb_config(micro, 1e-3,
+                                                          "fp32"))
+        reset_train_launches()
+        losses = [float(eng.train_batch(iter([b]))) for b in batches]
+        runs.append((losses, dict(flash.LAUNCHES)))
+        del eng, model
+        _empty(device)
+    (lk, nk), (lp, npl) = runs
+    err = max(abs(a - b) for a, b in zip(lk, lp))
+    cuda = torch.device(device).type == "cuda"
+    if err > 1e-4 or (cuda and (
+            nk != {k: layers * steps for k in nk} or any(npl.values()))):
+        raise AssertionError(f"hf-bert-lamb-exact: losses {lk} against "
+                             f"{lp}, launches {nk} / {npl}")
+    return {"layers": layers, "micro": micro, "seq": seq, "steps": steps,
+            "losses_kernel": lk, "losses_plain": lp, "max_loss_diff": err,
+            "loss_tol": 1e-4, "launches_kernel_run": nk}
+
+
+def phase_hf_bert_lamb(device="cuda", over=None, micro=8, seq=512, warmup=2,
+                       steps=3, gate_layers=2, gate_micro=2):
+    """BERT-large (24 layers, hidden 1024, 16 heads, intermediate 4096,
+    vocab 30522, 512 positions, post-LN, dropout 0.1) from a seeded
+    BertForPreTraining-keyed numpy dict through `load_hf_bert`; the same
+    dict through `replace_transformer_layer(HFBertLayerPolicy(
+    torch_layout=True))` gives the imported layers' leaves bit for bit,
+    and `revert_transformer_layer` the dict back.  The training gate
+    (`_lamb_bert_exact`), then MLM + NSP with "Lamb" at seq 512, micro 8,
+    bf16 with fp32 masters, an attention mask (the flash kernels' key
+    bias): tokens/s, step ms, peak memory, the optimizer's device ms a
+    step (events around its update) and #1-#3's launches, exactly once a
+    layer a step."""
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.kernels import flash, fused_xent
+    from deepspeed_tpu_torch.models import load_hf_bert
+    from deepspeed_tpu_torch.models.convert import (flatten_tree,
+                                                    unflatten_tree)
+    from deepspeed_tpu_torch.models.hf import (bert_config_from_hf,
+                                               hf_bert_state_dict_to_params)
+    from deepspeed_tpu_torch.module_inject import (FUSED_KEYS,
+                                                   HFBertLayerPolicy,
+                                                   replace_transformer_layer,
+                                                   revert_transformer_layer)
+    from deepspeed_tpu_torch.monitor.counters import COUNTERS
+
+    cuda = torch.device(device).type == "cuda"
+    hcfg = dict(HF_BERT_LARGE, **(over or {}))
+    t0 = time.perf_counter()
+    sd = hf_bert_numpy_state_dict(hcfg, seed=0)
+    dict_s = time.perf_counter() - t0
+    # injection: the policy's fused leaves are the import's, bit for bit
+    policy = HFBertLayerPolicy(torch_layout=True)
+    injected, _, paths = replace_transformer_layer(policy,
+                                                   unflatten_tree(sd))
+    params = hf_bert_state_dict_to_params(sd, bert_config_from_hf(hcfg))
+    layers = injected["bert"]["encoder"]["layer"]
+    if len(paths) != hcfg["num_hidden_layers"] or not all(
+            torch.equal(lay[k].contiguous(), params["layers"][i][k])
+            for i, lay in enumerate(layers) for k in FUSED_KEYS):
+        raise AssertionError("hf-bert-lamb: injected leaves differ from "
+                             "the imported layers")
+    back = flatten_tree(revert_transformer_layer(policy, injected))
+    if set(back) != set(sd) or not all(
+            np.array_equal(np.asarray(back[k]), sd[k]) for k in sd):
+        raise AssertionError("hf-bert-lamb: revert does not give the dict "
+                             "back")
+    del injected, params, back, layers
+    gate = _lamb_bert_exact(sd, hcfg, device, gate_layers, gate_micro, seq)
+    emit({"phase": "hf-bert-lamb-exact", **gate})
+
+    model, _ = load_hf_bert(sd, config=hcfg, device=device,
+                            compute_dtype=torch.bfloat16)
+    del sd
+    gc.collect()
+    eng, *_ = dt.initialize(model=model, device=device,
+                            config_params=lamb_config(micro, 1e-3, "bf16"))
+    events = []
+    update = eng.optimizer.update
+
+    def timed_update(*a, **kw):
+        if not cuda:
+            return update(*a, **kw)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = update(*a, **kw)
+        e1.record()
+        events.append((e0, e1))
+        return out
+
+    eng.optimizer.update = timed_update
+    data = _masked_bert_batches(warmup + steps + 1, micro, seq,
+                                hcfg["vocab_size"], 0)
+    losses = [float(eng.train_batch(data)) for _ in range(warmup)]
+    _sync(device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    reset_train_launches()
+    events.clear()
+    snap = COUNTERS.snapshot()
+    step_ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(eng.train_batch(data)))
+        _sync(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    d = COUNTERS.delta_since(snap)
+    launches = dict(flash.LAUNCHES)
+    L = hcfg["num_hidden_layers"]
+    if cuda and (launches != {k: L * steps for k in launches} or
+                 any(fused_xent.LAUNCHES.values()) or
+                 d.get("kernel.fallbacks")):
+        raise AssertionError(f"hf-bert-lamb: flash launches {launches}, "
+                             f"expected {L} x {steps}; fused CE "
+                             f"{fused_xent.LAUNCHES}; {d}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"hf-bert-lamb: losses {losses}")
+    opt_ms = [a.elapsed_time(b) for a, b in events]
+    rec = {"phase": "hf-bert-lamb",
+           "config": "BERT-large imported from a seeded HF-keyed numpy dict "
+           "(24 layers, hidden 1024, 16 heads, intermediate 4096, vocab "
+           "30522, 512 positions, post-LN, gelu as tanh-gelu, dropout 0.1); "
+           "MLM 15% + NSP, seq 512, micro 8, bf16, fp32 masters, Lamb lr "
+           "1e-3 wd 0.01, clipping 1.0; the odd rows' last 64 keys padded",
+           "state_dict_s": dict_s, "injection_bitwise": True,
+           "revert_bitwise": True, "gate": gate, "warmup_steps": warmup,
+           "timed_steps": steps,
+           "tokens_per_s": micro * seq * steps / (sum(step_ms) / 1e3),
+           "step_ms_mean": float(np.mean(step_ms)),
+           "optimizer_device_ms_mean": (float(np.mean(opt_ms)) if opt_ms
+                                        else None),
+           "peak_mem_bytes": (torch.cuda.max_memory_allocated() if cuda
+                              else None),
+           "losses": losses, "flash_launches": launches,
+           "ce_route": "plain (the MLM decoder bias: the fused CE carries "
+                       "none, JAX's rule)"}
+    emit(rec)
+    del eng, model
+    gc.collect()
+    _empty(device)
+    return rec
+
+
+ONEBIT_RUNS = (("OneBitAdam", "sign"), ("OneBitAdam", "int8"),
+               ("OneBitLamb", "sign"), ("OneBitLamb", "int8"))
+
+
+def _onebit_worker(rank, world, store, device, out_dir, job):
+    """One rank of train-onebit (gloo on the one card): every 1-bit run
+    from one init, each compressed call held to the numpy model."""
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.comm import dist
+    from deepspeed_tpu_torch.kernels import flash, fused_xent
+    from deepspeed_tpu_torch.models import GPT, gpt2_config
+
+    dist.init_distributed(init_method=f"file://{store}", world_size=world,
+                          rank=rank, dist_backend="gloo", device=device,
+                          verbose=False)
+    recs = []
+    try:
+        micro, seq, steps = job["micro"], job["seq"], job["steps"]
+        batches = list(stride_batches(steps, micro * world, seq, 64, 0))
+        for opt, wire in ONEBIT_RUNS:
+            cfg = gpt2_config(job["size"], loss_impl="pallas",
+                              max_seq_len=seq, **job["over"])
+            model = GPT(cfg, device=device,
+                        generator=torch.Generator(device=device)
+                        .manual_seed(0))
+            conf = {"train_batch_size": micro * world,
+                    "train_micro_batch_size_per_gpu": micro,
+                    "optimizer": {"type": opt, "params": {
+                        "lr": 1e-4, "freeze_step": job["freeze_step"],
+                        "wire": wire}},
+                    "bf16": {"enabled": True}, "steps_per_print": 0}
+            eng, *_ = dt.initialize(model=model, config_params=conf,
+                                    device=device)
+            if not eng._onebit_hot:
+                raise AssertionError("train-onebit: the compressed path "
+                                     "did not engage")
+            reset_train_launches()
+            losses, step_ms = [], []
+            # 1-bit LAMB calls the wire once a leaf a frozen step: leaf i
+            # is held to the model at frozen step i mod (frozen steps), so
+            # every frozen step and every leaf are checked, each leaf once
+            # (the call's time budget); 1-bit Adam's one call a step is
+            # held at every step
+            L, frozen = len(eng._param_names), steps - job["freeze_step"]
+            select = (None if opt == "OneBitAdam"
+                      else lambda k: (k % L) % frozen == k // L)
+            with OnebitWireCheck(select=select) as check:
+                for b in batches:
+                    check_s = check.seconds
+                    t0 = time.perf_counter()
+                    losses.append(float(eng.forward(b)))
+                    eng.backward()
+                    eng.step()
+                    _sync(device)
+                    step_ms.append((time.perf_counter() - t0
+                                    - (check.seconds - check_s)) * 1e3)
+            recs.append({"optimizer": opt, "wire": wire, "losses": losses,
+                         "step_ms": step_ms,
+                         "frozen_step_ms_mean": float(np.mean(
+                             step_ms[job["freeze_step"]:])),
+                         "warm_step_ms_mean": float(np.mean(
+                             step_ms[:job["freeze_step"]])),
+                         "check_calls": check.calls,
+                         "wire_calls": check.seen,
+                         "check_elements": check.elements,
+                         "check_mismatches": check.mismatches,
+                         "check_seconds": check.seconds,
+                         "check_model_seconds": check.model_seconds,
+                         "leaves": len(eng._param_names),
+                         "launches": train_launches()})
+            del eng, model
+            gc.collect()
+            _empty(device)
+    finally:
+        dist.barrier()
+        dist.destroy()
+    with open(os.path.join(out_dir, f"onebit{rank}.json"), "w") as f:
+        json.dump(recs, f)
+
+
+def phase_train_onebit(device="cuda", size="small", micro=4, seq=1024,
+                       steps=5, freeze_step=2, over=None, timeout=900):
+    """train-pallas's GPT-2 small (12 layers, vocab 50304, the fused CE,
+    so #4-#6 run) on two gloo ranks on
+    the card, ZeRO-0, gas 1, micro 4 a rank, bf16: 1-bit Adam, then 1-bit
+    LAMB, each on the sign and the int8 wire, freeze_step 2, 5 steps, from
+    one init.  Gate `onebit-exact`: on each rank, 1-bit Adam's compressed
+    call (its flat buffer) at every frozen step, and 1-bit LAMB's call of
+    each leaf at one frozen step (leaf i at frozen step i mod the frozen
+    steps: every step and every leaf, a third of the elements), equal,
+    bit for bit, `onebit_wire_model` of the two ranks' gathered inputs
+    and errors.  Step ms is gloo's host staging of the collectives on one
+    card, not a wire speed."""
+    import tempfile
+
+    over = {} if over is None else over
+    job = {"size": size, "micro": micro, "seq": seq, "steps": steps,
+           "freeze_step": freeze_step, "over": over}
+    with tempfile.TemporaryDirectory() as out:
+        codes = _spawn_ranks(_onebit_worker, 2, out,
+                             (device, out, job), timeout)
+        if codes != [0, 0]:
+            raise AssertionError(f"train-onebit: rank exit codes {codes}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(out, f"onebit{r}.json")) as f:
+                ranks.append(json.load(f))
+    frozen = steps - freeze_step
+    gate = []
+    for runs in zip(*ranks):
+        for r, run in enumerate(runs):
+            adam = run["optimizer"] == "OneBitAdam"
+            per_step = 1 if adam else run["leaves"]
+            if run["check_mismatches"] or \
+                    run["wire_calls"] != frozen * per_step or \
+                    run["check_calls"] != (frozen if adam else run["leaves"]):
+                raise AssertionError(
+                    f"onebit-exact: {run['optimizer']} {run['wire']} rank "
+                    f"{r}: {run['wire_calls']} calls, {run['check_calls']} "
+                    f"checked, {run['check_mismatches']} mismatching "
+                    "elements")
+        if not all(np.isfinite(run["losses"]).all() for run in runs):
+            raise AssertionError(f"train-onebit: losses {runs}")
+        gate.append({"optimizer": runs[0]["optimizer"],
+                     "wire": runs[0]["wire"],
+                     "calls_per_rank": runs[0]["wire_calls"],
+                     "checked_calls_per_rank": runs[0]["check_calls"],
+                     "elements_per_rank": runs[0]["check_elements"],
+                     "mismatches": [x["check_mismatches"] for x in runs]})
+    emit({"phase": "onebit-exact", "tolerance": "bitwise", "runs": gate})
+    rec = {"phase": "train-onebit",
+           "config": f"gpt2 {size} (d768, 12 heads, vocab 50304, fused "
+           f"CE){', ' + str(over) if over else ''}, seq {seq}, micro "
+           f"{micro} on each of two "
+           "gloo ranks on one card, ZeRO-0, gas 1, bf16, lr 1e-4, "
+           f"freeze_step {freeze_step}, {steps} steps",
+           "step_ms_is": "gloo's host staging of the collectives on one "
+                         "card, not a wire speed; the frozen steps' run "
+                         "beside the onebit-exact checks of the earlier "
+                         "calls on the host's threads (the calls' gathers "
+                         "and copies are taken out)",
+           "runs": [{k: runs[0][k] for k in (
+               "optimizer", "wire", "losses", "warm_step_ms_mean",
+               "frozen_step_ms_mean", "check_seconds",
+               "check_model_seconds", "launches")}
+               | {"rank1_losses": runs[1]["losses"]}
+               for runs in zip(*ranks)]}
+    emit(rec)
+    return rec
+
+
+def phase_train_pld(device="cuda", size="small", micro=8, seq=1024,
+                    warmup=3, steps=10, theta=0.5, gamma=0.001):
+    """train-pallas with progressive_layer_drop (theta 0.5, gamma 0.001):
+    tokens/s, the share of blocks run (the masks drawn from the engine's
+    generator), #1-#3 exactly once a run block a step and #4-#6 once a
+    step.  Gate: with theta forced to 1 (config theta 1.0), one step is
+    bitwise train-pallas's step on the same batch, loss and masters
+    (deterministic algorithms, TF32 off)."""
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.models import GPT, gpt2_config
+
+    cuda = torch.device(device).type == "cuda"
+    cfg = gpt2_config(size, loss_impl="pallas", max_seq_len=seq)
+
+    def engine(pld):
+        model = GPT(cfg, device=device,
+                    generator=torch.Generator(device=device).manual_seed(0))
+        conf = train_config(micro, 1e-4, "bf16")
+        if pld is not None:
+            conf["progressive_layer_drop"] = {"enabled": True, **pld}
+        return dt.initialize(model=model, config_params=conf,
+                             device=device)[0]
+
+    # the gate: theta 1 is the dense step, bit for bit
+    batch = next(stride_batches(1, micro, seq, 64, 7))
+    got = {}
+    with deterministic():
+        for name, pld in (("dense", None),
+                          ("theta1", {"theta": 1.0, "gamma": gamma})):
+            eng = engine(pld)
+            loss = eng.train_batch(iter([batch]))
+            got[name] = (loss.detach().clone(),
+                         {n: p.detach().clone()
+                          for n, p in eng.params.items()})
+            del eng
+            _empty(device)
+    (l0, p0), (l1, p1) = got["dense"], got["theta1"]
+    bad = [n for n in p0 if not torch.equal(p0[n], p1[n])]
+    if not torch.equal(l0, l1) or bad:
+        raise AssertionError(f"train-pld: theta 1 differs from the dense "
+                             f"step: loss {float(l0)} / {float(l1)}, "
+                             f"{len(bad)} masters")
+    del got, p0, p1
+
+    eng = engine({"theta": theta, "gamma": gamma})
+    data = stride_batches(warmup + steps + 2, micro, seq, 64, 0)
+    losses = [float(eng.train_batch(data)) for _ in range(warmup)]
+    _sync(device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    reset_train_launches()
+    run, thetas, step_ms = 0, [], []
+    for _ in range(steps):
+        thetas.append(eng.get_pld_theta())
+        t0 = time.perf_counter()
+        losses.append(float(eng.train_batch(data)))
+        _sync(device)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        run += sum(eng.module.last_pld_mask)
+    launches = train_launches()
+    total = cfg.num_layers * steps
+    if cuda and launches != {
+            **{k: run for k in ("flash_attention_fwd", "flash_attention_dq",
+                                "flash_attention_dkv")},
+            **{k: steps for k in ("fused_xent_fwd", "fused_xent_dx",
+                                  "fused_xent_dw")}}:
+        raise AssertionError(f"train-pld: launches {launches}, {run} blocks "
+                             f"run over {steps} steps")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train-pld: losses {losses}")
+    rec = {"phase": "train-pld",
+           "config": f"train-pallas (gpt2 {size}, seq {seq}, micro {micro}, "
+           f"bf16, fused CE) with progressive_layer_drop theta {theta} "
+           f"gamma {gamma}",
+           "gate_theta1_bitwise_dense": True,
+           "warmup_steps": warmup, "timed_steps": steps,
+           "tokens_per_s": micro * seq * steps / (sum(step_ms) / 1e3),
+           "step_ms_mean": float(np.mean(step_ms)),
+           "thetas": thetas, "blocks_run": int(run), "blocks": total,
+           "blocks_run_share": run / total,
+           "peak_mem_bytes": (torch.cuda.max_memory_allocated() if cuda
+                              else None),
+           "losses": losses, "launches": launches}
+    emit(rec)
+    del eng
+    gc.collect()
+    _empty(device)
+    return rec
+
+
+def slice19_paths(entries, hf_serve, hf_bert, train_onebit, train_pld):
+    """The kernel entries with the launches of the HF, 1-bit and layer-drop
+    phases added to their `launches_by_path` (#10 on hf-gpt2-serve,
+    #1-#3 on hf-bert-lamb, #1-#6 on each train-onebit run, rank 0, and on
+    train-pld)."""
+    paths = {"paged_attention": {
+        "hf-gpt2-serve": hf_serve["paged_launches"],
+        "hf-gpt2-serve by route": hf_serve["paged_launches_by_route"]}}
+    for name, n in hf_bert["flash_launches"].items():
+        paths.setdefault(name, {})["hf-bert-lamb"] = n
+    for run in train_onebit["runs"]:
+        for name, n in run["launches"].items():
+            paths.setdefault(name, {})[
+                f"train-onebit {run['optimizer']} {run['wire']} (a rank, "
+                f"5 steps)"] = n
+    for name, n in train_pld["launches"].items():
+        paths.setdefault(name, {})["train-pld"] = n
+    for e in entries:
+        e.setdefault("launches_by_path", {}).update(paths.get(e["name"], {}))
+    return entries
+
+
 def build_all():
     """Compile the kernel libraries, one nvcc per source, and the host
     ops (the CPU Adam, the aio engine), one g++ each, all started
@@ -7329,7 +8251,17 @@ def main():
     train_bert, teng, data = phase_train_bert_sparse()
     emit(phase_train_profile(teng, data, train_bert))
     del teng, data
+    gc.collect()
+    torch.cuda.empty_cache()
     mark("train-bert-sparse")
+    hf_serve = phase_hf_gpt2_serve()
+    mark("hf-gpt2-serve")
+    hf_bert = phase_hf_bert_lamb()
+    mark("hf-bert-lamb")
+    train_onebit = phase_train_onebit()
+    mark("train-onebit")
+    train_pld = phase_train_pld()
+    mark("train-pld")
     emit({"phase": "seconds", **seconds})
 
     main_case = next(c for c in cases if c["case"] == "decode-bfloat16")
@@ -7343,7 +8275,7 @@ def main():
                    "fleet-exact (nano fp32, 2 replicas)": fleet_exact,
                    "serve-chaos (a worker, a shed)": serve_chaos}
     print(card, flush=True)
-    emit({"kernels": [{
+    emit({"kernels": slice19_paths([{
         "name": "paged_attention", "route": "cuda",
         "source": "deepspeed_tpu_torch/kernels/csrc/paged_attention.cuh",
         "replaces": "deepspeed_tpu/kernels/paged.py:127",
@@ -7392,7 +8324,8 @@ def main():
                       z3_exact, train_z3) +
         moe_entries(moe_cases, train_moe, overflow_case, train_dropless,
                     train_moe_ep) +
-        sparse_entries(sparse_cases, sparse_probe, train_bert, bert_exact)})
+        sparse_entries(sparse_cases, sparse_probe, train_bert, bert_exact),
+        hf_serve, hf_bert, train_onebit, train_pld)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

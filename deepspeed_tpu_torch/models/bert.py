@@ -132,7 +132,7 @@ class Bert(nn.Module):
         super().__init__()
         cfg = self.config = config
         dev = resolve_device(device)
-        if generator is None:
+        if generator is None and dev.type != "meta":
             generator = torch.Generator(device=dev).manual_seed(0)
         pd, d, std = cfg.param_dtype, cfg.d_model, cfg.initializer_range
         self.embeddings = nn.ParameterDict({

@@ -226,6 +226,18 @@ def gpt_block(x, blk, cfg: GPTConfig, seeds=(None, None, None, None),
     return x + _dropout(h, cfg.dropout, s_res2, train, row_offset), aux
 
 
+def draw_pld_mask(num_layers: int, theta, generator=None):
+    """Progressive layer drop's keep gates: layer i runs with probability
+    `theta` — Bernoulli(theta) as uniform < theta, drawn on the host from
+    `generator` (a fresh seed-0 generator without one, as JAX falls back
+    to PRNGKey(0)).  The stream is not JAX's threefry draw: tests hand
+    both sides the same mask."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    u = torch.rand(num_layers, generator=generator, device=generator.device)
+    return (u < float(theta)).tolist()
+
+
 def _gathered_block(x, blk, cfg, seeds, train, row_offset, batch_rows,
                     remat):
     """`gpt_block` inside the block's stage-3 gather scope (a no-op
@@ -243,6 +255,25 @@ def _ce_rows(logits32, labels, valid):
     lse = torch.logsumexp(logits32, dim=-1)
     ll = torch.gather(logits32, -1, labels[:, None])[:, 0]
     return torch.sum(torch.where(valid, lse - ll, 0.0))
+
+
+def _xent_blocks(n_rows, vocab):
+    """(row block, vocab block) of the fused CE, or None where the shapes
+    have no lane-aligned divisor (gpt.py:377-388): vocab 50304 = 393*128
+    takes 384 (the padded GPT-2 family always has one); GPT-2's own 50257
+    has none."""
+    br = next((b for b in (256, 128) if n_rows % b == 0), None)
+    bv = next((b for b in (512, 448, 384, 256, 128) if vocab % b == 0),
+              None)
+    return (br, bv) if br and bv else None
+
+
+def xent_route(n_rows, vocab, impl, bias=False) -> str:
+    """The route `_softmax_xent_from_hidden` takes for these shapes:
+    "fused" (kernels #4-#6 on the card) or "plain"."""
+    if impl != "pallas" or bias or _xent_blocks(n_rows, vocab) is None:
+        return "plain"
+    return "fused"
 
 
 def _softmax_xent_from_hidden(x, w, labels, valid, n_chunks=0,
@@ -273,13 +304,9 @@ def _softmax_xent_from_hidden(x, w, labels, valid, n_chunks=0,
         # so there is no sharded head to refuse
         from ..ops.transformer.fused_xent import fused_softmax_xent_sum
 
-        # block sizes must divide the shapes; vocab 50304 = 393*128 takes
-        # 384, the padded-to-128 GPT-2 family always has a divisor
-        br = next((b for b in (256, 128) if N % b == 0), None)
-        bv = next((b for b in (512, 448, 384, 256, 128) if V % b == 0),
-                  None)
-        if br and bv:
-            return fused_softmax_xent_sum(x, w, labels, valid, br, bv)
+        blocks = _xent_blocks(N, V)
+        if blocks is not None:
+            return fused_softmax_xent_sum(x, w, labels, valid, *blocks)
         logger.warning(f"loss_impl='pallas': shapes N={N}, V={V} have no "
                        f"lane-aligned block divisor; using the plain path")
 
@@ -422,11 +449,19 @@ class GPT(nn.Module):
                capture_layers=None, row_offset=0, batch_rows=None):
         """Everything up to and including the final layer norm: tokens
         [B, S] -> ([B, S, D] hidden states, summed MoE aux loss)
-        (gpt.py:481)."""
+        (gpt.py:481).  `pld_mask`: progressive layer drop's per-layer
+        keep gates (a sequence of bools, or a bool tensor); a dropped
+        block is skipped, so it contributes neither output nor aux loss
+        and its parameters get zero gradients — JAX's
+        `where(pld_mask[i], out, x)` (gpt.py:543-547) without computing
+        the block.  Its dropout seeds are drawn all the same, so the
+        later blocks' masks do not depend on the gates."""
         if pld_mask is not None:
-            raise NotImplementedError(
-                "progressive layer drop is not ported yet (ROADMAP queue 1, "
-                "the production runtime)")
+            keep = (pld_mask.tolist() if torch.is_tensor(pld_mask)
+                    else [bool(k) for k in np.asarray(pld_mask).ravel()])
+            if len(keep) != self.config.num_layers:
+                raise ValueError(f"pld_mask has {len(keep)} gates for "
+                                 f"{self.config.num_layers} layers")
         if capture_layers:
             raise NotImplementedError(
                 "layer-output capture is not ported yet (ROADMAP queue 1, "
@@ -439,8 +474,10 @@ class GPT(nn.Module):
                          derive_seed(cfg.embed_dropout, generator)[0], train,
                          row_offset)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-        for blk in self.blocks:
+        for i, blk in enumerate(self.blocks):
             seeds = _block_seeds(cfg, generator, train, hasattr(blk, "moe"))
+            if pld_mask is not None and not keep[i]:
+                continue
             if cfg.remat and torch.is_grad_enabled():
                 # recomputed in backward, with the same seeds
                 x, aux = checkpoint(_gathered_block, x, blk, cfg, seeds,
@@ -478,8 +515,12 @@ class GPT(nn.Module):
             tokens, labels = tokens[:, :-1], tokens[:, 1:]
         else:
             labels = self._tokens(labels)
-        pld_mask = (True if progressive_layer_drop and pld_theta is not None
-                    and train else None)
+        pld_mask = None
+        if progressive_layer_drop and pld_theta is not None and train:
+            # per-layer keep gates drawn once a micro step (gpt.py:593-600)
+            pld_mask = draw_pld_mask(self.config.num_layers, pld_theta,
+                                     generator)
+            self.last_pld_mask = pld_mask
         x, moe_aux = self._trunk(tokens, generator, train, pld_mask=pld_mask,
                                  capture_layers=capture_layers,
                                  row_offset=row_offset,

@@ -133,7 +133,7 @@ def init_transformer_params(config: DeepSpeedTransformerConfig,
     initializer_range), the output-facing matrices rescaled by
     1/sqrt(2·num_layers) when adjust_init_range."""
     dev = resolve_device(device)
-    if generator is None:
+    if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
     h, ffn = config.hidden_size, config.intermediate_size
     std = config.initializer_range if config.initializer_range > 0 else 0.02

@@ -27,13 +27,14 @@ item, rather than training without it: ZeRO-Offload or Infinity at
 more than one rank, `offload_optimizer` at stage 3 without
 `offload_param`, a pipeline section, a mesh with a model, pipe or seq
 axis above 1, `comm.overlap` (outside ZeRO-Infinity, where the engine
-warns, as JAX's does), progressive layer drop,
+warns, as JAX's does),
 AMP, TensorBoard, the wall-clock breakdown,
 `checkpoint.preempt_save_dir` (the preemption handler), a `faults` block
 that injects (`rules`) or arms the step watchdog, and
 `monitor.tracing.enabled` (the training engine installs none of them
-yet; serving takes a plan, watchdog and tracer directly).  (1-bit and
-LAMB optimizers are refused by the engine's optimizer selection.)
+yet; serving takes a plan, watchdog and tracer directly).
+`progressive_layer_drop` is read into `pld_enabled` / `pld_params`
+(config.py:1039-1045).
 """
 
 from __future__ import annotations
@@ -121,8 +122,6 @@ def _refuse_unported(pd, zero_stage):
         refuse(f"checkpoint.{c.CHECKPOINT_PREEMPT_SAVE_DIR} (the "
                "preemption handler)", "the production runtime")
     for key, what, item in (
-            (c.PROGRESSIVE_LAYER_DROP, "progressive layer drop",
-             "the production runtime"),
             (c.AMP, "AMP", "the production runtime"),
             (c.TENSORBOARD, "TensorBoard", "the production runtime")):
         if get_scalar_param(pd.get(key) or {}, "enabled", False):
@@ -657,6 +656,15 @@ class DeepSpeedConfig(DeepSpeedConfigObject):
         self.zero_allow_untested_optimizer = get_scalar_param(
             pd, c.ZERO_ALLOW_UNTESTED_OPTIMIZER,
             c.ZERO_ALLOW_UNTESTED_OPTIMIZER_DEFAULT)
+
+        pld = pd.get(c.PROGRESSIVE_LAYER_DROP) or {}
+        self.pld_enabled = bool(get_scalar_param(pld, c.PLD_ENABLED,
+                                                 c.PLD_ENABLED_DEFAULT))
+        self.pld_params = ({c.PLD_THETA: get_scalar_param(
+                               pld, c.PLD_THETA, c.PLD_THETA_DEFAULT),
+                            c.PLD_GAMMA: get_scalar_param(
+                               pld, c.PLD_GAMMA, c.PLD_GAMMA_DEFAULT)}
+                           if self.pld_enabled else False)
 
         sched = pd.get(c.SCHEDULER)
         self.scheduler_name = sched.get(c.TYPE) if sched else None

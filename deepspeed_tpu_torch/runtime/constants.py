@@ -66,7 +66,14 @@ FP16_MIN_LOSS_SCALE_DEFAULT = 1
 # sections the slice refuses when their "enabled" is set
 AMP = "amp"
 TENSORBOARD = "tensorboard"
+# progressive layer drop (constants.py:264-270)
 PROGRESSIVE_LAYER_DROP = "progressive_layer_drop"
+PLD_ENABLED = "enabled"
+PLD_ENABLED_DEFAULT = False
+PLD_THETA = "theta"
+PLD_THETA_DEFAULT = 1.0
+PLD_GAMMA = "gamma"
+PLD_GAMMA_DEFAULT = 0.001
 # sections the slice refuses when they would act: a fault plan with rules
 # (injection on), the step watchdog, and monitor.tracing
 FAULTS = "faults"

@@ -102,13 +102,30 @@ Adam moments cross only between engines that keep them on the host (a
 host tag into a device engine, or the reverse, loads the masters and
 restarts the moments, as in JAX).
 
+The optimizer family (engine.py:652-699): FusedAdam, FusedLamb
+(`ops/lamb`), 1-bit Adam / LAMB (`runtime/fp16/onebit`) and a client
+optimizer — the functional protocol as it is, or a `torch.optim.Optimizer`
+(and the config's "optax:adam|adamw|sgd") through
+`client_optimizer.TorchOptimizer`, gated under ZeRO by
+zero_allow_untested_optimizer.  A 1-bit optimizer owns its data-parallel
+reduction on the compressed path (`_use_onebit_comm`: gas 1, stage 0, no
+offload, dp > 1, a flat data axis; step_builder's onebit step, each rank
+keeping its own worker and server errors, saved as `onebit_rank_errors`
+pieces); elsewhere it logs and takes the dense reduction.  LAMB's trust
+ratios read whole leaves: under ZeRO it sums its slices' squared norms
+over the data ranks (`_slice_whole_leaf_optimizer`).  Progressive layer
+drop (engine.py:262-267): theta is handed to the model each step and updated
+after it, and resumes from the step count.
+
 What the port refuses (config.py raises): offload and Infinity at more
 than one rank, `offload_optimizer` at stage 3 without `offload_param`,
 pipelines, model / pipe / seq axes above 1, `comm.overlap` (outside
-Infinity, which warns), progressive layer drop, AMP, TensorBoard, the
-preemption handler; LAMB, 1-bit and optax optimizers, and Infinity for
-a MoE, pipeline or dropout model, raise here.  Entry points run on the
-card unless `device="cpu"` is passed.
+Infinity, which warns), AMP, TensorBoard, the preemption handler; an
+optimizer other than Adam under Offload / Infinity, a 1-bit optimizer
+over parameter slices (ZeRO 1-3 over several ranks), layer drop under
+Infinity, the host-store transport of the 1-bit wire (onebit/adam.py),
+and Infinity for a MoE, pipeline or dropout model, raise here.  Entry points run on the card
+unless `device="cpu"` is passed.
 """
 
 from __future__ import annotations
@@ -150,6 +167,10 @@ DTYPES = {"float32": torch.float32, "float16": torch.float16,
 # the model-states key of the port's dropout generator state (the JAX
 # engine keeps its PRNG key under "rng_key")
 TORCH_RNG_STATE = "torch_rng_state"
+# the optim-states key of every rank's 1-bit worker / server errors on the
+# compressed path, [dp, *leaf] pieces (the JAX engine writes none there)
+ONEBIT_RANK_ERRORS = "onebit_rank_errors"
+ONEBIT_ERRORS = ("worker_error", "server_error")
 
 
 def _place(batch, device):
@@ -353,6 +374,9 @@ class DeepSpeedEngine:
         self.zero_plan = ZeroShardingPlan(
             self._config.zero_optimization_stage, self.mesh_info,
             whole_shapes, expert=expert, expert_axes=expert_axes)
+        # the optimizer meets the plan before the model is cut to it
+        self.optimizer = self._configure_optimizer()
+        self._slice_whole_leaf_optimizer()
         self._keep_slices(model)
         self._param_names, self._masters = zip(*model.named_parameters())
         if model_parameters is not None and pre_sliced:
@@ -373,7 +397,12 @@ class DeepSpeedEngine:
                                      self.compute_dtype, self._qwz_gather)
                         if self.zero_plan.gathered else None)
 
-        self.optimizer = self._configure_optimizer()
+        if hasattr(self.optimizer, "bind"):
+            self.optimizer.bind(self._masters)
+        if hasattr(self.optimizer, "flat_order"):
+            # the flat 1-bit buffer in the JAX tree's leaf order
+            self.optimizer.flat_order = list(self._jax_order)
+        self.progressive_layer_drop = self._configure_pld()
         # ZeRO-Offload: the fp32 masters and the optimizer state move to
         # the host; the device keeps the compute-dtype weights only
         self._offload = self._configure_offload()
@@ -394,6 +423,8 @@ class DeepSpeedEngine:
         self._snapshot_event = None
         self._ckpt_stream = None
         self.training = True
+        # the 1-bit optimizer's compressed data-parallel wire
+        self._onebit_hot = self._use_onebit_comm()
         self._step_fns = StepBuilder(self).build()
         # The overflow flag of the last step is resolved LAZILY, as the
         # JAX package does: reading it right after the step would make the
@@ -410,17 +441,27 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------
 
     def _configure_optimizer(self):
-        """engine.py:652-699 optimizer selection."""
-        if self.client_optimizer is not None:
-            if not (hasattr(self.client_optimizer, "init") and
-                    hasattr(self.client_optimizer, "update")):
-                raise TypeError(
-                    "a client optimizer needs the functional protocol "
-                    "init(params) / update(grads, state, params, lr=) of "
-                    "ops/adam/fused_adam.py")
-            log_dist("using client optimizer", ranks=[0])
-            return self.client_optimizer
+        """engine.py:652-699 optimizer selection: FusedAdam, FusedLamb,
+        1-bit Adam / LAMB, a client optimizer (the functional protocol
+        as it is, a `torch.optim.Optimizer` through
+        `client_optimizer.TorchOptimizer`) and "optax:<name>" (the
+        torch.optim class with optax's update rule), the last two gated
+        under ZeRO by zero_allow_untested_optimizer."""
         name = self._config.optimizer_name
+        if self.client_optimizer is not None:
+            opt = self.client_optimizer
+            if isinstance(opt, torch.optim.Optimizer):
+                from .client_optimizer import TorchOptimizer
+
+                self._gate_untested(type(opt).__name__)
+                opt = TorchOptimizer(opt)
+            elif not (hasattr(opt, "init") and hasattr(opt, "update")):
+                raise TypeError(
+                    "a client optimizer is a torch.optim.Optimizer or has "
+                    "the functional protocol init(params) / update(grads, "
+                    "state, params, lr=) of ops/adam/fused_adam.py")
+            log_dist("using client optimizer", ranks=[0])
+            return self._refuse_under_offload(opt, "a client optimizer")
         params = dict(self._config.optimizer_params or {})
         if name is None:
             log_dist("no optimizer configured; defaulting to FusedAdam",
@@ -432,13 +473,126 @@ class DeepSpeedEngine:
             # in params selects classic L2
             adam_w = params.pop(const.ADAM_W_MODE, const.ADAM_W_MODE_DEFAULT)
             return FusedAdam(adam_w_mode=adam_w, **params)
-        if name in (const.LAMB_OPTIMIZER, const.ONEBIT_ADAM_OPTIMIZER,
-                    const.ONEBIT_LAMB_OPTIMIZER) or name.startswith("optax:"):
-            raise NotImplementedError(
-                f"optimizer {name!r} is not ported to deepspeed_tpu_torch "
-                f"yet (ROADMAP queue 1: the production runtime); use Adam")
+        if name == const.LAMB_OPTIMIZER:
+            from ..ops.lamb import FusedLamb
+
+            return self._refuse_under_offload(FusedLamb(**params), name)
+        if name == const.ONEBIT_ADAM_OPTIMIZER:
+            from .fp16.onebit import OnebitAdam
+
+            return self._refuse_under_offload(OnebitAdam(**params), name)
+        if name == const.ONEBIT_LAMB_OPTIMIZER:
+            from .fp16.onebit import OnebitLamb
+
+            return self._refuse_under_offload(OnebitLamb(**params), name)
+        if name.startswith("optax:"):
+            from .client_optimizer import from_optax_name
+
+            self._gate_untested(name)
+            return self._refuse_under_offload(
+                from_optax_name(name, params), name)
         raise ValueError(f"unknown optimizer {name!r}; supported: "
-                         f"{const.DEEPSPEED_OPTIMIZERS}")
+                         f"{const.DEEPSPEED_OPTIMIZERS} or 'optax:<name>'")
+
+    def _gate_untested(self, what):
+        """engine.py:677-684: an optimizer DeepSpeed has not tested with
+        ZeRO needs zero_allow_untested_optimizer."""
+        if self._config.zero_enabled and \
+                not self._config.zero_allow_untested_optimizer:
+            raise ValueError(f"{what!r} is untested with ZeRO; set "
+                             "zero_allow_untested_optimizer to proceed")
+
+    def _refuse_under_offload(self, opt, what):
+        """Offload and Infinity step with the host Adam: another optimizer
+        there is refused, not substituted."""
+        from .config import infinity_requested, offload_requested
+
+        zc = self._config.zero_config
+        if offload_requested(zc) or infinity_requested(zc):
+            raise NotImplementedError(
+                f"optimizer {what!r} under ZeRO-Offload / Infinity: the "
+                f"host step is the native Adam (ops/adam/cpu_adam.py); "
+                f"other optimizers there are not ported (ROADMAP queue 1: "
+                f"the production runtime)")
+        return opt
+
+    def _slice_whole_leaf_optimizer(self):
+        """An optimizer whose update reads whole leaves
+        (`reads_whole_leaves`: LAMB's per-tensor trust ratio, 1-bit's
+        compressed statistics over the tree) gets this rank's slices under
+        ZeRO or the MoE wire.  LAMB sums its slices' squared norms over
+        the ranks holding the leaf's other slices (`norm_axes`), so its
+        ratios are JAX's over the global arrays; one that cannot is
+        refused."""
+        opt, plan = self.optimizer, self.zero_plan
+        if not getattr(opt, "reads_whole_leaves", False) or not (
+                plan.partitioned or plan.expert_local):
+            return
+        if not hasattr(opt, "norm_axes"):
+            raise NotImplementedError(
+                f"optimizer {getattr(opt, 'name', type(opt).__name__)!r} "
+                f"over parameter slices (ZeRO stage "
+                f"{plan.stage} over {self.dp_world_size} ranks, or the "
+                f"MoE wire's local experts): its compressed statistics "
+                f"read whole leaves, and the sliced update is not ported "
+                f"to deepspeed_tpu_torch yet (ROADMAP queue 1: the "
+                f"production runtime); use ZeRO stage 0")
+        opt.norm_axes = [plan.expert_group_axis if lp.local
+                         else plan.partition_axes[0] if lp.sharded else None
+                         for lp in plan.leaves]
+
+    def _use_onebit_comm(self) -> bool:
+        """engine.py:1548-1570: True when the 1-bit optimizer's own
+        compressed data-parallel reduction runs in the step — gas 1,
+        ZeRO stage 0, no offload, dp > 1, a flat data axis; otherwise a
+        1-bit optimizer logs and takes the dense reduction (and
+        compresses locally, with no collective of its own)."""
+        opt = self.optimizer
+        if not getattr(opt, "handles_dp_reduction", False):
+            return False
+        ok = (self.gradient_accumulation_steps() == 1
+              and self._offload is None
+              and self._config.zero_optimization_stage == 0
+              and self.dp_world_size > 1
+              and not self.mesh_info.hierarchical)
+        if not ok:
+            log_dist(
+                "1-bit optimizer falling back to dense DP reduction "
+                "(compressed comm needs gas==1, ZeRO stage 0, no offload, "
+                "dp>1, a FLAT data axis — reference onebit/adam.py has the "
+                "same constraints; the compressed wire addresses one named "
+                "axis)", ranks=[0])
+        else:
+            log_dist(f"1-bit optimizer {opt.name}: the compressed "
+                     f"{opt.wire} wire reduces over {self.dp_world_size} "
+                     "ranks", ranks=[0])
+        return ok
+
+    def _configure_pld(self):
+        """Progressive layer drop (engine.py:262-267): the theta schedule,
+        handed to a model whose call takes `progressive_layer_drop` and
+        `pld_theta` (models.GPT)."""
+        if not self._config.pld_enabled:
+            return None
+        from .progressive_layer_drop import ProgressiveLayerDrop
+
+        takes = inspect.signature(self.module.forward).parameters
+        if "pld_theta" not in takes:
+            raise NotImplementedError(
+                f"progressive_layer_drop: {type(self.module).__name__}'s "
+                f"call takes no pld_theta (models.GPT does)")
+        return ProgressiveLayerDrop(
+            theta=self._config.pld_params[const.PLD_THETA],
+            gamma=self._config.pld_params[const.PLD_GAMMA])
+
+    def _pld_kwargs(self) -> dict:
+        """The model call's layer-drop arguments at this step's theta
+        (engine.py:1756-1758)."""
+        pld = self.progressive_layer_drop
+        if pld is None:
+            return {}
+        return {"progressive_layer_drop": True,
+                "pld_theta": float(pld.get_theta())}
 
     def _optimizer_hparams(self):
         """(the Adam hyperparameters of the config, adam_w_mode) for the
@@ -539,6 +693,14 @@ class DeepSpeedEngine:
             else:
                 log_dist(msg, ranks=[0])
         self.optimizer = self._configure_optimizer()   # the lr's holder
+        if self._config.pld_enabled:
+            raise NotImplementedError(
+                "progressive_layer_drop under ZeRO-Infinity (the streamed "
+                "blocks run unconditionally) is not ported to "
+                "deepspeed_tpu_torch yet (ROADMAP queue 1, item 10: "
+                "streamed MoE, pipeline and dropout models)")
+        self.progressive_layer_drop = None
+        self._onebit_hot = False
         self._opt_state = None
         self._scaler_state = self.loss_scaler.jit_state(self.device)
         self._grad_acc = None
@@ -910,6 +1072,7 @@ class DeepSpeedEngine:
         self._grad_norm = norm
         self._grad_acc = None
         self.global_steps += 1
+        self._update_pld()
         if overflow:
             self._skipped_steps += 1
             log_dist(f"offload step overflow: skipping, new loss scale "
@@ -962,6 +1125,7 @@ class DeepSpeedEngine:
 
         flush_dispatch_stats()
         self.global_steps += 1
+        self._update_pld()
         self._pending_overflow = overflow
         if self.lr_scheduler is not None:
             self.lr_scheduler.step()  # optimistic; rolled back on overflow
@@ -972,6 +1136,11 @@ class DeepSpeedEngine:
             log_dist(f"step={self.global_steps}, lr="
                      f"{'optimizer-default' if lr is None else f'{lr:.3e}'}, "
                      f"loss_scale={self.loss_scale}", ranks=[0])
+
+    def _update_pld(self):
+        """The next step's keep probability (engine.py:2111-2112)."""
+        if self.progressive_layer_drop is not None:
+            self.progressive_layer_drop.update_state(self.global_steps)
 
     def _resolve_pending_overflow(self):
         """Apply the host-side bookkeeping for the PREVIOUS step's
@@ -1187,10 +1356,21 @@ class DeepSpeedEngine:
                 for g in getattr(self.optimizer, "param_groups", None) or []]
 
     def get_pld_theta(self):
+        if self.progressive_layer_drop is not None:
+            return self.progressive_layer_drop.get_theta()
         return None
 
     def pld_enabled(self):
-        return False
+        return self._config.pld_enabled
+
+    def pld_params(self):
+        return self._config.pld_params
+
+    def pld_theta(self):
+        return (self._config.pld_params or {}).get(const.PLD_THETA, 1.0)
+
+    def pld_gamma(self):
+        return (self._config.pld_params or {}).get(const.PLD_GAMMA, 0.001)
 
     def get_summary_writer(self):
         return None
@@ -1425,6 +1605,9 @@ class DeepSpeedEngine:
             TORCH_RNG_STATE: self._generator.get_state(),
             **self._client_state(client_state),
         }
+        if self.progressive_layer_drop is not None:
+            model_state.update({"progressive_layer_drop": True,
+                                "pld_theta": float(self.get_pld_theta())})
         if inf is not None:
             opt_tree, pieces = inf_sd or inf.state_dict(), {}
         elif self._offload is not None:
@@ -1442,6 +1625,9 @@ class DeepSpeedEngine:
                 if hasattr(self.optimizer, "state_dict") else None),
             "zero_stage": self.zero_optimization_stage(),
         }
+        if self._onebit_hot:
+            optim_state[ONEBIT_RANK_ERRORS] = self._onebit_error_pieces(
+                pieces)
         async_save = self._config.checkpoint_async_save
         ready = None
         if async_save:
@@ -1483,6 +1669,15 @@ class DeepSpeedEngine:
         its owner's experts, written by every owner where every rank
         holds distinct experts."""
         plan, names = self.zero_plan, self._param_names
+        if hasattr(self.optimizer, "serialize_state"):
+            # a client torch.optim optimizer: JAX's OptaxOptimizer layout
+            if plan.partitioned or plan.expert_local:
+                raise NotImplementedError(
+                    "checkpointing a client optimizer's partitioned state "
+                    "is not ported to deepspeed_tpu_torch yet (ROADMAP "
+                    "queue 1: the production runtime)")
+            return self.optimizer.serialize_state(self._opt_state,
+                                                  self._jax_order), {}
         if not (plan.partitioned or plan.expert_local):
             return opt_state_to_jax(names, self._opt_state), {}
         writes = (not self.mesh_info.hierarchical or
@@ -1508,6 +1703,55 @@ class DeepSpeedEngine:
                                    "piece": t}
             state[k] = out
         return opt_state_to_jax(names, state), pieces
+
+    def _onebit_error_pieces(self, pieces):
+        """Every rank's 1-bit errors on the compressed path: a marker of
+        shape [dp, *leaf] a leaf in the tag, this rank's row a piece in
+        its own rank file (added to `pieces`).  The optimizer state proper
+        holds rank 0's, the layout of a one-rank JAX tag."""
+        dp, r = self.dp_world_size, self.dp_rank
+        out = {}
+        for k in ONEBIT_ERRORS:
+            leaves = []
+            for name, t in zip(self._param_names, self._opt_state[k]):
+                path = [ONEBIT_RANK_ERRORS, k] + [
+                    int(c) if c.isdigit() else c for c in name.split(".")]
+                key = ckpt_io.shard_key("optim:", path)
+                shape = (dp,) + tuple(t.shape)
+                leaves.append(ckpt_io.shard_marker(key, shape, "float32",
+                                                   dp))
+                pieces[key] = {"index": [[r, r + 1]] + [
+                    [0, int(n)] for n in t.shape], "piece": t[None]}
+            out[k] = unflatten_tree(dict(zip(self._param_names, leaves)))
+        return out
+
+    def _restore_opt_state(self, optim_state):
+        """The device optimizer state from a tag's optim states."""
+        tree = optim_state["optimizer_state"]
+        if hasattr(self.optimizer, "deserialize_state"):
+            self._opt_state = self.optimizer.deserialize_state(
+                tree, self._opt_state, self._jax_order)
+            return
+        restored = self._partition_opt_state(opt_state_from_jax(
+            self._param_names, tree))
+        if getattr(self.optimizer, "handles_dp_reduction", False):
+            rows = optim_state.get(ONEBIT_RANK_ERRORS)
+            for k in ONEBIT_ERRORS:
+                if self._onebit_hot and rows is not None and \
+                        np.shape(flatten_tree(rows[k])[
+                            self._param_names[0]])[0] == self.dp_world_size:
+                    flat = flatten_tree(rows[k])
+                    restored[k] = [np.asarray(flat[n])[self.dp_rank]
+                                   for n in self._param_names]
+                elif self._onebit_hot or k not in restored:
+                    # a tag of another world (or JAX's compressed path,
+                    # which drops them): the errors restart at zero, as in
+                    # the JAX engine
+                    restored[k] = [torch.zeros_like(t)
+                                   for t in self._opt_state[k]]
+                    log_dist(f"load_checkpoint: 1-bit {k} restart at zero "
+                             "(none saved for this world)", ranks=[0])
+        self._opt_state = _match_state(restored, self._opt_state)
 
     def _partition_opt_state(self, restored):
         """Whole restored moments -> this rank's slices of them (a tag
@@ -1620,9 +1864,7 @@ class DeepSpeedEngine:
             elif load_opt and self._offload is not None:
                 self._offload.load_state_dict(optim_state["optimizer_state"])
             elif load_opt:
-                restored = self._partition_opt_state(opt_state_from_jax(
-                    self._param_names, optim_state["optimizer_state"]))
-                self._opt_state = _match_state(restored, self._opt_state)
+                self._restore_opt_state(optim_state)
         if load_opt:
             hparams = optim_state.get("optimizer_hparams")
             if hparams is not None and hasattr(self.optimizer,
@@ -1648,6 +1890,8 @@ class DeepSpeedEngine:
         self.global_samples = int(model_state.get("global_samples", 0))
         self._skipped_steps = int(model_state.get("skipped_steps", 0))
         self.micro_steps = int(model_state.get("micro_steps", 0))
+        # theta is a function of the step count (JAX's tags carry none)
+        self._update_pld()
         self._grad_acc = None
         self._cached = None
         self._pending_overflow = None

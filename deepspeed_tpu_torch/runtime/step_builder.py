@@ -43,6 +43,13 @@ rank that is the gradient of the global batch's mean loss.  Without a
 process group the reduce stage is skipped and the step is the
 single-process one.
 
+The 1-bit optimizers' compressed path (`engine._onebit_hot`, JAX's
+`_build_onebit_step`, engine.py:1572-1650): the gradients stay each
+rank's own, the overflow flag is agreed by every rank, the gradients are
+unscaled and the optimizer reduces them itself (`comm_axis`); no
+clipping norm.  The model's call gets progressive layer drop's theta
+(`engine._pld_kwargs`) at every micro step.
+
 ZeRO stage 3 (`engine._stage3`, runtime/zero/stage3.py): there is no
 whole replica to prepare.  The model runs inside the gather's root
 scope, each block's compute-dtype replica gathered for its forward and
@@ -69,6 +76,7 @@ from ..comm import dist
 from ..comm.mesh import DATA_AXIS, DATA_INNER_AXIS, DATA_OUTER_AXIS
 from ..moe.dispatch import local_grads_region
 from .zero import stage3 as zero3
+from ..utils.logging import logger
 from .utils import clip_grad_norm, global_grad_norm_sq, has_overflow
 
 
@@ -122,6 +130,13 @@ class StepBuilder:
         # local-grads region), in the forward and in any recompute
         region = (local_grads_region if wire is not None
                   else contextlib.nullcontext)
+        # the 1-bit optimizer's compressed wire: local gradients, the
+        # optimizer reduces (engine._use_onebit_comm)
+        onebit = eng._onebit_hot
+        if onebit and clip > 0.0:
+            logger.warning("gradient clipping is not applied on the 1-bit "
+                           "compressed path (local grads are never "
+                           "globally reduced; reference parity)")
 
         def prep_params():
             """Master params -> the compute-side replica the loss reads."""
@@ -129,7 +144,8 @@ class StepBuilder:
 
         def call_model(batch, generator):
             """-> (loss, the stage-3 root scope or None)."""
-            kwargs = {"generator": generator, "train": True, **model_kwargs}
+            kwargs = {"generator": generator, "train": True, **model_kwargs,
+                      **eng._pld_kwargs()}
             if s3 is None:
                 out = torch.func.functional_call(model, prep_params(),
                                                  (batch,), kwargs)
@@ -208,8 +224,9 @@ class StepBuilder:
                      else g.float() for g, p in zip(grads, masters)]
             loss = loss.detach()
             if dp_on:
-                grads = (reduce_bucketed(grads) if wire is not None
-                         else reduce_implicit(grads))
+                if not onebit:
+                    grads = (reduce_bucketed(grads) if wire is not None
+                             else reduce_implicit(grads))
                 # the reported loss is the global batch's mean
                 loss = dist.all_reduce(loss.float().clone(), DATA_AXIS) / dp
             return grads, loss
@@ -307,4 +324,36 @@ class StepBuilder:
                                         eng._scaler_state["cur_scale"])
             return (loss, *apply_core(grads, lr, gas_div=1))
 
+        @torch.no_grad()
+        def onebit_apply(grads, lr):
+            """JAX's `_build_onebit_step` (engine.py:1572-1650) after the
+            gradients: the overflow flag of the LOCAL gradients agreed by
+            every rank, unscale, the optimizer's update with its own
+            compressed reduction over the data axis (each rank's worker
+            and server errors in its state), branchless skip, loss-scale
+            update.  No clipping norm: the gradients are never reduced."""
+            opt_state, scaler_state = eng._opt_state, eng._scaler_state
+            loss_scale = scaler_state["cur_scale"]
+            overflow = agreed_overflow(grads)
+            torch._foreach_div_(grads, loss_scale)
+            eng._wait_snapshot()
+            new_params, new_opt = opt.update(grads, opt_state,
+                                             list(owned_masters), lr=lr,
+                                             comm_axis=DATA_AXIS)
+            del grads
+            for old, new in zip(owned_masters, new_params):
+                torch.where(overflow, old, new, out=old)
+            new_opt = _select(overflow, new_opt, opt_state)
+            new_scaler = scaler.jit_update(scaler_state, overflow)
+            grad_norm = torch.zeros((), dtype=torch.float32,
+                                    device=loss_scale.device)
+            return overflow, grad_norm, new_opt, new_scaler
+
+        def onebit_step(batch, generator, lr):
+            grads, loss = compute_grads(batch, generator,
+                                        eng._scaler_state["cur_scale"])
+            return (loss, *onebit_apply(grads, lr))
+
+        if onebit:
+            return {"full": onebit_step}
         return {"micro": micro_step, "apply": apply_step, "full": full_step}

@@ -18,6 +18,12 @@ encoding, tag layout and engine.
   arithmetic with sums in another order), bf16 atol 5e-3 (bf16 roundings
   at places that differ between XLA and PyTorch).  A sharded JAX tag's
   pieces reassemble into exactly the JAX engine's arrays.
+* The optimizer family and layer drop: LAMB, 1-bit Adam / LAMB past
+  the freeze, the client optimizer (optax names, a client
+  torch.optim.AdamW) and the PLD theta resume bitwise within the port;
+  LAMB, 1-bit Adam and optax:adamw tags cross both engines within the
+  fp32 bound above; at world 2 each rank's 1-bit errors are pieces of
+  the tag and resume bitwise.
 * Integrity, async save and refusals: exact (files, tags, errors).
 
 The tests marked `cuda` hold the pinned-memory async snapshot on the card
@@ -711,3 +717,157 @@ def test_world2_zero2_tags_in_pieces_and_across_world_sizes(jx, tmp_path):
     for n, v in te.module_state_dict().items():
         np.testing.assert_allclose(v, ranks[0]["save"]["masters"][n],
                                    atol=1e-5, rtol=0, err_msg=n)
+
+
+# -- the optimizer family, progressive layer drop ----------------------------------
+
+OPT_FAMILY = {
+    "lamb": {"type": "Lamb", "params": {"lr": 3e-3, "weight_decay": 0.01}},
+    "onebit-adam": {"type": "OneBitAdam",
+                    "params": {"lr": 3e-3, "freeze_step": 2}},
+    "onebit-lamb-int8": {"type": "OneBitLamb",
+                         "params": {"lr": 3e-3, "freeze_step": 2,
+                                    "wire": "int8"}},
+    "optax-adamw": {"type": "optax:adamw", "params": {"lr": 3e-3}},
+    "optax-sgd": {"type": "optax:sgd", "params": {"lr": 3e-2,
+                                                  "momentum": 0.9}},
+}
+
+
+def _family_engine(case, seed=0, pld=False):
+    extra = {}
+    if pld:
+        extra["progressive_layer_drop"] = {"enabled": True, "theta": 0.5,
+                                           "gamma": 0.2}
+    model = _model("gpt", seed)
+    client = None
+    if case == "client-adamw":
+        client = torch.optim.AdamW(model.parameters(), lr=3e-3,
+                                   weight_decay=0.05)
+    else:
+        extra["optimizer"] = OPT_FAMILY[case]
+    eng, *_ = dt.initialize(model=model, optimizer=client,
+                            config_params=_cfg("fp32", **extra),
+                            training_data=_gpt_data(), device="cpu")
+    return eng
+
+
+@pytest.mark.parametrize("case,pld", [(c, False) for c in OPT_FAMILY] +
+                         [("client-adamw", False), ("lamb", True)])
+def test_optimizer_family_and_pld_resume_is_bitwise(case, pld, tmp_path):
+    """LAMB, 1-bit Adam / LAMB past the freeze (their worker and server
+    errors), the client-optimizer state (optax names and a client
+    torch.optim.AdamW) and the layer-drop theta: save at step 3, resume
+    in a fresh engine from other weights, steps 4-6 bitwise (under
+    deterministic algorithms: the embedding backward's row sums)."""
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        _family_resume(case, pld, tmp_path)
+    finally:
+        torch.use_deterministic_algorithms(prev)
+
+
+def _family_resume(case, pld, tmp_path):
+    eng = _family_engine(case, pld=pld)
+    ref = [float(eng.train_batch()) for _ in range(3)]
+    theta = eng.get_pld_theta()
+    eng.save_checkpoint(str(tmp_path))
+    ref += [float(eng.train_batch()) for _ in range(3)]
+    want = _state(eng)
+    fresh = _family_engine(case, seed=7, pld=pld)
+    fresh.load_checkpoint(str(tmp_path))
+    assert fresh.get_pld_theta() == theta
+    if pld:
+        assert theta < 1.0
+    got = [float(fresh.train_batch()) for _ in range(3)]
+    assert got == ref[3:], (got, ref[3:])
+    assert all(_same(a, b) for a, b in zip(_state(fresh), want))
+    if case.startswith("onebit"):
+        assert float(want[1]["worker_error"][0].abs().max()) > 0
+
+
+@pytest.mark.parametrize("case", ["lamb", "onebit-adam", "optax-adamw"])
+def test_optimizer_family_tags_cross_both_engines(jx, case, tmp_path):
+    """A JAX tag of each optimizer restores into the port, and a port tag
+    into the JAX engine, each going on with the other's curve (fp32 1e-5
+    a step, as above).  1-bit runs stay before the freeze here: the JAX
+    engine's dp-8 compressed path and the port's world 1 compress
+    different (local against averaged) momenta after it.  (1-bit LAMB's
+    per-leaf scalars take the same tree layout; its JAX engine compiles
+    for a minute, so it is held to the port's own resume above.)"""
+    opt = dict(OPT_FAMILY[case])
+    if case.startswith("onebit"):
+        opt["params"] = dict(opt["params"], freeze_step=100)
+    batches = list(synthetic_batches(6, 64, 32, 64, 99))
+    jmodel = jx.models.GPT(jx.models.gpt2_config(
+        "nano", max_seq_len=32, vocab_size=64, shard_activations=False))
+    tree = jx.jax.tree_util.tree_map(
+        np.asarray, jmodel.init(jx.jax.random.PRNGKey(1234)))
+    jc = _cfg(micro=64 // jx.jax.device_count(), optimizer=opt,
+              gradient_clipping=0.0)
+    jc["train_batch_size"] = 64
+    je, *_ = jx.ds.initialize(model=jmodel, model_parameters=tree,
+                              config_params=jc)
+
+    def port():
+        return dt.initialize(
+            model=GPT(gpt2_config("nano", max_seq_len=32, vocab_size=64),
+                      device="cpu"), model_parameters=tree,
+            config_params=_cfg(micro=64, optimizer=opt,
+                               gradient_clipping=0.0), device="cpu")[0]
+
+    # JAX saves at 3 and goes on; a fresh port engine follows from the tag
+    for b in batches[:3]:
+        _step(je, b)
+    je.save_checkpoint(str(tmp_path / "jax"))
+    want = [_step(je, b) for b in batches[3:]]
+    te = port()
+    te.load_checkpoint(str(tmp_path / "jax"))
+    assert te.global_steps == 3
+    got = [_step(te, b) for b in batches[3:]]
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    # a fresh port run saves at 3; the JAX engine resumes from its tag
+    te = port()
+    for b in batches[:3]:
+        _step(te, b)
+    te.save_checkpoint(str(tmp_path / "port"))
+    want = [_step(te, b) for b in batches[3:]]
+    je.load_checkpoint(str(tmp_path / "port"))
+    assert je.global_steps == 3
+    got = [_step(je, b) for b in batches[3:]]
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+def test_world2_onebit_rank_errors_resume_bitwise(tmp_path):
+    """1-bit Adam on the compressed path at world 2: each rank's worker
+    and server errors go into the tag as pieces ([dp, *leaf], a row a
+    rank), and fresh ranks that load it continue bitwise."""
+    from test_torch_dp import spawn_world
+
+    jmodel_tree = flatten_tree({n: p.detach().numpy().copy() for n, p in
+                                GPT(gpt2_config("nano", vocab_size=64,
+                                                max_seq_len=32),
+                                    device="cpu").named_parameters()})
+    tree = {k: np.array(v) for k, v in jmodel_tree.items()}
+    data = [(x[i].astype(np.int64), y[i].astype(np.int64))
+            for x, y in synthetic_batches(6, 16, 32, 64, 3)
+            for i in range(16)]
+    cfg = _cfg(micro=8, train_batch_size=16, gradient_clipping=0.0,
+               optimizer={"type": "OneBitAdam",
+                          "params": {"lr": 3e-3, "freeze_step": 2}})
+    d = (str(tmp_path / "ob"), "ob4")
+    jobs = {"save": {"run": "resume", "cfg": cfg, "tree": tree,
+                     "data": data, "steps": 6, "save_at": 4, "save": d},
+            "load": {"run": "resume", "cfg": cfg, "tree": tree,
+                     "data": data, "steps": 2, "load": d}}
+    ranks = spawn_world(2, jobs, tmp_path)
+    for res in ranks:
+        assert res["load"]["losses"] == res["save"]["losses"][4:]
+        for n, v in res["save"]["masters"].items():
+            assert np.array_equal(res["load"]["masters"][n], v), n
+    _, _, optim = ck.load_checkpoint_state(*d)
+    rows = flatten_tree(optim["onebit_rank_errors"]["worker_error"])
+    assert all(np.shape(v)[0] == 2 for v in rows.values())
+    w = rows["wte"]
+    assert not np.array_equal(np.asarray(w[0]), np.asarray(w[1]))

@@ -1,8 +1,8 @@
 """Boundaries of the PyTorch port: `deepspeed_tpu_torch`,
-`chip_smoke.py`, `chip_ab.py`, `chip_profile_moe.py` and
-`chip_dq_processes.py` load neither
-JAX, flax nor the JAX package, and the entry points run on the card
-unless the CPU is asked for."""
+`chip_smoke.py`, `chip_ab.py`, `chip_profile_moe.py`,
+`chip_dq_processes.py` and `chip_fleet_threads.py` load neither
+JAX, flax, optax nor the JAX package, and the entry points run on the
+card unless the CPU is asked for."""
 
 import ast
 import os
@@ -16,7 +16,7 @@ torch = pytest.importorskip("torch")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "deepspeed_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "deepspeed_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "deepspeed_tpu")
 
 
 def _forbidden(module: str) -> bool:
@@ -33,6 +33,7 @@ def _python_files():
     yield os.path.join(REPO, "chip_ab.py")
     yield os.path.join(REPO, "chip_profile_moe.py")
     yield os.path.join(REPO, "chip_dq_processes.py")
+    yield os.path.join(REPO, "chip_fleet_threads.py")
 
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():
@@ -94,7 +95,12 @@ print(" ".join(mods))
         "kernels.quant_codec", "kernels.moe_kernels", "moe.dispatch",
         "moe.layer", "runtime.comm.quant", "serving.programs",
         "runtime.checkpointing", "runtime.dataloader",
-        "runtime.bs_schedules", "runtime.resilience")} <= mods
+        "runtime.bs_schedules", "runtime.resilience",
+        # HF interop, injection, the optimizer family, layer drop
+        "models.hf", "module_inject.replace_module", "ops.lamb.fused_lamb",
+        "runtime.comm.compressed", "runtime.fp16.onebit.adam",
+        "runtime.fp16.onebit.lamb", "runtime.client_optimizer",
+        "runtime.progressive_layer_drop")} <= mods
 
 
 def _no_cuda(monkeypatch):

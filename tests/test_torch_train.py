@@ -312,7 +312,7 @@ def test_engine_train_batch_eval_batch_and_accessors():
     ({"wall_clock_breakdown": True}, "wall_clock_breakdown"),
     ({"pipeline": {"stages": 2}}, "pipeline"),
     ({"mesh": {"model": 2}}, "mesh.*tensor and sequence parallelism"),
-    ({"progressive_layer_drop": {"enabled": True}}, "progressive"),
+    ({"amp": {"enabled": True}}, "AMP.*the production runtime"),
     # the training engine installs no fault plan, watchdog or tracer yet
     ({"faults": {"rules": [{"site": "engine.step", "kind": "raise"}]}},
      "faults.rules.*the production runtime"),
@@ -334,7 +334,10 @@ def test_config_errors_and_unported_sections_raise(extra, match):
 
 def test_unported_optimizers_pipeline_and_data_loader_raise(tmp_path):
     model = GPT(gpt2_config("nano"), device="cpu")
-    cfg = dict(_engine_config("fp32", 1), optimizer={"type": "Lamb"})
+    # LAMB is ported; the host step under offload stays the native Adam
+    cfg = dict(_engine_config("fp32", 1), optimizer={"type": "Lamb"},
+               zero_optimization={"stage": 1, "offload_optimizer":
+                                  {"device": "cpu"}})
     with pytest.raises(NotImplementedError, match="lamb"):
         dt.initialize(model=model, config_params=cfg, device="cpu")
     # the engine-owned data loader is ported: training_data builds it
