@@ -1979,7 +1979,7 @@ SPARSE_REPEAT_CASES = (
     (2, 1024, 4, 128, 128, "float16", True, 0.1))
 
 
-def phase_sparse_repeat(n=50):
+def phase_sparse_repeat(n=5):
     """The sparse forward, dQ and dK/dV as functions of their inputs
     alone, as phase_flash_repeat checks dense dQ: on the fp16 Dh 128 causal
     dropout case (block 16), on a bf16 Dh 64 fixed layout at block 128 with
@@ -1988,7 +1988,10 @@ def phase_sparse_repeat(n=50):
     forward and dQ), each is computed n times, each call after a different
     kernel left its own data in shared memory (the dense flash forward, the
     dense flash dK/dV, or nothing), and every result must equal the first
-    bit for bit; the plain versions three times, likewise."""
+    bit for bit; the plain versions three times, likewise.  n was 50: every
+    such run read 0 differing runs, and 5 runs still follow each
+    shared-memory neighbour, for 1.1 s less (1.41 s at 50, 0.30 at 5 in
+    chip_cut_costs.py; NVIDIA H100 80GB HBM3, 700.00 W)."""
     import torch
 
     from deepspeed_tpu_torch.kernels import flash_sparse as fsk
@@ -2204,12 +2207,14 @@ XENT_REPEAT_CASES = (
     (1000, 768, 50257, "float16"))
 
 
-def phase_xent_repeat(n=50):
+def phase_xent_repeat(n=5):
     """The fused-CE forward, dx and dW as functions of their inputs alone,
     on their wgmma routes (the tied head): each is computed n times, each
     call after a different kernel left its data in shared memory (the
     fused-CE forward's plain version, a reduction, or nothing), and every
-    result must equal the first bit for bit."""
+    result must equal the first bit for bit.  n was 50: every such run read
+    0 differing runs (1.60 s at 50, 0.20 at 5 in chip_cut_costs.py; NVIDIA
+    H100 80GB HBM3, 700.00 W)."""
     import torch
 
     from deepspeed_tpu_torch.kernels import fused_xent, registry
@@ -2507,8 +2512,9 @@ def phase_train_resume(size="small", device="cuda"):
     launches flash #1-#3 12 times a step and fused CE #4-#6 once a step,
     with no plain version on the path.  (`size` and `device` let a CPU
     rehearsal run the same control flow on GPT-2 nano, unchecked
-    launches.)"""
-    import hashlib
+    launches.)  The record carries, under "reference" (not printed), the
+    uninterrupted run's batch digests and final masters for
+    train-monitor."""
     import shutil
     import tempfile
 
@@ -2525,11 +2531,6 @@ def phase_train_resume(size="small", device="cuda"):
     data = resume_dataset(seq=seq)
     on_card = device == "cuda"
 
-    def digest(batch):
-        return hashlib.sha256(b"".join(
-            (t.cpu().numpy() if torch.is_tensor(t) else np.asarray(t))
-            .tobytes() for t in batch)).hexdigest()
-
     def engine(pipeline):
         model = GPT(cfg, device=device,
                     generator=torch.Generator(device=device).manual_seed(0))
@@ -2538,15 +2539,7 @@ def phase_train_resume(size="small", device="cuda"):
             conf["data_pipeline"] = {"enabled": False}
         eng, *_ = dt.initialize(model=model, config_params=conf,
                                 training_data=data, device=device)
-        seen = []
-        forward = eng.forward
-
-        def recording(batch, generator=None):
-            seen.append(digest(batch))
-            return forward(batch, generator)
-
-        eng.forward = recording   # train_batch calls self.forward
-        return eng, seen
+        return eng, record_batches(eng)
 
     def run(eng, steps, run_name, counted):
         """`steps` train_batch() calls, each timed to its synchronize;
@@ -2682,7 +2675,376 @@ def phase_train_resume(size="small", device="cuda"):
                "pipeline_off": off["input_host_wait_ms_per_step"]},
            "launches": counted, "resumed": resumed}
     emit(rec)
+    rec["reference"] = {"digests": ref_seen, "masters": want_masters,
+                        "step_ms": ms_on}
     return rec
+
+
+# the kernels of train-monitor's profiler window, by the names the
+# profiler records (#1-#3 on their bf16 Dh 64 wgmma routes, #4 the wgmma
+# forward, #5 / #6 the wgmma kernel with DW false / true)
+MONITOR_WINDOW_KERNELS = ("flash_attention_fwd", "flash_attention_dq",
+                          "flash_attention_dkv", "fused_xent_fwd",
+                          "fused_xent_dx", "fused_xent_dw")
+
+
+def window_kernel(name):
+    """Which of #1-#6 a profiled device activity is, or None."""
+    n = name.lower()
+    for key, op in (("flash_fwd_", "flash_attention_fwd"),
+                    ("flash_dq_", "flash_attention_dq"),
+                    ("flash_dkv_", "flash_attention_dkv"),
+                    ("fx_fwd_", "fused_xent_fwd")):
+        if key in n:
+            return op
+    if "fx_wgmma_kernel" in n:
+        # demangled `fx_wgmma_kernel<T, NWG, DW>` or mangled `...Lb1E`
+        dw = ("true" in n.split("fx_wgmma_kernel", 1)[1].split(">")[0]
+              or "lb1e" in n)
+        return "fused_xent_dw" if dw else "fused_xent_dx"
+    return None
+
+
+def phase_train_monitor(ref, size="small", device="cuda"):
+    """The run monitor and the resilience runtime on train-resume's
+    full-width path: the same recipe, data and init, with the monitor
+    (sync timing, flops, tokens_per_sample 1024, a torch.profiler window
+    over step 4), tracing at sample rate 1, the wall-clock timers,
+    TensorBoard through a recording writer (the card machine has no
+    `tensorboard` package), the flops profiler at profile_step 2, a
+    seeded fault plan (one transient `ckpt.atomic_write` fault, one
+    transient `dataloader.worker` fault), the watchdog (deadline 120 s,
+    first_beat_mult 4) and `checkpoint.preempt_save_dir`.  Three steps,
+    then SIGTERM: step 4's boundary saves `preempt_step4` and raises
+    SystemExit(0).  A fresh engine of the same config loads `latest` and
+    runs steps 5-8.  Gates: the 8 losses, the batches and the final fp32
+    masters bitwise `ref` (train-resume's uninterrupted run); the tag
+    committed; each fault fired once and was retried or respawned; no
+    watchdog trip; every event valid and the report rendered; the trace's
+    spans a step; the profiler window's #1-#6 at 12 / 12 / 12 / 1 / 1 / 1
+    and the wrappers' launches at 12 / 12 / 12 / 1 / 1 / 1 a step with no
+    plain version.  (`size` and `device` let a CPU rehearsal run the same
+    control flow on GPT-2 nano, launches and kernels unchecked.)"""
+    import logging
+    import re
+    import shutil
+    import signal
+    import tempfile
+
+    import torch
+
+    import deepspeed_tpu_torch as dt
+    from deepspeed_tpu_torch.kernels import flash, fused_xent
+    from deepspeed_tpu_torch.models import GPT, gpt2_config
+    from deepspeed_tpu_torch.monitor import report, tracing
+    from deepspeed_tpu_torch.monitor.counters import COUNTERS
+    from deepspeed_tpu_torch.runtime import checkpointing as ckpt_io
+    from deepspeed_tpu_torch.runtime import resilience
+    from deepspeed_tpu_torch.utils.tensorboard import TensorBoardMonitor
+
+    t_phase = time.perf_counter()
+    micro, seq = 8, 1024
+    cfg = gpt2_config(size, loss_impl="pallas", max_seq_len=seq)
+    data = resume_dataset(seq=seq)
+    on_card = device == "cuda"
+    tmp = tempfile.mkdtemp(prefix="train-monitor-")
+    run_root, pre = os.path.join(tmp, "runs"), os.path.join(tmp, "preempt")
+    run_dir = os.path.join(run_root, "run")
+    conf = train_config(micro, 1e-4, "bf16")
+    conf.update({
+        "wall_clock_breakdown": True,
+        "monitor": {"enabled": True, "output_path": run_root,
+                    "job_name": "run", "sync_timing": True, "flops": True,
+                    "tokens_per_sample": seq,
+                    "profiler": {"start_step": 3, "num_steps": 1},
+                    "tracing": {"enabled": True, "sample_rate": 1.0}},
+        "flops_profiler": {"enabled": True, "profile_step": 2},
+        "faults": {"seed": 20,
+                   "rules": [{"site": "ckpt.atomic_write", "kind": "raise",
+                              "calls": [0]},
+                             {"site": "dataloader.worker", "kind": "raise",
+                              "calls": [2]}],
+                   "watchdog": {"enabled": True, "deadline_s": 120,
+                                "first_beat_mult": 4.0}},
+        "checkpoint": {"preempt_save_dir": pre}})
+
+    class Recording:
+        def __init__(self):
+            self.rows = []
+
+        def add_scalar(self, tag, value, step):
+            self.rows.append((tag, float(value), int(step)))
+
+        def flush(self):
+            pass
+
+    class Lines(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.lines = []
+
+        def emit(self, record):
+            self.lines.append(record.getMessage())
+
+    def engine():
+        model = GPT(cfg, device=device,
+                    generator=torch.Generator(device=device).manual_seed(0))
+        eng, *_ = dt.initialize(model=model, config_params=conf,
+                                training_data=data, device=device)
+        writer = Recording()
+        eng.monitor = TensorBoardMonitor(writer=writer)
+        eng.run_monitor.tensorboard = eng.monitor
+        primed = []
+        if on_card:
+            eng.run_monitor.trace_window.on_start = \
+                lambda: primed.append(prime_profiler())
+        return eng, record_batches(eng), writer, primed
+
+    def read_window(eng, primed):
+        """#1-#6 in the engine's profiler window (one step), against
+        12 / 12 / 12 / 1 / 1 / 1; returns (counts, primer launches lost)."""
+        path = eng.run_monitor.trace_window.path
+        if not on_card:
+            return {}, 0
+        with open(path) as f:
+            kernels = [e["name"] for e in json.load(f)["traceEvents"]
+                       if e.get("cat") == "kernel"]
+        lost = primer_lost(primed[0], [(n, 0.0, 1) for n in kernels])
+        counts = {k: 0 for k in MONITOR_WINDOW_KERNELS}
+        for n in kernels:
+            k = window_kernel(n)
+            if k is not None:
+                counts[k] += 1
+        want = {k: cfg.num_layers if k.startswith("flash") else 1
+                for k in MONITOR_WINDOW_KERNELS}
+        if counts != want:
+            raise AssertionError(f"train-monitor: the profiler window saw "
+                                 f"{counts}, expected {want}")
+        return counts, lost
+
+    def reset_launches():
+        for counts in (flash.LAUNCHES, fused_xent.LAUNCHES):
+            for k in counts:
+                counts[k] = 0
+
+    def step(eng, ms):
+        t0 = time.perf_counter()
+        loss = float(eng.train_batch())
+        if on_card:
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        return loss
+
+    def check_launches(name, steps, d):
+        launches = {**flash.LAUNCHES, **fused_xent.LAUNCHES}
+        want = {**{k: cfg.num_layers * steps for k in flash.LAUNCHES},
+                **{k: steps for k in fused_xent.LAUNCHES}}
+        if on_card and (launches != want or d.get("kernel.fallbacks") or
+                        d["kernel.dispatches"]["calls"] !=
+                        3 * cfg.num_layers * steps + 3 * steps):
+            raise AssertionError(f"train-monitor {name}: launches "
+                                 f"{launches}, expected {want}; {d}")
+        return launches
+
+    lines = Lines()
+    logger = logging.getLogger("deepspeed_tpu_torch")
+    logger.addHandler(lines)
+    counted, faults = {}, {}
+    try:
+        # -- steps 1-4, SIGTERM before step 4's boundary -----------------
+        eng, seen, writer, primed = engine()
+        reset_launches()
+        snap = COUNTERS.snapshot()
+        ms = []
+        losses = [step(eng, ms) for _ in range(3)]
+        os.kill(os.getpid(), signal.SIGTERM)
+        if not eng.preemption_requested:
+            raise AssertionError("SIGTERM did not reach the engine")
+        t0 = time.perf_counter()
+        try:
+            eng.train_batch()
+            raise AssertionError("step 4's boundary did not exit")
+        except SystemExit as e:
+            if e.code != 0:
+                raise AssertionError(f"preemption exit code {e.code}")
+        step4_ms = (time.perf_counter() - t0) * 1e3
+        losses.append(float(eng._last_loss))
+        d = COUNTERS.delta_since(snap)
+        for k, v in check_launches("steps 1-4", 4, d).items():
+            counted[k] = counted.get(k, 0) + v
+        faults["steps 1-4"] = {
+            k: d.get(k, {"calls": 0})["calls"]
+            for k in ("fault.injected", "fault.retried",
+                      "input.worker_respawns", "watchdog.trips")}
+        if faults["steps 1-4"] != {"fault.injected": 2, "fault.retried": 1,
+                                   "input.worker_respawns": 1,
+                                   "watchdog.trips": 0}:
+            raise AssertionError(f"train-monitor: faults {faults}")
+        if ckpt_io.committed_tags(pre) != ["preempt_step4"] or \
+                ckpt_io.read_latest_tag(pre) != "preempt_step4":
+            raise AssertionError(f"train-monitor: tags "
+                                 f"{ckpt_io.committed_tags(pre)}")
+        windows = {"step 4": read_window(eng, primed)}
+        flops_step = eng._flops_stats["flops"]
+        first = {"seen": list(seen), "tb": writer.rows, "ms": ms,
+                 "step4_ms": step4_ms,
+                 "flops_per_step": eng.run_monitor.flops_per_step}
+        del eng
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # -- a fresh engine from `latest`, steps 5-8 (its profiler window,
+        # start_step 3 of the same config, opens at once: step 5) ------
+        eng, seen, writer, primed = engine()
+        reset_launches()
+        snap = COUNTERS.snapshot()
+        if on_card:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.load_checkpoint(pre)
+        if on_card:
+            torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        if eng.loaded_checkpoint_tag != "preempt_step4" or \
+                eng.global_steps != 4:
+            raise AssertionError(f"train-monitor: loaded "
+                                 f"{eng.loaded_checkpoint_tag} at step "
+                                 f"{eng.global_steps}")
+        ms2 = []
+        losses += [step(eng, ms2) for _ in range(4)]
+        d = COUNTERS.delta_since(snap)
+        for k, v in check_launches("steps 5-8", 4, d).items():
+            counted[k] = counted.get(k, 0) + v
+        faults["steps 5-8"] = {
+            k: d.get(k, {"calls": 0})["calls"]
+            for k in ("fault.injected", "input.worker_respawns",
+                      "watchdog.trips")}
+        if faults["steps 5-8"] != {"fault.injected": 1,
+                                   "input.worker_respawns": 1,
+                                   "watchdog.trips": 0}:
+            raise AssertionError(f"train-monitor: faults {faults}")
+        masters = [p.detach() for p in eng.params.values()]
+        eng.finalize_monitoring()
+        windows["step 5"] = read_window(eng, primed)
+        resilience.install_fault_plan(None)
+    finally:
+        logger.removeHandler(lines)
+
+    # -- gates ----------------------------------------------------------
+    if losses != ref["losses"]:
+        raise AssertionError(f"train-monitor: losses {losses} != "
+                             f"train-resume's {ref['losses']}")
+    if first["seen"] + seen != ref["reference"]["digests"]:
+        raise AssertionError("train-monitor: the batches differ from "
+                             "train-resume's")
+    bad = [i for i, (a, b) in enumerate(zip(masters,
+                                            ref["reference"]["masters"]))
+           if not torch.equal(a, b)]
+    if bad or len(masters) != len(ref["reference"]["masters"]):
+        raise AssertionError(f"train-monitor: masters differ: {bad[:5]}")
+    events = report.read_events(os.path.join(run_dir,
+                                             "events.rank00000.jsonl"))
+    invalid = [e for e in events if report.validate_event(e)]
+    if invalid:
+        raise AssertionError(f"train-monitor: invalid events {invalid[:2]}")
+    md = report.render_markdown(report.load_run(run_dir))
+    steps = [e for e in events if e["type"] == "step"]
+    if [e["step"] for e in steps] != list(range(1, 9)) or \
+            [e["loss"] for e in steps] != losses:
+        raise AssertionError(f"train-monitor: step events "
+                             f"{[(e['step'], e.get('loss')) for e in steps]}")
+    ckpt_events = [e for e in events if e["type"] == "ckpt"]
+    segments, _ = tracing.read_trace_file(
+        os.path.join(run_dir, "trace.rank00000.jsonl"))
+    names = [e["name"] for _, evs in segments for e in evs]
+    per_step = {n: names.count(n) for n in ("dispatch.full",
+                                             "watchdog_beat", "input_wait",
+                                             "ckpt_stall")}
+    if per_step != {"dispatch.full": 8, "watchdog_beat": 8,
+                    "input_wait": 10, "ckpt_stall": 1}:
+        raise AssertionError(f"train-monitor: trace spans {per_step}")
+    fwd_ms = [float(m.group(1)) for m in (
+        re.search(r"forward: ([0-9.]+)", s) for s in lines.lines
+        if s.startswith("[Rank 0] time (ms)")) if m]
+    # steps neither counted nor profiled: 1 and 5 are counted (the
+    # monitor's flops), 3 too (profile_step 2), 4 and 5 are profiled, and
+    # 6 opens with the export of step 5's window
+    clean = [first["ms"][1]] + ms2[2:]
+    monitored = [e for e in steps if e.get("tflops")]
+    peak = 989e12 if on_card else None
+    tflops = [e["tflops"] for e in steps if e["step"] in (2, 7, 8)]
+    rec = {"phase": "train-monitor",
+           "card": gpu_name_and_limit() if on_card else "cpu rehearsal",
+           "config": "train-resume's recipe + monitor (sync_timing, flops, "
+           "tokens_per_sample 1024, profiler window step 4), tracing "
+           "(rate 1), wall_clock_breakdown, TensorBoard (a recording "
+           "writer: no tensorboard package on the card machine), "
+           "flops_profiler (profile_step 2), faults (seed 20: "
+           "ckpt.atomic_write call 0, dataloader.worker call 2, both "
+           "transient; watchdog 120 s, first_beat_mult 4), "
+           "checkpoint.preempt_save_dir; SIGTERM before step 4's boundary, "
+           "a fresh engine from latest for steps 5-8",
+           "losses": losses, "bitwise_vs_train_resume": True,
+           "tag": "preempt_step4", "faults": faults, "watchdog_trips": 0,
+           "step_ms": {"train-monitor (steps 2, 7, 8)":
+                       float(np.mean(clean)),
+                       "train-resume (steps 2-4, same call)":
+                       ref["step_ms_pipeline_on"],
+                       "each": first["ms"] + [first["step4_ms"]] + ms2},
+           "timers_forward_ms": fwd_ms,
+           "timers_step_ms": None,   # gas 1: the update runs in forward
+           "tokens_per_sec": [e.get("tokens_per_sec") for e in steps],
+           "tflops_steps_2_7_8": tflops,
+           "tflops_over_989": (float(np.mean(tflops)) * 1e12 / peak
+                               if peak else None),
+           "flops_profiler_flops_per_step": flops_step,
+           "monitor_flops_per_step": first["flops_per_step"],
+           "preempt_save_stall_ms": ckpt_events[0]["stall_ms"],
+           "preempt_step_with_save_ms": first["step4_ms"],
+           "load_ms": load_ms,
+           "tensorboard_rows": len(first["tb"]) + len(writer.rows),
+           "trace_spans": per_step,
+           "profiler_windows": {k: v[0] for k, v in windows.items()},
+           "profiler_primer_lost": {k: v[1] for k, v in windows.items()},
+           "report_sections": [ln for ln in md.splitlines()
+                               if ln.startswith("## ")],
+           "launches": counted,
+           "events_monitored": len(monitored)}
+    shutil.rmtree(tmp, ignore_errors=True)
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    return rec
+
+
+def slice20_paths(entries, train_monitor):
+    """The kernel entries with train-monitor's launches of #1-#6 added to
+    their `launches_by_path`."""
+    for e in entries:
+        n = train_monitor["launches"].get(e["name"])
+        if n is not None:
+            e.setdefault("launches_by_path", {})["train-monitor"] = n
+    return entries
+
+
+def record_batches(eng):
+    """The sha256 of every batch the engine trains on, in order: a list
+    the engine's `_forward` (which train_batch calls) appends to."""
+    import hashlib
+
+    import torch
+
+    seen = []
+    forward = eng._forward
+
+    def recording(batch, generator=None):
+        seen.append(hashlib.sha256(b"".join(
+            (t.cpu().numpy() if torch.is_tensor(t) else np.asarray(t))
+            .tobytes() for t in batch)).hexdigest())
+        return forward(batch, generator)
+
+    eng._forward = recording
+    return seen
 
 
 def phase_train_profile(eng, data, train, steps=2):
@@ -4400,7 +4762,7 @@ def moe_overflow_case(gen, flush, B=4, S=2048, E=64, D=768, hot=4):
 
 
 def phase_moe_dropless_exact(device="cuda", d=768, f=3072, E=64, B=2,
-                             S=128):
+                             S=128, ks=(2,)):
     """fp32 (TF32 off): the dropless MoE layer (train-moe's width: d768,
     d_ff 3072, 64 experts) at a tight capacity (factor 0.25, so most
     assignments overflow), forward and gradients (input, gate, experts),
@@ -4410,8 +4772,12 @@ def phase_moe_dropless_exact(device="cuda", d=768, f=3072, E=64, B=2,
     against the loose-capacity oracle on the card (the same bound; JAX's
     `test_dropless_serves_overflow_exactly_once`).  `moe.dropped_tokens`
     is 0 at overflow factor 1.0, and at factor 0.05 exactly B·k·S minus
-    the primary and the overflow bucket's kept assignments.  Top-1 and
-    top-2."""
+    the primary and the overflow bucket's kept assignments.  Top-2 (`ks`);
+    top-1 ran beside it, within its bound in every run, and was cut for
+    6.2 s (11.9 s with it, 5.7 s without in chip_cut_costs.py; NVIDIA
+    H100 80GB HBM3, 700.00 W): #14's top-1 copy route keeps its
+    exactness check at the overflow shape (`moe_overflow_case`) and
+    train-moe-dropless runs the top-1 dropless layer."""
     import torch
 
     from deepspeed_tpu_torch.kernels import moe_kernels
@@ -4424,7 +4790,7 @@ def phase_moe_dropless_exact(device="cuda", d=768, f=3072, E=64, B=2,
     out = {"phase": "moe-dropless-exact", "config": f"MoE layer d{d}, d_ff "
            f"{f}, {E} experts, B {B}, S {S}, capacity factor 0.25, "
            "fp32, TF32 off", "cases": []}
-    for k in (1, 2):
+    for k in ks:
         cfg = L.MoEConfig(d_model=d, d_ff=f, num_experts=E, top_k=k,
                           capacity_factor=0.25, min_capacity=1,
                           noisy_gate_std=0.0)
@@ -5738,7 +6104,7 @@ def tracks(ref_losses, ref_masters, losses, masters, wire):
     return ok, out
 
 
-def phase_z3_exact(device="cuda", steps=3, micro=4):
+def phase_z3_exact(device="cuda", steps=2, micro=4):
     """z3-exact: GPT-2 nano (seq 64), two ranks on the one card over gloo,
     deterministic algorithms, TF32 off.  Stage 3 (each block gathered for
     its forward and again for its backward) against stage 2 on the
@@ -5747,7 +6113,10 @@ def phase_z3_exact(device="cuda", steps=3, micro=4):
     bitwise `qwz_oracle` of both ranks' slices, the losses and masters
     inside `tracks`' envelope of the unquantized bf16 stage 3, the
     `qwz.gather` bytes the plan's `wire_bytes_per_gather` a pass and #11
-    and #12 once a group a pass, two passes a micro step."""
+    and #12 once a group a pass, two passes a micro step.  Two steps (the
+    second gathers the slices the first updated); three before, bitwise in
+    every run, cut for 2.8 s (21.9 s at 3, 19.1 s at 2 in
+    chip_cut_costs.py; NVIDIA H100 80GB HBM3, 700.00 W)."""
     import tempfile
 
     import torch
@@ -8205,6 +8574,11 @@ def main():
     mark("train-dp-qgz")
     train_resume = phase_train_resume()
     mark("train-resume")
+    train_monitor = phase_train_monitor(train_resume)
+    del train_resume["reference"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("train-monitor")
     train_moe, teng, data = phase_train_moe()
     emit(phase_train_profile(teng, data, train_moe))
     del teng, data
@@ -8275,7 +8649,7 @@ def main():
                    "fleet-exact (nano fp32, 2 replicas)": fleet_exact,
                    "serve-chaos (a worker, a shed)": serve_chaos}
     print(card, flush=True)
-    emit({"kernels": slice19_paths([{
+    emit({"kernels": slice20_paths(slice19_paths([{
         "name": "paged_attention", "route": "cuda",
         "source": "deepspeed_tpu_torch/kernels/csrc/paged_attention.cuh",
         "replaces": "deepspeed_tpu/kernels/paged.py:127",
@@ -8325,7 +8699,7 @@ def main():
         moe_entries(moe_cases, train_moe, overflow_case, train_dropless,
                     train_moe_ep) +
         sparse_entries(sparse_cases, sparse_probe, train_bert, bert_exact),
-        hf_serve, hf_bert, train_onebit, train_pld)})
+        hf_serve, hf_bert, train_onebit, train_pld), train_monitor)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -346,3 +346,30 @@ def all_to_all_uneven(x, send_counts, recv_counts, group=None):
                             input_split_sizes=list(send_counts), group=g,
                             async_op=True).wait()
     return out
+
+
+def allgather_bytes(payload: bytes, group=None) -> list:
+    """Every rank's `payload` (any length), in rank order: an
+    `all_gather_object` over `group` (default: every rank).  The port's
+    counterpart of the JAX package's HostWire.allgather_bytes
+    (runtime/comm/hostwire.py:353), which carries the run monitor's
+    heartbeats, its summary merge and the tracer's clock sync; counted
+    as `hostwire.allgather` (bytes = this rank's payload), as there."""
+    COUNTERS.add("hostwire.allgather", len(payload))
+    g = _group(group)
+    if g is None:
+        return [bytes(payload)]
+    out = [None] * tdist.get_world_size(g)
+    tdist.all_gather_object(out, bytes(payload), group=g)
+    return out
+
+
+class ProcessGroupWire:
+    """The duck-typed `wire` of monitor/monitor.py and monitor/tracing.py
+    (`allgather_bytes(payload) -> [bytes]`) over a process group."""
+
+    def __init__(self, group=None):
+        self.group = group
+
+    def allgather_bytes(self, payload: bytes) -> list:
+        return allgather_bytes(payload, self.group)

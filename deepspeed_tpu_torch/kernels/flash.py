@@ -127,6 +127,21 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def products(name, q, k, *rest) -> int:
+    """The products a flop count credits to one call of `name` (the
+    registry's `product_count`): those of the dense attention the kernel
+    replaces (ops/transformer/attention.py `xla_attention` and its
+    autograd backward), 2·BH·S·Sk·D each — the forward's Q·Kᵀ and P·V,
+    dQ's dO·Vᵀ and dS·K, dK/dV's Pᵀ·dO and dSᵀ·Q.  A causal call is
+    counted as the full square the dense path computes (it masks and
+    does not skip), as the JAX package's count of its plain path does;
+    the kernels skip the blocks above the diagonal, so their achieved
+    rate on this count overstates their own work by up to 2x."""
+    del name, rest
+    BH, S, D = q.shape
+    return 2 * 2 * BH * S * k.shape[1] * D
+
+
 def flash_fwd_cuda(q, k, v, kb, *, causal, scale, block_q, block_k, rate,
                    seed, bh_offset, n_heads):
     """-> (out [BH, S, D] in q's dtype, lse [BH, S] fp32)."""

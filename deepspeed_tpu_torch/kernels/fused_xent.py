@@ -118,6 +118,18 @@ def _launch(name, *args):
     LAUNCHES[name] += 1
 
 
+def products(name, x, w, *rest) -> int:
+    """The products a flop count credits to one call of `name` (the
+    registry's `product_count`): those of the plain projection CE the
+    kernels replace (models/gpt.py `_softmax_xent_from_hidden`), 2·N·D·V
+    each — the forward's logits x·W, the backward's dlogits·Wᵀ (dx) and
+    xᵀ·dlogits (dW).  The kernels form the logits again in dx and dW
+    (never stored); those recomputations are not counted."""
+    del name, rest
+    N, D = x.shape
+    return 2 * N * D * w.shape[1]
+
+
 def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 

@@ -15,6 +15,16 @@ kernel error and runs the plain version instead.  Every dispatch bumps
 `kernel.dispatches` (kernel chosen) or `kernel.fallbacks` (plain
 version chosen); the port runs eagerly, so these count calls.
 
+Products under a flop count (profiling/flops_profiler): a kernel launched
+through ctypes is invisible to `torch.utils.flop_counter.FlopCounterMode`,
+and a plain version's blocked loops are not the products of the dense
+path.  So while a `product_count` is open, an op with a `products`
+formula (flash attention #1-#3, the fused CE #4-#6; the formulas live
+beside their wrappers, kernels/flash.py and kernels/fused_xent.py) is
+credited the products of the dense path it replaces, and whatever the
+flop counter saw inside the call is excluded: the count of a step is the
+same with the kernels, their plain versions or the dense path.
+
 `kernel_config(ops={...})` is the scoped per-op override of the JAX
 package's `kernel_config` (registry.py:411) for the module-level
 selections that read it (`SparseSelfAttention(impl="auto")`): within the
@@ -25,7 +35,7 @@ block, `op_impl(name)` returns the forced "auto" | "pallas" | "xla"
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Mapping
+from typing import Callable, Dict, List, Mapping
 
 from ..monitor.counters import COUNTERS
 
@@ -70,6 +80,10 @@ class FlashAttentionFwdOp(KernelOp):
         return _fwd_plain(*args, **kwargs)
 
 
+    def products(self, *args, **kwargs):
+        from . import flash
+        return flash.products("flash_attention_fwd", *args)
+
 class FlashAttentionDqOp(KernelOp):
     """Flash attention dQ (kernels/flash.py)."""
 
@@ -83,6 +97,10 @@ class FlashAttentionDqOp(KernelOp):
         from ..ops.transformer.flash_attention import _dq_plain
         return _dq_plain(*args, **kwargs)
 
+
+    def products(self, *args, **kwargs):
+        from . import flash
+        return flash.products("flash_attention_dq", *args)
 
 class FlashAttentionDkvOp(KernelOp):
     """Flash attention dK, dV (kernels/flash.py)."""
@@ -98,6 +116,10 @@ class FlashAttentionDkvOp(KernelOp):
         return _dkv_plain(*args, **kwargs)
 
 
+    def products(self, *args, **kwargs):
+        from . import flash
+        return flash.products("flash_attention_dkv", *args)
+
 class FusedXentFwdOp(KernelOp):
     """Fused LM-head CE forward -> (lse, label logit) (kernels/fused_xent.py)."""
 
@@ -111,6 +133,10 @@ class FusedXentFwdOp(KernelOp):
         from ..ops.transformer.fused_xent import _fwd_plain
         return _fwd_plain(*args, **kwargs)
 
+
+    def products(self, *args, **kwargs):
+        from . import fused_xent
+        return fused_xent.products("fused_xent_fwd", *args)
 
 class FusedXentDxOp(KernelOp):
     """Fused LM-head CE dx (kernels/fused_xent.py)."""
@@ -126,6 +152,10 @@ class FusedXentDxOp(KernelOp):
         return _dx_plain(*args, **kwargs)
 
 
+    def products(self, *args, **kwargs):
+        from . import fused_xent
+        return fused_xent.products("fused_xent_dx", *args)
+
 class FusedXentDwOp(KernelOp):
     """Fused LM-head CE dW (kernels/fused_xent.py)."""
 
@@ -139,6 +169,10 @@ class FusedXentDwOp(KernelOp):
         from ..ops.transformer.fused_xent import _dw_plain
         return _dw_plain(*args, **kwargs)
 
+
+    def products(self, *args, **kwargs):
+        from . import fused_xent
+        return fused_xent.products("fused_xent_dw", *args)
 
 class QuantCodecQuantizeOp(KernelOp):
     """Blockwise int8/int4 quantize (kernels/quant_codec.py)."""
@@ -322,12 +356,56 @@ def resolve_impl(name: str, impl: str, tensor) -> str:
     return "cuda" if tensor.is_cuda else "torch"
 
 
+class ProductCount:
+    """The products credited to the kernel ops while a count is open.
+    `native` reads the flop counter's running per-op totals ({op: flops});
+    `credited` is {kernel op: products of the dense path}, `excluded`
+    {counter op: flops the counter saw inside those calls}."""
+
+    def __init__(self, native: Callable[[], Dict[str, int]]):
+        self.native = native
+        self.credited: Dict[str, int] = {}
+        self.excluded: Dict[str, int] = {}
+
+
+# process-global, not per thread: on the card autograd runs a backward's
+# kernels on its device threads, and their products count too
+_PRODUCT_COUNTS: List[ProductCount] = []
+
+
+@contextlib.contextmanager
+def product_count(native: Callable[[], Dict[str, int]]):
+    """Credit the kernel ops' products while the block runs; yields the
+    `ProductCount`."""
+    pc = ProductCount(native)
+    _PRODUCT_COUNTS.append(pc)
+    try:
+        yield pc
+    finally:
+        _PRODUCT_COUNTS.remove(pc)
+
+
+def _counted(name, op, run, args, kwargs):
+    """`run(*args, **kwargs)` with its products credited to every open
+    count and the flop counter's own reading of the call excluded."""
+    before = [pc.native() for pc in _PRODUCT_COUNTS]
+    out = run(*args, **kwargs)
+    n = int(op.products(*args, **kwargs))
+    for pc, b in zip(_PRODUCT_COUNTS, before):
+        for k, v in pc.native().items():
+            if v != b.get(k, 0):
+                pc.excluded[k] = pc.excluded.get(k, 0) + v - b.get(k, 0)
+        pc.credited[name] = pc.credited.get(name, 0) + n
+    return out
+
+
 def dispatch(name: str, *args, impl: str = "auto", **kwargs):
     """Run op `name` on `args` through the selection contract."""
     op = get_kernel(name)
     chosen = resolve_impl(name, impl, args[0])
     COUNTERS.add("kernel.dispatches" if chosen == "cuda"
                  else "kernel.fallbacks")
-    if chosen == "cuda":
-        return op.kernel(*args, **kwargs)
-    return op.plain(*args, **kwargs)
+    run = op.kernel if chosen == "cuda" else op.plain
+    if _PRODUCT_COUNTS and hasattr(op, "products"):
+        return _counted(name, op, run, args, kwargs)
+    return run(*args, **kwargs)

@@ -74,7 +74,8 @@ import torch
 
 from ..monitor.counters import COUNTERS
 from ..utils.logging import logger
-from .resilience import retry_transient
+from .resilience import (active_plan, fault_filter, fault_point,
+                         retry_transient)
 
 _SHARD_MARKER = "__dstpu_sharded_leaf__"
 
@@ -393,9 +394,26 @@ def _atomic_write(path: str, blob) -> int:
     returns its length.  The tmp name carries the pid and a process-local
     sequence number, so two background commits of one target never share
     a tmp file; transient storage faults retry, each attempt with a fresh
-    tmp file."""
+    tmp file.
+
+    Chaos sites (checkpointing.py:179-199): `ckpt.atomic_write.payload`
+    filters the bytes once before the retried op (a `corrupt` rule
+    truncates them, the torn write the commit marker and the integrity
+    errors exist to catch) and `ckpt.atomic_write` fires inside each
+    attempt.  A streamed payload is first written into memory only when a
+    rule of the installed plan targets the payload site, so the filter
+    sees the bytes; otherwise it streams, as without a plan."""
+    plan = active_plan()
+    if callable(blob) and plan is not None and \
+            plan.targets("ckpt.atomic_write.payload"):
+        buf = io.BytesIO()
+        blob(buf)
+        blob = buf.getvalue()
+    if not callable(blob):
+        blob = fault_filter("ckpt.atomic_write.payload", blob)
 
     def op() -> int:
+        fault_point("ckpt.atomic_write")
         tmp = f"{path}.tmp.{os.getpid()}.{next(_TMP_SEQ)}"
         try:
             with open(tmp, "wb") as f:
@@ -575,7 +593,9 @@ def _commit(save_dir: str, tag, meta: Optional[Dict[str, Any]],
     """Phase 2: rendezvous every rank, then (rank 0) the commit marker and
     `latest` — both atomic renames, in that order, so `latest` never
     names an uncommitted tag.  Module-level so crash tests can patch it
-    away (a writer killed between its files and the commit)."""
+    away (a writer killed between its files and the commit).
+    `ckpt.commit` is a chaos site (checkpointing.py:633)."""
+    fault_point("ckpt.commit")
     barrier = CommitBarrier(str(tag), timeout_ms=commit_timeout_ms, seq=seq,
                             scope=_barrier_scope(save_dir))
 
@@ -647,6 +667,8 @@ def save_checkpoint_state(save_dir: str, tag: str, model_state: Dict[str, Any],
         return sum(write(p, s) for p, s in jobs)
 
     def finish(parallel: bool, chain_after: Optional[Future]):
+        # chaos site of the writer, sync or background (:769)
+        fault_point("ckpt.background_write")
         if ready is not None:
             ready()
         nbytes = build_and_write(parallel)

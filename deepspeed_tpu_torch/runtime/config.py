@@ -21,18 +21,24 @@ config.py:625-780: `to_serve_kwargs()` for `ServeConfig`,
 a bad value raises ValueError here, at config time, as in the JAX
 package.
 
+The observability and resilience sections (config.py:321-444,
+954-1077): `monitor` (`DeepSpeedMonitorConfig`, monitor/config.py: the
+run monitor, its profiler window and `tracing`), `flops_profiler`
+(`DeepSpeedFlopsProfilerConfig`, profiling/config.py), `tensorboard`,
+`wall_clock_breakdown`, `memory_breakdown`, `checkpoint.preempt_save_dir`
+(the SIGTERM handler) and `faults` (`DeepSpeedFaultsConfig`: the fault
+plan, the retry policy and the step watchdog), with the JAX keys,
+defaults and errors.  `elasticity` resolves the batch triple before it is
+read, as config.py:870-892 does (elasticity/elasticity.py
+`compute_elastic_config`).
+
 A section the port cannot honour yet raises `DeepSpeedConfigError` (or,
 for a valid `comm` selection, NotImplementedError) naming its ROADMAP
 item, rather than training without it: ZeRO-Offload or Infinity at
 more than one rank, `offload_optimizer` at stage 3 without
 `offload_param`, a pipeline section, a mesh with a model, pipe or seq
 axis above 1, `comm.overlap` (outside ZeRO-Infinity, where the engine
-warns, as JAX's does),
-AMP, TensorBoard, the wall-clock breakdown,
-`checkpoint.preempt_save_dir` (the preemption handler), a `faults` block
-that injects (`rules`) or arms the step watchdog, and
-`monitor.tracing.enabled` (the training engine installs none of them
-yet; serving takes a plan, watchdog and tracer directly).
+warns, as JAX's does), AMP and `autotune`.
 `progressive_layer_drop` is read into `pld_enabled` / `pld_params`
 (config.py:1039-1045).
 """
@@ -41,6 +47,12 @@ from __future__ import annotations
 
 import json
 
+from ..elasticity import (ElasticityConfigError, compute_elastic_config,
+                          elasticity_enabled,
+                          ensure_immutable_elastic_config)
+from ..elasticity import constants as ec
+from ..monitor.config import DeepSpeedMonitorConfig
+from ..profiling.config import DeepSpeedFlopsProfilerConfig
 from . import constants as c
 from .config_utils import (DeepSpeedConfigObject,
                            dict_raise_error_on_duplicate_keys,
@@ -113,33 +125,12 @@ def _refuse_unported(pd, zero_stage):
                      ("pipe", "pipeline")):
         if int(mesh.get(ax, 1)) not in (1, -1):
             refuse(f"mesh {mesh} (axis {ax!r})", item)
-    if get_scalar_param(pd, c.WALL_CLOCK_BREAKDOWN, False):
-        refuse("wall_clock_breakdown", "the production runtime")
-    preempt = get_scalar_param(pd.get(c.CHECKPOINT) or {},
-                               c.CHECKPOINT_PREEMPT_SAVE_DIR,
-                               c.CHECKPOINT_PREEMPT_SAVE_DIR_DEFAULT)
-    if preempt is not None:
-        refuse(f"checkpoint.{c.CHECKPOINT_PREEMPT_SAVE_DIR} (the "
-               "preemption handler)", "the production runtime")
-    for key, what, item in (
-            (c.AMP, "AMP", "the production runtime"),
-            (c.TENSORBOARD, "TensorBoard", "the production runtime")):
-        if get_scalar_param(pd.get(key) or {}, "enabled", False):
-            refuse(what, item)
-    # the training engine installs no fault plan, watchdog or tracer yet:
-    # refuse the blocks that would switch one on (rules inject unless the
-    # block says enabled: false, as in the JAX package)
-    faults = pd.get(c.FAULTS) or {}
-    if faults.get(c.FAULTS_RULES) and \
-            get_scalar_param(faults, c.FAULTS_ENABLED, True):
-        refuse("faults.rules (fault injection)", "the production runtime")
-    if get_scalar_param(faults.get(c.FAULTS_WATCHDOG) or {}, "enabled",
-                        False):
-        refuse("faults.watchdog (the step watchdog)",
-               "the production runtime")
-    tracing = (pd.get(c.MONITOR) or {}).get(c.MONITOR_TRACING) or {}
-    if get_scalar_param(tracing, "enabled", False):
-        refuse("monitor.tracing", "the production runtime")
+    autotune = pd.get(c.AUTOTUNE) or {}
+    for block, what in ((pd.get(c.AMP) or {}, "AMP"),
+                        (autotune, "autotune"),
+                        (autotune.get("online") or {}, "autotune.online")):
+        if get_scalar_param(block, "enabled", False):
+            refuse(what, "the production runtime")
 
 
 def infinity_requested(zero_config) -> bool:
@@ -365,6 +356,132 @@ class DeepSpeedCommConfig(DeepSpeedConfigObject):
                 f"comm.overlap={self.overlap!r}: the overlapped gradient "
                 f"wire is not ported to deepspeed_tpu_torch yet (ROADMAP "
                 f"queue 1: the overlapped host-exchange wire)")
+
+
+class DeepSpeedFaultsConfig(DeepSpeedConfigObject):
+    """Chaos-ready runtime (runtime/resilience.py) — config.py:321-444.
+
+    "faults": {
+      "seed": 0,
+      "enabled": true,          # injection gate; default: rules present
+      "rules": [{"site": ..., "kind": "raise"|"delay_ms"|"corrupt"|
+                 "hang"|"kill", ...schedule...}],
+      "retry": {"max_attempts": 4, "base_delay_ms": 50,
+                "max_delay_ms": 2000, "jitter": 0.25},
+      "watchdog": {"enabled": false, "deadline_s": 600, "poll_s": 1.0,
+                   "first_beat_mult": 4.0,  # pre-first-beat grace
+                   "snapshot_dir": null}   # default: the monitor run dir
+    }
+
+    `rules` drive deterministic fault injection (every rule is validated
+    here — a typo'd site key or kind fails at config time, never inside
+    a training step); `retry` and `watchdog` are HARDENING knobs that
+    apply whether or not injection is enabled.  The engine installs the
+    plan/policy process-globally at initialize() and arms the watchdog
+    beside the run monitor."""
+
+    def __init__(self, param_dict):
+        super().__init__()
+        from .resilience import FaultPlan, RetryPolicy
+
+        d = param_dict.get(c.FAULTS) or {}
+        known = {c.FAULTS_ENABLED, c.FAULTS_SEED, c.FAULTS_RULES,
+                 c.FAULTS_RETRY, c.FAULTS_WATCHDOG}
+        unknown = set(d) - known
+        if unknown:
+            raise ValueError(
+                f"faults: unknown key(s) {sorted(unknown)}; expected a "
+                f"subset of {sorted(known)}")
+        self.seed = int(get_scalar_param(d, c.FAULTS_SEED,
+                                         c.FAULTS_SEED_DEFAULT))
+        rules = d.get(c.FAULTS_RULES) or []
+        if not isinstance(rules, list):
+            raise ValueError(
+                f"faults.{c.FAULTS_RULES} must be a list of rule objects, "
+                f"got {type(rules).__name__}")
+        enabled = d.get(c.FAULTS_ENABLED)
+        try:
+            # parse eagerly: rule validation errors belong to config time
+            self.plan = FaultPlan.from_config(
+                rules, seed=self.seed,
+                enabled=None if enabled is None else bool(enabled))
+        except ValueError as e:
+            raise ValueError(f"faults.{c.FAULTS_RULES}: {e}")
+        self.enabled = self.plan.enabled
+
+        r = d.get(c.FAULTS_RETRY) or {}
+        known_r = {c.FAULTS_RETRY_MAX_ATTEMPTS, c.FAULTS_RETRY_BASE_DELAY_MS,
+                   c.FAULTS_RETRY_MAX_DELAY_MS, c.FAULTS_RETRY_JITTER}
+        unknown = set(r) - known_r
+        if unknown:
+            raise ValueError(
+                f"faults.{c.FAULTS_RETRY}: unknown key(s) {sorted(unknown)}; "
+                f"expected a subset of {sorted(known_r)}")
+        try:
+            self.retry_policy = RetryPolicy(
+                max_attempts=get_scalar_param(
+                    r, c.FAULTS_RETRY_MAX_ATTEMPTS,
+                    c.FAULTS_RETRY_MAX_ATTEMPTS_DEFAULT),
+                base_delay_ms=get_scalar_param(
+                    r, c.FAULTS_RETRY_BASE_DELAY_MS,
+                    c.FAULTS_RETRY_BASE_DELAY_MS_DEFAULT),
+                max_delay_ms=get_scalar_param(
+                    r, c.FAULTS_RETRY_MAX_DELAY_MS,
+                    c.FAULTS_RETRY_MAX_DELAY_MS_DEFAULT),
+                jitter=get_scalar_param(r, c.FAULTS_RETRY_JITTER,
+                                        c.FAULTS_RETRY_JITTER_DEFAULT))
+        except ValueError as e:
+            raise ValueError(f"faults.{c.FAULTS_RETRY}: {e}")
+
+        w = d.get(c.FAULTS_WATCHDOG) or {}
+        known_w = {c.FAULTS_WATCHDOG_ENABLED, c.FAULTS_WATCHDOG_DEADLINE_S,
+                   c.FAULTS_WATCHDOG_POLL_S, c.FAULTS_WATCHDOG_SNAPSHOT_DIR,
+                   c.FAULTS_WATCHDOG_FIRST_BEAT_MULT}
+        unknown = set(w) - known_w
+        if unknown:
+            raise ValueError(
+                f"faults.{c.FAULTS_WATCHDOG}: unknown key(s) "
+                f"{sorted(unknown)}; expected a subset of {sorted(known_w)}")
+        self.watchdog_enabled = bool(get_scalar_param(
+            w, c.FAULTS_WATCHDOG_ENABLED, c.FAULTS_WATCHDOG_ENABLED_DEFAULT))
+        self.watchdog_deadline_s = float(get_scalar_param(
+            w, c.FAULTS_WATCHDOG_DEADLINE_S,
+            c.FAULTS_WATCHDOG_DEADLINE_S_DEFAULT))
+        self.watchdog_poll_s = float(get_scalar_param(
+            w, c.FAULTS_WATCHDOG_POLL_S, c.FAULTS_WATCHDOG_POLL_S_DEFAULT))
+        self.watchdog_snapshot_dir = get_scalar_param(
+            w, c.FAULTS_WATCHDOG_SNAPSHOT_DIR, None)
+        # grace multiplier on the deadline before the FIRST beat: covers
+        # the first step's kernel builds (StepWatchdog docstring).  An
+        # explicit null selects the legacy mode: not armed at all until
+        # beat 1.
+        fbm = (w[c.FAULTS_WATCHDOG_FIRST_BEAT_MULT]
+               if c.FAULTS_WATCHDOG_FIRST_BEAT_MULT in w
+               else c.FAULTS_WATCHDOG_FIRST_BEAT_MULT_DEFAULT)
+        try:
+            self.watchdog_first_beat_mult = (None if fbm is None
+                                             else float(fbm))
+        except (TypeError, ValueError):
+            raise ValueError(
+                f"faults.watchdog.{c.FAULTS_WATCHDOG_FIRST_BEAT_MULT} "
+                f"must be a number >= 1 or null (null: never armed "
+                f"before the first beat), got {fbm!r}")
+        if self.watchdog_first_beat_mult is not None and \
+                self.watchdog_first_beat_mult < 1.0:
+            raise ValueError(
+                f"faults.watchdog.{c.FAULTS_WATCHDOG_FIRST_BEAT_MULT} "
+                f"must be >= 1 (a sub-1 multiplier would make the "
+                f"compile window stricter than steady state), got "
+                f"{self.watchdog_first_beat_mult}")
+        if self.watchdog_enabled and self.watchdog_deadline_s <= 0:
+            raise ValueError(
+                f"faults.watchdog.{c.FAULTS_WATCHDOG_DEADLINE_S} must be "
+                f"> 0, got {self.watchdog_deadline_s}")
+        if self.watchdog_enabled and self.watchdog_poll_s <= 0:
+            # poll_s 0 would busy-spin the daemon thread on a core
+            raise ValueError(
+                f"faults.watchdog.{c.FAULTS_WATCHDOG_POLL_S} must be "
+                f"> 0, got {self.watchdog_poll_s}")
 
 
 class DeepSpeedDataPipelineConfig(DeepSpeedConfigObject):
@@ -594,6 +711,31 @@ class DeepSpeedConfig(DeepSpeedConfigObject):
                 "config must be a dict or a path to a json file, got "
                 f"{type(json_file_or_dict)}")
         self.world_size = int(world_size)
+        # elasticity resolves the batch triple before it is read
+        # (config.py:870-892)
+        self.elasticity_enabled = elasticity_enabled(self._param_dict)
+        if self.elasticity_enabled:
+            elastic_dict = self._param_dict[ec.ELASTICITY]
+            ensure_immutable_elastic_config(elastic_dict)
+            final_batch_size, valid_gpus, micro_batch = \
+                compute_elastic_config(self._param_dict,
+                                       world_size=self.world_size)
+            self.elastic_valid_world_sizes = valid_gpus
+            ignore = elastic_dict.get(ec.IGNORE_NON_ELASTIC_BATCH_INFO,
+                                      ec.IGNORE_NON_ELASTIC_BATCH_INFO_DEFAULT)
+            batch_keys = (c.TRAIN_BATCH_SIZE,
+                          c.TRAIN_MICRO_BATCH_SIZE_PER_GPU,
+                          c.GRADIENT_ACCUMULATION_STEPS)
+            if not ignore and any(k in self._param_dict for k in batch_keys):
+                raise ElasticityConfigError(
+                    f"batch size keys {batch_keys} must not be set when "
+                    f"elasticity is enabled (set "
+                    f"'{ec.IGNORE_NON_ELASTIC_BATCH_INFO}': true to override)")
+            self._param_dict = dict(self._param_dict)
+            self._param_dict[c.TRAIN_BATCH_SIZE] = final_batch_size
+            self._param_dict[c.TRAIN_MICRO_BATCH_SIZE_PER_GPU] = micro_batch
+            self._param_dict[c.GRADIENT_ACCUMULATION_STEPS] = (
+                final_batch_size // (micro_batch * self.world_size))
         pd = self._param_dict
 
         self.train_batch_size = get_scalar_param(pd, c.TRAIN_BATCH_SIZE,
@@ -606,8 +748,20 @@ class DeepSpeedConfig(DeepSpeedConfigObject):
             c.GRADIENT_ACCUMULATION_STEPS_DEFAULT)
         self.steps_per_print = get_scalar_param(pd, c.STEPS_PER_PRINT,
                                                 c.STEPS_PER_PRINT_DEFAULT)
+        # observability (config.py:1020-1031)
         self.wall_clock_breakdown = get_scalar_param(
             pd, c.WALL_CLOCK_BREAKDOWN, c.WALL_CLOCK_BREAKDOWN_DEFAULT)
+        self.memory_breakdown = get_scalar_param(pd, c.MEMORY_BREAKDOWN,
+                                                 c.MEMORY_BREAKDOWN_DEFAULT)
+        self.monitor_config = DeepSpeedMonitorConfig(pd)
+        tb = pd.get(c.TENSORBOARD, {})
+        self.tensorboard_enabled = get_scalar_param(
+            tb, c.TENSORBOARD_ENABLED, c.TENSORBOARD_ENABLED_DEFAULT)
+        self.tensorboard_output_path = get_scalar_param(
+            tb, c.TENSORBOARD_OUTPUT_PATH, c.TENSORBOARD_OUTPUT_PATH_DEFAULT)
+        self.tensorboard_job_name = get_scalar_param(
+            tb, c.TENSORBOARD_JOB_NAME, c.TENSORBOARD_JOB_NAME_DEFAULT)
+        self.flops_profiler_config = DeepSpeedFlopsProfilerConfig(pd)
 
         self.gradient_clipping = get_scalar_param(pd, c.GRADIENT_CLIPPING,
                                                   c.GRADIENT_CLIPPING_DEFAULT)
@@ -676,6 +830,8 @@ class DeepSpeedConfig(DeepSpeedConfigObject):
         self.moe = self.comm_config.moe
         self.sparse_attention = pd.get(c.SPARSE_ATTENTION, None)
         self.data_pipeline_config = DeepSpeedDataPipelineConfig(pd)
+        # chaos-ready runtime: fault injection + retry + watchdog
+        self.faults_config = DeepSpeedFaultsConfig(pd)
         # inference-side knobs: the serving engine's and the fleet's
         self.serving_config = DeepSpeedServingConfig(pd)
 
@@ -697,6 +853,19 @@ class DeepSpeedConfig(DeepSpeedConfigObject):
                 f"checkpoint.{c.CHECKPOINT_COMMIT_TIMEOUT_MS} must be a "
                 f"positive millisecond count, got "
                 f"{self.checkpoint_commit_timeout_ms}")
+
+        # SIGTERM = save-if-possible: a set preempt_save_dir arms the
+        # engine's signal handler — emergency checkpoint at the next step
+        # boundary, then a clean exit (config.py:1068-1077)
+        preempt = get_scalar_param(ckpt, c.CHECKPOINT_PREEMPT_SAVE_DIR,
+                                   c.CHECKPOINT_PREEMPT_SAVE_DIR_DEFAULT)
+        if preempt is not None and not isinstance(preempt, str):
+            raise ValueError(
+                f"checkpoint.{c.CHECKPOINT_PREEMPT_SAVE_DIR} must be a "
+                f"directory path string or null, got {preempt!r}")
+        self.checkpoint_preempt_save_dir = preempt
+        self.amp_enabled = get_scalar_param(pd.get(c.AMP, {}), c.AMP_ENABLED,
+                                            c.AMP_ENABLED_DEFAULT)
 
         self._set_batch_related_parameters()
         self._batch_assertion()

@@ -63,9 +63,23 @@ FP16_HYSTERESIS_DEFAULT = 2
 FP16_MIN_LOSS_SCALE = "min_loss_scale"
 FP16_MIN_LOSS_SCALE_DEFAULT = 1
 
-# sections the slice refuses when their "enabled" is set
+# AMP: refused when its "enabled" is set
 AMP = "amp"
+AMP_ENABLED = "enabled"
+AMP_ENABLED_DEFAULT = False
+# observability (constants.py:67-68, 253-259)
+MEMORY_BREAKDOWN = "memory_breakdown"
+MEMORY_BREAKDOWN_DEFAULT = False
 TENSORBOARD = "tensorboard"
+TENSORBOARD_ENABLED = "enabled"
+TENSORBOARD_ENABLED_DEFAULT = False
+TENSORBOARD_OUTPUT_PATH = "output_path"
+TENSORBOARD_OUTPUT_PATH_DEFAULT = ""
+TENSORBOARD_JOB_NAME = "job_name"
+TENSORBOARD_JOB_NAME_DEFAULT = "DeepSpeedJobName"
+# the self-tuning runtime: refused when its "enabled" is set
+AUTOTUNE = "autotune"
+AUTOTUNE_ENABLED = "enabled"
 # progressive layer drop (constants.py:264-270)
 PROGRESSIVE_LAYER_DROP = "progressive_layer_drop"
 PLD_ENABLED = "enabled"
@@ -74,14 +88,33 @@ PLD_THETA = "theta"
 PLD_THETA_DEFAULT = 1.0
 PLD_GAMMA = "gamma"
 PLD_GAMMA_DEFAULT = 0.001
-# sections the slice refuses when they would act: a fault plan with rules
-# (injection on), the step watchdog, and monitor.tracing
+# the chaos runtime (constants.py:196-222, runtime/resilience.py)
 FAULTS = "faults"
 FAULTS_ENABLED = "enabled"
+FAULTS_SEED = "seed"
+FAULTS_SEED_DEFAULT = 0
 FAULTS_RULES = "rules"
+FAULTS_RETRY = "retry"
+FAULTS_RETRY_MAX_ATTEMPTS = "max_attempts"
+FAULTS_RETRY_MAX_ATTEMPTS_DEFAULT = 4
+FAULTS_RETRY_BASE_DELAY_MS = "base_delay_ms"
+FAULTS_RETRY_BASE_DELAY_MS_DEFAULT = 50.0
+FAULTS_RETRY_MAX_DELAY_MS = "max_delay_ms"
+FAULTS_RETRY_MAX_DELAY_MS_DEFAULT = 2000.0
+FAULTS_RETRY_JITTER = "jitter"
+FAULTS_RETRY_JITTER_DEFAULT = 0.25
 FAULTS_WATCHDOG = "watchdog"
-MONITOR = "monitor"
-MONITOR_TRACING = "tracing"
+FAULTS_WATCHDOG_ENABLED = "enabled"
+FAULTS_WATCHDOG_ENABLED_DEFAULT = False
+FAULTS_WATCHDOG_DEADLINE_S = "deadline_s"
+FAULTS_WATCHDOG_DEADLINE_S_DEFAULT = 600.0
+FAULTS_WATCHDOG_POLL_S = "poll_s"
+FAULTS_WATCHDOG_POLL_S_DEFAULT = 1.0
+FAULTS_WATCHDOG_SNAPSHOT_DIR = "snapshot_dir"
+FAULTS_WATCHDOG_FIRST_BEAT_MULT = "first_beat_mult"
+# grace multiplier on the deadline BEFORE the first step-boundary beat
+# (the first step builds the kernels and warms the allocator)
+FAULTS_WATCHDOG_FIRST_BEAT_MULT_DEFAULT = 4.0
 
 # serving (config.py:625-780): the inference-side block, read by
 # DeepSpeedServingConfig and handed to ServeConfig / FleetRouter

@@ -17,8 +17,10 @@ PrefetchLoader runs fetch + collate on background threads feeding
 bounded queues, in a deterministic order whatever the worker count; a
 worker that dies is respawned at the batch it died on, up to a budget
 (`input.worker_respawns` counts them), after which its exception
-re-raises at the consumer.  The chaos injection sites of the JAX module
-wait for the production-runtime item of ROADMAP queue 1.
+re-raises at the consumer.  Both producers carry the JAX module's chaos
+site, `dataloader.worker` (runtime/resilience.py `fault_point`), before
+each batch: a transient `raise` rule there kills a worker, which the
+consumer respawns, and the batches stay byte-identical.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import numpy as np
 
 from ..monitor.counters import COUNTERS
 from ..utils.logging import logger
+from .resilience import fault_point
 
 # a dead prefetch worker no longer kills training: the consumer
 # respawns it (resuming at the exact failed batch, so order and content
@@ -350,6 +353,7 @@ def _index_producer(stop, loader, tasks, worker_id, n_workers, q,
                        n_workers):
             if stop.is_set():
                 return
+            fault_point("dataloader.worker")
             if not _bounded_put(stop, q, loader._materialize(tasks[i])):
                 return
     except BaseException as e:  # noqa: BLE001 — carried to the consumer
@@ -361,6 +365,7 @@ def _index_producer(stop, loader, tasks, worker_id, n_workers, q,
 def _stream_producer(stop, it, q):
     try:
         while not stop.is_set():
+            fault_point("dataloader.worker")
             try:
                 item = next(it)
             except StopIteration:
@@ -585,13 +590,19 @@ class PrefetchLoader:
             prev.close()
 
 
-def timed_next(data_iter):
+def timed_next(data_iter, tracer=None, step=None):
     """next(data_iter) with the host-blocked wall time recorded as
     `input.host_wait_ms` (integer microseconds in the bytes slot).  Every
     engine-side pull from a host iterator goes through here, so the
-    prefetch-on and -off runs measure the same thing."""
+    prefetch-on and -off runs measure the same thing.  `tracer` (a
+    monitor/tracing.py TraceRecorder, already gated by the engine's
+    per-step sampling) also lands the wait as an `input_wait` span on the
+    trace timeline (dataloader.py:590)."""
     t0 = time.perf_counter()
     batch = next(data_iter)
-    COUNTERS.add("input.host_wait_ms",
-                 int((time.perf_counter() - t0) * 1e6))
+    dt_us = int((time.perf_counter() - t0) * 1e6)
+    COUNTERS.add("input.host_wait_ms", dt_us)
+    if tracer is not None:
+        tracer.add_complete("input_wait", "input", dur_us=dt_us,
+                            **({} if step is None else {"step": step}))
     return batch

@@ -117,10 +117,26 @@ over the data ranks (`_slice_whole_leaf_optimizer`).  Progressive layer
 drop (engine.py:262-267): theta is handed to the model each step and updated
 after it, and resumes from the step count.
 
+Monitoring and resilience (engine.py:275-304, 740-975, 2049-2240): the
+`monitor` block builds a `RunMonitor` (monitor/monitor.py: a manifest and
+one `events.rank*.jsonl` step event a step with `forward` / `step` spans,
+counter deltas, tokens/s and the TFLOP/s of the flops profiler's count of
+the first step; its `profiler` window and `tracing` recorder); the
+`wall_clock_breakdown` timers, the TensorBoard scalars and the flops
+profiler at `profile_step` follow the JAX engine.  The `faults` block
+installs the fault plan and retry policy and arms a StepWatchdog beaten
+at every step boundary; `checkpoint.preempt_save_dir` arms a SIGTERM
+handler whose flag the next boundary turns into a committed
+`preempt_step<N>` tag and `SystemExit(0)`.  All four step paths (the
+device split step, the fused step, the host step of Offload / Infinity,
+the 1-bit step) go through `step()`, where these hooks sit.  None of them
+changes a value: a monitored run's losses and masters are bitwise an
+unmonitored run's.
+
 What the port refuses (config.py raises): offload and Infinity at more
 than one rank, `offload_optimizer` at stage 3 without `offload_param`,
 pipelines, model / pipe / seq axes above 1, `comm.overlap` (outside
-Infinity, which warns), AMP, TensorBoard, the preemption handler; an
+Infinity, which warns), AMP and autotune; an
 optimizer other than Adam under Offload / Infinity, a 1-bit optimizer
 over parameter slices (ZeRO 1-3 over several ranks), layer drop under
 Infinity, the host-store transport of the 1-bit wire (onebit/adam.py),
@@ -133,6 +149,7 @@ from __future__ import annotations
 import inspect
 import json
 import os
+import time
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -145,11 +162,13 @@ from ..models.convert import (flatten_tree, is_expert_leaf,
                               jax_leaf_order, load_jax_params,
                               opt_state_from_jax, opt_state_to_jax,
                               slice_expert_leaves, unflatten_tree)
+from ..monitor.counters import COUNTERS
 from ..ops.adam.fused_adam import FusedAdam
 from ..utils.device import check_same_device, resolve_device
 from ..utils.logging import log_dist, logger
 from . import checkpointing as ckpt_io
 from . import constants as const
+from . import resilience
 from .config import DeepSpeedConfig
 from .dataloader import (DeepSpeedDataLoader, PrefetchLoader,
                          RepeatingLoader, timed_next)
@@ -157,6 +176,7 @@ from .comm.bucketing import BucketPlan, OwnerExchange, WireLevel
 from .fp16.loss_scaler import create_loss_scaler
 from .lr_schedules import SCHEDULERS
 from .step_builder import StepBuilder
+from .utils import ThroughputTimer
 from .zero import stage3
 from .zero.partition import (QuantizedWeightGather, ZeroShardingPlan,
                              describe_reshard)
@@ -341,6 +361,12 @@ class DeepSpeedEngine:
         self.mp_world_size = 1
         self.compute_dtype = DTYPES[self._config.precision]
         self.loss_scaler = create_loss_scaler(self._config)
+        if self._config.sparse_gradients_enabled:
+            # the JAX engine's documented divergence from the reference's
+            # CSR allreduce of embedding grads (engine.py:198-207): the key
+            # is accepted and the data-parallel reduction stays dense
+            log_dist("sparse_gradients: accepted for API parity; the "
+                     "data-parallel reduction stays dense", ranks=[0])
         # dropout seeds come from a CPU generator: drawing one needs no
         # device sync (engine.py:211 seeds its PRNG key the same way)
         self._generator = torch.Generator().manual_seed(
@@ -435,6 +461,7 @@ class DeepSpeedEngine:
         # flag is next needed (_resolve_pending_overflow).
         self._pending_overflow = None
         self._pending_full = None
+        self._init_observability()
 
     # ------------------------------------------------------------------
     # construction helpers
@@ -717,6 +744,7 @@ class DeepSpeedEngine:
         self._step_fns = {}
         self._pending_overflow = None
         self._pending_full = None
+        self._init_observability()
 
     def _keep_slices(self, model):
         """Each rank keeps only its slice of a leaf it holds sliced (its
@@ -970,6 +998,332 @@ class DeepSpeedEngine:
         return None
 
     # ------------------------------------------------------------------
+    # run monitor and resilience (engine.py:275-304, 740-975)
+    # ------------------------------------------------------------------
+
+    def _init_observability(self):
+        """The timers, the TensorBoard sink, the run monitor, the fault
+        plan / retry policy / watchdog and the SIGTERM handler
+        (engine.py:275-304), in the JAX engine's order."""
+        from ..utils.timer import SynchronizedWallClockTimer
+
+        self.tput_timer = ThroughputTimer(
+            batch_size=self.train_batch_size(),
+            steps_per_output=self.steps_per_print() or 50)
+        self.timers = SynchronizedWallClockTimer()
+        self._wall_clock_breakdown = bool(self._config.wall_clock_breakdown)
+        self.monitor = None
+        if self._config.tensorboard_enabled and dist.get_rank() == 0:
+            from ..utils.tensorboard import TensorBoardMonitor
+
+            self.monitor = TensorBoardMonitor(
+                self._config.tensorboard_output_path,
+                self._config.tensorboard_job_name)
+        self._flops_profiled = False
+        self._flops_stats = None
+        self._last_loss = None
+        self.run_monitor = self._init_run_monitor()
+        self._watchdog = self._init_resilience()
+        self._init_preemption()
+
+    def _init_run_monitor(self):
+        """Per-rank JSONL event stream + profiler capture window +
+        multi-rank heartbeats (monitor/monitor.py).  The TensorBoard
+        monitor (if configured) becomes one sink beside the stream."""
+        mc = self._config.monitor_config
+        self._tracer = None
+        self._trace_on = False
+        if not mc.enabled:
+            return None
+        from ..monitor import RunMonitor
+
+        extra = {
+            "train_batch_size": self.train_batch_size(),
+            "micro_batch_size": self.train_micro_batch_size_per_gpu(),
+            "gradient_accumulation_steps":
+                self.gradient_accumulation_steps(),
+            "precision": self._config.precision,
+            "zero_stage": self._config.zero_optimization_stage,
+            "model": type(self.module).__name__,
+        }
+        rm = RunMonitor(mc, tensorboard=self.monitor, manifest_extra=extra,
+                        device=self.device)
+        # span tracing (monitor/tracing.py): the recorder and a per-step
+        # sampling gate, resampled at every optimizer boundary so a whole
+        # global batch traces (or not) as a unit
+        self._tracer = rm.tracer
+        if rm.tracer is not None:
+            self._trace_on = rm.tracer.sampled(self.global_steps + 1)
+        return rm
+
+    def _dispatch_tracer(self):
+        """The gate every training trace site goes through: the recorder
+        only when tracing is enabled AND the in-flight step is sampled.
+        No site synchronises the device, so traced and untraced runs are
+        bitwise identical."""
+        tr = self._tracer
+        return tr if (tr is not None and self._trace_on) else None
+
+    def _timed_next(self, data_iter):
+        return timed_next(data_iter, tracer=self._dispatch_tracer(),
+                          step=self.global_steps + 1)
+
+    def _init_resilience(self):
+        """Install the `faults` block (runtime/resilience.py): the
+        process-global fault plan (cleared when this engine has no rules,
+        so a previous engine's injection never leaks into a new run), the
+        transient retry policy, and — when enabled — the StepWatchdog
+        armed beside the run monitor (its snapshots land in the monitor
+        run dir)."""
+        fc = self._config.faults_config
+        plan = fc.plan if fc.enabled else None
+        if plan is not None:
+            plan.rank = dist.get_rank()
+        resilience.install_fault_plan(plan)
+        resilience.install_retry_policy(fc.retry_policy)
+        if not fc.watchdog_enabled:
+            return None
+        run_dir = (self.run_monitor.run_dir
+                   if self.run_monitor is not None else None)
+        snap_dir = fc.watchdog_snapshot_dir or run_dir or \
+            os.path.join(os.getcwd(), "dstpu_watchdog")
+        wd = resilience.StepWatchdog(
+            fc.watchdog_deadline_s, snap_dir,
+            escalate_dir=run_dir or snap_dir,
+            poll_s=fc.watchdog_poll_s, rank=dist.get_rank(),
+            first_beat_mult=fc.watchdog_first_beat_mult)
+        if self._tracer is not None:
+            # flight recorder: a trip snapshot ships the last N trace
+            # events, so a wedged step carries its own timeline
+            wd.set_flight_recorder(self._tracer.last_events)
+        return wd
+
+    def _init_preemption(self):
+        """SIGTERM = save-if-possible (engine.py:822-862): with
+        `checkpoint.preempt_save_dir` set, a SIGTERM sets a flag the step
+        boundary consumes — an emergency checkpoint into that directory,
+        committed, then a clean exit, so a relaunch resumes from the
+        preemption point instead of the last periodic save."""
+        self._preempt_requested = False
+        self._prev_sigterm = None
+        self._preempt_save_dir = self._config.checkpoint_preempt_save_dir
+        if not self._preempt_save_dir:
+            return
+        import signal
+
+        def handler(signum, frame):
+            # signal context: flag + log only — the save runs on the
+            # training thread at the next step boundary, where the engine
+            # state is consistent
+            self._preempt_requested = True
+            logger.warning(
+                "SIGTERM received: emergency checkpoint will be saved "
+                f"to {self._preempt_save_dir} at the next step boundary, "
+                "then this process exits cleanly")
+
+        try:
+            self._prev_sigterm = signal.signal(signal.SIGTERM, handler)
+            log_dist(
+                "preemption safety armed: SIGTERM checkpoints to "
+                f"{self._preempt_save_dir} at the next step boundary",
+                ranks=[0])
+        except ValueError:
+            # signal handlers install only on the main thread
+            self._prev_sigterm = None
+            logger.warning(
+                "checkpoint.preempt_save_dir is set but this engine was "
+                "constructed off the main thread, where signal handlers "
+                "cannot install — SIGTERM preemption checkpointing is "
+                "DISABLED; call engine.request_preemption_checkpoint() "
+                "from your own handler instead")
+
+    def _uninstall_preemption_handler(self):
+        if self._prev_sigterm is None:
+            return
+        import signal
+
+        try:
+            signal.signal(signal.SIGTERM, self._prev_sigterm)
+        except ValueError:
+            pass
+        self._prev_sigterm = None
+
+    def request_preemption_checkpoint(self):
+        """Programmatic twin of the SIGTERM handler: the next step
+        boundary saves the emergency checkpoint and exits cleanly."""
+        self._preempt_requested = True
+
+    @property
+    def preemption_requested(self) -> bool:
+        return bool(self._preempt_requested)
+
+    def _maybe_preempt_checkpoint(self):
+        """Step-boundary tail of the SIGTERM contract: save, commit,
+        exit.  Runs on the training thread with the engine at a clean
+        post-step state — the saved tag resumes bitwise."""
+        if not self._preempt_requested:
+            return
+        self._preempt_requested = False
+        save_dir = self._preempt_save_dir
+        if not save_dir:
+            logger.warning(
+                "preemption checkpoint requested but no "
+                "checkpoint.preempt_save_dir is configured — continuing "
+                "WITHOUT saving (the relaunch resumes from the last "
+                "periodic checkpoint)")
+            return
+        tag = f"preempt_step{self.global_steps}"
+        logger.warning(
+            f"preemption: saving emergency checkpoint {tag!r} to "
+            f"{save_dir} (step {self.global_steps})")
+        self.save_checkpoint(save_dir, tag=tag)
+        # an async save must COMMIT before the process may exit
+        ckpt_io.flush_pending()
+        logger.warning(
+            f"preemption: checkpoint {tag!r} committed; exiting cleanly "
+            "for the supervisor/scheduler to relaunch")
+        self.finalize_monitoring()
+        raise SystemExit(0)
+
+    def _run_step_fn(self, fn, per_step_mult=1.0):
+        """`fn()` (one device step function's call), counted by the flops
+        profiler when the run monitor still lacks its flops a step or this
+        is the profiler's `profile_step` (engine.py:931-950, 1900-1932).
+        The JAX engine analyses its compiled program before the call; here
+        the count is taken over this very call (FlopCounterMode plus the
+        kernels' own products), which changes no value.  Returns (fn's
+        result, the started FlopsProfiler or None)."""
+        profiling = self._maybe_profile_flops()
+        rm = self.run_monitor
+        monitor_flops = (rm is not None and rm.flops_per_step is None
+                         and rm.config.flops)
+        if profiling is None and not monitor_flops:
+            return fn(), None
+        from ..profiling.flops_profiler.profiler import analyze_fn
+
+        stats = analyze_fn(fn)
+        out = stats.pop("result")
+        if profiling is not None:
+            self._flops_stats = stats
+        if monitor_flops:
+            self._maybe_monitor_flops(stats, per_step_mult)
+        return out, profiling
+
+    def _maybe_monitor_flops(self, stats, per_step_mult=1.0):
+        """The run monitor's flops a step, resolved ONCE from a count of
+        the first step (engine.py:931-950); the monitor then derives the
+        achieved TFLOPs from it every step."""
+        rm = self.run_monitor
+        rm.flops_per_step = float(stats["flops"]) * per_step_mult
+        rm.emit("flops", {"flops_per_step": rm.flops_per_step,
+                          "per_step_mult": per_step_mult})
+
+    def _maybe_profile_flops(self):
+        """FLOPS profiler hook (reference engine.py:966-1019): at
+        `profile_step`, count and time this step's call."""
+        cfg = self._config.flops_profiler_config
+        if not cfg.enabled or self._flops_profiled or \
+                self.global_steps != cfg.profile_step:
+            return None
+        from ..profiling.flops_profiler.profiler import FlopsProfiler
+
+        self._flops_profiled = True
+        prof = FlopsProfiler()
+        prof.start_profile()
+        return prof
+
+    def _finish_profile(self, profiling, loss):
+        if profiling is None:
+            return
+        params = (self._masters if self._masters
+                  else list(self.module.parameters()))
+        profiling.stop_profile(params=params, sync=loss)
+        profiling.stats.update(self._flops_stats)
+        profiling.stats.pop("result", None)
+        cfg = self._config.flops_profiler_config
+        profiling.print_model_profile(
+            profile_step=self.global_steps, top_modules=cfg.top_modules,
+            detailed=cfg.detailed, dtype=self._config.precision)
+        self._flops_stats = profiling.stats
+
+    def _monitor_scalar(self, x):
+        """Device scalar -> python float for a step event.  With
+        sync_timing false the user opted out of per-step syncs, so a CUDA
+        value whose stream still has work in flight is SKIPPED rather
+        than waited for — the event omits it (engine.py:952-970)."""
+        if x is None:
+            return None
+        if torch.is_tensor(x) and x.is_cuda and \
+                not self.run_monitor.sync_timing and \
+                not torch.cuda.current_stream(x.device).query():
+            return None
+        try:
+            return float(x)
+        except (TypeError, ValueError, RuntimeError):
+            return None
+
+    def _emit_run_event(self, grad_norm=None, overflow=None, **extra):
+        """One schema-versioned step event on this rank (called from
+        every step path once the counters are settled)."""
+        rm = self.run_monitor
+        if rm is None:
+            return
+        metrics = {
+            "loss": self._monitor_scalar(self._last_loss),
+            "lr": self._current_lr(),
+            "loss_scale": self._monitor_scalar(
+                self._scaler_state["cur_scale"]),
+            "skipped_steps": self._skipped_steps,
+            "samples_per_sec": round(
+                self.tput_timer.avg_samples_per_sec(), 2),
+        }
+        ov = self._monitor_scalar(overflow)
+        if ov is not None:
+            metrics["overflow"] = bool(ov)
+        gn = self._monitor_scalar(grad_norm)
+        if gn is not None:
+            metrics["grad_norm"] = gn
+        metrics.update(extra)
+        rm.step_end(self.global_steps, **metrics)
+
+    def _log_timers(self):
+        """Windowed wall-clock breakdown (reference engine.py:1239-1284):
+        per-step means over the steps_per_print window."""
+        window = self.steps_per_print() or 1
+        if self.global_steps % window == 0:
+            self.timers.log(["forward", "step"], normalizer=window,
+                            memory_breakdown=self._config.memory_breakdown)
+
+    def _emit_monitor_scalars(self):
+        """TensorBoard scalars (reference engine.py:1223-1237)."""
+        if self.monitor is None:
+            return
+        if self._last_loss is not None:
+            self.monitor.add_scalar("Train/Samples/train_loss",
+                                    float(self._last_loss),
+                                    self.global_samples)
+        cur = self._current_lr()
+        if cur is not None:
+            self.monitor.add_scalar("Train/Samples/lr", cur,
+                                    self.global_samples)
+        self.monitor.add_scalar("Train/Samples/loss_scale",
+                                float(self._scaler_state["cur_scale"]),
+                                self.global_samples)
+
+    def _after_step(self, grad_norm, overflow):
+        """The monitoring tail every step path runs (engine.py:2113-2123):
+        with a monitor the deferred overflow is settled first (the
+        monitor syncs anyway), then the TensorBoard scalars, the
+        throughput timer and the step event."""
+        if self.monitor is not None or (
+                self.run_monitor is not None
+                and self.run_monitor.sync_timing):
+            self._resolve_pending_overflow()
+        self._emit_monitor_scalars()
+        self.tput_timer.stop(report_speed=False)
+        self._emit_run_event(grad_norm=grad_norm, overflow=overflow)
+
+    # ------------------------------------------------------------------
     # public training API (engine.py:1720, 1934, 2049)
     # ------------------------------------------------------------------
 
@@ -983,22 +1337,50 @@ class DeepSpeedEngine:
         return self._forward(self._local_rows(batch), generator)
 
     def _forward(self, batch, generator=None):
-        """`forward` on this rank's rows."""
+        """`forward` on this rank's rows, under the run monitor's step
+        start and `forward` span (engine.py:1720-1745)."""
+        rm = self.run_monitor
+        if rm is not None and self.is_gradient_accumulation_boundary():
+            rm.step_start(self.global_steps)
+        sp = rm.span("forward") if rm is not None else None
         if self._infinity is not None:
-            return self._infinity_forward(batch)
+            loss = self._infinity_forward(batch)
+        else:
+            loss = self._device_forward(batch, generator)
+        if sp is not None:
+            sp.close(sync=loss if rm.sync_timing else None)
+        return loss
+
+    def _device_forward(self, batch, generator):
         batch = _place(batch, self.device)
         gen = generator if generator is not None else self._generator
-        if self.gradient_accumulation_steps() == 1 and self._offload is None:
+        gas = self.gradient_accumulation_steps()
+        fused = gas == 1 and self._offload is None
+        if fused:
             self._resolve_pending_overflow()
-            (loss, overflow, grad_norm, self._opt_state,
-             new_scaler) = self._step_fns["full"](batch, gen,
-                                                  self._current_lr())
+        if self.is_gradient_accumulation_boundary():
+            self.tput_timer.start()   # times one full global batch
+        if self._wall_clock_breakdown:
+            self.timers("forward").start()
+        if fused:
+            lr = self._current_lr()
+            (loss, overflow, grad_norm, self._opt_state, new_scaler), prof = \
+                self._run_step_fn(lambda: self._step_fns["full"](batch, gen,
+                                                                 lr))
             # the new scale takes effect at step(): engine.loss_scale keeps
             # the pre-update value until the boundary
             self._pending_full = (new_scaler, overflow, grad_norm)
         else:
-            loss = self._step_fns["micro"](batch, gen)
+            # split path: flops a step ~= micro flops x gas
+            loss, prof = self._run_step_fn(
+                lambda: self._step_fns["micro"](batch, gen),
+                per_step_mult=float(gas))
+        if self._wall_clock_breakdown:
+            # one fused program: this IS forward + backward (+ step)
+            self.timers("forward").stop(sync=loss)
+        self._finish_profile(prof, loss)
         self._cached = loss
+        self._last_loss = loss
         return loss
 
     def _infinity_forward(self, batch):
@@ -1008,6 +1390,7 @@ class DeepSpeedEngine:
         gas = self.gradient_accumulation_steps()
         if self.micro_steps % gas == 0:
             self._resolve_pending_overflow()   # settle the previous step
+            self.tput_timer.start()
         loss = self._infinity.micro_step(batch)
         if self.micro_steps % gas == gas - 1:
             overflow = self._infinity.apply_accumulated(
@@ -1016,6 +1399,7 @@ class DeepSpeedEngine:
             self._pending_full = (self._scaler_state, bool(overflow),
                                   torch.zeros((), device=self.device))
         self._cached = loss
+        self._last_loss = loss
         return loss
 
     def backward(self, loss=None, allreduce_gradients=True):
@@ -1037,17 +1421,35 @@ class DeepSpeedEngine:
         if self.micro_steps == 0 or \
                 not self.is_gradient_accumulation_boundary():
             return
+        # chaos runtime: every optimizer-step boundary (all four step
+        # paths funnel through here) advances the fault plan's step
+        # schedule, fires the `engine.step` site and beats the watchdog
+        resilience.step_boundary(self.global_steps)
+        if self._watchdog is not None:
+            self._watchdog.beat(self.global_steps)
+            tr = self._dispatch_tracer()
+            if tr is not None:
+                tr.instant("watchdog_beat", "watchdog",
+                           step=self.global_steps)
         if self._offload is not None:
             self._offload_step()
         elif self._pending_full is not None:
             self._fused_step_bookkeeping()
         else:
             self._boundary_step()
+        # boundary tail: the engine is at a clean post-step state, where
+        # a SIGTERM'd run can checkpoint and exit
+        self._maybe_preempt_checkpoint()
+        if self._tracer is not None:
+            # resample the trace gate for the next global batch
+            self._trace_on = self._tracer.sampled(self.global_steps + 1)
 
     def _offload_step(self):
         """The host step (engine.py:2238-2277): gradients to the host,
         the native Adam on the fp32 masters, the new weights to the
         device; loss-scale bookkeeping as on the device path."""
+        if self._wall_clock_breakdown:
+            self.timers("step").start()
         denom = float(self._scaler_state["cur_scale"]) * \
             self.gradient_accumulation_steps()
         if self._config.prescale_gradients:
@@ -1079,6 +1481,10 @@ class DeepSpeedEngine:
                      f"{float(self._scaler_state['cur_scale'])}", ranks=[0])
         elif self.lr_scheduler is not None:
             self.lr_scheduler.step()
+        if self._wall_clock_breakdown:
+            self.timers("step").stop()   # host step: already synchronous
+            self._log_timers()
+        self._after_step(None, overflow)
 
     @property
     def store_gradients(self) -> bool:
@@ -1104,11 +1510,23 @@ class DeepSpeedEngine:
             self.stored_gradients = None
 
     def _boundary_step(self):
-        """The micro/apply boundary: apply the accumulated gradients."""
+        """The micro/apply boundary: apply the accumulated gradients,
+        under the `step` span and timer."""
+        if self._wall_clock_breakdown:
+            self.timers("step").start()
+        rsp = (self.run_monitor.span("step")
+               if self.run_monitor is not None else None)
         self._resolve_pending_overflow()
         (overflow, self._grad_norm, self._opt_state,
          self._scaler_state) = self._step_fns["apply"](self._current_lr())
         self._finish_step(overflow)
+        if rsp is not None:
+            rsp.close(sync=self._grad_norm if self.run_monitor.sync_timing
+                      else None)
+        if self._wall_clock_breakdown:
+            self.timers("step").stop(sync=self._grad_norm)
+            self._log_timers()
+        self._after_step(self._grad_norm, overflow)
 
     def _fused_step_bookkeeping(self):
         """Host-side tail of the gas == 1 step, whose update forward()
@@ -1117,6 +1535,9 @@ class DeepSpeedEngine:
         self._pending_full = None
         self._scaler_state = new_scaler
         self._finish_step(overflow)
+        if self._wall_clock_breakdown:
+            self._log_timers()
+        self._after_step(self._grad_norm, overflow)
 
     def _finish_step(self, overflow):
         # the step's MoE routing stats go to the host in one asynchronous
@@ -1178,9 +1599,10 @@ class DeepSpeedEngine:
         # the owned loader reads this rank's rows; a user's iterator gives
         # global batches
         if data_iter is getattr(self, "_train_iter", None):
-            fetch = lambda: timed_next(data_iter)  # noqa: E731
+            fetch = lambda: self._timed_next(data_iter)  # noqa: E731
         else:
-            fetch = lambda: self._local_rows(timed_next(data_iter))  # noqa
+            fetch = lambda: self._local_rows(  # noqa: E731
+                self._timed_next(data_iter))
         feed = self._data_feed(data_iter, fetch)
         losses = []
         for _ in range(self.gradient_accumulation_steps()):
@@ -1189,8 +1611,12 @@ class DeepSpeedEngine:
             self.backward()
             if feed is not None:
                 feed.schedule()   # the next batch's copy rides this step
-        self.step()
+        # the gas batches are consumed before the boundary, where a
+        # preemption checkpoint may be taken: its cursor must count them
+        # (the JAX engine advances after step(), so its preemption tag
+        # taken inside train_batch would resume one batch early)
         self._advance_sample_cursor(data_iter)
+        self.step()
         return torch.stack(losses).mean()
 
     def _advance_sample_cursor(self, data_iter):
@@ -1245,12 +1671,22 @@ class DeepSpeedEngine:
             del self._train_iter
 
     def finalize_monitoring(self):
-        """Teardown (engine.py:1034): stops the input pipeline's threads
-        and blocks on any async checkpoint write still in flight, so
-        shutdown never abandons an uncommitted tag.  The port has no
-        monitor to flush yet."""
+        """Teardown (engine.py:1034): stops the input pipeline's threads,
+        restores the previous SIGTERM handler, blocks on any async
+        checkpoint write still in flight (shutdown never abandons an
+        uncommitted tag), stops the watchdog, closes the run monitor
+        (its summaries; with more than one rank a collective: call it on
+        every rank) and flushes TensorBoard."""
         self.close_data_pipeline()
+        self._uninstall_preemption_handler()
         ckpt_io.flush_pending()
+        if self._watchdog is not None:
+            self._watchdog.stop()
+            self._watchdog = None
+        if self.run_monitor is not None:
+            self.run_monitor.close()
+        if self.monitor is not None:
+            self.monitor.flush()
 
     def deepspeed_io(self, dataset, batch_size=None, route=None,
                      data_sampler=None, collate_fn=None,
@@ -1373,7 +1809,7 @@ class DeepSpeedEngine:
         return (self._config.pld_params or {}).get(const.PLD_GAMMA, 0.001)
 
     def get_summary_writer(self):
-        return None
+        return getattr(self.monitor, "writer", None)
 
     def dynamic_loss_scale(self):
         return self._config.loss_scale == 0
@@ -1427,7 +1863,7 @@ class DeepSpeedEngine:
         return self._config.wall_clock_breakdown
 
     def tensorboard_enabled(self):
-        return False
+        return self._config.tensorboard_enabled
 
     def zero_optimization(self):
         return self._config.zero_enabled
@@ -1633,11 +2069,29 @@ class DeepSpeedEngine:
         if async_save:
             (model_state, optim_state, pieces), ready = \
                 self._async_ckpt_snapshot((model_state, optim_state, pieces))
+        snap = COUNTERS.snapshot()
+        t0_save = time.perf_counter()
         ckpt_io.save_checkpoint_state(
             save_dir, tag, model_state, optim_state, save_latest=save_latest,
             async_save=async_save, meta=self._checkpoint_meta(), ready=ready,
             pieces=pieces, rank=dist.get_rank(),
             commit_timeout_ms=self._config.checkpoint_commit_timeout_ms)
+        tr = self._dispatch_tracer()
+        if tr is not None:
+            tr.add_complete(
+                "ckpt_stall", "ckpt",
+                dur_us=int((time.perf_counter() - t0_save) * 1e6),
+                tag=str(tag), step=self.global_steps)
+        if self.run_monitor is not None:
+            delta = COUNTERS.delta_since(snap)
+            self.run_monitor.emit("ckpt", {
+                "tag": str(tag),
+                "async": async_save,
+                "stall_ms": round(delta.get("ckpt.stall_ms", {})
+                                  .get("bytes", 0) / 1000.0, 3),
+                "pending": ckpt_io.pending_count(),
+                "step": self.global_steps,
+            })
         return True
 
     def _module_pieces(self):

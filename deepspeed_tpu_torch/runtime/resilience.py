@@ -15,9 +15,10 @@ in-process hang watchdog.
 * **retry_transient()** — bounded exponential backoff with jitter around
   an idempotent operation, with the transient-vs-fatal taxonomy
   (`is_transient`; an injected transient fault retries, an injected
-  fatal one does not).  The checkpoint writer (`runtime/checkpointing.py`
-  `_atomic_write`) runs every file write through it, at the JAX
-  package's default policy.
+  fatal one does not), at the process-global `RetryPolicy`
+  (`install_retry_policy`; the engine installs the `faults.retry`
+  block's).  The checkpoint writer (`runtime/checkpointing.py`
+  `_atomic_write`) runs every file write through it.
 * **StepWatchdog** — a daemon thread that trips when no step-boundary
   `beat()` lands within `deadline_s`: it dumps a snapshot (every
   thread's stack, the counter totals, registered thread groups, a
@@ -26,9 +27,14 @@ in-process hang watchdog.
   then calls `on_trip`.  Wired to `ServeEngine.request_shed`, a wedged
   decode step sheds its batch instead of hanging the replica.
 
-The training engine's `faults` config block (its plan, retry policy and
-watchdog) and the checkpoint and loader chaos sites belong to ROADMAP
-queue 1's production-runtime item; the config refuses that block.
+The training engine installs the `faults` config block at construction
+(runtime/engine.py `_init_resilience`: the plan with its rank, the retry
+policy, a StepWatchdog beside the run monitor).  Chaos sites: the
+serving engine's (above), the training step boundary's `engine.step`
+(`step_boundary`), the checkpoint writer's `ckpt.atomic_write` (and the
+`corrupt`-able payload filter `ckpt.atomic_write.payload`),
+`ckpt.commit` and `ckpt.background_write`, and the input pipeline's
+`dataloader.worker`.
 
 Counters: `fault.injected`, `fault.retried`, `fault.recovered_ms` (µs in
 the bytes slot), `watchdog.trips`.
@@ -70,13 +76,6 @@ class InjectedFatalFault(RuntimeError):
     must not absorb it."""
 
 
-# the JAX package's default RetryPolicy: 4 tries in all, the delay before
-# retry k 50 ms * 2^(k-1) capped at 2 s, times a jitter in [0.75, 1.25]
-MAX_ATTEMPTS = 4
-BASE_DELAY_MS = 50.0
-MAX_DELAY_MS = 2000.0
-JITTER = 0.25
-
 # exception types that are retryable by nature
 _TRANSIENT_TYPES = (TransientFault, TimeoutError, ConnectionError,
                     InterruptedError, BrokenPipeError)
@@ -107,32 +106,101 @@ def is_transient(exc: BaseException) -> bool:
     return any(m.lower() in msg for m in _TRANSIENT_MARKERS)
 
 
-def retry_transient(fn: Callable[[], Any], site: str = ""):
-    """Run the idempotent `fn()`, retrying TRANSIENT failures with bounded
-    backoff; fatal faults and the last attempt re-raise unchanged.
-    `fault.retried` counts retries, `fault.recovered_ms` (µs in the bytes
-    slot) the time spent recovering before a success."""
+def _is_timeoutish(exc: BaseException) -> bool:
+    return isinstance(exc, TimeoutError) or \
+        "deadline" in str(exc).lower() or "timed out" in str(exc).lower()
+
+
+def is_transient_not_timeout(exc: BaseException) -> bool:
+    """Taxonomy variant for BLOCKING waits whose timeout is itself the
+    dead-peer detector (a barrier rendezvous): retrying a deadline there
+    multiplies the effective timeout and delays the legitimate failure,
+    so timeouts stay fatal while genuine transport blips (UNAVAILABLE,
+    connection reset, injected transient faults) still retry."""
+    return is_transient(exc) and not _is_timeoutish(exc)
+
+
+# -- retry ------------------------------------------------------------------
+
+
+class RetryPolicy:
+    """Bounded exponential backoff + jitter for transient faults.
+
+    `max_attempts` counts TOTAL tries (1 = no retry); the delay before
+    retry k is base_delay_ms * 2^(k-1), capped at max_delay_ms, times a
+    uniform jitter in [1-jitter, 1+jitter] so a fleet of ranks does not
+    hammer a recovering store in lockstep.  `rng`/`sleep` are injectable
+    for tests: the same `random.Random(seed)` gives the JAX package's
+    delays bit for bit."""
+
+    def __init__(self, max_attempts: int = 4, base_delay_ms: float = 50.0,
+                 max_delay_ms: float = 2000.0, jitter: float = 0.25,
+                 rng=None, sleep=time.sleep):
+        if int(max_attempts) < 1:
+            raise ValueError(
+                f"retry max_attempts must be >= 1, got {max_attempts}")
+        if not 0.0 <= float(jitter) < 1.0:
+            raise ValueError(f"retry jitter must be in [0, 1), got {jitter}")
+        if float(base_delay_ms) < 0 or float(max_delay_ms) < 0:
+            raise ValueError("retry delays must be >= 0")
+        self.max_attempts = int(max_attempts)
+        self.base_delay_ms = float(base_delay_ms)
+        self.max_delay_ms = float(max_delay_ms)
+        self.jitter = float(jitter)
+        self._rng = rng if rng is not None else random.Random()
+        self._sleep = sleep
+
+    def delay_s(self, attempt: int) -> float:
+        """Backoff before retry `attempt` (1-based)."""
+        d = min(self.base_delay_ms * (2.0 ** (attempt - 1)),
+                self.max_delay_ms)
+        return d * self._rng.uniform(1.0 - self.jitter,
+                                     1.0 + self.jitter) / 1000.0
+
+
+_DEFAULT_RETRY = RetryPolicy()
+
+
+def default_retry_policy() -> RetryPolicy:
+    return _DEFAULT_RETRY
+
+
+def install_retry_policy(policy: Optional[RetryPolicy]) -> None:
+    """Install the process-global retry policy (config-driven; None
+    restores the built-in defaults)."""
+    global _DEFAULT_RETRY
+    _DEFAULT_RETRY = policy if policy is not None else RetryPolicy()
+
+
+def retry_transient(fn: Callable[[], Any], site: str = "",
+                    policy: Optional[RetryPolicy] = None,
+                    classify: Callable[[BaseException], bool] = is_transient):
+    """Run the idempotent `fn()`, retrying TRANSIENT failures with the
+    installed policy's bounded backoff (or `policy`'s); fatal faults and
+    the last attempt re-raise unchanged.  `fault.retried` counts retries,
+    `fault.recovered_ms` (µs in the bytes slot) the time spent
+    recovering before a success."""
+    policy = policy or _DEFAULT_RETRY
     t0 = None
-    for attempt in range(1, MAX_ATTEMPTS + 1):
+    for attempt in range(1, policy.max_attempts + 1):
         try:
             out = fn()
             if t0 is not None:
                 COUNTERS.add("fault.recovered_ms",
                              int((time.perf_counter() - t0) * 1e6))
             return out
-        except Exception as e:  # classified below
-            if not is_transient(e) or attempt >= MAX_ATTEMPTS:
+        except BaseException as e:  # noqa: BLE001 — classified below
+            if not classify(e) or attempt >= policy.max_attempts:
                 raise
             if t0 is None:
                 t0 = time.perf_counter()
             COUNTERS.add("fault.retried")
-            delay = min(BASE_DELAY_MS * 2.0 ** (attempt - 1), MAX_DELAY_MS) \
-                * random.uniform(1.0 - JITTER, 1.0 + JITTER) / 1000.0
+            delay = policy.delay_s(attempt)
             logger.warning(
                 f"transient fault at {site or 'op'} (attempt {attempt}/"
-                f"{MAX_ATTEMPTS}): {type(e).__name__}: {e}; retrying in "
-                f"{delay * 1000:.0f} ms")
-            time.sleep(delay)
+                f"{policy.max_attempts}): {type(e).__name__}: {e}; "
+                f"retrying in {delay * 1000:.0f} ms")
+            policy._sleep(delay)
 
 
 def _process_rank() -> int:
@@ -319,6 +387,11 @@ class FaultPlan:
                 self.injection_log.append(entry)
                 return rule, idx
         return None, idx
+
+    def targets(self, site: str) -> bool:
+        """Whether any rule's site pattern matches `site` (a caller may
+        then skip preparing what only a rule there would read)."""
+        return any(fnmatch.fnmatch(site, r.site) for r in self.rules)
 
     # -- site hooks --------------------------------------------------------
 

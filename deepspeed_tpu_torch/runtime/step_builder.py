@@ -355,5 +355,24 @@ class StepBuilder:
             return (loss, *onebit_apply(grads, lr))
 
         if onebit:
-            return {"full": onebit_step}
-        return {"micro": micro_step, "apply": apply_step, "full": full_step}
+            return {"full": self._traced(onebit_step, "full")}
+        return {"micro": self._traced(micro_step, "micro"),
+                "apply": self._traced(apply_step, "apply"),
+                "full": self._traced(full_step, "full")}
+
+    def _traced(self, fn, name):
+        """`fn` landing as a `dispatch.<name>` span on the trace timeline
+        when the in-flight step is sampled (step_builder.py:75-104): the
+        host wall of the call (CUDA work is asynchronous, so on the card
+        the span bounds the enqueue, not the execution)."""
+        eng = self.engine
+
+        def call(*args):
+            tr = eng._dispatch_tracer()
+            if tr is None:
+                return fn(*args)
+            with tr.span(f"dispatch.{name}", "train",
+                         step=eng.global_steps + 1):
+                return fn(*args)
+
+        return call

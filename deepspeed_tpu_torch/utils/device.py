@@ -27,3 +27,18 @@ def check_same_device(what: str, actual: torch.device,
             wanted.index is not None and actual.index != wanted.index):
         raise ValueError(
             f"{what} lives on {actual} but device {wanted} was asked for")
+
+
+def wait_for(x) -> None:
+    """Block until the device work that produced `x` (a tensor or a nest of
+    lists, tuples and dicts of them) is done: the current stream of each
+    CUDA tensor's card is synchronised; CPU tensors and other values
+    return at once (their work is already done when the call returns)."""
+    if isinstance(x, dict):
+        x = list(x.values())
+    if isinstance(x, (list, tuple)):
+        for v in x:
+            wait_for(v)
+        return
+    if torch.is_tensor(x) and x.is_cuda:
+        torch.cuda.current_stream(x.device).synchronize()

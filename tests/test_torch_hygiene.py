@@ -1,6 +1,7 @@
 """Boundaries of the PyTorch port: `deepspeed_tpu_torch`,
 `chip_smoke.py`, `chip_ab.py`, `chip_profile_moe.py`,
-`chip_dq_processes.py` and `chip_fleet_threads.py` load neither
+`chip_dq_processes.py`, `chip_fleet_threads.py`, `chip_monitor_ab.py` and
+`chip_cut_costs.py` load neither
 JAX, flax, optax nor the JAX package, and the entry points run on the
 card unless the CPU is asked for."""
 
@@ -34,6 +35,8 @@ def _python_files():
     yield os.path.join(REPO, "chip_profile_moe.py")
     yield os.path.join(REPO, "chip_dq_processes.py")
     yield os.path.join(REPO, "chip_fleet_threads.py")
+    yield os.path.join(REPO, "chip_monitor_ab.py")
+    yield os.path.join(REPO, "chip_cut_costs.py")
 
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():
@@ -100,7 +103,13 @@ print(" ".join(mods))
         "models.hf", "module_inject.replace_module", "ops.lamb.fused_lamb",
         "runtime.comm.compressed", "runtime.fp16.onebit.adam",
         "runtime.fp16.onebit.lamb", "runtime.client_optimizer",
-        "runtime.progressive_layer_drop")} <= mods
+        "runtime.progressive_layer_drop",
+        # the run monitor and the resilience runtime
+        "monitor.config", "monitor.monitor", "monitor.spans",
+        "monitor.report", "monitor.artifacts", "utils.timer",
+        "utils.tensorboard", "profiling.config",
+        "profiling.flops_profiler.profiler", "elasticity.elasticity",
+        "elasticity.constants")} <= mods
 
 
 def _no_cuda(monkeypatch):
